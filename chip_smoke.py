@@ -15,6 +15,11 @@ Phases, in order; any failure exits non-zero:
                  to the lower id; kk = 2, 3, 6).  Each check prints its
                  maximum error beside its tolerance; each kernel is timed
                  beside its plain version.
+                 The fused maxout-LSTM cell (kernel F, CIC_FUSED_CELL=1)
+                 against its plain version with and without attention, f32
+                 at B=128 and f32 / bf16 at B=512 and 4096; the attention's
+                 autograd Function (kernel forward, recomputed backward)
+                 against plain autograd, f32 at B=128.
   4. slice    -- writes a full-width run dir (Att2in2, vocab 9487, 512-wide,
                  K=36, L=16, random weights from a numpy seed), serves it
                  through CaptioningService.from_run_dir + warmup +
@@ -22,7 +27,18 @@ Phases, in order; any failure exits non-zero:
                  answers and that every request went through the kernels
                  (launch counts), compares the CUDA services with CPU
                  services (plain versions) in float32 and in bfloat16, and
-                 times captions/s.
+                 times captions/s.  CIC_FUSED_CELL is unset here (the
+                 default: the cell is the plain version).
+  5. training -- phase-2 MLE training at full width through
+                 training.loop.train / Trainer over the shared
+                 SyntheticDataset (f32, B=128, drop_prob_lm 0.5), with
+                 CIC_FUSED_CELL=1: the attention and cell launch counts of
+                 three steps (2*T each per step: forward, and the
+                 checkpointed recompute in backward); the first step at
+                 B=16 on the card against the same step on the CPU port
+                 (loss and every gradient leaf); the loss falling over 20
+                 steps on one batch; it/s with and without the cell kernel;
+                 and the trained speaker served once (greedy, bucket 512).
 The line before the last is one JSON object describing the kernels; the
 last line is {"ok": true, "device": {...}}.
 
@@ -31,6 +47,7 @@ Imports no JAX.  Writes only under build/ in the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -45,6 +62,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, "build", "chip_smoke_run")
+TRAIN_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_train_run")
 SEED = 1234
 VOCAB = 9487
 L = 16
@@ -55,14 +73,19 @@ WIDTH = 512
 ATT_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/att_step.cu"
 GREEDY_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/logit_head.cu"
 BEAM_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/beam_head.cu"
+CELL_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/cell_step.cu"
 REPLACES = {
     "attention": "cooperativeimagecaptioning_tpu/ops/pallas/att_step.py:130",
     "greedy_head":
         "cooperativeimagecaptioning_tpu/ops/pallas/logit_head.py:138",
     "beam_head": "cooperativeimagecaptioning_tpu/ops/pallas/beam_head.py:58",
+    "cell": "cooperativeimagecaptioning_tpu/ops/pallas/cell_step.py:75",
 }
 SOURCES = {"attention": ATT_SRC, "greedy_head": GREEDY_SRC,
-           "beam_head": BEAM_SRC}
+           "beam_head": BEAM_SRC, "cell": CELL_SRC}
+TRAIN_B = 128        # scripts/bench_train.py's batch
+TRAIN_IMAGES = 256   # synthetic images (153 in the train split)
+LEARN_STEPS = 20
 
 # Tolerances (kernel vs plain version on the same inputs, max abs error):
 #  attention out: f32 differs only by summation order -> 1e-4; bf16 output
@@ -72,8 +95,20 @@ SOURCES = {"attention": ATT_SRC, "greedy_head": GREEDY_SRC,
 #  head ids: equal, except where the plain logits of the two ids are within
 #    1e-4 (a near-tie that summation order may flip); planted exact ties
 #    must be equal.
+#  cell h', c': the same rule as the attention (f32: summation order only;
+#    bf16: both sides round the f32 result) -> 1e-4 / 3e-2.
+#  gradients (kernel forward + recomputed plain backward vs plain autograd,
+#    f32): relative to the largest gradient entry, 1e-4.
 TOL = {("attention", "float32"): 1e-4, ("attention", "bfloat16"): 3e-2,
-       "head": 1e-4}
+       ("cell", "float32"): 1e-4, ("cell", "bfloat16"): 3e-2,
+       "head": 1e-4, "grad": 1e-4}
+# CUDA vs CPU port, the first training step at B=16 (f32, no TF32, dropout
+# off so both draw nothing): loss to a relative 1e-4; every gradient leaf
+# elementwise within atol + rtol * |cpu| -- the two devices sum in other
+# orders over B and the 17 steps.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
+STEP_GRAD_ATOL = 1e-5
 # Rows of ids equal between the CUDA service and the CPU service (the plain
 # versions) on one 64-image request.  In f32 only near-tie flips under
 # another summation order may differ.  In bf16 both sides round at the same
@@ -91,6 +126,21 @@ class SmokeFailure(RuntimeError):
 def require(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+@contextlib.contextmanager
+def fused_cell_switch(on):
+    """Set (on) or unset CIC_FUSED_CELL, the JAX package's switch for the
+    fused cell, for the block; restore it after."""
+    old = os.environ.pop("CIC_FUSED_CELL", None)
+    if on:
+        os.environ["CIC_FUSED_CELL"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("CIC_FUSED_CELL", None)
+        if old is not None:
+            os.environ["CIC_FUSED_CELL"] = old
 
 
 # ---------------------------------------------------------------------------
@@ -312,27 +362,115 @@ def phase_kernels():
                 print(f"  time {name:20s} bf16 kernel {k_ms:.4f} ms  plain "
                       f"{p_ms:.4f} ms", flush=True)
             del h4, emb4, p4, m4
+    errs["cell"], times["cell"] = check_cell(rn)
+    errs["attention"] = max(errs["attention"], check_attention_grad(rn))
     torch.cuda.synchronize()
     return errs, times
+
+
+def cell_args(rn, B, dt, with_att):
+    H = D = WIDTH
+    args = [rn(B, D), rn(B, H, scale=0.5), rn(B, H),
+            rn(B, H) if with_att else None,
+            rn(D, 5 * H, scale=D ** -0.5), rn(5 * H, scale=0.1),
+            rn(H, 5 * H, scale=H ** -0.5), rn(5 * H, scale=0.1),
+            rn(H, 2 * H, scale=H ** -0.5) if with_att else None,
+            rn(2 * H, scale=0.1) if with_att else None]
+    return [None if x is None else x.to(dt) for x in args]
+
+
+def check_cell(rn):
+    """Kernel F against cell_plain (cell_reference in f32 on the same
+    inputs), with attention (Att2in2) and without (FC), at the training
+    shape (f32, B=128) and the decode buckets (f32 and bf16, B=512 and
+    4096).  Each with-attention case is timed beside cell_reference in the
+    inputs' type, the cell that runs with CIC_FUSED_CELL unset.  Returns
+    (max error, (kernel ms, plain ms) at the training shape)."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import cell_step
+    f32, bf16 = torch.float32, torch.bfloat16
+    print("cell (kernel F) vs its plain version (D=H=512; CIC_FUSED_CELL=1)",
+          flush=True)
+    worst, timed = 0.0, {}
+    with fused_cell_switch(True):
+        for B, dts in ((TRAIN_B, (f32,)), (512, (f32, bf16)),
+                       (4096, (f32, bf16))):
+            for dt in dts:
+                dn = str(dt).split(".")[-1]
+                for with_att in (True, False):
+                    args = cell_args(rn, B, dt, with_att)
+                    h_new, c_new = cell_step.fused_cell(*args)
+                    torch.cuda.synchronize()
+                    h_p, c_p = cell_step.cell_plain(*args)
+                    require(h_new.dtype == dt and c_new.shape == (B, WIDTH),
+                            "cell output type/shape")
+                    err = max((h_new.float() - h_p.float()).abs().max()
+                              .item(), (c_new.float() - c_p.float()).abs()
+                              .max().item())
+                    worst = max(worst, err)
+                    what = f"{dn} B={B} {'att2in2' if with_att else 'fc'}"
+                    report("cell", what, err, TOL[("cell", dn)])
+                    if with_att:
+                        timed[(B, dn)] = timed_pair(
+                            lambda: cell_step.fused_cell(*args),
+                            lambda: cell_step.cell_reference(*args))
+    for (B, dn), (k_ms, p_ms) in timed.items():
+        print(f"  time cell B={B:<5d} {dn:9s} kernel {k_ms:.4f} ms  plain "
+              f"{p_ms:.4f} ms", flush=True)
+    return worst, timed[(TRAIN_B, "float32")]
+
+
+def check_attention_grad(rn):
+    """The attention's autograd Function on the card (kernel forward,
+    attention_reference recomputed in backward) against plain autograd of
+    attention_reference, f32, at the training shape.  Returns the largest
+    gradient error relative to the largest gradient entry."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import att_step
+    B, H, A = TRAIN_B, WIDTH, WIDTH
+    args = [rn(B, H, scale=0.5), rn(B, K, H).relu(), rn(B, K, A),
+            rn(H, A, scale=H ** -0.5), rn(A, scale=0.05),
+            rn(A, 1, scale=A ** -0.5), rn(1, scale=0.05)]
+    args = [x.requires_grad_(True) for x in args]
+    mask = torch.ones(B, K, device=args[0].device)
+    mask[::3, 20:] = 0.0
+    out = att_step.fused_attention(*args, mask)
+    require(out.grad_fn is not None, "attention: no autograd Function")
+    got = torch.autograd.grad(out.square().sum(), args)
+    want = torch.autograd.grad(
+        att_step.attention_reference(*args, mask).square().sum(), args)
+    err = max((g - w).abs().max().item() / max(1.0, w.abs().max().item())
+              for g, w in zip(got, want))
+    report("attention", "f32 B=128 gradient (relative)", err, TOL["grad"])
+    plain = [x.detach() for x in args]
+    k_ms, p_ms = timed_pair(lambda: att_step.fused_attention(*plain, mask),
+                            lambda: att_step.attention_reference(*plain,
+                                                                 mask))
+    print(f"  time attention B={B} f32 (training shape) kernel {k_ms:.4f} ms"
+          f"  plain {p_ms:.4f} ms", flush=True)
+    return err
 
 
 # ---------------------------------------------------------------------------
 # 4. the slice: serving at full width
 # ---------------------------------------------------------------------------
 
-def write_run_dir():
+def write_run_dir(params=None, run_dir=RUN_DIR):
+    """A full-width Att2in2 run dir holding `params` (a joint tree), or
+    random weights from SEED."""
     from cooperativeimagecaptioning_tpu_torch.config import Options
     from cooperativeimagecaptioning_tpu_torch.training import checkpoint, joint
     opt = Options(caption_model="att2in2", vocab_size=VOCAB, rnn_size=WIDTH,
                   input_encoding_size=WIDTH, att_hid_size=WIDTH,
                   fc_feat_size=FEAT, att_feat_size=FEAT, seq_length=L,
-                  checkpoint_path=RUN_DIR)
-    os.makedirs(RUN_DIR, exist_ok=True)
+                  checkpoint_path=run_dir)
+    os.makedirs(run_dir, exist_ok=True)
     vocab = {str(i): f"w{i}" for i in range(1, VOCAB + 1)}
-    with open(os.path.join(RUN_DIR, "infos_.pkl"), "wb") as f:
+    with open(os.path.join(run_dir, "infos_.pkl"), "wb") as f:
         pickle.dump({"opt": opt, "vocab": vocab}, f)
-    checkpoint.save_params(joint.init_params(SEED, opt),
-                           os.path.join(RUN_DIR, "model-best.pth"))
+    if params is None:
+        params = joint.init_params(SEED, opt)
+    checkpoint.save_params(params, os.path.join(run_dir, "model-best.pth"))
     return opt
 
 
@@ -441,7 +579,7 @@ def phase_slice(smi):
     ids_greedy = serve_requests(greedy, "greedy bf16", "greedy_head")
     ids_beam = serve_requests(beam, "beam-2 bf16", "beam_head")
     main_launches = _dispatch.launches()
-    for k in _dispatch.KERNELS:
+    for k in ("attention", "greedy_head", "beam_head"):
         require(main_launches[k] > 0, f"{k} was never launched on the "
                 f"main path")
     print(f"  main-path launches: {main_launches}", flush=True)
@@ -480,15 +618,191 @@ def phase_slice(smi):
     return main_launches
 
 
+# ---------------------------------------------------------------------------
+# 5. training: phase-2 MLE at full width
+# ---------------------------------------------------------------------------
+
+def train_opt(batch_size, drop_prob_lm=0.5):
+    """Phase-2 MLE options at reference width (scripts/bench_train.py's
+    configuration, f32; use_bn off as the options default it)."""
+    from cooperativeimagecaptioning_tpu_torch.config import Options
+    return Options(caption_model="att2in2", vse_model="None", phase=2,
+                   caption_loss_weight=1, batch_size=batch_size,
+                   seq_per_img=1, rnn_size=WIDTH, input_encoding_size=WIDTH,
+                   att_hid_size=WIDTH, fc_feat_size=FEAT, att_feat_size=FEAT,
+                   max_att_len=K, drop_prob_lm=drop_prob_lm,
+                   save_checkpoint_every=10 ** 9, losses_log_every=1,
+                   prefetch_batches=0, seed=SEED,
+                   checkpoint_path=TRAIN_RUN_DIR)
+
+
+def train_dataset():
+    """The shared SyntheticDataset at the reference's shapes: vocab 9487,
+    L=16, up to 36 regions of 2048-d features."""
+    from cooperativeimagecaptioning_tpu_torch.data import SyntheticDataset
+    return SyntheticDataset(num_images=TRAIN_IMAGES, vocab_size=VOCAB,
+                            seq_length=L, fc_feat_size=FEAT,
+                            att_feat_size=FEAT, max_K=K, seed=SEED)
+
+
+def iterations_per_s(trainer, data, n=10):
+    """Training iterations per second on one fixed host batch (its copy to
+    the card included), after one warm-up iteration."""
+    import torch
+    trainer.train_iteration(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        trainer.train_iteration(data)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def compare_first_step(ds):
+    """The first step at B=16 on the card against the same step on the CPU
+    port: same params, same batch, dropout off (the two devices' generators
+    draw different masks)."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.training import joint
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import (
+        leaves, to_numpy, to_torch, trainable)
+    opt = train_opt(16, drop_prob_lm=0.0)
+    tr = Trainer(opt, dataset=ds, device="cuda", verbose=False)
+    data = tr.loader.get_batch("train")
+    batch = tr._prepare_batch(data)
+    fn = joint.value_and_grad(opt, "optimizer")
+    hp = joint.Hyper.from_opt(opt)
+    (loss_g, _), grads_g = fn(tr.params, batch, tr.gen, hp)
+    cpu_params = {"speaker": trainable(to_torch(to_numpy(
+        tr.params["speaker"]), "cpu"))}
+    cpu_batch = {k: None if v is None else v.cpu() for k, v in batch.items()}
+    (loss_c, _), grads_c = fn(cpu_params, cpu_batch, torch.Generator(), hp)
+    rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    print(f"  B=16 first step, cuda vs cpu port: loss {loss_g.item():.6f} "
+          f"vs {loss_c.item():.6f} (relative {rel:.2e}, tol "
+          f"{STEP_LOSS_RTOL:.0e})", flush=True)
+    require(rel <= STEP_LOSS_RTOL, f"first-step loss: relative {rel}")
+    worst, worst_key, max_abs = 0.0, "", 0.0
+    cpu = dict(leaves(grads_c))
+    for key, g in leaves(grads_g):
+        g, c = g.cpu(), cpu[key]
+        # > 1 means outside atol + rtol * |cpu| somewhere in the leaf
+        ratio = ((g - c).abs() / (STEP_GRAD_ATOL + STEP_GRAD_RTOL * c.abs())
+                 ).max().item()
+        max_abs = max(max_abs, (g - c).abs().max().item())
+        if ratio > worst:
+            worst, worst_key = ratio, key
+    print(f"  B=16 first step gradients, {len(cpu)} leaves: max abs "
+          f"difference {max_abs:.3e}; worst leaf {worst_key} at "
+          f"{worst:.3f} of its tolerance (rtol {STEP_GRAD_RTOL:.0e}, atol "
+          f"{STEP_GRAD_ATOL:.0e})", flush=True)
+    require(worst <= 1.0, f"first-step gradient {worst_key}: {worst} of "
+            f"its tolerance")
+    del tr
+    return rel, max_abs
+
+
+def phase_train(smi):
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
+    from cooperativeimagecaptioning_tpu_torch.training import loop
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 matmuls are on: the f32 checks need them off")
+    ds = train_dataset()
+    print(f"training: phase-2 MLE, att2in2 vocab {VOCAB}, width {WIDTH}, "
+          f"K={K}, L={L}, B={TRAIN_B}, f32, drop_prob_lm 0.5, "
+          f"CIC_FUSED_CELL=1, {TRAIN_IMAGES} synthetic images", flush=True)
+    out = {}
+    with fused_cell_switch(True):
+        # the main path: three steps through the user's entry point
+        steps = 3
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        trainer = loop.train(train_opt(TRAIN_B), dataset=ds,
+                             max_iterations=steps, device="cuda",
+                             verbose=False)
+        torch.cuda.synchronize()
+        launches = _dispatch.launches()
+        T = L + 1  # labels[:, :-1] of the [B, L+2] labels
+        print(f"  train(max_iterations={steps}) in "
+              f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+              flush=True)
+        for k in _dispatch.KERNELS:
+            want = steps * 2 * T if k in ("attention", "cell") else 0
+            require(launches[k] == want, f"training: {k} launched "
+                    f"{launches[k]} times in {steps} steps, expected {want} "
+                    f"(forward + checkpointed recompute, T={T})")
+        losses = [float(v) for v in trainer.loss_history.values()]
+        require(len(losses) == steps and all(np.isfinite(losses)),
+                f"training losses {losses}")
+        require(trainer.optim.skipped_steps() == 0, "non-finite steps")
+
+        out["step_rel"], out["step_abs"] = compare_first_step(ds)
+
+        data = trainer.loader.get_batch("train")
+        curve = [trainer.train_iteration(data)[0]["loss_cap"].item()
+                 for _ in range(LEARN_STEPS)]
+        print(f"  {LEARN_STEPS} steps on one batch: loss_cap "
+              f"{curve[0]:.4f} -> {curve[-1]:.4f}", flush=True)
+        require(all(np.isfinite(curve)) and curve[-1] < curve[0]
+                and np.mean(curve[-5:]) < np.mean(curve[:5]),
+                f"loss_cap did not fall: {curve}")
+        out["loss_first"], out["loss_last"] = curve[0], curve[-1]
+
+    # it/s with and without the cell kernel, in turns: on, off, off, on
+    rates = {True: [], False: []}
+    for on in (True, False, False, True):
+        with fused_cell_switch(on):
+            rates[on].append(iterations_per_s(trainer, data))
+    out["its_cell_kernel"] = float(np.mean(rates[True]))
+    out["its_plain_cell"] = float(np.mean(rates[False]))
+    print(f"  throughput ({smi}; B={TRAIN_B}, f32, one fixed host batch): "
+          f"{out['its_cell_kernel']:.2f} it/s with the cell kernel "
+          f"({rates[True][0]:.2f}, {rates[True][1]:.2f}), "
+          f"{out['its_plain_cell']:.2f} it/s with CIC_FUSED_CELL unset "
+          f"({rates[False][0]:.2f}, {rates[False][1]:.2f})", flush=True)
+
+    # serve the trained speaker: greedy, bucket 512, the cell kernel on
+    write_run_dir(trainer.params, TRAIN_RUN_DIR)
+    with fused_cell_switch(True):
+        svc = CaptioningService.from_run_dir(TRAIN_RUN_DIR,
+                                             compute_dtype="bfloat16",
+                                             buckets=(512,))
+        fc, att, masks = features(512, seed=512)
+        svc.caption_ids(fc[:1], att[:1], masks[:1])
+        _dispatch.reset_launches()
+        ids = svc.caption_ids(fc, att, masks)
+        torch.cuda.synchronize()
+        served = _dispatch.launches()
+    require(ids.shape == (512, L) and ids.min() >= 0 and ids.max() <= VOCAB,
+            f"trained speaker ids {ids.shape}")
+    for k in _dispatch.KERNELS:
+        want = L if k in ("attention", "greedy_head", "cell") else 0
+        require(served[k] == want, f"serving the trained speaker: {k} "
+                f"launched {served[k]} times, expected {want}")
+    print(f"  trained speaker served: 512 images -> ids {ids.shape}, "
+          f"{len(np.unique(ids))} distinct ids; launches {served}",
+          flush=True)
+    return launches, out
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, REPO)
     import torch
     phase_build()
     errs, times = phase_kernels()
-    launches = phase_slice(smi)
+    with fused_cell_switch(False):
+        serve_launches = phase_slice(smi)
+    train_launches, _ = phase_train(smi)
+    # each path's counts run from 0 just before it to just after it
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
-                "replaces": REPLACES[k], "launches": launches[k],
+                "replaces": REPLACES[k],
+                "launches": serve_launches[k] + train_launches[k],
+                "launches_by_path": {"serve": serve_launches[k],
+                                     "train": train_launches[k]},
                 "max_abs_err": errs[k], "ms": times[k][0],
                 "plain_ms": times[k][1]} for k in SOURCES]
     print(f"card: {smi}")

@@ -8,9 +8,11 @@ emitted sequences are zero-padded to full length and every shape is static
 (ready for a CUDA graph later).  Token ids: 0 is EOS/pad, V+1 = nclass is
 BOS; the embedding has V+2 rows and the logit layer V+1 outputs.
 
-Ported: `sample(mode="greedy")` with and without decoding_constraint, and
-`beam_search` (backpointer formulation).  The six other sampling modes and
-teacher forcing follow in later slices (ROADMAP.md).
+Ported: teacher forcing (`teacher_forced_logprobs`, and
+`teacher_forced_loss`, its fused masked-NLL form with per-step
+rematerialization), `sample(mode="greedy")` with and without
+decoding_constraint, and `beam_search` (backpointer formulation).  The six
+other sampling modes follow in a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from cooperativeimagecaptioning_tpu_torch.models import layers
 
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import beam_head
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import logit_head
@@ -28,6 +33,110 @@ NEG_INF = -1e38
 class SampleOutput(NamedTuple):
     seq: Any          # [B, L] int32 -- word ids, 0-padded after EOS
     logprobs: Any     # [B, L] float -- per-step logprob of the chosen word
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forced forward
+# ---------------------------------------------------------------------------
+
+def _draws(speaker, j, it, prev_lp, gen, drop_prob, ss_prob, use_ss):
+    """One step's random draws, made before the step runs: the scheduled-
+    sampling replacement of the input ids (JAX decoding.py:77-80, from step
+    1 on: with probability ss_prob a row takes a categorical draw from the
+    previous step's log-probs) and the dropout keep masks of the embedding
+    and the output.  Drawing them here, outside the step, lets a
+    checkpointed step be recomputed with the same masks: checkpoint
+    restores only the global RNG state, not an explicit generator."""
+    B = it.shape[0]
+    if use_ss and j >= 1:
+        device = it.device
+        replace = torch.rand((B,), generator=gen, device=device) < ss_prob
+        sampled = torch.multinomial(prev_lp.detach().exp(), 1,
+                                    generator=gen)[:, 0]
+        it = torch.where(replace, sampled.to(it.dtype), it)
+    masks = (None, None)
+    if drop_prob > 0.0:
+        w = speaker.params.logit.w  # [H, V+1]
+        masks = (layers.keep_mask((B, speaker.params.embed.shape[1]),
+                                  drop_prob, gen, w.device),
+                 layers.keep_mask((B, w.shape[0]), drop_prob, gen, w.device))
+    return it, masks
+
+
+def _tf_step(speaker, ctx, h, c, it, emb_mask, out_mask, drop_prob):
+    """Embed the input ids, run one step, log-softmax of the logits."""
+    xt = speaker.embed_token(it, drop_prob, mask=emb_mask)
+    (h, c), out = speaker.step(ctx, (h, c), xt, drop_prob, mask=out_mask)
+    lp = torch.log_softmax(speaker.logits(out), dim=-1)
+    return h, c, lp
+
+
+def _tf_setup(speaker, ctx, B, gen, train, drop_prob, ss_prob):
+    """(initial state, effective drop_prob, use_ss) of a teacher-forced
+    loop (JAX decoding.py:57-66)."""
+    drop = drop_prob if train else 0.0
+    use_ss = train and (torch.is_tensor(ss_prob) or ss_prob > 0.0)
+    h, c = speaker.init_state(B)
+    for pe in speaker.prefix_embeddings(ctx):
+        (h, c), _ = speaker.step(ctx, (h, c), pe, drop, gen)
+    return (h, c), drop, use_ss
+
+
+def teacher_forced_logprobs(speaker, ctx, inputs, gen=None, train=False,
+                            drop_prob=0.0, ss_prob=0.0):
+    """Log-probs of each next-token prediction (JAX decoding.py:42-84).
+
+    inputs: [B, T] token ids -- the reference feeds labels[:, :-1] (column 0
+    is the zero pad that acts as the training-time start token).  Returns
+    [B, T, V+1] log-probs aligned with targets labels[:, 1:].  In
+    training, dropout (drop_prob) and scheduled sampling (ss_prob) draw from
+    `gen`, a torch.Generator on the speaker's device."""
+    B, T = inputs.shape
+    (h, c), drop, use_ss = _tf_setup(speaker, ctx, B, gen, train,
+                                     drop_prob, ss_prob)
+    lps, lp = [], None
+    for j in range(T):
+        it, (em, om) = _draws(speaker, j, inputs[:, j], lp, gen, drop,
+                              ss_prob, use_ss)
+        h, c, lp = _tf_step(speaker, ctx, h, c, it, em, om, drop)
+        lps.append(lp)
+    return torch.stack(lps, dim=1)
+
+
+def teacher_forced_loss(speaker, ctx, inputs, targets, masks, gen=None,
+                        train=False, drop_prob=0.0, ss_prob=0.0):
+    """Fused masked-NLL teacher forcing (JAX decoding.py:87-139, the
+    --remat 1 path): the math of teacher_forced_logprobs +
+    language_model_criterion, with each step's cross-entropy reduced inside
+    the loop, so the [B, T, V+1] log-probs are never kept.  Each step runs
+    under torch.utils.checkpoint (non-reentrant) in place of
+    jax.checkpoint(body): backward recomputes the step's logits instead of
+    storing them.  The step's random draws are made outside the checkpoint
+    and passed in, so the recompute sees the same masks."""
+    B, T = inputs.shape
+    targets = targets[:, :T]
+    masks = masks[:, :T]
+    (h, c), drop, use_ss = _tf_setup(speaker, ctx, B, gen, train,
+                                     drop_prob, ss_prob)
+
+    def body(h, c, it, tgt, msk, em, om):
+        h, c, lp = _tf_step(speaker, ctx, h, c, it, em, om, drop)
+        picked = torch.gather(lp, 1, tgt[:, None].long())[:, 0]
+        # lp leaves the step only for the next step's sampling draw
+        return h, c, (picked * msk).sum(), (lp if use_ss else None)
+
+    num = den = 0.0
+    lp = None
+    for j in range(T):
+        it, (em, om) = _draws(speaker, j, inputs[:, j], lp, gen, drop,
+                              ss_prob, use_ss)
+        msk = masks[:, j].float()
+        h, c, picked, lp = checkpoint(body, h, c, it, targets[:, j], msk,
+                                      em, om, use_reentrant=False,
+                                      preserve_rng_state=False)
+        num = num + picked
+        den = den + msk.sum()
+    return -num / den
 
 
 def sample(speaker, ctx, seq_length, mode="greedy", decoding_constraint=0):

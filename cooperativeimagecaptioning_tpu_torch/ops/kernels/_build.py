@@ -48,6 +48,9 @@ SIGNATURES = {
     # h, w, b, part_val, part_id, part_m, part_s, vals, idx, lse,
     # R, H, V, kk, kk_slots, splits, split_cols, is_bf16, stream
     "cic_beam_head": [_P] * 10 + [_I] * 8 + [_P],
+    # xt, h, c, att|NULL, wi, bi, wh, bh, wc|NULL, bc|NULL, h_out, c_out,
+    # B, D, H, is_bf16, stream
+    "cic_cell": [_P] * 12 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

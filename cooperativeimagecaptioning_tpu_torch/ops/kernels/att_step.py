@@ -1,4 +1,4 @@
-"""Fused additive attention for the Att2in2 decode step.
+"""Fused additive attention for the Att2in2 step.
 
 Counterpart of the JAX package's ops/pallas/att_step.py (b-major context).
 `fused_attention` launches the hand-written kernel in csrc/att_step.cu for
@@ -12,7 +12,14 @@ CUDA tensors and takes `attention_reference` for CPU tensors.
     out    = sum_k w_k * att_emb_k                   [B, H]
 
 Both versions compute in float32 and return h's dtype, as the Pallas kernel
-did (f32 accumulation, bf16 or f32 in and out).  Forward only.
+did (f32 accumulation, bf16 or f32 in and out).
+
+Under autograd the call goes through `Attention`, a torch.autograd.Function
+standing in for the JAX custom_vjp (att_step.py:259-286): its forward is
+the kernel (or the plain version on the CPU), its backward recomputes
+`attention_reference` and differentiates that, as JAX `_bwd` does.  There
+is no backward kernel, as there was none on the TPU.  `masks` gets no
+gradient.
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ MAX_K = 64  # attention slots the kernel's softmax stage holds (kMaxK)
 
 def attention_reference(h, att_emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha,
                         masks):
-    """Plain PyTorch version (the CPU path and the kernel's oracle)."""
-    f = torch.float32
+    """Plain PyTorch version (the CPU path, the kernel's oracle and the
+    backward's recompute).  Computes in float32, or in float64 for float64
+    inputs (the gradient checks)."""
+    f = torch.promote_types(h.dtype, torch.float32)
     att_h = h.to(f) @ w_h2att.to(f) + b_h2att.to(f)
     dot = torch.tanh(p_att.to(f) + att_h[:, None, :])
     scores = (dot @ w_alpha.to(f)).squeeze(-1) + b_alpha.to(f)
@@ -39,16 +48,43 @@ def attention_reference(h, att_emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha,
     return out.to(h.dtype)
 
 
+class Attention(torch.autograd.Function):
+    """fused_attention with a gradient.  `forward_impl` computes the
+    forward (the kernel, or the plain version); the backward always
+    differentiates `attention_reference`."""
+
+    @staticmethod
+    def forward(ctx, forward_impl, h, att_emb, p_att, w_h2att, b_h2att,
+                w_alpha, b_alpha, masks):
+        ctx.save_for_backward(h, att_emb, p_att, w_h2att, b_h2att, w_alpha,
+                              b_alpha, masks)
+        return forward_impl(h, att_emb, p_att, w_h2att, b_h2att, w_alpha,
+                            b_alpha, masks)
+
+    @staticmethod
+    def backward(ctx, g):
+        *xs, masks = ctx.saved_tensors
+        return (None, *_dispatch.reference_vjp(
+            attention_reference, xs, (masks,), ctx.needs_input_grad[1:8],
+            (g,)), None)
+
+
 def fused_attention(h, att_emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha,
                     masks):
     """h [B,H], att_emb [B,K,H], p_att [B,K,A], w_h2att [H,A], b_h2att [A],
     w_alpha [A,1], b_alpha [1], masks [B,K] float32 or None -> [B,H] in
     h's dtype."""
-    _dispatch.forward_only("attention", h, att_emb, p_att, w_h2att, b_h2att,
-                           w_alpha, b_alpha, masks)
-    if not _dispatch.use_kernel(h):
-        return attention_reference(h, att_emb, p_att, w_h2att, b_h2att,
-                                   w_alpha, b_alpha, masks)
+    impl = attention_kernel if _dispatch.use_kernel(h) else \
+        attention_reference
+    args = (h, att_emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return Attention.apply(impl, *args, masks)
+    return impl(*args, masks)
+
+
+def attention_kernel(h, att_emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha,
+                     masks):
+    """Launch csrc/att_step.cu on CUDA tensors (no autograd)."""
     if h.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention kernel takes float32 or bfloat16, "
                         f"got {h.dtype}")

@@ -1,20 +1,30 @@
 """Maxout-LSTM cell of the Att2in2 / FC speakers (ref AttModel.py:514-527,
 FCModel.py:26-42).
 
-Counterpart of the JAX package's ops/pallas/cell_step.py.  Only the plain
-version is ported: the JAX package runs its Pallas cell only under
-CIC_FUSED_CELL=1 (off by default), and the Hopper kernel comes later behind
-the same switch.
+Counterpart of the JAX package's ops/pallas/cell_step.py.
 
     sums = (xt @ Wi + bi) + (h @ Wh + bh)
     i, f, o = sigmoid(sums[:3H]);  g = max(sums[3H:4H] (+ a2c[:H]),
                                            sums[4H:5H] (+ a2c[H:]))
     c' = f*c + i*g ;  h' = o*tanh(c')
+
+`fused_cell` is the cell the model calls.  As in the JAX package it runs
+the fused kernel only under CIC_FUSED_CELL=1 (`_dispatch.fused_cell_enabled`,
+off by default: the JAX package measured its Pallas cell as a net loss on
+the TPU, cell_step.py:124-127); with the switch unset it is
+`cell_reference` on every device.  With the switch set, CUDA tensors launch
+the hand-written kernel in csrc/cell_step.cu and CPU tensors take
+`cell_plain`, the kernel's plain version.  The kernel has no backward, as
+the Pallas kernel had none: `Cell`, a torch.autograd.Function standing in
+for the JAX custom_vjp, recomputes `cell_reference` in its backward
+(cell_step.py:142-144).
 """
 
 from __future__ import annotations
 
 import torch
+
+from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build, _dispatch
 
 
 def cell_reference(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
@@ -32,4 +42,81 @@ def cell_reference(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
     g = torch.maximum(it[:, :H], it[:, H:2 * H])
     c_new = forget_gate * c + in_gate * g
     h_new = out_gate * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def cell_plain(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
+    """The kernel's plain version: `cell_reference` in float32 (float64 for
+    float64 inputs), h' and c' in h's dtype -- the Pallas kernel's contract
+    (f32 accumulation, outputs in h's dtype, cell_step.py:68-69)."""
+    f = torch.promote_types(h.dtype, torch.float32)
+    args = [None if x is None else x.to(f)
+            for x in (xt, h, c, att_res, wi, bi, wh, bh, wc, bc)]
+    h_new, c_new = cell_reference(*args)
+    return h_new.to(h.dtype), c_new.to(h.dtype)
+
+
+class Cell(torch.autograd.Function):
+    """fused_cell with a gradient.  `forward_impl` computes the forward (the
+    kernel, or the plain version); the backward differentiates
+    `cell_reference`."""
+
+    @staticmethod
+    def forward(ctx, forward_impl, *args):
+        ctx.save_for_backward(*args)
+        return forward_impl(*args)
+
+    @staticmethod
+    def backward(ctx, g_h, g_c):
+        return (None, *_dispatch.reference_vjp(
+            cell_reference, ctx.saved_tensors, (), ctx.needs_input_grad[1:],
+            (g_h, g_c)))
+
+
+def fused_cell(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
+    """xt [B,D], h/c [B,H], att_res [B,H] or None, wi [D,5H], bi [5H],
+    wh [H,5H], bh [5H], wc [H,2H] or None, bc [2H] or None -> (h', c')."""
+    args = (xt, h, c, att_res, wi, bi, wh, bh, wc, bc)
+    if not _dispatch.fused_cell_enabled():
+        return cell_reference(*args)
+    impl = cell_kernel if _dispatch.use_kernel(h) else cell_plain
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args):
+        return Cell.apply(impl, *args)
+    return impl(*args)
+
+
+def cell_kernel(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
+    """Launch csrc/cell_step.cu on CUDA tensors (no autograd)."""
+    if h.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"cell kernel takes float32 or bfloat16, got "
+                        f"{h.dtype}")
+    use_att = att_res is not None
+    if use_att != (wc is not None) or use_att != (bc is not None):
+        raise ValueError("cell: att_res, wc and bc are given together or "
+                         "not at all")
+    B, H = h.shape
+    D = xt.shape[-1]
+    shapes = {"xt": (xt, (B, D)), "c": (c, (B, H)),
+              "wi": (wi, (D, 5 * H)), "bi": (bi, (5 * H,)),
+              "wh": (wh, (H, 5 * H)), "bh": (bh, (5 * H,))}
+    if use_att:
+        shapes.update({"att_res": (att_res, (B, H)), "wc": (wc, (H, 2 * H)),
+                       "bc": (bc, (2 * H,))})
+    for key, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"cell: {key} is {tuple(t.shape)}, expected "
+                             f"{want} for h {tuple(h.shape)}")
+    _dispatch.check_cuda_inputs(
+        "cell", {"h": h, **{k: t for k, (t, _) in shapes.items()}}, h.dtype)
+    h_new = torch.empty_like(h)
+    c_new = torch.empty_like(h)
+    lib = _build.library()
+    code = lib.cic_cell(
+        _build.ptr(xt), _build.ptr(h), _build.ptr(c), _build.ptr(att_res),
+        _build.ptr(wi), _build.ptr(bi), _build.ptr(wh), _build.ptr(bh),
+        _build.ptr(wc), _build.ptr(bc), _build.ptr(h_new), _build.ptr(c_new),
+        B, D, H, int(h.dtype == torch.bfloat16), _build.stream(h.device))
+    _build.check(lib, code, "cell")
+    _dispatch.count("cell")
     return h_new, c_new

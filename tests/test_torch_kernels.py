@@ -207,10 +207,11 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
+    # the attention has a gradient now (att_step.Attention); the heads are
+    # decode-only and still refuse a grad-requiring input
     a = as_torch(att_case())
     a[0] = a[0].clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        att_step.fused_attention(*a)
+    assert att_step.fused_attention(*a).requires_grad
     h, w, b, _ = head_case()
     h, w, b = map(torch.from_numpy, (h, w, b))
     with pytest.raises(ValueError, match="kk"):
@@ -219,6 +220,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         logit_head.greedy_head(h, w.clone().requires_grad_(True), b)
     with pytest.raises(ValueError, match="device"):
         _dispatch.use_kernel(torch.empty(1, device="meta"))
+
+
+@pytest.mark.parametrize("head", ["greedy_head", "beam_head"])
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_heads_stay_forward_only(head, which):
+    """_dispatch.forward_only still guards the two vocabulary heads: any of
+    h, w, b requiring grad is refused."""
+    h, w, b, _ = head_case()
+    args = [torch.from_numpy(x) for x in (h, w, b)]
+    args[which] = args[which].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        if head == "greedy_head":
+            logit_head.greedy_head(*args)
+        else:
+            beam_head.beam_head(*args, 2)
 
 
 def _c_params(name):
@@ -255,7 +271,8 @@ def test_python_constants_match_the_c_sources(py, src, name):
 
 def test_build_hash_tracks_the_sources(tmp_path, monkeypatch):
     assert {p.name for p in _build.sources()} >= {
-        "att_step.cu", "logit_head.cu", "beam_head.cu", "common.cuh"}
+        "att_step.cu", "logit_head.cu", "beam_head.cu", "cell_step.cu",
+        "common.cuh"}
     before = _build.source_hash()
     fake = tmp_path / "csrc"
     fake.mkdir()
@@ -345,3 +362,76 @@ def test_beam_head_kernel_matches_plain(cuda, dtype, kk):
     assert (idx == idx_p).all()
     assert (vals - vals_p).abs().max().item() <= 1e-4
     assert (lse - lse_p).abs().max().item() <= 1e-4
+
+
+def cell_case(B, D=512, H=512, with_att=True, seed=0):
+    rng = np.random.RandomState(seed)
+    f = np.float32
+
+    def r(*shape, scale):
+        return (rng.randn(*shape) * scale).astype(f)
+    return [r(B, D, scale=1.0), r(B, H, scale=0.5), r(B, H, scale=1.0),
+            r(B, H, scale=1.0) if with_att else None,
+            r(D, 5 * H, scale=D ** -0.5), r(5 * H, scale=0.1),
+            r(H, 5 * H, scale=H ** -0.5), r(5 * H, scale=0.1),
+            r(H, 2 * H, scale=H ** -0.5) if with_att else None,
+            r(2 * H, scale=0.1) if with_att else None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_att", [True, False])
+@pytest.mark.parametrize("B,D,H", [(13, 24, 40), (128, 512, 512),
+                                   (512, 512, 512)])
+def test_cell_kernel_matches_plain(cuda, monkeypatch, dtype, with_att, B, D,
+                                   H):
+    """Kernel F against its plain version (cell_reference in f32 on the same
+    inputs, h' and c' in the inputs' type): f32 within 1e-4, bf16 within
+    3e-2 (1-2 bf16 ulps at |x| < 4; both sides round the f32 result)."""
+    monkeypatch.setenv("CIC_FUSED_CELL", "1")
+    args = [None if x is None else torch.from_numpy(x).to(cuda, dtype)
+            for x in cell_case(B, D, H, with_att)]
+    h_new, c_new = cell_step.fused_cell(*args)
+    torch.cuda.synchronize()
+    assert _dispatch.launches()["cell"] == 1
+    h_p, c_p = cell_step.cell_plain(*args)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for got, want in ((h_new, h_p), (c_new, c_p)):
+        assert got.dtype == dtype and got.shape == (B, H)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cell_kernel_switch_off_launches_nothing(cuda, monkeypatch):
+    monkeypatch.delenv("CIC_FUSED_CELL", raising=False)
+    args = [None if x is None else torch.from_numpy(x).to(cuda)
+            for x in cell_case(16)]
+    cell_step.fused_cell(*args)
+    assert _dispatch.launches()["cell"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["attention", "cell"])
+def test_kernel_functions_gradient_on_the_card(cuda, monkeypatch, which):
+    """Kernel forward + recomputed plain backward, against plain autograd on
+    the card, f32."""
+    monkeypatch.setenv("CIC_FUSED_CELL", "1")
+    if which == "attention":
+        raw = as_torch(att_case(B=64, K=36, H=96, A=80), cuda)
+        args = [x if x is None or i == 7 else x.requires_grad_(True)
+                for i, x in enumerate(raw)]
+        live = args[:7]
+        out = (att_step.fused_attention(*args),)
+        ref = (att_step.attention_reference(*args),)
+    else:
+        args = [None if x is None else torch.from_numpy(x).to(cuda)
+                .requires_grad_(True) for x in cell_case(64, 96, 80)]
+        live = [x for x in args if x is not None]
+        out = cell_step.fused_cell(*args)
+        ref = cell_step.cell_reference(*args)
+    assert _dispatch.launches()[which] == 1
+    g = torch.autograd.grad(sum(o.square().sum() for o in out), live)
+    want = torch.autograd.grad(sum(o.square().sum() for o in ref), live)
+    for a, b in zip(g, want):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max()
+                                                        .item())

@@ -225,7 +225,8 @@ def test_port_options_are_the_jax_packages():
     assert tconfig.Options is jconfig.Options
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "serve_breakdown.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "serve_breakdown.py",
+                                    "train_breakdown.py"])
 def test_card_scripts_import_nothing_of_jax(script):
     """The card's machine has no JAX: these scripts reach the JAX package
     only through the port."""
