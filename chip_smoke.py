@@ -9,17 +9,26 @@ Phases, in order; any failure exits non-zero:
   2. build    -- builds the hand-written kernels from the package's csrc/
                  with nvcc (timed).
   3. kernels  -- each kernel against its plain PyTorch version on the card,
-                 at serving shapes, in float32 and bfloat16: attention
-                 (masked and unmasked), greedy head and beam head (random
+                 at the shapes the paths give it, in float32 and bfloat16:
+                 attention (masked and unmasked; the b-major, the int8 and
+                 the K-major kernels at the service's B=512, 4096 and
+                 beam-expanded R=1024 and at the evaluation's R=256 and 640
+                 rows, the three timed side by side at B=512 and 4096),
+                 the quantizer on the card against the same function on the
+                 CPU, greedy head and beam head (random
                  rows and rows with planted exact ties, which must resolve
-                 to the lower id; kk = 2, 3, 6).  Each check prints its
+                 to the lower id; kk = 2, 3, 6 at R=1024, kk = 2 at the
+                 evaluation's R=256).  Each check prints its
                  maximum error beside its tolerance; each kernel is timed
                  beside its plain version.
                  The fused maxout-LSTM cell (kernel F, CIC_FUSED_CELL=1)
                  against its plain version with and without attention, f32
                  at B=128 and f32 / bf16 at B=512 and 4096; the attention's
-                 autograd Function (kernel forward, recomputed backward)
-                 against plain autograd, f32 at B=128.
+                 autograd Function (kernel forward, recomputed backward;
+                 the b-major and the int8 call) against plain autograd, f32
+                 at B=128.  For each kernel the script computes its bound at
+                 the timed shape: the larger of its bytes over the card's
+                 memory rate and its operations over the card's peak rate.
   4. slice    -- writes a full-width run dir (Att2in2, vocab 9487, 512-wide,
                  K=36, L=16, random weights from a numpy seed), serves it
                  through CaptioningService.from_run_dir + warmup +
@@ -27,8 +36,14 @@ Phases, in order; any failure exits non-zero:
                  answers and that every request went through the kernels
                  (launch counts), compares the CUDA services with CPU
                  services (plain versions) in float32 and in bfloat16, and
-                 times captions/s.  CIC_FUSED_CELL is unset here (the
-                 default: the cell is the plain version).
+                 times captions/s.  Then the same for the two other decode
+                 layouts of the attention context, att_quant="int8" and
+                 att_kmajor=1 (every step through their own attention
+                 kernel, none through the b-major one), their ids against the
+                 b-major and the CPU services in float32, captions/s of the
+                 three layouts side by side, and the device memory of a
+                 bucket-4096 request in bf16 and int8.  CIC_FUSED_CELL is
+                 unset here (the default: the cell is the plain version).
   5. training -- phase-2 MLE training at full width through
                  training.loop.train / Trainer over the shared
                  SyntheticDataset (f32, B=128, drop_prob_lm 0.5), with
@@ -39,8 +54,19 @@ Phases, in order; any failure exits non-zero:
                  (loss and every gradient leaf); the loss falling over 20
                  steps on one batch; it/s with and without the cell kernel;
                  and the trained speaker served once (greedy, bucket 512).
-The line before the last is one JSON object describing the kernels; the
-last line is {"ok": true, "device": {...}}.
+  6. evaluation -- the trained speaker's run dir through eval.eval (the
+                 final-eval protocol: beam 2, language metrics, the test
+                 split of a SyntheticDataset) and Evaluator.eval_split on the
+                 card, once each with the b-major, the int8 and the K-major
+                 context: one prediction per image, finite loss and metrics,
+                 the launch counts the batch count and L give, the batches
+                 drained inside the loop (twelve batches a split, four in
+                 flight), the evaluator's timings and images/s.  Then the
+                 first batches on the card against the CPU port, beam 2:
+                 the captions and loss_cap of phase 4's random-weight
+                 speaker with each layout, and of the trained speaker.
+Two lines before the last name the card and describe the kernels (one JSON
+object); the last line is {"ok": true, "device": {...}}.
 
 Imports no JAX.  Writes only under build/ in the checkout.
 """
@@ -76,16 +102,38 @@ BEAM_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/beam_head.cu"
 CELL_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/cell_step.cu"
 REPLACES = {
     "attention": "cooperativeimagecaptioning_tpu/ops/pallas/att_step.py:130",
+    "attention_q":
+        "cooperativeimagecaptioning_tpu/ops/pallas/att_step.py:192",
+    "attention_kmajor":
+        "cooperativeimagecaptioning_tpu/ops/pallas/att_step.py:348",
     "greedy_head":
         "cooperativeimagecaptioning_tpu/ops/pallas/logit_head.py:138",
     "beam_head": "cooperativeimagecaptioning_tpu/ops/pallas/beam_head.py:58",
     "cell": "cooperativeimagecaptioning_tpu/ops/pallas/cell_step.py:75",
 }
-SOURCES = {"attention": ATT_SRC, "greedy_head": GREEDY_SRC,
+SOURCES = {"attention": ATT_SRC, "attention_q": ATT_SRC,
+           "attention_kmajor": ATT_SRC, "greedy_head": GREEDY_SRC,
            "beam_head": BEAM_SRC, "cell": CELL_SRC}
+# the attention kernel each decode layout of the context must go through
+LAYOUTS = {"b-major": ({}, "attention"),
+           "int8": ({"att_quant": "int8"}, "attention_q"),
+           "k-major": ({"att_kmajor": 1}, "attention_kmajor")}
 TRAIN_B = 128        # scripts/bench_train.py's batch
 TRAIN_IMAGES = 256   # synthetic images (153 in the train split)
 LEARN_STEPS = 20
+EVAL_IMAGES = 3840   # synthetic images of the evaluation: 1536 in each of the
+EVAL_B = 128         # val and test splits (0.2 / 0.4 / 0.4), 12 batches of 128
+EVAL_R = 2 * EVAL_B  # rows of the evaluation's beam-2 decode
+EVAL_ROWS = 5 * EVAL_B  # rows of its loss: five captions an image
+EVAL_CPU_BATCHES = 2
+DEVICE = "cuda"
+
+# The card's published peaks (NVIDIA's H100 SXM data sheet, dense): device
+# memory rate, and operations per second by input type (bf16 on the tensor
+# cores, f32 outside them).  A kernel's bound is the larger of its bytes over
+# the first and its operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 # Tolerances (kernel vs plain version on the same inputs, max abs error):
 #  attention out: f32 differs only by summation order -> 1e-4; bf16 output
@@ -99,6 +147,10 @@ LEARN_STEPS = 20
 #    bf16: both sides round the f32 result) -> 1e-4 / 3e-2.
 #  gradients (kernel forward + recomputed plain backward vs plain autograd,
 #    f32): relative to the largest gradient entry, 1e-4.
+#  the int8 and K-major attention kernels: the attention's rule, each
+#    against its own plain version on the same (quantized, transposed) inputs.
+#  quantize_features on the card vs the CPU: int8 values equal, scales to a
+#    relative 1e-6 (the same IEEE division and rounding on both).
 TOL = {("attention", "float32"): 1e-4, ("attention", "bfloat16"): 3e-2,
        ("cell", "float32"): 1e-4, ("cell", "bfloat16"): 3e-2,
        "head": 1e-4, "grad": 1e-4}
@@ -114,9 +166,13 @@ STEP_GRAD_ATOL = 1e-5
 # another summation order may differ.  In bf16 both sides round at the same
 # points, but a 1-ulp difference in a rounded activation can flip a later
 # word, and the rest of the row with it: an H100 gave 98.4% (greedy) and
-# 92.2% (beam 2) on this request.
+# 92.2% (beam 2) on this request.  The K-major service does the b-major
+# service's arithmetic on another layout, and the int8 service on the card
+# the int8 CPU service's: both are held to the f32 rule.
 AGREE_F32 = 0.99
 AGREE_BF16 = 0.85
+# loss_cap of the evaluation on the card vs the CPU port, same batches, f32
+EVAL_LOSS_RTOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -202,6 +258,24 @@ def timed_pair(kernel_fn, plain_fn, iters=20):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound_ms(tensors, ops, dtype_name):
+    """(bound in ms, "bytes" or "operations"): the least time the card could
+    take for a call that reads each input and writes each output in `tensors`
+    once and does `ops` operations on inputs of `dtype_name`."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = ops / PEAK_OPS_PER_S[dtype_name]
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def attention_ops(B, H, A):
+    """att_h (2*H*A a row), scores (add, tanh, multiply-add: 4*A a slot) and
+    the weighted sum (2*H a slot)."""
+    return 2 * B * H * A + B * K * (4 * A + 2 * H)
+
+
 def report(name, what, err, tol):
     ok = err <= tol
     print(f"  {name:12s} {what:40s} max_abs_err {err:.3e}  tol {tol:.0e}  "
@@ -252,7 +326,7 @@ def phase_kernels():
 
     B, R, H, A, V1 = 512, 1024, WIDTH, WIDTH, VOCAB + 1
     errs = {k: 0.0 for k in _dispatch.KERNELS}
-    times = {}
+    times, bounds = {}, {}
     print("kernels vs plain versions (serving shapes: B=512, K=36, "
           "H=A=512, V+1=9488, R=1024 beam rows)", flush=True)
     for dt in (torch.float32, torch.bfloat16):
@@ -301,9 +375,11 @@ def phase_kernels():
             ids_agree("greedy_head", f"{dn} {what} ids", it, it_p, logits,
                       TOL["head"])
 
-            hb = rn(R, H, scale=0.5).to(dt)
-            logits_b = logit_head.logits_f32(hb, ww, bb)
-            for kk in (2, 3, 6):
+            # beam rows of the service (bucket 512, beam 2) and of the
+            # evaluation (batch EVAL_B, beam 2)
+            for rows, kk in [(R, kk) for kk in (2, 3, 6)] + [(EVAL_R, 2)]:
+                hb = rn(rows, H, scale=0.5).to(dt)
+                logits_b = logit_head.logits_f32(hb, ww, bb)
                 vals, idx, lse = beam_head.beam_head(hb, ww, bb, kk)
                 torch.cuda.synchronize()
                 vals_p, idx_p, lse_p = beam_head.beam_head_reference(
@@ -311,8 +387,8 @@ def phase_kernels():
                 err = max((vals - vals_p).abs().max().item(),
                           (lse - lse_p).abs().max().item())
                 errs["beam_head"] = max(errs["beam_head"], err)
-                report("beam_head", f"{dn} {what} kk={kk} vals/lse", err,
-                       TOL["head"])
+                report("beam_head", f"{dn} {what} R={rows} kk={kk} vals/lse",
+                       err, TOL["head"])
                 if what == "planted ties":
                     want = torch.tensor(planted[:kk], dtype=torch.int32,
                                         device=dev)
@@ -321,8 +397,8 @@ def phase_kernels():
                             f"lower-id order")
                     require(bool((idx == idx_p).all()),
                             f"beam head kk={kk} ids (ties)")
-                ids_agree("beam_head", f"{dn} {what} kk={kk} ids", idx,
-                          idx_p, logits_b, TOL["head"])
+                ids_agree("beam_head", f"{dn} {what} R={rows} kk={kk} ids",
+                          idx, idx_p, logits_b, TOL["head"])
 
         if dt == torch.bfloat16:  # serving dtype: time kernel vs plain
             times["attention"] = timed_pair(
@@ -337,9 +413,22 @@ def phase_kernels():
             times["beam_head"] = timed_pair(
                 lambda: beam_head.beam_head(hb, w, b, 2),
                 lambda: beam_head.beam_head_reference(hb, w, b, 2))
+            out_h = torch.empty_like(h)
+            bounds["attention"] = bound_ms(
+                (h, emb, p_att, wh, bh, wa, ba, mask, out_h),
+                attention_ops(B, H, A), dn)
+            head_out = (torch.empty(B, dtype=torch.int32),
+                        torch.empty(B, dtype=torch.float32))
+            bounds["greedy_head"] = bound_ms((h, w, b) + head_out,
+                                             2 * B * H * V1, dn)
+            beam_out = (torch.empty(R, 2), torch.empty(R, 2, dtype=torch.int32),
+                        torch.empty(R))
+            bounds["beam_head"] = bound_ms((hb, w, b) + beam_out,
+                                           2 * R * H * V1, dn)
             for name, (k_ms, p_ms) in times.items():
                 print(f"  time {name:12s} bf16 kernel {k_ms:.4f} ms  plain "
-                      f"{p_ms:.4f} ms", flush=True)
+                      f"{p_ms:.4f} ms  bound {bounds[name][0]:.4f} ms "
+                      f"({bounds[name][1]})", flush=True)
             # the large bucket, for the record
             B4 = 4096
             h4 = rn(B4, H, scale=0.5).to(dt)
@@ -362,10 +451,11 @@ def phase_kernels():
                 print(f"  time {name:20s} bf16 kernel {k_ms:.4f} ms  plain "
                       f"{p_ms:.4f} ms", flush=True)
             del h4, emb4, p4, m4
-    errs["cell"], times["cell"] = check_cell(rn)
+    errs["cell"], times["cell"], bounds["cell"] = check_cell(rn)
     errs["attention"] = max(errs["attention"], check_attention_grad(rn))
+    check_attention_variants(rn, errs, times, bounds)
     torch.cuda.synchronize()
-    return errs, times
+    return errs, times, bounds
 
 
 def cell_args(rn, B, dt, with_att):
@@ -385,13 +475,13 @@ def check_cell(rn):
     shape (f32, B=128) and the decode buckets (f32 and bf16, B=512 and
     4096).  Each with-attention case is timed beside cell_reference in the
     inputs' type, the cell that runs with CIC_FUSED_CELL unset.  Returns
-    (max error, (kernel ms, plain ms) at the training shape)."""
+    (max error, (kernel ms, plain ms) at the training shape, its bound)."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import cell_step
     f32, bf16 = torch.float32, torch.bfloat16
     print("cell (kernel F) vs its plain version (D=H=512; CIC_FUSED_CELL=1)",
           flush=True)
-    worst, timed = 0.0, {}
+    worst, timed, bound = 0.0, {}, None
     with fused_cell_switch(True):
         for B, dts in ((TRAIN_B, (f32,)), (512, (f32, bf16)),
                        (4096, (f32, bf16))):
@@ -414,10 +504,18 @@ def check_cell(rn):
                         timed[(B, dn)] = timed_pair(
                             lambda: cell_step.fused_cell(*args),
                             lambda: cell_step.cell_reference(*args))
+                    if with_att and (B, dt) == (TRAIN_B, f32):
+                        # three products: [B,D]x[D,5H], [B,H]x[H,5H] and
+                        # [B,H]x[H,2H]
+                        bound = bound_ms(
+                            args + [h_new, c_new],
+                            2 * B * WIDTH * (5 + 5 + 2) * WIDTH, dn)
     for (B, dn), (k_ms, p_ms) in timed.items():
         print(f"  time cell B={B:<5d} {dn:9s} kernel {k_ms:.4f} ms  plain "
               f"{p_ms:.4f} ms", flush=True)
-    return worst, timed[(TRAIN_B, "float32")]
+    print(f"  bound cell B={TRAIN_B} float32 {bound[0]:.4f} ms ({bound[1]})",
+          flush=True)
+    return worst, timed[(TRAIN_B, "float32")], bound
 
 
 def check_attention_grad(rn):
@@ -451,6 +549,111 @@ def check_attention_grad(rn):
     return err
 
 
+def check_attention_variants(rn, errs, times, bounds):
+    """The three attention kernels (A, the int8 kernel D, the K-major kernel
+    E) against their plain versions, masked and unmasked, f32 and bf16, at
+    every row count a path gives them: the service's B=512, its
+    beam-expanded R=1024 and B=4096, and the evaluation's R=256 (batch 128,
+    beam 2) and 640 (its loss: five captions an image; only A runs there).
+    Then the quantizer on the card against the same function on the CPU; the
+    gradient of the quantized call; and the three kernels timed in one call
+    at B=512 and 4096 (bf16), each beside its plain version.  Fills errs for
+    the three kernels, times (B=512, bf16) and bounds for D and E."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import att_step
+    H = A = WIDTH
+    dev = torch.device("cuda")
+    print("attention by context layout vs the plain versions (K=36, "
+          "H=A=512): b-major (A), int8 (D), K-major (E)", flush=True)
+    timed = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[-1]
+        wh = rn(H, A, scale=H ** -0.5).to(dt)
+        bh = rn(A, scale=0.05).to(dt)
+        wa = rn(A, 1, scale=A ** -0.5).to(dt)
+        ba = rn(1, scale=0.05).to(dt)
+        weights = (wh, bh, wa, ba)
+        for B in (EVAL_R, 512, EVAL_ROWS, 1024, 4096):
+            h = rn(B, H, scale=0.5).to(dt)
+            emb = rn(B, K, H).relu().to(dt)
+            p_att = rn(B, K, A).to(dt)
+            mask = torch.ones(B, K, device=dev)
+            mask[::3, 20:] = 0.0
+            mask[1::7, 1:] = 0.0
+            q = att_step.quantize_features(emb, p_att)
+            if B == 512:
+                q_cpu = att_step.quantize_features(emb.cpu(), p_att.cpu())
+                for name, on_card, on_cpu in zip(
+                        ("emb_q", "emb_scale", "p_q", "p_scale"), q, q_cpu):
+                    if on_card.dtype == torch.int8:
+                        n = int((on_card.cpu() != on_cpu).sum())
+                        print(f"  quantize     {dn} {name}: {n} int8 values "
+                              f"differ from the CPU's (need 0)", flush=True)
+                        require(n == 0, f"quantize_features {name}: {n} "
+                                f"values differ between card and CPU")
+                    else:
+                        rel = ((on_card.cpu() - on_cpu).abs()
+                               / on_cpu).max().item()
+                        report("quantize", f"{dn} {name} (relative)", rel,
+                               1e-6)
+            emb_t = emb.movedim(0, 1).contiguous()
+            p_t = p_att.movedim(0, 1).contiguous()
+            calls = {
+                "attention": (att_step.fused_attention,
+                              att_step.attention_reference, (emb, p_att)),
+                "attention_q": (att_step.fused_attention_q,
+                                att_step.attention_reference_q, q),
+                "attention_kmajor": (att_step.fused_attention_kmajor,
+                                     att_step.attention_reference_kmajor,
+                                     (emb_t, p_t))}
+            for name, (kernel, plain, ctx) in calls.items():
+                for mk, what in ((mask, "masked"), (None, "unmasked")):
+                    out = kernel(h, *ctx, *weights, mk)
+                    torch.cuda.synchronize()
+                    ref = plain(h, *ctx, *weights, mk)
+                    require(out.dtype == dt and out.shape == (B, H),
+                            f"{name} output type/shape")
+                    err = (out.float() - ref.float()).abs().max().item()
+                    errs[name] = max(errs[name], err)
+                    report(name, f"{dn} B={B} {what}", err,
+                           TOL[("attention", dn)])
+            if dt == torch.bfloat16 and B in (512, 4096):
+                for name, (kernel, plain, ctx) in calls.items():
+                    timed[(name, B)] = timed_pair(
+                        lambda: kernel(h, *ctx, *weights, mask),
+                        lambda: plain(h, *ctx, *weights, mask),
+                        iters=20 if B == 512 else 10)
+                    out = torch.empty_like(h)
+                    bound = bound_ms((h, *ctx, *weights, mask, out),
+                                     attention_ops(B, H, A), dn)
+                    k_ms, p_ms = timed[(name, B)]
+                    print(f"  time {name:16s} bf16 B={B:<5d} kernel "
+                          f"{k_ms:.4f} ms  plain {p_ms:.4f} ms  bound "
+                          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+                    if B == 512 and name != "attention":
+                        times[name], bounds[name] = timed[(name, B)], bound
+            del h, emb, p_att, q, emb_t, p_t, calls
+
+    # the quantized call's gradient: kernel forward, the dequantized
+    # reference recomputed in backward, against plain autograd (f32)
+    B = TRAIN_B
+    live = [rn(B, H, scale=0.5), rn(H, A, scale=H ** -0.5),
+            rn(A, scale=0.05), rn(A, 1, scale=A ** -0.5), rn(1, scale=0.05)]
+    live = [x.requires_grad_(True) for x in live]
+    q = att_step.quantize_features(rn(B, K, H).relu(), rn(B, K, A))
+    mask = torch.ones(B, K, device=dev)
+    mask[::3, 20:] = 0.0
+    out = att_step.fused_attention_q(live[0], *q, *live[1:], mask)
+    require(out.grad_fn is not None, "attention_q: no autograd Function")
+    got = torch.autograd.grad(out.square().sum(), live)
+    want = torch.autograd.grad(att_step.attention_reference_q(
+        live[0], *q, *live[1:], mask).square().sum(), live)
+    err = max((g - w).abs().max().item() / max(1.0, w.abs().max().item())
+              for g, w in zip(got, want))
+    report("attention_q", "f32 B=128 gradient (relative)", err, TOL["grad"])
+    errs["attention_q"] = max(errs["attention_q"], err)
+
+
 # ---------------------------------------------------------------------------
 # 4. the slice: serving at full width
 # ---------------------------------------------------------------------------
@@ -460,10 +663,12 @@ def write_run_dir(params=None, run_dir=RUN_DIR):
     random weights from SEED."""
     from cooperativeimagecaptioning_tpu_torch.config import Options
     from cooperativeimagecaptioning_tpu_torch.training import checkpoint, joint
-    opt = Options(caption_model="att2in2", vocab_size=VOCAB, rnn_size=WIDTH,
+    opt = Options(caption_model="att2in2", vse_model="None", phase=2,
+                  vocab_size=VOCAB, rnn_size=WIDTH,
                   input_encoding_size=WIDTH, att_hid_size=WIDTH,
                   fc_feat_size=FEAT, att_feat_size=FEAT, seq_length=L,
-                  checkpoint_path=run_dir)
+                  max_att_len=K, batch_size=EVAL_B, language_eval=1,
+                  id="smoke", checkpoint_path=run_dir)
     os.makedirs(run_dir, exist_ok=True)
     vocab = {str(i): f"w{i}" for i in range(1, VOCAB + 1)}
     with open(os.path.join(run_dir, "infos_.pkl"), "wb") as f:
@@ -493,10 +698,11 @@ def post_npz(base, fc, att, masks):
         return json.loads(r.read())
 
 
-def serve_requests(svc, label, kernel):
+def serve_requests(svc, label, kernel, att_kernel="attention",
+                   sizes=(1, 5, 64, 300)):
     """POST npz requests of 1, 5, 64 and 300 images; check the answers and
-    that each bucket call launched attention and `kernel` seq_length times.
-    Returns the ids of the 64-image request."""
+    that each bucket call launched `att_kernel` and `kernel` seq_length
+    times, and no other kernel.  Returns the ids of the 64-image request."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     from cooperativeimagecaptioning_tpu_torch.serving import make_http_server
     srv = make_http_server(svc, "127.0.0.1", 0)
@@ -509,7 +715,7 @@ def serve_requests(svc, label, kernel):
             hz = json.loads(r.read())
         require(hz["status"] == "ok" and hz["beam_size"] == svc.beam_size,
                 f"/healthz answered {hz}")
-        for n in (1, 5, 64, 300):
+        for n in sizes:
             fc, att, masks = features(n, seed=n)
             before = _dispatch.launches()
             out = post_npz(base, fc, att, masks)
@@ -528,7 +734,7 @@ def serve_requests(svc, label, kernel):
                         f"{label} n={n}: caption does not decode its ids")
             calls = 1  # every n here fits one bucket
             for k in _dispatch.KERNELS:
-                want = L * calls if k in ("attention", kernel) else 0
+                want = L * calls if k in (att_kernel, kernel) else 0
                 got = after[k] - before[k]
                 require(got == want, f"{label} n={n}: {k} launched {got} "
                         f"times, expected {want}")
@@ -615,7 +821,138 @@ def phase_slice(smi):
     print(f"throughput ({smi}; bf16, host features to ids, serial "
           f"requests): " + "; ".join(f"{k}: {v:.1f} captions/s"
                                      for k, v in rates.items()), flush=True)
-    return main_launches
+    layout_launches = phase_layouts(smi, {0: greedy, 2: beam},
+                                    {0: ids_greedy, 2: ids_beam}, rates)
+    return {k: main_launches[k] + layout_launches[k] for k in main_launches}
+
+
+def decode_memory(svc, n=4096):
+    """Device memory of one greedy decode of `n` images on `svc`'s speaker:
+    (bytes of the resident attention context, peak bytes allocated during
+    the decode beyond what was allocated before the request).  The context
+    is made as the service makes it, the features freed before the decode."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops import decoding
+    _, att, masks = features(n, seed=7)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        ctx = svc.speaker.encode_features(
+            None, svc._to_device(att),
+            torch.from_numpy(masks).to(svc.device))
+        if svc.att_quant == "int8":
+            ctx = svc.speaker.quantize_ctx(ctx)
+        elif getattr(svc.opt, "att_kmajor", 0):
+            ctx = svc.speaker.kmajor_ctx(ctx)
+        ctx_bytes = sum(t.numel() * t.element_size() for t in ctx.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        decoding.sample(svc.speaker, ctx, svc.opt.seq_length, mode="greedy")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    return ctx_bytes, peak
+
+
+def request_memory(svc, n=4096):
+    """torch.cuda.max_memory_allocated over one request of `n` images."""
+    import torch
+    fc, att, masks = features(n, seed=7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    svc.caption_ids(fc, att, masks)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def phase_layouts(smi, plain, plain_ids, plain_rates):
+    """The two other decode layouts of the attention context through the
+    service: att_quant="int8" (kernel D) and att_kmajor=1 (kernel E), greedy
+    and beam 2, bf16, from_run_dir + warmup + the HTTP server.  `plain`,
+    `plain_ids` and `plain_rates` are the b-major services of the same run
+    dir, the ids they served for the 64-image request and their captions/s.
+    Returns the launch counts of the served requests."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
+    print("decode layouts of the attention context: int8 (att_quant), "
+          "K-major (att_kmajor=1)", flush=True)
+    svcs = {}
+    t0 = time.perf_counter()
+    for name in ("int8", "k-major"):
+        kw, _ = LAYOUTS[name]
+        for m in (0, 2):
+            svcs[name, m] = CaptioningService.from_run_dir(
+                RUN_DIR, beam_size=m, compute_dtype="bfloat16", **kw)
+            svcs[name, m].warmup()
+    torch.cuda.synchronize()
+    print(f"  four services loaded and warmed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    _dispatch.reset_launches()
+    served = {}
+    for (name, m), svc in svcs.items():
+        mode = "beam-2" if m else "greedy"
+        served[name, m] = serve_requests(
+            svc, f"{name} {mode} bf16", "beam_head" if m else "greedy_head",
+            att_kernel=LAYOUTS[name][1])
+    launches = _dispatch.launches()
+    require(launches["attention"] == 0 and launches["attention_q"] > 0
+            and launches["attention_kmajor"] > 0,
+            f"decode layouts: launches {launches}")
+    print(f"  launches of the int8 and K-major requests: {launches}",
+          flush=True)
+
+    # ids, one 64-image request at one bucket: f32 K-major on the card vs
+    # f32 b-major on the card; f32 int8 on the card vs the f32 int8 CPU
+    # service; how often int8 ids equal the unquantized ids (reported)
+    fc, att, masks = features(64, seed=64)
+    for m in (0, 2):
+        mode = "beam-2" if m else "greedy"
+
+        def ids(device="cuda", **kw):
+            return CaptioningService.from_run_dir(
+                RUN_DIR, beam_size=m, compute_dtype="float32", buckets=(64,),
+                device=device, **kw).caption_ids(fc, att, masks)
+        base = ids()
+        q_gpu = ids(att_quant="int8")
+        for what, a, b, floor in (
+                ("f32 K-major cuda vs f32 b-major cuda", ids(att_kmajor=1),
+                 base, AGREE_F32),
+                ("f32 int8 cuda vs f32 int8 cpu", q_gpu,
+                 ids("cpu", att_quant="int8"), AGREE_F32),
+                ("f32 int8 cuda vs f32 unquantized cuda", q_gpu, base, None),
+                ("bf16 int8 cuda vs bf16 unquantized cuda",
+                 served["int8", m], plain_ids[m], None),
+                ("bf16 K-major cuda vs bf16 b-major cuda",
+                 served["k-major", m], plain_ids[m], None)):
+            rate = float((a == b).all(axis=1).mean())
+            need = f"need >= {floor * 100:.0f}%" if floor else "reported"
+            print(f"  {what}, {mode}: {rate * 100:.1f}% of 64 rows equal "
+                  f"({need})", flush=True)
+            require(floor is None or rate >= floor,
+                    f"{what}, {mode}: {rate} of rows equal, below {floor}")
+
+    rows = {"b-major": plain_rates}
+    for name in ("int8", "k-major"):
+        rows[name] = {
+            "greedy bucket 512": captions_per_s(svcs[name, 0], 512),
+            "greedy bucket 4096": captions_per_s(svcs[name, 0], 4096),
+            "beam-2 bucket 512": captions_per_s(svcs[name, 2], 512)}
+    for name, r in rows.items():
+        print(f"throughput by layout ({smi}; bf16, host features to ids, "
+              f"serial requests) {name}: "
+              + "; ".join(f"{k}: {v:.1f} captions/s" for k, v in r.items()),
+              flush=True)
+
+    for name, svc in (("bf16 b-major", plain[0]), ("int8", svcs["int8", 0]),
+                      ("bf16 k-major", svcs["k-major", 0])):
+        ctx_bytes, decode_peak = decode_memory(svc)
+        print(f"memory ({smi}; greedy, 4096 images) {name}: context "
+              f"{ctx_bytes / 2 ** 20:.1f} MiB resident; peak during the "
+              f"decode {decode_peak / 2 ** 20:.1f} MiB above the service; "
+              f"max_memory_allocated over the whole request "
+              f"{request_memory(svc) / 2 ** 20:.1f} MiB", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -788,23 +1125,207 @@ def phase_train(smi):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# 6. evaluation: the trained speaker under the final-eval protocol
+# ---------------------------------------------------------------------------
+
+def eval_dataset():
+    """A SyntheticDataset at the reference's shapes: twelve batches of
+    EVAL_B images in the val and in the test split, three times what the
+    evaluator keeps in flight."""
+    from cooperativeimagecaptioning_tpu_torch.data import SyntheticDataset
+    return SyntheticDataset(num_images=EVAL_IMAGES, vocab_size=VOCAB,
+                            seq_length=L, fc_feat_size=FEAT,
+                            att_feat_size=FEAT, max_K=K,
+                            splits=(0.2, 0.4, 0.4), seed=SEED + 1)
+
+
+def eval_against_cpu(ds, run_dir, who, layouts, min_distinct):
+    """The first EVAL_CPU_BATCHES val batches through Evaluator.eval_split
+    (f32, beam 2) on the card and on the CPU port, `run_dir`'s speaker, once
+    for each context layout in `layouts`: the captions of at least AGREE_F32
+    of the images equal (the vocabulary maps id i to "w<i>", so equal
+    captions are equal ids up to the end token), at least `min_distinct`
+    different captions among them, and loss_cap within EVAL_LOSS_RTOL."""
+    from cooperativeimagecaptioning_tpu_torch import config, data
+    from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split import (
+        Evaluator)
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint
+    model = os.path.join(run_dir, "model-best.pth")
+    n = EVAL_CPU_BATCHES * EVAL_B
+    ek = {"split": "val", "beam_size": 2, "language_eval": 0,
+          "num_images": n}
+    for name in layouts:
+        got = {}
+        for device in (DEVICE, "cpu"):
+            opt = config.load_infos(os.path.join(run_dir, "infos_.pkl"))["opt"]
+            for k, v in LAYOUTS[name][0].items():
+                setattr(opt, k, v)
+            loader = data.DataLoader(opt, dataset=ds)
+            params = checkpoint.load_params(model, device)
+            losses, preds, _ = Evaluator(opt, device=device).eval_split(
+                params, loader, ek)
+            got[device] = (losses["loss_cap"],
+                           {p["image_id"]: p["caption"] for p in preds})
+        (a, caps), (b, caps_cpu) = got[DEVICE], got["cpu"]
+        require(len(caps) == n and sorted(caps) == sorted(caps_cpu),
+                f"evaluation {who} {name}: images of the card and the CPU")
+        rate = float(np.mean([caps[i] == caps_cpu[i] for i in caps]))
+        distinct = len(set(caps.values()))
+        rel = abs(a - b) / abs(b)
+        print(f"  {who}, {name}, {n} val images, card vs cpu port: captions "
+              f"of {rate * 100:.1f}% of the images equal (need >= "
+              f"{AGREE_F32 * 100:.0f}%), {distinct} distinct captions (need "
+              f">= {min_distinct}); loss_cap {a:.6f} vs {b:.6f} (relative "
+              f"{rel:.2e}, tol {EVAL_LOSS_RTOL:.0e})", flush=True)
+        require(rate >= AGREE_F32, f"evaluation {who} {name}: captions of "
+                f"{rate} of the images equal the CPU port's")
+        require(distinct >= min_distinct, f"evaluation {who} {name}: "
+                f"{distinct} distinct captions")
+        require(rel <= EVAL_LOSS_RTOL,
+                f"evaluation {who} {name}: loss_cap relative {rel}")
+
+
+def phase_eval(smi):
+    """TRAIN_RUN_DIR (phase 5's trained speaker) through eval.eval and
+    Evaluator.eval_split, f32, beam 2, with each context layout."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch import config, data
+    from cooperativeimagecaptioning_tpu_torch import eval as eval_entry
+    from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split import (
+        MAX_IN_FLIGHT, Evaluator)
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint
+    model = os.path.join(TRAIN_RUN_DIR, "model-best.pth")
+    infos = os.path.join(TRAIN_RUN_DIR, "infos_.pkl")
+    t0 = time.perf_counter()
+    ds = eval_dataset()
+    n_test = sum(1 for im in ds.info["images"] if im["split"] == "test")
+    batches = -(-n_test // EVAL_B)
+    print(f"evaluation: {os.path.relpath(TRAIN_RUN_DIR, REPO)} (phase 5's "
+          f"speaker), f32, beam 2, language_eval=1; {EVAL_IMAGES} synthetic "
+          f"images made in {time.perf_counter() - t0:.1f} s, {n_test} in the "
+          f"test split, batch {EVAL_B} ({batches} batches, 5 captions an "
+          f"image in the loss)", flush=True)
+    os.chdir(TRAIN_RUN_DIR)  # eval_results/ is written under the run dir
+    T = L + 1
+    total = {k: 0 for k in _dispatch.KERNELS}
+    losses = {}
+    for name, (kw, att_kernel) in LAYOUTS.items():
+        # the user's entry point: eval.eval on the run dir
+        opt = config.load_infos(infos)["opt"]
+        for k, v in kw.items():
+            setattr(opt, k, v)
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        out = eval_entry.eval(opt, model, infos, split="test", dataset=ds,
+                              device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _dispatch.launches()
+        preds, stats = out["split_predictions"], out["lang_stats"]
+        want_ids = sorted(im["id"] for im in ds.info["images"]
+                          if im["split"] == "test")
+        require(sorted(p["image_id"] for p in preds) == want_ids,
+                f"evaluation {name}: not one prediction per test image")
+        require(all(isinstance(p["caption"], str) for p in preds),
+                f"evaluation {name}: captions")
+        require(np.isfinite(out["loss"]["loss_cap"]),
+                f"evaluation {name}: loss_cap {out['loss']['loss_cap']}")
+        for metric in ("CIDEr", "Bleu_1", "Bleu_4", "ROUGE_L", "METEOR"):
+            require(metric in stats and np.isfinite(stats[metric]),
+                    f"evaluation {name}: {metric} {stats.get(metric)}")
+        # the loss runs the b-major attention T times a batch (no recompute
+        # in eval mode), the decode its layout's attention and the beam head
+        # L times a batch
+        want = {k: 0 for k in _dispatch.KERNELS}
+        want["attention"] = batches * T
+        want[att_kernel] += batches * L
+        want["beam_head"] = batches * L
+        require(launches == want, f"evaluation {name}: launches {launches}, "
+                f"expected {want}")
+        for k, v in launches.items():
+            total[k] += v
+        losses[name] = out["loss"]["loss_cap"]
+        print(f"  eval.eval {name}: {len(preds)} predictions, loss_cap "
+              f"{out['loss']['loss_cap']:.4f}, CIDEr {stats['CIDEr']:.4f}, "
+              f"Bleu_4 {stats['Bleu_4']:.4f}, ROUGE_L {stats['ROUGE_L']:.4f}, "
+              f"METEOR {stats['METEOR']:.4f}; {wall:.2f} s in all; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+
+        # the evaluator itself, for its timings: the val split
+        loader = data.DataLoader(opt, dataset=ds)
+        params = checkpoint.load_params(model, DEVICE)
+        ev = Evaluator(opt, device=DEVICE)
+        ek = {"split": "val", "beam_size": 2, "language_eval": 0,
+              "num_images": -1}
+        ev.eval_split(params, loader, ek)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, val_preds, _ = ev.eval_split(params, loader, ek)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(len(val_preds) == batches * EVAL_B
+                and ev.drained_in_loop == batches - MAX_IN_FLIGHT > 0,
+                f"evaluation {name}: {len(val_preds)} val images, "
+                f"{ev.drained_in_loop} batches drained inside the loop")
+        print(f"  Evaluator.eval_split {name} ({smi}; f32, beam 2, loss and "
+              f"decode, no language metrics): {len(val_preds)} images in "
+              f"{wall:.3f} s = {len(val_preds) / wall:.1f} images/s; "
+              f"{ev.drained_in_loop} of {batches} batches drained inside "
+              f"the loop (at most {MAX_IN_FLIGHT} in flight); last_timings "
+              f"{ev.last_timings}", flush=True)
+        del ev, params, loader
+    spread = max(losses.values()) - min(losses.values())
+    require(spread <= 1e-6 * abs(losses["b-major"]),
+            f"the loss must not depend on the decode layout: {losses}")
+
+    # the decode's ids and the loss against the CPU port: the random-weight
+    # speaker of phase 4 (its captions differ from image to image) with each
+    # layout, and the trained speaker evaluated above
+    eval_against_cpu(ds, RUN_DIR, "random-weight speaker", LAYOUTS,
+                     min_distinct=EVAL_CPU_BATCHES * EVAL_B // 16)
+    eval_against_cpu(ds, TRAIN_RUN_DIR, "trained speaker", ("b-major",),
+                     min_distinct=1)
+    os.chdir(REPO)
+    return total
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, REPO)
     import torch
+    t_start = time.perf_counter()
     phase_build()
-    errs, times = phase_kernels()
+    errs, times, bounds = phase_kernels()
+    print(f"elapsed after the kernel checks: "
+          f"{time.perf_counter() - t_start:.0f} s", flush=True)
     with fused_cell_switch(False):
         serve_launches = phase_slice(smi)
+    print(f"elapsed after serving: {time.perf_counter() - t_start:.0f} s",
+          flush=True)
     train_launches, _ = phase_train(smi)
+    print(f"elapsed after training: {time.perf_counter() - t_start:.0f} s",
+          flush=True)
+    with fused_cell_switch(False):
+        eval_launches = phase_eval(smi)
+    print(f"elapsed after evaluation: {time.perf_counter() - t_start:.0f} s",
+          flush=True)
     # each path's counts run from 0 just before it to just after it
-    kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
-                "replaces": REPLACES[k],
-                "launches": serve_launches[k] + train_launches[k],
-                "launches_by_path": {"serve": serve_launches[k],
-                                     "train": train_launches[k]},
-                "max_abs_err": errs[k], "ms": times[k][0],
-                "plain_ms": times[k][1]} for k in SOURCES]
+    kernels = []
+    for k in SOURCES:
+        by_path = {"serve": serve_launches[k], "train": train_launches[k],
+                   "eval": eval_launches[k]}
+        require(sum(by_path.values()) > 0,
+                f"{k} was never launched on a main path")
+        kernels.append({
+            "name": k, "route": "cuda", "source": SOURCES[k],
+            "replaces": REPLACES[k], "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": errs[k],
+            "ms": times[k][0], "plain_ms": times[k][1],
+            "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+            # no single PyTorch call computes any of these functions
+            "library_ms": None})
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,11 @@
-"""Data layer: the JAX package's host-side loader and datasets, shared as
-is (cocotalk json/h5 readers, feature stores, the batcher).
+"""Data layer: cocotalk json/h5 readers, feature stores, batcher, prefetcher.
 
-`DataLoader` and `SyntheticDataset` yield numpy batches; their modules
-(data/loader.py, data/sources.py) import only numpy and the standard
-library, never JAX, so the port and the card's machine use them unchanged.
-The Trainer turns each batch into tensors on its device."""
+The port's own copies of the JAX package's host-side loader and datasets.
+`DataLoader` and the datasets yield numpy batches and import only numpy and
+the standard library; the Trainer and the Evaluator turn each batch into
+tensors on their device."""
 
-from cooperativeimagecaptioning_tpu.data.loader import DataLoader
-from cooperativeimagecaptioning_tpu.data.sources import SyntheticDataset
-
-__all__ = ["DataLoader", "SyntheticDataset"]
+from cooperativeimagecaptioning_tpu_torch.data.loader import DataLoader  # noqa: F401
+from cooperativeimagecaptioning_tpu_torch.data.sources import (  # noqa: F401
+    DirFeatureSource, FileDataset, LmdbFeatureSource, SyntheticDataset,
+    open_feature_source)

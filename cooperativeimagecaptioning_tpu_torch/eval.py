@@ -1,0 +1,67 @@
+"""Standalone evaluation entry point of the port (mirrors the repository's
+eval.py; ref: eval.py).
+
+eval(opt, model_name, infos_name, ann_file, listener, split, iteration):
+rebuild the model at a specific checkpoint and run eval_split under the
+final-eval protocol (beam 2), on the card unless `device="cpu"`.  A run dir
+written by either package loads (config.load_infos).  Swapping in a
+ground-truth listener needs the listener, which is not ported yet."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from cooperativeimagecaptioning_tpu_torch import config
+from cooperativeimagecaptioning_tpu_torch.data import DataLoader
+from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split import Evaluator
+from cooperativeimagecaptioning_tpu_torch.training import checkpoint as ck
+from cooperativeimagecaptioning_tpu_torch.training import joint
+
+
+def eval(opt, model_name, infos_name, ann_file=None, listener=None,
+         split="test", iteration=None, dataset=None, device="cuda"):
+    """ref: eval.py:20-91."""
+    if listener == "gt":
+        raise NotImplementedError(
+            "listener='gt': the ground-truth listener swap needs the "
+            "listener, which is not ported yet (ROADMAP.md queue 1: the "
+            "listener and retrieval)")
+    infos = config.load_infos(infos_name)
+    if not hasattr(opt, "att_hid_size") or opt is None:
+        opt = infos["opt"]
+    opt.split = split
+    opt.beam_size = 2          # final-eval protocol (ref: eval.py:33)
+    np.random.seed(123)        # determinism pin (ref: eval.py:34)
+
+    saved = infos.get("opt")
+    if saved is not None:
+        if not getattr(opt, "input_fc_dir", ""):
+            opt.input_fc_dir = saved.input_fc_dir
+            opt.input_att_dir = saved.input_att_dir
+            opt.input_label_h5 = saved.input_label_h5
+        if not getattr(opt, "input_json", ""):
+            opt.input_json = saved.input_json
+        if not opt.batch_size:
+            opt.batch_size = saved.batch_size
+        if not opt.id:
+            opt.id = saved.id
+    opt.cider_optimization = 0  # (ref: eval.py:68)
+
+    loader = DataLoader(opt, dataset=dataset)
+    opt.vocab_size = loader.vocab_size
+    opt.seq_length = loader.seq_length
+
+    params = joint.init_params(getattr(opt, "seed", 123), opt, device)
+    params = ck.load_params_into(params, model_name)
+
+    ev = Evaluator(opt, device=device)
+    eval_kwargs = dict(vars(opt))
+    eval_kwargs["split"] = split
+    loss, split_predictions, lang_stats = ev.eval_split(
+        params, loader, eval_kwargs, ann_file=ann_file, use_gen_sent=True)
+    return {"loss": loss, "split_predictions": split_predictions,
+            "lang_stats": lang_stats}
+
+
+if __name__ == "__main__":
+    raise SystemExit("use eval.eval(...) programmatically, as the reference does")

@@ -1,0 +1,280 @@
+"""Split evaluation: loss accumulation + caption generation + metric hooks
+(counterpart of the JAX package's evaluation/eval_split.py; ref
+eval_utils.py:89-280 eval_split).
+
+The `Evaluator` takes the joint param tree (tensors on its device) and a
+`DataLoader`, and runs on one device: the card unless the caller passes
+`device="cpu"`.  Each batch runs the teacher-forced loss (f32, the b-major
+attention kernel) and one decode (greedy or beam; `compute_dtype`,
+`att_quant` and `att_kmajor` as in the service).  The loop does not
+synchronise per batch: the loss sums stay on the device and the decoded ids
+are converted after the loop, but at most `MAX_IN_FLIGHT` batches are kept
+undrained, so the host never runs further ahead of the device than that.
+
+Ported: a speaker-only tree, greedy and beam search, the language metrics.
+Not ported yet, each raising NotImplementedError that names its ROADMAP.md
+queue-1 item: `sample_max` 0 and 2 (the other sampling modes), the CIDEr-D
+reward of the eval loss (`cider_optimization > 0`; `joint.loss_fn` raises),
+the device feature cache, a device mesh, and everything that needs the
+listener (`encode_fn`, `encode_data`, and `evalrank` on a tree that has
+one).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from cooperativeimagecaptioning_tpu_torch import models as model_zoo
+from cooperativeimagecaptioning_tpu_torch.evaluation import language_eval
+from cooperativeimagecaptioning_tpu_torch.ops import decoding
+from cooperativeimagecaptioning_tpu_torch.training import joint
+from cooperativeimagecaptioning_tpu_torch.utils.text import decode_sequence
+from cooperativeimagecaptioning_tpu_torch.utils.tree import to_torch
+
+_LISTENER = "ROADMAP.md queue 1: the listener and retrieval"
+_JOINT = "ROADMAP.md queue 1: joint training"
+_SAMPLING = ("ROADMAP.md queue 1: relaxations and the six other sampling "
+             "modes")
+_MESH = "ROADMAP.md queue 1: multi-device"
+# batches whose decoded ids may wait on the device before the loop stops to
+# fetch the oldest: enough to keep the card fed, few enough to bound the queue
+MAX_IN_FLIGHT = 4
+
+
+class Evaluator:
+    """Evaluation programs for one opt configuration on one device."""
+
+    def __init__(self, opt, mesh=None, feat_cache=None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                f"Evaluator: a device mesh is not ported yet ({_MESH})")
+        if feat_cache is not None:
+            raise NotImplementedError(
+                f"Evaluator: the device feature cache is not ported yet "
+                f"({_JOINT})")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Evaluator: device 'cuda' asked for but no CUDA device is "
+                "available (pass device='cpu' to run the plain versions on "
+                "the host)")
+        self.opt = opt
+        self.speaker = model_zoo.setup(opt, opt.caption_model,
+                                       "caption_model")
+        self.last_timings = {}
+        # batches of the last eval_split fetched inside its loop, because
+        # MAX_IN_FLIGHT newer ones were queued behind them
+        self.drained_in_loop = 0
+
+    # -- device programs -----------------------------------------------------
+    def _decode_fn(self, beam_size, sample_max=1, temperature=1.0):
+        """Decode program for the eval protocol: fn(params, fc, att,
+        att_masks) -> (seq, logprobs).  sample_max 1 = greedy; beam_size > 1
+        overrides.  The speaker module is rebuilt from `params` on each call
+        (no copy in f32; one cast of the tree in bf16), so an evaluator
+        follows a tree that training updates in place."""
+        del temperature  # only the unported sampling modes read it
+        if beam_size <= 1 and int(sample_max) != 1:
+            raise NotImplementedError(
+                f"sample_max={sample_max}: only greedy and beam search are "
+                f"ported ({_SAMPLING})")
+        opt = self.opt
+        dtype = torch.bfloat16 if getattr(opt, "compute_dtype", "") == \
+            "bfloat16" else None
+
+        def run(params, fc, att, att_masks):
+            del fc  # att2in2 never reads the fc features
+            with torch.inference_mode():
+                spk = self.speaker(to_torch(joint.speaker_view(params, opt),
+                                            self.device, dtype))
+                if dtype is not None:  # serving precision (--compute_dtype)
+                    att = att.to(dtype)
+                ctx = spk.encode_features(None, att, att_masks)
+                if getattr(opt, "att_quant", "") == "int8":
+                    ctx = spk.quantize_ctx(ctx)
+                elif getattr(opt, "att_kmajor", 0):
+                    ctx = spk.kmajor_ctx(ctx)
+                if beam_size > 1:
+                    out = decoding.beam_search(
+                        spk, ctx, opt.seq_length, beam_size,
+                        decoding_constraint=opt.decoding_constraint)
+                else:
+                    out = decoding.sample(
+                        spk, ctx, opt.seq_length, mode="greedy",
+                        decoding_constraint=opt.decoding_constraint)
+                return out.seq, out.logprobs
+        return run
+
+    def loss_fn(self, params, batch):
+        """The training loss of one batch in eval mode (no dropout, no
+        scheduled sampling), in f32: (loss, aux), scalars on the device."""
+        opt = self.opt
+        with torch.no_grad():
+            return joint.loss_fn({"speaker": self.speaker}, params, opt,
+                                 batch, None, joint.Hyper.from_opt(opt),
+                                 "optimizer", train=False)
+
+    def encode_fn(self, params, fc, seqs, masks):
+        raise NotImplementedError(
+            f"encode_fn needs the listener, which is not ported yet "
+            f"({_LISTENER})")
+
+    # -- helpers -------------------------------------------------------------
+    def _put(self, x, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device,
+                                                            dtype)
+
+    def _batch_arrays(self, data):
+        """Host batch dict -> tensors on the device (labels int64, the rest
+        float32), one feature row per caption row."""
+        batch = {"labels": self._put(data["labels"], torch.int64),
+                 "masks": self._put(data["masks"]),
+                 "fc_feats": self._put(data["fc_feats"]),
+                 "att_feats": None, "att_masks": None}
+        if data.get("att_feats") is not None and self.opt.use_att:
+            batch["att_feats"] = self._put(data["att_feats"])
+            if data.get("att_masks") is not None:
+                batch["att_masks"] = self._put(data["att_masks"])
+        return batch
+
+    def _dedup(self, data, loader):
+        """One feature row per image (ref: eval_utils.py:163-176)."""
+        idx = np.arange(loader.batch_size) * loader.seq_per_img
+        use_att = self.opt.use_att
+        fc = self._put(data["fc_feats"][idx])
+        att = self._put(data["att_feats"][idx]) \
+            if data.get("att_feats") is not None and use_att else None
+        am = self._put(data["att_masks"][idx]) \
+            if data.get("att_masks") is not None and use_att else None
+        return fc, att, am
+
+    # -- main entry (ref: eval_utils.py:89-280) -------------------------------
+    def eval_split(self, params, loader, eval_kwargs=None, ann_file=None,
+                   use_gen_sent=False):
+        opt = self.opt
+        ek = dict(eval_kwargs or {})
+        num_images = ek.get("num_images", ek.get("val_images_use",
+                                                 opt.val_images_use))
+        split = ek.get("split", "val")
+        lang_eval = ek.get("language_eval", opt.language_eval)
+        rank_eval = ek.get("rank_eval", opt.rank_eval)
+        beam_size = int(ek.get("beam_size", opt.beam_size))
+        sample_max = ek.get("sample_max", 1)
+        temperature = ek.get("temperature", 1.0)
+        verbose = ek.get("verbose", False)
+
+        np.random.seed(123)  # determinism pin (ref: eval_utils.py:105)
+        params = to_torch(params, self.device)
+        _t = {"start": time.time()}
+        loader.reset_iterator(split)
+        n = 0
+        losses_acc = {}
+        loss_evals = 1e-8
+        predictions = []
+        # [seq, infos, keep]: seq stays on the device until it is drained
+        pending = []
+        drained = 0  # pending[:drained] hold host arrays already
+        decode = self._decode_fn(beam_size, sample_max, temperature)
+        while True:
+            data = loader.get_batch(split)
+            n += loader.batch_size
+            if data.get("labels") is not None:
+                loss, aux = self.loss_fn(params, self._batch_arrays(data))
+                # accumulate device scalars: converting per batch would
+                # synchronise host and device every batch; one transfer per
+                # key at the end
+                for k, v in aux.items():
+                    losses_acc[k] = losses_acc.get(k, 0.0) + v
+                losses_acc["loss"] = losses_acc.get("loss", 0.0) + loss
+                loss_evals += 1
+
+            fc, att, am = self._dedup(data, loader)
+            seq, _ = decode(params, fc, att, am)
+            ix1 = data["bounds"]["it_max"]
+            if num_images != -1:
+                ix1 = min(ix1, num_images)
+            keep = len(data["infos"]) - max(0, n - ix1)
+            pending.append([seq, data["infos"], keep])
+            # bound the work in flight: waiting for the oldest undrained
+            # batch leaves the newer ones queued on the device
+            while len(pending) - drained > MAX_IN_FLIGHT:
+                pending[drained][0] = pending[drained][0].cpu().numpy()
+                drained += 1
+            if data["bounds"]["wrapped"]:
+                break
+            if 0 <= num_images <= n:
+                break
+        _t["loop_dispatch"] = time.time()
+        self.drained_in_loop = drained
+        for seq, infos, keep in pending:
+            if torch.is_tensor(seq):
+                seq = seq.cpu().numpy()
+            sents = decode_sequence(loader.get_vocab(), seq)
+            for k, sent in enumerate(sents[:keep]):
+                predictions.append({"image_id": infos[k]["id"],
+                                    "caption": sent})
+                if verbose:
+                    print(f"image {infos[k]['id']}: {sent}")
+
+        _t["decode_drain"] = time.time()
+        lang_stats = {}
+        phase = getattr(opt, "phase", 0)
+        if lang_eval == 1:
+            if phase == 1:
+                # phase-1 twist: language metrics for both val and test each
+                # checkpoint (ref: eval_utils.py:230-236)
+                lang_stats = {
+                    s: language_eval.language_eval(
+                        opt.dataset, predictions, opt.id, s,
+                        ann_file=ann_file, loader=loader)
+                    for s in ("val", "test")}
+            else:
+                lang_stats = language_eval.language_eval(
+                    opt.dataset, predictions, opt.id, split,
+                    ann_file=ann_file, loader=loader)
+
+        _t["lang"] = time.time()
+        out_losses = {k: float(v) / loss_evals for k, v in losses_acc.items()}
+        if rank_eval:
+            if not use_gen_sent and phase == 1:
+                # rank both splits each checkpoint (ref: eval_utils.py:259-267)
+                ranks = {}
+                for s in ("val", "test"):
+                    ek_s = dict(ek)
+                    ek_s["split"] = s
+                    ranks[s] = self.evalrank(params, loader, ek_s,
+                                             use_gen_sent)
+            else:
+                ranks = self.evalrank(params, loader, ek, use_gen_sent)
+            out_losses.update(ranks)
+            if use_gen_sent and not ann_file:
+                out_losses["gt_ranks"] = self.evalrank(params, loader, ek,
+                                                       use_gen_sent=False)
+        _t["rank"] = time.time()
+        # where an evaluation's time goes: the batch loop (host enqueue, and
+        # waiting where max_in_flight binds), the drain (the device finishing,
+        # transfer, host detokenize), language metrics (host), rank passes
+        self.last_timings = {
+            "loop_dispatch_s": round(_t["loop_dispatch"] - _t["start"], 3),
+            "decode_drain_s": round(_t["decode_drain"] - _t["loop_dispatch"], 3),
+            "lang_eval_s": round(_t["lang"] - _t["decode_drain"], 3),
+            "rank_eval_s": round(_t["rank"] - _t["lang"], 3),
+        }
+        return out_losses, predictions, lang_stats
+
+    # -- retrieval (ref: eval_utils.py:283-542) --------------------------------
+    def encode_data(self, params, loader, eval_kwargs=None,
+                    use_gen_sent=False):
+        raise NotImplementedError(
+            f"encode_data needs the listener, which is not ported yet "
+            f"({_LISTENER})")
+
+    def evalrank(self, params, loader, eval_kwargs=None, use_gen_sent=False):
+        if "listener" not in params:
+            return {}
+        raise NotImplementedError(
+            f"evalrank on a tree with a listener is not ported yet "
+            f"({_LISTENER})")

@@ -16,10 +16,13 @@ methods are the JAX module's functions without the params argument.
 `step` runs the attention through the fused kernel's wrapper (a Hopper
 kernel on CUDA tensors, its plain version on CPU tensors) and the cell
 through `fused_cell` (the Hopper cell kernel under CIC_FUSED_CELL=1, else
-the plain cell, as in the JAX package); both carry gradients.  Dropout
-(training) draws from an explicit torch.Generator, or takes masks drawn
-beforehand (the teacher-forcing loop draws them outside its checkpointed
-steps).  Still to port: embed_soft, kmajor_ctx, quantize_ctx.
+the plain cell, as in the JAX package); both carry gradients.  The context
+of `encode_features` is b-major; `quantize_ctx` (int8) and `kmajor_ctx`
+(K-major) turn it into one of the two decode-only layouts, and `step` picks
+the attention kernel by the context's keys.  Dropout (training) draws from
+an explicit torch.Generator, or takes masks drawn beforehand (the
+teacher-forcing loop draws them outside its checkpointed steps).  Still to
+port: embed_soft.
 """
 
 from __future__ import annotations
@@ -112,6 +115,30 @@ class AttModel(nn.Module):
         p_att = layers.linear(p.ctx2att, emb)
         return {"att_feats": emb, "p_att_feats": p_att, "att_masks": att_masks}
 
+    @staticmethod
+    def kmajor_ctx(ctx):
+        """Decode-time K-major context layout (--att_kmajor; JAX
+        att_model.py:100-111): one transpose per sequence stores the context
+        [K, B, *].  Composes like quantize_ctx; decode only -- training
+        keeps the b-major layout.  The masks stay b-major [B, K], so beam
+        expansion repeats them along axis 0 like a b-major entry."""
+        return {"att_feats_t": ctx["att_feats"].movedim(1, 0).contiguous(),
+                "p_att_t": ctx["p_att_feats"].movedim(1, 0).contiguous(),
+                "att_masks": ctx["att_masks"]}
+
+    @staticmethod
+    def quantize_ctx(ctx):
+        """int8-quantize the per-sequence attention context for decode
+        (--att_quant int8; JAX att_model.py:142-155).  att_feats and
+        p_att_feats are constant across the decode steps; per-(b,k)-row int8
+        halves their footprint in device memory against bf16.  Training
+        keeps the full-precision context."""
+        eq, se, pq, sp = att_step.quantize_features(
+            ctx["att_feats"], ctx["p_att_feats"])
+        return {"att_feats_q": eq, "att_scale": se,
+                "p_att_q": pq, "p_att_scale": sp,
+                "att_masks": ctx["att_masks"]}
+
     def prefix_embeddings(self, ctx):
         """No pre-BOS inputs for the attention model."""
         del ctx
@@ -134,9 +161,18 @@ class AttModel(nn.Module):
         h_prev, c_prev = state
         core = self.params.core
         ap = core.attention
-        att_res = att_step.fused_attention(
-            h_prev, ctx["att_feats"], ctx["p_att_feats"], ap.h2att.w,
-            ap.h2att.b, ap.alpha_net.w, ap.alpha_net.b, ctx["att_masks"])
+        weights = (ap.h2att.w, ap.h2att.b, ap.alpha_net.w, ap.alpha_net.b,
+                   ctx["att_masks"])
+        if "att_feats_t" in ctx:
+            att_res = att_step.fused_attention_kmajor(
+                h_prev, ctx["att_feats_t"], ctx["p_att_t"], *weights)
+        elif "att_feats_q" in ctx:
+            att_res = att_step.fused_attention_q(
+                h_prev, ctx["att_feats_q"], ctx["att_scale"], ctx["p_att_q"],
+                ctx["p_att_scale"], *weights)
+        else:
+            att_res = att_step.fused_attention(
+                h_prev, ctx["att_feats"], ctx["p_att_feats"], *weights)
         next_h, next_c = cell_step.fused_cell(
             xt, h_prev, c_prev, att_res, core.i2h.w, core.i2h.b, core.h2h.w,
             core.h2h.b, core.a2c.w, core.a2c.b)

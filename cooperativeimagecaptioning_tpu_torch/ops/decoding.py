@@ -139,6 +139,14 @@ def teacher_forced_loss(speaker, ctx, inputs, targets, masks, gen=None,
     return -num / den
 
 
+def _batch_size(ctx):
+    """Rows of a context in any of its layouts: the K-major one carries the
+    batch on axis 1 (JAX decoding.py:219-224)."""
+    if "att_feats_t" in ctx:
+        return ctx["att_feats_t"].shape[1]
+    return ctx.get("att_feats", ctx.get("att_feats_q")).shape[0]
+
+
 def sample(speaker, ctx, seq_length, mode="greedy", decoding_constraint=0):
     """Greedy decode (ref AttModel.py:323-444; JAX decoding.py:201-328).
 
@@ -150,7 +158,7 @@ def sample(speaker, ctx, seq_length, mode="greedy", decoding_constraint=0):
         raise NotImplementedError(
             f"sampling mode {mode!r} is not ported yet (ROADMAP.md queue 1: "
             f"relaxations and the six other sampling modes)")
-    B = ctx["att_feats"].shape[0]
+    B = _batch_size(ctx)
     w, b = speaker.params.logit.w, speaker.params.logit.b
     bos = w.shape[1]  # BOS id = vocab_size + 1 = nclass
     device = w.device
@@ -200,8 +208,13 @@ def sample(speaker, ctx, seq_length, mode="greedy", decoding_constraint=0):
 
 def _expand_for_beams(ctx, m):
     """[B, ...] -> [B*m, ...]: each row repeated m times in place
-    (jnp.repeat, i.e. repeat_interleave -- not Tensor.repeat)."""
-    return {k: None if v is None else v.repeat_interleave(m, dim=0)
+    (jnp.repeat, i.e. repeat_interleave -- not Tensor.repeat).  The
+    transposed entries of a K-major context (keys ending in `_t`) carry the
+    batch on axis 1; every other entry, the mask and the int8 scales
+    included, on axis 0 (JAX decoding.py:373-383).  The expansion runs
+    eagerly, once, and its results are contiguous."""
+    return {k: None if v is None else v.repeat_interleave(
+                m, dim=1 if k.endswith("_t") else 0).contiguous()
             for k, v in ctx.items()}
 
 
@@ -217,7 +230,7 @@ def beam_search(speaker, ctx, seq_length, beam_size, decoding_constraint=0):
     (lax.top_k order).  With decoding_constraint the head fetches kk = m+1
     candidates per beam so the top m survive masking the previous word.
     Returns SampleOutput(seq [B, L], logprobs [B, L])."""
-    B = ctx["att_feats"].shape[0]
+    B = _batch_size(ctx)
     m = beam_size
     L = seq_length
     w, b = speaker.params.logit.w, speaker.params.logit.b

@@ -42,6 +42,11 @@ SIGNATURES = {
     # h, emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha, mask|NULL, out,
     # B, K, H, A, is_bf16, stream
     "cic_attention": [_P] * 9 + [_I] * 5 + [_P],
+    # as cic_attention, with emb [K,B,H] and p_att [K,B,A]
+    "cic_attention_kmajor": [_P] * 9 + [_I] * 5 + [_P],
+    # h, emb_q, emb_scale, p_q, p_scale, w_h2att, b_h2att, w_alpha, b_alpha,
+    # mask|NULL, out, B, K, H, A, is_bf16, stream
+    "cic_attention_q": [_P] * 11 + [_I] * 5 + [_P],
     # h, w, b, part_val, part_id, part_m, part_s, it, lp,
     # R, H, V, splits, split_cols, is_bf16, stream
     "cic_greedy_head": [_P] * 9 + [_I] * 6 + [_P],

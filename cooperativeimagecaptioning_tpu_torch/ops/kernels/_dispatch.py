@@ -23,7 +23,8 @@ import os
 
 import torch
 
-KERNELS = ("attention", "greedy_head", "beam_head", "cell")
+KERNELS = ("attention", "attention_q", "attention_kmajor", "greedy_head",
+           "beam_head", "cell")
 
 _launches = {name: 0 for name in KERNELS}
 
@@ -59,13 +60,13 @@ def fused_cell_enabled() -> bool:
 
 
 def forward_only(name: str, *tensors) -> None:
-    """The vocabulary heads have no backward (decode only): refuse inputs
-    that would need one."""
+    """The vocabulary heads and the K-major attention have no backward
+    (decode only): refuse inputs that would need one."""
     for t in tensors:
         if isinstance(t, torch.Tensor) and t.requires_grad:
             raise RuntimeError(
-                f"{name} is forward-only: an input requires grad (the "
-                f"heads run in decode only)")
+                f"{name} is forward-only: an input requires grad (it runs "
+                f"in decode only)")
 
 
 def reference_vjp(reference, xs, consts, needs, grads_out):

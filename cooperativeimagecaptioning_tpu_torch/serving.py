@@ -6,7 +6,9 @@ length, as in the JAX service, so every decode runs at one of a few static
 shapes.  Decode is greedy, or beam search (the final-eval protocol is beam
 2, ref eval.py:33), in bf16 by default.  Each decode step runs the
 attention kernel and the greedy or beam head kernel (ops/kernels/) on the
-card; on device="cpu" the same code takes their plain versions.
+card; on device="cpu" the same code takes their plain versions.  The
+attention context is b-major by default, int8 with `att_quant="int8"` or
+K-major with `att_kmajor=1`, each with its own attention kernel.
 
 Usage:
     svc = CaptioningService.from_run_dir("runs/gumbel_x", beam_size=2)
@@ -18,17 +20,18 @@ Usage:
 
 from __future__ import annotations
 
+import copy
 import os
-import pickle
 
 import numpy as np
 import torch
 
-from cooperativeimagecaptioning_tpu.utils.text import decode_sequence
+from cooperativeimagecaptioning_tpu_torch import config as config_mod
 from cooperativeimagecaptioning_tpu_torch import models as model_zoo
 from cooperativeimagecaptioning_tpu_torch.ops import decoding
 from cooperativeimagecaptioning_tpu_torch.training import checkpoint as ckpt_mod
 from cooperativeimagecaptioning_tpu_torch.training import joint
+from cooperativeimagecaptioning_tpu_torch.utils.text import decode_sequence
 from cooperativeimagecaptioning_tpu_torch.utils.tree import to_torch
 
 DEFAULT_BUCKETS = (1, 8, 64, 512, 4096)
@@ -48,18 +51,14 @@ class CaptioningService:
                 "CaptioningService: device 'cuda' asked for but no CUDA "
                 "device is available (pass device='cpu' to run the plain "
                 "versions on the host)")
-        if (att_quant or getattr(opt, "att_quant", "")) == "int8":
-            raise NotImplementedError(
-                "att_quant='int8' is not ported yet (ROADMAP.md: the int8 "
-                "attention kernel)")
-        kmajor = getattr(opt, "att_kmajor", 0) if att_kmajor is None \
-            else att_kmajor
-        if kmajor:
-            raise NotImplementedError(
-                "att_kmajor=1 is not ported yet (ROADMAP.md: the K-major "
-                "attention kernel); pass att_kmajor=0")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
+        # decode layout of the attention context (JAX serving.py:44-51,
+        # 110-116): int8 wins over K-major; att_kmajor=None keeps the opt's
+        self.att_quant = att_quant or getattr(opt, "att_quant", "")
+        if att_kmajor is not None:
+            opt = copy.copy(opt)  # the caller's opt stays as it was
+            opt.att_kmajor = int(att_kmajor)
         self.opt = opt
         self.vocab = vocab
         self.beam_size = int(beam_size or 0)
@@ -80,8 +79,8 @@ class CaptioningService:
                      **kw):
         """Load opt + vocab from infos_<id>.pkl and params from the best (or
         given) model artifact."""
-        with open(os.path.join(run_dir, f"infos_{run_id}.pkl"), "rb") as f:
-            infos = pickle.load(f)
+        infos = config_mod.load_infos(
+            os.path.join(run_dir, f"infos_{run_id}.pkl"))
         opt = infos["opt"]
         if model_name is None:
             for cand in ("model-best.pth", "alternatingModel.pth",
@@ -123,6 +122,10 @@ class CaptioningService:
                 att_masks, dtype=np.float32)).to(self.device)
             # att2in2 never reads the fc features: they stay on the host
             ctx = spk.encode_features(None, self._to_device(att), am)
+            if self.att_quant == "int8":
+                ctx = spk.quantize_ctx(ctx)
+            elif getattr(opt, "att_kmajor", 0):
+                ctx = spk.kmajor_ctx(ctx)
             if m > 1:
                 out = decoding.beam_search(spk, ctx, opt.seq_length, m,
                                            decoding_constraint=constraint)
@@ -290,6 +293,11 @@ def main(argv=None):
     p.add_argument("--max_att_len", type=int, default=0)
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=sorted(_DTYPES))
+    p.add_argument("--att_quant", default="", choices=["", "int8"],
+                   help="int8: quantize the attention context (half the "
+                        "bytes of bfloat16 per decode step)")
+    p.add_argument("--att_kmajor", type=int, default=None, choices=[0, 1],
+                   help="override the run's K-major decode layout")
     p.add_argument("--device", default="cuda")
     p.add_argument("--warmup", action="store_true",
                    help="run every bucket once before accepting requests")
@@ -297,7 +305,8 @@ def main(argv=None):
     svc = CaptioningService.from_run_dir(
         a.run_dir, run_id=a.run_id, beam_size=a.beam_size,
         buckets=tuple(a.buckets), compute_dtype=a.compute_dtype,
-        max_att_len=a.max_att_len, device=a.device)
+        max_att_len=a.max_att_len, att_quant=a.att_quant,
+        att_kmajor=a.att_kmajor, device=a.device)
     if a.warmup:
         print("warming up buckets...", flush=True)
         svc.warmup()

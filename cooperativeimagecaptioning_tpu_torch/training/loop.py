@@ -12,8 +12,8 @@ torch.Generator on that device, seeded from `opt.seed`.
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
 queue-1 item: the device mesh, fused multi-step chunks (`fused_steps > 1`),
 the device feature cache, alternating turns and the rewards, resuming
-(`start_from`), and `checkpoint_operations` (eval, checkpoints and
-histories on disk).  A run in this slice therefore keeps
+(`start_from`), and `checkpoint_operations` (checkpoints and histories on
+disk; evaluation itself is ported, evaluation/eval_split.py).  A run in this slice therefore keeps
 `save_checkpoint_every` above its iteration count.
 """
 
@@ -181,10 +181,11 @@ class Trainer:
 
     def checkpoint_operations(self):
         raise NotImplementedError(
-            f"checkpoint_operations (eval_split, checkpoints and histories "
-            f"on disk) is not ported yet ({_JOINT}; ROADMAP.md queue 1: "
-            f"eval_split): keep save_checkpoint_every above the iterations "
-            f"of a run")
+            f"checkpoint_operations (checkpoints and histories on disk) is "
+            f"not ported yet ({_JOINT}: the rest of training/checkpoint.py); "
+            f"evaluation is ported (evaluation/eval_split.Evaluator scores "
+            f"this trainer's params): keep save_checkpoint_every above the "
+            f"iterations of a run")
 
     def close(self):
         closer = getattr(self.loader, "close", None)

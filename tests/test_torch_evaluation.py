@@ -1,0 +1,265 @@
+"""Port parity of the evaluation path: the port's `Evaluator.eval_split` and
+`eval.eval` (on the CPU, float32, i.e. the plain versions of the kernels)
+against the JAX package's, on a speaker-only tree over `SyntheticDataset`,
+greedy and beam 2, with the plain, the int8 and the K-major context.
+
+The same captions per image id; `loss_cap` rtol 1e-5; every language metric
+within 1e-6 (both sides score with their pure-Python tokenizer and METEOR:
+the JAX package's C++ tier is switched off for the comparison).  The
+branches the port does not have yet raise NotImplementedError naming their
+ROADMAP item."""
+
+import importlib.util
+import os
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+from cooperativeimagecaptioning_tpu import config as jconfig  # noqa: E402
+from cooperativeimagecaptioning_tpu import data as jdata  # noqa: E402
+from cooperativeimagecaptioning_tpu.evaluation import eval_split as jeval  # noqa: E402
+from cooperativeimagecaptioning_tpu.native import bindings  # noqa: E402
+from cooperativeimagecaptioning_tpu.training import checkpoint as jckpt  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch import config as tconfig  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch import data as tdata  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch import eval as teval_entry  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch.evaluation import eval_split as teval  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch.evaluation import language_eval as tlang  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch.training import checkpoint as tckpt  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch.utils.tree import to_torch  # noqa: E402
+from test_torch_att_model import jax_params  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+K = 6
+LAYOUTS = {"plain": {}, "int8": {"att_quant": "int8"},
+           "kmajor": {"att_kmajor": 1}}
+DS = dict(num_images=20, vocab_size=25, seq_length=8, fc_feat_size=20,
+          att_feat_size=20, max_K=K)
+
+
+@pytest.fixture(autouse=True)
+def _pure_python_metrics(monkeypatch, tmp_path):
+    """Both sides score with the pure-Python tokenizer and METEOR, and write
+    their eval_results/ under a scratch directory."""
+    monkeypatch.setattr(bindings, "available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+
+
+def opt_kwargs(**kw):
+    base = dict(caption_model="att2in2", vse_model="None", batch_size=4,
+                seq_per_img=1, rnn_size=16, input_encoding_size=12,
+                att_hid_size=8, fc_feat_size=20, att_feat_size=20,
+                drop_prob_lm=0.0, language_eval=1, rank_eval=1,
+                val_images_use=-1, beam_size=1, id="evt", use_att=True,
+                caption_loss_weight=1, max_att_len=K, phase=2)
+    base.update(kw)
+    return base
+
+
+def build(**kw):
+    """((jax opt, loader, params), (port opt, loader, params)) of one numpy
+    param tree over equal synthetic datasets."""
+    sides = []
+    tree = None
+    for cfg, data, on_torch in ((jconfig, jdata, False),
+                                (tconfig, tdata, True)):
+        opt = cfg.Options(**opt_kwargs(**kw))
+        loader = data.DataLoader(opt, dataset=data.SyntheticDataset(**DS))
+        opt.vocab_size = loader.vocab_size
+        opt.seq_length = loader.seq_length
+        if tree is None:
+            tree = {"speaker": jax_params(opt, seed=5)}
+        params = to_torch(tree, "cpu") if on_torch else \
+            jax.tree.map(jax.numpy.asarray, tree)
+        sides.append((opt, loader, params))
+    return sides
+
+
+def assert_same_result(want, got):
+    jlosses, jpreds, jlang = want
+    tlosses, tpreds, tlang_ = got
+    assert [(p["image_id"], p["caption"]) for p in tpreds] == \
+        [(p["image_id"], p["caption"]) for p in jpreds]
+    assert set(tlosses) == set(jlosses)
+    for k, v in jlosses.items():
+        if isinstance(v, dict):  # rank results: empty without a listener
+            assert tlosses[k] == v
+        else:
+            np.testing.assert_allclose(tlosses[k], v, rtol=1e-5, atol=0)
+    assert set(tlang_) == set(jlang)
+    for k, v in jlang.items():
+        assert abs(tlang_[k] - v) <= 1e-6, k
+
+
+@pytest.mark.parametrize("beam", [1, 2])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_eval_split_matches_jax(layout, beam):
+    (jopt, jloader, jparams), (topt, tloader, tparams) = build(
+        **LAYOUTS[layout])
+    ek = {"split": "val", "num_images": -1, "beam_size": beam}
+    want = jeval.Evaluator(jopt).eval_split(jparams, jloader, ek)
+    ev = teval.Evaluator(topt, device="cpu")
+    got = ev.eval_split(tparams, tloader, ek)
+    assert_same_result(want, got)
+    losses, preds, lang = got
+    val = [tloader.ds.info["images"][ix]["id"]
+           for ix in tloader.split_ix["val"]]
+    assert sorted(p["image_id"] for p in preds) == sorted(val)
+    assert np.isfinite(losses["loss_cap"]) and "CIDEr" in lang
+    assert len({p["caption"] for p in preds}) > 1
+    assert set(ev.last_timings) == {"loop_dispatch_s", "decode_drain_s",
+                                    "lang_eval_s", "rank_eval_s"}
+    assert os.path.isfile(os.path.join("eval_results", "evt_val.json"))
+
+
+@pytest.mark.parametrize("in_flight", [1, 2, 100])
+def test_in_flight_bound_changes_nothing(monkeypatch, in_flight):
+    """Draining early (at most `MAX_IN_FLIGHT` undrained batches) gives the
+    predictions of draining everything after the loop, in the same order."""
+    ek = {"split": "test", "num_images": -1}
+    # a fresh loader for each run: which caption of an image the loss sees is
+    # a draw from the loader's own generator
+    _, (topt, tloader, tparams) = build(language_eval=0, rank_eval=0)
+    monkeypatch.setattr(teval, "MAX_IN_FLIGHT", 10 ** 6)
+    want = teval.Evaluator(topt, device="cpu").eval_split(tparams, tloader,
+                                                          ek)
+    _, (topt, tloader, tparams) = build(language_eval=0, rank_eval=0)
+    monkeypatch.setattr(teval, "MAX_IN_FLIGHT", in_flight)
+    ev = teval.Evaluator(topt, device="cpu")
+    got = ev.eval_split(tparams, tloader, ek)
+    assert got[1] == want[1] and got[0] == want[0]
+    assert len(got[1]) == len(tloader.split_ix["test"])
+    batches = -(-len(got[1]) // tloader.batch_size)
+    assert ev.drained_in_loop == max(0, batches - in_flight)
+
+
+def test_num_images_cuts_the_split():
+    (jopt, jloader, jparams), (topt, tloader, tparams) = build(
+        language_eval=0, rank_eval=0, batch_size=3)
+    ek = {"split": "val", "num_images": 2}
+    want = jeval.Evaluator(jopt).eval_split(jparams, jloader, ek)
+    got = teval.Evaluator(topt, device="cpu").eval_split(tparams, tloader,
+                                                         ek)
+    assert len(got[1]) == 2
+    assert_same_result(want, got)
+
+
+def test_bf16_decode_runs():
+    _, (topt, tloader, tparams) = build(language_eval=0, rank_eval=0,
+                                        compute_dtype="bfloat16")
+    losses, preds, _ = teval.Evaluator(topt, device="cpu").eval_split(
+        tparams, tloader, {"split": "val", "beam_size": 2})
+    assert len(preds) == len(tloader.split_ix["val"])
+    assert np.isfinite(losses["loss_cap"])
+
+
+def _root_eval():
+    spec = importlib.util.spec_from_file_location(
+        "root_eval", os.path.join(REPO, "eval.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_eval_entry_matches_jax(tmp_path, layout):
+    """A run dir written by the JAX package, through both `eval.eval`: the
+    final-eval protocol (beam 2, the test split)."""
+    (jopt, jloader, jparams), _ = build(**LAYOUTS[layout])
+    model = str(tmp_path / "model-best.pth")
+    infos = str(tmp_path / "infos_evt.pkl")
+    jckpt.save_params(jparams, model)
+    with open(infos, "wb") as f:
+        pickle.dump({"opt": jopt, "vocab": jloader.get_vocab()}, f)
+    want = _root_eval().eval(None, model, infos, split="test",
+                             dataset=jdata.SyntheticDataset(**DS))
+    got = teval_entry.eval(None, model, infos, split="test",
+                           dataset=tdata.SyntheticDataset(**DS),
+                           device="cpu")
+    assert_same_result(
+        (want["loss"], want["split_predictions"], want["lang_stats"]),
+        (got["loss"], got["split_predictions"], got["lang_stats"]))
+    assert got["loss"].get("gt_ranks") == {} == want["loss"].get("gt_ranks")
+    assert len(got["split_predictions"]) == len(jloader.split_ix["test"])
+
+
+def test_evalrank_without_a_listener_is_empty():
+    _, (topt, tloader, tparams) = build()
+    ev = teval.Evaluator(topt, device="cpu")
+    assert ev.evalrank(tparams, tloader, {"split": "val"}) == {}
+
+
+@pytest.mark.parametrize("what,match", [
+    ("sample_max0", "sampling modes"), ("sample_max2", "sampling modes"),
+    ("reward", "joint training"), ("feat_cache", "joint training"),
+    ("mesh", "multi-device"), ("evalrank", "listener"),
+    ("encode_data", "listener"), ("encode_fn", "listener"),
+    ("gt_listener", "listener"), ("spice", "spice")])
+def test_unported_branches_name_their_roadmap_item(tmp_path, what, match):
+    _, (topt, tloader, tparams) = build(language_eval=0, rank_eval=0)
+    with_listener = dict(tparams, listener={})
+    with pytest.raises(NotImplementedError, match="ROADMAP.*" + match):
+        if what.startswith("sample_max"):
+            teval.Evaluator(topt, device="cpu").eval_split(
+                tparams, tloader, {"sample_max": int(what[-1])})
+        elif what == "reward":
+            teval.Evaluator(topt.replace(cider_optimization=1),
+                            device="cpu").eval_split(tparams, tloader, {})
+        elif what == "feat_cache":
+            teval.Evaluator(topt, feat_cache={}, device="cpu")
+        elif what == "mesh":
+            teval.Evaluator(topt, mesh=object(), device="cpu")
+        elif what == "evalrank":
+            teval.Evaluator(topt, device="cpu").evalrank(with_listener,
+                                                         tloader)
+        elif what == "encode_data":
+            teval.Evaluator(topt, device="cpu").encode_data(with_listener,
+                                                            tloader)
+        elif what == "encode_fn":
+            teval.Evaluator(topt, device="cpu").encode_fn(with_listener,
+                                                          None, None, None)
+        elif what == "gt_listener":
+            teval_entry.eval(None, "m.pth", "i.pkl", listener="gt",
+                             device="cpu")
+        else:
+            tlang.language_eval("coco", [], "x", "val", loader=tloader,
+                                out_dir=str(tmp_path), include_spice=True)
+
+
+def test_cuda_evaluator_without_a_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present here")
+    _, (topt, _, _) = build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        teval.Evaluator(topt)  # device defaults to cuda
+
+
+def test_load_params_into_merges_leniently(tmp_path, capsys):
+    """Shared leaves are copied onto the target's leaves, a missing leaf
+    keeps its value, an extra leaf is reported, another shape is copied
+    flat -- as the JAX package's load_params_into does."""
+    path = str(tmp_path / "m.pth")
+    saved = {"speaker": {"a": np.arange(6, dtype=np.float32).reshape(2, 3),
+                         "b": np.ones(4, np.float32),
+                         "extra": np.zeros(1, np.float32)}}
+    with open(path, "wb") as f:
+        pickle.dump(saved, f)
+    cur = {"speaker": {"a": np.zeros((2, 3), np.float32),
+                       "b": np.zeros(6, np.float32),
+                       "c": np.full(2, 7.0, np.float32)}}
+    want = jckpt.load_params_into(
+        jax.tree.map(jax.numpy.asarray, cur), path)
+    got = tckpt.load_params_into(to_torch(cur, "cpu"), path)
+    out = capsys.readouterr().out
+    assert "speaker.c not in loaded checkpoint" in out
+    assert "speaker.extra in checkpoint not in model" in out
+    assert "size mismatch" in out
+    for k in ("a", "b", "c"):
+        np.testing.assert_array_equal(np.asarray(want["speaker"][k]),
+                                      got["speaker"][k].numpy())
+    with pytest.raises(KeyError):
+        tckpt.load_params_into(to_torch(cur, "cpu"), path, strict=True)

@@ -6,8 +6,9 @@ kernel against its plain version.
 
 Tolerances: float outputs atol = rtol = 1e-5 (both sides f32; JAX at
 "highest" matmul precision), ids exactly equal.  On the card: f32 outputs
-within 1e-4 (summation order only), bf16 attention within 3e-2 (1-2 bf16
-ulps; both sides round the f32 result to bf16), planted ties exactly."""
+within 1e-4 (summation order only), bf16 attention (all three layouts)
+within 3e-2 (1-2 bf16 ulps; both sides round the f32 result to bf16),
+planted ties exactly."""
 
 import re
 
@@ -334,6 +335,70 @@ def test_attention_kernel_matches_plain(cuda, dtype, mask, B, K):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", ["none", "partial"])
+@pytest.mark.parametrize("B,K,H,A", [(13, 6, 96, 80), (64, 36, 512, 512),
+                                     (9, 64, 96, 80), (8, 1, 96, 80)])
+def test_attention_kmajor_kernel_matches_plain(cuda, dtype, mask, B, K, H, A):
+    """Kernel E against its plain version (and so against kernel A's: the
+    same arithmetic on another layout)."""
+    h, emb, p_att, *rest = as_torch(
+        att_case(B=B, K=K, H=H, A=A, mask=mask if K > 1 else "none"), cuda,
+        dtype)
+    args = (h, emb.movedim(0, 1).contiguous(),
+            p_att.movedim(0, 1).contiguous(), *rest)
+    got = att_step.fused_attention_kmajor(*args)
+    torch.cuda.synchronize()
+    want = att_step.attention_reference_kmajor(*args)
+    assert got.dtype == dtype
+    assert _dispatch.launches()["attention_kmajor"] == 1
+    assert _dispatch.launches()["attention"] == 0
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    with pytest.raises(ValueError):  # a b-major context is refused
+        att_step.fused_attention_kmajor(h, emb, p_att, *rest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", ["none", "partial"])
+@pytest.mark.parametrize("B,K,H,A", [(13, 6, 96, 80), (64, 36, 512, 512),
+                                     (9, 64, 32, 1024), (8, 1, 96, 80)])
+def test_attention_q_kernel_matches_plain(cuda, dtype, mask, B, K, H, A):
+    """Kernel D against its plain version on the same int8 context, and
+    `quantize_features` on the card against the same function on the CPU
+    (int8 values equal, scales to 1e-6 relative)."""
+    a = att_case(B=B, K=K, H=H, A=A, mask=mask if K > 1 else "none")
+    h, emb, p_att, *rest = as_torch(a, cuda, dtype)
+    q = att_step.quantize_features(emb, p_att)
+    q_cpu = att_step.quantize_features(emb.cpu(), p_att.cpu())
+    for on_card, on_cpu in zip(q, q_cpu):
+        if on_card.dtype == torch.int8:
+            assert (on_card.cpu() == on_cpu).all()
+        else:
+            assert ((on_card.cpu() - on_cpu).abs() <= 1e-6 * on_cpu).all()
+    got = att_step.fused_attention_q(h, *q, *rest)
+    torch.cuda.synchronize()
+    want = att_step.attention_reference_q(h, *q, *rest)
+    assert got.dtype == dtype
+    assert _dispatch.launches()["attention_q"] == 1
+    assert _dispatch.launches()["attention"] == 0
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_attention_q_kernel_refuses_unaligned_rows(cuda):
+    """The int8 kernel loads 16 values a lane: widths that are no multiple
+    of 16 raise (there is no fallback to the plain version)."""
+    h, emb, p_att, *rest = as_torch(att_case(B=8, K=6, H=24, A=16), cuda)
+    q = att_step.quantize_features(emb, p_att)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        att_step.fused_attention_q(h, *q, *rest)
+    assert _dispatch.launches()["attention_q"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,V", [(16, 150), (37, 1300), (512, 9488)])
 def test_greedy_head_kernel_matches_plain(cuda, dtype, B, V):
     h, w, b, planted = head_case(B=B, H=64, V=V, ties=True)
@@ -411,7 +476,7 @@ def test_cell_kernel_switch_off_launches_nothing(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["attention", "cell"])
+@pytest.mark.parametrize("which", ["attention", "attention_q", "cell"])
 def test_kernel_functions_gradient_on_the_card(cuda, monkeypatch, which):
     """Kernel forward + recomputed plain backward, against plain autograd on
     the card, f32."""
@@ -423,6 +488,15 @@ def test_kernel_functions_gradient_on_the_card(cuda, monkeypatch, which):
         live = args[:7]
         out = (att_step.fused_attention(*args),)
         ref = (att_step.attention_reference(*args),)
+    elif which == "attention_q":
+        h, emb, p_att, *rest = as_torch(att_case(B=64, K=36, H=96, A=80),
+                                        cuda)
+        q = att_step.quantize_features(emb, p_att)
+        live = [h.requires_grad_(True)] + [x.requires_grad_(True)
+                                           for x in rest[:4]]
+        out = (att_step.fused_attention_q(live[0], *q, *live[1:], rest[4]),)
+        ref = (att_step.attention_reference_q(live[0], *q, *live[1:],
+                                              rest[4]),)
     else:
         args = [None if x is None else torch.from_numpy(x).to(cuda)
                 .requires_grad_(True) for x in cell_case(64, 96, 80)]

@@ -36,7 +36,7 @@ K = 6
 def run_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_serving")
     opt = tiny_opt(checkpoint_path=str(d))
-    jckpt.save_params({"speaker": jax_params(opt, seed=4)},
+    jckpt.save_params({"speaker": jax_params(opt, seed=3)},
                       str(d / "model-best.pth"))
     vocab = {str(i): f"w{i}" for i in range(1, opt.vocab_size + 1)}
     with open(d / "infos_.pkl", "wb") as f:
@@ -164,11 +164,66 @@ def test_cuda_device_without_a_gpu_raises(run_dir):
         tserving.CaptioningService.from_run_dir(d)  # device defaults to cuda
 
 
-@pytest.mark.parametrize("kw", [{"att_quant": "int8"}, {"att_kmajor": 1}])
-def test_unported_decode_layouts_raise(run_dir, kw):
+@pytest.fixture(scope="module")
+def layout_services(run_dir):
     d, _ = run_dir
-    with pytest.raises(NotImplementedError):
-        tserving.CaptioningService.from_run_dir(d, device="cpu", **kw)
+    kw = dict(buckets=BUCKETS, compute_dtype="float32", max_att_len=K)
+    return {(name, m): (
+        jserving.CaptioningService.from_run_dir(d, beam_size=m, **kw, **lay),
+        tserving.CaptioningService.from_run_dir(d, beam_size=m, device="cpu",
+                                                **kw, **lay))
+        for name, lay in (("int8", {"att_quant": "int8"}),
+                          ("kmajor", {"att_kmajor": 1}))
+        for m in (0, 2)}
+
+
+@pytest.mark.parametrize("n", [5, 13])
+@pytest.mark.parametrize("beam", [0, 2])
+@pytest.mark.parametrize("layout", ["int8", "kmajor"])
+def test_decode_layouts_match_jax_service(run_dir, layout_services, layout,
+                                          beam, n):
+    """att_quant="int8" and att_kmajor=1: ids bit-equal to the JAX service's,
+    greedy and beam 2, across bucket padding."""
+    _, opt = run_dir
+    jsvc, tsvc = layout_services[layout, beam]
+    fc, att, masks = request(opt, n, seed=n + beam)
+    got = tsvc.caption_ids(fc, att, masks)
+    np.testing.assert_array_equal(got, np.asarray(
+        jsvc.caption_ids(fc, att, masks)))
+    assert len(np.unique(got)) > 2
+
+
+def test_decode_layout_precedence(run_dir, monkeypatch):
+    """int8 wins over K-major; att_kmajor=None keeps the opt's value and an
+    explicit value overrides it on a private copy of the opt (JAX
+    serving.py:44-51, 110-116)."""
+    d, opt = run_dir
+    seen = []
+    for name in ("quantize_ctx", "kmajor_ctx"):
+        orig = getattr(tmodels.att_model.AttModel, name)
+        monkeypatch.setattr(
+            tmodels.att_model.AttModel, name,
+            staticmethod(lambda ctx, name=name, orig=orig:
+                         seen.append(name) or orig(ctx)))
+    params = tckpt.load_params(os.path.join(d, "model-best.pth"))
+    vocab = {str(i): f"w{i}" for i in range(1, opt.vocab_size + 1)}
+    kw = dict(buckets=(4,), compute_dtype="float32", max_att_len=K,
+              device="cpu")
+    fc, att, masks = request(opt, 3)
+    for svc_kw, opt_kw, want in (
+            ({}, {}, []),
+            ({"att_quant": "int8", "att_kmajor": 1}, {}, ["quantize_ctx"]),
+            ({}, {"att_kmajor": 1}, ["kmajor_ctx"]),
+            ({"att_kmajor": 0}, {"att_kmajor": 1}, []),
+            ({"att_kmajor": 1}, {"att_quant": "int8"}, ["quantize_ctx"]),
+            ({"att_kmajor": 1}, {}, ["kmajor_ctx"])):
+        o = opt.replace(**opt_kw)
+        before = vars(o).copy()
+        svc = tserving.CaptioningService(o, params, vocab, **kw, **svc_kw)
+        del seen[:]
+        svc.caption_ids(fc, att, masks)
+        assert seen == want, (svc_kw, opt_kw)
+        assert vars(o) == before
 
 
 @pytest.mark.parametrize("name,kind", [("fc", "caption_model"),
@@ -217,19 +272,24 @@ def test_bf16_service_casts_the_speaker(run_dir):
     assert 0 <= ids.min() and ids.max() <= opt.vocab_size
 
 
-def test_port_options_are_the_jax_packages():
-    """Run dirs pickle Options under the JAX package's name; the port's
-    re-export must be that very class."""
+def test_port_options_are_the_ports_own(run_dir):
+    """Run dirs of the JAX package pickle Options under that package's
+    name; the port reads them into its own class, not the JAX package's."""
     from cooperativeimagecaptioning_tpu import config as jconfig
     from cooperativeimagecaptioning_tpu_torch import config as tconfig
-    assert tconfig.Options is jconfig.Options
+    assert tconfig.Options is not jconfig.Options
+    d, opt = run_dir
+    infos = tconfig.load_infos(os.path.join(d, "infos_.pkl"))
+    assert type(infos["opt"]) is tconfig.Options and type(opt) is \
+        jconfig.Options
+    assert vars(infos["opt"]) == vars(opt)
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "serve_breakdown.py",
                                     "train_breakdown.py"])
 def test_card_scripts_import_nothing_of_jax(script):
-    """The card's machine has no JAX: these scripts reach the JAX package
-    only through the port."""
+    """The card's machine has no JAX: these scripts import the port, and
+    nothing of the JAX package."""
     import ast
     tree = ast.parse(open(os.path.join(REPO, script)).read())
     names = set()
@@ -245,7 +305,9 @@ def test_card_scripts_import_nothing_of_jax(script):
 
 def test_serving_imports_no_jax():
     code = ("import sys, cooperativeimagecaptioning_tpu_torch.serving; "
-            "assert 'jax' not in sys.modules, 'jax was imported'")
+            "assert 'jax' not in sys.modules, 'jax was imported'; "
+            "assert 'cooperativeimagecaptioning_tpu' not in sys.modules, "
+            "'the JAX package was imported'")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

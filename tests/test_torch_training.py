@@ -362,7 +362,8 @@ def test_attention_function_gradcheck(masked):
         masks[0, 2:] = 0.0
 
     def f(*a):
-        return att_step.Attention.apply(att_step.attention_reference, *a,
+        return att_step.Attention.apply(att_step.attention_reference,
+                                        att_step.attention_reference, (), *a,
                                         masks)
 
     assert torch.autograd.gradcheck(f, args)
