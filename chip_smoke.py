@@ -7,7 +7,9 @@ Phases, in order; any failure exits non-zero:
   1. device   -- a CUDA device of capability 9.0; prints the card's name and
                  power limit (nvidia-smi).
   2. build    -- builds the hand-written kernels from the package's csrc/
-                 with nvcc (timed).
+                 with nvcc (timed) and prints the registers, stack and
+                 spills ptxas reports for the heads' tensor-core pass (no
+                 spill allowed).
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes the paths give it, in float32 and bfloat16:
                  attention (masked and unmasked; the b-major, the int8 and
@@ -15,26 +17,33 @@ Phases, in order; any failure exits non-zero:
                  beam-expanded R=1024 and at the evaluation's R=256 and 640
                  rows, the three timed side by side at B=512 and 4096),
                  the quantizer on the card against the same function on the
-                 CPU, greedy head and beam head (random
-                 rows and rows with planted exact ties, which must resolve
-                 to the lower id; kk = 2, 3, 6 at R=1024, kk = 2 at the
-                 evaluation's R=256).  Each check prints its
-                 maximum error beside its tolerance; each kernel is timed
-                 beside its plain version.
+                 CPU, greedy head and beam head (random rows and rows with
+                 exact ties planted at every seam of the tensor-core pass's
+                 merge, which must resolve to the lower id: greedy at B=512,
+                 4096 and 300 rows; beam kk = 2, 3, 6, 16 at R=1024 and kk = 2
+                 at the evaluation's R=256, at 300 and at 8192 rows; every
+                 bf16 launch must take the tensor-core pass, every f32 launch
+                 the FMA pass).  Each check prints its maximum error beside
+                 its tolerance; each kernel is timed beside its plain version.
                  The fused maxout-LSTM cell (kernel F, CIC_FUSED_CELL=1)
                  against its plain version with and without attention, f32
                  at B=128 and f32 / bf16 at B=512 and 4096; the attention's
                  autograd Function (kernel forward, recomputed backward;
                  the b-major and the int8 call) against plain autograd, f32
-                 at B=128.  For each kernel the script computes its bound at
-                 the timed shape: the larger of its bytes over the card's
-                 memory rate and its operations over the card's peak rate.
+                 at B=128.  Every timed shape gets its own bound: the larger
+                 of its bytes over the card's memory rate and its operations
+                 over the card's peak rate.  The heads are timed at B=512 and
+                 4096 (greedy) and R=1024 and 8192 (beam, kk=2), each beside
+                 torch.matmul of h @ w alone, a yardstick the port never
+                 calls.
   4. slice    -- writes a full-width run dir (Att2in2, vocab 9487, 512-wide,
                  K=36, L=16, random weights from a numpy seed), serves it
                  through CaptioningService.from_run_dir + warmup +
                  make_http_server (greedy and beam 2, bf16), checks the
                  answers and that every request went through the kernels
-                 (launch counts), compares the CUDA services with CPU
+                 (launch counts; every head launch of a bf16 service on the
+                 tensor-core pass, of an f32 service on the FMA pass),
+                 compares the CUDA services with CPU
                  services (plain versions) in float32 and in bfloat16, and
                  times captions/s.  Then the same for the two other decode
                  layouts of the attention context, att_quant="int8" and
@@ -228,6 +237,16 @@ def phase_build():
     print(f"build: {how} from {os.path.relpath(str(_build.CSRC), REPO)}/ "
           f"for sm_90a in {info['seconds']:.1f} s -> "
           f"{os.path.relpath(info['path'], REPO)}", flush=True)
+    # what ptxas gave the tensor-core pass: KK is the top-list length
+    for name, res in sorted(info["resources"].items()):
+        if "vocab_partials_mma" in name:
+            kk = name.split("vocab_partials_mmaILi")[1].split("E")[0]
+            src = "logit_head_mma" if "logit_head_mma" in name else \
+                "beam_head_mma"
+            print(f"  {src} vocab_partials_mma<KK={kk}>: {res['registers']} "
+                  f"registers, {res['stack_bytes']} bytes of stack, "
+                  f"{res['spill_bytes']} bytes spilled", flush=True)
+            require(res["spill_bytes"] == 0, f"{name} spills registers")
 
 
 # ---------------------------------------------------------------------------
@@ -235,11 +254,20 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, iters):
+    """Device time of one fn() in ms: CUDA events around `iters` calls that
+    were enqueued while the card was still busy with earlier work (a few
+    milliseconds of matrix products), so that the host's time to enqueue a
+    call -- tens of microseconds for a wrapper that allocates and launches
+    twice -- is not counted where the call's kernels take less than that."""
     import torch
     for _ in range(3):
         fn()
+    busy = torch.ones(4096, 4096, device="cuda", dtype=torch.bfloat16)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    for _ in range(24):
+        busy @ busy
     start.record()
     for _ in range(iters):
         fn()
@@ -301,11 +329,16 @@ def ids_agree(name, what, ids_k, ids_p, logits, tol):
 
 def plant_ties(w, b):
     """Zero W's columns at the tie ids and give them equal biases: their
-    logits are exact ties in any summation order.  Expected order of the
-    top 6 for every row: [7, 300, 5000, V, 11, 4000] (V = last column)."""
+    logits are exact ties in any summation order.  The ids sit at the seams
+    of the tensor-core pass's merge, for every grid this script gives it
+    (vocab splits of 256 to 4864 columns): 2 and 3 are one thread's two
+    adjacent accumulator columns, 4 another lane of the same quad, 130 the
+    same lane in the block's next 128-column tile, 5000 another vocab split,
+    and V the last column of the ragged last tile.  Expected order of the
+    top 8 for every row: [2, 3, 4, 130, 5000, V, 5, 4000]."""
     V1 = w.shape[1]
-    top = [7, 300, 5000, V1 - 1]    # same sweep, other split, last column
-    nxt = [11, 4000]
+    top = [2, 3, 4, 130, 5000, V1 - 1]
+    nxt = [5, 4000]
     for c in top + nxt:
         w[:, c] = 0
     b[top] = 10.0
@@ -313,10 +346,153 @@ def plant_ties(w, b):
     return top + nxt
 
 
+def head_passes_moved(before):
+    """The per-pass head launch counts that moved since `before`."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    after = _dispatch.head_pass_launches()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def check_heads(rn, dt, errs):
+    """Kernels B and C against their plain versions in type `dt`, random rows
+    and rows with planted exact ties, at every row count a path gives them
+    and a few it does not: greedy at the buckets 512 and 4096 and at 300 rows
+    (no multiple of the 64-row warpgroup tile); beam at the service's R=1024
+    (kk 2, 3, 6 and the longest list, 16), the evaluation's R=256, 300 rows,
+    and the 8192 rows of a beam-2 bucket of 4096.  Each launch must take the
+    first pass its type asks for: the tensor-core pass in bf16, the FMA pass
+    in f32 (the per-pass launch counts).  Returns (w, b) for the timings."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
+        _dispatch, beam_head, logit_head)
+    dn = str(dt).split(".")[-1]
+    first_pass = "mma" if dt == torch.bfloat16 else "fma"
+    H, V1, R = WIDTH, VOCAB + 1, 1024
+
+    def launch(head, fn):
+        before = _dispatch.head_pass_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        moved = head_passes_moved(before)
+        require(moved == {f"{head}_{first_pass}": 1},
+                f"{head} {dn}: expected one launch on the {first_pass} pass, "
+                f"counted {moved}")
+        return out
+
+    w = rn(H, V1, scale=0.1).to(dt)
+    b = rn(V1, scale=0.1).to(dt)
+    wt, bt = w.clone(), b.clone()
+    planted = plant_ties(wt, bt)
+    for ww, bb, what in ((w, b, "random"), (wt, bt, "planted ties")):
+        for rows in (512, 4096, 300):
+            h = rn(rows, H, scale=0.5).to(dt)
+            logits = logit_head.logits_f32(h, ww, bb)
+            it, lp = launch("greedy_head",
+                            lambda: logit_head.greedy_head(h, ww, bb))
+            it_p, lp_p = logit_head.greedy_head_reference(h, ww, bb)
+            require(it.dtype == torch.int32 and lp.dtype == torch.float32
+                    and it.shape == lp.shape == (rows,),
+                    "greedy head output types/shapes")
+            err = (lp - lp_p).abs().max().item()
+            errs["greedy_head"] = max(errs["greedy_head"], err)
+            report("greedy_head", f"{dn} {what} B={rows} lp", err,
+                   TOL["head"])
+            if what == "planted ties":
+                require(bool((it == planted[0]).all()),
+                        "greedy head: planted tie not resolved to the lower "
+                        "id")
+                require(bool((it == it_p).all()), "greedy head ids (ties)")
+            ids_agree("greedy_head", f"{dn} {what} B={rows} ids", it, it_p,
+                      logits, TOL["head"])
+        for rows, kk in ((R, 2), (R, 3), (R, 6), (R, 16), (EVAL_R, 2),
+                         (300, 2), (8192, 2)):
+            hb = rn(rows, H, scale=0.5).to(dt)
+            logits_b = logit_head.logits_f32(hb, ww, bb)
+            vals, idx, lse = launch(
+                "beam_head", lambda: beam_head.beam_head(hb, ww, bb, kk))
+            vals_p, idx_p, lse_p = beam_head.beam_head_reference(
+                hb, ww, bb, kk)
+            require(vals.shape == idx.shape == (rows, kk)
+                    and lse.shape == (rows,), "beam head output shapes")
+            err = max((vals - vals_p).abs().max().item(),
+                      (lse - lse_p).abs().max().item())
+            errs["beam_head"] = max(errs["beam_head"], err)
+            report("beam_head", f"{dn} {what} R={rows} kk={kk} vals/lse",
+                   err, TOL["head"])
+            if what == "planted ties":
+                n = min(kk, len(planted))
+                want = torch.tensor(planted[:n], dtype=torch.int32,
+                                    device=idx.device)
+                require(bool((idx[:, :n] == want[None]).all()),
+                        f"beam head kk={kk}: planted ties not in "
+                        f"lower-id order")
+                require(bool((idx[:, :n] == idx_p[:, :n]).all()),
+                        f"beam head kk={kk} ids (ties)")
+            ids_agree("beam_head", f"{dn} {what} R={rows} kk={kk} ids",
+                      idx, idx_p, logits_b, TOL["head"])
+            del hb, logits_b, vals_p, idx_p, lse_p
+    return w, b
+
+
+def time_heads(rn, w, b):
+    """bf16 times of B (buckets 512 and 4096) and C (kk=2 at R=1024 and at
+    the 8192 rows of a beam-2 bucket of 4096), each beside its plain version,
+    its bound, and `h @ w` alone through torch.matmul: a yardstick for the
+    product inside the kernel, which the port never calls for the heads;
+    and the wrapper call on the host's clock, back to back on an idle card
+    (`call_ms`: what a decode loop pays where enqueueing takes longer than
+    the kernels).  Returns {(kernel, rows): {"ms", "plain_ms", "bound_ms",
+    "bound_by", "matmul_ms", "call_ms"}}."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
+        beam_head, logit_head)
+    H, V1 = w.shape
+    out = {}
+    for name, rows in (("greedy_head", 512), ("greedy_head", 4096),
+                       ("beam_head", 1024), ("beam_head", 8192)):
+        h = rn(rows, H, scale=0.5).to(w.dtype)
+        iters = 20 if rows <= 1024 else 10
+        if name == "greedy_head":
+            def kernel():
+                return logit_head.greedy_head(h, w, b)
+
+            def plain():
+                return logit_head.greedy_head_reference(h, w, b)
+            outs = (torch.empty(rows, dtype=torch.int32),
+                    torch.empty(rows, dtype=torch.float32))
+        else:
+            def kernel():
+                return beam_head.beam_head(h, w, b, 2)
+
+            def plain():
+                return beam_head.beam_head_reference(h, w, b, 2)
+            outs = (torch.empty(rows, 2), torch.empty(rows, 2).int(),
+                    torch.empty(rows))
+        pair = timed_pair(kernel, plain, iters)
+        bound = bound_ms((h, w, b) + outs, 2 * rows * H * V1, "bfloat16")
+        mm = cuda_ms(lambda: h @ w, iters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            kernel()
+        torch.cuda.synchronize()
+        call = (time.perf_counter() - t0) * 1e3 / iters
+        out[name, rows] = {"ms": pair[0], "plain_ms": pair[1],
+                           "bound_ms": bound[0], "bound_by": bound[1],
+                           "matmul_ms": mm, "call_ms": call}
+        print(f"  time {name:12s} bf16 rows={rows:<5d} kernel {pair[0]:.4f} "
+              f"ms  plain {pair[1]:.4f} ms  bound {bound[0]:.4f} ms "
+              f"({bound[1]}; {pair[0] / bound[0]:.1f}x)  h @ w alone "
+              f"{mm:.4f} ms  wrapper on the host's clock {call:.4f} ms",
+              flush=True)
+        del h
+    return out
+
+
 def phase_kernels():
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
-        _dispatch, att_step, beam_head, logit_head)
+        _dispatch, att_step)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(SEED)
@@ -324,9 +500,11 @@ def phase_kernels():
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
-    B, R, H, A, V1 = 512, 1024, WIDTH, WIDTH, VOCAB + 1
+    B, R, H, A = 512, 1024, WIDTH, WIDTH
     errs = {k: 0.0 for k in _dispatch.KERNELS}
-    times, bounds = {}, {}
+    # times / bounds: one shape a kernel, the `kernels` line's; shapes: every
+    # timed shape of a kernel, each with its own bound
+    times, bounds, shapes = {}, {}, {k: [] for k in _dispatch.KERNELS}
     print("kernels vs plain versions (serving shapes: B=512, K=36, "
           "H=A=512, V+1=9488, R=1024 beam rows)", flush=True)
     for dt in (torch.float32, torch.bfloat16):
@@ -353,52 +531,7 @@ def phase_kernels():
             report("attention", f"{dn} {what}", err,
                    TOL[("attention", dn)])
 
-        w = rn(H, V1, scale=0.1).to(dt)
-        b = rn(V1, scale=0.1).to(dt)
-        wt, bt = w.clone(), b.clone()
-        planted = plant_ties(wt, bt)
-        for ww, bb, what in ((w, b, "random"), (wt, bt, "planted ties")):
-            logits = logit_head.logits_f32(h, ww, bb)
-            it, lp = logit_head.greedy_head(h, ww, bb)
-            torch.cuda.synchronize()
-            it_p, lp_p = logit_head.greedy_head_reference(h, ww, bb)
-            require(it.dtype == torch.int32 and lp.dtype == torch.float32,
-                    "greedy head output types")
-            err = (lp - lp_p).abs().max().item()
-            errs["greedy_head"] = max(errs["greedy_head"], err)
-            report("greedy_head", f"{dn} {what} lp", err, TOL["head"])
-            if what == "planted ties":
-                require(bool((it == planted[0]).all()),
-                        "greedy head: planted tie not resolved to the lower "
-                        "id")
-                require(bool((it == it_p).all()), "greedy head ids (ties)")
-            ids_agree("greedy_head", f"{dn} {what} ids", it, it_p, logits,
-                      TOL["head"])
-
-            # beam rows of the service (bucket 512, beam 2) and of the
-            # evaluation (batch EVAL_B, beam 2)
-            for rows, kk in [(R, kk) for kk in (2, 3, 6)] + [(EVAL_R, 2)]:
-                hb = rn(rows, H, scale=0.5).to(dt)
-                logits_b = logit_head.logits_f32(hb, ww, bb)
-                vals, idx, lse = beam_head.beam_head(hb, ww, bb, kk)
-                torch.cuda.synchronize()
-                vals_p, idx_p, lse_p = beam_head.beam_head_reference(
-                    hb, ww, bb, kk)
-                err = max((vals - vals_p).abs().max().item(),
-                          (lse - lse_p).abs().max().item())
-                errs["beam_head"] = max(errs["beam_head"], err)
-                report("beam_head", f"{dn} {what} R={rows} kk={kk} vals/lse",
-                       err, TOL["head"])
-                if what == "planted ties":
-                    want = torch.tensor(planted[:kk], dtype=torch.int32,
-                                        device=dev)
-                    require(bool((idx == want[None]).all()),
-                            f"beam head kk={kk}: planted ties not in "
-                            f"lower-id order")
-                    require(bool((idx == idx_p).all()),
-                            f"beam head kk={kk} ids (ties)")
-                ids_agree("beam_head", f"{dn} {what} R={rows} kk={kk} ids",
-                          idx, idx_p, logits_b, TOL["head"])
+        w, b = check_heads(rn, dt, errs)
 
         if dt == torch.bfloat16:  # serving dtype: time kernel vs plain
             times["attention"] = timed_pair(
@@ -406,56 +539,32 @@ def phase_kernels():
                                                  ba, mask),
                 lambda: att_step.attention_reference(h, emb, p_att, wh, bh,
                                                      wa, ba, mask))
-            times["greedy_head"] = timed_pair(
-                lambda: logit_head.greedy_head(h, w, b),
-                lambda: logit_head.greedy_head_reference(h, w, b))
-            hb = rn(R, H, scale=0.5).to(dt)
-            times["beam_head"] = timed_pair(
-                lambda: beam_head.beam_head(hb, w, b, 2),
-                lambda: beam_head.beam_head_reference(hb, w, b, 2))
             out_h = torch.empty_like(h)
             bounds["attention"] = bound_ms(
                 (h, emb, p_att, wh, bh, wa, ba, mask, out_h),
                 attention_ops(B, H, A), dn)
-            head_out = (torch.empty(B, dtype=torch.int32),
-                        torch.empty(B, dtype=torch.float32))
-            bounds["greedy_head"] = bound_ms((h, w, b) + head_out,
-                                             2 * B * H * V1, dn)
-            beam_out = (torch.empty(R, 2), torch.empty(R, 2, dtype=torch.int32),
-                        torch.empty(R))
-            bounds["beam_head"] = bound_ms((hb, w, b) + beam_out,
-                                           2 * R * H * V1, dn)
-            for name, (k_ms, p_ms) in times.items():
-                print(f"  time {name:12s} bf16 kernel {k_ms:.4f} ms  plain "
-                      f"{p_ms:.4f} ms  bound {bounds[name][0]:.4f} ms "
-                      f"({bounds[name][1]})", flush=True)
-            # the large bucket, for the record
-            B4 = 4096
-            h4 = rn(B4, H, scale=0.5).to(dt)
-            emb4 = rn(B4, K, H).relu().to(dt)
-            p4 = rn(B4, K, A).to(dt)
-            m4 = torch.ones(B4, K, device=dev)
-            big = {
-                "attention B=4096": timed_pair(
-                    lambda: att_step.fused_attention(h4, emb4, p4, wh, bh,
-                                                     wa, ba, m4),
-                    lambda: att_step.attention_reference(h4, emb4, p4, wh,
-                                                         bh, wa, ba, m4),
-                    iters=10),
-                "greedy_head B=4096": timed_pair(
-                    lambda: logit_head.greedy_head(h4, w, b),
-                    lambda: logit_head.greedy_head_reference(h4, w, b),
-                    iters=10),
-            }
-            for name, (k_ms, p_ms) in big.items():
-                print(f"  time {name:20s} bf16 kernel {k_ms:.4f} ms  plain "
-                      f"{p_ms:.4f} ms", flush=True)
-            del h4, emb4, p4, m4
-    errs["cell"], times["cell"], bounds["cell"] = check_cell(rn)
-    errs["attention"] = max(errs["attention"], check_attention_grad(rn))
-    check_attention_variants(rn, errs, times, bounds)
+            k_ms, p_ms = times["attention"]
+            print(f"  time attention    bf16 B={B} kernel {k_ms:.4f} ms  plain "
+                  f"{p_ms:.4f} ms  bound {bounds['attention'][0]:.4f} ms "
+                  f"({bounds['attention'][1]})", flush=True)
+            for (name, rows), t in time_heads(rn, w, b).items():
+                shapes[name].append({"shape": f"bf16 rows={rows}", **t})
+                if (name, rows) in (("greedy_head", B), ("beam_head", R)):
+                    times[name] = (t["ms"], t["plain_ms"])
+                    bounds[name] = (t["bound_ms"], t["bound_by"])
+        del w, b
+    errs["cell"], times["cell"], bounds["cell"] = check_cell(rn, shapes)
+    errs["attention"] = max(errs["attention"],
+                            check_attention_grad(rn, shapes))
+    check_attention_variants(rn, errs, times, bounds, shapes)
     torch.cuda.synchronize()
-    return errs, times, bounds
+    return errs, times, bounds, shapes
+
+
+def timed_shape(shape, pair, bound):
+    """One entry of a kernel's list of timed shapes."""
+    return {"shape": shape, "ms": pair[0], "plain_ms": pair[1],
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def cell_args(rn, B, dt, with_att):
@@ -469,19 +578,20 @@ def cell_args(rn, B, dt, with_att):
     return [None if x is None else x.to(dt) for x in args]
 
 
-def check_cell(rn):
+def check_cell(rn, shapes):
     """Kernel F against cell_plain (cell_reference in f32 on the same
     inputs), with attention (Att2in2) and without (FC), at the training
     shape (f32, B=128) and the decode buckets (f32 and bf16, B=512 and
     4096).  Each with-attention case is timed beside cell_reference in the
-    inputs' type, the cell that runs with CIC_FUSED_CELL unset.  Returns
-    (max error, (kernel ms, plain ms) at the training shape, its bound)."""
+    inputs' type, the cell that runs with CIC_FUSED_CELL unset, and gets its
+    own bound (appended to shapes["cell"]).  Returns (max error, (kernel ms,
+    plain ms) at the training shape, its bound)."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import cell_step
     f32, bf16 = torch.float32, torch.bfloat16
     print("cell (kernel F) vs its plain version (D=H=512; CIC_FUSED_CELL=1)",
           flush=True)
-    worst, timed, bound = 0.0, {}, None
+    worst, timed, bound = 0.0, {}, {}
     with fused_cell_switch(True):
         for B, dts in ((TRAIN_B, (f32,)), (512, (f32, bf16)),
                        (4096, (f32, bf16))):
@@ -504,21 +614,21 @@ def check_cell(rn):
                         timed[(B, dn)] = timed_pair(
                             lambda: cell_step.fused_cell(*args),
                             lambda: cell_step.cell_reference(*args))
-                    if with_att and (B, dt) == (TRAIN_B, f32):
                         # three products: [B,D]x[D,5H], [B,H]x[H,5H] and
                         # [B,H]x[H,2H]
-                        bound = bound_ms(
+                        bound[(B, dn)] = bound_ms(
                             args + [h_new, c_new],
                             2 * B * WIDTH * (5 + 5 + 2) * WIDTH, dn)
     for (B, dn), (k_ms, p_ms) in timed.items():
+        bd = bound[(B, dn)]
         print(f"  time cell B={B:<5d} {dn:9s} kernel {k_ms:.4f} ms  plain "
-              f"{p_ms:.4f} ms", flush=True)
-    print(f"  bound cell B={TRAIN_B} float32 {bound[0]:.4f} ms ({bound[1]})",
-          flush=True)
-    return worst, timed[(TRAIN_B, "float32")], bound
+              f"{p_ms:.4f} ms  bound {bd[0]:.4f} ms ({bd[1]})", flush=True)
+        shapes["cell"].append(timed_shape(f"{dn} B={B}", (k_ms, p_ms), bd))
+    at = (TRAIN_B, "float32")
+    return worst, timed[at], bound[at]
 
 
-def check_attention_grad(rn):
+def check_attention_grad(rn, shapes):
     """The attention's autograd Function on the card (kernel forward,
     attention_reference recomputed in backward) against plain autograd of
     attention_reference, f32, at the training shape.  Returns the largest
@@ -544,12 +654,16 @@ def check_attention_grad(rn):
     k_ms, p_ms = timed_pair(lambda: att_step.fused_attention(*plain, mask),
                             lambda: att_step.attention_reference(*plain,
                                                                  mask))
+    bound = bound_ms(plain + [mask, out], attention_ops(B, H, A), "float32")
     print(f"  time attention B={B} f32 (training shape) kernel {k_ms:.4f} ms"
-          f"  plain {p_ms:.4f} ms", flush=True)
+          f"  plain {p_ms:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]})",
+          flush=True)
+    shapes["attention"].append(timed_shape(f"float32 B={B}", (k_ms, p_ms),
+                                           bound))
     return err
 
 
-def check_attention_variants(rn, errs, times, bounds):
+def check_attention_variants(rn, errs, times, bounds, shapes):
     """The three attention kernels (A, the int8 kernel D, the K-major kernel
     E) against their plain versions, masked and unmasked, f32 and bf16, at
     every row count a path gives them: the service's B=512, its
@@ -557,8 +671,9 @@ def check_attention_variants(rn, errs, times, bounds):
     beam 2) and 640 (its loss: five captions an image; only A runs there).
     Then the quantizer on the card against the same function on the CPU; the
     gradient of the quantized call; and the three kernels timed in one call
-    at B=512 and 4096 (bf16), each beside its plain version.  Fills errs for
-    the three kernels, times (B=512, bf16) and bounds for D and E."""
+    at B=512 and 4096 (bf16), each beside its plain version and its bound
+    (appended to `shapes`).  Fills errs for the three kernels, times (B=512,
+    bf16) and bounds for D and E."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import att_step
     H = A = WIDTH
@@ -630,6 +745,8 @@ def check_attention_variants(rn, errs, times, bounds):
                     print(f"  time {name:16s} bf16 B={B:<5d} kernel "
                           f"{k_ms:.4f} ms  plain {p_ms:.4f} ms  bound "
                           f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+                    shapes[name].append(timed_shape(
+                        f"bf16 B={B}", timed[(name, B)], bound))
                     if B == 512 and name != "attention":
                         times[name], bounds[name] = timed[(name, B)], bound
             del h, emb, p_att, q, emb_t, p_t, calls
@@ -700,9 +817,10 @@ def post_npz(base, fc, att, masks):
 
 def serve_requests(svc, label, kernel, att_kernel="attention",
                    sizes=(1, 5, 64, 300)):
-    """POST npz requests of 1, 5, 64 and 300 images; check the answers and
-    that each bucket call launched `att_kernel` and `kernel` seq_length
-    times, and no other kernel.  Returns the ids of the 64-image request."""
+    """POST npz requests of 1, 5, 64 and 300 images to a bf16 service; check
+    the answers, that each bucket call launched `att_kernel` and `kernel`
+    seq_length times and no other kernel, and that every head launch took
+    the tensor-core pass.  Returns the ids of the 64-image request."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     from cooperativeimagecaptioning_tpu_torch.serving import make_http_server
     srv = make_http_server(svc, "127.0.0.1", 0)
@@ -718,8 +836,10 @@ def serve_requests(svc, label, kernel, att_kernel="attention",
         for n in sizes:
             fc, att, masks = features(n, seed=n)
             before = _dispatch.launches()
+            passes = _dispatch.head_pass_launches()
             out = post_npz(base, fc, att, masks)
             after = _dispatch.launches()
+            passes = head_passes_moved(passes)
             ids = np.asarray(out["ids"])
             require(ids.shape == (n, L), f"{label} n={n}: ids {ids.shape}")
             require(ids.min() >= 0 and ids.max() <= VOCAB,
@@ -738,6 +858,9 @@ def serve_requests(svc, label, kernel, att_kernel="attention",
                 got = after[k] - before[k]
                 require(got == want, f"{label} n={n}: {k} launched {got} "
                         f"times, expected {want}")
+            require(passes == {f"{kernel}_mma": L * calls},
+                    f"{label} n={n}: the bf16 head launches must all take "
+                    f"the tensor-core pass, counted {passes}")
             print(f"  {label}: n={n:3d} -> bucket {svc._bucket_for(n)}, "
                   f"{len(caps)} captions, e.g. {caps[0][:60]!r}", flush=True)
             if n == 64:
@@ -788,7 +911,8 @@ def phase_slice(smi):
     for k in ("attention", "greedy_head", "beam_head"):
         require(main_launches[k] > 0, f"{k} was never launched on the "
                 f"main path")
-    print(f"  main-path launches: {main_launches}", flush=True)
+    print(f"  main-path launches: {main_launches}; heads by first pass: "
+          f"{_dispatch.head_pass_launches()}", flush=True)
 
     # the CUDA services against CPU services (the plain versions) on the
     # same 64-image request, at the same bucket
@@ -801,9 +925,15 @@ def phase_slice(smi):
             for dn in ("float32", "bfloat16")}
         gpu32 = CaptioningService.from_run_dir(
             RUN_DIR, beam_size=m, compute_dtype="float32", buckets=(64,))
+        passes = _dispatch.head_pass_launches()
+        ids32 = gpu32.caption_ids(fc, att, masks)
+        passes = head_passes_moved(passes)
+        head = "beam_head" if m else "greedy_head"
+        require(passes == {f"{head}_fma": L},
+                f"f32 {mode} service: the head launches must all take the "
+                f"FMA pass, counted {passes}")
         for what, ids_a, ids_b, floor in (
-                ("f32 cuda vs f32 cpu", gpu32.caption_ids(fc, att, masks),
-                 cpu["float32"], AGREE_F32),
+                ("f32 cuda vs f32 cpu", ids32, cpu["float32"], AGREE_F32),
                 ("bf16 cuda vs bf16 cpu", ids_served, cpu["bfloat16"],
                  AGREE_BF16),
                 ("bf16 cuda vs f32 cpu", ids_served, cpu["float32"], None)):
@@ -913,8 +1043,14 @@ def phase_layouts(smi, plain, plain_ids, plain_rates):
             return CaptioningService.from_run_dir(
                 RUN_DIR, beam_size=m, compute_dtype="float32", buckets=(64,),
                 device=device, **kw).caption_ids(fc, att, masks)
+        passes = _dispatch.head_pass_launches()
         base = ids()
         q_gpu = ids(att_quant="int8")
+        passes = head_passes_moved(passes)
+        head = "beam_head" if m else "greedy_head"
+        require(passes == {f"{head}_fma": 2 * L},
+                f"f32 {mode} services: the head launches must all take the "
+                f"FMA pass, counted {passes}")
         for what, a, b, floor in (
                 ("f32 K-major cuda vs f32 b-major cuda", ids(att_kmajor=1),
                  base, AGREE_F32),
@@ -1113,6 +1249,9 @@ def phase_train(smi):
         ids = svc.caption_ids(fc, att, masks)
         torch.cuda.synchronize()
         served = _dispatch.launches()
+        require(_dispatch.head_pass_launches()["greedy_head_mma"] == L,
+                "serving the trained speaker in bf16: the greedy head must "
+                "take the tensor-core pass")
     require(ids.shape == (512, L) and ids.min() >= 0 and ids.max() <= VOCAB,
             f"trained speaker ids {ids.shape}")
     for k in _dispatch.KERNELS:
@@ -1244,6 +1383,10 @@ def phase_eval(smi):
         want["beam_head"] = batches * L
         require(launches == want, f"evaluation {name}: launches {launches}, "
                 f"expected {want}")
+        require(_dispatch.head_pass_launches()["beam_head_fma"]
+                == want["beam_head"],
+                f"evaluation {name}: the f32 beam head must take the FMA "
+                f"pass")
         for k, v in launches.items():
             total[k] += v
         losses[name] = out["loss"]["loss_cap"]
@@ -1297,7 +1440,7 @@ def main():
     import torch
     t_start = time.perf_counter()
     phase_build()
-    errs, times, bounds = phase_kernels()
+    errs, times, bounds, shapes = phase_kernels()
     print(f"elapsed after the kernel checks: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
     with fused_cell_switch(False):
@@ -1325,7 +1468,9 @@ def main():
             "ms": times[k][0], "plain_ms": times[k][1],
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
             # no single PyTorch call computes any of these functions
-            "library_ms": None})
+            "library_ms": None,
+            # every shape the kernel was timed at, each with its own bound
+            "timed_shapes": shapes[k]})
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

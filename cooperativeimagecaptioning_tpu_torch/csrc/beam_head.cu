@@ -8,14 +8,17 @@
 // out in lax.top_k's order, so beam search is unchanged.
 //
 // What bounds it on the H100: as for the greedy head, the [R,512] x
-// [512,9488] product (R = batch x beam: 10 GFLOP per step at R=1024), run
-// here on the CUDA cores with f32 FMAs; the top-kk upkeep is a few compares
-// per logit in registers.
+// [512,9488] product (R = batch x beam: 10 GFLOP per step at R=1024); the
+// top-kk upkeep is a few compares per logit in registers.
 //
-// Design: vocab_head.cuh's first pass with an 8-row tile and a per-thread
+// Design: a first pass over (row tile, vocab split) with a per-thread
 // top-KK list, KK a compile-time slot count (1, 2, 4, 8 or 16) of at least
 // kk, so the lists stay in registers; then one thread per row merges the
 // vocab splits' lists and log-sum-exp partials and writes the first kk.
+// The first pass is vocab_head_mma.cuh's tensor-core pass (use_mma, bf16
+// only; instantiated in beam_head_mma.cu) or vocab_head.cuh's FMA pass with
+// an 8-row tile (float32, and bf16 shapes the tensor-core pass does not
+// take).
 // The top-KK list holds the top-kk in the same order, so rounding kk up to
 // KK changes no result.
 #include "vocab_head.cuh"
@@ -52,10 +55,13 @@ __global__ void beam_merge(const float* __restrict__ part_val,
 template <typename T, int KK>
 int launch(const void* h, const void* w, const void* b, float* pv, int* pi,
            float* pm, float* ps, float* vals, int* idx, float* lse, int R,
-           int H, int V, int kk, int splits, int split_cols,
+           int H, int V, int kk, int splits, int split_cols, bool use_mma,
            cudaStream_t s) {
-  const int e = launch_vocab_partials<T, kBeamRows, KK>(
-      h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols, s);
+  const int e =
+      use_mma ? cic::beam_partials_mma(KK, h, w, b, pv, pi, pm, ps, R, H, V,
+                                       splits, split_cols, s)
+              : launch_vocab_partials<T, kBeamRows, KK>(
+                    h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols, s);
   if (e != 0) return e;
   beam_merge<KK><<<(R + 127) / 128, 128, 0, s>>>(pv, pi, pm, ps, vals, idx,
                                                  lse, R, splits, kk);
@@ -66,23 +72,24 @@ template <typename T>
 int dispatch_slots(int kk_slots, const void* h, const void* w, const void* b,
                    float* pv, int* pi, float* pm, float* ps, float* vals,
                    int* idx, float* lse, int R, int H, int V, int kk,
-                   int splits, int split_cols, cudaStream_t s) {
+                   int splits, int split_cols, bool use_mma,
+                   cudaStream_t s) {
   switch (kk_slots) {
     case 1:
       return launch<T, 1>(h, w, b, pv, pi, pm, ps, vals, idx, lse, R, H, V,
-                          kk, splits, split_cols, s);
+                          kk, splits, split_cols, use_mma, s);
     case 2:
       return launch<T, 2>(h, w, b, pv, pi, pm, ps, vals, idx, lse, R, H, V,
-                          kk, splits, split_cols, s);
+                          kk, splits, split_cols, use_mma, s);
     case 4:
       return launch<T, 4>(h, w, b, pv, pi, pm, ps, vals, idx, lse, R, H, V,
-                          kk, splits, split_cols, s);
+                          kk, splits, split_cols, use_mma, s);
     case 8:
       return launch<T, 8>(h, w, b, pv, pi, pm, ps, vals, idx, lse, R, H, V,
-                          kk, splits, split_cols, s);
+                          kk, splits, split_cols, use_mma, s);
     case 16:
       return launch<T, 16>(h, w, b, pv, pi, pm, ps, vals, idx, lse, R, H, V,
-                           kk, splits, split_cols, s);
+                           kk, splits, split_cols, use_mma, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -95,9 +102,9 @@ CIC_EXPORT int cic_beam_head(const void* h, const void* w, const void* b,
                              void* part_s, void* vals, void* idx, void* lse,
                              int R, int H, int V, int kk, int kk_slots,
                              int splits, int split_cols, int is_bf16,
-                             void* stream) {
+                             int use_mma, void* stream) {
   if (R < 1 || H < 1 || kk < 1 || kk > kk_slots || kk > V ||
-      !valid_split(V, splits, split_cols))
+      !valid_split(V, splits, split_cols) || (use_mma && !is_bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pv = static_cast<float*>(part_val);
@@ -108,10 +115,10 @@ CIC_EXPORT int cic_beam_head(const void* h, const void* w, const void* b,
     return dispatch_slots<__nv_bfloat16>(
         kk_slots, h, w, b, pv, pi, pm, ps, static_cast<float*>(vals),
         static_cast<int*>(idx), static_cast<float*>(lse), R, H, V, kk, splits,
-        split_cols, s);
+        split_cols, use_mma != 0, s);
   return dispatch_slots<float>(kk_slots, h, w, b, pv, pi, pm, ps,
                                static_cast<float*>(vals),
                                static_cast<int*>(idx),
                                static_cast<float*>(lse), R, H, V, kk, splits,
-                               split_cols, s);
+                               split_cols, false, s);
 }

@@ -9,13 +9,15 @@
 //
 // What bounds it on the H100: the [R,512] x [512,9488] product.  At R=512
 // that is 5 GFLOP per decode step against 9.7 MB of bf16 W (which stays in
-// the 50 MB L2 across row tiles), so it is compute-bound; this first version
-// runs the product on the CUDA cores with f32 FMAs (tensor cores -- mma /
-// wgmma -- are later work).  Keeping the logits in registers removes the
-// [R,V] f32 write and re-read of the unfused path.
+// the 50 MB L2 across row tiles), so it is compute-bound.  Keeping the
+// logits in registers removes the [R,V] f32 write and re-read of the unfused
+// path.
 //
-// Design: vocab_head.cuh's first pass with a 16-row tile and a top-1 list,
-// then one thread per row merges the vocab splits' (best, id, max, sumexp).
+// Design: a first pass over (row tile, vocab split) with a top-1 list, then
+// one thread per row merges the vocab splits' (best, id, max, sumexp).  The
+// first pass is vocab_head_mma.cuh's tensor-core pass (use_mma, bf16 only;
+// instantiated in logit_head_mma.cu) or vocab_head.cuh's FMA pass with a
+// 16-row tile (float32, and bf16 shapes the tensor-core pass does not take).
 #include "vocab_head.cuh"
 
 namespace {
@@ -45,8 +47,9 @@ CIC_EXPORT int cic_greedy_head(const void* h, const void* w, const void* b,
                                void* part_val, void* part_id, void* part_m,
                                void* part_s, void* it, void* lp, int R, int H,
                                int V, int splits, int split_cols, int is_bf16,
-                               void* stream) {
-  if (R < 1 || H < 1 || !valid_split(V, splits, split_cols))
+                               int use_mma, void* stream) {
+  if (R < 1 || H < 1 || !valid_split(V, splits, split_cols) ||
+      (use_mma && !is_bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pv = static_cast<float*>(part_val);
@@ -54,10 +57,12 @@ CIC_EXPORT int cic_greedy_head(const void* h, const void* w, const void* b,
   float* pm = static_cast<float*>(part_m);
   float* ps = static_cast<float*>(part_s);
   const int e =
-      is_bf16 ? launch_vocab_partials<__nv_bfloat16, kGreedyRows, 1>(
-                    h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols, s)
-              : launch_vocab_partials<float, kGreedyRows, 1>(
-                    h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols, s);
+      use_mma ? cic::greedy_partials_mma(h, w, b, pv, pi, pm, ps, R, H, V,
+                                         splits, split_cols, s)
+      : is_bf16 ? launch_vocab_partials<__nv_bfloat16, kGreedyRows, 1>(
+                      h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols, s)
+                : launch_vocab_partials<float, kGreedyRows, 1>(
+                      h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols, s);
   if (e != 0) return e;
   greedy_merge<<<(R + 127) / 128, 128, 0, s>>>(
       pv, pi, pm, ps, static_cast<int*>(it), static_cast<float*>(lp), R,

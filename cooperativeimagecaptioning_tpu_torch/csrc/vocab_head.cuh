@@ -16,11 +16,32 @@
 // Ties go to the lower id everywhere -- in a thread, across a warp, across
 // warps and across splits -- through cic::before.  Columns past V are masked
 // by bounds; nothing is padded.
+//
+// vocab_partials runs the product on the CUDA cores (f32 FMAs) and takes
+// float32 and bfloat16.  For bfloat16 shapes that fit it, pass 1 is instead
+// vocab_head_mma.cuh's tensor-core pass (same grid idea, same partials, same
+// merge kernels); the Python wrappers choose by type and shape.
 #pragma once
 
 #include <limits.h>
 
 #include "common.cuh"
+
+namespace cic {
+
+// The tensor-core first pass (vocab_head_mma.cuh), bf16 only; defined in
+// logit_head_mma.cu (top-1 list) and beam_head_mma.cu (kk_slots of 1, 2, 4,
+// 8 or 16) so that nvcc compiles them beside the FMA instantiations.
+int greedy_partials_mma(const void* h, const void* w, const void* b,
+                        float* part_val, int* part_id, float* part_m,
+                        float* part_s, int R, int H, int V, int splits,
+                        int split_cols, cudaStream_t stream);
+int beam_partials_mma(int kk_slots, const void* h, const void* w,
+                      const void* b, float* part_val, int* part_id,
+                      float* part_m, float* part_s, int R, int H, int V,
+                      int splits, int split_cols, cudaStream_t stream);
+
+}  // namespace cic
 
 namespace {
 

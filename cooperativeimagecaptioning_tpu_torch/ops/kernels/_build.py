@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,7 +33,9 @@ ROOT = Path(__file__).resolve().parents[3]  # the checkout holding the package
 BUILD_DIR = ROOT / "build" / "kernels"
 LIB_NAME = "libcic_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# -Xptxas -v: each kernel's registers, stack and spills go to the compile log
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v"]
 LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _P = ctypes.c_void_p
@@ -48,11 +51,11 @@ SIGNATURES = {
     # mask|NULL, out, B, K, H, A, is_bf16, stream
     "cic_attention_q": [_P] * 11 + [_I] * 5 + [_P],
     # h, w, b, part_val, part_id, part_m, part_s, it, lp,
-    # R, H, V, splits, split_cols, is_bf16, stream
-    "cic_greedy_head": [_P] * 9 + [_I] * 6 + [_P],
+    # R, H, V, splits, split_cols, is_bf16, use_mma, stream
+    "cic_greedy_head": [_P] * 9 + [_I] * 7 + [_P],
     # h, w, b, part_val, part_id, part_m, part_s, vals, idx, lse,
-    # R, H, V, kk, kk_slots, splits, split_cols, is_bf16, stream
-    "cic_beam_head": [_P] * 10 + [_I] * 8 + [_P],
+    # R, H, V, kk, kk_slots, splits, split_cols, is_bf16, use_mma, stream
+    "cic_beam_head": [_P] * 10 + [_I] * 9 + [_P],
     # xt, h, c, att|NULL, wi, bi, wh, bh, wc|NULL, bc|NULL, h_out, c_out,
     # B, D, H, is_bf16, stream
     "cic_cell": [_P] * 12 + [_I] * 4 + [_P],
@@ -87,9 +90,25 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def kernel_resources(log: str) -> dict:
+    """{mangled kernel name: {'registers', 'stack_bytes', 'spill_bytes'}}
+    from the output of nvcc -Xptxas -v (spill stores plus spill loads)."""
+    out = {}
+    pattern = re.compile(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+        r"Used (\d+) registers", re.S)
+    for name, stack, stores, loads, regs in pattern.findall(log):
+        out[name] = {"registers": int(regs), "stack_bytes": int(stack),
+                     "spill_bytes": int(stores) + int(loads)}
+    return out
+
+
 def build() -> dict:
     """Compile csrc/*.cu into build/kernels/libcic_kernels.so unless an
-    up-to-date build is there.  Returns {'compiled', 'seconds', 'path'}."""
+    up-to-date build is there.  Returns {'compiled', 'seconds', 'path',
+    'resources'}; 'resources' is `kernel_resources` of the compile logs
+    (empty when nothing was compiled)."""
     if not (ROOT / "pyproject.toml").is_file():
         raise RuntimeError(
             f"the CUDA kernels are built into build/kernels/ of a source "
@@ -103,7 +122,8 @@ def build() -> dict:
         check=True).stdout)
     if (lib_path.is_file() and hash_path.is_file()
             and hash_path.read_text().strip() == digest):
-        return {"compiled": False, "seconds": 0.0, "path": str(lib_path)}
+        return {"compiled": False, "seconds": 0.0, "path": str(lib_path),
+                "resources": {}}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     base = [nvcc, *COMPILE_FLAGS, f"-I{CSRC}"]
@@ -134,7 +154,8 @@ def build() -> dict:
         raise RuntimeError(f"nvcc failed ({failed[0][0]}):\n{failed[0][1]}")
     os.replace(tmp, lib_path)
     hash_path.write_text(digest)
-    return {"compiled": True, "seconds": seconds, "path": str(lib_path)}
+    return {"compiled": True, "seconds": seconds, "path": str(lib_path),
+            "resources": kernel_resources("\n".join(logs))}
 
 
 def library():

@@ -14,7 +14,10 @@ it unset the cell is the plain version on every device.
 
 Each kernel has one plain integer launch count, raised by one in its wrapper
 right after the launch succeeded and nowhere else, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels.  The two vocabulary heads have two
+first passes (tensor cores for bf16, FMAs for the rest: `logit_head.head_pass`);
+a second count per head and pass, raised with the head's own, shows which
+one a launch took.
 """
 
 from __future__ import annotations
@@ -26,7 +29,11 @@ import torch
 KERNELS = ("attention", "attention_q", "attention_kmajor", "greedy_head",
            "beam_head", "cell")
 
-_launches = {name: 0 for name in KERNELS}
+# the heads' launches by first pass: "<head>_mma" (wgmma) or "<head>_fma"
+HEAD_PASSES = ("greedy_head_mma", "greedy_head_fma", "beam_head_mma",
+               "beam_head_fma")
+
+_launches = {name: 0 for name in KERNELS + HEAD_PASSES}
 
 
 def use_kernel(x: torch.Tensor) -> bool:
@@ -39,13 +46,23 @@ def use_kernel(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain path for device {x.device}")
 
 
-def count(name: str) -> None:
+def count(name: str, head_pass: str = "") -> None:
+    """One launch of kernel `name`; a head also names the first pass it
+    took ("mma" or "fma")."""
     _launches[name] += 1
+    if head_pass:
+        _launches[f"{name}_{head_pass}"] += 1
 
 
 def launches() -> dict:
     """{kernel name: launches since the last reset}."""
-    return dict(_launches)
+    return {name: _launches[name] for name in KERNELS}
+
+
+def head_pass_launches() -> dict:
+    """{"<head>_<pass>": launches since the last reset}; for each head the
+    two passes add up to its entry in `launches()`."""
+    return {name: _launches[name] for name in HEAD_PASSES}
 
 
 def reset_launches() -> None:

@@ -6,6 +6,11 @@ launches the kernel in csrc/beam_head.cu for CUDA tensors and takes
 `beam_head_reference` for CPU tensors.  Ids come in lax.top_k's order:
 larger logit first, the lower id first on an exact tie.  log-softmax values
 are vals - lse[:, None].  Forward only.
+
+As in the greedy head, the kernel's first pass is the tensor-core pass for
+bfloat16 inputs that fit it and the FMA pass for everything else
+(`logit_head.head_pass`, by type, shape and alignment alone); a launch that
+fails raises.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ import torch
 
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build, _dispatch
 from cooperativeimagecaptioning_tpu_torch.ops.kernels.logit_head import (
-    check_head_inputs, logits_f32, vocab_split)
+    check_head_inputs, logits_f32, partials_scratch, plan_first_pass)
 
 MAX_KK = 16
 ROW_TILE = 8          # rows per block of the beam kernel (kBeamRows)
@@ -51,23 +56,18 @@ def beam_head(h, w, b, kk: int):
     R, H = h.shape
     V = w.shape[1]
     slots = next(s for s in SLOTS if s >= kk)
-    splits, split_cols = vocab_split(R, ROW_TILE, V, h.device)
+    which, splits, split_cols = plan_first_pass(R, ROW_TILE, h, w, b)
     dev = h.device
-    part_val = torch.empty((R, splits, slots), dtype=torch.float32,
-                           device=dev)
-    part_id = torch.empty((R, splits, slots), dtype=torch.int32, device=dev)
-    part_m = torch.empty((R, splits), dtype=torch.float32, device=dev)
-    part_s = torch.empty((R, splits), dtype=torch.float32, device=dev)
+    scratch, parts = partials_scratch(R, splits, slots, dev)
     vals = torch.empty((R, kk), dtype=torch.float32, device=dev)
     idx = torch.empty((R, kk), dtype=torch.int32, device=dev)
     lse = torch.empty((R,), dtype=torch.float32, device=dev)
     lib = _build.library()
     code = lib.cic_beam_head(
-        _build.ptr(h), _build.ptr(w), _build.ptr(b), _build.ptr(part_val),
-        _build.ptr(part_id), _build.ptr(part_m), _build.ptr(part_s),
+        _build.ptr(h), _build.ptr(w), _build.ptr(b), *parts,
         _build.ptr(vals), _build.ptr(idx), _build.ptr(lse), R, H, V, kk,
         slots, splits, split_cols, int(h.dtype == torch.bfloat16),
-        _build.stream(dev))
+        int(which == "mma"), _build.stream(dev))
     _build.check(lib, code, "beam_head")
-    _dispatch.count("beam_head")
+    _dispatch.count("beam_head", which)
     return vals, idx, lse

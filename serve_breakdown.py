@@ -19,9 +19,11 @@ time, and splits a request of each cell into the service's own stages:
 plus, for comparison, the f32 feature copy from pageable and from pinned
 memory and a cast on the card.  Host-clock stages are medians of --reps
 runs, each between two synchronizes.  One decode is traced with
-torch.profiler: its GPU kernels, summed by name, and the device's idle share
-over the decode (1 - union of the traced kernel intervals / the untraced
-decode's host-clock time; tracing slows the host, not the kernels).
+torch.profiler: its GPU kernels, summed by name and by group (the vocabulary
+heads: both first passes and both merge kernels; the attention kernels; the
+rest), and the device's idle share over the decode (1 - union of the traced
+kernel intervals / the untraced decode's host-clock time; tracing slows the
+host, not the kernels).
 
 The last line is one JSON object with every number printed.
 """
@@ -57,6 +59,20 @@ def busy_ms(intervals):
             total += e - max(s, end)
             end = e
     return total / 1e3
+
+
+# substrings of the hand-written kernels' names, by group: the heads' FMA
+# pass (vocab_partials), their tensor-core pass (vocab_partials_mma) and the
+# two merge kernels; the three attention kernels
+KERNEL_GROUPS = {"head": ("vocab_partials", "greedy_merge", "beam_merge"),
+                 "attention": ("attention_kernel", "attention_q_kernel")}
+
+
+def kernel_group(name):
+    for group, parts in KERNEL_GROUPS.items():
+        if any(p in name for p in parts):
+            return group
+    return "rest"
 
 
 def kernel_events(prof):
@@ -123,6 +139,10 @@ def breakdown(svc, n, reps, device):
         by_name[e.name[:90]] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
     r["kernels"] = sorted(([k, c, t] for k, (c, t) in by_name.items()),
                           key=lambda row: -row[2])[:12]
+    r["kernel_groups"] = {g: 0.0 for g in (*KERNEL_GROUPS, "rest")}
+    for e in kern:
+        r["kernel_groups"][kernel_group(e.name)] += \
+            e.time_range.elapsed_us() / 1e3
     return r
 
 
@@ -162,6 +182,8 @@ def main(argv=None):
             print(f"  traced decode {r['traced_decode']:.2f} ms, kernels busy "
                   f"{r['kernel_busy']:.2f} ms, device idle share "
                   f"{r['device_idle_share']:.3f} of the untraced decode")
+        print("  kernel time by group: " + ", ".join(
+            f"{g} {ms:.3f} ms" for g, ms in r["kernel_groups"].items()))
         for name, count, ms in r["kernels"]:
             print(f"    {ms:8.3f} ms {count:5d}x  {name}")
         del svc

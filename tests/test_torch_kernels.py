@@ -259,7 +259,11 @@ def test_ctypes_table_matches_the_c_sources(name):
     (att_step.MAX_K, "att_step.cu", "kMaxK"),
     (logit_head.CHUNK, "vocab_head.cuh", "kChunk"),
     (logit_head.ROW_TILE, "logit_head.cu", "kGreedyRows"),
-    (beam_head.ROW_TILE, "beam_head.cu", "kBeamRows")])
+    (beam_head.ROW_TILE, "beam_head.cu", "kBeamRows"),
+    (logit_head.MMA_ROW_TILE, "vocab_head_mma.cuh", "kMmaRows"),
+    (logit_head.MMA_COL_TILE, "vocab_head_mma.cuh", "kMmaCols"),
+    (logit_head.MMA_DEPTH, "vocab_head_mma.cuh", "kMmaDepth"),
+    (logit_head.MMA_MAX_DEPTH, "vocab_head_mma.cuh", "kMmaMaxDepth")])
 def test_python_constants_match_the_c_sources(py, src, name):
     """The wrappers size grids and scratch from these; they must be the
     kernels' own values."""
@@ -273,7 +277,8 @@ def test_python_constants_match_the_c_sources(py, src, name):
 def test_build_hash_tracks_the_sources(tmp_path, monkeypatch):
     assert {p.name for p in _build.sources()} >= {
         "att_step.cu", "logit_head.cu", "beam_head.cu", "cell_step.cu",
-        "common.cuh"}
+        "common.cuh", "vocab_head.cuh", "vocab_head_mma.cuh",
+        "logit_head_mma.cu", "beam_head_mma.cu"}
     before = _build.source_hash()
     fake = tmp_path / "csrc"
     fake.mkdir()
@@ -284,6 +289,64 @@ def test_build_hash_tracks_the_sources(tmp_path, monkeypatch):
     (fake / "att_step.cu").write_text(
         (fake / "att_step.cu").read_text() + "\n// edited\n")
     assert _build.source_hash() != before
+
+
+def test_mma_pass_fits_the_shared_memory_of_a_block():
+    """The resident h rows of the deepest H the routing admits, the W ring
+    and the alignment slack stay within the 227 KB a block may ask for; one
+    more 64-deep block of rows would not."""
+    src = (_build.CSRC / "vocab_head_mma.cuh").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kMma\w+) = (\d+);", src)}
+
+    def smem(H):
+        return 1024 + (H // consts["kMmaDepth"] + consts["kMmaStages"]) \
+            * consts["kMmaTileBytes"]
+    assert consts["kMmaTileBytes"] == 2 * consts["kMmaRows"] \
+        * consts["kMmaDepth"] == 2 * consts["kMmaDepth"] * consts["kMmaCols"]
+    assert smem(logit_head.MMA_MAX_DEPTH) <= 232448
+    assert smem(logit_head.MMA_MAX_DEPTH + logit_head.MMA_DEPTH) > 232448
+    # the load runs kMmaStages - 2 steps ahead: at least one
+    assert consts["kMmaStages"] >= 3
+
+
+@pytest.mark.parametrize("head,src", [("greedy", "logit_head_mma.cu"),
+                                      ("beam", "beam_head_mma.cu")])
+def test_mma_pass_is_defined_where_it_is_declared(head, src):
+    """vocab_head.cuh declares the tensor-core pass's two host functions; a
+    source of its own defines each (so that nvcc compiles them in parallel)
+    and the head's entry point calls it."""
+    name = f"{head}_partials_mma"
+    assert re.search(r"int " + name + r"\(", (_build.CSRC / "vocab_head.cuh")
+                     .read_text())
+    assert re.search(r"int cic::" + name + r"\(",
+                     (_build.CSRC / src).read_text())
+    entry = (_build.CSRC / src.replace("_mma", "")).read_text()
+    assert f"cic::{name}(" in entry
+
+
+def test_beam_mma_pass_compiles_every_slot_count():
+    src = (_build.CSRC / "beam_head_mma.cu").read_text()
+    assert tuple(int(k) for k in re.findall(r"CIC_SLOTS\((\d+)\);", src)) \
+        == beam_head.SLOTS
+
+
+def test_kernel_resources_reads_the_ptxas_log():
+    log = """
+ptxas info    : Compiling entry function '_ZN3fooILi16EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN3fooILi16EEEvPKf
+    240 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 254 registers, used 1 barriers, 240 bytes cumulative
+ptxas info    : Compiling entry function 'bar' for 'sm_90a'
+ptxas info    : Function properties for bar
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 0 barriers
+"""
+    assert _build.kernel_resources(log) == {
+        "_ZN3fooILi16EEEvPKf": {"registers": 254, "stack_bytes": 240,
+                                "spill_bytes": 12},
+        "bar": {"registers": 48, "stack_bytes": 0, "spill_bytes": 0}}
+    assert _build.kernel_resources("nothing compiled") == {}
 
 
 def test_build_hash_tracks_the_compiler():
@@ -397,16 +460,33 @@ def test_attention_q_kernel_refuses_unaligned_rows(cuda):
     assert _dispatch.launches()["attention_q"] == 0
 
 
+def expected_pass(dtype, H, V):
+    """The first pass a head launch must take, spelled out independently of
+    logit_head.head_pass."""
+    fits = H % 64 == 0 and 64 <= H <= 640 and V % 8 == 0
+    return "mma" if dtype == torch.bfloat16 and fits else "fma"
+
+
+def assert_pass(head, which):
+    want = {k: 0 for k in _dispatch.HEAD_PASSES}
+    want[f"{head}_{which}"] = 1
+    assert _dispatch.head_pass_launches() == want
+    assert _dispatch.launches()[head] == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,V", [(16, 150), (37, 1300), (512, 9488)])
+@pytest.mark.parametrize("B,V", [(16, 150), (37, 1300), (37, 1304),
+                                 (512, 9488), (4096, 9488)])
 def test_greedy_head_kernel_matches_plain(cuda, dtype, B, V):
+    """(16, 150) and (37, 1300) stay on the FMA pass in either type (V is no
+    multiple of 8); the others take the tensor-core pass in bf16."""
     h, w, b, planted = head_case(B=B, H=64, V=V, ties=True)
     h, w, b = (torch.from_numpy(x).to(cuda, dtype) for x in (h, w, b))
     it, lp = logit_head.greedy_head(h, w, b)
     torch.cuda.synchronize()
     it_p, lp_p = logit_head.greedy_head_reference(h, w, b)
-    assert _dispatch.launches()["greedy_head"] == 1
+    assert_pass("greedy_head", expected_pass(dtype, 64, V))
     assert (it == planted[0]).all() and (it == it_p).all()
     assert (lp - lp_p).abs().max().item() <= 1e-4
 
@@ -414,19 +494,42 @@ def test_greedy_head_kernel_matches_plain(cuda, dtype, B, V):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kk", [1, 2, 3, 5, 6, 9, 16])
-def test_beam_head_kernel_matches_plain(cuda, dtype, kk):
-    h, w, b, planted = head_case(B=40, H=64, V=1300, seed=kk, ties=True)
+@pytest.mark.parametrize("B,H,V", [(40, 64, 1300), (37, 64, 1304),
+                                   (300, 512, 9488), (70, 640, 264),
+                                   (129, 128, 96)])
+def test_beam_head_kernel_matches_plain(cuda, dtype, kk, B, H, V):
+    h, w, b, planted = head_case(B=B, H=H, V=V, seed=kk, ties=True)
     h, w, b = (torch.from_numpy(x).to(cuda, dtype) for x in (h, w, b))
     vals, idx, lse = beam_head.beam_head(h, w, b, kk)
     torch.cuda.synchronize()
     vals_p, idx_p, lse_p = beam_head.beam_head_reference(h, w, b, kk)
-    assert _dispatch.launches()["beam_head"] == 1
+    assert_pass("beam_head", expected_pass(dtype, H, V))
     n = min(kk, len(planted))
     assert (idx[:, :n] == torch.tensor(planted[:n], device=cuda,
                                        dtype=torch.int32)).all()
-    assert (idx == idx_p).all()
+    logits = logit_head.logits_f32(h, w, b)
+    differ = idx != idx_p
+    if differ.any():  # only near-ties of the plain f32 logits may swap
+        gap = (torch.gather(logits, 1, idx.long())
+               - torch.gather(logits, 1, idx_p.long())).abs()
+        assert gap[differ].max().item() <= 1e-4
     assert (vals - vals_p).abs().max().item() <= 1e-4
     assert (lse - lse_p).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_head_kernels_take_the_fma_pass_for_unaligned_bf16(cuda):
+    """A bf16 W whose storage does not start on a 16-byte boundary cannot
+    feed the tensor-core pass's 16-byte copies: the FMA pass takes it."""
+    h, w, b, planted = head_case(B=37, H=64, V=1304, ties=True)
+    h, b = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (h, b))
+    store = torch.empty(64 * 1304 + 1, device=cuda, dtype=torch.bfloat16)
+    w_off = store[1:].view(64, 1304)
+    w_off.copy_(torch.from_numpy(w))
+    assert w_off.data_ptr() % 16 != 0 and w_off.is_contiguous()
+    it, _ = logit_head.greedy_head(h, w_off, b)
+    assert_pass("greedy_head", "fma")
+    assert (it == planted[0]).all()
 
 
 def cell_case(B, D=512, H=512, with_att=True, seed=0):
