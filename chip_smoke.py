@@ -8,14 +8,19 @@ Phases, in order; any failure exits non-zero:
                  power limit (nvidia-smi).
   2. build    -- builds the hand-written kernels from the package's csrc/
                  with nvcc (timed) and prints the registers, stack and
-                 spills ptxas reports for the heads' tensor-core pass (no
-                 spill allowed).
+                 spills ptxas reports for the heads' tensor-core pass and
+                 the attention's pre-pass and stream kernels (no spill
+                 allowed).
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes the paths give it, in float32 and bfloat16:
                  attention (masked and unmasked; the b-major, the int8 and
-                 the K-major kernels at the service's B=512, 4096 and
-                 beam-expanded R=1024 and at the evaluation's R=256 and 640
-                 rows, the three timed side by side at B=512 and 4096),
+                 the K-major kernels at the training step's B=128, the
+                 service's B=512, 4096 and beam-expanded R=1024 and at the
+                 evaluation's R=256 and 640 rows; the b-major and the K-major
+                 kernel timed at bf16 B=512, 1024, 4096 and f32 B=128, 256,
+                 640, the int8 kernel beside them at bf16 B=512 and 4096;
+                 their att_h pre-pass alone against h @ W + b and timed; every
+                 such launch must take the 16-byte vector width),
                  the quantizer on the card against the same function on the
                  CPU, greedy head and beam head (random rows and rows with
                  exact ties planted at every seam of the tensor-core pass's
@@ -127,6 +132,10 @@ SOURCES = {"attention": ATT_SRC, "attention_q": ATT_SRC,
 LAYOUTS = {"b-major": ({}, "attention"),
            "int8": ({"att_quant": "int8"}, "attention_q"),
            "k-major": ({"att_kmajor": 1}, "attention_kmajor")}
+# (type, rows) at which kernels A and E are timed, and D beside them
+ATT_TIMED = (("bfloat16", 512), ("bfloat16", 1024), ("bfloat16", 4096),
+             ("float32", 128), ("float32", 256), ("float32", 640))
+ATT_Q_TIMED = (("bfloat16", 512), ("bfloat16", 4096))
 TRAIN_B = 128        # scripts/bench_train.py's batch
 TRAIN_IMAGES = 256   # synthetic images (153 in the train split)
 LEARN_STEPS = 20
@@ -160,7 +169,12 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 #    against its own plain version on the same (quantized, transposed) inputs.
 #  quantize_features on the card vs the CPU: int8 values equal, scales to a
 #    relative 1e-6 (the same IEEE division and rounding on both).
+#  the attention's pre-pass (att_h = h @ W + b as f32) against the same
+#    product in f32 through torch: summation order only -> 1e-5 (f32); bf16
+#    inputs are exact in f32 and the sums are f32 on both sides, held to the
+#    bf16 tolerance of the call -> 3e-2 (observed ~3e-6).
 TOL = {("attention", "float32"): 1e-4, ("attention", "bfloat16"): 3e-2,
+       ("att_h", "float32"): 1e-5, ("att_h", "bfloat16"): 3e-2,
        ("cell", "float32"): 1e-4, ("cell", "bfloat16"): 3e-2,
        "head": 1e-4, "grad": 1e-4}
 # CUDA vs CPU port, the first training step at B=16 (f32, no TF32, dropout
@@ -247,6 +261,17 @@ def phase_build():
                   f"registers, {res['stack_bytes']} bytes of stack, "
                   f"{res['spill_bytes']} bytes spilled", flush=True)
             require(res["spill_bytes"] == 0, f"{name} spills registers")
+    # the attention's pre-pass and stream kernels (template arguments as
+    # mangled: type, vector width, columns a thread, layout)
+    for name, res in sorted(info["resources"].items()):
+        for kernel in ("att_h_mma_kernel", "att_h_fma_kernel",
+                       "attention_kernel"):
+            if kernel in name:
+                args = name.split(kernel)[1].split("EEv")[0]
+                print(f"  att_step {kernel}<{args}>: {res['registers']} "
+                      f"registers, {res['stack_bytes']} bytes of stack, "
+                      f"{res['spill_bytes']} bytes spilled", flush=True)
+                require(res["spill_bytes"] == 0, f"{name} spills registers")
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +376,26 @@ def head_passes_moved(before):
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     after = _dispatch.head_pass_launches()
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def att_widths_moved(before):
+    """The per-width launch counts of the dense attentions that moved since
+    `before`."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    after = _dispatch.att_width_launches()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def require_vector_width(what, launches):
+    """Every launch of the b-major and the K-major attention since the last
+    reset took the 16-byte vector width (`launches`: _dispatch.launches())."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    widths = _dispatch.att_width_launches()
+    for k in ("attention", "attention_kmajor"):
+        require(widths[f"{k}_vec"] == launches[k]
+                and widths[f"{k}_scalar"] == 0,
+                f"{what}: every {k} launch at H=A={WIDTH} must take the "
+                f"vector width, counted {widths} of {launches[k]} launches")
 
 
 def check_heads(rn, dt, errs):
@@ -533,20 +578,7 @@ def phase_kernels():
 
         w, b = check_heads(rn, dt, errs)
 
-        if dt == torch.bfloat16:  # serving dtype: time kernel vs plain
-            times["attention"] = timed_pair(
-                lambda: att_step.fused_attention(h, emb, p_att, wh, bh, wa,
-                                                 ba, mask),
-                lambda: att_step.attention_reference(h, emb, p_att, wh, bh,
-                                                     wa, ba, mask))
-            out_h = torch.empty_like(h)
-            bounds["attention"] = bound_ms(
-                (h, emb, p_att, wh, bh, wa, ba, mask, out_h),
-                attention_ops(B, H, A), dn)
-            k_ms, p_ms = times["attention"]
-            print(f"  time attention    bf16 B={B} kernel {k_ms:.4f} ms  plain "
-                  f"{p_ms:.4f} ms  bound {bounds['attention'][0]:.4f} ms "
-                  f"({bounds['attention'][1]})", flush=True)
+        if dt == torch.bfloat16:  # serving dtype: time the heads
             for (name, rows), t in time_heads(rn, w, b).items():
                 shapes[name].append({"shape": f"bf16 rows={rows}", **t})
                 if (name, rows) in (("greedy_head", B), ("beam_head", R)):
@@ -555,7 +587,7 @@ def phase_kernels():
         del w, b
     errs["cell"], times["cell"], bounds["cell"] = check_cell(rn, shapes)
     errs["attention"] = max(errs["attention"],
-                            check_attention_grad(rn, shapes))
+                            check_attention_grad(rn))
     check_attention_variants(rn, errs, times, bounds, shapes)
     torch.cuda.synchronize()
     return errs, times, bounds, shapes
@@ -628,7 +660,7 @@ def check_cell(rn, shapes):
     return worst, timed[at], bound[at]
 
 
-def check_attention_grad(rn, shapes):
+def check_attention_grad(rn):
     """The attention's autograd Function on the card (kernel forward,
     attention_reference recomputed in backward) against plain autograd of
     attention_reference, f32, at the training shape.  Returns the largest
@@ -650,37 +682,34 @@ def check_attention_grad(rn, shapes):
     err = max((g - w).abs().max().item() / max(1.0, w.abs().max().item())
               for g, w in zip(got, want))
     report("attention", "f32 B=128 gradient (relative)", err, TOL["grad"])
-    plain = [x.detach() for x in args]
-    k_ms, p_ms = timed_pair(lambda: att_step.fused_attention(*plain, mask),
-                            lambda: att_step.attention_reference(*plain,
-                                                                 mask))
-    bound = bound_ms(plain + [mask, out], attention_ops(B, H, A), "float32")
-    print(f"  time attention B={B} f32 (training shape) kernel {k_ms:.4f} ms"
-          f"  plain {p_ms:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]})",
-          flush=True)
-    shapes["attention"].append(timed_shape(f"float32 B={B}", (k_ms, p_ms),
-                                           bound))
     return err
 
 
 def check_attention_variants(rn, errs, times, bounds, shapes):
     """The three attention kernels (A, the int8 kernel D, the K-major kernel
     E) against their plain versions, masked and unmasked, f32 and bf16, at
-    every row count a path gives them: the service's B=512, its
-    beam-expanded R=1024 and B=4096, and the evaluation's R=256 (batch 128,
-    beam 2) and 640 (its loss: five captions an image; only A runs there).
-    Then the quantizer on the card against the same function on the CPU; the
-    gradient of the quantized call; and the three kernels timed in one call
-    at B=512 and 4096 (bf16), each beside its plain version and its bound
-    (appended to `shapes`).  Fills errs for the three kernels, times (B=512,
-    bf16) and bounds for D and E."""
+    every row count a path gives them: the training step's B=128, the
+    service's B=512, its beam-expanded R=1024 and B=4096, and the
+    evaluation's R=256 (batch 128, beam 2) and 640 (its loss: five captions
+    an image; only A runs there).  Every A and E launch must take the vector
+    width.  Their att_h pre-pass alone against h @ W + b in f32 through
+    torch, and timed.  Then the quantizer on the card against the same
+    function on the CPU; the gradient of the quantized call.  A and E are
+    timed at ATT_TIMED (bf16 B=512, 1024, 4096; f32 B=128, 256, 640) and D
+    beside them at bf16 B=512 and 4096, in one call a shape, each beside its
+    plain version and its bound (appended to `shapes`; no L2 flush between
+    calls: a decode re-reads the same context every step, and at bf16 B=512
+    its 37.7 MB nearly fit the 50 MB L2).  Fills errs for the three kernels,
+    times (B=512, bf16) and bounds for D and E."""
     import torch
-    from cooperativeimagecaptioning_tpu_torch.ops.kernels import att_step
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
+        _dispatch, att_step)
     H = A = WIDTH
     dev = torch.device("cuda")
     print("attention by context layout vs the plain versions (K=36, "
           "H=A=512): b-major (A), int8 (D), K-major (E)", flush=True)
     timed = {}
+    errs["att_h"] = 0.0
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[-1]
         wh = rn(H, A, scale=H ** -0.5).to(dt)
@@ -688,7 +717,7 @@ def check_attention_variants(rn, errs, times, bounds, shapes):
         wa = rn(A, 1, scale=A ** -0.5).to(dt)
         ba = rn(1, scale=0.05).to(dt)
         weights = (wh, bh, wa, ba)
-        for B in (EVAL_R, 512, EVAL_ROWS, 1024, 4096):
+        for B in (TRAIN_B, EVAL_R, 512, EVAL_ROWS, 1024, 4096):
             h = rn(B, H, scale=0.5).to(dt)
             emb = rn(B, K, H).relu().to(dt)
             p_att = rn(B, K, A).to(dt)
@@ -721,10 +750,24 @@ def check_attention_variants(rn, errs, times, bounds, shapes):
                 "attention_kmajor": (att_step.fused_attention_kmajor,
                                      att_step.attention_reference_kmajor,
                                      (emb_t, p_t))}
+            # the pre-pass of A and E alone
+            got = att_step.att_h_kernel(h, wh, bh)
+            torch.cuda.synchronize()
+            err = (got - (h.float() @ wh.float() + bh.float())).abs().max() \
+                .item()
+            errs["att_h"] = max(errs["att_h"], err)
+            report("att_h", f"{dn} B={B} pre-pass vs h @ W + b", err,
+                   TOL[("att_h", dn)])
             for name, (kernel, plain, ctx) in calls.items():
                 for mk, what in ((mask, "masked"), (None, "unmasked")):
+                    widths = _dispatch.att_width_launches()
                     out = kernel(h, *ctx, *weights, mk)
                     torch.cuda.synchronize()
+                    if name != "attention_q":
+                        require(att_widths_moved(widths) == {f"{name}_vec": 1},
+                                f"{name} {dn} B={B}: expected one launch at "
+                                f"the vector width, counted "
+                                f"{att_widths_moved(widths)}")
                     ref = plain(h, *ctx, *weights, mk)
                     require(out.dtype == dt and out.shape == (B, H),
                             f"{name} output type/shape")
@@ -732,23 +775,42 @@ def check_attention_variants(rn, errs, times, bounds, shapes):
                     errs[name] = max(errs[name], err)
                     report(name, f"{dn} B={B} {what}", err,
                            TOL[("attention", dn)])
-            if dt == torch.bfloat16 and B in (512, 4096):
+            if (dn, B) in ATT_TIMED:
+                short = "bf16" if dt == torch.bfloat16 else dn
+                iters = 20 if B <= 1024 else 10
                 for name, (kernel, plain, ctx) in calls.items():
+                    if name == "attention_q" and (dn, B) not in ATT_Q_TIMED:
+                        continue
                     timed[(name, B)] = timed_pair(
                         lambda: kernel(h, *ctx, *weights, mask),
-                        lambda: plain(h, *ctx, *weights, mask),
-                        iters=20 if B == 512 else 10)
+                        lambda: plain(h, *ctx, *weights, mask), iters=iters)
                     out = torch.empty_like(h)
                     bound = bound_ms((h, *ctx, *weights, mask, out),
                                      attention_ops(B, H, A), dn)
                     k_ms, p_ms = timed[(name, B)]
-                    print(f"  time {name:16s} bf16 B={B:<5d} kernel "
+                    print(f"  time {name:16s} {short} B={B:<5d} kernel "
                           f"{k_ms:.4f} ms  plain {p_ms:.4f} ms  bound "
-                          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+                          f"{bound[0]:.4f} ms ({bound[1]}; "
+                          f"{k_ms / bound[0]:.1f}x)", flush=True)
                     shapes[name].append(timed_shape(
-                        f"bf16 B={B}", timed[(name, B)], bound))
-                    if B == 512 and name != "attention":
+                        f"{short} B={B}", timed[(name, B)], bound))
+                    if (dn, B) == ("bfloat16", 512):
                         times[name], bounds[name] = timed[(name, B)], bound
+                pre = cuda_ms(lambda: att_step.att_h_kernel(h, wh, bh), iters)
+                mm = cuda_ms(lambda: torch.addmm(bh, h, wh), iters)
+                plan = att_step.stream_plan(B, K, H, A, h.element_size(),
+                                            False)
+                print(f"  time att_h pre-pass   {short} B={B:<5d} kernel "
+                      f"{pre:.4f} ms (torch.addmm of the same product, a "
+                      f"yardstick the port never calls here: {mm:.4f} ms); "
+                      f"stream plan: {plan.rows} rows a block, {plan.slots} "
+                      f"slots x {plan.stages} stages, "
+                      f"{plan.smem_bytes} bytes of shared memory, grid "
+                      f"{plan.grid}, "
+                      f"{att_step.resident_blocks(plan, H, A, dt)} blocks "
+                      f"an SM", flush=True)
+                for name in ("attention", "attention_kmajor"):
+                    shapes[name][-1].update(att_h_ms=pre, att_h_addmm_ms=mm)
             del h, emb, p_att, q, emb_t, p_t, calls
 
     # the quantized call's gradient: kernel forward, the dequantized
@@ -911,8 +973,10 @@ def phase_slice(smi):
     for k in ("attention", "greedy_head", "beam_head"):
         require(main_launches[k] > 0, f"{k} was never launched on the "
                 f"main path")
+    require_vector_width("serving", main_launches)
     print(f"  main-path launches: {main_launches}; heads by first pass: "
-          f"{_dispatch.head_pass_launches()}", flush=True)
+          f"{_dispatch.head_pass_launches()}; attention by width: "
+          f"{_dispatch.att_width_launches()}", flush=True)
 
     # the CUDA services against CPU services (the plain versions) on the
     # same 64-image request, at the same bucket
@@ -1029,6 +1093,7 @@ def phase_layouts(smi, plain, plain_ids, plain_rates):
     require(launches["attention"] == 0 and launches["attention_q"] > 0
             and launches["attention_kmajor"] > 0,
             f"decode layouts: launches {launches}")
+    require_vector_width("decode layouts", launches)
     print(f"  launches of the int8 and K-major requests: {launches}",
           flush=True)
 
@@ -1207,6 +1272,7 @@ def phase_train(smi):
             require(launches[k] == want, f"training: {k} launched "
                     f"{launches[k]} times in {steps} steps, expected {want} "
                     f"(forward + checkpointed recompute, T={T})")
+        require_vector_width("training", launches)
         losses = [float(v) for v in trainer.loss_history.values()]
         require(len(losses) == steps and all(np.isfinite(losses)),
                 f"training losses {losses}")
@@ -1383,6 +1449,7 @@ def phase_eval(smi):
         want["beam_head"] = batches * L
         require(launches == want, f"evaluation {name}: launches {launches}, "
                 f"expected {want}")
+        require_vector_width(f"evaluation {name}", launches)
         require(_dispatch.head_pass_launches()["beam_head_fma"]
                 == want["beam_head"],
                 f"evaluation {name}: the f32 beam head must take the FMA "

@@ -42,11 +42,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every entry returns a cudaError_t as int
 SIGNATURES = {
-    # h, emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha, mask|NULL, out,
-    # B, K, H, A, is_bf16, stream
-    "cic_attention": [_P] * 9 + [_I] * 5 + [_P],
+    # h, w_h2att, b_h2att, att_h (f32 [B,A] out), B, H, A, is_bf16, vec, stream
+    "cic_att_h": [_P] * 4 + [_I] * 5 + [_P],
+    # is_bf16, kmajor, vec, slots, stages, H, A -> resident blocks an SM (the
+    # one entry that returns a count; negative: minus a cudaError_t)
+    "cic_attention_blocks_per_sm": [_I] * 7,
+    # h, emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha, mask|NULL,
+    # att_h (f32 [B,A] scratch), out, B, K, H, A, is_bf16, vec, rows, slots,
+    # stages, stream
+    "cic_attention": [_P] * 10 + [_I] * 9 + [_P],
     # as cic_attention, with emb [K,B,H] and p_att [K,B,A]
-    "cic_attention_kmajor": [_P] * 9 + [_I] * 5 + [_P],
+    "cic_attention_kmajor": [_P] * 10 + [_I] * 9 + [_P],
     # h, emb_q, emb_scale, p_q, p_scale, w_h2att, b_h2att, w_alpha, b_alpha,
     # mask|NULL, out, B, K, H, A, is_bf16, stream
     "cic_attention_q": [_P] * 11 + [_I] * 5 + [_P],

@@ -17,7 +17,9 @@ right after the launch succeeded and nowhere else, so a run can show that
 its main path went through the kernels.  The two vocabulary heads have two
 first passes (tensor cores for bf16, FMAs for the rest: `logit_head.head_pass`);
 a second count per head and pass, raised with the head's own, shows which
-one a launch took.
+one a launch took.  The b-major and the K-major attention have two widths
+(16-byte vectors, or single elements for unaligned shapes:
+`att_step.vector_width`), counted the same way.
 """
 
 from __future__ import annotations
@@ -33,7 +35,11 @@ KERNELS = ("attention", "attention_q", "attention_kmajor", "greedy_head",
 HEAD_PASSES = ("greedy_head_mma", "greedy_head_fma", "beam_head_mma",
                "beam_head_fma")
 
-_launches = {name: 0 for name in KERNELS + HEAD_PASSES}
+# the dense attentions' launches by width: "<kernel>_vec" or "<kernel>_scalar"
+ATT_WIDTHS = ("attention_vec", "attention_scalar", "attention_kmajor_vec",
+              "attention_kmajor_scalar")
+
+_launches = {name: 0 for name in KERNELS + HEAD_PASSES + ATT_WIDTHS}
 
 
 def use_kernel(x: torch.Tensor) -> bool:
@@ -46,12 +52,13 @@ def use_kernel(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain path for device {x.device}")
 
 
-def count(name: str, head_pass: str = "") -> None:
+def count(name: str, variant: str = "") -> None:
     """One launch of kernel `name`; a head also names the first pass it
-    took ("mma" or "fma")."""
+    took ("mma" or "fma"), a dense attention its width ("vec" or
+    "scalar")."""
     _launches[name] += 1
-    if head_pass:
-        _launches[f"{name}_{head_pass}"] += 1
+    if variant:
+        _launches[f"{name}_{variant}"] += 1
 
 
 def launches() -> dict:
@@ -63,6 +70,13 @@ def head_pass_launches() -> dict:
     """{"<head>_<pass>": launches since the last reset}; for each head the
     two passes add up to its entry in `launches()`."""
     return {name: _launches[name] for name in HEAD_PASSES}
+
+
+def att_width_launches() -> dict:
+    """{"<attention kernel>_<width>": launches since the last reset}; for
+    each of the two dense kernels the widths add up to its entry in
+    `launches()`."""
+    return {name: _launches[name] for name in ATT_WIDTHS}
 
 
 def reset_launches() -> None:

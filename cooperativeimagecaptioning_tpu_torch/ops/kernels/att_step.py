@@ -22,6 +22,21 @@ tensors:
 All versions compute in float32 and return h's dtype, as the Pallas kernels
 did (f32 accumulation, bf16 or f32 in and out).
 
+The b-major and the K-major call are two launches inside one wrapper call
+(one count of the kernel).  A hand-written pre-pass computes att_h + bias
+as float32 [B, A] into a scratch tensor (bf16 on the tensor cores, float32
+on true-f32 FMAs).  The stream kernel then walks each block's rows: a
+row's p_att and then its att_emb, cut into chunks of a few slots, flow
+through a ring of shared-memory stages filled by asynchronous bulk copies
+(`cp.async.bulk`, one mbarrier a stage) that run `stages - 1` chunks ahead
+of the arithmetic.  `stream_plan` chooses rows per block (1 until B
+outgrows 8 blocks an SM), slots per stage, stages, and with them shared
+memory and grid; `stream_copies` lists the copies the kernel makes under a
+plan, for the CPU tests.  Shapes or pointers that are not 16-byte aligned
+take the same kernel at vector width 1 (`vector_width`);
+`_dispatch.att_width_launches` says which width ran.  The int8 call keeps
+its single kernel, which computes att_h per block.
+
 Under autograd `fused_attention` and `fused_attention_q` go through
 `Attention`, a torch.autograd.Function standing in for the JAX custom_vjps
 (att_step.py:247-286): its forward is the kernel (or the plain version on
@@ -35,12 +50,128 @@ att_step.py:383-387) and refuses inputs that require one.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build, _dispatch
 
 MAX_K = 64  # attention slots the kernel's softmax stage holds (kMaxK)
 Q_ALIGN = 16  # the int8 kernel loads 16 values (16 bytes) a lane
+# the stream kernel's constants (csrc/att_step.cu)
+THREADS = 256      # kThreads
+MAX_STAGES = 8     # kMaxStages
+MAX_SPLIT = 8      # kMaxSplit
+MAX_COLS = 16      # kMaxCols: columns a thread of the width-1 path may own
+BAR_BYTES = 64     # kBarBytes: the ring stages' mbarriers
+MAX_SMEM = 232448  # kMaxSmem: 227 KiB of shared memory a block may ask for
+ROW_WAVES = 8      # blocks an SM the grid may have before blocks take rows
+SMEM_SHARED = 81920  # the most a block takes where blocks share an SM
+
+
+def vector_width(H, A, itemsize, aligned=True):
+    """Elements a copy, a shared-memory load and a store of the stream
+    kernel take at once: 16 bytes' worth where H and A are multiples of that,
+    H has at most one such column group a thread and the tensors are 16-byte
+    aligned, else 1."""
+    vec = 16 // itemsize
+    if aligned and H % vec == 0 and A % vec == 0 and H // vec <= THREADS:
+        return vec
+    return 1
+
+
+def col_split(H, vec):
+    """Thread groups of a block that share one column group of the weighted
+    sum (col_split of csrc/att_step.cu)."""
+    groups = H // vec
+    return 1 if groups >= THREADS else min(THREADS // groups, MAX_SPLIT)
+
+
+class StreamPlan(NamedTuple):
+    """How the stream kernel runs one call; see `stream_plan`."""
+    vec: int          # vector width in elements (16 bytes' worth, or 1)
+    kmajor: bool
+    rows: int         # batch rows a block walks
+    slots: int        # attention slots a chunk (a ring stage) holds
+    stages: int       # ring stages; stages - 1 chunks are in flight
+    stage_bytes: int
+    smem_bytes: int   # the block's dynamic shared memory
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def stream_plan(B, K, H, A, itemsize, kmajor, vec=None, sms=132):
+    """The launch parameters of the stream kernel for a [B, K, H] / [B, K, A]
+    context of `itemsize`-byte elements (K-major: [K, B, *]) on a card of
+    `sms` SMs.  `vec` defaults to `vector_width` of aligned tensors.
+
+    A stage holds 8 slots (one a warp) of the wider of H and A, and the
+    ring has 3 stages where several blocks share an SM (registers allow 4
+    blocks an SM; more stages cost blocks and were slower on the H100), 8
+    where the grid gives an SM one block at most; fewer slots, then fewer
+    stages, where that outgrows the shared memory (80 KiB, or a block's
+    limit where it is alone).  A block takes one row until that makes more
+    than 8 blocks an SM (B of about a thousand); then as many rows as keep
+    the grid there.
+    The K-major layout takes the same plan: a chunk is then `slots` runs of
+    one row's slot instead of one run."""
+    if vec is None:
+        vec = vector_width(H, A, itemsize)
+    wide = max(H, A)
+    a4 = -(-A // 4) * 4
+    alone = B <= sms
+    limit = MAX_SMEM if alone else SMEM_SHARED
+
+    def stage(slots):
+        return -(-slots * wide * itemsize // 16) * 16
+
+    def smem(slots, stages):
+        return BAR_BYTES + stages * stage(slots) + 4 * (
+            (stages + 1) * a4 + MAX_K + (col_split(H, vec) - 1) * H)
+
+    slots, stages = min(K, 8), MAX_STAGES if alone else 3
+    while slots > 1 and smem(slots, stages) > limit:
+        slots = (slots + 1) // 2
+    while stages > 2 and smem(slots, stages) > limit:
+        stages -= 1
+    rows = -(-B // (ROW_WAVES * sms))
+    return StreamPlan(vec, bool(kmajor), rows, slots, stages, stage(slots),
+                      smem(slots, stages), -(-B // rows))
+
+
+def stream_copies(plan, B, K, H, A, itemsize):
+    """Every copy from the context into shared memory that the stream kernel
+    makes under `plan`, as a dict of equally long int64 arrays: `tensor` (0:
+    p_att, 1: att_emb), `row`, `k0` and `nk` (the slots covered), `src_byte`
+    and `nbytes` (the contiguous run in the tensor), `block`, `chunk` (its
+    place in the block's sequence), `stage` and `dst_byte` (inside the
+    stage).  In the b-major layout a chunk is one run, in the K-major layout
+    one run a slot."""
+    rows, slots, stages = plan.rows, plan.slots, plan.stages
+    cpt = -(-K // slots)
+    b = np.arange(B, dtype=np.int64)
+    out = {k: [] for k in ("tensor", "row", "k0", "nk", "src_byte", "nbytes",
+                           "block", "chunk", "stage", "dst_byte")}
+    for tensor, width in ((0, A), (1, H)):
+        for q in range(cpt):
+            k0 = q * slots
+            nk = min(slots, K - k0)
+            chunk = (b % rows) * 2 * cpt + tensor * cpt + q
+            runs = [(0, nk)] if not plan.kmajor else \
+                [(j, 1) for j in range(nk)]
+            for j, n in runs:
+                slot = (k0 + j) * B + b if plan.kmajor else b * K + k0 + j
+                cols = {"tensor": tensor, "row": b, "k0": k0 + j, "nk": n,
+                        "src_byte": slot * width * itemsize,
+                        "nbytes": n * width * itemsize, "block": b // rows,
+                        "chunk": chunk, "stage": chunk % stages,
+                        "dst_byte": j * width * itemsize}
+                for key, v in cols.items():
+                    out[key].append(np.broadcast_to(
+                        np.asarray(v, np.int64), b.shape))
+    return {k: np.concatenate(v) for k, v in out.items()}
 
 
 def attention_reference(h, att_emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha,
@@ -198,8 +329,55 @@ def _check_weights(name, h, K, w_h2att, b_h2att, w_alpha, b_alpha, masks):
     return B, H, A
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def att_h_kernel(h, w_h2att, b_h2att):
+    """Launch the pre-pass of csrc/att_step.cu alone on CUDA tensors:
+    h @ w_h2att + b_h2att as float32 [B, A]."""
+    name = "att_h"
+    if h.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, "
+                        f"got {h.dtype}")
+    B, H = h.shape
+    A = w_h2att.shape[1]
+    if tuple(w_h2att.shape) != (H, A) or b_h2att.numel() != A:
+        raise ValueError(f"{name} kernel: w_h2att {tuple(w_h2att.shape)}, "
+                         f"b_h2att {tuple(b_h2att.shape)} do not match h "
+                         f"{tuple(h.shape)}")
+    _dispatch.check_cuda_inputs(name, {"h": h, "w_h2att": w_h2att,
+                                       "b_h2att": b_h2att}, h.dtype)
+    att_h = torch.empty(B, A, dtype=torch.float32, device=h.device)
+    vec = vector_width(H, A, h.element_size(), _aligned(h, w_h2att))
+    lib = _build.library()
+    code = lib.cic_att_h(_build.ptr(h), _build.ptr(w_h2att),
+                         _build.ptr(b_h2att), _build.ptr(att_h), B, H, A,
+                         int(h.dtype == torch.bfloat16), int(vec > 1),
+                         _build.stream(h.device))
+    _build.check(lib, code, name)
+    return att_h
+
+
+def resident_blocks(plan, H, A, dtype):
+    """Blocks of the stream kernel that one SM of the current card holds at
+    once under `plan` (asks the CUDA runtime; builds the kernels)."""
+    lib = _build.library()
+    n = lib.cic_attention_blocks_per_sm(
+        int(dtype == torch.bfloat16), int(plan.kmajor), int(plan.vec > 1),
+        plan.slots, plan.stages, H, A)
+    _build.check(lib, max(0, -n), "attention_blocks_per_sm")
+    return n
+
+
 def _launch_dense(name, entry, kmajor, h, emb, p_att, weights, masks):
-    """Launch the b-major or the K-major kernel (no autograd)."""
+    """Launch the pre-pass and the stream kernel on a b-major or a K-major
+    context (no autograd)."""
     if emb.dim() != 3:
         raise ValueError(f"{name} kernel: context {tuple(emb.shape)} is not "
                          f"3-dimensional")
@@ -213,27 +391,35 @@ def _launch_dense(name, entry, kmajor, h, emb, p_att, weights, masks):
     _dispatch.check_cuda_inputs(name, {"h": h, "att_emb": emb,
                                        "p_att": p_att}, h.dtype)
     out = torch.empty_like(h)
+    att_h = torch.empty(B, A, dtype=torch.float32, device=h.device)
+    vec = vector_width(H, A, h.element_size(),
+                       _aligned(h, emb, p_att, weights[0], out))
+    plan = stream_plan(B, K, H, A, h.element_size(), kmajor, vec,
+                       _sm_count(h.device.index or 0))
     lib = _build.library()
     code = getattr(lib, entry)(
         _build.ptr(h), _build.ptr(emb), _build.ptr(p_att),
-        *(_build.ptr(w) for w in weights), _build.ptr(masks), _build.ptr(out),
-        B, K, H, A, int(h.dtype == torch.bfloat16), _build.stream(h.device))
+        *(_build.ptr(w) for w in weights), _build.ptr(masks),
+        _build.ptr(att_h), _build.ptr(out), B, K, H, A,
+        int(h.dtype == torch.bfloat16), int(vec > 1), plan.rows, plan.slots,
+        plan.stages, _build.stream(h.device))
     _build.check(lib, code, name)
-    _dispatch.count(name)
+    _dispatch.count(name, "vec" if vec > 1 else "scalar")
     return out
 
 
 def attention_kernel(h, att_emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha,
                      masks):
-    """Launch the b-major kernel of csrc/att_step.cu on CUDA tensors (no
-    autograd)."""
+    """Launch the b-major kernels of csrc/att_step.cu (pre-pass, stream) on
+    CUDA tensors (no autograd)."""
     return _launch_dense("attention", "cic_attention", False, h, att_emb,
                          p_att, (w_h2att, b_h2att, w_alpha, b_alpha), masks)
 
 
 def attention_kmajor_kernel(h, att_emb_t, p_att_t, w_h2att, b_h2att, w_alpha,
                             b_alpha, masks):
-    """Launch the K-major kernel of csrc/att_step.cu on CUDA tensors."""
+    """Launch the K-major kernels of csrc/att_step.cu (pre-pass, stream) on
+    CUDA tensors."""
     return _launch_dense("attention_kmajor", "cic_attention_kmajor", True, h,
                          att_emb_t, p_att_t,
                          (w_h2att, b_h2att, w_alpha, b_alpha), masks)

@@ -132,10 +132,11 @@ def breakdown(trainer, data, device, reps):
                 ms = e.time_range.elapsed_us() / 1e3
                 kernel_ms[stage] += ms
                 # the package's own kernels launch through ctypes, under no
-                # op
-                for name in ("attention_kernel", "cell_kernel"):
+                # op (the attention's att_h pre-pass counts with it)
+                for name, key in (("attention_kernel", "attention kernel"),
+                                  ("att_h_", "attention kernel"),
+                                  ("cell_kernel", "cell kernel")):
                     if name in e.name:
-                        key = name.replace("_", " ")
                         cats[key] = cats.get(key, 0.0) + ms
             elif e.self_device_time_total > 0 and e.name not in FUNCTIONS:
                 ms = e.self_device_time_total / 1e3
