@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times and checks of the dense attention kernels (A b-major, E K-major) on
-one Hopper GPU, for tuning their stream and for the numbers beside them.
+"""Times and checks of the attention kernels (A b-major, E K-major, D int8)
+on one Hopper GPU, for tuning their stream and for the numbers beside them.
 
     python3 att_stream_bench.py                 # check, then time the plans
     python3 att_stream_bench.py --tanh 0,1,2    # also the tanh variants
@@ -9,13 +9,14 @@ one Hopper GPU, for tuning their stream and for the numbers beside them.
 Builds only csrc/att_step.cu (and common.cu) with nvcc into
 build/att_bench_<variant>/, so a run costs one short compile a variant.
 Phases:
-  check  -- the pre-pass alone against h @ W + b, and A and E against their
-            plain versions (f32 and bf16, masked and unmasked, aligned and
-            unaligned widths, ragged B).
-  time   -- device ms of a wrapper call of A and E (and of the pre-pass
+  check  -- the pre-pass alone against h @ W + b, and A, E and D against
+            their plain versions (f32 and bf16, masked and unmasked, aligned
+            and unaligned widths, ragged B, K up to 196).
+  time   -- device ms of a wrapper call of A, E and D (and of the pre-pass
             alone) at the shapes the paths run: bf16 B=512, 1024, 4096 and
-            f32 B=128, 256, 640 (K=36, H=A=512), timed as chip_smoke.py times
-            (events around calls enqueued on a busy card, no L2 flush).
+            f32 B=128, 256, 640 (K=36, H=A=512), and K=196 at bf16 B=512 and
+            f32 B=128, timed as chip_smoke.py times (events around calls
+            enqueued on a busy card, no L2 flush).
   --tanh -- the same times with the kernel's tanh compiled as the identity
             (0), as tanhf (1) and as the exp form (2): the share of the tanh.
   --sweep - the same times under other plans (rows a block, slots a stage,
@@ -42,8 +43,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 K = 36
 WIDTH = 512
-SHAPES = (("bfloat16", 512), ("bfloat16", 1024), ("bfloat16", 4096),
-          ("float32", 128), ("float32", 256), ("float32", 640))
+SHAPES = (("bfloat16", 512, K), ("bfloat16", 1024, K), ("bfloat16", 4096, K),
+          ("float32", 128, K), ("float32", 256, K), ("float32", 640, K),
+          ("bfloat16", 512, 196), ("float32", 128, 196))
 
 
 def build_variant(tag, flags=()):
@@ -108,8 +110,8 @@ def make_case(rn, B, dt, H=WIDTH, A=WIDTH, k=K):
 
 
 def check(rn):
-    """Largest errors of the pre-pass, A and E over a set of shapes; raises
-    on a miss (f32 1e-4, bf16 3e-2; the pre-pass 1e-5 / 3e-2)."""
+    """Largest errors of the pre-pass, A, E and D over a set of shapes;
+    raises on a miss (f32 1e-4, bf16 3e-2; the pre-pass 1e-5 / 3e-2)."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
         _dispatch, att_step)
@@ -117,7 +119,8 @@ def check(rn):
     cases = [(512, WIDTH, WIDTH, K), (4099, WIDTH, WIDTH, K),
              (13, 96, 80, 6), (9, 96, 80, 64), (8, 96, 80, 1),
              (37, 100, 72, 5), (33, 97, 83, 7), (140, 1024, 256, 36),
-             (3, 4000, 64, 3)]
+             (3, 4000, 64, 3), (64, WIDTH, WIDTH, 196), (5, 40, 40, 196),
+             (3, 96, 80, 256)]
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[-1]
         tol = 1e-4 if dt == torch.float32 else 3e-2
@@ -131,20 +134,29 @@ def check(rn):
                 f"att_h {dn} B={B} H={H} A={A}: {err}"
             emb_t = emb.movedim(0, 1).contiguous()
             p_t = p_att.movedim(0, 1).contiguous()
+            q = att_step.quantize_features(emb, p_att)
             for mk in (mask, None):
                 before = _dispatch.att_width_launches()
                 a = att_step.attention_kernel(h, emb, p_att, *weights, mk)
                 e = att_step.attention_kmajor_kernel(h, emb_t, p_t, *weights,
                                                      mk)
+                d = att_step.attention_q_kernel(h, *q, *weights, mk)
                 torch.cuda.synchronize()
                 after = _dispatch.att_width_launches()
-                width = "vec" if att_step.vector_width(
-                    H, A, h.element_size()) > 1 else "scalar"
-                for name in ("attention", "attention_kmajor"):
+                for name, item in (("attention", h.element_size()),
+                                   ("attention_kmajor", h.element_size()),
+                                   ("attention_q", 1)):
+                    width = "vec" if att_step.vector_width(
+                        H, A, item) > 1 else "scalar"
                     key = f"{name}_{width}"
                     assert after[key] - before[key] == 1, (key, after)
                 ref = att_step.attention_reference(h, emb, p_att, *weights,
                                                    mk)
+                ref_q = att_step.attention_reference_q(h, *q, *weights, mk)
+                err = (d.float() - ref_q.float()).abs().max().item()
+                worst[f"D {dn}"] = max(worst.get(f"D {dn}", 0.0), err)
+                assert err <= tol, (f"D {dn} B={B} H={H} A={A} K={k} "
+                                    f"masked={mk is not None}: {err}")
                 for name, out in (("A", a), ("E", e)):
                     err = (out.float() - ref.float()).abs().max().item()
                     key = f"{name} {dn}"
@@ -158,9 +170,9 @@ def check(rn):
 
 
 def time_shapes(rn, label, plan_override=None):
-    """{shape: {"A": ms, "E": ms, "att_h": ms}} under the current library
-    (and, with plan_override, under stream_plan's result with those fields
-    replaced)."""
+    """{shape: {"A": ms, "E": ms, "D": ms, "att_h": ms}} under the current
+    library (and, with plan_override, under stream_plan's result with those
+    fields replaced)."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import att_step
     real_plan = att_step.stream_plan
@@ -170,32 +182,41 @@ def time_shapes(rn, label, plan_override=None):
         att_step.stream_plan = patched
     out = {}
     try:
-        for dn, B in SHAPES:
+        for dn, B, k in SHAPES:
             dt = getattr(torch, dn)
-            h, emb, p_att, weights, mask = make_case(rn, B, dt)
+            h, emb, p_att, weights, mask = make_case(rn, B, dt, k=k)
             emb_t = emb.movedim(0, 1).contiguous()
             p_t = p_att.movedim(0, 1).contiguous()
+            q = att_step.quantize_features(emb, p_att)
             iters = 10 if B >= 4096 else 20
             row = {
                 "A": cuda_ms(lambda: att_step.attention_kernel(
                     h, emb, p_att, *weights, mask), iters),
                 "E": cuda_ms(lambda: att_step.attention_kmajor_kernel(
                     h, emb_t, p_t, *weights, mask), iters),
+                "D": cuda_ms(lambda: att_step.attention_q_kernel(
+                    h, *q, *weights, mask), iters),
                 "att_h": cuda_ms(lambda: att_step.att_h_kernel(
                     h, weights[0], weights[1]), iters)}
             plan = att_step.stream_plan(
-                B, K, WIDTH, WIDTH, h.element_size(), False)
+                B, k, WIDTH, WIDTH, h.element_size(), False)
+            plan_q = att_step.stream_plan(B, k, WIDTH, WIDTH, 1, False)
             row["plan"] = plan._asdict()
+            row["plan_q"] = plan_q._asdict()
             row["blocks_per_sm"] = att_step.resident_blocks(
-                plan, WIDTH, WIDTH, dt)
+                plan, k, WIDTH, WIDTH, dt)
+            row["blocks_per_sm_q"] = att_step.resident_blocks(
+                plan_q, k, WIDTH, WIDTH, dt, "attention_q")
             row["A2"] = cuda_ms(lambda: att_step.attention_kernel(
                 h, emb, p_att, *weights, mask), iters)
-            out[f"{dn} B={B}"] = row
-            print(f"  {label:24s} {dn:8s} B={B:<5d} A {row['A']:.4f} "
-                  f"({row['A2']:.4f}) ms  E {row['E']:.4f} ms  att_h alone "
-                  f"{row['att_h']:.4f} ms  ({row['blocks_per_sm']} blocks "
-                  f"an SM, grid {row['plan']['grid']})", flush=True)
-            del h, emb, p_att, emb_t, p_t
+            out[f"{dn} B={B} K={k}"] = row
+            print(f"  {label:24s} {dn:8s} B={B:<5d} K={k:<3d} A "
+                  f"{row['A']:.4f} ({row['A2']:.4f}) ms  E {row['E']:.4f} ms  "
+                  f"D {row['D']:.4f} ms  att_h alone {row['att_h']:.4f} ms  "
+                  f"({row['blocks_per_sm']} blocks an SM, D "
+                  f"{row['blocks_per_sm_q']}; grid {row['plan']['grid']})",
+                  flush=True)
+            del h, emb, p_att, emb_t, p_t, q
     finally:
         att_step.stream_plan = real_plan
     return out

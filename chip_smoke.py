@@ -8,39 +8,45 @@ Phases, in order; any failure exits non-zero:
                  power limit (nvidia-smi).
   2. build    -- builds the hand-written kernels from the package's csrc/
                  with nvcc (timed) and prints the registers, stack and
-                 spills ptxas reports for the heads' tensor-core pass and
-                 the attention's pre-pass and stream kernels (no spill
-                 allowed).
+                 spills ptxas reports for the heads' tensor-core pass, the
+                 attention's pre-pass and stream kernels and the cell's two
+                 kernels (no spill allowed).
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes the paths give it, in float32 and bfloat16:
                  attention (masked and unmasked; the b-major, the int8 and
                  the K-major kernels at the training step's B=128, the
                  service's B=512, 4096 and beam-expanded R=1024 and at the
-                 evaluation's R=256 and 640 rows; the b-major and the K-major
-                 kernel timed at bf16 B=512, 1024, 4096 and f32 B=128, 256,
-                 640, the int8 kernel beside them at bf16 B=512 and 4096;
-                 their att_h pre-pass alone against h @ W + b and timed; every
-                 such launch must take the 16-byte vector width),
+                 evaluation's R=256 and 640 rows, all at K=36, and at K=196,
+                 the repo's own 14 x 14 feature grid, at B=128 and 512; the
+                 b-major and the K-major kernel timed at bf16 B=512, 1024,
+                 4096 and f32 B=128, 256, 640 and bf16 B=512 K=196, the int8
+                 kernel beside them at bf16 B=512, 4096, B=512 K=196 and f32
+                 B=128; their att_h pre-pass alone against h @ W + b and
+                 timed; every such launch must take the 16-byte vector width;
+                 the int8 kernel at H=A=40 must take width 1),
                  the quantizer on the card against the same function on the
                  CPU, greedy head and beam head (random rows and rows with
                  exact ties planted at every seam of the tensor-core pass's
                  merge, which must resolve to the lower id: greedy at B=512,
                  4096 and 300 rows; beam kk = 2, 3, 6, 16 at R=1024 and kk = 2
-                 at the evaluation's R=256, at 300 and at 8192 rows; every
-                 bf16 launch must take the tensor-core pass, every f32 launch
-                 the FMA pass).  Each check prints its maximum error beside
-                 its tolerance; each kernel is timed beside its plain version.
-                 The fused maxout-LSTM cell (kernel F, CIC_FUSED_CELL=1)
-                 against its plain version with and without attention, f32
-                 at B=128 and f32 / bf16 at B=512 and 4096; the attention's
-                 autograd Function (kernel forward, recomputed backward;
-                 the b-major and the int8 call) against plain autograd, f32
-                 at B=128.  Every timed shape gets its own bound: the larger
-                 of its bytes over the card's memory rate and its operations
-                 over the card's peak rate.  The heads are timed at B=512 and
-                 4096 (greedy) and R=1024 and 8192 (beam, kk=2), each beside
-                 torch.matmul of h @ w alone, a yardstick the port never
-                 calls.
+                 at the evaluation's R=256, at 300 and at 8192 rows, and kk =
+                 17, 32, 64 at R=1024, in rounds of 16, with a group of 24
+                 tied ids across the rounds' seam; every bf16 launch must
+                 take the tensor-core pass, every f32 launch the FMA pass).
+                 Each check prints its maximum error beside its tolerance;
+                 each kernel is timed beside its plain version.  The fused
+                 maxout-LSTM cell (kernel F, CIC_FUSED_CELL=1) against its
+                 plain version with and without attention, f32 at B=128 and
+                 f32 / bf16 at B=512, 4096 and 130 (a partial row tile),
+                 bf16 on the tensor-core kernel and f32 on the FMA kernel;
+                 the attention's autograd Function (kernel forward,
+                 recomputed backward; the b-major and the int8 call) against
+                 plain autograd, f32 at B=128.  Every timed shape gets its own
+                 bound: the larger of its bytes over the card's memory rate
+                 and its operations over the card's peak rate.  The heads are
+                 timed at B=512 and 4096 (greedy) and R=1024 and 8192 (beam,
+                 kk=2), each beside torch.matmul of h @ w alone, a yardstick
+                 the port never calls.
   4. slice    -- writes a full-width run dir (Att2in2, vocab 9487, 512-wide,
                  K=36, L=16, random weights from a numpy seed), serves it
                  through CaptioningService.from_run_dir + warmup +
@@ -56,8 +62,13 @@ Phases, in order; any failure exits non-zero:
                  kernel, none through the b-major one), their ids against the
                  b-major and the CPU services in float32, captions/s of the
                  three layouts side by side, and the device memory of a
-                 bucket-4096 request in bf16 and int8.  CIC_FUSED_CELL is
-                 unset here (the default: the cell is the plain version).
+                 bucket-4096 request in bf16 and int8.  Then services through
+                 from_run_dir(max_att_len=196) fed 196-slot features (greedy
+                 and beam 2, bf16 and f32; every step through the attention
+                 kernel; f32 ids against the CPU service's), and a run dir
+                 whose checkpoint lacks a leaf, which from_run_dir must
+                 report and fill.  CIC_FUSED_CELL is unset here (the
+                 default: the cell is the plain version).
   5. training -- phase-2 MLE training at full width through
                  training.loop.train / Trainer over the shared
                  SyntheticDataset (f32, B=128, drop_prob_lm 0.5), with
@@ -132,10 +143,14 @@ SOURCES = {"attention": ATT_SRC, "attention_q": ATT_SRC,
 LAYOUTS = {"b-major": ({}, "attention"),
            "int8": ({"att_quant": "int8"}, "attention_q"),
            "k-major": ({"att_kmajor": 1}, "attention_kmajor")}
-# (type, rows) at which kernels A and E are timed, and D beside them
-ATT_TIMED = (("bfloat16", 512), ("bfloat16", 1024), ("bfloat16", 4096),
-             ("float32", 128), ("float32", 256), ("float32", 640))
-ATT_Q_TIMED = (("bfloat16", 512), ("bfloat16", 4096))
+# slots of the repo's own feature grid (preprocess/feats.py: 14 x 14)
+K_GRID = 196
+# (type, rows, slots) at which kernels A and E are timed, and D beside them
+ATT_TIMED = (("bfloat16", 512, K), ("bfloat16", 1024, K),
+             ("bfloat16", 4096, K), ("float32", 128, K), ("float32", 256, K),
+             ("float32", 640, K), ("bfloat16", 512, K_GRID))
+ATT_Q_TIMED = (("bfloat16", 512, K), ("bfloat16", 4096, K),
+               ("float32", 128, K), ("bfloat16", 512, K_GRID))
 TRAIN_B = 128        # scripts/bench_train.py's batch
 TRAIN_IMAGES = 256   # synthetic images (153 in the train split)
 LEARN_STEPS = 20
@@ -262,13 +277,17 @@ def phase_build():
                   f"{res['spill_bytes']} bytes spilled", flush=True)
             require(res["spill_bytes"] == 0, f"{name} spills registers")
     # the attention's pre-pass and stream kernels (template arguments as
-    # mangled: type, vector width, columns a thread, layout)
+    # mangled: type, vector width, columns a thread, layout) and the cell's
+    # two kernels (mma: warps along the rows; fma: type, asynchronous fill)
     for name, res in sorted(info["resources"].items()):
-        for kernel in ("att_h_mma_kernel", "att_h_fma_kernel",
-                       "attention_kernel"):
+        for src, kernel in (("att_step", "att_h_mma_kernel"),
+                            ("att_step", "att_h_fma_kernel"),
+                            ("att_step", "attention_kernel"),
+                            ("cell_step", "cell_mma_kernel"),
+                            ("cell_step", "cell_fma_kernel")):
             if kernel in name:
                 args = name.split(kernel)[1].split("EEv")[0]
-                print(f"  att_step {kernel}<{args}>: {res['registers']} "
+                print(f"  {src} {kernel}<{args}>: {res['registers']} "
                       f"registers, {res['stack_bytes']} bytes of stack, "
                       f"{res['spill_bytes']} bytes spilled", flush=True)
                 require(res["spill_bytes"] == 0, f"{name} spills registers")
@@ -323,10 +342,10 @@ def bound_ms(tensors, ops, dtype_name):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def attention_ops(B, H, A):
+def attention_ops(B, H, A, k=K):
     """att_h (2*H*A a row), scores (add, tanh, multiply-add: 4*A a slot) and
     the weighted sum (2*H a slot)."""
-    return 2 * B * H * A + B * K * (4 * A + 2 * H)
+    return 2 * B * H * A + B * k * (4 * A + 2 * H)
 
 
 def report(name, what, err, tol):
@@ -371,6 +390,25 @@ def plant_ties(w, b):
     return top + nxt
 
 
+def plant_tie_group(w, b):
+    """Zero 24 of W's columns and give them one bias: a group of exact ties
+    longer than a round of the beam head (16), holding the seams of
+    `plant_ties` (2, 3, 4, 130, 5000, V) and ids on both sides of the round
+    seam.  Expected order of the top 24 for every row: the ids sorted."""
+    V1 = w.shape[1]
+    group = sorted({2, 3, 4, 130, 5000, V1 - 1, 17, 18, 300, 301, 1024,
+                    2047, 2048, 3000, 4095, 4096, 6000, 7000, 7001, 8191,
+                    8192, 9000, 9100, 9200})
+    for c in group:
+        w[:, c] = 0
+    b[group] = 10.0
+    return group
+
+
+# beam widths above the longest list of a round (kk 17 to 64: rounds of 16)
+BEAM_LONG_KK = (17, 32, 64)
+
+
 def head_passes_moved(before):
     """The per-pass head launch counts that moved since `before`."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
@@ -387,11 +425,11 @@ def att_widths_moved(before):
 
 
 def require_vector_width(what, launches):
-    """Every launch of the b-major and the K-major attention since the last
-    reset took the 16-byte vector width (`launches`: _dispatch.launches())."""
+    """Every launch of the three attention kernels since the last reset took
+    the 16-byte vector width (`launches`: _dispatch.launches())."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     widths = _dispatch.att_width_launches()
-    for k in ("attention", "attention_kmajor"):
+    for k in ("attention", "attention_kmajor", "attention_q"):
         require(widths[f"{k}_vec"] == launches[k]
                 and widths[f"{k}_scalar"] == 0,
                 f"{what}: every {k} launch at H=A={WIDTH} must take the "
@@ -428,6 +466,35 @@ def check_heads(rn, dt, errs):
     b = rn(V1, scale=0.1).to(dt)
     wt, bt = w.clone(), b.clone()
     planted = plant_ties(wt, bt)
+    wg, bg = w.clone(), b.clone()
+    group = plant_tie_group(wg, bg)
+    for kk in BEAM_LONG_KK:
+        # beam widths above 16 (rounds), random rows and the tie group
+        for ww, bb, what in ((w, b, "random"), (wg, bg, "tie group")):
+            hb = rn(R, H, scale=0.5).to(dt)
+            logits_b = logit_head.logits_f32(hb, ww, bb)
+            vals, idx, lse = launch(
+                "beam_head", lambda: beam_head.beam_head(hb, ww, bb, kk))
+            vals_p, idx_p, lse_p = beam_head.beam_head_reference(
+                hb, ww, bb, kk)
+            require(vals.shape == idx.shape == (R, kk),
+                    "beam head output shapes")
+            err = max((vals - vals_p).abs().max().item(),
+                      (lse - lse_p).abs().max().item())
+            errs["beam_head"] = max(errs["beam_head"], err)
+            report("beam_head", f"{dn} {what} R={R} kk={kk} vals/lse", err,
+                   TOL["head"])
+            if what == "tie group":
+                n = min(kk, len(group))
+                want = torch.tensor(group[:n], dtype=torch.int32,
+                                    device=idx.device)
+                require(bool((idx[:, :n] == want[None]).all()),
+                        f"beam head kk={kk}: the tie group across the "
+                        f"rounds' seam not in lower-id order")
+            ids_agree("beam_head", f"{dn} {what} R={R} kk={kk} ids", idx,
+                      idx_p, logits_b, TOL["head"])
+            del hb, logits_b
+    del wg, bg
     for ww, bb, what in ((w, b, "random"), (wt, bt, "planted ties")):
         for rows in (512, 4096, 300):
             h = rn(rows, H, scale=0.5).to(dt)
@@ -481,20 +548,22 @@ def check_heads(rn, dt, errs):
 
 def time_heads(rn, w, b):
     """bf16 times of B (buckets 512 and 4096) and C (kk=2 at R=1024 and at
-    the 8192 rows of a beam-2 bucket of 4096), each beside its plain version,
+    the 8192 rows of a beam-2 bucket of 4096; kk=32, two rounds, at
+    R=1024), each beside its plain version,
     its bound, and `h @ w` alone through torch.matmul: a yardstick for the
     product inside the kernel, which the port never calls for the heads;
     and the wrapper call on the host's clock, back to back on an idle card
     (`call_ms`: what a decode loop pays where enqueueing takes longer than
-    the kernels).  Returns {(kernel, rows): {"ms", "plain_ms", "bound_ms",
-    "bound_by", "matmul_ms", "call_ms"}}."""
+    the kernels).  Returns {(kernel, rows, kk): {"ms", "plain_ms",
+    "bound_ms", "bound_by", "matmul_ms", "call_ms"}}."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
         beam_head, logit_head)
     H, V1 = w.shape
     out = {}
-    for name, rows in (("greedy_head", 512), ("greedy_head", 4096),
-                       ("beam_head", 1024), ("beam_head", 8192)):
+    for name, rows, kk in (("greedy_head", 512, 1), ("greedy_head", 4096, 1),
+                           ("beam_head", 1024, 2), ("beam_head", 8192, 2),
+                           ("beam_head", 1024, 32)):
         h = rn(rows, H, scale=0.5).to(w.dtype)
         iters = 20 if rows <= 1024 else 10
         if name == "greedy_head":
@@ -507,11 +576,11 @@ def time_heads(rn, w, b):
                     torch.empty(rows, dtype=torch.float32))
         else:
             def kernel():
-                return beam_head.beam_head(h, w, b, 2)
+                return beam_head.beam_head(h, w, b, kk)
 
             def plain():
-                return beam_head.beam_head_reference(h, w, b, 2)
-            outs = (torch.empty(rows, 2), torch.empty(rows, 2).int(),
+                return beam_head.beam_head_reference(h, w, b, kk)
+            outs = (torch.empty(rows, kk), torch.empty(rows, kk).int(),
                     torch.empty(rows))
         pair = timed_pair(kernel, plain, iters)
         bound = bound_ms((h, w, b) + outs, 2 * rows * H * V1, "bfloat16")
@@ -522,11 +591,12 @@ def time_heads(rn, w, b):
             kernel()
         torch.cuda.synchronize()
         call = (time.perf_counter() - t0) * 1e3 / iters
-        out[name, rows] = {"ms": pair[0], "plain_ms": pair[1],
-                           "bound_ms": bound[0], "bound_by": bound[1],
-                           "matmul_ms": mm, "call_ms": call}
-        print(f"  time {name:12s} bf16 rows={rows:<5d} kernel {pair[0]:.4f} "
-              f"ms  plain {pair[1]:.4f} ms  bound {bound[0]:.4f} ms "
+        out[name, rows, kk] = {"ms": pair[0], "plain_ms": pair[1],
+                               "bound_ms": bound[0], "bound_by": bound[1],
+                               "matmul_ms": mm, "call_ms": call}
+        print(f"  time {name:12s} bf16 rows={rows:<5d} kk={kk:<2d} kernel "
+              f"{pair[0]:.4f} ms  plain {pair[1]:.4f} ms  bound "
+              f"{bound[0]:.4f} ms "
               f"({bound[1]}; {pair[0] / bound[0]:.1f}x)  h @ w alone "
               f"{mm:.4f} ms  wrapper on the host's clock {call:.4f} ms",
               flush=True)
@@ -579,9 +649,11 @@ def phase_kernels():
         w, b = check_heads(rn, dt, errs)
 
         if dt == torch.bfloat16:  # serving dtype: time the heads
-            for (name, rows), t in time_heads(rn, w, b).items():
-                shapes[name].append({"shape": f"bf16 rows={rows}", **t})
-                if (name, rows) in (("greedy_head", B), ("beam_head", R)):
+            for (name, rows, kk), t in time_heads(rn, w, b).items():
+                label = f"bf16 rows={rows}" + (f" kk={kk}" if kk > 2 else "")
+                shapes[name].append({"shape": label, **t})
+                if (name, rows, kk) in (("greedy_head", B, 1),
+                                        ("beam_head", R, 2)):
                     times[name] = (t["ms"], t["plain_ms"])
                     bounds[name] = (t["bound_ms"], t["bound_by"])
         del w, b
@@ -613,26 +685,35 @@ def cell_args(rn, B, dt, with_att):
 def check_cell(rn, shapes):
     """Kernel F against cell_plain (cell_reference in f32 on the same
     inputs), with attention (Att2in2) and without (FC), at the training
-    shape (f32, B=128) and the decode buckets (f32 and bf16, B=512 and
-    4096).  Each with-attention case is timed beside cell_reference in the
+    shape (f32, B=128), the decode buckets (f32 and bf16, B=512 and 4096)
+    and a partial row tile (B=130); every bf16 launch must take the
+    tensor-core kernel, every f32 launch the FMA kernel.  Each
+    with-attention case but B=130 is timed beside cell_reference in the
     inputs' type, the cell that runs with CIC_FUSED_CELL unset, and gets its
     own bound (appended to shapes["cell"]).  Returns (max error, (kernel ms,
     plain ms) at the training shape, its bound)."""
     import torch
-    from cooperativeimagecaptioning_tpu_torch.ops.kernels import cell_step
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
+        _dispatch, cell_step)
     f32, bf16 = torch.float32, torch.bfloat16
     print("cell (kernel F) vs its plain version (D=H=512; CIC_FUSED_CELL=1)",
           flush=True)
     worst, timed, bound = 0.0, {}, {}
     with fused_cell_switch(True):
         for B, dts in ((TRAIN_B, (f32,)), (512, (f32, bf16)),
-                       (4096, (f32, bf16))):
+                       (4096, (f32, bf16)), (130, (f32, bf16))):
             for dt in dts:
                 dn = str(dt).split(".")[-1]
                 for with_att in (True, False):
                     args = cell_args(rn, B, dt, with_att)
+                    before = _dispatch.cell_pass_launches()
                     h_new, c_new = cell_step.fused_cell(*args)
                     torch.cuda.synchronize()
+                    which = "cell_mma" if dt == bf16 else "cell_fma"
+                    after = _dispatch.cell_pass_launches()
+                    require(after[which] - before[which] == 1,
+                            f"cell {dn} B={B}: expected one launch of "
+                            f"{which}, counted {after} (before {before})")
                     h_p, c_p = cell_step.cell_plain(*args)
                     require(h_new.dtype == dt and c_new.shape == (B, WIDTH),
                             "cell output type/shape")
@@ -642,7 +723,7 @@ def check_cell(rn, shapes):
                     worst = max(worst, err)
                     what = f"{dn} B={B} {'att2in2' if with_att else 'fc'}"
                     report("cell", what, err, TOL[("cell", dn)])
-                    if with_att:
+                    if with_att and B != 130:
                         timed[(B, dn)] = timed_pair(
                             lambda: cell_step.fused_cell(*args),
                             lambda: cell_step.cell_reference(*args))
@@ -691,23 +772,25 @@ def check_attention_variants(rn, errs, times, bounds, shapes):
     every row count a path gives them: the training step's B=128, the
     service's B=512, its beam-expanded R=1024 and B=4096, and the
     evaluation's R=256 (batch 128, beam 2) and 640 (its loss: five captions
-    an image; only A runs there).  Every A and E launch must take the vector
-    width.  Their att_h pre-pass alone against h @ W + b in f32 through
-    torch, and timed.  Then the quantizer on the card against the same
-    function on the CPU; the gradient of the quantized call.  A and E are
-    timed at ATT_TIMED (bf16 B=512, 1024, 4096; f32 B=128, 256, 640) and D
-    beside them at bf16 B=512 and 4096, in one call a shape, each beside its
-    plain version and its bound (appended to `shapes`; no L2 flush between
-    calls: a decode re-reads the same context every step, and at bf16 B=512
-    its 37.7 MB nearly fit the 50 MB L2).  Fills errs for the three kernels,
-    times (B=512, bf16) and bounds for D and E."""
+    an image; only A runs there), all at K=36; and at K=196 (the repo's own
+    14 x 14 feature grid) at B=128 and 512.  Every launch must take the
+    vector width.  Their att_h pre-pass alone against h @ W + b in f32
+    through torch, and timed.  Then D at widths that are no multiple of 16
+    (vector width 1), the quantizer on the card against the same function
+    on the CPU, and the gradient of the quantized call.  A and E are timed
+    at ATT_TIMED and D beside them at ATT_Q_TIMED, in one call a shape, each
+    beside its plain version and its bound (appended to `shapes`; no L2
+    flush between calls: a decode re-reads the same context every step, and
+    at bf16 B=512 its 37.7 MB nearly fit the 50 MB L2).  Fills errs for the
+    three kernels, times (B=512, K=36, bf16) and bounds for D and E."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
         _dispatch, att_step)
     H = A = WIDTH
     dev = torch.device("cuda")
-    print("attention by context layout vs the plain versions (K=36, "
-          "H=A=512): b-major (A), int8 (D), K-major (E)", flush=True)
+    print("attention by context layout vs the plain versions (H=A=512, "
+          f"K={K} and {K_GRID}): b-major (A), int8 (D), K-major (E)",
+          flush=True)
     timed = {}
     errs["att_h"] = 0.0
     for dt in (torch.float32, torch.bfloat16):
@@ -717,15 +800,17 @@ def check_attention_variants(rn, errs, times, bounds, shapes):
         wa = rn(A, 1, scale=A ** -0.5).to(dt)
         ba = rn(1, scale=0.05).to(dt)
         weights = (wh, bh, wa, ba)
-        for B in (TRAIN_B, EVAL_R, 512, EVAL_ROWS, 1024, 4096):
+        for B, k in ((TRAIN_B, K), (EVAL_R, K), (512, K), (EVAL_ROWS, K),
+                     (1024, K), (4096, K), (TRAIN_B, K_GRID), (512, K_GRID)):
             h = rn(B, H, scale=0.5).to(dt)
-            emb = rn(B, K, H).relu().to(dt)
-            p_att = rn(B, K, A).to(dt)
-            mask = torch.ones(B, K, device=dev)
+            emb = rn(B, k, H).relu().to(dt)
+            p_att = rn(B, k, A).to(dt)
+            mask = torch.ones(B, k, device=dev)
             mask[::3, 20:] = 0.0
             mask[1::7, 1:] = 0.0
             q = att_step.quantize_features(emb, p_att)
-            if B == 512:
+            at = f"B={B}" if k == K else f"B={B} K={k}"
+            if B == 512 and k == K:
                 q_cpu = att_step.quantize_features(emb.cpu(), p_att.cpu())
                 for name, on_card, on_cpu in zip(
                         ("emb_q", "emb_scale", "p_q", "p_scale"), q, q_cpu):
@@ -750,68 +835,96 @@ def check_attention_variants(rn, errs, times, bounds, shapes):
                 "attention_kmajor": (att_step.fused_attention_kmajor,
                                      att_step.attention_reference_kmajor,
                                      (emb_t, p_t))}
-            # the pre-pass of A and E alone
-            got = att_step.att_h_kernel(h, wh, bh)
-            torch.cuda.synchronize()
-            err = (got - (h.float() @ wh.float() + bh.float())).abs().max() \
-                .item()
-            errs["att_h"] = max(errs["att_h"], err)
-            report("att_h", f"{dn} B={B} pre-pass vs h @ W + b", err,
-                   TOL[("att_h", dn)])
+            if k == K:  # the pre-pass of the three alone
+                got = att_step.att_h_kernel(h, wh, bh)
+                torch.cuda.synchronize()
+                err = (got - (h.float() @ wh.float() + bh.float())).abs() \
+                    .max().item()
+                errs["att_h"] = max(errs["att_h"], err)
+                report("att_h", f"{dn} B={B} pre-pass vs h @ W + b", err,
+                       TOL[("att_h", dn)])
             for name, (kernel, plain, ctx) in calls.items():
                 for mk, what in ((mask, "masked"), (None, "unmasked")):
                     widths = _dispatch.att_width_launches()
                     out = kernel(h, *ctx, *weights, mk)
                     torch.cuda.synchronize()
-                    if name != "attention_q":
-                        require(att_widths_moved(widths) == {f"{name}_vec": 1},
-                                f"{name} {dn} B={B}: expected one launch at "
-                                f"the vector width, counted "
-                                f"{att_widths_moved(widths)}")
+                    require(att_widths_moved(widths) == {f"{name}_vec": 1},
+                            f"{name} {dn} {at}: expected one launch at the "
+                            f"vector width, counted "
+                            f"{att_widths_moved(widths)}")
                     ref = plain(h, *ctx, *weights, mk)
                     require(out.dtype == dt and out.shape == (B, H),
                             f"{name} output type/shape")
                     err = (out.float() - ref.float()).abs().max().item()
                     errs[name] = max(errs[name], err)
-                    report(name, f"{dn} B={B} {what}", err,
+                    report(name, f"{dn} {at} {what}", err,
                            TOL[("attention", dn)])
-            if (dn, B) in ATT_TIMED:
+            if (dn, B, k) in ATT_TIMED or (dn, B, k) in ATT_Q_TIMED:
                 short = "bf16" if dt == torch.bfloat16 else dn
                 iters = 20 if B <= 1024 else 10
                 for name, (kernel, plain, ctx) in calls.items():
-                    if name == "attention_q" and (dn, B) not in ATT_Q_TIMED:
+                    if (dn, B, k) not in (ATT_Q_TIMED if name == "attention_q"
+                                          else ATT_TIMED):
                         continue
-                    timed[(name, B)] = timed_pair(
+                    timed[(name, B, k)] = timed_pair(
                         lambda: kernel(h, *ctx, *weights, mask),
                         lambda: plain(h, *ctx, *weights, mask), iters=iters)
                     out = torch.empty_like(h)
                     bound = bound_ms((h, *ctx, *weights, mask, out),
-                                     attention_ops(B, H, A), dn)
-                    k_ms, p_ms = timed[(name, B)]
-                    print(f"  time {name:16s} {short} B={B:<5d} kernel "
+                                     attention_ops(B, H, A, k), dn)
+                    k_ms, p_ms = timed[(name, B, k)]
+                    print(f"  time {name:16s} {short} {at:11s} kernel "
                           f"{k_ms:.4f} ms  plain {p_ms:.4f} ms  bound "
                           f"{bound[0]:.4f} ms ({bound[1]}; "
                           f"{k_ms / bound[0]:.1f}x)", flush=True)
                     shapes[name].append(timed_shape(
-                        f"{short} B={B}", timed[(name, B)], bound))
-                    if (dn, B) == ("bfloat16", 512):
-                        times[name], bounds[name] = timed[(name, B)], bound
-                pre = cuda_ms(lambda: att_step.att_h_kernel(h, wh, bh), iters)
-                mm = cuda_ms(lambda: torch.addmm(bh, h, wh), iters)
-                plan = att_step.stream_plan(B, K, H, A, h.element_size(),
-                                            False)
-                print(f"  time att_h pre-pass   {short} B={B:<5d} kernel "
-                      f"{pre:.4f} ms (torch.addmm of the same product, a "
-                      f"yardstick the port never calls here: {mm:.4f} ms); "
-                      f"stream plan: {plan.rows} rows a block, {plan.slots} "
-                      f"slots x {plan.stages} stages, "
-                      f"{plan.smem_bytes} bytes of shared memory, grid "
-                      f"{plan.grid}, "
-                      f"{att_step.resident_blocks(plan, H, A, dt)} blocks "
-                      f"an SM", flush=True)
-                for name in ("attention", "attention_kmajor"):
-                    shapes[name][-1].update(att_h_ms=pre, att_h_addmm_ms=mm)
+                        f"{short} {at}", timed[(name, B, k)], bound))
+                    if (dn, B, k) == ("bfloat16", 512, K):
+                        times[name], bounds[name] = timed[(name, B, k)], bound
+                if (dn, B, k) in ATT_TIMED:
+                    pre = cuda_ms(lambda: att_step.att_h_kernel(h, wh, bh),
+                                  iters)
+                    mm = cuda_ms(lambda: torch.addmm(bh, h, wh), iters)
+                    plans = {}
+                    for name, item in (("attention", h.element_size()),
+                                       ("attention_q", 1)):
+                        plan = att_step.stream_plan(B, k, H, A, item, False)
+                        plans[name] = (
+                            f"{plan.rows} rows a block, {plan.slots} slots x "
+                            f"{plan.stages} stages, {plan.smem_bytes} bytes "
+                            f"of shared memory, grid {plan.grid}, "
+                            f"{att_step.resident_blocks(plan, k, H, A, dt, name)}"
+                            f" blocks an SM")
+                    print(f"  time att_h pre-pass   {short} {at:11s} kernel "
+                          f"{pre:.4f} ms (torch.addmm of the same product, a "
+                          f"yardstick the port never calls here: {mm:.4f} "
+                          f"ms); stream plan: {plans['attention']}; int8: "
+                          f"{plans['attention_q']}", flush=True)
+                    for name in ("attention", "attention_kmajor"):
+                        shapes[name][-1].update(att_h_ms=pre,
+                                                att_h_addmm_ms=mm)
             del h, emb, p_att, q, emb_t, p_t, calls
+
+        # D at widths that are no multiple of 16: vector width 1
+        B, k, Hn = 64, K, 40
+        h = rn(B, Hn, scale=0.5).to(dt)
+        q = att_step.quantize_features(rn(B, k, Hn).relu().to(dt),
+                                       rn(B, k, Hn).to(dt))
+        small = (rn(Hn, Hn, scale=Hn ** -0.5).to(dt), rn(Hn, scale=0.05).to(dt),
+                 rn(Hn, 1, scale=Hn ** -0.5).to(dt), rn(1, scale=0.05).to(dt))
+        mask = torch.ones(B, k, device=dev)
+        mask[::3, 20:] = 0.0
+        widths = _dispatch.att_width_launches()
+        out = att_step.fused_attention_q(h, *q, *small, mask)
+        torch.cuda.synchronize()
+        require(att_widths_moved(widths) == {"attention_q_scalar": 1},
+                f"attention_q {dn} H=A={Hn}: expected one launch at width 1, "
+                f"counted {att_widths_moved(widths)}")
+        err = (out.float() - att_step.attention_reference_q(
+            h, *q, *small, mask).float()).abs().max().item()
+        errs["attention_q"] = max(errs["attention_q"], err)
+        report("attention_q", f"{dn} B={B} H=A={Hn} (width 1) masked", err,
+               TOL[("attention", dn)])
 
     # the quantized call's gradient: kernel forward, the dequantized
     # reference recomputed in backward, against plain autograd (f32)
@@ -858,12 +971,12 @@ def write_run_dir(params=None, run_dir=RUN_DIR):
     return opt
 
 
-def features(n, seed):
+def features(n, seed, k=K):
     rng = np.random.default_rng(seed)
     fc = rng.standard_normal((n, FEAT), dtype=np.float32)
-    att = np.maximum(rng.standard_normal((n, K, FEAT), dtype=np.float32), 0)
-    masks = np.ones((n, K), np.float32)
-    masks[::4, 30:] = 0.0  # images with fewer regions
+    att = np.maximum(rng.standard_normal((n, k, FEAT), dtype=np.float32), 0)
+    masks = np.ones((n, k), np.float32)
+    masks[::4, k - k // 6:] = 0.0  # images with fewer regions
     return fc, att, masks
 
 
@@ -1017,7 +1130,98 @@ def phase_slice(smi):
                                      for k, v in rates.items()), flush=True)
     layout_launches = phase_layouts(smi, {0: greedy, 2: beam},
                                     {0: ids_greedy, 2: ids_beam}, rates)
-    return {k: main_launches[k] + layout_launches[k] for k in main_launches}
+    grid_launches = phase_grid_features()
+    check_missing_leaf()
+    return {k: main_launches[k] + layout_launches[k] + grid_launches[k]
+            for k in main_launches}
+
+
+def phase_grid_features():
+    """Services of the same run dir through from_run_dir(max_att_len=196),
+    fed 196-slot features (the repo's own 14 x 14 grid): greedy and beam 2,
+    bf16 and f32, every step through the attention kernel and the head, and
+    the f32 ids against the CPU service's.  Returns the launch counts."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
+    n = 64
+    fc, att, masks = features(n, seed=196, k=K_GRID)
+    print(f"196-slot features: from_run_dir(max_att_len={K_GRID}), {n} "
+          f"images", flush=True)
+    total = {k: 0 for k in _dispatch.KERNELS}
+    for m in (0, 2):
+        mode = "beam-2" if m else "greedy"
+        head = "beam_head" if m else "greedy_head"
+        ids = {}
+        for dn in ("bfloat16", "float32"):
+            svc = CaptioningService.from_run_dir(
+                RUN_DIR, beam_size=m, compute_dtype=dn, buckets=(n,),
+                max_att_len=K_GRID)
+            _dispatch.reset_launches()
+            ids[dn] = svc.caption_ids(fc, att, masks)
+            torch.cuda.synchronize()
+            got = _dispatch.launches()
+            require_vector_width(f"{K_GRID}-slot {dn} {mode}", got)
+            for k in _dispatch.KERNELS:
+                want = L if k in ("attention", head) else 0
+                require(got[k] == want, f"{K_GRID}-slot {dn} {mode}: {k} "
+                        f"launched {got[k]} times, expected {want}")
+                total[k] += got[k]
+            require(ids[dn].shape == (n, L), f"{K_GRID}-slot ids shape")
+            del svc
+        cpu = CaptioningService.from_run_dir(
+            RUN_DIR, beam_size=m, compute_dtype="float32", buckets=(n,),
+            max_att_len=K_GRID, device="cpu").caption_ids(fc, att, masks)
+        for what, a, b, floor in (
+                ("f32 cuda vs f32 cpu", ids["float32"], cpu, AGREE_F32),
+                ("bf16 cuda vs f32 cpu", ids["bfloat16"], cpu, None)):
+            rate = float((a == b).all(axis=1).mean())
+            need = f"need >= {floor * 100:.0f}%" if floor else "reported"
+            print(f"  {K_GRID} slots, {what}, {mode}: {rate * 100:.1f}% of "
+                  f"{n} rows equal ({need})", flush=True)
+            require(floor is None or rate >= floor,
+                    f"{K_GRID} slots, {what}, {mode}: {rate} of rows equal")
+    return total
+
+
+def check_missing_leaf():
+    """A run dir whose checkpoint lacks one leaf (the logit layer's bias):
+    from_run_dir fills it from the template of the run's opt
+    (joint.init_params(0, opt)), reports it, and serves the same ids as a
+    service built on the checkpoint's tree with that leaf filled in."""
+    import copy
+    from cooperativeimagecaptioning_tpu_torch.config import load_infos
+    from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint, joint
+    run_dir = os.path.join(REPO, "build", "chip_smoke_leaf_run")
+    os.makedirs(run_dir, exist_ok=True)
+    opt = load_infos(os.path.join(RUN_DIR, "infos_.pkl"))["opt"]
+    full = checkpoint.load_params(os.path.join(RUN_DIR, "model-best.pth"))
+    cut = copy.deepcopy(full)
+    del cut["speaker"]["logit"]["b"]
+    checkpoint.save_params(cut, os.path.join(run_dir, "model-best.pth"))
+    with open(os.path.join(RUN_DIR, "infos_.pkl"), "rb") as f, \
+            open(os.path.join(run_dir, "infos_.pkl"), "wb") as g:
+        g.write(f.read())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        svc = CaptioningService.from_run_dir(run_dir, buckets=(64,),
+                                             compute_dtype="float32")
+    require("logit.b not in loaded checkpoint" in out.getvalue(),
+            f"missing leaf not reported: {out.getvalue()}")
+    full["speaker"]["logit"]["b"] = joint.init_params(
+        0, opt)["speaker"]["logit"]["b"]
+    vocab = load_infos(os.path.join(RUN_DIR, "infos_.pkl"))["vocab"]
+    want_svc = CaptioningService(opt, full, vocab, buckets=(64,),
+                                 compute_dtype="float32")
+    fc, att, masks = features(64, seed=65)
+    a = svc.caption_ids(fc, att, masks)
+    b = want_svc.caption_ids(fc, att, masks)
+    require(a.shape == (64, L) and (a == b).all(),
+            "the filled leaf: ids differ from the tree filled by hand")
+    print("  a checkpoint without logit.b: reported, filled from the "
+          "template, 64 of 64 rows equal to the tree filled by hand",
+          flush=True)
 
 
 def decode_memory(svc, n=4096):

@@ -14,7 +14,7 @@
 //   out[b] = sum_k w[k] * att_emb[b,k]                             [H]
 // The mask is applied after the softmax and the weights renormalized, as in
 // the reference (not -inf masking); with no mask there is no renormalization.
-// The mask is [B,K] in every layout.  The int8 kernel dequantizes in
+// The mask is [B,K] in every layout.  The int8 call dequantizes in
 // registers: p_att[b,k,a] = float(p_q[b,k,a]) * p_scale[b,k], and the scale
 // of att_emb is folded into the weight after mask and renormalization
 // (ws[k] = w[k] * emb_scale[b,k]; out = sum_k ws[k] * float(emb_q[b,k])).
@@ -27,7 +27,7 @@
 // rate with tens of KiB in flight on every SM, so the design is about loads
 // in flight, not arithmetic.
 //
-// Design of the b-major and the K-major call: two launches.
+// Design: two launches a call, the same for the three layouts.
 //   1. att_h pre-pass.  att_h = h @ W_h2att + b_h2att as f32 [B,A] into a
 //      scratch tensor of the wrapper's (1 MiB at B=512: it stays in L2).
 //      bf16: tensor cores through mma.sync.m16n8k16 (f32 accumulators).  A
@@ -56,28 +56,29 @@
 //      flight while the scores are computed, and the next row's p_att copies
 //      during the weighted sum, so the stream never stops at the softmax.
 //      The row's att_h travels with its first chunk into a small ring of
-//      its own.  Consumers read shared memory 16 bytes at a time: scores by
-//      one warp a slot, softmax / mask / renormalize in warp 0 (its mask
-//      values were loaded at the row's first chunk), the weighted sum with 8
-//      (bf16) or 4 (f32) neighbouring columns a thread and the chunk's slots
-//      split over the thread groups that share those columns, reduced through
-//      shared memory at the row's end, 16-byte stores.  The [B,K,A] tanh
-//      intermediate never leaves the SM.  Layout (BMajor / KMajor) decides
-//      only where slot (b, k) lies.
+//      its own.  A row's mask values (and, int8, its two scale rows) come
+//      through 4-byte cp.async copies of warp 0 into a two-row ring, started
+//      a row ahead.  Consumers read shared memory 16 bytes at a time: scores
+//      by one warp a slot, softmax / mask / renormalize in warp 0 (K in
+//      strides of 32 lanes, the scores in shared memory), the weighted sum
+//      with 16 bytes of neighbouring columns a thread (8 bf16, 4 f32 or 16
+//      int8 values) and the chunk's slots split over the thread groups that
+//      share those columns, reduced through shared memory at the row's end,
+//      16-byte stores.  The [B,K,A] tanh intermediate never leaves the SM.
+//      Layout (BMajor / KMajor / QuantBMajor) decides where slot (b, k) lies
+//      and, for the int8 context, the element type and the scales.
 //   The scores are bound by the special-function unit (16 results a clock
 //   an SM): f32 inputs take tanh as 1 - 2 / (exp(2x) + 1) on the fast
 //   exponential, |x| clamped to 15 (two special-function results an element,
 //   absolute error below 1e-6, inside the call's f32 tolerance of 1e-4);
 //   bf16 inputs take tanh.approx.f32 (one result an element; relative error
 //   2^-11, below the inputs' own rounding).
-//   VEC is a template parameter: VEC = 16 / sizeof(T) is the path above; VEC =
-//   1 is the same kernel for widths or pointers that are not 16-byte aligned,
-//   filling its stages with plain loads and stores and owning up to kMaxCols
-//   columns a thread.  K is a runtime argument up to kMaxK.
-//
-// The int8 kernel keeps the earlier design: one block of 256 threads owns
-// kRows rows, computes their att_h itself (block_att_h, an FMA loop over
-// W_h2att), and reads each slot with one 16-byte load a lane (16 values).
+//   VEC is a template parameter: VEC = 16 / sizeof(element) is the path
+//   above; VEC = 1 is the same kernel for widths or pointers that are not
+//   16-byte aligned, filling its stages with plain loads and stores and
+//   owning up to kMaxCols columns a thread.  K is a runtime argument up to
+//   kMaxK; the scores and the side rows take 7 floats a slot of shared
+//   memory.
 #include "common.cuh"
 
 #ifndef CIC_ATT_TANH
@@ -95,8 +96,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;    // batch rows per block of the int8 kernel
-constexpr int kMaxK = 64;   // attention slots the softmax stage holds
+constexpr int kMaxK = 256;  // attention slots a call may have
 constexpr int kMaxStages = 8;   // longest ring of the stream
 constexpr int kMaxSplit = 8;    // most thread groups sharing a column group
 constexpr int kMaxCols = 16;    // columns a thread of the VEC=1 path may own
@@ -113,43 +113,38 @@ constexpr int kFmaCols = 32;
 constexpr int kFmaDepth = 512;
 constexpr int kFmaPitch = kFmaDepth + 4;  // floats: h rows 4 banks apart
 
-// Where slot (b, k) of a context lies, and how many of a row's consecutive
-// slots are one contiguous run (one bulk copy) when a chunk has nk of them.
+// Where slot (b, k) of a context lies, how many of a row's consecutive
+// slots are one contiguous run (one bulk copy) when a chunk has nk of them,
+// and the context's element type for inputs of type T (kQuant: int8 with a
+// scale a (row, slot) for each of the two tensors).
 struct BMajor {  // [B, K, *]
+  template <typename T> using Elem = T;
+  static constexpr bool kQuant = false;
   static __device__ __forceinline__ size_t slot(int b, int k, int B, int K) {
     return (size_t)b * K + k;
   }
   static __device__ __forceinline__ int run(int nk) { return nk; }
 };
 struct KMajor {  // [K, B, *]
+  template <typename T> using Elem = T;
+  static constexpr bool kQuant = false;
   static __device__ __forceinline__ size_t slot(int b, int k, int B, int K) {
     return (size_t)k * B + b;
   }
   static __device__ __forceinline__ int run(int nk) { return 1; }
 };
+struct QuantBMajor : BMajor {  // int8 [B, K, *], f32 scales [B, K]
+  template <typename T> using Elem = int8_t;
+  static constexpr bool kQuant = true;
+};
+template <typename T, typename Layout>
+using ElemOf = typename Layout::template Elem<T>;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy to shared memory; zero-fills when !valid (src
-// must still be an address inside the tensor).
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid = true) {
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using cic::cp_async_16;
+using cic::cp_async_4;
+using cic::cp_async_commit;
+using cic::cp_async_wait;
+using cic::smem_u32;
 
 // mbarrier in shared memory: one arrival a phase (the thread that announces
 // the bytes of the phase's bulk copies), completed by the copies themselves.
@@ -217,13 +212,35 @@ __device__ __forceinline__ float att_tanh(float x) {
 #endif
 }
 
-// VEC neighbouring elements of T from 16-byte aligned shared memory (VEC = 8
-// bf16 or 4 f32: one 16-byte load), or one element (VEC = 1), as floats.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, float (&f)[VEC]) {
+// The 16 int8 values of one 16-byte load, as floats, without the
+// conversion unit (which, like tanh, yields 16 results a clock an SM): byte
+// x + 128 placed under the exponent of 2^23 is the float 2^23 + x + 128,
+// exactly; one byte permute and one add a value.
+__device__ __forceinline__ void unpack16(const uint4& v, float* f) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t u = w[i] ^ 0x80808080u;  // each byte x + 128
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] =
+          __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | j)) -
+          8388736.0f;  // 2^23 + 128
+  }
+}
+
+// VEC neighbouring elements of E from 16-byte aligned shared memory (VEC = 8
+// bf16, 4 f32 or 16 int8: one 16-byte load), or one element (VEC = 1), as
+// floats.
+template <typename E, int VEC>
+__device__ __forceinline__ void load_vec(const E* p, float (&f)[VEC]) {
   if constexpr (VEC == 1) {
-    f[0] = cic::to_f32(p[0]);
-  } else if constexpr (sizeof(T) == 4) {
+    if constexpr (sizeof(E) == 1) f[0] = (float)p[0];
+    else f[0] = cic::to_f32(p[0]);
+  } else if constexpr (sizeof(E) == 1) {
+    static_assert(VEC == 16, "16 int8 values a load");
+    unpack16(*reinterpret_cast<const uint4*>(p), f);
+  } else if constexpr (sizeof(E) == 4) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
   } else {
@@ -251,21 +268,29 @@ __device__ __forceinline__ void load_f32(const float* p, float (&f)[VEC]) {
   }
 }
 
-// VEC floats to 16-byte aligned global memory as T (one 16-byte store).
+// VEC floats to 16-byte aligned global memory as T, 16 bytes a store (VEC
+// a multiple of 16 bytes' worth of T), or one element (VEC = 1).
 template <typename T, int VEC>
 __device__ __forceinline__ void store_vec(T* p, const float (&f)[VEC]) {
   if constexpr (VEC == 1) {
     p[0] = cic::from_f32<T>(f[0]);
   } else if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  } else {
-    uint32_t w[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&v);
+    for (int i = 0; i < VEC; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
+  } else {
+#pragma unroll
+    for (int i0 = 0; i0 < VEC; i0 += 8) {
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 v =
+            __floats2bfloat162_rn(f[i0 + 2 * i], f[i0 + 2 * i + 1]);
+        w[i] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+      *reinterpret_cast<uint4*>(p + i0) = make_uint4(w[0], w[1], w[2], w[3]);
     }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
@@ -360,20 +385,9 @@ att_h_mma_kernel(const __nv_bfloat16* __restrict__ h,
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           // B fragment [16 k x 8 n] from rows of W (n contiguous), transposed
-          uint32_t b0, b1;
-          const uint32_t addr = smem_u32(&ws[kk + (lane & 15)][wn + 8 * nt]);
-          asm volatile(
-              "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, "
-              "[%2];\n"
-              : "=r"(b0), "=r"(b1)
-              : "r"(addr));
-          asm volatile(
-              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-              "{%0, %1, %2, %3};\n"
-              : "+f"(acc[nt][0]), "+f"(acc[nt][1]), "+f"(acc[nt][2]),
-                "+f"(acc[nt][3])
-              : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+          uint32_t b[2];
+          cic::ldmatrix_x2_trans(b, &ws[kk + (lane & 15)][wn + 8 * nt]);
+          cic::mma_bf16_16816(acc[nt], a, b[0], b[1]);
         }
       }
     }
@@ -561,40 +575,45 @@ int launch_att_h(const void* h, const void* wh, const void* bh, void* ah,
 }
 
 // ---------------------------------------------------------------------------
-// softmax over K, shared by the stream and the int8 kernel
+// softmax over K
 // ---------------------------------------------------------------------------
 
-// One warp turns the K scores of a row into weights, in place: softmax, then
-// the mask values m0, m1 of slots lane and lane + 32 and a renormalization
-// (masked), then the per-slot scales z0, z1 of a quantized att_emb.
-__device__ __forceinline__ void warp_softmax(float* srow, int K, bool masked,
-                                             float m0, float m1, float z0,
-                                             float z1) {
+// One warp turns the K scores of a row into weights, in place, K in strides
+// of 32 lanes (a lane reads and writes only its own slots): softmax, then,
+// with a mask row, the mask and a renormalization, then, with a scale row,
+// the per-slot scales of a quantized att_emb.
+__device__ __forceinline__ void warp_softmax(float* srow, int K,
+                                             const float* mrow,
+                                             const float* zrow) {
   const int lane = threadIdx.x & 31;
-  const int k0 = lane, k1 = lane + 32;
-  const float s0 = k0 < K ? srow[k0] : -CUDART_INF_F;
-  const float s1 = k1 < K ? srow[k1] : -CUDART_INF_F;
-  const float mx = cic::warp_max(fmaxf(s0, s1));
-  const float e0 = k0 < K ? expf(s0 - mx) : 0.0f;
-  const float e1 = k1 < K ? expf(s1 - mx) : 0.0f;
-  const float tot = cic::warp_sum(e0 + e1);
-  float w0 = e0 / tot, w1 = e1 / tot;
-  if (masked) {
-    w0 = k0 < K ? w0 * m0 : 0.0f;
-    w1 = k1 < K ? w1 * m1 : 0.0f;
-    const float tot2 = cic::warp_sum(w0 + w1);
-    w0 /= tot2;
-    w1 /= tot2;
+  float mx = -CUDART_INF_F;
+  for (int k = lane; k < K; k += 32) mx = fmaxf(mx, srow[k]);
+  mx = cic::warp_max(mx);
+  float tot = 0.0f;
+  for (int k = lane; k < K; k += 32) {
+    const float e = expf(srow[k] - mx);
+    srow[k] = e;
+    tot += e;
   }
-  if (k0 < K) srow[k0] = w0 * z0;
-  if (k1 < K) srow[k1] = w1 * z1;
+  tot = cic::warp_sum(tot);
+  if (mrow != nullptr) {
+    float tot2 = 0.0f;
+    for (int k = lane; k < K; k += 32) {
+      const float w = srow[k] / tot * mrow[k];
+      srow[k] = w;
+      tot2 += w;
+    }
+    tot = cic::warp_sum(tot2);
+  }
+  for (int k = lane; k < K; k += 32)
+    srow[k] = zrow != nullptr ? srow[k] / tot * zrow[k] : srow[k] / tot;
 }
 
 // ---------------------------------------------------------------------------
-// the stream (b-major and K-major)
+// the stream
 // ---------------------------------------------------------------------------
 
-inline int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 // Thread groups that share one column group of the weighted sum: the block's
 // threads over the H / VEC column groups, at most kMaxSplit.
@@ -607,35 +626,44 @@ inline int col_split(int H, int vec) {
 
 // Bytes of a ring stage (`slots` slots of the wider of A and H, a multiple
 // of 16) and of the block's shared memory: the stages' mbarriers
-// (kBarBytes), the ring, then as floats the
-// att_h ring [stages, A], w_alpha [A], the scores [kMaxK] and the weighted
-// sum's partials [split - 1, H].
+// (kBarBytes), the ring, then as floats the att_h ring [stages, A], w_alpha
+// [A], the scores [K], the side ring [2 rows][mask, emb_scale, p_scale][K]
+// and the weighted sum's partials [split - 1, H].
 inline size_t stage_bytes(int slots, int H, int A, size_t item) {
   const size_t b = (size_t)slots * (H > A ? H : A) * item;
   return (b + 15) & ~(size_t)15;
 }
-inline size_t stream_smem(int slots, int stages, int H, int A, size_t item,
-                          int vec) {
+inline size_t stream_smem(int slots, int stages, int K, int H, int A,
+                          size_t item, int vec) {
   return kBarBytes + stages * stage_bytes(slots, H, A, item) +
-         sizeof(float) * ((size_t)(stages + 1) * round4(A) + kMaxK +
+         sizeof(float) * ((size_t)(stages + 1) * round4(A) +
+                          7 * (size_t)round4(K) +
                           (size_t)(col_split(H, vec) - 1) * H);
 }
 
+// The vector paths are held to 64 registers: 4 blocks an SM (uncapped they
+// take 70-93, 3 blocks, and A took 0.0387 ms at bf16 B=512 instead of 0.030).
 template <typename T, int VEC, int MAXC, typename Layout>
-__global__ void __launch_bounds__(kThreads)
-attention_kernel(const float* __restrict__ ah, const T* __restrict__ emb,
-                 const T* __restrict__ patt, const T* __restrict__ wa,
+__global__ void __launch_bounds__(kThreads, VEC > 1 ? 4 : 1)
+attention_kernel(const float* __restrict__ ah,
+                 const ElemOf<T, Layout>* __restrict__ emb,
+                 const ElemOf<T, Layout>* __restrict__ patt,
+                 const float* __restrict__ emb_scale,
+                 const float* __restrict__ p_scale, const T* __restrict__ wa,
                  const T* __restrict__ ba, const float* __restrict__ mask,
                  T* __restrict__ out, int B, int K, int H, int A, int rows,
                  int slots, int stages, int split, unsigned stage_size) {
+  using E = ElemOf<T, Layout>;
   extern __shared__ __align__(16) unsigned char smem_all[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_all);  // [kMaxStages]
   unsigned char* smem_raw = smem_all + kBarBytes;          // the ring
-  const int A4 = (A + 3) & ~3;
+  const int A4 = round4(A);
+  const int K4 = round4(K);
   float* ahs = reinterpret_cast<float*>(smem_raw + (size_t)stages * stage_size);
   float* was = ahs + (size_t)stages * A4;   // [A]  w_alpha
-  float* sc = was + A4;                      // [kMaxK] scores, then weights
-  float* red = sc + kMaxK;                   // [split - 1, H] partial sums
+  float* sc = was + A4;                      // [K] scores, then weights
+  float* side = sc + K4;                     // [2][3][K] mask, scales
+  float* red = side + 6 * K4;                // [split - 1, H] partial sums
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -649,7 +677,7 @@ attention_kernel(const float* __restrict__ ah, const T* __restrict__ emb,
   // Copy chunk c into its stage (and, with a row's first chunk, the row's
   // att_h into the att_h ring).  VEC > 1: thread 0 announces the bytes on the
   // stage's mbarrier and starts one bulk copy a contiguous run (the whole
-  // chunk in the b-major layout, a slot in the K-major); VEC == 1: every
+  // chunk in the b-major layouts, a slot in the K-major); VEC == 1: every
   // thread copies elements with plain loads and stores.
   auto fill = [&](int c) {
     if (c >= total || (CIC_ATT_PROBE & 4)) return;
@@ -659,8 +687,8 @@ attention_kernel(const float* __restrict__ ah, const T* __restrict__ emb,
     const int k0 = (is_p ? q : q - cpt) * slots;
     const int nk = min(slots, K - k0);
     const int W = is_p ? A : H;
-    const T* src = is_p ? patt : emb;
-    T* dst = reinterpret_cast<T*>(smem_raw + (size_t)(c % stages) * stage_size);
+    const E* src = is_p ? patt : emb;
+    E* dst = reinterpret_cast<E*>(smem_raw + (size_t)(c % stages) * stage_size);
     float* ah_dst = ahs + (size_t)(r % stages) * A4;
     const float* ah_src = ah + (size_t)(b0 + r) * A;
     if constexpr (VEC == 1) {
@@ -673,7 +701,7 @@ attention_kernel(const float* __restrict__ ah, const T* __restrict__ emb,
         for (int a = tid; a < A; a += kThreads) ah_dst[a] = ah_src[a];
     } else if (tid == 0) {
       uint64_t* bar = bars + c % stages;
-      const uint32_t slot_bytes = (uint32_t)(W * sizeof(T));
+      const uint32_t slot_bytes = (uint32_t)(W * sizeof(E));
       mbar_expect_tx(bar, nk * slot_bytes +
                               (q == 0 ? (uint32_t)(A * sizeof(float)) : 0u));
       const int run = Layout::run(nk);
@@ -684,6 +712,21 @@ attention_kernel(const float* __restrict__ ah, const T* __restrict__ emb,
     }
   };
 
+  // Warp 0: start the copies of row r's mask values and scale rows into
+  // its slot of the side ring (one cp.async group).
+  auto load_side = [&](int r) {
+    float* d = side + (size_t)(r & 1) * 3 * K4;
+    const size_t o = (size_t)(b0 + r) * K;
+    for (int k = lane; k < K; k += 32) {
+      if (mask != nullptr) cp_async_4(d + k, mask + o + k);
+      if constexpr (Layout::kQuant) {
+        cp_async_4(d + K4 + k, emb_scale + o + k);
+        cp_async_4(d + 2 * K4 + k, p_scale + o + k);
+      }
+    }
+    cp_async_commit();
+  };
+
   if constexpr (VEC > 1) {
     if (tid == 0) {
       for (int i = 0; i < stages; ++i) mbar_init(bars + i, 1);
@@ -691,6 +734,9 @@ attention_kernel(const float* __restrict__ ah, const T* __restrict__ emb,
     }
     __syncthreads();
   }
+  // the first row's side rows first: with a deep ring they would otherwise
+  // queue behind every chunk in flight
+  if (warp == 0) load_side(0);
   for (int c = 0; c < stages - 1; ++c) fill(c);
   for (int a = tid; a < A; a += kThreads) was[a] = cic::to_f32(wa[a]);
   const float b_alpha = cic::to_f32(ba[0]);
@@ -703,46 +749,58 @@ attention_kernel(const float* __restrict__ ah, const T* __restrict__ emb,
   const int cg0 = tid - sg * cgt;
   const bool active = sg < split;
   float acc[MAXC][VEC];
-  float m0 = 1.0f, m1 = 1.0f;  // warp 0: the row's mask values
 
   for (int c = 0; c < total; ++c) {
+    const int r = c / cpr;
+    const int q = c - r * cpr;
+    // int8, warp 0: row r's scale rows have landed (started a row ahead);
+    // the scores of every warp read them after the barrier
+    if constexpr (Layout::kQuant) {
+      if (q == 0 && warp == 0) cp_async_wait<0>();
+    }
     // every thread is done with chunk c - 1 (and, VEC == 1, has written its
     // part of chunk c): that stage takes chunk c + stages - 1; then wait for
     // chunk c's bytes
     __syncthreads();
     fill(c + stages - 1);
+    if (q == 0 && warp == 0 && r + 1 < nrows) load_side(r + 1);
     if constexpr (VEC > 1) {
       if (!(CIC_ATT_PROBE & 4))
         mbar_wait(bars + c % stages, (uint32_t)(c / stages) & 1u);
     }
 
-    const int r = c / cpr;
-    const int q = c - r * cpr;
     const bool is_p = q < cpt;
     const int k0 = (is_p ? q : q - cpt) * slots;
     const int nk = min(slots, K - k0);
-    const T* st = reinterpret_cast<const T*>(
+    const E* st = reinterpret_cast<const E*>(
         smem_raw + (size_t)(c % stages) * stage_size);
     const int b = b0 + r;
+    const float* sider = side + (size_t)(r & 1) * 3 * K4;
 
     if (is_p) {
-      if (q == 0 && warp == 0 && mask != nullptr) {
-        m0 = lane < K ? mask[(size_t)b * K + lane] : 0.0f;
-        m1 = lane + 32 < K ? mask[(size_t)b * K + lane + 32] : 0.0f;
-      }
       // scores: one warp a slot
       const float* ahr = ahs + (size_t)(r % stages) * A4;
       for (int j = warp; j < nk && !(CIC_ATT_PROBE & 1); j += kWarps) {
-        const T* prow = st + j * A;
+        const E* prow = st + j * A;
+        const float ps = Layout::kQuant ? sider[2 * K4 + k0 + j] : 1.0f;
         float s = 0.0f;
         for (int a = lane * VEC; a < A; a += 32 * VEC) {
-          float p[VEC], x[VEC], w[VEC];
-          load_vec<T, VEC>(prow + a, p);
-          load_f32<VEC>(ahr + a, x);
-          load_f32<VEC>(was + a, w);
+          float p[VEC];
+          load_vec<E, VEC>(prow + a, p);
+          // int8: att_h and w_alpha 16 bytes at a time, for fewer live
+          // registers
+          constexpr int C{VEC == 16 ? 4 : VEC};
 #pragma unroll
-          for (int v = 0; v < VEC; ++v)
-            s = fmaf(att_tanh<T>(p[v] + x[v]), w[v], s);
+          for (int v0 = 0; v0 < VEC; v0 += C) {
+            float x[C], w[C];
+            load_f32<C>(ahr + a + v0, x);
+            load_f32<C>(was + a + v0, w);
+#pragma unroll
+            for (int v = 0; v < C; ++v) {
+              const float pv = Layout::kQuant ? p[v0 + v] * ps : p[v0 + v];
+              s = fmaf(att_tanh<T>(pv + x[v]), w[v], s);
+            }
+          }
         }
         s = cic::warp_sum(s);
         if (lane == 0) sc[k0 + j] = s + b_alpha;
@@ -752,7 +810,13 @@ attention_kernel(const float* __restrict__ ah, const T* __restrict__ emb,
 
     if (q == cpt) {  // the row's first att_emb chunk: weights first (the
                      // barrier above came after the row's last score)
-      if (warp == 0) warp_softmax(sc, K, mask != nullptr, m0, m1, 1.0f, 1.0f);
+      if (warp == 0) {
+        // the row's mask values have landed (each lane reads the slots
+        // it copied)
+        if constexpr (!Layout::kQuant) cp_async_wait<0>();
+        warp_softmax(sc, K, mask != nullptr ? sider : nullptr,
+                     Layout::kQuant ? sider + K4 : nullptr);
+      }
 #pragma unroll
       for (int j = 0; j < MAXC; ++j)
 #pragma unroll
@@ -763,13 +827,13 @@ attention_kernel(const float* __restrict__ ah, const T* __restrict__ emb,
     if (active && !(CIC_ATT_PROBE & 2)) {
       for (int j = sg; j < nk; j += split) {
         const float w = sc[k0 + j];
-        const T* erow = st + j * H;
+        const E* erow = st + j * H;
 #pragma unroll
         for (int i = 0; i < MAXC; ++i) {
           const int cg = cg0 + i * cgt;
           if (cg < groups) {
             float e[VEC];
-            load_vec<T, VEC>(erow + cg * VEC, e);
+            load_vec<E, VEC>(erow + cg * VEC, e);
 #pragma unroll
             for (int v = 0; v < VEC; ++v) acc[i][v] = fmaf(w, e[v], acc[i][v]);
           }
@@ -802,178 +866,35 @@ attention_kernel(const float* __restrict__ ah, const T* __restrict__ emb,
   }
 }
 
-// The 16 int8 values of one 16-byte load, as floats.
-__device__ __forceinline__ void unpack16(const int4& v, float* f) {
-  const int w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      f[4 * i + j] = (float)(signed char)((w[i] >> (8 * j)) & 0xff);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the int8 kernel
-// ---------------------------------------------------------------------------
-
-// Shared memory of a block: hs [kRows,H], ah [kRows,A], was [A],
-// sc [kRows,kMaxK].
-inline size_t smem_floats(int H, int A) {
-  return (size_t)kRows * H + (size_t)kRows * A + A + (size_t)kRows * kMaxK;
-}
-
-// att_h = h @ W_h2att + b_h2att for the block's rows, and w_alpha, into
-// shared memory.  Ends with a barrier.
-template <typename T>
-__device__ __forceinline__ void block_att_h(
-    const T* __restrict__ h, const T* __restrict__ wh,
-    const T* __restrict__ bh, const T* __restrict__ wa, float* hs, float* ah,
-    float* was, int b0, int B, int H, int A) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kRows * H; i += kThreads) {
-    const int r = i / H;
-    hs[i] = (b0 + r < B) ? cic::to_f32(h[(size_t)(b0 + r) * H + (i - r * H)])
-                         : 0.0f;
-  }
-  for (int a = tid; a < A; a += kThreads) was[a] = cic::to_f32(wa[a]);
-  __syncthreads();
-
-  for (int a = tid; a < A; a += kThreads) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-    for (int k = 0; k < H; ++k) {
-      const float w = cic::to_f32(wh[(size_t)k * A + a]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
-    }
-    const float bias = cic::to_f32(bh[a]);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) ah[r * A + a] = acc[r] + bias;
-  }
-  __syncthreads();
-}
-
-// int8 context (b-major).  H and A are multiples of 16 and the int8 rows
-// 16-byte aligned (the wrapper checks), so a lane loads 16 values at once.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_q_kernel(const T* __restrict__ h, const int8_t* __restrict__ emb_q,
-                   const float* __restrict__ emb_scale,
-                   const int8_t* __restrict__ p_q,
-                   const float* __restrict__ p_scale,
-                   const T* __restrict__ wh, const T* __restrict__ bh,
-                   const T* __restrict__ wa, const T* __restrict__ ba,
-                   const float* __restrict__ mask, T* __restrict__ out, int B,
-                   int K, int H, int A) {
-  extern __shared__ __align__(16) float smem[];
-  float* hs = smem;              // [kRows, H]   h rows (f32)
-  float* ah = hs + kRows * H;    // [kRows, A]   att_h
-  float* was = ah + kRows * A;   // [A]          w_alpha
-  float* sc = was + A;           // [kRows, kMaxK] scores, then weights
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int b0 = blockIdx.x * kRows;
-
-  block_att_h(h, wh, bh, wa, hs, ah, was, b0, B, H, A);
-
-  // scores: one warp per (row, slot); p_q streamed once, 16 bytes a lane,
-  // dequantized in registers with the slot's scale
-  const float b_alpha = cic::to_f32(ba[0]);
-  for (int p = warp; p < kRows * K; p += kWarps) {
-    const int r = p / K;
-    const int k = p - r * K;
-    if (b0 + r >= B) continue;
-    const size_t slot = (size_t)(b0 + r) * K + k;
-    const int8_t* prow = p_q + slot * A;
-    const float ps = p_scale[slot];
-    float s = 0.0f;
-    for (int a0 = lane * 16; a0 < A; a0 += 32 * 16) {
-      float q[16];
-      unpack16(*reinterpret_cast<const int4*>(prow + a0), q);
-#pragma unroll
-      for (int j = 0; j < 16; j += 4) {
-        const float4 av = *reinterpret_cast<const float4*>(ah + r * A + a0 + j);
-        const float4 wv = *reinterpret_cast<const float4*>(was + a0 + j);
-        s = fmaf(tanhf(q[j] * ps + av.x), wv.x, s);
-        s = fmaf(tanhf(q[j + 1] * ps + av.y), wv.y, s);
-        s = fmaf(tanhf(q[j + 2] * ps + av.z), wv.z, s);
-        s = fmaf(tanhf(q[j + 3] * ps + av.w), wv.w, s);
-      }
-    }
-    s = cic::warp_sum(s);
-    if (lane == 0) sc[r * kMaxK + k] = s + b_alpha;
-  }
-  __syncthreads();
-
-  // weights, one warp a row, with the att_emb scale folded in:
-  // ws[k] = w[k] * emb_scale[b,k]
-  for (int r = warp; r < kRows; r += kWarps) {
-    if (b0 + r >= B) continue;
-    const size_t row = (size_t)(b0 + r) * K;
-    const bool in0 = lane < K, in1 = lane + 32 < K;
-    const bool masked = mask != nullptr;
-    warp_softmax(sc + r * kMaxK, K, masked,
-                 masked && in0 ? mask[row + lane] : 0.0f,
-                 masked && in1 ? mask[row + lane + 32] : 0.0f,
-                 in0 ? emb_scale[row + lane] : 0.0f,
-                 in1 ? emb_scale[row + lane + 32] : 0.0f);
-  }
-  __syncthreads();
-
-  // out = sum_k ws_k * float(emb_q[b, k]); emb_q streamed once, each thread
-  // 16 neighbouring columns of one row
-  const int chunks = H / 16;
-  for (int i = tid; i < kRows * chunks; i += kThreads) {
-    const int r = i / chunks;
-    const int c0 = (i - r * chunks) * 16;
-    if (b0 + r >= B) continue;
-    const int8_t* erow = emb_q + (size_t)(b0 + r) * K * H + c0;
-    const float* wrow = sc + r * kMaxK;
-    float acc[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[j] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      float q[16];
-      unpack16(*reinterpret_cast<const int4*>(erow + (size_t)k * H), q);
-      const float w = wrow[k];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[j] = fmaf(w, q[j], acc[j]);
-    }
-    T* orow = out + (size_t)(b0 + r) * H + c0;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) orow[j] = cic::from_f32<T>(acc[j]);
-  }
-}
-
 template <typename T, int VEC, int MAXC, typename Layout>
 int launch_stream(const void* ah, const void* emb, const void* patt,
-                  const void* wa, const void* ba, const void* mask, void* out,
-                  int B, int K, int H, int A, int rows, int slots, int stages,
+                  const void* emb_scale, const void* p_scale, const void* wa,
+                  const void* ba, const void* mask, void* out, int B, int K,
+                  int H, int A, int rows, int slots, int stages,
                   cudaStream_t stream) {
-  const size_t smem = stream_smem(slots, stages, H, A, sizeof(T), VEC);
+  using E = ElemOf<T, Layout>;
+  const size_t smem = stream_smem(slots, stages, K, H, A, sizeof(E), VEC);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   auto kernel = attention_kernel<T, VEC, MAXC, Layout>;
   cudaError_t e = allow_smem_shared(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((B + rows - 1) / rows);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(ah), static_cast<const T*>(emb),
-      static_cast<const T*>(patt), static_cast<const T*>(wa),
+      static_cast<const float*>(ah), static_cast<const E*>(emb),
+      static_cast<const E*>(patt), static_cast<const float*>(emb_scale),
+      static_cast<const float*>(p_scale), static_cast<const T*>(wa),
       static_cast<const T*>(ba), static_cast<const float*>(mask),
       static_cast<T*>(out), B, K, H, A, rows, slots, stages,
-      col_split(H, VEC), (unsigned)stage_bytes(slots, H, A, sizeof(T)));
+      col_split(H, VEC), (unsigned)stage_bytes(slots, H, A, sizeof(E)));
   return (int)cudaGetLastError();
 }
 
 // Blocks of the stream kernel that fit one SM under a plan (or minus the
 // CUDA error code).
 template <typename T, int VEC, int MAXC, typename Layout>
-int stream_blocks_per_sm(int slots, int stages, int H, int A) {
-  const size_t smem = stream_smem(slots, stages, H, A, sizeof(T), VEC);
+int stream_blocks_per_sm(int slots, int stages, int K, int H, int A) {
+  const size_t smem =
+      stream_smem(slots, stages, K, H, A, sizeof(ElemOf<T, Layout>), VEC);
   auto kernel = attention_kernel<T, VEC, MAXC, Layout>;
   cudaError_t e = allow_smem_shared(kernel, smem);
   int blocks = 0;
@@ -984,62 +905,61 @@ int stream_blocks_per_sm(int slots, int stages, int H, int A) {
 }
 
 template <typename T, typename Layout>
-int blocks_per_sm(int vec, int slots, int stages, int H, int A) {
-  constexpr int kVec{16 / (int)sizeof(T)};
-  return vec ? stream_blocks_per_sm<T, kVec, 1, Layout>(slots, stages, H, A)
-             : stream_blocks_per_sm<T, 1, kMaxCols, Layout>(slots, stages, H,
-                                                            A);
+int blocks_per_sm(int vec, int slots, int stages, int K, int H, int A) {
+  constexpr int kVec{16 / (int)sizeof(ElemOf<T, Layout>)};
+  return vec ? stream_blocks_per_sm<T, kVec, 1, Layout>(slots, stages, K, H,
+                                                        A)
+             : stream_blocks_per_sm<T, 1, kMaxCols, Layout>(slots, stages, K,
+                                                            H, A);
+}
+
+template <typename T>
+int blocks_per_sm_of(int layout, int vec, int slots, int stages, int K,
+                     int H, int A) {
+  switch (layout) {
+    case 0: return blocks_per_sm<T, BMajor>(vec, slots, stages, K, H, A);
+    case 1: return blocks_per_sm<T, KMajor>(vec, slots, stages, K, H, A);
+    case 2: return blocks_per_sm<T, QuantBMajor>(vec, slots, stages, K, H, A);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 // The pre-pass, then the stream.  `vec` != 0 asks for the 16-byte path: the
-// caller has checked that H and A are multiples of 16 / sizeof(T), that H
-// has at most kThreads such column groups and that the tensors are 16-byte
-// aligned.
+// caller has checked that H and A are multiples of 16 bytes' worth of the
+// context's elements, that H has at most kThreads such column groups and
+// that the tensors are 16-byte aligned (so the pre-pass may take its own
+// 16-byte path too).
 template <typename T, typename Layout>
-int launch(const void* h, const void* emb, const void* patt, const void* wh,
+int launch(const void* h, const void* emb, const void* patt,
+           const void* emb_scale, const void* p_scale, const void* wh,
            const void* bh, const void* wa, const void* ba, const void* mask,
            void* ah, void* out, int B, int K, int H, int A, int vec, int rows,
            int slots, int stages, cudaStream_t stream) {
-  constexpr int kVec{16 / (int)sizeof(T)};
+  constexpr int kVec{16 / (int)sizeof(ElemOf<T, Layout>)};
   if (K < 1 || K > kMaxK || B < 1 || rows < 1 || slots < 1 || stages < 2 ||
       stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
   if (vec ? (H % kVec != 0 || A % kVec != 0 || H / kVec > kThreads)
           : H > kMaxCols * kThreads)
     return (int)cudaErrorInvalidValue;
+  if (Layout::kQuant && (emb_scale == nullptr || p_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int code = launch_att_h<T>(h, wh, bh, ah, B, H, A, vec, stream);
   if (code != 0) return code;
   if (vec)
-    return launch_stream<T, kVec, 1, Layout>(ah, emb, patt, wa, ba, mask, out,
-                                             B, K, H, A, rows, slots, stages,
+    return launch_stream<T, kVec, 1, Layout>(ah, emb, patt, emb_scale,
+                                             p_scale, wa, ba, mask, out, B, K,
+                                             H, A, rows, slots, stages,
                                              stream);
-  return launch_stream<T, 1, kMaxCols, Layout>(ah, emb, patt, wa, ba, mask,
-                                               out, B, K, H, A, rows, slots,
-                                               stages, stream);
-}
-
-template <typename T>
-int launch_q(const void* h, const void* emb_q, const void* emb_scale,
-             const void* p_q, const void* p_scale, const void* wh,
-             const void* bh, const void* wa, const void* ba, const void* mask,
-             void* out, int B, int K, int H, int A, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(H, A);
-  cudaError_t e = allow_smem(attention_q_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((B + kRows - 1) / kRows);
-  attention_q_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(h), static_cast<const int8_t*>(emb_q),
-      static_cast<const float*>(emb_scale), static_cast<const int8_t*>(p_q),
-      static_cast<const float*>(p_scale), static_cast<const T*>(wh),
-      static_cast<const T*>(bh), static_cast<const T*>(wa),
-      static_cast<const T*>(ba), static_cast<const float*>(mask),
-      static_cast<T*>(out), B, K, H, A);
-  return (int)cudaGetLastError();
+  return launch_stream<T, 1, kMaxCols, Layout>(ah, emb, patt, emb_scale,
+                                               p_scale, wa, ba, mask, out, B,
+                                               K, H, A, rows, slots, stages,
+                                               stream);
 }
 
 }  // namespace
 
-// att_h [B, A] (f32) = h @ wh + bh alone: the pre-pass of the two calls below.
+// att_h [B, A] (f32) = h @ wh + bh alone: the pre-pass of the calls below.
 CIC_EXPORT int cic_att_h(const void* h, const void* wh, const void* bh,
                          void* att_h, int B, int H, int A, int is_bf16,
                          int vec, void* stream) {
@@ -1051,17 +971,15 @@ CIC_EXPORT int cic_att_h(const void* h, const void* wh, const void* bh,
 }
 
 // Not a launch: the blocks of the stream kernel that one SM holds at once
-// under a plan (a negative number is minus a CUDA error code).
-CIC_EXPORT int cic_attention_blocks_per_sm(int is_bf16, int kmajor, int vec,
-                                           int slots, int stages, int H,
-                                           int A) {
+// under a plan (a negative number is minus a CUDA error code).  layout: 0
+// b-major, 1 K-major, 2 int8.
+CIC_EXPORT int cic_attention_blocks_per_sm(int is_bf16, int layout, int vec,
+                                           int slots, int stages, int K,
+                                           int H, int A) {
   if (is_bf16)
-    return kmajor ? blocks_per_sm<__nv_bfloat16, KMajor>(vec, slots, stages,
-                                                         H, A)
-                  : blocks_per_sm<__nv_bfloat16, BMajor>(vec, slots, stages,
-                                                         H, A);
-  return kmajor ? blocks_per_sm<float, KMajor>(vec, slots, stages, H, A)
-                : blocks_per_sm<float, BMajor>(vec, slots, stages, H, A);
+    return blocks_per_sm_of<__nv_bfloat16>(layout, vec, slots, stages, K, H,
+                                           A);
+  return blocks_per_sm_of<float>(layout, vec, slots, stages, K, H, A);
 }
 
 // att_h: f32 scratch [B, A] of the caller's; vec, rows, slots, stages: the
@@ -1074,11 +992,12 @@ CIC_EXPORT int cic_attention(const void* h, const void* emb, const void* patt,
                              int stages, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16, BMajor>(h, emb, patt, wh, bh, wa, ba, mask,
-                                         att_h, out, B, K, H, A, vec, rows,
-                                         slots, stages, s);
-  return launch<float, BMajor>(h, emb, patt, wh, bh, wa, ba, mask, att_h, out,
-                               B, K, H, A, vec, rows, slots, stages, s);
+    return launch<__nv_bfloat16, BMajor>(h, emb, patt, nullptr, nullptr, wh,
+                                         bh, wa, ba, mask, att_h, out, B, K,
+                                         H, A, vec, rows, slots, stages, s);
+  return launch<float, BMajor>(h, emb, patt, nullptr, nullptr, wh, bh, wa, ba,
+                               mask, att_h, out, B, K, H, A, vec, rows, slots,
+                               stages, s);
 }
 
 // emb and patt K-major: [K, B, H] and [K, B, A]; mask [B, K].
@@ -1092,26 +1011,30 @@ CIC_EXPORT int cic_attention_kmajor(const void* h, const void* emb,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16, KMajor>(h, emb, patt, wh, bh, wa, ba, mask,
-                                         att_h, out, B, K, H, A, vec, rows,
-                                         slots, stages, s);
-  return launch<float, KMajor>(h, emb, patt, wh, bh, wa, ba, mask, att_h, out,
-                               B, K, H, A, vec, rows, slots, stages, s);
+    return launch<__nv_bfloat16, KMajor>(h, emb, patt, nullptr, nullptr, wh,
+                                         bh, wa, ba, mask, att_h, out, B, K,
+                                         H, A, vec, rows, slots, stages, s);
+  return launch<float, KMajor>(h, emb, patt, nullptr, nullptr, wh, bh, wa, ba,
+                               mask, att_h, out, B, K, H, A, vec, rows, slots,
+                               stages, s);
 }
 
-// emb_q, p_q int8 [B, K, H] and [B, K, A]; emb_scale, p_scale f32 [B, K].
+// emb_q, p_q int8 [B, K, H] and [B, K, A]; emb_scale, p_scale f32 [B, K];
+// the rest as cic_attention.
 CIC_EXPORT int cic_attention_q(const void* h, const void* emb_q,
                                const void* emb_scale, const void* p_q,
                                const void* p_scale, const void* wh,
                                const void* bh, const void* wa, const void* ba,
-                               const void* mask, void* out, int B, int K,
-                               int H, int A, int is_bf16, void* stream) {
-  if (K < 1 || K > kMaxK || B < 1 || H % 16 != 0 || A % 16 != 0)
-    return (int)cudaErrorInvalidValue;
+                               const void* mask, void* att_h, void* out,
+                               int B, int K, int H, int A, int is_bf16,
+                               int vec, int rows, int slots, int stages,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_q<__nv_bfloat16>(h, emb_q, emb_scale, p_q, p_scale, wh, bh,
-                                   wa, ba, mask, out, B, K, H, A, s);
-  return launch_q<float>(h, emb_q, emb_scale, p_q, p_scale, wh, bh, wa, ba,
-                         mask, out, B, K, H, A, s);
+    return launch<__nv_bfloat16, QuantBMajor>(
+        h, emb_q, p_q, emb_scale, p_scale, wh, bh, wa, ba, mask, att_h, out,
+        B, K, H, A, vec, rows, slots, stages, s);
+  return launch<float, QuantBMajor>(h, emb_q, p_q, emb_scale, p_scale, wh, bh,
+                                    wa, ba, mask, att_h, out, B, K, H, A, vec,
+                                    rows, slots, stages, s);
 }

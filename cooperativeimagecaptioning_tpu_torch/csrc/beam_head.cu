@@ -15,6 +15,12 @@
 // top-KK list, KK a compile-time slot count (1, 2, 4, 8 or 16) of at least
 // kk, so the lists stay in registers; then one thread per row merges the
 // vocab splits' lists and log-sum-exp partials and writes the first kk.
+// A kk above the longest list (16: registers) takes rounds of both passes:
+// round n yields the row's candidates 16n .. 16n + 15, because the first
+// pass admits only candidates after the last one round n - 1 took, in
+// cic::before order (a strict total order: value, then id), which the merge
+// of round n - 1 leaves per row in thr_v / thr_i.  Each round recomputes
+// the product; the log-sum-exp comes from the first.
 // The first pass is vocab_head_mma.cuh's tensor-core pass (use_mma, bf16
 // only; instantiated in beam_head_mma.cu) or vocab_head.cuh's FMA pass with
 // an 8-row tile (float32, and bf16 shapes the tensor-core pass does not
@@ -26,15 +32,20 @@
 namespace {
 
 constexpr int kBeamRows = 8;
+constexpr int kRoundKK = 16;  // the longest list; a longer kk takes rounds
 
+// Writes the row's candidates off .. off + KK - 1 (those below kk) into
+// [R, kk], the log-sum-exp with the first round (off == 0), and, when a
+// further round follows, the last candidate taken as the row's threshold.
 template <int KK>
 __global__ void beam_merge(const float* __restrict__ part_val,
                            const int* __restrict__ part_id,
                            const float* __restrict__ part_m,
                            const float* __restrict__ part_s,
                            float* __restrict__ vals, int* __restrict__ idx,
-                           float* __restrict__ lse, int R, int splits,
-                           int kk) {
+                           float* __restrict__ lse, float* __restrict__ thr_v,
+                           int* __restrict__ thr_i, int R, int splits, int kk,
+                           int off) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= R) return;
   float fv[KK];
@@ -42,68 +53,86 @@ __global__ void beam_merge(const float* __restrict__ part_val,
   float M, S;
   merge_splits<KK>(part_val, part_id, part_m, part_s, row, splits, fv, fi, M,
                    S);
-  lse[row] = M + logf(S);
+  if (off == 0) lse[row] = M + logf(S);
 #pragma unroll
   for (int j = 0; j < KK; ++j) {
-    if (j < kk) {
-      vals[(size_t)row * kk + j] = fv[j];
-      idx[(size_t)row * kk + j] = fi[j];
+    if (off + j < kk) {
+      vals[(size_t)row * kk + off + j] = fv[j];
+      idx[(size_t)row * kk + off + j] = fi[j];
     }
+  }
+  if (off + KK < kk) {
+    thr_v[row] = fv[KK - 1];
+    thr_i[row] = fi[KK - 1];
   }
 }
 
 template <typename T, int KK>
 int launch(const void* h, const void* w, const void* b, float* pv, int* pi,
-           float* pm, float* ps, float* vals, int* idx, float* lse, int R,
-           int H, int V, int kk, int splits, int split_cols, bool use_mma,
-           cudaStream_t s) {
-  const int e =
-      use_mma ? cic::beam_partials_mma(KK, h, w, b, pv, pi, pm, ps, R, H, V,
-                                       splits, split_cols, s)
-              : launch_vocab_partials<T, kBeamRows, KK>(
-                    h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols, s);
-  if (e != 0) return e;
-  beam_merge<KK><<<(R + 127) / 128, 128, 0, s>>>(pv, pi, pm, ps, vals, idx,
-                                                 lse, R, splits, kk);
-  return (int)cudaGetLastError();
+           float* pm, float* ps, float* vals, int* idx, float* lse,
+           float* thr_v, int* thr_i, int R, int H, int V, int kk, int splits,
+           int split_cols, bool use_mma, cudaStream_t s) {
+  for (int off = 0; off < kk; off += KK) {
+    int e;
+    if (off == 0)
+      e = use_mma ? cic::beam_partials_mma(KK, h, w, b, pv, pi, pm, ps, R, H,
+                                           V, splits, split_cols, nullptr,
+                                           nullptr, s)
+                  : launch_vocab_partials<T, kBeamRows, KK>(
+                        h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols,
+                        s);
+    else if constexpr (KK == kRoundKK)
+      e = use_mma ? cic::beam_partials_mma(KK, h, w, b, pv, pi, pm, ps, R, H,
+                                           V, splits, split_cols, thr_v,
+                                           thr_i, s)
+                  : launch_vocab_partials<T, kBeamRows, KK, true>(
+                        h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols,
+                        s, thr_v, thr_i);
+    else
+      e = (int)cudaErrorInvalidValue;  // only the longest list takes rounds
+    if (e != 0) return e;
+    beam_merge<KK><<<(R + 127) / 128, 128, 0, s>>>(
+        pv, pi, pm, ps, vals, idx, lse, thr_v, thr_i, R, splits, kk, off);
+    const cudaError_t m = cudaGetLastError();
+    if (m != cudaSuccess) return (int)m;
+  }
+  return 0;
 }
 
 template <typename T>
 int dispatch_slots(int kk_slots, const void* h, const void* w, const void* b,
                    float* pv, int* pi, float* pm, float* ps, float* vals,
-                   int* idx, float* lse, int R, int H, int V, int kk,
-                   int splits, int split_cols, bool use_mma,
-                   cudaStream_t s) {
+                   int* idx, float* lse, float* thr_v, int* thr_i, int R,
+                   int H, int V, int kk, int splits, int split_cols,
+                   bool use_mma, cudaStream_t s) {
+#define CIC_SLOTS(KK)                                                        \
+  case KK:                                                                   \
+    return launch<T, KK>(h, w, b, pv, pi, pm, ps, vals, idx, lse, thr_v,      \
+                         thr_i, R, H, V, kk, splits, split_cols, use_mma, s)
   switch (kk_slots) {
-    case 1:
-      return launch<T, 1>(h, w, b, pv, pi, pm, ps, vals, idx, lse, R, H, V,
-                          kk, splits, split_cols, use_mma, s);
-    case 2:
-      return launch<T, 2>(h, w, b, pv, pi, pm, ps, vals, idx, lse, R, H, V,
-                          kk, splits, split_cols, use_mma, s);
-    case 4:
-      return launch<T, 4>(h, w, b, pv, pi, pm, ps, vals, idx, lse, R, H, V,
-                          kk, splits, split_cols, use_mma, s);
-    case 8:
-      return launch<T, 8>(h, w, b, pv, pi, pm, ps, vals, idx, lse, R, H, V,
-                          kk, splits, split_cols, use_mma, s);
-    case 16:
-      return launch<T, 16>(h, w, b, pv, pi, pm, ps, vals, idx, lse, R, H, V,
-                           kk, splits, split_cols, use_mma, s);
+    CIC_SLOTS(1);
+    CIC_SLOTS(2);
+    CIC_SLOTS(4);
+    CIC_SLOTS(8);
+    CIC_SLOTS(16);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef CIC_SLOTS
 }
 
 }  // namespace
 
+// thr: scratch of 2R words (f32 [R] then int32 [R]) for the rounds of a kk
+// above kk_slots; may be NULL when kk <= kk_slots.
 CIC_EXPORT int cic_beam_head(const void* h, const void* w, const void* b,
                              void* part_val, void* part_id, void* part_m,
                              void* part_s, void* vals, void* idx, void* lse,
-                             int R, int H, int V, int kk, int kk_slots,
-                             int splits, int split_cols, int is_bf16,
-                             int use_mma, void* stream) {
-  if (R < 1 || H < 1 || kk < 1 || kk > kk_slots || kk > V ||
+                             void* thr, int R, int H, int V, int kk,
+                             int kk_slots, int splits, int split_cols,
+                             int is_bf16, int use_mma, void* stream) {
+  if (R < 1 || H < 1 || kk < 1 || kk > V ||
+      (kk > kk_slots && (!thr || kk_slots != kRoundKK)) ||
       !valid_split(V, splits, split_cols) || (use_mma && !is_bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -111,14 +140,16 @@ CIC_EXPORT int cic_beam_head(const void* h, const void* w, const void* b,
   int* pi = static_cast<int*>(part_id);
   float* pm = static_cast<float*>(part_m);
   float* ps = static_cast<float*>(part_s);
+  float* tv = static_cast<float*>(thr);
+  int* ti = thr ? reinterpret_cast<int*>(tv + R) : nullptr;
   if (is_bf16)
     return dispatch_slots<__nv_bfloat16>(
         kk_slots, h, w, b, pv, pi, pm, ps, static_cast<float*>(vals),
-        static_cast<int*>(idx), static_cast<float*>(lse), R, H, V, kk, splits,
-        split_cols, use_mma != 0, s);
+        static_cast<int*>(idx), static_cast<float*>(lse), tv, ti, R, H, V, kk,
+        splits, split_cols, use_mma != 0, s);
   return dispatch_slots<float>(kk_slots, h, w, b, pv, pi, pm, ps,
                                static_cast<float*>(vals),
                                static_cast<int*>(idx),
-                               static_cast<float*>(lse), R, H, V, kk, splits,
-                               split_cols, false, s);
+                               static_cast<float*>(lse), tv, ti, R, H, V, kk,
+                               splits, split_cols, false, s);
 }

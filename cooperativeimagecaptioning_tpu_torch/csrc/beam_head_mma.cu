@@ -8,12 +8,18 @@
 int cic::beam_partials_mma(int kk_slots, const void* h, const void* w,
                            const void* b, float* part_val, int* part_id,
                            float* part_m, float* part_s, int R, int H, int V,
-                           int splits, int split_cols, cudaStream_t stream) {
+                           int splits, int split_cols, const float* thr_v,
+                           const int* thr_i, cudaStream_t stream) {
 #define CIC_SLOTS(KK)                                                       \
   case KK:                                                                  \
     return launch_vocab_partials_mma<KK>(h, w, b, part_val, part_id, part_m, \
                                          part_s, R, H, V, splits, split_cols, \
                                          stream)
+  if (thr_v != nullptr)  // a later round: only the longest list takes rounds
+    return kk_slots == 16 ? launch_vocab_partials_mma<16, true>(
+                                h, w, b, part_val, part_id, part_m, part_s, R,
+                                H, V, splits, split_cols, stream, thr_v, thr_i)
+                          : (int)cudaErrorInvalidValue;
   switch (kk_slots) {
     CIC_SLOTS(1);
     CIC_SLOTS(2);

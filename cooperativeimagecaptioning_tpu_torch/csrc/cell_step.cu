@@ -12,190 +12,527 @@
 // Inputs are float32 or bfloat16 (one type for all), accumulation is float32,
 // and h', c' are written in that type, as the Pallas kernel writes them.
 //
-// What bounds it on the H100: the three products, 2*B*(D*5H + H*5H + H*2H)
-// flops (0.8 GFLOP at B=128, H=D=512) over 12.6 MB of f32 weights that every
-// row tile reads again from L2.  The plain version runs them as cuBLAS GEMMs
-// and then writes the [B,5H] gate pre-activations and the [B,2H] a2c sum to
+// What bounds it on the H100: operations.  The three products are
+// 2*B*(D*5H + H*5H + H*2H) flops (3.2 GFLOP at B=512, H=D=512) over 6.3 MB
+// (bf16) of weights that every row tile reads again from L2; only the tensor
+// cores reach the card's bf16 rate, and the f32 cell, which must stay true
+// f32 (the training gates hold the first step to the CPU's loss), runs on
+// the CUDA cores.  The plain version runs the products as cuBLAS GEMMs and
+// then writes the [B,5H] gate pre-activations and the [B,2H] a2c sum to
 // device memory between its elementwise kernels; here they stay in
 // registers and only h' and c' leave the SM.
 //
-// Design (simple first): one block of 128 threads owns kRows batch rows x
-// kCols hidden columns j.  For each of the three products it walks the
-// reduction in kDepth-deep steps, staging the input rows [kRows, kDepth] and
-// the weight columns of every gate of its j's [kDepth, gates, kCols] in
-// shared memory (float32), and each thread accumulates 4 rows x 5 gates of
-// one column j in registers with CUDA-core FMAs.  The next step's tiles are
-// loaded into registers while the current one computes (at B=128 there is
-// one block of 4 warps per SM, so nothing else hides the load latency);
-// kDepth = 16 keeps those 22 staged values and the 20 sums within 128
-// registers, so four blocks fit on an SM at large B.  The gate epilogue
-// then runs in registers.  No tensor cores, TMA or async copies yet.
+// Design.  A block owns a tile of rows x kCols hidden columns j with all
+// five gates of those j: for gate g the columns g*H + j0 .. j0 + kCols are
+// one contiguous run of each Wi / Wh row (Wc: gates 3 and 4 only), so the
+// weights are read as they lie, with no repacking.  The reduction walks the
+// three products as one sequence of depth steps (the attention product
+// feeds gates 3 and 4 only), through a ring of kStages shared-memory stages
+// filled by 16-byte cp.async copies that run kStages - 1 steps ahead of the
+// arithmetic, so a block pays one memory latency, not one a step.
+//   * bf16 (cell_mma_kernel): WM warps, 16 WM rows (64, or 128 from B =
+//     kMmaManyRows so that the weights are read half as often from L2); a
+//     warp owns 64 rows x 8 j x 5 gates, 80 f32 accumulators a thread, and
+//     for each 16-deep slice loads its four A fragments (ldmatrix) and, per
+//     gate, the weight fragment of its 8 j (ldmatrix.trans from the
+//     row-major stage), used by four mma.sync.m16n8k16: the warps share the
+//     rows' fragments, not the weights', which are the larger part.  Element
+//     (r, j) of every gate then sits in the same thread, and the gate
+//     epilogue runs on the accumulators.  At B=512 the grid is 8 x 16 = 128
+//     blocks.
+//   * f32, and bf16 that is not 16-byte aligned (cell_fma_kernel): fmaf in
+//     true f32 (no TF32).  A block of 8 warps owns 16 rows x 32 j (B=128
+//     gives 128 blocks); its warps split each stage's depth in eight, a lane
+//     4 rows x 4 j x 5 gates (80 sums; per 4 k of depth 4 16-byte loads of
+//     rows and 20 of weights for 320 fmaf), and the eight depth slices are
+//     summed through shared memory before the epilogue.
+#include <initializer_list>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 16;    // batch rows per block
-constexpr int kCols = 32;    // hidden columns j per block
-constexpr int kDepth = 16;   // reduction depth of one shared-memory step
 constexpr int kGates = 5;    // i, f, o, and the two in-transform halves
-constexpr int kRowGroups = kThreads / kCols;       // 4
-constexpr int kRowsPerThread = kRows / kRowGroups;  // 4
-constexpr int kMinBlocks = 4;  // blocks per SM the register budget allows
-static_assert(kRows * kDepth % kThreads == 0 && kThreads % kDepth == 0 &&
-                  kThreads % kCols == 0 && kDepth % kRowGroups == 0,
-              "the tile loads split evenly over the threads");
-
-struct Tiles {
-  float a[kRows][kDepth + 1];
-  float w[kDepth][kGates][kCols];
-};
+constexpr int kCols = 32;    // hidden columns j a block owns
+constexpr int kGateCols = kGates * kCols;  // 160 weight columns a stage row
+constexpr int kStages = 3;   // ring of depth steps; copies run 2 ahead
+// tensor-core path (bf16)
+constexpr int kMmaDepth = 64;  // depth of a step
+constexpr int kMmaPad = 8;     // bf16: row pitches 16 bytes mod 128
+constexpr int kMmaManyRows = 2048;  // B from which a block owns 128 rows
+// FMA path
+constexpr int kFmaRows = 16;
+constexpr int kFmaDepth = 64;
+constexpr int kFmaThreads = 256;
+constexpr int kFmaSlices = kFmaThreads / 32;  // warps along a stage's depth
+constexpr int kFmaPitch = kFmaDepth + 4;  // floats: row starts 4 banks apart
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// One step's tiles, staged in registers.  Thread tid holds the inputs
-// x[row0 + tid / kDepth + it * (kThreads / kDepth), k0 + tid % kDepth] in
-// `a`, and the weights w[k0 + ty + m * kRowGroups, g * H + col0 + tx]
-// (ty = tid / kCols, tx = tid % kCols) for every gate g < NG and
-// m < kDepth / kRowGroups in `w`.  The weight loads of a tile are offsets
-// from one pointer, so they need no address registers of their own.
-template <int NG>
-struct Staged {
-  float a[kRows * kDepth / kThreads];
-  float w[NG][kDepth / kRowGroups];
+// One of the three products: x [B, K] times the columns of w [K, ldw] of
+// gates g0..4 (gate g's run starts at column (g - g0) * H + j0).
+template <typename T>
+struct Product {
+  const T* x;
+  const T* w;
+  int K;
+  int ldw;
+  int g0;
 };
 
-template <typename T, int NG>
-__device__ __forceinline__ void load_tiles(
-    const T* __restrict__ x, int K, const T* __restrict__ w, int ldw, int H,
-    int B, int row0, int col0, int k0, Staged<NG>& st) {
-  constexpr int kARows = kThreads / kDepth;  // input rows one pass loads
-  const int tid = threadIdx.x;
-  const int ar = tid / kDepth;
-  const int ak = k0 + tid % kDepth;
-#pragma unroll
-  for (int it = 0; it < kRows * kDepth / kThreads; ++it) {
-    const int row = row0 + ar + it * kARows;
-    st.a[it] = (row < B && ak < K) ? cic::to_f32(x[(size_t)row * K + ak])
-                                   : 0.0f;
-  }
-  const int tx = tid % kCols;
-  const int ty = tid / kCols;
-  const bool col_ok = col0 + tx < H;
-  const T* wp = w + (size_t)(k0 + ty) * ldw + col0 + tx;
-#pragma unroll
-  for (int m = 0; m < kDepth / kRowGroups; ++m) {
-    const bool ok = col_ok && k0 + ty + m * kRowGroups < K;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-      st.w[g][m] = ok ? cic::to_f32(wp[(size_t)m * kRowGroups * ldw +
-                                       (size_t)g * H]) : 0.0f;
-  }
-}
-
-// acc[r][G0 + g] += x[row r, :] . w[:, g*H + j] for g < NG, over K.
-// Software-pipelined: the next step's tiles are loaded from device memory
-// into registers while the current step computes from shared memory, so the
-// load latency hides behind the FMAs.
-template <typename T, int NG, int G0>
-__device__ __forceinline__ void accumulate(
-    const T* __restrict__ x, int K, const T* __restrict__ w, int ldw, int H,
-    int B, int row0, int col0, Tiles& s,
-    float (&acc)[kRowsPerThread][kGates]) {
-  constexpr int kARows = kThreads / kDepth;
-  const int tid = threadIdx.x;
-  const int tx = tid % kCols;
-  const int ty = tid / kCols;
-  Staged<NG> st;
-  load_tiles<T, NG>(x, K, w, ldw, H, B, row0, col0, 0, st);
-  for (int k0 = 0; k0 < K; k0 += kDepth) {
-#pragma unroll
-    for (int it = 0; it < kRows * kDepth / kThreads; ++it)
-      s.a[tid / kDepth + it * kARows][tid % kDepth] = st.a[it];
-#pragma unroll
-    for (int m = 0; m < kDepth / kRowGroups; ++m)
-#pragma unroll
-      for (int g = 0; g < NG; ++g)
-        s.w[ty + m * kRowGroups][g][tx] = st.w[g][m];
-    __syncthreads();
-    if (k0 + kDepth < K)
-      load_tiles<T, NG>(x, K, w, ldw, H, B, row0, col0, k0 + kDepth, st);
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float a[kRowsPerThread];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r)
-        a[r] = s.a[ty + r * kRowGroups][kk];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float wv = s.w[kk][g][tx];
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r)
-          acc[r][G0 + g] = fmaf(a[r], wv, acc[r][G0 + g]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
+// The step sequence: xt @ Wi, h @ Wh, then (with attention) att @ Wc, each
+// in steps of `depth`.  Returns the product of step s and its first k.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-cell_kernel(const T* __restrict__ xt, const T* __restrict__ h,
-            const T* __restrict__ c, const T* __restrict__ att,
-            const T* __restrict__ wi, const T* __restrict__ bi,
-            const T* __restrict__ wh, const T* __restrict__ bh,
-            const T* __restrict__ wc, const T* __restrict__ bc,
-            T* __restrict__ h_out, T* __restrict__ c_out, int B, int D,
-            int H) {
-  __shared__ Tiles s;
-  const int row0 = blockIdx.y * kRows;
-  const int col0 = blockIdx.x * kCols;
-  float acc[kRowsPerThread][kGates];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-    for (int g = 0; g < kGates; ++g) acc[r][g] = 0.0f;
+__device__ __forceinline__ Product<T> step_product(
+    int s, int depth, int n0, int n1, const T* xt, const T* h, const T* att,
+    const T* wi, const T* wh, const T* wc, int D, int H, int& k0) {
+  if (s < n0) {
+    k0 = s * depth;
+    return {xt, wi, D, kGates * H, 0};
+  }
+  if (s < n0 + n1) {
+    k0 = (s - n0) * depth;
+    return {h, wh, H, kGates * H, 0};
+  }
+  k0 = (s - n0 - n1) * depth;
+  return {att, wc, H, 2 * H, 3};
+}
 
-  accumulate<T, kGates, 0>(xt, D, wi, kGates * H, H, B, row0, col0, s, acc);
-  accumulate<T, kGates, 0>(h, H, wh, kGates * H, H, B, row0, col0, s, acc);
-  if (att != nullptr)  // the same for the whole grid: no divergent barrier
-    accumulate<T, 2, 3>(att, H, wc, 2 * H, H, B, row0, col0, s, acc);
+// The gate epilogue of one (row, j): the five sums (biases included).
+template <typename T>
+__device__ __forceinline__ void cell_out(const float (&x)[kGates], float c,
+                                         T* h_out, T* c_out) {
+  const float ig = sigmoid(x[0]);
+  const float fg = sigmoid(x[1]);
+  const float og = sigmoid(x[2]);
+  const float cn = fg * c + ig * fmaxf(x[3], x[4]);
+  *h_out = cic::from_f32<T>(og * tanhf(cn));
+  *c_out = cic::from_f32<T>(cn);
+}
 
-  const int j = col0 + threadIdx.x % kCols;
-  if (j >= H) return;
-  const int ty = threadIdx.x / kCols;
-  float bias[kGates];
+// bi + bh (+ bc for gates 3 and 4) of column j.
+template <typename T>
+__device__ __forceinline__ void gate_bias(const T* bi, const T* bh,
+                                          const T* bc, int H, int j,
+                                          float (&bias)[kGates]) {
 #pragma unroll
   for (int g = 0; g < kGates; ++g)
     bias[g] = cic::to_f32(bi[g * H + j]) + cic::to_f32(bh[g * H + j]);
-  if (att != nullptr) {
+  if (bc != nullptr) {
     bias[3] += cic::to_f32(bc[j]);
     bias[4] += cic::to_f32(bc[H + j]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+template <int WM>
+constexpr size_t mma_smem() {
+  return sizeof(__nv_bfloat16) * kStages *
+         ((size_t)16 * WM * (kMmaDepth + kMmaPad) +
+          (size_t)kMmaDepth * (kGateCols + kMmaPad));
+}
+
+// D, H multiples of 8 and every pointer 16-byte aligned (the caller checks).
+template <int WM>
+__global__ void __launch_bounds__(32 * WM)
+cell_mma_kernel(const __nv_bfloat16* __restrict__ xt,
+                const __nv_bfloat16* __restrict__ h,
+                const __nv_bfloat16* __restrict__ c,
+                const __nv_bfloat16* __restrict__ att,
+                const __nv_bfloat16* __restrict__ wi,
+                const __nv_bfloat16* __restrict__ bi,
+                const __nv_bfloat16* __restrict__ wh,
+                const __nv_bfloat16* __restrict__ bh,
+                const __nv_bfloat16* __restrict__ wc,
+                const __nv_bfloat16* __restrict__ bc,
+                __nv_bfloat16* __restrict__ h_out,
+                __nv_bfloat16* __restrict__ c_out, int B, int D, int H) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kThreadsB = 32 * WM;
+  constexpr int kRowsB = 16 * WM;
+  constexpr int kAPitch = kMmaDepth + kMmaPad;
+  constexpr int kWPitch = kGateCols + kMmaPad;
+  constexpr int kAStage = kRowsB * kAPitch;
+  constexpr int kWStage = kMmaDepth * kWPitch;
+  extern __shared__ __align__(16) unsigned char cell_raw[];
+  bf16* as = reinterpret_cast<bf16*>(cell_raw);  // [stages][rows][kAPitch]
+  bf16* ws = as + kStages * kAStage;              // [stages][depth][kWPitch]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wr = warp / 4;  // the warp's 64 rows of the block's
+  const int wj = warp % 4;  // and its 8 columns j of the block's 32
+  const int m0 = blockIdx.y * kRowsB;
+  const int j0 = blockIdx.x * kCols;
+  const int n0 = (D + kMmaDepth - 1) / kMmaDepth;
+  const int n1 = (H + kMmaDepth - 1) / kMmaDepth;
+  const int total = n0 + n1 + (att != nullptr ? n1 : 0);
+
+  // step s into stage s % kStages: the rows' depth slice, and for each gate
+  // the product feeds its [depth x 32] run of weights; zero-filled beyond
+  // B, the product's depth and H
+  auto load = [&](int s) {
+    int k0;
+    const Product<bf16> p =
+        step_product(s, kMmaDepth, n0, n1, xt, h, att, wi, wh, wc, D, H, k0);
+    bf16* a_st = as + (s % kStages) * kAStage;
+    bf16* w_st = ws + (s % kStages) * kWStage;
+    for (int g = tid; g < kRowsB * (kMmaDepth / 8); g += kThreadsB) {
+      const int r = g / (kMmaDepth / 8);
+      const int cc = (g % (kMmaDepth / 8)) * 8;
+      const bool ok = m0 + r < B && k0 + cc < p.K;
+      cic::cp_async_16(a_st + r * kAPitch + cc,
+                       ok ? p.x + (size_t)(m0 + r) * p.K + k0 + cc : p.x, ok);
+    }
+    for (int gate = p.g0; gate < kGates; ++gate) {
+      for (int g = tid; g < kMmaDepth * (kCols / 8); g += kThreadsB) {
+        const int k = g / (kCols / 8);
+        const int c8 = (g % (kCols / 8)) * 8;
+        const bool ok = k0 + k < p.K && j0 + c8 < H;
+        const bf16* src =
+            p.w + (size_t)(k0 + k) * p.ldw + (gate - p.g0) * H + j0 + c8;
+        cic::cp_async_16(w_st + k * kWPitch + gate * kCols + c8,
+                         ok ? src : p.w, ok);
+      }
+    }
+  };
+
+  float acc[kGates][4][4];
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int row = row0 + ty + r * kRowGroups;
-    if (row >= B) continue;
-    const float ig = sigmoid(acc[r][0] + bias[0]);
-    const float fg = sigmoid(acc[r][1] + bias[1]);
-    const float og = sigmoid(acc[r][2] + bias[2]);
-    const float gg = fmaxf(acc[r][3] + bias[3], acc[r][4] + bias[4]);
-    const size_t o = (size_t)row * H + j;
-    const float cn = fg * cic::to_f32(c[o]) + ig * gg;
-    h_out[o] = cic::from_f32<T>(og * tanhf(cn));
-    c_out[o] = cic::from_f32<T>(cn);
+  for (int g = 0; g < kGates; ++g)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][n][e] = 0.0f;
+
+  // one stage: 4 slices of 16 k; for each gate from G0 the 16 k x 8 j
+  // weight fragment of the warp's j (two gates a ldmatrix.x4.trans), then
+  // for each of its four 16-row tiles the A fragment and one mma a gate.  The
+  // tensor cores sum a stage into zeroed accumulators, which are then added
+  // to the totals in f32 round-to-nearest: the products' sums stay as close
+  // to the plain version's f32 sums as the FMA kernel's (a bf16 output
+  // flips by one ulp only where its f32 value sits that close to a rounding
+  // boundary).
+  auto multiply = [&](auto g0_const, const bf16* a_st, const bf16* w_st) {
+    constexpr int G0 = decltype(g0_const)::value;
+    float part[kGates][4][4];
+#pragma unroll
+    for (int g = G0; g < kGates; ++g)
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[g][mt][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kMmaDepth; kk += 16) {
+      uint32_t b[kGates][2];
+      const bf16* wrow = w_st + (kk + (lane & 15)) * kWPitch + wj * 8;
+#pragma unroll
+      for (int g = G0; g < kGates; g += 2) {
+        if (g + 1 < kGates) {  // gates g and g + 1
+          uint32_t b4[4];
+          cic::ldmatrix_x4<true>(b4, wrow + (g + (lane >> 4)) * kCols);
+          b[g][0] = b4[0];
+          b[g][1] = b4[1];
+          b[g + 1][0] = b4[2];
+          b[g + 1][1] = b4[3];
+        } else {
+          cic::ldmatrix_x2_trans(b[g], wrow + g * kCols);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t a[4];
+        cic::ldmatrix_x4<false>(
+            a, a_st + (wr * 64 + mt * 16 + (lane & 15)) * kAPitch + kk +
+                   ((lane >> 4) << 3));
+#pragma unroll
+        for (int g = G0; g < kGates; ++g)
+          cic::mma_bf16_16816(part[g][mt], a, b[g][0], b[g][1]);
+      }
+    }
+#pragma unroll
+    for (int g = G0; g < kGates; ++g)
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[g][mt][e] += part[g][mt][e];
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) load(s);
+    cic::cp_async_commit();
+  }
+  for (int s = 0; s < total; ++s) {
+    cic::cp_async_wait<kStages - 2>();  // this thread's copies of step s
+    // everyone's copies of step s landed, and everyone is done with step
+    // s - 1, whose stage the next load refills
+    __syncthreads();
+    if (s + kStages - 1 < total) load(s + kStages - 1);
+    cic::cp_async_commit();
+    const bf16* a_st = as + (s % kStages) * kAStage;
+    const bf16* w_st = ws + (s % kStages) * kWStage;
+    if (s < n0 + n1)
+      multiply(std::integral_constant<int, 0>{}, a_st, w_st);
+    else
+      multiply(std::integral_constant<int, 3>{}, a_st, w_st);
+  }
+
+  // epilogue: acc[g][mt] holds rows r, r + 8 (r = 16 mt + lane / 4 of the
+  // warp's 64) x columns j, j + 1 (j = 2 (lane % 4) of its 8) of gate g
+  const int gr = lane >> 2;
+  const int j = j0 + wj * 8 + 2 * (lane & 3);
+  if (j >= H) return;  // H is even: j + 1 < H too
+  float bias[2][kGates];
+  gate_bias(bi, bh, att != nullptr ? bc : nullptr, H, j, bias[0]);
+  gate_bias(bi, bh, att != nullptr ? bc : nullptr, H, j + 1, bias[1]);
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = m0 + wr * 64 + mt * 16 + gr + 8 * hf;
+      if (row >= B) continue;
+      const size_t o = (size_t)row * H + j;
+      const float2 cv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(c + o));
+      bf16 hn[2], cn[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x[kGates];
+#pragma unroll
+        for (int g = 0; g < kGates; ++g)
+          x[g] = acc[g][mt][2 * hf + e] + bias[e][g];
+        cell_out(x, e ? cv.y : cv.x, &hn[e], &cn[e]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(h_out + o) =
+          __halves2bfloat162(hn[0], hn[1]);
+      *reinterpret_cast<__nv_bfloat162*>(c_out + o) =
+          __halves2bfloat162(cn[0], cn[1]);
+    }
   }
 }
 
-template <typename T>
-int launch(const void* xt, const void* h, const void* c, const void* att,
-           const void* wi, const void* bi, const void* wh, const void* bh,
-           const void* wc, const void* bc, void* h_out, void* c_out, int B,
-           int D, int H, cudaStream_t stream) {
-  const dim3 grid((H + kCols - 1) / kCols, (B + kRows - 1) / kRows);
-  cell_kernel<T><<<grid, kThreads, 0, stream>>>(
+// ---------------------------------------------------------------------------
+// fmaf in f32
+// ---------------------------------------------------------------------------
+
+// The ring, or after the loop the slices' partial sums, whichever is larger.
+constexpr size_t fma_smem() {
+  const size_t ring = (size_t)kStages * ((size_t)kFmaRows * kFmaPitch +
+                                         (size_t)kFmaDepth * kGateCols);
+  const size_t red = (size_t)kFmaSlices * kFmaRows * kGateCols;
+  return sizeof(float) * (ring > red ? ring : red);
+}
+
+// Any type and alignment.  ASYNC (f32 with D and H multiples of 4 and
+// 16-byte aligned tensors): stages filled by 16-byte cp.async; else by
+// plain loads, converted to f32.
+template <typename T, bool ASYNC>
+__global__ void __launch_bounds__(kFmaThreads)
+cell_fma_kernel(const T* __restrict__ xt, const T* __restrict__ h,
+                const T* __restrict__ c, const T* __restrict__ att,
+                const T* __restrict__ wi, const T* __restrict__ bi,
+                const T* __restrict__ wh, const T* __restrict__ bh,
+                const T* __restrict__ wc, const T* __restrict__ bc,
+                T* __restrict__ h_out, T* __restrict__ c_out, int B, int D,
+                int H) {
+  constexpr int kAStage = kFmaRows * kFmaPitch;
+  constexpr int kWStage = kFmaDepth * kGateCols;
+  constexpr int kSlice = kFmaDepth / kFmaSlices;  // depth of a warp's share
+  extern __shared__ __align__(16) float cell_smem[];
+  float* as = cell_smem;                // [stages][16][kFmaPitch]
+  float* ws = as + kStages * kAStage;   // [stages][depth][5 gates][32 j]
+  float* red = cell_smem;               // after the loop: [slices][16][160]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;         // the warp's slice of a stage's depth
+  const int r4 = (lane >> 3) * 4;    // the lane's 4 rows
+  const int j4 = (lane & 7) * 4;     // and its 4 columns j, of every gate
+  const int m0 = blockIdx.y * kFmaRows;
+  const int j0 = blockIdx.x * kCols;
+  const int n0 = (D + kFmaDepth - 1) / kFmaDepth;
+  const int n1 = (H + kFmaDepth - 1) / kFmaDepth;
+  const int total = n0 + n1 + (att != nullptr ? n1 : 0);
+
+  auto load = [&](int s) {
+    int k0;
+    const Product<T> p =
+        step_product(s, kFmaDepth, n0, n1, xt, h, att, wi, wh, wc, D, H, k0);
+    float* a_st = as + (s % kStages) * kAStage;
+    float* w_st = ws + (s % kStages) * kWStage;
+    if constexpr (ASYNC) {
+      for (int g = tid; g < kFmaRows * (kFmaDepth / 4); g += kFmaThreads) {
+        const int r = g / (kFmaDepth / 4);
+        const int cc = (g % (kFmaDepth / 4)) * 4;
+        const bool ok = m0 + r < B && k0 + cc < p.K;
+        cic::cp_async_16(a_st + r * kFmaPitch + cc,
+                         ok ? p.x + (size_t)(m0 + r) * p.K + k0 + cc : p.x,
+                         ok);
+      }
+      for (int gate = p.g0; gate < kGates; ++gate) {
+        for (int g = tid; g < kFmaDepth * (kCols / 4); g += kFmaThreads) {
+          const int k = g / (kCols / 4);
+          const int c4 = (g % (kCols / 4)) * 4;
+          const bool ok = k0 + k < p.K && j0 + c4 < H;
+          const T* src =
+              p.w + (size_t)(k0 + k) * p.ldw + (gate - p.g0) * H + j0 + c4;
+          cic::cp_async_16(w_st + k * kGateCols + gate * kCols + c4,
+                           ok ? src : p.w, ok);
+        }
+      }
+    } else {
+      for (int i = tid; i < kFmaRows * kFmaDepth; i += kFmaThreads) {
+        const int r = i / kFmaDepth, cc = i % kFmaDepth;
+        a_st[r * kFmaPitch + cc] =
+            (m0 + r < B && k0 + cc < p.K)
+                ? cic::to_f32(p.x[(size_t)(m0 + r) * p.K + k0 + cc]) : 0.0f;
+      }
+      for (int gate = p.g0; gate < kGates; ++gate) {
+        for (int i = tid; i < kFmaDepth * kCols; i += kFmaThreads) {
+          const int k = i / kCols, cc = i % kCols;
+          w_st[k * kGateCols + gate * kCols + cc] =
+              (k0 + k < p.K && j0 + cc < H)
+                  ? cic::to_f32(p.w[(size_t)(k0 + k) * p.ldw +
+                                    (gate - p.g0) * H + j0 + cc])
+                  : 0.0f;
+        }
+      }
+    }
+  };
+
+  float acc[kGates][4][4];
+#pragma unroll
+  for (int g = 0; g < kGates; ++g)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][i][e] = 0.0f;
+
+  // the warp's slice of a stage, 4 k at a time: the lane's 4 rows (four
+  // 16-byte loads) times 4 j of each gate from G0 (a 16-byte load each)
+  auto multiply = [&](auto g0_const, const float* a_st, const float* w_st) {
+    constexpr int G0 = decltype(g0_const)::value;
+#pragma unroll
+    for (int k = warp * kSlice; k < (warp + 1) * kSlice; k += 4) {
+      float av[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(a_st + (r4 + i) * kFmaPitch + k);
+        av[i][0] = v.x; av[i][1] = v.y; av[i][2] = v.z; av[i][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int g = G0; g < kGates; ++g) {
+          const float4 wv = *reinterpret_cast<const float4*>(
+              w_st + (k + kk) * kGateCols + g * kCols + j4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[g][i][0] = fmaf(av[i][kk], wv.x, acc[g][i][0]);
+            acc[g][i][1] = fmaf(av[i][kk], wv.y, acc[g][i][1]);
+            acc[g][i][2] = fmaf(av[i][kk], wv.z, acc[g][i][2]);
+            acc[g][i][3] = fmaf(av[i][kk], wv.w, acc[g][i][3]);
+          }
+        }
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) load(s);
+    if constexpr (ASYNC) cic::cp_async_commit();
+  }
+  for (int s = 0; s < total; ++s) {
+    if constexpr (ASYNC) cic::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (s + kStages - 1 < total) load(s + kStages - 1);
+    if constexpr (ASYNC) cic::cp_async_commit();
+    const float* a_st = as + (s % kStages) * kAStage;
+    const float* w_st = ws + (s % kStages) * kWStage;
+    if (s < n0 + n1)
+      multiply(std::integral_constant<int, 0>{}, a_st, w_st);
+    else
+      multiply(std::integral_constant<int, 3>{}, a_st, w_st);
+  }
+  if constexpr (ASYNC) cic::cp_async_wait<0>();
+  __syncthreads();  // the stages become the slices' partial sums
+
+#pragma unroll
+  for (int g = 0; g < kGates; ++g)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(
+          red + (warp * kFmaRows + r4 + i) * kGateCols + g * kCols + j4) =
+          make_float4(acc[g][i][0], acc[g][i][1], acc[g][i][2],
+                      acc[g][i][3]);
+  __syncthreads();
+
+  const T* bcp = att != nullptr ? bc : nullptr;
+  for (int o = tid; o < kFmaRows * kCols; o += kFmaThreads) {
+    const int r = o / kCols, jj = o % kCols;
+    const int row = m0 + r, j = j0 + jj;
+    if (row >= B || j >= H) continue;
+    float x[kGates];
+    gate_bias(bi, bh, bcp, H, j, x);
+#pragma unroll
+    for (int g = 0; g < kGates; ++g) {
+      float v = 0.0f;
+#pragma unroll
+      for (int sl = 0; sl < kFmaSlices; ++sl)
+        v += red[(sl * kFmaRows + r) * kGateCols + g * kCols + jj];
+      x[g] += v;
+    }
+    const size_t oo = (size_t)row * H + j;
+    cell_out(x, cic::to_f32(c[oo]), h_out + oo, c_out + oo);
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int WM>
+int launch_mma(const void* xt, const void* h, const void* c, const void* att,
+               const void* wi, const void* bi, const void* wh, const void* bh,
+               const void* wc, const void* bc, void* h_out, void* c_out,
+               int B, int D, int H, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr size_t smem = mma_smem<WM>();
+  cudaError_t e = allow_smem(cell_mma_kernel<WM>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((H + kCols - 1) / kCols, (B + 16 * WM - 1) / (16 * WM));
+  cell_mma_kernel<WM><<<grid, 32 * WM, smem, stream>>>(
+      static_cast<const bf16*>(xt), static_cast<const bf16*>(h),
+      static_cast<const bf16*>(c), static_cast<const bf16*>(att),
+      static_cast<const bf16*>(wi), static_cast<const bf16*>(bi),
+      static_cast<const bf16*>(wh), static_cast<const bf16*>(bh),
+      static_cast<const bf16*>(wc), static_cast<const bf16*>(bc),
+      static_cast<bf16*>(h_out), static_cast<bf16*>(c_out), B, D, H);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool ASYNC>
+int launch_fma(const void* xt, const void* h, const void* c, const void* att,
+               const void* wi, const void* bi, const void* wh, const void* bh,
+               const void* wc, const void* bc, void* h_out, void* c_out,
+               int B, int D, int H, cudaStream_t stream) {
+  constexpr size_t smem = fma_smem();
+  cudaError_t e = allow_smem(cell_fma_kernel<T, ASYNC>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((H + kCols - 1) / kCols, (B + kFmaRows - 1) / kFmaRows);
+  cell_fma_kernel<T, ASYNC><<<grid, kFmaThreads, smem, stream>>>(
       static_cast<const T*>(xt), static_cast<const T*>(h),
       static_cast<const T*>(c), static_cast<const T*>(att),
       static_cast<const T*>(wi), static_cast<const T*>(bi),
@@ -205,23 +542,46 @@ int launch(const void* xt, const void* h, const void* c, const void* att,
   return (int)cudaGetLastError();
 }
 
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 }  // namespace
 
-// att, wc and bc are all NULL for the FC cell, or none of them.
+// att, wc and bc are all NULL for the FC cell, or none of them.  use_mma
+// asks for the tensor-core kernel (bf16, D and H multiples of 8, every
+// pointer 16-byte aligned: the wrapper's cell_pass); else the FMA kernel.
 CIC_EXPORT int cic_cell(const void* xt, const void* h, const void* c,
                         const void* att, const void* wi, const void* bi,
                         const void* wh, const void* bh, const void* wc,
                         const void* bc, void* h_out, void* c_out, int B,
-                        int D, int H, int is_bf16, void* stream) {
-  if (B < 1 || D < 1 || H < 1 || B > 65535 * kRows)
+                        int D, int H, int is_bf16, int use_mma,
+                        void* stream) {
+  if (B < 1 || D < 1 || H < 1 || (B + kFmaRows - 1) / kFmaRows > 65535)
     return (int)cudaErrorInvalidValue;
   if ((att == nullptr) != (wc == nullptr) ||
       (att == nullptr) != (bc == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned = aligned16({xt, h, c, att, wi, bi, wh, bh, wc, bc,
+                                  h_out, c_out});
+  if (use_mma) {
+    if (!is_bf16 || D % 8 != 0 || H % 8 != 0 || !aligned)
+      return (int)cudaErrorInvalidValue;
+    return B >= kMmaManyRows
+               ? launch_mma<8>(xt, h, c, att, wi, bi, wh, bh, wc, bc, h_out,
+                               c_out, B, D, H, s)
+               : launch_mma<4>(xt, h, c, att, wi, bi, wh, bh, wc, bc, h_out,
+                               c_out, B, D, H, s);
+  }
   if (is_bf16)
-    return launch<__nv_bfloat16>(xt, h, c, att, wi, bi, wh, bh, wc, bc,
-                                 h_out, c_out, B, D, H, s);
-  return launch<float>(xt, h, c, att, wi, bi, wh, bh, wc, bc, h_out, c_out,
-                       B, D, H, s);
+    return launch_fma<__nv_bfloat16, false>(xt, h, c, att, wi, bi, wh, bh, wc,
+                                            bc, h_out, c_out, B, D, H, s);
+  if (D % 4 == 0 && H % 4 == 0 && aligned)
+    return launch_fma<float, true>(xt, h, c, att, wi, bi, wh, bh, wc, bc,
+                                   h_out, c_out, B, D, H, s);
+  return launch_fma<float, false>(xt, h, c, att, wi, bi, wh, bh, wc, bc,
+                                  h_out, c_out, B, D, H, s);
 }

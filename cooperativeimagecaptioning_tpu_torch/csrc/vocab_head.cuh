@@ -17,6 +17,10 @@
 // warps and across splits -- through cic::before.  Columns past V are masked
 // by bounds; nothing is padded.
 //
+// A round of the beam head past its longest list (THR) passes thr_v / thr_i:
+// per row the last candidate an earlier round took, and only candidates
+// after it in cic::before order enter the lists.
+//
 // vocab_partials runs the product on the CUDA cores (f32 FMAs) and takes
 // float32 and bfloat16.  For bfloat16 shapes that fit it, pass 1 is instead
 // vocab_head_mma.cuh's tensor-core pass (same grid idea, same partials, same
@@ -39,7 +43,8 @@ int greedy_partials_mma(const void* h, const void* w, const void* b,
 int beam_partials_mma(int kk_slots, const void* h, const void* w,
                       const void* b, float* part_val, int* part_id,
                       float* part_m, float* part_s, int R, int H, int V,
-                      int splits, int split_cols, cudaStream_t stream);
+                      int splits, int split_cols, const float* thr_v,
+                      const int* thr_i, cudaStream_t stream);
 
 }  // namespace cic
 
@@ -86,19 +91,22 @@ size_t vocab_partials_smem(int H) {
   return sizeof(float) * (size_t)H * RT;
 }
 
-template <typename T, int RT, int KK>
+template <typename T, int RT, int KK, bool THR>
 __global__ void __launch_bounds__(kHeadThreads)
 vocab_partials(const T* __restrict__ h, const T* __restrict__ w,
                const T* __restrict__ b, float* __restrict__ part_val,
                int* __restrict__ part_id, float* __restrict__ part_m,
                float* __restrict__ part_s, int R, int H, int V, int splits,
-               int split_cols) {
+               int split_cols, const float* __restrict__ thr_v,
+               const int* __restrict__ thr_i) {
   static_assert(RT % 4 == 0, "row tile must be a multiple of 4");
   extern __shared__ __align__(16) float hs[];  // [H][RT]
   __shared__ float wv[kHeadWarps][RT][KK];
   __shared__ int wi[kHeadWarps][RT][KK];
   __shared__ float wm[kHeadWarps][RT];
   __shared__ float ws[kHeadWarps][RT];
+  __shared__ float tv_s[RT];  // THR: the rows' thresholds
+  __shared__ int ti_s[RT];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -113,6 +121,10 @@ vocab_partials(const T* __restrict__ h, const T* __restrict__ w,
     const int k = i - r * H;
     hs[k * RT + r] =
         (r0 + r < R) ? cic::to_f32(h[(size_t)(r0 + r) * H + k]) : 0.0f;
+  }
+  if (THR && tid < RT && r0 + tid < R) {
+    tv_s[tid] = thr_v[r0 + tid];
+    ti_s[tid] = thr_i[r0 + tid];
   }
   __syncthreads();
 
@@ -166,7 +178,8 @@ vocab_partials(const T* __restrict__ h, const T* __restrict__ w,
       for (int r = 0; r < RT; ++r) {
         const float x = acc[r][c] + bias;
         cic::lse_push(m[r], s[r], x);
-        topk_insert<KK>(tv[r], ti[r], x, col[c]);
+        if (!THR || cic::before(tv_s[r], ti_s[r], x, col[c]))
+          topk_insert<KK>(tv[r], ti[r], x, col[c]);
       }
     }
   }
@@ -258,23 +271,25 @@ __device__ __forceinline__ void merge_splits(
   }
 }
 
-template <typename T, int RT, int KK>
+template <typename T, int RT, int KK, bool THR = false>
 int launch_vocab_partials(const void* h, const void* w, const void* b,
                           float* part_val, int* part_id, float* part_m,
                           float* part_s, int R, int H, int V, int splits,
-                          int split_cols, cudaStream_t stream) {
+                          int split_cols, cudaStream_t stream,
+                          const float* thr_v = nullptr,
+                          const int* thr_i = nullptr) {
   const size_t smem = vocab_partials_smem<RT>(H);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        vocab_partials<T, RT, KK>,
+        vocab_partials<T, RT, KK, THR>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((R + RT - 1) / RT, splits);
-  vocab_partials<T, RT, KK><<<grid, kHeadThreads, smem, stream>>>(
+  vocab_partials<T, RT, KK, THR><<<grid, kHeadThreads, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w),
       static_cast<const T*>(b), part_val, part_id, part_m, part_s, R, H, V,
-      splits, split_cols);
+      splits, split_cols, thr_v, thr_i);
   return (int)cudaGetLastError();
 }
 

@@ -37,7 +37,9 @@
 //     {0,1}).  It adds the bias, skips columns >= V, and folds each logit
 //     into its own per-row state, kept in registers across all tiles of the
 //     split: a streaming log-sum-exp (one rescale a tile) and a top-KK list
-//     (topk_push: branch-free, constant indices, so it stays in registers).
+//     (topk_push: branch-free, constant indices, so it stays in registers);
+//     in a later round of the beam head only logits after the row's
+//     threshold (vocab_head.cuh) enter the list.
 //   * After the last tile the four lanes of a quad, which share their rows,
 //     merge by shuffles (log-sum-exp pairwise; the lists by KK rounds of
 //     pop-the-winner) and lane 0 of the quad writes the (row, split)
@@ -154,14 +156,18 @@ inline size_t vocab_partials_mma_smem(int H) {
   return 1024 + (size_t)(H / kMmaDepth + kMmaStages) * kMmaTileBytes;
 }
 
-template <int KK>
+// THR: a later round of the beam head, with per-row thresholds (a separate
+// instantiation, so that every other launch compiles as it did without).
+template <int KK, bool THR>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 vocab_partials_mma(const __nv_bfloat16* __restrict__ h,
                    const __nv_bfloat16* __restrict__ w,
                    const __nv_bfloat16* __restrict__ b,
                    float* __restrict__ part_val, int* __restrict__ part_id,
                    float* __restrict__ part_m, float* __restrict__ part_s,
-                   int R, int H, int V, int splits, int split_cols) {
+                   int R, int H, int V, int splits, int split_cols,
+                   const float* __restrict__ thr_v,
+                   const int* __restrict__ thr_i) {
   extern __shared__ uint8_t mma_smem[];
   const int ksteps = H / kMmaDepth;
   const uint32_t hs = (smem_u32(mma_smem) + 1023u) & ~1023u;
@@ -213,11 +219,19 @@ vocab_partials_mma(const __nv_bfloat16* __restrict__ h,
   float tv[2][KK];
   int ti[2][KK];
   float m[2], s[2];
+  float thv[2];  // THR: the thread's two rows' thresholds
+  int thi[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     topk_clear<KK>(tv[hf], ti[hf]);
     m[hf] = -CUDART_INF_F;
     s[hf] = 0.0f;
+    if constexpr (THR) {
+      const int row =
+          r0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2) + 8 * hf;
+      thv[hf] = row < R ? thr_v[row] : CUDART_INF_F;
+      thi[hf] = row < R ? thr_i[row] : -1;
+    }
   }
   float acc[64];
 #pragma unroll
@@ -308,7 +322,8 @@ vocab_partials_mma(const __nv_bfloat16* __restrict__ h,
         for (int e = 0; e < 2; ++e) {
           const int col = cbase + 8 * j + e;
           const float x = acc[4 * j + 2 * hf + e];
-          if (col < V && cic::before(x, col, tv[hf][KK - 1], ti[hf][KK - 1]))
+          if (col < V && cic::before(x, col, tv[hf][KK - 1], ti[hf][KK - 1])
+              && (!THR || cic::before(thv[hf], thi[hf], x, col)))
             topk_push<KK>(tv[hf], ti[hf], x, col);
         }
       }
@@ -363,26 +378,28 @@ vocab_partials_mma(const __nv_bfloat16* __restrict__ h,
   }
 }
 
-template <int KK>
+template <int KK, bool THR = false>
 int launch_vocab_partials_mma(const void* h, const void* w, const void* b,
                               float* part_val, int* part_id, float* part_m,
                               float* part_s, int R, int H, int V, int splits,
-                              int split_cols, cudaStream_t stream) {
+                              int split_cols, cudaStream_t stream,
+                              const float* thr_v = nullptr,
+                              const int* thr_i = nullptr) {
   if (H < kMmaDepth || H % kMmaDepth != 0 || H > kMmaMaxDepth || V % 8 != 0 ||
       split_cols % kMmaCols != 0 ||
       ((uintptr_t)h | (uintptr_t)w | (uintptr_t)b) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = vocab_partials_mma_smem(H);
   cudaError_t e = cudaFuncSetAttribute(
-      vocab_partials_mma<KK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      vocab_partials_mma<KK, THR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((R + kMmaRows - 1) / kMmaRows, splits);
-  vocab_partials_mma<KK><<<grid, kMmaThreads, smem, stream>>>(
+  vocab_partials_mma<KK, THR><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(h),
       static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(b), part_val, part_id, part_m, part_s,
-      R, H, V, splits, split_cols);
+      R, H, V, splits, split_cols, thr_v, thr_i);
   return (int)cudaGetLastError();
 }
 

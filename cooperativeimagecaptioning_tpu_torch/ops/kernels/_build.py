@@ -44,9 +44,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     # h, w_h2att, b_h2att, att_h (f32 [B,A] out), B, H, A, is_bf16, vec, stream
     "cic_att_h": [_P] * 4 + [_I] * 5 + [_P],
-    # is_bf16, kmajor, vec, slots, stages, H, A -> resident blocks an SM (the
-    # one entry that returns a count; negative: minus a cudaError_t)
-    "cic_attention_blocks_per_sm": [_I] * 7,
+    # is_bf16, layout (0 b-major, 1 K-major, 2 int8), vec, slots, stages, K,
+    # H, A -> resident blocks an SM (the one entry that returns a count;
+    # negative: minus a cudaError_t)
+    "cic_attention_blocks_per_sm": [_I] * 8,
     # h, emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha, mask|NULL,
     # att_h (f32 [B,A] scratch), out, B, K, H, A, is_bf16, vec, rows, slots,
     # stages, stream
@@ -54,17 +55,18 @@ SIGNATURES = {
     # as cic_attention, with emb [K,B,H] and p_att [K,B,A]
     "cic_attention_kmajor": [_P] * 10 + [_I] * 9 + [_P],
     # h, emb_q, emb_scale, p_q, p_scale, w_h2att, b_h2att, w_alpha, b_alpha,
-    # mask|NULL, out, B, K, H, A, is_bf16, stream
-    "cic_attention_q": [_P] * 11 + [_I] * 5 + [_P],
+    # mask|NULL, att_h, out, B, K, H, A, is_bf16, vec, rows, slots, stages,
+    # stream
+    "cic_attention_q": [_P] * 12 + [_I] * 9 + [_P],
     # h, w, b, part_val, part_id, part_m, part_s, it, lp,
     # R, H, V, splits, split_cols, is_bf16, use_mma, stream
     "cic_greedy_head": [_P] * 9 + [_I] * 7 + [_P],
-    # h, w, b, part_val, part_id, part_m, part_s, vals, idx, lse,
+    # h, w, b, part_val, part_id, part_m, part_s, vals, idx, lse, thr|NULL,
     # R, H, V, kk, kk_slots, splits, split_cols, is_bf16, use_mma, stream
-    "cic_beam_head": [_P] * 10 + [_I] * 9 + [_P],
+    "cic_beam_head": [_P] * 11 + [_I] * 9 + [_P],
     # xt, h, c, att|NULL, wi, bi, wh, bh, wc|NULL, bc|NULL, h_out, c_out,
-    # B, D, H, is_bf16, stream
-    "cic_cell": [_P] * 12 + [_I] * 4 + [_P],
+    # B, D, H, is_bf16, use_mma, stream
+    "cic_cell": [_P] * 12 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -17,9 +17,11 @@ right after the launch succeeded and nowhere else, so a run can show that
 its main path went through the kernels.  The two vocabulary heads have two
 first passes (tensor cores for bf16, FMAs for the rest: `logit_head.head_pass`);
 a second count per head and pass, raised with the head's own, shows which
-one a launch took.  The b-major and the K-major attention have two widths
-(16-byte vectors, or single elements for unaligned shapes:
-`att_step.vector_width`), counted the same way.
+one a launch took, and the cell's two kernels (tensor cores for aligned
+bf16, FMAs for the rest: `cell_step.cell_pass`) are counted the same way.
+The three attention kernels have two widths (16-byte
+vectors, or single elements for unaligned shapes: `att_step.vector_width`),
+counted the same way.
 """
 
 from __future__ import annotations
@@ -31,15 +33,19 @@ import torch
 KERNELS = ("attention", "attention_q", "attention_kmajor", "greedy_head",
            "beam_head", "cell")
 
-# the heads' launches by first pass: "<head>_mma" (wgmma) or "<head>_fma"
+# the heads' launches by first pass: "<head>_mma" (wgmma) or "<head>_fma";
+# the cell's by kernel: "cell_mma" (mma.sync) or "cell_fma"
 HEAD_PASSES = ("greedy_head_mma", "greedy_head_fma", "beam_head_mma",
                "beam_head_fma")
+CELL_PASSES = ("cell_mma", "cell_fma")
 
 # the dense attentions' launches by width: "<kernel>_vec" or "<kernel>_scalar"
 ATT_WIDTHS = ("attention_vec", "attention_scalar", "attention_kmajor_vec",
-              "attention_kmajor_scalar")
+              "attention_kmajor_scalar", "attention_q_vec",
+              "attention_q_scalar")
 
-_launches = {name: 0 for name in KERNELS + HEAD_PASSES + ATT_WIDTHS}
+_launches = {name: 0 for name in
+             KERNELS + HEAD_PASSES + CELL_PASSES + ATT_WIDTHS}
 
 
 def use_kernel(x: torch.Tensor) -> bool:
@@ -53,8 +59,8 @@ def use_kernel(x: torch.Tensor) -> bool:
 
 
 def count(name: str, variant: str = "") -> None:
-    """One launch of kernel `name`; a head also names the first pass it
-    took ("mma" or "fma"), a dense attention its width ("vec" or
+    """One launch of kernel `name`; a head or the cell also names the pass
+    it took ("mma" or "fma"), an attention kernel its width ("vec" or
     "scalar")."""
     _launches[name] += 1
     if variant:
@@ -72,9 +78,15 @@ def head_pass_launches() -> dict:
     return {name: _launches[name] for name in HEAD_PASSES}
 
 
+def cell_pass_launches() -> dict:
+    """{"cell_<pass>": launches since the last reset}; together the
+    cell's entry in `launches()`."""
+    return {name: _launches[name] for name in CELL_PASSES}
+
+
 def att_width_launches() -> dict:
     """{"<attention kernel>_<width>": launches since the last reset}; for
-    each of the two dense kernels the widths add up to its entry in
+    each of the three attention kernels the widths add up to its entry in
     `launches()`."""
     return {name: _launches[name] for name in ATT_WIDTHS}
 

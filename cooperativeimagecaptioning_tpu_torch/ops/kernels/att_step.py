@@ -22,20 +22,21 @@ tensors:
 All versions compute in float32 and return h's dtype, as the Pallas kernels
 did (f32 accumulation, bf16 or f32 in and out).
 
-The b-major and the K-major call are two launches inside one wrapper call
-(one count of the kernel).  A hand-written pre-pass computes att_h + bias
-as float32 [B, A] into a scratch tensor (bf16 on the tensor cores, float32
-on true-f32 FMAs).  The stream kernel then walks each block's rows: a
-row's p_att and then its att_emb, cut into chunks of a few slots, flow
-through a ring of shared-memory stages filled by asynchronous bulk copies
+Each of the three calls is two launches inside one wrapper call (one
+count of the kernel).  A hand-written pre-pass computes att_h + bias as
+float32 [B, A] into a scratch tensor (bf16 on the tensor cores, float32 on
+true-f32 FMAs).  The stream kernel then walks each block's rows: a row's
+p_att and then its att_emb, cut into chunks of a few slots, flow through a
+ring of shared-memory stages filled by asynchronous bulk copies
 (`cp.async.bulk`, one mbarrier a stage) that run `stages - 1` chunks ahead
-of the arithmetic.  `stream_plan` chooses rows per block (1 until B
-outgrows 8 blocks an SM), slots per stage, stages, and with them shared
-memory and grid; `stream_copies` lists the copies the kernel makes under a
-plan, for the CPU tests.  Shapes or pointers that are not 16-byte aligned
-take the same kernel at vector width 1 (`vector_width`);
-`_dispatch.att_width_launches` says which width ran.  The int8 call keeps
-its single kernel, which computes att_h per block.
+of the arithmetic; the int8 context travels the same way at one byte an
+element and is dequantized in registers.  `stream_plan` chooses rows per
+block (1 until B outgrows 8 blocks an SM), slots per stage, stages, and
+with them shared memory and grid; `stream_copies` lists the copies the
+kernel makes under a plan, for the CPU tests.  K may be anything up to
+MAX_K (256: the repo's own 14 x 14 feature grid is 196 slots).  Shapes or
+pointers that are not 16-byte aligned take the same kernel at vector width
+1 (`vector_width`); `_dispatch.att_width_launches` says which width ran.
 
 Under autograd `fused_attention` and `fused_attention_q` go through
 `Attention`, a torch.autograd.Function standing in for the JAX custom_vjps
@@ -58,8 +59,7 @@ import torch
 
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build, _dispatch
 
-MAX_K = 64  # attention slots the kernel's softmax stage holds (kMaxK)
-Q_ALIGN = 16  # the int8 kernel loads 16 values (16 bytes) a lane
+MAX_K = 256  # attention slots a call may have (kMaxK)
 # the stream kernel's constants (csrc/att_step.cu)
 THREADS = 256      # kThreads
 MAX_STAGES = 8     # kMaxStages
@@ -72,10 +72,10 @@ SMEM_SHARED = 81920  # the most a block takes where blocks share an SM
 
 
 def vector_width(H, A, itemsize, aligned=True):
-    """Elements a copy, a shared-memory load and a store of the stream
-    kernel take at once: 16 bytes' worth where H and A are multiples of that,
-    H has at most one such column group a thread and the tensors are 16-byte
-    aligned, else 1."""
+    """Context elements (of `itemsize` bytes) a copy and a shared-memory
+    load of the stream kernel take at once: 16 bytes' worth where H and A
+    are multiples of that, H has at most one such column group a thread and
+    the tensors are 16-byte aligned, else 1."""
     vec = 16 // itemsize
     if aligned and H % vec == 0 and A % vec == 0 and H // vec <= THREADS:
         return vec
@@ -107,8 +107,9 @@ def stream_plan(B, K, H, A, itemsize, kmajor, vec=None, sms=132):
     context of `itemsize`-byte elements (K-major: [K, B, *]) on a card of
     `sms` SMs.  `vec` defaults to `vector_width` of aligned tensors.
 
-    A stage holds 8 slots (one a warp) of the wider of H and A, and the
-    ring has 3 stages where several blocks share an SM (registers allow 4
+    A stage holds 8 slots (one a warp) of the wider of H and A, 16 for
+    the one-byte int8 context (the same bytes as bf16), and the ring has 3
+    stages where several blocks share an SM (registers allow 4
     blocks an SM; more stages cost blocks and were slower on the H100), 8
     where the grid gives an SM one block at most; fewer slots, then fewer
     stages, where that outgrows the shared memory (80 KiB, or a block's
@@ -121,6 +122,7 @@ def stream_plan(B, K, H, A, itemsize, kmajor, vec=None, sms=132):
         vec = vector_width(H, A, itemsize)
     wide = max(H, A)
     a4 = -(-A // 4) * 4
+    k4 = -(-K // 4) * 4
     alone = B <= sms
     limit = MAX_SMEM if alone else SMEM_SHARED
 
@@ -128,10 +130,13 @@ def stream_plan(B, K, H, A, itemsize, kmajor, vec=None, sms=132):
         return -(-slots * wide * itemsize // 16) * 16
 
     def smem(slots, stages):
+        # floats: the att_h ring, w_alpha, the scores, the side ring (two
+        # rows of mask and scales), the weighted sum's partials
         return BAR_BYTES + stages * stage(slots) + 4 * (
-            (stages + 1) * a4 + MAX_K + (col_split(H, vec) - 1) * H)
+            (stages + 1) * a4 + 7 * k4 + (col_split(H, vec) - 1) * H)
 
-    slots, stages = min(K, 8), MAX_STAGES if alone else 3
+    slots = min(K, 8 * max(1, 2 // itemsize))
+    stages = MAX_STAGES if alone else 3
     while slots > 1 and smem(slots, stages) > limit:
         slots = (slots + 1) // 2
     while stages > 2 and smem(slots, stages) > limit:
@@ -311,7 +316,8 @@ def _check_weights(name, h, K, w_h2att, b_h2att, w_alpha, b_alpha, masks):
     B, H = h.shape
     A = w_h2att.shape[1]
     if not 1 <= K <= MAX_K:
-        raise ValueError(f"{name} kernel takes 1..{MAX_K} slots, got {K}")
+        raise ValueError(f"{name} kernel takes 1..{MAX_K} attention slots, "
+                         f"got K={K}")
     if tuple(w_h2att.shape) != (H, A) or b_h2att.numel() != A \
             or w_alpha.numel() != A or b_alpha.numel() != 1:
         raise ValueError(f"{name} kernel: parameter shapes do not match "
@@ -364,20 +370,51 @@ def att_h_kernel(h, w_h2att, b_h2att):
     return att_h
 
 
-def resident_blocks(plan, H, A, dtype):
+LAYOUTS = {"attention": 0, "attention_kmajor": 1, "attention_q": 2}
+
+
+def resident_blocks(plan, K, H, A, dtype, layout="attention"):
     """Blocks of the stream kernel that one SM of the current card holds at
-    once under `plan` (asks the CUDA runtime; builds the kernels)."""
+    once under `plan` for a call of `layout` (a kernel name of LAYOUTS; asks
+    the CUDA runtime; builds the kernels)."""
     lib = _build.library()
     n = lib.cic_attention_blocks_per_sm(
-        int(dtype == torch.bfloat16), int(plan.kmajor), int(plan.vec > 1),
-        plan.slots, plan.stages, H, A)
+        int(dtype == torch.bfloat16), LAYOUTS[layout], int(plan.vec > 1),
+        plan.slots, plan.stages, K, H, A)
     _build.check(lib, max(0, -n), "attention_blocks_per_sm")
     return n
 
 
+def _launch_stream(name, entry, h, ctx, weights, masks, K, kmajor):
+    """Launch the pre-pass and the stream kernel through C entry `entry`:
+    `ctx` holds the context tensors in the entry's order (emb, p_att; or
+    emb_q, emb_scale, p_q, p_scale); the two 3-dimensional ones decide the
+    element size and, with h, W_h2att and the output, the vector width (no
+    autograd)."""
+    B, H = h.shape
+    A = weights[0].shape[1]
+    wide = [t for t in ctx if t.dim() == 3]
+    itemsize = wide[0].element_size()
+    out = torch.empty_like(h)
+    att_h = torch.empty(B, A, dtype=torch.float32, device=h.device)
+    vec = vector_width(H, A, itemsize,
+                       _aligned(h, *wide, weights[0], out))
+    plan = stream_plan(B, K, H, A, itemsize, kmajor, vec,
+                       _sm_count(h.device.index or 0))
+    lib = _build.library()
+    code = getattr(lib, entry)(
+        _build.ptr(h), *(_build.ptr(t) for t in ctx),
+        *(_build.ptr(w) for w in weights), _build.ptr(masks),
+        _build.ptr(att_h), _build.ptr(out), B, K, H, A,
+        int(h.dtype == torch.bfloat16), int(vec > 1), plan.rows, plan.slots,
+        plan.stages, _build.stream(h.device))
+    _build.check(lib, code, name)
+    _dispatch.count(name, "vec" if vec > 1 else "scalar")
+    return out
+
+
 def _launch_dense(name, entry, kmajor, h, emb, p_att, weights, masks):
-    """Launch the pre-pass and the stream kernel on a b-major or a K-major
-    context (no autograd)."""
+    """Launch the b-major or the K-major kernels (no autograd)."""
     if emb.dim() != 3:
         raise ValueError(f"{name} kernel: context {tuple(emb.shape)} is not "
                          f"3-dimensional")
@@ -390,22 +427,8 @@ def _launch_dense(name, entry, kmajor, h, emb, p_att, weights, masks):
                          f"{want[1]}")
     _dispatch.check_cuda_inputs(name, {"h": h, "att_emb": emb,
                                        "p_att": p_att}, h.dtype)
-    out = torch.empty_like(h)
-    att_h = torch.empty(B, A, dtype=torch.float32, device=h.device)
-    vec = vector_width(H, A, h.element_size(),
-                       _aligned(h, emb, p_att, weights[0], out))
-    plan = stream_plan(B, K, H, A, h.element_size(), kmajor, vec,
-                       _sm_count(h.device.index or 0))
-    lib = _build.library()
-    code = getattr(lib, entry)(
-        _build.ptr(h), _build.ptr(emb), _build.ptr(p_att),
-        *(_build.ptr(w) for w in weights), _build.ptr(masks),
-        _build.ptr(att_h), _build.ptr(out), B, K, H, A,
-        int(h.dtype == torch.bfloat16), int(vec > 1), plan.rows, plan.slots,
-        plan.stages, _build.stream(h.device))
-    _build.check(lib, code, name)
-    _dispatch.count(name, "vec" if vec > 1 else "scalar")
-    return out
+    return _launch_stream(name, entry, h, (emb, p_att), weights, masks, K,
+                          kmajor)
 
 
 def attention_kernel(h, att_emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha,
@@ -427,8 +450,8 @@ def attention_kmajor_kernel(h, att_emb_t, p_att_t, w_h2att, b_h2att, w_alpha,
 
 def attention_q_kernel(h, emb_q, emb_scale, p_q, p_scale, w_h2att, b_h2att,
                        w_alpha, b_alpha, masks):
-    """Launch the int8 kernel of csrc/att_step.cu on CUDA tensors (no
-    autograd)."""
+    """Launch the int8 kernels of csrc/att_step.cu (pre-pass, stream over
+    the int8 context) on CUDA tensors (no autograd)."""
     name = "attention_q"
     if emb_q.dim() != 3:
         raise ValueError(f"emb_q {tuple(emb_q.shape)} is not [B, K, H]")
@@ -449,20 +472,7 @@ def attention_q_kernel(h, emb_q, emb_scale, p_q, p_scale, w_h2att, b_h2att,
                                        "p_scale": p_scale}, torch.float32)
     if emb_q.device != h.device or emb_scale.device != h.device:
         raise ValueError(f"{name}: the context is on another device than h")
-    # a lane loads 16 int8 values at once: rows must be 16-byte aligned
-    if H % Q_ALIGN or A % Q_ALIGN or emb_q.data_ptr() % Q_ALIGN \
-            or p_q.data_ptr() % Q_ALIGN:
-        raise ValueError(f"{name} kernel: H={H} and A={A} must be multiples "
-                         f"of {Q_ALIGN} and the int8 tensors {Q_ALIGN}-byte "
-                         f"aligned")
-    out = torch.empty_like(h)
-    lib = _build.library()
-    code = lib.cic_attention_q(
-        _build.ptr(h), _build.ptr(emb_q), _build.ptr(emb_scale),
-        _build.ptr(p_q), _build.ptr(p_scale), _build.ptr(w_h2att),
-        _build.ptr(b_h2att), _build.ptr(w_alpha), _build.ptr(b_alpha),
-        _build.ptr(masks), _build.ptr(out), B, K, H, A,
-        int(h.dtype == torch.bfloat16), _build.stream(h.device))
-    _build.check(lib, code, name)
-    _dispatch.count(name)
-    return out
+    return _launch_stream(name, "cic_attention_q", h,
+                          (emb_q, emb_scale, p_q, p_scale),
+                          (w_h2att, b_h2att, w_alpha, b_alpha), masks, K,
+                          False)

@@ -10,7 +10,10 @@ are vals - lse[:, None].  Forward only.
 As in the greedy head, the kernel's first pass is the tensor-core pass for
 bfloat16 inputs that fit it and the FMA pass for everything else
 (`logit_head.head_pass`, by type, shape and alignment alone); a launch that
-fails raises.
+fails raises.  Any 1 <= kk <= V is taken on every device, as the JAX head
+takes any m: on the card a kk above the longest compiled list (ROUND_KK)
+runs the kernel's two passes in rounds of ROUND_KK candidates, each round
+admitting only candidates after the last one the round before took.
 """
 
 from __future__ import annotations
@@ -21,9 +24,9 @@ from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build, _dispatch
 from cooperativeimagecaptioning_tpu_torch.ops.kernels.logit_head import (
     check_head_inputs, logits_f32, partials_scratch, plan_first_pass)
 
-MAX_KK = 16
 ROW_TILE = 8          # rows per block of the beam kernel (kBeamRows)
 SLOTS = (1, 2, 4, 8, 16)  # compiled top-list lengths; kk rounds up to one
+ROUND_KK = SLOTS[-1]  # candidates a round yields where kk is longer
 
 
 def top_k(x, k: int):
@@ -45,27 +48,31 @@ def beam_head_reference(h, w, b, kk: int):
 
 
 def beam_head(h, w, b, kk: int):
-    """h [R, H], w [H, V], b [V], kk <= 16 -> (vals, idx, lse)."""
+    """h [R, H], w [H, V], b [V], 1 <= kk <= V -> (vals, idx, lse)."""
     _dispatch.forward_only("beam_head", h, w, b)
-    if not 1 <= kk <= min(MAX_KK, w.shape[1]):
-        raise ValueError(f"beam_head takes 1 <= kk <= {MAX_KK} (and <= V), "
+    if not 1 <= kk <= w.shape[1]:
+        raise ValueError(f"beam_head takes 1 <= kk <= V = {w.shape[1]}, "
                          f"got {kk}")
     if not _dispatch.use_kernel(h):
         return beam_head_reference(h, w, b, kk)
     check_head_inputs("beam_head", h, w, b)
     R, H = h.shape
     V = w.shape[1]
-    slots = next(s for s in SLOTS if s >= kk)
+    slots = next((s for s in SLOTS if s >= kk), ROUND_KK)
     which, splits, split_cols = plan_first_pass(R, ROW_TILE, h, w, b)
     dev = h.device
     scratch, parts = partials_scratch(R, splits, slots, dev)
     vals = torch.empty((R, kk), dtype=torch.float32, device=dev)
     idx = torch.empty((R, kk), dtype=torch.int32, device=dev)
     lse = torch.empty((R,), dtype=torch.float32, device=dev)
+    # the rounds' per-row thresholds: f32 [R] then int32 [R]
+    thr = torch.empty(2 * R, dtype=torch.float32, device=dev) \
+        if kk > slots else None
     lib = _build.library()
     code = lib.cic_beam_head(
         _build.ptr(h), _build.ptr(w), _build.ptr(b), *parts,
-        _build.ptr(vals), _build.ptr(idx), _build.ptr(lse), R, H, V, kk,
+        _build.ptr(vals), _build.ptr(idx), _build.ptr(lse), _build.ptr(thr),
+        R, H, V, kk,
         slots, splits, split_cols, int(h.dtype == torch.bfloat16),
         int(which == "mma"), _build.stream(dev))
     _build.check(lib, code, "beam_head")

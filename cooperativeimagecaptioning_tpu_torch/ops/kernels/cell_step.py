@@ -86,11 +86,22 @@ def fused_cell(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
     return impl(*args)
 
 
+def cell_pass(dtype, D: int, H: int, aligned: bool = True) -> str:
+    """Which kernel of csrc/cell_step.cu a launch takes: "mma" (mma.sync on
+    the tensor cores) for bfloat16 with D and H multiples of 8 and 16-byte
+    aligned tensors (its 16-byte copies need all three), "fma" (true f32
+    FMAs) for everything else."""
+    if dtype == torch.bfloat16 and aligned and D % 8 == 0 and H % 8 == 0:
+        return "mma"
+    return "fma"
+
+
 def cell_kernel(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
     """Launch csrc/cell_step.cu on CUDA tensors (no autograd)."""
     if h.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"cell kernel takes float32 or bfloat16, got "
                         f"{h.dtype}")
+    args = (xt, h, c, att_res, wi, bi, wh, bh, wc, bc)
     use_att = att_res is not None
     if use_att != (wc is not None) or use_att != (bc is not None):
         raise ValueError("cell: att_res, wc and bc are given together or "
@@ -111,12 +122,14 @@ def cell_kernel(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
         "cell", {"h": h, **{k: t for k, (t, _) in shapes.items()}}, h.dtype)
     h_new = torch.empty_like(h)
     c_new = torch.empty_like(h)
+    tensors = [t for t in args if t is not None] + [h_new, c_new]
+    which = cell_pass(h.dtype, D, H,
+                      all(t.data_ptr() % 16 == 0 for t in tensors))
     lib = _build.library()
     code = lib.cic_cell(
-        _build.ptr(xt), _build.ptr(h), _build.ptr(c), _build.ptr(att_res),
-        _build.ptr(wi), _build.ptr(bi), _build.ptr(wh), _build.ptr(bh),
-        _build.ptr(wc), _build.ptr(bc), _build.ptr(h_new), _build.ptr(c_new),
-        B, D, H, int(h.dtype == torch.bfloat16), _build.stream(h.device))
+        *(_build.ptr(t) for t in args), _build.ptr(h_new), _build.ptr(c_new),
+        B, D, H, int(h.dtype == torch.bfloat16), int(which == "mma"),
+        _build.stream(h.device))
     _build.check(lib, code, "cell")
-    _dispatch.count("cell")
+    _dispatch.count("cell", which)
     return h_new, c_new

@@ -78,10 +78,15 @@ class CaptioningService:
     def from_run_dir(cls, run_dir, run_id: str = "", model_name: str = None,
                      **kw):
         """Load opt + vocab from infos_<id>.pkl and params from the best (or
-        given) model artifact."""
+        given) model artifact, restored into a template of the run's opt
+        through the lenient merge (JAX serving.py:84-98): a leaf the
+        checkpoint lacks is reported and keeps the template's value."""
         infos = config_mod.load_infos(
             os.path.join(run_dir, f"infos_{run_id}.pkl"))
-        opt = infos["opt"]
+        # the infos opt carries the training machine's checkpoint_path; the
+        # artifacts live in run_dir here (a copy: the infos stay as loaded)
+        opt = copy.copy(infos["opt"])
+        opt.checkpoint_path = run_dir
         if model_name is None:
             for cand in ("model-best.pth", "alternatingModel.pth",
                          "model.pth"):
@@ -90,7 +95,8 @@ class CaptioningService:
                     break
             else:
                 raise FileNotFoundError(f"no model artifact in {run_dir}")
-        params = ckpt_mod.load_params(os.path.join(run_dir, model_name))
+        params = ckpt_mod.load_params_into(
+            joint.init_params(0, opt), os.path.join(run_dir, model_name))
         return cls(opt, params, infos["vocab"], **kw)
 
     # -- decode ---------------------------------------------------------------

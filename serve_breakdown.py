@@ -63,11 +63,11 @@ def busy_ms(intervals):
 
 # substrings of the hand-written kernels' names, by group: the heads' FMA
 # pass (vocab_partials), their tensor-core pass (vocab_partials_mma) and the
-# two merge kernels; the three attention kernels and the att_h pre-pass of
-# the b-major and the K-major one
+# two merge kernels; the attention's stream kernel (all three layouts) and
+# its att_h pre-pass
 KERNEL_GROUPS = {"head": ("vocab_partials", "greedy_merge", "beam_merge"),
-                 "attention": ("attention_kernel", "attention_q_kernel",
-                               "att_h_mma_kernel", "att_h_fma_kernel")}
+                 "attention": ("attention_kernel", "att_h_mma_kernel",
+                               "att_h_fma_kernel")}
 
 
 def kernel_group(name):

@@ -1,5 +1,5 @@
-"""The stream design of the dense attention kernels (b-major A, K-major E) of
-csrc/att_step.cu, as far as the CPU can hold it:
+"""The stream design of the attention kernels (b-major A, K-major E, int8 D)
+of csrc/att_step.cu, as far as the CPU can hold it:
 
 * `att_step.stream_plan` / `stream_copies`: under every plan each (row, slot,
   element) of p_att and att_emb is copied into shared memory exactly once,
@@ -12,7 +12,9 @@ csrc/att_step.cu, as far as the CPU can hold it:
   lane sums folded by the warp's butterfly; the weighted sum as one partial a
   thread group, reduced at the row's end) against the port's plain version
   and the JAX package's reference and Pallas kernel (interpret mode) on
-  numpy-seeded inputs.
+  numpy-seeded inputs; for the int8 context the same replay at one byte an
+  element, the p_att chunks dequantized by their slots' scales and the
+  att_emb scales folded into the weights.
 
 Tolerance 1e-5 (atol = rtol): everything is float32 on both sides; only the
 order of the sums differs.  On a CUDA card only (marked `cuda`, skipped
@@ -31,7 +33,7 @@ from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 PLAN_B = (1, 7, 128, 256, 512, 640, 1024, 4096, 4099)
-PLAN_K = (1, 36, 64)
+PLAN_K = (1, 36, 64, 196, 256)
 WIDTH = 512
 
 
@@ -56,7 +58,7 @@ def covered(copies, tensor, B, K, kmajor, width, itemsize):
 
 
 @pytest.mark.parametrize("kmajor", [False, True], ids=["bmajor", "kmajor"])
-@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("itemsize", [4, 2, 1], ids=["f32", "bf16", "int8"])
 @pytest.mark.parametrize("K", PLAN_K)
 @pytest.mark.parametrize("B", PLAN_B)
 def test_stream_plan_copies_the_context_once(B, K, itemsize, kmajor):
@@ -157,9 +159,10 @@ def butterfly(lanes):
     return v[..., 0]
 
 
-def replay(h, emb, p_att, wh, bh, wa, ba, masks, plan):
+def replay(h, emb, p_att, wh, bh, wa, ba, masks, plan, scales=None):
     """The pre-pass and the stream kernel of csrc/att_step.cu in PyTorch, for
-    float32 inputs in the plan's layout.  The context is read only through
+    float32 inputs in the plan's layout, or an int8 context with its
+    `scales` (emb_scale, p_scale).  The context is read only through
     `stream_copies` (byte offsets into the flat tensors) and a ring of
     `plan.stages` stages that is refilled in the kernel's order."""
     kmajor, vec = plan.kmajor, plan.vec
@@ -168,7 +171,8 @@ def replay(h, emb, p_att, wh, bh, wa, ba, masks, plan):
     H, A = emb.shape[2], p_att.shape[2]
     flat = {0: p_att.reshape(-1), 1: emb.reshape(-1)}
     width = {0: A, 1: H}
-    copies = att_step.stream_copies(plan, B, K, H, A, 4)
+    item = emb.element_size()
+    copies = att_step.stream_copies(plan, B, K, H, A, item)
     att_h = h @ wh + bh                      # the pre-pass: float32 [B, A]
     was, b_alpha = wa.reshape(-1), ba.reshape(())
     split = att_step.col_split(H, vec)
@@ -181,14 +185,15 @@ def replay(h, emb, p_att, wh, bh, wa, ba, masks, plan):
         for i in mine:
             by_chunk.setdefault(int(copies["chunk"][i]), []).append(i)
         total = len(by_chunk)
-        ring = torch.full((plan.stages, plan.stage_bytes // 4), float("nan"))
+        ring = torch.full((plan.stages, plan.stage_bytes // item),
+                          float("nan"))
 
         def fill(c):
             for i in by_chunk.get(c, ()):
-                src, n, dst = (int(copies[k][i]) // 4
+                src, n, dst = (int(copies[k][i]) // item
                                for k in ("src_byte", "nbytes", "dst_byte"))
                 ring[int(copies["stage"][i]), dst:dst + n] = \
-                    flat[int(copies["tensor"][i])][src:src + n]
+                    flat[int(copies["tensor"][i])][src:src + n].float()
 
         for c in range(plan.stages - 1):
             fill(c)
@@ -205,6 +210,8 @@ def replay(h, emb, p_att, wh, bh, wa, ba, masks, plan):
             if tensor == 0:
                 if q == 0:
                     sc = torch.zeros(K)
+                if scales is not None:  # dequantized in registers
+                    st = st * scales[1][b, k0:k0 + nk, None]
                 # a lane sums its column groups a, a + 32 vec, ...; the warp
                 # folds the 32 lane sums
                 terms = torch.tanh(st + att_h[b]) * was
@@ -218,6 +225,8 @@ def replay(h, emb, p_att, wh, bh, wa, ba, masks, plan):
                 if masks is not None:
                     w = w * masks[b]
                     w = w / w.sum()
+                if scales is not None:  # att_emb's scales in the weights
+                    w = w * scales[0][b]
                 acc = torch.zeros(split, H)
             for j in range(nk):  # slot j of the chunk: group j % split
                 acc[j % split] += w[k0 + j] * st[j]
@@ -256,15 +265,21 @@ REPLAY_SHAPES = [(13, 6, 96, 80, None, None), (10, 36, 64, 128, 3, 4),
                  (6, 9, 100, 72, None, 5), (4, 5, 97, 83, 3, None)]
 
 
-def run_replay(a, kmajor, rows, stages):
+def run_replay(a, kmajor, rows, stages, quant=False):
+    """The replay of one case; `quant`: on the int8 context of
+    `quantize_features` (b-major), whose plain version is
+    `attention_reference_q`."""
     t = [None if a[k] is None else torch.from_numpy(a[k]) for k in ORDER]
     B, K, H = a["emb"].shape
     A = a["p_att"].shape[2]
-    plan = att_step.stream_plan(B, K, H, A, 4, kmajor)
+    plan = att_step.stream_plan(B, K, H, A, 1 if quant else 4, kmajor)
     if rows:
         plan = plan._replace(rows=rows, grid=-(-B // rows))
     if stages:
         plan = plan._replace(stages=stages)
+    if quant:
+        eq, se, pq, sp = att_step.quantize_features(t[1], t[2])
+        return replay(t[0], eq, pq, *t[3:], plan, scales=(se, sp))
     if kmajor:
         t[1] = t[1].movedim(0, 1).contiguous()
         t[2] = t[2].movedim(0, 1).contiguous()
@@ -281,6 +296,32 @@ def test_stream_replay_matches_the_plain_version(B, K, H, A, rows, stages,
     want = att_step.attention_reference(
         *(None if a[k] is None else torch.from_numpy(a[k]) for k in ORDER))
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("mask", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("B,K,H,A,rows,stages", REPLAY_SHAPES)
+def test_stream_replay_q_matches_the_plain_version(B, K, H, A, rows, stages,
+                                                   mask):
+    """The int8 context through the same stream: 16 values a copy and a
+    load where H and A are multiples of 16, one otherwise."""
+    a = case(B, K, H, A, mask and K > 1)
+    got = run_replay(a, False, rows, stages, quant=True)
+    t = [None if a[k] is None else torch.from_numpy(a[k]) for k in ORDER]
+    q = att_step.quantize_features(t[1], t[2])
+    want = att_step.attention_reference_q(t[0], *q, *t[3:])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("B,rows,per_sm_at_least", [
+    (512, 1, 4), (1024, 1, 4), (4096, 4, 4), (128, 1, 1)])
+def test_stream_plan_of_the_int8_context(B, rows, per_sm_at_least):
+    """The int8 context takes 16 slots a stage (the bytes of 8 bf16 slots)
+    and the dense kernels' rows and grid."""
+    plan = att_step.stream_plan(B, 36, WIDTH, WIDTH, 1, False)
+    assert plan.vec == 16 and plan.slots == 16 and plan.rows == rows
+    assert plan.stage_bytes == 16 * WIDTH
+    if plan.grid > 132:
+        assert 228 * 1024 // (plan.smem_bytes + 1024) >= per_sm_at_least
 
 
 @pytest.fixture(scope="module")

@@ -71,10 +71,12 @@ def lse_merge(m, s, m2, s2):
                           + s2 * np.exp(np.float32(m2 - mx)))
 
 
-def emulate_first_pass(logits, row, kk_slots, c_begin, c_end):
+def emulate_first_pass(logits, row, kk_slots, c_begin, c_end, thr=None):
     """The (row, split) partial as the kernel forms it: four lanes of one
     quad, each over its own columns of every 128-column tile of
-    [c_begin, c_end), then the quad's merge."""
+    [c_begin, c_end), then the quad's merge.  `thr` (value, id): a later
+    round's threshold; only candidates after it enter the lists."""
+    tv, ti = thr if thr is not None else (np.float32(np.inf), -1)
     V = logits.shape[1]
     lanes = []
     for q in range(4):
@@ -92,7 +94,7 @@ def emulate_first_pass(logits, row, kk_slots, c_begin, c_end):
                            + np.exp(x - mn).sum(dtype=np.float32))
             m = mn
             for c, xc in zip(cols, x):
-                if before(xc, c, vals[-1], ids[-1]):
+                if before(xc, c, vals[-1], ids[-1]) and before(tv, ti, xc, c):
                     push(vals, ids, xc, c)
         lanes.append((vals, ids, m, s))
     # log-sum-exp: lanes exchange over xor 1, then xor 2
@@ -118,30 +120,37 @@ def emulate_first_pass(logits, row, kk_slots, c_begin, c_end):
 
 def emulate_head(h, w, b, kk, sm_count):
     """Both passes: the first over (row tile, split) with the grid
-    `mma_split` gives, then the merge kernels' pass over the splits.
+    `mma_split` gives, then the merge kernels' pass over the splits; a kk
+    above the longest list in rounds of `beam_head.ROUND_KK`, each round's
+    first pass admitting only candidates after the row's last one so far.
     Returns (vals [R,kk], ids [R,kk], lse [R])."""
     logits = (h.astype(np.float32) @ w.astype(np.float32)
               + b.astype(np.float32)).astype(np.float32)
     R, V = logits.shape
-    slots = next(s for s in beam_head.SLOTS if s >= kk)
+    slots = next((s for s in beam_head.SLOTS if s >= kk), beam_head.ROUND_KK)
     splits, split_cols = logit_head.mma_split(R, V, sm_count)
     vals = np.empty((R, kk), np.float32)
     ids = np.empty((R, kk), np.int32)
     lse = np.empty((R,), np.float32)
     for row_tile in range(-(-R // ROWS)):
         for row in range(row_tile * ROWS, min(R, (row_tile + 1) * ROWS)):
-            fv, fi = [NEG] * slots, [NO_ID] * slots
-            M, S = NEG, np.float32(0.0)
-            for sp in range(splits):
-                pv, pi, pm, ps = emulate_first_pass(
-                    logits, row, slots, sp * split_cols,
-                    min(V, (sp + 1) * split_cols))
-                M, S = lse_merge(M, S, pm, ps)
-                for x, i in zip(pv, pi):
-                    if before(x, i, fv[-1], fi[-1]):
-                        push(fv, fi, x, i)
-            vals[row], ids[row] = fv[:kk], fi[:kk]
-            lse[row] = M + np.log(S)
+            thr = None
+            for off in range(0, kk, slots):
+                fv, fi = [NEG] * slots, [NO_ID] * slots
+                M, S = NEG, np.float32(0.0)
+                for sp in range(splits):
+                    pv, pi, pm, ps = emulate_first_pass(
+                        logits, row, slots, sp * split_cols,
+                        min(V, (sp + 1) * split_cols), thr)
+                    M, S = lse_merge(M, S, pm, ps)
+                    for x, i in zip(pv, pi):
+                        if before(x, i, fv[-1], fi[-1]):
+                            push(fv, fi, x, i)
+                n = min(slots, kk - off)
+                vals[row, off:off + n], ids[row, off:off + n] = fv[:n], fi[:n]
+                if off == 0:
+                    lse[row] = M + np.log(S)
+                thr = (fv[-1], fi[-1])
     return vals, ids, lse
 
 
@@ -191,9 +200,10 @@ def test_accumulator_ownership_partitions_the_tile():
     assert len(seen) == ROWS * COLS
 
 
-@pytest.mark.parametrize("kk", range(1, 17))
+@pytest.mark.parametrize("kk", [*range(1, 17), 17, 20, 32, 33, 48])
 def test_emulated_beam_head_matches_the_references(jx, kk):
-    """kk = 1..16 over ragged R and V, ties planted at every seam."""
+    """kk = 1..16 over ragged R and V, ties planted at every seam; kk above
+    16 in rounds of 16 (beam widths of 16 and more)."""
     R, V, sms = SHAPES[kk % 3]
     _, split_cols = logit_head.mma_split(R, V, sms)
     h, w, b, planted = tied_case(R, V, split_cols, seed=kk)
@@ -228,11 +238,12 @@ def test_emulated_greedy_head_matches_the_references(jx, R, V, sms):
         np.testing.assert_allclose(w_lp, vals[:, 0] - lse, **TOL)
 
 
-@pytest.mark.parametrize("R,V,sms", [(5, 8, 132), (13, 136, 1)])
+@pytest.mark.parametrize("R,V,sms", [(5, 8, 132), (13, 136, 1),
+                                     (7, 40, 132)])
 def test_emulated_beam_head_with_kk_of_the_whole_vocab(R, V, sms):
-    """kk = min(V, 16): the lists hold every column of a small vocab, the
-    sentinels never surface."""
-    kk = min(V, beam_head.MAX_KK)
+    """kk = min(V, 64): the lists (and, past 16, the rounds) hold every
+    column of a small vocab, the sentinels never surface."""
+    kk = min(V, 64)
     _, split_cols = logit_head.mma_split(R, V, sms)
     h, w, b, _ = tied_case(R, V, split_cols, seed=V)
     vals, ids, lse = emulate_head(h, w, b, kk, sms)
@@ -242,6 +253,29 @@ def test_emulated_beam_head_with_kk_of_the_whole_vocab(R, V, sms):
     np.testing.assert_allclose(wv.numpy(), vals, **TOL)
     np.testing.assert_allclose(wl.numpy(), lse, **TOL)
     assert ids.max() < V
+
+
+@pytest.mark.parametrize("kk", [17, 24, 40])
+def test_emulated_rounds_split_a_tie_group(kk):
+    """A group of 24 exactly tied columns spans the seam of two rounds: the
+    first round takes its 16 lowest ids, the next round the rest, after the
+    round's threshold in (value, id) order."""
+    R, V, sms = 9, 264, 2
+    rng = np.random.RandomState(kk)
+    h = rng.randn(R, 32).astype(np.float32)
+    w = (rng.randn(32, V) * 0.3).astype(np.float32)
+    b = (rng.randn(V) * 0.3).astype(np.float32)
+    tied = sorted(rng.choice(V, 24, replace=False).tolist())
+    w[:, tied] = 0.0
+    b[tied] = 50.0
+    vals, ids, lse = emulate_head(h, w, b, kk, sms)
+    n = min(kk, 24)
+    assert (ids[:, :n] == np.asarray(tied[:n])[None]).all()
+    wv, wi, wl = beam_head.beam_head_reference(
+        *map(torch.from_numpy, (h, w, b)), kk)
+    np.testing.assert_array_equal(wi.numpy(), ids)
+    np.testing.assert_allclose(wv.numpy(), vals, **TOL)
+    np.testing.assert_allclose(wl.numpy(), lse, **TOL)
 
 
 @pytest.mark.parametrize("V", [8, 136, 1304, 9488])

@@ -213,10 +213,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     a = as_torch(att_case())
     a[0] = a[0].clone().requires_grad_(True)
     assert att_step.fused_attention(*a).requires_grad
-    h, w, b, _ = head_case()
+    h, w, b, _ = head_case(ties=True)
     h, w, b = map(torch.from_numpy, (h, w, b))
-    with pytest.raises(ValueError, match="kk"):
-        beam_head.beam_head(h, w, b, beam_head.MAX_KK + 1)
+    # a beam head of more than 16 candidates is taken (the JAX head takes
+    # any m) and is the plain top-k; only kk outside 1..V is refused
+    got = beam_head.beam_head(h, w, b, 17)
+    want = beam_head.top_k(logit_head.logits_f32(h, w, b), 17)
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    for kk in (0, w.shape[1] + 1):
+        with pytest.raises(ValueError, match="kk"):
+            beam_head.beam_head(h, w, b, kk)
     with pytest.raises(RuntimeError, match="forward-only"):
         logit_head.greedy_head(h, w.clone().requires_grad_(True), b)
     with pytest.raises(ValueError, match="device"):
@@ -260,6 +267,7 @@ def test_ctypes_table_matches_the_c_sources(name):
     (logit_head.CHUNK, "vocab_head.cuh", "kChunk"),
     (logit_head.ROW_TILE, "logit_head.cu", "kGreedyRows"),
     (beam_head.ROW_TILE, "beam_head.cu", "kBeamRows"),
+    (beam_head.ROUND_KK, "beam_head.cu", "kRoundKK"),
     (logit_head.MMA_ROW_TILE, "vocab_head_mma.cuh", "kMmaRows"),
     (logit_head.MMA_COL_TILE, "vocab_head_mma.cuh", "kMmaCols"),
     (logit_head.MMA_DEPTH, "vocab_head_mma.cuh", "kMmaDepth"),
@@ -380,7 +388,8 @@ def test_vocab_split_covers_the_vocab(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask", ["none", "partial"])
-@pytest.mark.parametrize("B,K", [(13, 6), (64, 36), (9, 64), (8, 1)])
+@pytest.mark.parametrize("B,K", [(13, 6), (64, 36), (9, 64), (8, 1),
+                                 (7, 196), (3, 256)])
 def test_attention_kernel_matches_plain(cuda, dtype, mask, B, K):
     a = as_torch(att_case(B=B, K=K, H=96, A=80, mask=mask if K > 1
                           else "none"), cuda, dtype)
@@ -390,7 +399,7 @@ def test_attention_kernel_matches_plain(cuda, dtype, mask, B, K):
     assert got.dtype == dtype and _dispatch.launches()["attention"] == 1
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     assert (got.float() - want.float()).abs().max().item() <= tol
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="attention slots"):
         big = as_torch(att_case(B=2, K=att_step.MAX_K + 1, mask="none"),
                        cuda, dtype)
         att_step.fused_attention(*big)
@@ -400,7 +409,8 @@ def test_attention_kernel_matches_plain(cuda, dtype, mask, B, K):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask", ["none", "partial"])
 @pytest.mark.parametrize("B,K,H,A", [(13, 6, 96, 80), (64, 36, 512, 512),
-                                     (9, 64, 96, 80), (8, 1, 96, 80)])
+                                     (9, 64, 96, 80), (8, 1, 96, 80),
+                                     (5, 196, 512, 512)])
 def test_attention_kmajor_kernel_matches_plain(cuda, dtype, mask, B, K, H, A):
     """Kernel E against its plain version (and so against kernel A's: the
     same arithmetic on another layout)."""
@@ -425,7 +435,8 @@ def test_attention_kmajor_kernel_matches_plain(cuda, dtype, mask, B, K, H, A):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask", ["none", "partial"])
 @pytest.mark.parametrize("B,K,H,A", [(13, 6, 96, 80), (64, 36, 512, 512),
-                                     (9, 64, 32, 1024), (8, 1, 96, 80)])
+                                     (9, 64, 32, 1024), (8, 1, 96, 80),
+                                     (6, 196, 512, 512), (4, 100, 40, 40)])
 def test_attention_q_kernel_matches_plain(cuda, dtype, mask, B, K, H, A):
     """Kernel D against its plain version on the same int8 context, and
     `quantize_features` on the card against the same function on the CPU
@@ -450,14 +461,21 @@ def test_attention_q_kernel_matches_plain(cuda, dtype, mask, B, K, H, A):
 
 
 @pytest.mark.cuda
-def test_attention_q_kernel_refuses_unaligned_rows(cuda):
-    """The int8 kernel loads 16 values a lane: widths that are no multiple
-    of 16 raise (there is no fallback to the plain version)."""
-    h, emb, p_att, *rest = as_torch(att_case(B=8, K=6, H=24, A=16), cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,A", [(24, 16), (40, 40), (16, 40)])
+def test_attention_q_kernel_refuses_unaligned_rows(cuda, dtype, H, A):
+    """Widths that are no multiple of 16 (the int8 stream's 16-byte vector)
+    are no longer refused: the int8 kernel takes them at vector width 1 and
+    matches its plain version."""
+    h, emb, p_att, *rest = as_torch(att_case(B=8, K=6, H=H, A=A), cuda,
+                                    dtype)
     q = att_step.quantize_features(emb, p_att)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        att_step.fused_attention_q(h, *q, *rest)
-    assert _dispatch.launches()["attention_q"] == 0
+    got = att_step.fused_attention_q(h, *q, *rest)
+    torch.cuda.synchronize()
+    want = att_step.attention_reference_q(h, *q, *rest)
+    assert _dispatch.att_width_launches()["attention_q_scalar"] == 1
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
 
 
 def expected_pass(dtype, H, V):
@@ -493,7 +511,7 @@ def test_greedy_head_kernel_matches_plain(cuda, dtype, B, V):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kk", [1, 2, 3, 5, 6, 9, 16])
+@pytest.mark.parametrize("kk", [1, 2, 3, 5, 6, 9, 16, 17, 32, 64])
 @pytest.mark.parametrize("B,H,V", [(40, 64, 1300), (37, 64, 1304),
                                    (300, 512, 9488), (70, 640, 264),
                                    (129, 128, 96)])
@@ -513,6 +531,29 @@ def test_beam_head_kernel_matches_plain(cuda, dtype, kk, B, H, V):
         gap = (torch.gather(logits, 1, idx.long())
                - torch.gather(logits, 1, idx_p.long())).abs()
         assert gap[differ].max().item() <= 1e-4
+    assert (vals - vals_p).abs().max().item() <= 1e-4
+    assert (lse - lse_p).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kk", [17, 24, 40])
+def test_beam_head_kernel_rounds_split_a_tie_group(cuda, dtype, kk):
+    """kk above 16 runs in rounds of 16: a group of 24 exactly tied columns
+    across the seam of two rounds comes out in id order, as the plain
+    stable sort gives it."""
+    h, w, b, _ = head_case(B=300, H=512, V=1304, seed=kk)
+    tied = np.sort(np.random.RandomState(kk).choice(1304, 24,
+                                                    replace=False))
+    w[:, tied] = 0.0
+    b[tied] = 50.0
+    h, w, b = (torch.from_numpy(x).to(cuda, dtype) for x in (h, w, b))
+    vals, idx, lse = beam_head.beam_head(h, w, b, kk)
+    torch.cuda.synchronize()
+    vals_p, idx_p, lse_p = beam_head.beam_head_reference(h, w, b, kk)
+    n = min(kk, 24)
+    assert (idx[:, :n].cpu().numpy() == tied[:n][None]).all()
+    assert (idx == idx_p).all()
     assert (vals - vals_p).abs().max().item() <= 1e-4
     assert (lse - lse_p).abs().max().item() <= 1e-4
 
@@ -550,18 +591,27 @@ def cell_case(B, D=512, H=512, with_att=True, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_att", [True, False])
 @pytest.mark.parametrize("B,D,H", [(13, 24, 40), (128, 512, 512),
-                                   (512, 512, 512)])
+                                   (512, 512, 512), (1, 512, 512),
+                                   (17, 512, 512), (130, 512, 512),
+                                   (2100, 512, 512), (33, 72, 104),
+                                   (9, 20, 44)])
 def test_cell_kernel_matches_plain(cuda, monkeypatch, dtype, with_att, B, D,
                                    H):
     """Kernel F against its plain version (cell_reference in f32 on the same
     inputs, h' and c' in the inputs' type): f32 within 1e-4, bf16 within
-    3e-2 (1-2 bf16 ulps at |x| < 4; both sides round the f32 result)."""
+    3e-2 (1-2 bf16 ulps at |x| < 4; both sides round the f32 result).  The
+    shapes cut the row tiles (B = 1, 17, 130; 2100 takes the 128-row tiles)
+    and the 32-column j tiles (H = 40, 104); D, H = 20, 44 are no multiple
+    of 8 and take the FMA kernel in bf16 too."""
     monkeypatch.setenv("CIC_FUSED_CELL", "1")
     args = [None if x is None else torch.from_numpy(x).to(cuda, dtype)
             for x in cell_case(B, D, H, with_att)]
     h_new, c_new = cell_step.fused_cell(*args)
     torch.cuda.synchronize()
     assert _dispatch.launches()["cell"] == 1
+    fits = dtype == torch.bfloat16 and D % 8 == 0 and H % 8 == 0
+    assert _dispatch.cell_pass_launches() == {
+        "cell_mma": int(fits), "cell_fma": int(not fits)}
     h_p, c_p = cell_step.cell_plain(*args)
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     for got, want in ((h_new, h_p), (c_new, c_p)):

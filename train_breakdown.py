@@ -135,7 +135,8 @@ def breakdown(trainer, data, device, reps):
                 # op (the attention's att_h pre-pass counts with it)
                 for name, key in (("attention_kernel", "attention kernel"),
                                   ("att_h_", "attention kernel"),
-                                  ("cell_kernel", "cell kernel")):
+                                  ("cell_mma_kernel", "cell kernel"),
+                                  ("cell_fma_kernel", "cell kernel")):
                     if name in e.name:
                         cats[key] = cats.get(key, 0.0) + ms
             elif e.self_device_time_total > 0 and e.name not in FUNCTIONS:
