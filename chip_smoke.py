@@ -78,7 +78,10 @@ Phases, in order; any failure exits non-zero:
                  B=16 on the card against the same step on the CPU port
                  (loss and every gradient leaf); the loss falling over 20
                  steps on one batch; it/s with and without the cell kernel;
-                 and the trained speaker served once (greedy, bucket 512).
+                 Trainer.checkpoint_operations, which evaluates and writes
+                 the trained speaker's run dir (model, optimizer, infos,
+                 histories); and that run dir served once (greedy, bucket
+                 512).
   6. evaluation -- the trained speaker's run dir through eval.eval (the
                  final-eval protocol: beam 2, language metrics, the test
                  split of a SyntheticDataset) and Evaluator.eval_split on the
@@ -90,6 +93,27 @@ Phases, in order; any failure exits non-zero:
                  first batches on the card against the CPU port, beam 2:
                  the captions and loss_cap of phase 4's random-weight
                  speaker with each layout, and of the trained speaker.
+  7. scst     -- self-critical CIDEr-D training at full width (f32, B=128,
+                 drop_prob_lm 0.5; scripts/run_joint.py's flag set at -D 0,
+                 phase 3, not alternating), resumed from phase 5's run dir
+                 by Trainer(start_from=...): params, every Adam leaf and the
+                 counters equal the files; five iterations with
+                 CIC_FUSED_CELL unset and five with it set, each with finite
+                 loss_cider, avg_reward and cider_greedy and stage B's
+                 sampled ids equal to stage A's, the launch counts of A, B
+                 and F per iteration asserted; the time split of an
+                 iteration (stage A, host reward, stage B forward +
+                 backward, Adam) and it/s; the first step at B=16 on the
+                 card against the CPU port fed the same noise (equal rows,
+                 loss_cider, gradients); Evaluator.eval_split with
+                 sample_max 0 and 2 under each of the three layouts;
+                 checkpoint_operations on the SCST trainer (the eval loss
+                 with its CIDEr-D term), then from_run_dir over that dir
+                 serving one bucket-512 greedy request; and a joint run dir
+                 (phase 4's speaker with its embedding at
+                 listener/txt_enc/embed, share_embed=1) through eval.eval
+                 and from_run_dir, with the captions and ids of phase 4's
+                 speaker-only dir.
 Two lines before the last name the card and describe the kernels (one JSON
 object); the last line is {"ok": true, "device": {...}}.
 
@@ -114,6 +138,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, "build", "chip_smoke_run")
 TRAIN_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_train_run")
+SCST_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_scst_run")
+JOINT_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_joint_run")
 SEED = 1234
 VOCAB = 9487
 L = 16
@@ -159,6 +185,8 @@ EVAL_B = 128         # val and test splits (0.2 / 0.4 / 0.4), 12 batches of 128
 EVAL_R = 2 * EVAL_B  # rows of the evaluation's beam-2 decode
 EVAL_ROWS = 5 * EVAL_B  # rows of its loss: five captions an image
 EVAL_CPU_BATCHES = 2
+SCST_ITERS = 5       # self-critical iterations a cell-kernel setting
+SCST_CPU_B = 16      # rows of the card-vs-CPU self-critical step
 DEVICE = "cuda"
 
 # The card's published peaks (NVIDIA's H100 SXM data sheet, dense): device
@@ -950,9 +978,9 @@ def check_attention_variants(rn, errs, times, bounds, shapes):
 # 4. the slice: serving at full width
 # ---------------------------------------------------------------------------
 
-def write_run_dir(params=None, run_dir=RUN_DIR):
-    """A full-width Att2in2 run dir holding `params` (a joint tree), or
-    random weights from SEED."""
+def write_run_dir(run_dir=RUN_DIR):
+    """A full-width Att2in2 run dir holding random weights from SEED (the
+    trained speakers' run dirs are written by the port's Trainer)."""
     from cooperativeimagecaptioning_tpu_torch.config import Options
     from cooperativeimagecaptioning_tpu_torch.training import checkpoint, joint
     opt = Options(caption_model="att2in2", vse_model="None", phase=2,
@@ -965,9 +993,8 @@ def write_run_dir(params=None, run_dir=RUN_DIR):
     vocab = {str(i): f"w{i}" for i in range(1, VOCAB + 1)}
     with open(os.path.join(run_dir, "infos_.pkl"), "wb") as f:
         pickle.dump({"opt": opt, "vocab": vocab}, f)
-    if params is None:
-        params = joint.init_params(SEED, opt)
-    checkpoint.save_params(params, os.path.join(run_dir, "model-best.pth"))
+    checkpoint.save_params(joint.init_params(SEED, opt),
+                           os.path.join(run_dir, "model-best.pth"))
     return opt
 
 
@@ -1410,12 +1437,12 @@ def compare_first_step(ds):
     from cooperativeimagecaptioning_tpu_torch.utils.tree import (
         leaves, to_numpy, to_torch, trainable)
     opt = train_opt(16, drop_prob_lm=0.0)
-    tr = Trainer(opt, dataset=ds, device="cuda", verbose=False)
+    tr = Trainer(opt, dataset=ds, device=DEVICE, verbose=False)
     data = tr.loader.get_batch("train")
     batch = tr._prepare_batch(data)
     fn = joint.value_and_grad(opt, "optimizer")
     hp = joint.Hyper.from_opt(opt)
-    (loss_g, _), grads_g = fn(tr.params, batch, tr.gen, hp)
+    (loss_g, _), grads_g = fn(tr.params, batch, tr.iteration_streams(), hp)
     cpu_params = {"speaker": trainable(to_torch(to_numpy(
         tr.params["speaker"]), "cpu"))}
     cpu_batch = {k: None if v is None else v.cpu() for k, v in batch.items()}
@@ -1463,7 +1490,7 @@ def phase_train(smi):
         _dispatch.reset_launches()
         t0 = time.perf_counter()
         trainer = loop.train(train_opt(TRAIN_B), dataset=ds,
-                             max_iterations=steps, device="cuda",
+                             max_iterations=steps, device=DEVICE,
                              verbose=False)
         torch.cuda.synchronize()
         launches = _dispatch.launches()
@@ -1507,12 +1534,26 @@ def phase_train(smi):
           f"{out['its_plain_cell']:.2f} it/s with CIC_FUSED_CELL unset "
           f"({rates[False][0]:.2f}, {rates[False][1]:.2f})", flush=True)
 
+    # the trained speaker's run dir, written by the port: evaluate on val,
+    # then model, optimizer, infos and histories
+    t0 = time.perf_counter()
+    val_loss, _ = trainer.checkpoint_operations()
+    written = sorted(os.listdir(TRAIN_RUN_DIR))
+    for name in ("model.pth", f"model-{trainer.iteration}.pth",
+                 "model-best.pth", "optimizer.pth", "infos_.pkl",
+                 "histories_.pkl"):
+        require(name in written, f"checkpoint_operations wrote {written}")
+    require(np.isfinite(val_loss["loss_cap"]), f"val loss {val_loss}")
+    print(f"  checkpoint_operations after {trainer.iteration} iterations in "
+          f"{time.perf_counter() - t0:.1f} s: val loss_cap "
+          f"{val_loss['loss_cap']:.4f}; wrote {written}", flush=True)
+    out["iteration"], out["epoch"] = trainer.iteration, trainer.epoch
+
     # serve the trained speaker: greedy, bucket 512, the cell kernel on
-    write_run_dir(trainer.params, TRAIN_RUN_DIR)
     with fused_cell_switch(True):
         svc = CaptioningService.from_run_dir(TRAIN_RUN_DIR,
                                              compute_dtype="bfloat16",
-                                             buckets=(512,))
+                                             buckets=(512,), device=DEVICE)
         fc, att, masks = features(512, seed=512)
         svc.caption_ids(fc[:1], att[:1], masks[:1])
         _dispatch.reset_launches()
@@ -1623,6 +1664,7 @@ def phase_eval(smi):
     for name, (kw, att_kernel) in LAYOUTS.items():
         # the user's entry point: eval.eval on the run dir
         opt = config.load_infos(infos)["opt"]
+        opt.language_eval = 1  # the run trained without language metrics
         for k, v in kw.items():
             setattr(opt, k, v)
         _dispatch.reset_launches()
@@ -1705,6 +1747,397 @@ def phase_eval(smi):
     return total
 
 
+# ---------------------------------------------------------------------------
+# 7. self-critical CIDEr-D training, resumed from phase 5's run dir
+# ---------------------------------------------------------------------------
+
+def scst_opt(batch_size, drop_prob_lm=0.5):
+    """scripts/run_joint.py's flag set at -D 0 with phase=3 and
+    is_alternating=0 (cider weight 1, no discriminative loss, no caption
+    loss, lr 5e-4 decaying 0.8 every 15 epochs), vse_model None, resumed
+    from phase 5's run dir."""
+    return train_opt(batch_size, drop_prob_lm).replace(
+        phase=3, cider_optimization=1, caption_loss_weight=0,
+        retrieval_reward_weight=0, learning_rate=5e-4,
+        learning_rate_decay_rate=0.8, learning_rate_decay_every=15,
+        start_from=TRAIN_RUN_DIR, checkpoint_path=SCST_RUN_DIR)
+
+
+def scst_per_iteration(cell_on):
+    """Launches of one self-critical iteration (L steps, remat on, no
+    decoding constraint): stage A samples (L attention steps) and decodes
+    the greedy baseline (L steps, each through the greedy head); stage B
+    samples again under autograd (L steps) and its backward recomputes the
+    L - 1 checkpointed steps."""
+    steps = L + L + L + (L - 1)
+    want = {"attention": steps, "greedy_head": L}
+    if cell_on:
+        want["cell"] = steps
+    return want
+
+
+def check_resumed(trainer, phase5):
+    """Trainer(start_from=TRAIN_RUN_DIR): params and every Adam leaf equal
+    the files, iteration and epoch resume."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    saved = checkpoint.load_params(os.path.join(TRAIN_RUN_DIR, "model.pth"))
+    got = leaves(trainer.params)
+    require([k for k, _ in got] == [k for k, _ in leaves(saved)],
+            "resumed params: another tree")
+    for (k, a), (_, b) in zip(got, leaves(saved)):
+        require(torch.equal(a.detach().cpu(), b), f"resumed param {k}")
+    st = checkpoint.read_optimizer_file(
+        os.path.join(TRAIN_RUN_DIR, "optimizer.pth"))
+    cur = trainer.optim.states["speaker"]
+    require(int(cur["count"]) == int(st["count"]) > 0, "resumed Adam count")
+    for key in ("mu", "nu"):
+        for path, a, b in zip(st["paths"], cur[key], st[key]):
+            require(np.array_equal(a.cpu().numpy(), b),
+                    f"resumed Adam {key} {path}")
+    require((trainer.iteration, trainer.epoch) ==
+            (phase5["iteration"], phase5["epoch"]),
+            f"resumed counters {trainer.iteration}, {trainer.epoch}")
+    print(f"  Trainer(start_from=phase 5's run dir): {len(got)} params and "
+          f"2 x {len(cur['mu'])} Adam moments equal the files, Adam count "
+          f"{int(cur['count'])}, iteration {trainer.iteration}, epoch "
+          f"{trainer.epoch}", flush=True)
+
+
+def scst_stages(trainer, data):
+    """The stages of one self-critical iteration on one host batch, {name:
+    fn} in order: stage A (the sampled and the greedy decode), the host
+    reward (ids to the host, CIDEr-D of 2B captions, the reward to the
+    card), stage B (forward + backward), Adam."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.training import joint
+    batch = trainer._prepare_batch(data)
+    hp = trainer._hyper()
+    out = {}
+
+    def stage_a():
+        out["ids"] = trainer._sample_fn(trainer.params, batch,
+                                        trainer.iteration_streams(), hp)
+
+    def reward():
+        reward, _, _ = joint.host_reward(trainer.opt, data["gts"],
+                                         *out["ids"])
+        out["reward"] = torch.from_numpy(reward).to(trainer.device)
+
+    def stage_b():
+        _, out["grads"] = trainer._grad_fn(trainer.params, batch,
+                                           trainer.iteration_streams(), hp,
+                                           out["reward"])
+
+    def adam():
+        trainer.optim.step(trainer.params, out["grads"], "optimizer")
+
+    return {"stage_a": stage_a, "reward": reward, "stage_b": stage_b,
+            "adam": adam}
+
+
+def scst_split(trainer, data, n=SCST_ITERS):
+    """Median ms of each stage of `scst_stages`, each ended by a
+    synchronize, over n iterations on one host batch."""
+    import torch
+    t = {}
+    for _ in range(n):
+        for stage, fn in scst_stages(trainer, data).items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.setdefault(stage, []).append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in t.items()}
+
+
+def scst_against_cpu(ds):
+    """The first self-critical step at B=SCST_CPU_B, dropout off, on the
+    card and on the CPU port fed the same noise (the card's draws,
+    recorded and replayed): the share of rows whose sampled ids are equal
+    (>= AGREE_F32); on the equal rows loss_cider to STEP_LOSS_RTOL and
+    every gradient leaf by phase 5's rule."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops import draws
+    from cooperativeimagecaptioning_tpu_torch.training import joint
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import (
+        leaves, to_numpy, to_torch, trainable)
+    opt = scst_opt(SCST_CPU_B, drop_prob_lm=0.0)
+    tr = Trainer(opt, dataset=ds, device=DEVICE, verbose=False)
+    data = tr.loader.get_batch("train")
+    batch = tr._prepare_batch(data)
+    hp = tr._hyper()
+    rec = {k: draws.Record(v) for k, v in tr.iteration_streams().items()}
+    gen, greedy = tr._sample_fn(tr.params, batch, rec, hp)
+    scores, _, _ = joint.host_reward(opt, data["gts"], gen, greedy)
+    taken = {k: [x.cpu() for x in r.taken] for k, r in rec.items()}
+    cpu_params = {"speaker": trainable(to_torch(to_numpy(
+        tr.params["speaker"]), "cpu"))}
+    cpu_batch = {k: None if v is None else v.cpu() for k, v in batch.items()}
+    fn = joint.value_and_grad(opt, "optimizer")
+
+    def step(params, b, rows, device):
+        replay = {k: draws.Replay([x[rows] for x in v])
+                  for k, v in taken.items()}
+        sampled = {}
+        reward = torch.from_numpy(scores[rows.numpy()])
+        (loss, aux), grads = fn(params, b, replay, hp, reward.to(device),
+                                sampled)
+        return aux["loss_cider"].item(), grads, sampled["seq"].cpu()
+
+    def rows_of(b, rows):
+        return {k: None if v is None else v[rows] for k, v in b.items()}
+
+    every = torch.arange(SCST_CPU_B)
+    _, _, seq_g = step(tr.params, batch, every, DEVICE)
+    _, _, seq_c = step(cpu_params, cpu_batch, every, "cpu")
+    equal = (seq_g == seq_c).all(dim=1)
+    share = float(equal.float().mean())
+    require(torch.equal(seq_g, gen.cpu()),
+            "B=16 step: stage B's ids on the card differ from stage A's")
+    rows = torch.nonzero(equal)[:, 0]
+    loss_g, grads_g, _ = step(tr.params, rows_of(batch, rows.to(DEVICE)),
+                              rows, DEVICE)
+    loss_c, grads_c, _ = step(cpu_params, rows_of(cpu_batch, rows), rows,
+                              "cpu")
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    worst, worst_key = 0.0, ""
+    cpu = dict(leaves(grads_c))
+    for key, g in leaves(grads_g):
+        g, c = g.cpu(), cpu[key]
+        ratio = ((g - c).abs() / (STEP_GRAD_ATOL + STEP_GRAD_RTOL * c.abs())
+                 ).max().item()
+        if ratio > worst:
+            worst, worst_key = ratio, key
+    print(f"  B={SCST_CPU_B} first SCST step, card vs cpu port on the same "
+          f"noise: sampled ids of {share * 100:.1f}% of the rows equal (need "
+          f">= {AGREE_F32 * 100:.0f}%); on those {len(rows)} rows loss_cider "
+          f"{loss_g:.6f} vs {loss_c:.6f} (relative {rel:.2e}, tol "
+          f"{STEP_LOSS_RTOL:.0e}); worst gradient leaf {worst_key} at "
+          f"{worst:.3f} of its tolerance", flush=True)
+    require(share >= AGREE_F32, f"B=16 SCST step: {share} of rows equal")
+    require(rel <= STEP_LOSS_RTOL, f"B=16 SCST step: loss_cider relative "
+            f"{rel}")
+    require(worst <= 1.0, f"B=16 SCST step: gradient {worst_key} at "
+            f"{worst} of its tolerance")
+    return share, rel
+
+
+def scst_eval_sampling(trainer, ds):
+    """Evaluator.eval_split with sample_max 0 and 2 under each layout, the
+    SCST speaker's params: one caption per val image, the loss's T b-major
+    attention steps and the decode's L steps of the layout's kernel a
+    batch, no head kernel (the sampled decodes take a plain log-softmax)."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch import data
+    from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split import (
+        Evaluator)
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    total = {k: 0 for k in _dispatch.KERNELS}
+    T = L + 1
+    for sample_max in (0, 2):
+        for name, (kw, att_kernel) in LAYOUTS.items():
+            # the eval loss of a caption-loss run: the CIDEr term would add
+            # the reward's decodes to the counts
+            opt = trainer.opt.replace(cider_optimization=0,
+                                      caption_loss_weight=1, **kw)
+            loader = data.DataLoader(opt, dataset=ds)
+            n_val = len(loader.split_ix["val"])
+            batches = -(-n_val // loader.batch_size)
+            _dispatch.reset_launches()
+            losses, preds, _ = Evaluator(opt, device=DEVICE).eval_split(
+                trainer.params, loader,
+                {"split": "val", "sample_max": sample_max, "beam_size": 1,
+                 "language_eval": 0, "num_images": -1})
+            torch.cuda.synchronize()
+            launches = _dispatch.launches()
+            want = {k: 0 for k in _dispatch.KERNELS}
+            want["attention"] = batches * T
+            want[att_kernel] += batches * L
+            require(launches == want, f"eval sample_max={sample_max} {name}: "
+                    f"launches {launches}, expected {want}")
+            require_vector_width(f"eval sample_max={sample_max} {name}",
+                                 launches)
+            ids = sorted(p["image_id"] for p in preds)
+            require(len(ids) == n_val == len(set(ids)),
+                    f"eval sample_max={sample_max} {name}: {len(ids)} "
+                    f"captions for {n_val} images")
+            require(np.isfinite(losses["loss_cap"]),
+                    f"eval sample_max={sample_max} {name}: {losses}")
+            for k, v in launches.items():
+                total[k] += v
+            print(f"  eval_split sample_max={sample_max} {name}: {n_val} "
+                  f"captions ({len({p['caption'] for p in preds})} "
+                  f"distinct), loss_cap {losses['loss_cap']:.4f}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return total
+
+
+def serve_run_dir(run_dir, fc, att, masks):
+    """Greedy ids of one bucket-512 bf16 request through from_run_dir, and
+    the launches of that request."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
+    svc = CaptioningService.from_run_dir(run_dir, compute_dtype="bfloat16",
+                                         buckets=(512,), device=DEVICE)
+    svc.caption_ids(fc[:1], att[:1], masks[:1])
+    _dispatch.reset_launches()
+    ids = svc.caption_ids(fc, att, masks)
+    torch.cuda.synchronize()
+    return ids, _dispatch.launches()
+
+
+def scst_run_dirs(trainer, ds):
+    """checkpoint_operations on the SCST trainer (the eval loss with its
+    CIDEr-D term), that run dir served; then a joint run dir of phase 4's
+    speaker (its embedding at listener/txt_enc/embed under share_embed=1)
+    through eval.eval and from_run_dir, against phase 4's speaker-only
+    dir."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch import eval as eval_entry
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint
+    t0 = time.perf_counter()
+    val_loss, _ = trainer.checkpoint_operations()
+    torch.cuda.synchronize()
+    written = sorted(os.listdir(SCST_RUN_DIR))
+    for name in ("model.pth", f"model-{trainer.iteration}.pth",
+                 "model-best.pth", "optimizer.pth", "infos_.pkl",
+                 "histories_.pkl"):
+        require(name in written, f"SCST checkpoint_operations: {written}")
+    require(np.isfinite(val_loss["loss_cider"]), f"SCST val loss {val_loss}")
+    print(f"  checkpoint_operations of the SCST run in "
+          f"{time.perf_counter() - t0:.1f} s: val loss_cider "
+          f"{val_loss['loss_cider']:.4f} (stage A + host reward + the "
+          f"CIDEr-D term); wrote {written}", flush=True)
+
+    fc, att, masks = features(512, seed=513)
+    ids, served = serve_run_dir(SCST_RUN_DIR, fc, att, masks)
+    want = {k: 0 for k in _dispatch.KERNELS}
+    want["attention"] = want["greedy_head"] = L
+    require(served == want, f"serving the SCST run: launches {served}")
+    require(ids.shape == (512, L) and ids.min() >= 0 and ids.max() <= VOCAB,
+            f"SCST ids {ids.shape}")
+
+    print(f"  from_run_dir(SCST run dir), bucket 512 bf16 greedy: ids "
+          f"{ids.shape}, launches "
+          f"{ {k: v for k, v in served.items() if v} }", flush=True)
+
+    # a joint run dir: phase 4's random-weight speaker (its captions differ
+    # from image to image), its table under the listener (share_embed=1)
+    sp = checkpoint.load_params(os.path.join(RUN_DIR, "model-best.pth"))[
+        "speaker"]
+    tree = {"speaker": {k: v for k, v in sp.items() if k != "embed"},
+            "listener": {"txt_enc": {"embed": sp["embed"]}}}
+    os.makedirs(JOINT_RUN_DIR, exist_ok=True)
+    checkpoint.save_params(tree, os.path.join(JOINT_RUN_DIR,
+                                              "model-best.pth"))
+    infos = checkpoint.load_pkl(os.path.join(RUN_DIR, "infos_.pkl"))
+    opt = infos["opt"].replace(vse_model="fc", share_embed=1, rank_eval=0,
+                               checkpoint_path=JOINT_RUN_DIR)
+    with open(os.path.join(JOINT_RUN_DIR, "infos_.pkl"), "wb") as f:
+        pickle.dump({"opt": opt, "vocab": infos["vocab"]}, f)
+    ids, _ = serve_run_dir(RUN_DIR, fc, att, masks)
+    joint_ids, joint_served = serve_run_dir(JOINT_RUN_DIR, fc, att, masks)
+    require(np.array_equal(joint_ids, ids) and joint_served == served,
+            "the joint run dir serves other ids than the speaker-only dir")
+    preds = {}
+    os.chdir(JOINT_RUN_DIR)  # eval_results/ is written under the run dir
+    for d in (RUN_DIR, JOINT_RUN_DIR):
+        out = eval_entry.eval(None, os.path.join(d, "model-best.pth"),
+                              os.path.join(d, "infos_.pkl"), split="test",
+                              dataset=ds, device=DEVICE)
+        preds[d] = [(p["image_id"], p["caption"])
+                    for p in out["split_predictions"]]
+    os.chdir(REPO)
+    distinct = len({c for _, c in preds[RUN_DIR]})
+    require(preds[JOINT_RUN_DIR] == preds[RUN_DIR] and distinct > 1,
+            f"eval.eval of the joint run dir: other captions, or "
+            f"{distinct} distinct")
+    print(f"  a joint run dir (phase 4's speaker, its embedding at "
+          f"listener/txt_enc/embed, share_embed=1): from_run_dir serves the "
+          f"ids of the speaker-only dir ({len({tuple(r) for r in ids})} "
+          f"distinct rows of 512) and eval.eval gives its "
+          f"{len(preds[RUN_DIR])} test captions ({distinct} distinct)",
+          flush=True)
+    return served
+
+
+def phase_scst(smi, phase5):
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    ds = train_dataset()
+    print(f"self-critical training: att2in2 vocab {VOCAB}, width {WIDTH}, "
+          f"K={K}, L={L}, B={TRAIN_B}, f32, drop_prob_lm 0.5, "
+          f"cider_optimization 1, caption_loss_weight 0, host reward "
+          f"(CIDEr-D of {2 * TRAIN_B} captions an iteration), from "
+          f"{os.path.relpath(TRAIN_RUN_DIR, REPO)}", flush=True)
+    out = {}
+    trainer = Trainer(scst_opt(TRAIN_B), dataset=ds, device=DEVICE,
+                      verbose=False)
+    check_resumed(trainer, phase5)
+
+    # the main path: SCST_ITERS iterations with the cell kernel off, then
+    # SCST_ITERS with it on; the counts run from 0 before the first
+    _dispatch.reset_launches()
+    by_setting = {}
+    for on in (False, True):
+        before = _dispatch.launches()
+        with fused_cell_switch(on):
+            t0 = time.perf_counter()
+            for _ in range(SCST_ITERS):
+                loss_dict, _, _ = trainer.train_iteration()
+                a, b = trainer.last_reward_seqs
+                require(torch.equal(a, b), "stage B's sampled ids differ "
+                        "from stage A's")
+                vals = {k: float(loss_dict[k]) for k in (
+                    "loss_cider", "avg_reward", "cider_greedy")}
+                require(all(np.isfinite(v) for v in vals.values()),
+                        f"SCST iteration: {vals}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        after = _dispatch.launches()
+        got = {k: after[k] - before[k] for k in after}
+        per = scst_per_iteration(on)
+        want = {k: SCST_ITERS * per.get(k, 0) for k in got}
+        require(got == want, f"SCST, CIC_FUSED_CELL={int(on)}: launches "
+                f"{got}, expected {want} ({per} an iteration)")
+        by_setting[on] = got
+        print(f"  {SCST_ITERS} SCST iterations, CIC_FUSED_CELL={int(on)}: "
+              f"{wall:.2f} s; last loss_cider {vals['loss_cider']:.4f}, "
+              f"avg_reward {vals['avg_reward']:.4f}, cider_greedy "
+              f"{vals['cider_greedy']:.4f}; stage B's ids equal stage A's "
+              f"every iteration; launches {got}", flush=True)
+    launches = _dispatch.launches()
+    require_vector_width("SCST", launches)
+    require(_dispatch.head_pass_launches()["greedy_head_fma"] ==
+            launches["greedy_head"], "SCST: the f32 greedy head must take "
+            "the FMA pass")
+
+    # where an iteration's time goes, and it/s, the cell kernel on
+    data = trainer.loader.get_batch("train")
+    with fused_cell_switch(True):
+        out["split_ms"] = scst_split(trainer, data)
+        out["its"] = iterations_per_s(trainer, data, n=SCST_ITERS)
+    print(f"  SCST iteration ({smi}; B={TRAIN_B}, f32, CIC_FUSED_CELL=1, one "
+          f"fixed host batch, medians of {SCST_ITERS}): stage A "
+          f"{out['split_ms']['stage_a']:.2f} ms, host reward "
+          f"{out['split_ms']['reward']:.2f} ms, stage B forward + backward "
+          f"{out['split_ms']['stage_b']:.2f} ms, Adam "
+          f"{out['split_ms']['adam']:.2f} ms; {out['its']:.2f} it/s",
+          flush=True)
+
+    with fused_cell_switch(False):
+        out["cpu_share"], out["cpu_rel"] = scst_against_cpu(ds)
+        scst_eval_sampling(trainer, ds)
+        scst_run_dirs(trainer, ds)
+    return launches, out
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, REPO)
@@ -1718,18 +2151,21 @@ def main():
         serve_launches = phase_slice(smi)
     print(f"elapsed after serving: {time.perf_counter() - t_start:.0f} s",
           flush=True)
-    train_launches, _ = phase_train(smi)
+    train_launches, phase5 = phase_train(smi)
     print(f"elapsed after training: {time.perf_counter() - t_start:.0f} s",
           flush=True)
     with fused_cell_switch(False):
         eval_launches = phase_eval(smi)
     print(f"elapsed after evaluation: {time.perf_counter() - t_start:.0f} s",
           flush=True)
+    scst_launches, _ = phase_scst(smi, phase5)
+    print(f"elapsed after self-critical training: "
+          f"{time.perf_counter() - t_start:.0f} s", flush=True)
     # each path's counts run from 0 just before it to just after it
     kernels = []
     for k in SOURCES:
         by_path = {"serve": serve_launches[k], "train": train_launches[k],
-                   "eval": eval_launches[k]}
+                   "eval": eval_launches[k], "scst": scst_launches[k]}
         require(sum(by_path.values()) > 0,
                 f"{k} was never launched on a main path")
         kernels.append({

@@ -4,8 +4,12 @@ eval.py; ref: eval.py).
 eval(opt, model_name, infos_name, ann_file, listener, split, iteration):
 rebuild the model at a specific checkpoint and run eval_split under the
 final-eval protocol (beam 2), on the card unless `device="cpu"`.  A run dir
-written by either package loads (config.load_infos).  Swapping in a
-ground-truth listener needs the listener, which is not ported yet."""
+written by either package loads (config.load_infos).  The speaker of a
+joint run (a listener beside it) loads into `joint.speaker_template` when
+`rank_eval` is 0: its captions and its own losses are evaluated, the
+listener's leaves are reported and left out.  Ranking with the listener and
+swapping in a ground-truth listener need the listener, which is not ported
+yet."""
 
 from __future__ import annotations
 
@@ -51,7 +55,13 @@ def eval(opt, model_name, infos_name, ann_file=None, listener=None,
     opt.vocab_size = loader.vocab_size
     opt.seq_length = loader.seq_length
 
-    params = joint.init_params(getattr(opt, "seed", 123), opt, device)
+    seed = getattr(opt, "seed", 123)
+    if joint.has_listener(opt) and not opt.rank_eval:
+        # the speaker of a joint run: the listener's losses are left out
+        params = joint.speaker_template(opt, device, seed)
+        opt = opt.replace(vse_model="None")
+    else:
+        params = joint.init_params(seed, opt, device)
     params = ck.load_params_into(params, model_name)
 
     ev = Evaluator(opt, device=device)

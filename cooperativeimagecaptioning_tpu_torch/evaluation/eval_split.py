@@ -11,13 +11,15 @@ synchronise per batch: the loss sums stay on the device and the decoded ids
 are converted after the loop, but at most `MAX_IN_FLIGHT` batches are kept
 undrained, so the host never runs further ahead of the device than that.
 
-Ported: a speaker-only tree, greedy and beam search, the language metrics.
-Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-queue-1 item: `sample_max` 0 and 2 (the other sampling modes), the CIDEr-D
-reward of the eval loss (`cider_optimization > 0`; `joint.loss_fn` raises),
-the device feature cache, a device mesh, and everything that needs the
-listener (`encode_fn`, `encode_data`, and `evalrank` on a tree that has
-one).
+Ported: a speaker-only tree; greedy, beam search, and `sample_max` 0
+(multinomial at `temperature`) and 2 (Gumbel-noise max), whose draws come
+from a generator seeded with 123 on each batch, as the JAX package's fixed
+key; the CIDEr-D term of the eval loss under `cider_optimization` (stage A
+and the host reward, then the loss on the same trajectory); the language
+metrics.  Not ported yet, each raising NotImplementedError that names its
+ROADMAP.md queue-1 item: the device feature cache, a device mesh, and
+everything that needs the listener (`encode_fn`, `encode_data`, and
+`evalrank` on a tree that has one).
 """
 
 from __future__ import annotations
@@ -29,15 +31,16 @@ import torch
 
 from cooperativeimagecaptioning_tpu_torch import models as model_zoo
 from cooperativeimagecaptioning_tpu_torch.evaluation import language_eval
-from cooperativeimagecaptioning_tpu_torch.ops import decoding
+from cooperativeimagecaptioning_tpu_torch.ops import decoding, draws
+from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
 from cooperativeimagecaptioning_tpu_torch.training import joint
 from cooperativeimagecaptioning_tpu_torch.utils.text import decode_sequence
-from cooperativeimagecaptioning_tpu_torch.utils.tree import to_torch
+from cooperativeimagecaptioning_tpu_torch.utils.tree import detached, to_torch
 
 _LISTENER = "ROADMAP.md queue 1: the listener and retrieval"
 _JOINT = "ROADMAP.md queue 1: joint training"
-_SAMPLING = ("ROADMAP.md queue 1: relaxations and the six other sampling "
-             "modes")
+# the fixed seed of the evaluation's random draws (JAX: PRNGKey(123))
+EVAL_SEED = 123
 _MESH = "ROADMAP.md queue 1: multi-device"
 # batches whose decoded ids may wait on the device before the loop stops to
 # fetch the oldest: enough to keep the card fed, few enough to bound the queue
@@ -70,17 +73,23 @@ class Evaluator:
         self.drained_in_loop = 0
 
     # -- device programs -----------------------------------------------------
+    def decode_draws(self):
+        """The draw source of one decode call: a generator seeded with
+        EVAL_SEED on the evaluator's device, anew for every batch."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(EVAL_SEED)
+        return draws.Draws(gen)
+
     def _decode_fn(self, beam_size, sample_max=1, temperature=1.0):
         """Decode program for the eval protocol: fn(params, fc, att,
-        att_masks) -> (seq, logprobs).  sample_max 1 = greedy; beam_size > 1
-        overrides.  The speaker module is rebuilt from `params` on each call
-        (no copy in f32; one cast of the tree in bf16), so an evaluator
-        follows a tree that training updates in place."""
-        del temperature  # only the unported sampling modes read it
-        if beam_size <= 1 and int(sample_max) != 1:
-            raise NotImplementedError(
-                f"sample_max={sample_max}: only greedy and beam search are "
-                f"ported ({_SAMPLING})")
+        att_masks) -> (seq, logprobs).  sample_max semantics follow the
+        reference (FCModel.py:262-301): 1 = greedy, 2 = Gumbel-noise max, 0 =
+        multinomial at `temperature`; beam_size > 1 overrides.  The speaker
+        module is rebuilt from `params` on each call (no copy in f32; one
+        cast of the tree in bf16), so an evaluator follows a tree that
+        training updates in place."""
+        mode = {1: "greedy", 2: "gumbel_noise_max"}.get(int(sample_max),
+                                                         "sample")
         opt = self.opt
         dtype = torch.bfloat16 if getattr(opt, "compute_dtype", "") == \
             "bfloat16" else None
@@ -103,19 +112,36 @@ class Evaluator:
                         decoding_constraint=opt.decoding_constraint)
                 else:
                     out = decoding.sample(
-                        spk, ctx, opt.seq_length, mode="greedy",
+                        spk, ctx, opt.seq_length,
+                        None if mode == "greedy" else self.decode_draws(),
+                        mode=mode, temperature=temperature,
                         decoding_constraint=opt.decoding_constraint)
                 return out.seq, out.logprobs
         return run
 
-    def loss_fn(self, params, batch):
+    def loss_fn(self, params, batch, reward=None):
         """The training loss of one batch in eval mode (no dropout, no
-        scheduled sampling), in f32: (loss, aux), scalars on the device."""
+        scheduled sampling), in f32: (loss, aux), scalars on the device.
+        Under cider_optimization the CIDEr term samples from the streams of
+        EVAL_SEED, as `_reward_for` does."""
         opt = self.opt
         with torch.no_grad():
             return joint.loss_fn({"speaker": self.speaker}, params, opt,
-                                 batch, None, joint.Hyper.from_opt(opt),
-                                 "optimizer", train=False)
+                                 batch, joint.streams(EVAL_SEED, self.device),
+                                 joint.Hyper.from_opt(opt), "optimizer",
+                                 reward, train=False)
+
+    def _reward_for(self, params, batch, data):
+        """The host CIDEr-D reward of the eval loss (JAX
+        eval_split.py:296-321): stage A from the streams of EVAL_SEED, then
+        the self-critical reward of the batch's ground truth."""
+        opt = self.opt
+        gen, greedy = joint.sample_for_reward(
+            {"speaker": self.speaker}, params, opt, batch,
+            joint.streams(EVAL_SEED, self.device), joint.Hyper.from_opt(opt),
+            "optimizer", train=False)
+        reward, _, _ = joint.host_reward(opt, data["gts"], gen, greedy)
+        return torch.from_numpy(reward).to(self.device)
 
     def encode_fn(self, params, fc, seqs, masks):
         raise NotImplementedError(
@@ -167,7 +193,10 @@ class Evaluator:
         verbose = ek.get("verbose", False)
 
         np.random.seed(123)  # determinism pin (ref: eval_utils.py:105)
-        params = to_torch(params, self.device)
+        # a view without gradients: the heads refuse inputs that need them
+        params = detached(to_torch(params, self.device))
+        if joint.needs_reward(opt, "optimizer"):
+            self_critical.init_scorer(opt.cached_tokens)
         _t = {"start": time.time()}
         loader.reset_iterator(split)
         n = 0
@@ -182,7 +211,11 @@ class Evaluator:
             data = loader.get_batch(split)
             n += loader.batch_size
             if data.get("labels") is not None:
-                loss, aux = self.loss_fn(params, self._batch_arrays(data))
+                batch = self._batch_arrays(data)
+                reward = None
+                if joint.needs_reward(opt, "optimizer"):
+                    reward = self._reward_for(params, batch, data)
+                loss, aux = self.loss_fn(params, batch, reward)
                 # accumulate device scalars: converting per batch would
                 # synchronise host and device every batch; one transfer per
                 # key at the end

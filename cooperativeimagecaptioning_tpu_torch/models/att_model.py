@@ -20,9 +20,9 @@ the plain cell, as in the JAX package); both carry gradients.  The context
 of `encode_features` is b-major; `quantize_ctx` (int8) and `kmajor_ctx`
 (K-major) turn it into one of the two decode-only layouts, and `step` picks
 the attention kernel by the context's keys.  Dropout (training) draws from
-an explicit torch.Generator, or takes masks drawn beforehand (the
-teacher-forcing loop draws them outside its checkpointed steps).  Still to
-port: embed_soft.
+an explicit source (a torch.Generator or a draw source, ops/draws.py), or
+takes masks drawn beforehand (the decoding loops draw them outside their
+checkpointed steps).
 """
 
 from __future__ import annotations
@@ -148,6 +148,15 @@ class AttModel(nn.Module):
         """Embedding -> ReLU -> Dropout (ref AttModel.py:74-76).  Dropout
         runs when drop_prob > 0, with `mask` or a draw from `gen`."""
         x = torch.relu(layers.embedding_lookup(self.params.embed, ids))
+        if drop_prob > 0.0:
+            x = layers.dropout(x, drop_prob, gen, mask)
+        return x
+
+    def embed_soft(self, soft_vec, drop_prob=0.0, gen=None, mask=None):
+        """Soft-vector embedding (ref AttModel.py:395-397; JAX
+        att_model.py:172-178): soft_vec [B, V+2] times the raw table, then
+        ReLU and dropout, as embed_token."""
+        x = torch.relu(soft_vec @ self.params.embed)
         if drop_prob > 0.0:
             x = layers.dropout(x, drop_prob, gen, mask)
         return x

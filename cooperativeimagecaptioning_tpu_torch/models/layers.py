@@ -9,14 +9,16 @@ leaves as attributes (`linear` takes such a node).
 Initializers draw from a numpy RandomState, with the bounds of the JAX
 package's (torch.nn.Linear's default U(-1/sqrt(in), 1/sqrt(in))); they
 cannot give JAX's numbers for the same seed, and need not.
-Random draws at run time (dropout) come from an explicit torch.Generator
-that the caller passes in.
+Random draws at run time (dropout) come from an explicit source that the
+caller passes in: a torch.Generator or a draw source (ops/draws.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from cooperativeimagecaptioning_tpu_torch.ops import draws
 
 
 def uniform_init(rng: np.random.RandomState, shape, scale: float):
@@ -46,8 +48,9 @@ def embedding_lookup(table, ids):
 
 
 def keep_mask(shape, rate: float, gen, device):
-    """Bernoulli(1 - rate) keep mask from `gen` (a generator on `device`)."""
-    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+    """Bernoulli(1 - rate) keep mask from `gen` (a generator on `device`, or
+    a draw source): `uniform < 1 - rate`, as jax.random.bernoulli draws."""
+    return draws.source(gen).uniform(shape, device) < 1.0 - rate
 
 
 def dropout(x, rate: float, gen=None, mask=None):

@@ -8,11 +8,11 @@ emitted sequences are zero-padded to full length and every shape is static
 (ready for a CUDA graph later).  Token ids: 0 is EOS/pad, V+1 = nclass is
 BOS; the embedding has V+2 rows and the logit layer V+1 outputs.
 
-Ported: teacher forcing (`teacher_forced_logprobs`, and
-`teacher_forced_loss`, its fused masked-NLL form with per-step
-rematerialization), `sample(mode="greedy")` with and without
-decoding_constraint, and `beam_search` (backpointer formulation).  The six
-other sampling modes follow in a later slice (ROADMAP.md).
+Teacher forcing (`teacher_forced_logprobs`, and `teacher_forced_loss`,
+its fused masked-NLL form with per-step rematerialization), `sample` in
+all seven modes (greedy, gumbel_noise_max, sample and the four
+relaxations of ops/relaxations.py), and `beam_search` (backpointer
+formulation).  Random draws come from explicit sources (ops/draws.py).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from cooperativeimagecaptioning_tpu_torch.models import layers
-
+from cooperativeimagecaptioning_tpu_torch.ops import draws, relaxations
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import beam_head
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import logit_head
 
@@ -33,6 +33,8 @@ NEG_INF = -1e38
 class SampleOutput(NamedTuple):
     seq: Any          # [B, L] int32 -- word ids, 0-padded after EOS
     logprobs: Any     # [B, L] float -- per-step logprob of the chosen word
+    soft: Any = None  # [B, L, V+2] relaxed one-hot / soft vectors (one-hot
+                      # modes only)
 
 
 # ---------------------------------------------------------------------------
@@ -46,13 +48,16 @@ def _draws(speaker, j, it, prev_lp, gen, drop_prob, ss_prob, use_ss):
     previous step's log-probs) and the dropout keep masks of the embedding
     and the output.  Drawing them here, outside the step, lets a
     checkpointed step be recomputed with the same masks: checkpoint
-    restores only the global RNG state, not an explicit generator."""
+    restores only the global RNG state, not an explicit generator.  `gen`
+    is a torch.Generator or a draw source (ops/draws.py)."""
     B = it.shape[0]
     if use_ss and j >= 1:
         device = it.device
-        replace = torch.rand((B,), generator=gen, device=device) < ss_prob
-        sampled = torch.multinomial(prev_lp.detach().exp(), 1,
-                                    generator=gen)[:, 0]
+        src = draws.source(gen)
+        replace = src.uniform((B,), device) < ss_prob
+        # jax.random.categorical: a Gumbel-max over the log-probs
+        sampled = torch.argmax(prev_lp.detach() + src.gumbel(
+            prev_lp.shape, device), dim=-1)
         it = torch.where(replace, sampled.to(it.dtype), it)
     masks = (None, None)
     if drop_prob > 0.0:
@@ -147,26 +152,134 @@ def _batch_size(ctx):
     return ctx.get("att_feats", ctx.get("att_feats_q")).shape[0]
 
 
-def sample(speaker, ctx, seq_length, mode="greedy", decoding_constraint=0):
-    """Greedy decode (ref AttModel.py:323-444; JAX decoding.py:201-328).
+def _div(x, t):
+    """x / t with t as a tensor of x's dtype (see relaxations._div)."""
+    return x / torch.as_tensor(t, dtype=x.dtype, device=x.device)
 
-    Without decoding_constraint each step's logits go through the fused
-    greedy head (argmax and its logprob, no [B, V] log-softmax).  With it,
-    the step takes log_softmax over the full logits after adding -1e38 at
-    the previous word (decoding.py:238, 294-299)."""
-    if mode != "greedy":
-        raise NotImplementedError(
-            f"sampling mode {mode!r} is not ported yet (ROADMAP.md queue 1: "
-            f"relaxations and the six other sampling modes)")
+
+ONE_HOT_MODES = ("gumbel_st", "multinomial_st", "gumbel_soft",
+                 "multinomial_soft")
+SOFT_INPUT_MODES = ("gumbel_soft", "multinomial_soft")
+# the draws of one token selection, in the JAX package's key order
+# (decoding.py:158-198, relaxations.py:55, 90): Gumbel or uniform noise
+# over [B, V+1], then the [B] row mask of the partial-sampling modes
+_SELECT_NOISE = {
+    "greedy": (), "gumbel_noise_max": ("uniform",), "sample": ("gumbel",),
+    "gumbel_st": ("uniform",), "multinomial_st": ("gumbel",),
+    "gumbel_soft": ("uniform", "rows"),
+    "multinomial_soft": ("gumbel", "rows"),
+}
+
+
+def _make_selector(mode, temperature, gumbel_temp, multinomial_temp,
+                   prob_gumbel_softmax, prob_multinomial_soft):
+    """Token selector (JAX decoding.py:146-198): (rng, logprobs) -> (ids,
+    their logprob, the relaxed one-hot or None).
+
+      greedy           sample_max == 1
+      gumbel_noise_max sample_max == 2 (ref FCModel.py:284-289)
+      sample           a multinomial draw at `temperature` (a Gumbel-max)
+      gumbel_st        retrieval_reward == 'gumbel'
+      multinomial_st   retrieval_reward == 'multinomial'
+      gumbel_soft      retrieval_reward == 'gumbel_softmax'
+      multinomial_soft retrieval_reward == 'multinomial_soft'
+    """
+    def gather(lp, it):
+        return torch.gather(lp, 1, it[:, None])[:, 0]
+
+    def relaxed(fn, *args):
+        def select(rng, lp):
+            y, it = fn(rng, lp, *args)
+            return it, gather(lp, it), y
+        return select
+
+    if mode == "greedy":
+        def select(rng, lp):
+            return lp.argmax(dim=-1), lp.max(dim=-1).values, None
+    elif mode == "gumbel_noise_max":
+        def select(rng, lp):
+            # ref FCModel.py:285-289: -log(-log(U + eps) + eps), eps = 1e-9
+            u = rng.uniform(lp.shape, lp.device)
+            noise = -torch.log(-torch.log(u + 1e-9) + 1e-9)
+            perturbed = _div(lp + noise, temperature)
+            return (perturbed.argmax(dim=-1), perturbed.max(dim=-1).values,
+                    None)
+    elif mode == "sample":
+        def select(rng, lp):
+            it = torch.argmax(_div(lp, temperature)
+                              + rng.gumbel(lp.shape, lp.device), dim=-1)
+            return it, gather(lp, it), None
+    elif mode == "gumbel_st":
+        select = relaxed(relaxations.gumbel_st, gumbel_temp)
+    elif mode == "multinomial_st":
+        select = relaxed(relaxations.multinomial_st, multinomial_temp)
+    elif mode == "gumbel_soft":
+        select = relaxed(relaxations.gumbel_soft, gumbel_temp,
+                         prob_gumbel_softmax)
+    elif mode == "multinomial_soft":
+        select = relaxed(relaxations.multinomial_soft, multinomial_temp,
+                         prob_multinomial_soft)
+    else:
+        raise ValueError(f"unknown sampling mode: {mode}")
+    return select
+
+
+def _select_noise(rng, mode, shape, device):
+    """The noise of one selection, drawn ahead of it."""
+    return [rng.uniform(shape[:1], device) if kind == "rows"
+            else getattr(rng, kind)(shape, device)
+            for kind in _SELECT_NOISE[mode]]
+
+
+def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
+           temperature=1.0, gumbel_temp=10.0, multinomial_temp=1.0,
+           prob_gumbel_softmax=0.25, prob_multinomial_soft=0.25,
+           decoding_constraint=0, train=False, drop_prob=0.0, remat=False):
+    """Autoregressive sampling over a fixed `seq_length` steps (ref
+    AttModel.py:291-452; JAX decoding.py:201-328).
+
+    Step order as in the reference: select a token from the previous
+    step's logprobs, record it (masked by `unfinished`), embed the raw
+    token (the hard modes) or the raw relaxed vector (the two soft modes,
+    AttModel.py:395-399), run the core.  `soft` [B, L, V+2] (the one-hot
+    modes only) holds the relaxed emissions, finished rows replaced by the
+    EOS one-hot (AttModel.py:416-433).  With decoding_constraint the step
+    adds -1e38 at the previous word before the log-softmax.  Greedy without
+    it takes the fused greedy head (argmax and its logprob, no [B, V]
+    log-softmax); that head has no backward, so run it without autograd.
+
+    Every draw -- selection noise, the row masks, the dropout masks of
+    `train` -- comes from `rng`, a draw source (ops/draws.py) or a
+    torch.Generator, in the JAX package's key order.  A step's draws are
+    made before it, so with `remat` (under autograd) each step after the
+    first runs under torch.utils.checkpoint and its recompute sees the same
+    noise and masks."""
+    if mode not in _SELECT_NOISE:
+        raise ValueError(f"unknown sampling mode: {mode}")
+    one_hot = mode in ONE_HOT_MODES
+    select = _make_selector(mode, temperature, gumbel_temp, multinomial_temp,
+                            prob_gumbel_softmax, prob_multinomial_soft)
+    rng = draws.source(rng)
+    drop = drop_prob if train else 0.0
     B = _batch_size(ctx)
     w, b = speaker.params.logit.w, speaker.params.logit.b
-    bos = w.shape[1]  # BOS id = vocab_size + 1 = nclass
+    nclass = w.shape[1]  # V+1
+    bos = nclass         # BOS id = vocab_size + 1
     device = w.device
-    use_fused = not decoding_constraint
+    use_fused = mode == "greedy" and not decoding_constraint
+    shape = (B, nclass)
+
+    def masks():
+        """One step's dropout keep masks (embedding, output)."""
+        if drop <= 0.0:
+            return None, None
+        return (layers.keep_mask((B, speaker.params.embed.shape[1]), drop,
+                                 rng, device),
+                layers.keep_mask((B, w.shape[0]), drop, rng, device))
 
     state = speaker.init_state(B)
     for pe in speaker.prefix_embeddings(ctx):
-        state, _ = speaker.step(ctx, state, pe)
+        state, _ = speaker.step(ctx, state, pe, drop, rng)
 
     def head(out, prev_it=None):
         if use_fused:
@@ -178,32 +291,69 @@ def sample(speaker, ctx, seq_length, mode="greedy", decoding_constraint=0):
             logits = logits + penalty
         return torch.log_softmax(logits, dim=-1)
 
-    def select(lp):
+    def emit(t, lp, unfinished, noise):
+        """Select, then the unfinished-mask bookkeeping of
+        AttModel.py:401-434."""
         if use_fused:
-            return lp
-        return lp.argmax(dim=-1).to(torch.int32), lp.max(dim=-1).values
-
-    xt = speaker.embed_token(
-        torch.full((B,), bos, dtype=torch.int32, device=device))
-    state, out = speaker.step(ctx, state, xt)
-    lp = head(out)
-
-    seqs, lps = [], []
-    unfinished = torch.ones((B,), dtype=torch.bool, device=device)
-    for t in range(1, seq_length + 1):
-        it, sample_lp = select(lp)
+            (it, sample_lp), y = lp, None
+        else:
+            it, sample_lp, y = select(draws.Replay(noise), lp)
         unfinished = (it > 0) if t == 1 else unfinished & (it > 0)
         it_masked = it * unfinished.to(it.dtype)
+        oh = None
+        if one_hot:
+            oh = torch.cat([y, y.new_zeros((B, 1))], dim=1)  # [B, V+2]
+            eos = torch.zeros_like(oh[0])
+            eos[0] = 1.0
+            oh = torch.where(unfinished[:, None], oh, eos)
+        return it, it_masked, sample_lp, y, unfinished, oh
+
+    def body(t, state, lp, unfinished, noise, em, om):
+        it, it_masked, sample_lp, y, unfinished, oh = emit(
+            t, lp, unfinished, noise)
+        if mode in SOFT_INPUT_MODES:
+            xt = speaker.embed_soft(torch.cat([y, y.new_zeros((B, 1))], 1),
+                                    drop, mask=em)
+        else:
+            xt = speaker.embed_token(it, drop, mask=em)
+        state, out = speaker.step(ctx, state, xt, drop, mask=om)
+        lp = head(out, it_masked if decoding_constraint else None)
+        return state, lp, unfinished, it_masked, sample_lp, oh
+
+    # t = 0: the BOS step
+    em, om = masks()
+    xt = speaker.embed_token(
+        torch.full((B,), bos, dtype=torch.int32, device=device), drop,
+        mask=em)
+    state, out = speaker.step(ctx, state, xt, drop, mask=om)
+    lp = head(out)
+
+    use_ckpt = remat and torch.is_grad_enabled()
+    unfinished = None
+    seqs, lps, ohs = [], [], []
+    for t in range(1, seq_length):
+        noise = _select_noise(rng, mode, shape, device)
+        em, om = masks()
+        if use_ckpt:
+            state, lp, unfinished, it_masked, sample_lp, oh = checkpoint(
+                body, t, state, lp, unfinished, noise, em, om,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            state, lp, unfinished, it_masked, sample_lp, oh = body(
+                t, state, lp, unfinished, noise, em, om)
         seqs.append(it_masked)
         lps.append(sample_lp)
-        if t == seq_length:
-            break  # the last selection uses no further core step
-        # embed the raw (unmasked) token, as the reference does
-        xt = speaker.embed_token(it)
-        state, out = speaker.step(ctx, state, xt)
-        lp = head(out, it_masked if decoding_constraint else None)
+        ohs.append(oh)
+    # the last selection uses no further core step
+    noise = _select_noise(rng, mode, shape, device)
+    _, it_masked, sample_lp, _, _, oh = emit(seq_length, lp, unfinished,
+                                             noise)
+    seqs.append(it_masked)
+    lps.append(sample_lp)
+    ohs.append(oh)
     seq = torch.stack(seqs, dim=1).to(torch.int32)
-    return SampleOutput(seq, torch.stack(lps, dim=1))
+    soft = torch.stack(ohs, dim=1) if one_hot else None
+    return SampleOutput(seq, torch.stack(lps, dim=1), soft)
 
 
 def _expand_for_beams(ctx, m):

@@ -1,1 +1,2 @@
-"""Reward engines: the host CIDEr-D scorer."""
+"""Reward engines: the host CIDEr-D scorer and the self-critical reward
+over it."""

@@ -78,9 +78,11 @@ class CaptioningService:
     def from_run_dir(cls, run_dir, run_id: str = "", model_name: str = None,
                      **kw):
         """Load opt + vocab from infos_<id>.pkl and params from the best (or
-        given) model artifact, restored into a template of the run's opt
-        through the lenient merge (JAX serving.py:84-98): a leaf the
-        checkpoint lacks is reported and keeps the template's value."""
+        given) model artifact, restored into the run's speaker template
+        (`joint.speaker_template`) through the lenient merge (JAX
+        serving.py:84-98): a leaf the checkpoint lacks is reported and keeps
+        the template's value.  The speaker of a joint run loads the same
+        way; the file's listener leaves are reported, not loaded."""
         infos = config_mod.load_infos(
             os.path.join(run_dir, f"infos_{run_id}.pkl"))
         # the infos opt carries the training machine's checkpoint_path; the
@@ -96,7 +98,7 @@ class CaptioningService:
             else:
                 raise FileNotFoundError(f"no model artifact in {run_dir}")
         params = ckpt_mod.load_params_into(
-            joint.init_params(0, opt), os.path.join(run_dir, model_name))
+            joint.speaker_template(opt), os.path.join(run_dir, model_name))
         return cls(opt, params, infos["vocab"], **kw)
 
     # -- decode ---------------------------------------------------------------

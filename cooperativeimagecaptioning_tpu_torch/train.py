@@ -5,8 +5,15 @@
 
 Takes the JAX package's flags (config.parse_opt, the reference's CLI) plus
 `--device` (default cuda), and runs `training.loop.train`.  The port trains
-phase 2 (the speaker's MLE stage) so far; other configurations raise
+the speaker without a listener: phase 2 (MLE) and self-critical CIDEr-D
+fine-tuning with the host reward (`--cider_optimization 1
+--caption_loss_weight 0 --phase 3`), resumed with `--start_from DIR` (or
+seeded with `--speaker_stage_2_model_path`); other configurations raise
 NotImplementedError naming what is missing.
+
+    python -m cooperativeimagecaptioning_tpu_torch.train --device cuda \\
+        --phase 3 --cider_optimization 1 --caption_loss_weight 0 \\
+        --start_from runs/att_phase2 --checkpoint_path runs/att_scst ...
 """
 
 from __future__ import annotations

@@ -1,29 +1,43 @@
-"""Joint model: the speaker side of the joint param tree and the phase-2
-MLE loss (counterpart of the JAX package's training/joint.py; ref
+"""Joint model: the speaker side of the joint param tree and its losses
+(counterpart of the JAX package's training/joint.py; ref
 models/AlternatingJointModel.py).
 
 The joint tree is {'speaker': ..., 'listener': ...}.  With share_embed the
 word embedding is stored only under the listener and injected into the
-speaker's view (ref AlternatingJointModel.py:83-88).  Ported: `Hyper`,
-`speaker_view`, a speaker-only `init_params`, and `loss_fn` for the
-caption (MLE) loss of the 'optimizer' and 'speaker' turns, with
-`value_and_grad` in place of the JAX `make_raw_fns`.  The listener turn,
-the VSE contrastive loss, DISC and CIDEr raise NotImplementedError until
-their slices (ROADMAP.md queue 1).
+speaker's view (ref AlternatingJointModel.py:83-88).
+
+Ported: `Hyper`, `speaker_view`, a speaker-only `init_params`,
+`speaker_template` (the speaker of any run, a joint one included), the
+named random streams, and for the 'optimizer' and 'speaker' turns the
+caption (MLE) loss and the self-critical CIDEr-D loss with the host reward,
+in two stages as in the JAX package:
+  stage A `sample_for_reward`: sampled and greedy captions, no gradient;
+  host: the CIDEr-D reward (rewards/self_critical.py);
+  stage B `loss_fn`: re-draws the same sampled trajectory (the same
+  streams, reseeded) under autograd and takes the reward as a constant.
+`value_and_grad` and `sampler` stand in for the JAX `make_raw_fns`.  The
+listener, DISC, alternating turns and the device reward tiers raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from cooperativeimagecaptioning_tpu_torch import models as model_zoo
-from cooperativeimagecaptioning_tpu_torch.ops import decoding, losses
-from cooperativeimagecaptioning_tpu_torch.utils.tree import from_leaves, leaves
+from cooperativeimagecaptioning_tpu_torch.ops import decoding, draws, losses
+from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
+from cooperativeimagecaptioning_tpu_torch.utils.tree import (
+    detached, from_leaves, leaves)
 
 _LISTENER = "ROADMAP.md queue 1: the listener and retrieval"
 _JOINT = "ROADMAP.md queue 1: joint training"
+_DEVICE_REWARDS = "ROADMAP.md queue 1: device rewards"
+# the named streams of one iteration (JAX joint.py:123-127)
+STREAMS = ("xe", "disc", "cider", "greedy", "listener")
 
 
 class Hyper(NamedTuple):
@@ -66,8 +80,21 @@ def init_params(seed: int, opt, device="cpu"):
         raise NotImplementedError(
             f"vse_model {opt.vse_model!r}: the listener is not ported yet "
             f"({_LISTENER})")
+    return speaker_template(opt, device, seed)
+
+
+def speaker_template(opt, device="cpu", seed: int = 0):
+    """The tree a run's speaker loads into, built from the speaker class
+    alone: {'speaker': ...}; under share_embed with a listener the table
+    sits at listener/txt_enc/embed instead (JAX joint.py:83-88), where
+    `speaker_view` takes it from.  The file's other listener leaves are
+    reported by the lenient merge, not loaded."""
     speaker_cls = model_zoo.setup(opt, opt.caption_model, "caption_model")
-    return {"speaker": speaker_cls.init_params(seed, opt, device)}
+    params = {"speaker": speaker_cls.init_params(seed, opt, device)}
+    if has_listener(opt) and getattr(opt, "share_embed", 0):
+        params["listener"] = {
+            "txt_enc": {"embed": params["speaker"].pop("embed")}}
+    return params
 
 
 def speaker_view(params, opt):
@@ -85,6 +112,50 @@ def speaker_view(params, opt):
     return sp
 
 
+def streams(seed: int, device):
+    """One draw source per named stream, each on its own torch.Generator on
+    `device`, all from one seed: the port's counterpart of splitting one
+    PRNG key.  Stage B calls it again with the same seed to re-draw stage
+    A's trajectory."""
+    out = {}
+    for i, name in enumerate(STREAMS):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed * len(STREAMS) + i)
+        out[name] = draws.Draws(gen)
+    return out
+
+
+def _streams(rng):
+    """Named streams from `rng`: a dict of draw sources as it is, else one
+    source (a torch.Generator, a draw source or None) for every name."""
+    if isinstance(rng, dict):
+        return rng
+    src = draws.source(rng)
+    return {name: src for name in STREAMS}
+
+
+def _sample_kwargs(opt, hp, train):
+    """JAX joint.py:130-139."""
+    return dict(
+        gumbel_temp=hp.gumbel_temp,
+        multinomial_temp=hp.multinomial_temp,
+        prob_gumbel_softmax=hp.prob_gumbel_softmax,
+        prob_multinomial_soft=hp.prob_multinomial_soft,
+        decoding_constraint=opt.decoding_constraint,
+        train=train, drop_prob=opt.drop_prob_lm if train else 0.0,
+        remat=bool(getattr(opt, "remat", 0)) and train)
+
+
+def _cider_active(opt, turn) -> bool:
+    return opt.cider_optimization > 0 and turn != "listener"
+
+
+def needs_reward(opt, turn) -> bool:
+    """Whether the host reward stage runs (JAX joint.py:384-388; the
+    device tiers are not ported, check_ported)."""
+    return _cider_active(opt, turn)
+
+
 def check_ported(opt, turn):
     """Raise NotImplementedError, naming its ROADMAP item, for a loss branch
     that this port does not have yet."""
@@ -94,63 +165,131 @@ def check_ported(opt, turn):
     if has_listener(opt):
         raise NotImplementedError(
             f"vse_model {opt.vse_model!r}: the VSE contrastive loss and DISC "
-            f"need the listener, which is not ported yet ({_LISTENER})")
-    if opt.cider_optimization > 0:
+            f"need the listener, which is not ported yet ({_LISTENER}; "
+            f"{_JOINT})")
+    if getattr(opt, "is_alternating", 0):
         raise NotImplementedError(
-            f"cider_optimization: the CIDEr-D self-critical loss is not "
-            f"ported yet ({_JOINT}; ROADMAP.md queue 1: device rewards)")
+            f"alternating turns are not ported yet ({_JOINT})")
+    if _cider_active(opt, turn) and (getattr(opt, "on_device_cider", 0) or
+                                     getattr(opt, "soft_cider", 0)):
+        raise NotImplementedError(
+            f"on_device_cider / soft_cider: the device CIDEr-D tiers are not "
+            f"ported yet ({_DEVICE_REWARDS}); the host reward is")
     if turn not in ("optimizer", "speaker"):
         raise ValueError(f"unknown turn {turn!r}")
 
 
-def loss_fn(modules, params, opt, batch, gen, hp, turn, reward=None,
-            train=True):
-    """Total loss and aux dict (JAX joint.py:181-235) for the turns
-    'optimizer' and 'speaker' with the caption loss only.
+def _speaker(modules, params, opt, batch, rng, train, drop):
+    """(speaker module, the iteration's streams, the encoded context)."""
+    spk = modules["speaker"](speaker_view(params, opt))
+    r = _streams(rng)
+    ctx = spk.encode_features(batch.get("fc_feats"), batch.get("att_feats"),
+                              batch.get("att_masks"), train, drop, r["xe"])
+    return spk, r, ctx
+
+
+def sample_for_reward(modules, params, opt, batch, rng, hp, turn,
+                      train=True):
+    """Stage A (JAX joint.py:159-178): the (sampled, greedy) ids the CIDEr
+    reward scores, without autograd, on a detached view of the params.  It
+    draws from the streams exactly as loss_fn's CIDEr branch does, so that
+    stage B, given the same streams, samples the same ids."""
+    check_ported(opt, turn)
+    kw = _sample_kwargs(opt, hp, train)
+    with torch.no_grad():
+        spk, r, ctx = _speaker(modules, detached(params), opt, batch, rng,
+                               train, kw["drop_prob"])
+        out = decoding.sample(spk, ctx, opt.seq_length, r["cider"],
+                              mode="sample", temperature=1.0, **kw)
+        greedy = decoding.sample(spk, ctx, opt.seq_length, r["greedy"],
+                                 mode="greedy", **kw)
+    return out.seq, greedy.seq
+
+
+def host_reward(opt, gts, gen, greedy):
+    """The host stage between stage A and stage B (JAX loop.py:444-458):
+    the ids to the host and their CIDEr-D.  Returns (reward [B] float32
+    numpy -- cider(sample) - cider(greedy), or the sample's own score under
+    use_gen_cider_scores --, the mean of cider(sample) - cider(greedy),
+    cider(greedy) averaged)."""
+    gen, greedy = gen.cpu().numpy(), greedy.cpu().numpy()
+    if opt.use_gen_cider_scores:
+        reward, scores, cider_greedy = \
+            self_critical.get_self_critical_reward(gts, gen, greedy,
+                                                   return_gen_scores=True)
+    else:
+        scores, cider_greedy = self_critical.get_self_critical_reward(
+            gts, gen, greedy)
+        reward = scores
+    return (np.asarray(reward, np.float32), float(np.mean(scores)),
+            float(cider_greedy))
+
+
+def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
+            train=True, sampled=None):
+    """Stage B: total loss and aux dict (JAX joint.py:181-345) for the turns
+    'optimizer' and 'speaker': the caption loss and the self-critical
+    CIDEr-D loss with the host reward.
 
     modules: {'speaker': the speaker class}; params: the joint tree;
     batch: tensors on the device ('att_feats', 'att_masks', 'labels' [B,
-    L+2], 'masks' [B, L+2]); gen: the torch.Generator the dropout and
-    scheduled-sampling draws come from.  Returns (loss, {'loss_cap',
-    'cap_xe'})."""
-    del reward  # the CIDEr branch is not ported (check_ported)
+    L+2], 'masks' [B, L+2]); rng: the named streams (`streams`), or one
+    torch.Generator / draw source for all of them; reward: [B], the CIDEr
+    coefficient from the host (cider(sample) - cider(greedy), or the raw
+    scores under use_gen_cider_scores).  `sampled`, a dict when given,
+    receives the CIDEr branch's sampled ids under 'seq'.  Returns (loss,
+    aux) with aux keys of the JAX package's."""
     check_ported(opt, turn)
-    spk = modules["speaker"](speaker_view(params, opt))
     drop = opt.drop_prob_lm if train else 0.0
+    spk, r, ctx = _speaker(modules, params, opt, batch, rng, train, drop)
     labels = batch["labels"]
     masks = batch["masks"]
-    ctx = spk.encode_features(batch.get("fc_feats"), batch.get("att_feats"),
-                              batch.get("att_masks"), train, drop, gen)
     loss = torch.zeros((), dtype=torch.float32, device=labels.device)
     aux = {}
     if opt.caption_loss_weight > 0:
         if getattr(opt, "remat", 0):
             # fused CE + per-step recompute: no [B, T, V+1] residual
             loss_cap = decoding.teacher_forced_loss(
-                spk, ctx, labels[:, :-1], labels[:, 1:], masks[:, 1:], gen,
-                train, drop, hp.ss_prob)
+                spk, ctx, labels[:, :-1], labels[:, 1:], masks[:, 1:],
+                r["xe"], train, drop, hp.ss_prob)
         else:
             lps = decoding.teacher_forced_logprobs(
-                spk, ctx, labels[:, :-1], gen, train, drop, hp.ss_prob)
+                spk, ctx, labels[:, :-1], r["xe"], train, drop, hp.ss_prob)
             loss_cap = losses.language_model_criterion(
                 lps, labels[:, 1:], masks[:, 1:])
         loss = loss + hp.caption_loss_weight * loss_cap
         aux["loss_cap"] = loss_cap
         aux["cap_xe"] = loss_cap
+    if _cider_active(opt, turn):
+        # the self-critical CIDEr-D loss (ref AlternatingJointModel.py:
+        # 489-503): the sampled trajectory of stage A, the reward constant
+        out = decoding.sample(spk, ctx, opt.seq_length, r["cider"],
+                              mode="sample", temperature=1.0,
+                              **_sample_kwargs(opt, hp, train))
+        if sampled is not None:
+            sampled["seq"] = out.seq
+        if reward is None:
+            reward = torch.zeros(out.seq.shape[0], dtype=torch.float32,
+                                 device=out.seq.device)
+        loss_cider = losses.self_critical_loss(
+            out.logprobs, -reward.detach(), losses.masks_from_seq(out.seq))
+        loss = loss + hp.cider_weight * loss_cider
+        aux["loss_cider"] = loss_cider
     return loss, aux
 
 
 def value_and_grad(opt, turn):
-    """fn(params, batch, gen, hp) -> ((loss, aux), grads), standing in for
-    the JAX `make_raw_fns(opt, turn)[1]` (joint.py:350-365).  grads has the
-    structure of params, one gradient per leaf that requires grad (zeros
-    where the loss does not reach a leaf, as JAX gives); aux values are
-    detached."""
+    """fn(params, batch, rng, hp, reward=None, sampled=None) -> ((loss,
+    aux), grads), standing in for the JAX `make_raw_fns(opt, turn)[1]`
+    (joint.py:350-365).  grads has the structure of params, one gradient
+    per leaf that requires grad (zeros where the loss does not reach a
+    leaf, as JAX gives); aux values are detached."""
     modules = {"speaker": model_zoo.setup(opt, opt.caption_model,
                                           "caption_model")}
 
-    def fn(params, batch, gen, hp):
-        loss, aux = loss_fn(modules, params, opt, batch, gen, hp, turn)
+    def fn(params, batch, rng, hp, reward=None, sampled=None):
+        loss, aux = loss_fn(modules, params, opt, batch, rng, hp, turn,
+                            reward, sampled=sampled)
         named = [(k, x) for k, x in leaves(params) if x.requires_grad]
         got = torch.autograd.grad(loss, [x for _, x in named],
                                   allow_unused=True)
@@ -158,5 +297,17 @@ def value_and_grad(opt, turn):
                             for (path, x), g in zip(named, got))
         return ((loss.detach(), {k: v.detach() for k, v in aux.items()}),
                 grads)
+
+    return fn
+
+
+def sampler(opt, turn):
+    """fn(params, batch, rng, hp) -> (sampled ids, greedy ids), stage A,
+    standing in for the JAX `make_raw_fns(opt, turn)[0]`."""
+    modules = {"speaker": model_zoo.setup(opt, opt.caption_model,
+                                          "caption_model")}
+
+    def fn(params, batch, rng, hp):
+        return sample_for_reward(modules, params, opt, batch, rng, hp, turn)
 
     return fn

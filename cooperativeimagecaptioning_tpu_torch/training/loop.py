@@ -1,24 +1,28 @@
-"""Training driver, the phase-2 subset (counterpart of the JAX package's
-training/loop.py; ref train.py).
+"""The training loop (counterpart of the JAX package's training/loop.py;
+ref train.py).
 
-One iteration = schedules -> batch (host numpy -> device tensors) -> loss
-and gradients (`joint.value_and_grad`) -> guarded per-agent Adam -> the BN
-running statistics -> loss history.  Ported: phase-2 MLE training of the
-speaker (`phase=2`, `vse_model="None"`, non-alternating), the speaker's own
-stage (run_att.sh).  The device is explicit (`device=`), and every random
-draw of training (dropout, scheduled sampling) comes from one
-torch.Generator on that device, seeded from `opt.seed`.
+One iteration = schedules -> batch (host numpy -> device tensors) ->
+[stage A sampling + host CIDEr-D reward] -> loss and gradients
+(`joint.value_and_grad`) -> guarded per-agent Adam -> the BN running
+statistics -> loss history; `checkpoint_operations` evaluates and writes
+the run dir (model, optimizer, infos and histories; JAX loop.py:721-815),
+from which `start_from` resumes.  Ported: the speaker's non-alternating
+stages (`vse_model="None"`): phase-2 MLE (run_att.sh) and self-critical
+CIDEr-D fine-tuning with the host reward (`cider_optimization`, phase 3 of
+run_joint.py at -D 0 with is_alternating=0), resumed or seeded from a
+phase-2 run.  The device is explicit (`device=`); every random draw of an
+iteration comes from the named streams of `joint.streams`, seeded from
+`opt.seed` and the iteration, so stage B re-draws stage A's trajectory.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
 queue-1 item: the device mesh, fused multi-step chunks (`fused_steps > 1`),
-the device feature cache, alternating turns and the rewards, resuming
-(`start_from`), and `checkpoint_operations` (checkpoints and histories on
-disk; evaluation itself is ported, evaluation/eval_split.py).  A run in this slice therefore keeps
-`save_checkpoint_every` above its iteration count.
+the device feature cache, alternating turns, the listener and its rewards,
+the device reward tiers, the grad-isolation audit and the profiler window.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -27,12 +31,15 @@ import torch
 from cooperativeimagecaptioning_tpu_torch import config as config_mod
 from cooperativeimagecaptioning_tpu_torch.data import DataLoader
 from cooperativeimagecaptioning_tpu_torch.models import att_model
+from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
+from cooperativeimagecaptioning_tpu_torch.training import checkpoint as ck
 from cooperativeimagecaptioning_tpu_torch.training import joint, schedules
 from cooperativeimagecaptioning_tpu_torch.training.optim import (
     OptimizerManager, effective_turns)
 from cooperativeimagecaptioning_tpu_torch.utils.tree import trainable
 
 _JOINT = "ROADMAP.md queue 1: joint training"
+_LISTENER = "ROADMAP.md queue 1: the listener and retrieval"
 
 
 def unported(opt):
@@ -46,17 +53,13 @@ def unported(opt):
         return f"device_feature_cache ({_JOINT})"
     if opt.is_alternating:
         return f"alternating turns ({_JOINT})"
-    if opt.cider_optimization > 0 or (opt.retrieval_reward_weight > 0 and
-                                      joint.has_listener(opt)):
-        return f"rewards (CIDEr-D, DISC; {_JOINT})"
-    if joint.has_listener(opt):
-        return (f"vse_model {opt.vse_model!r} (ROADMAP.md queue 1: the "
-                f"listener and retrieval)")
-    if getattr(opt, "start_from", None) or \
-            getattr(opt, "speaker_stage_2_model_path", ""):
-        return f"resuming or seeding from a checkpoint ({_JOINT})"
-    if getattr(opt, "start_with_checkpoint", 0):
-        return f"checkpoint_operations ({_JOINT})"
+    if joint.has_listener(opt) or getattr(opt, "initialize_retrieval", ""):
+        return (f"vse_model {opt.vse_model!r} / initialize_retrieval: the "
+                f"listener, its rewards and DISC ({_LISTENER}; {_JOINT})")
+    if opt.cider_optimization > 0 and (getattr(opt, "on_device_cider", 0)
+                                       or getattr(opt, "soft_cider", 0)):
+        return ("on_device_cider / soft_cider (ROADMAP.md queue 1: device "
+                "rewards)")
     if getattr(opt, "audit_grad_isolation", 0) or \
             getattr(opt, "profile_dir", ""):
         return f"audit_grad_isolation / profile_dir ({_JOINT})"
@@ -64,7 +67,8 @@ def unported(opt):
 
 
 class Trainer:
-    """Phase-2 MLE training of the speaker on one device."""
+    """Non-alternating training of the speaker on one device: phase-2 MLE
+    and self-critical CIDEr-D with the host reward."""
 
     def __init__(self, opt, dataset=None, rng_seed=None, verbose=True,
                  device="cuda"):
@@ -84,23 +88,61 @@ class Trainer:
         opt.vocab_size = self.loader.vocab_size
         opt.seq_length = self.loader.seq_length
 
+        self.ckpt = ck.CheckpointManager(opt)
+        infos = self.ckpt.load_infos()
+        histories = self.ckpt.load_histories()
+
+        # the non-alternating load order (JAX loop.py:74-82): start_from's
+        # model.pth first; without it the stage-2 speaker seeds the run
         seed = rng_seed if rng_seed is not None else getattr(opt, "seed", 123)
         params = joint.init_params(seed, opt, self.device)
+        params, resumed = self.ckpt.try_load_model(params)
+        stage2 = getattr(opt, "speaker_stage_2_model_path", "") or ""
+        if not resumed and stage2 and os.path.isfile(stage2):
+            params = ck.load_params_into(params, stage2)
         self.params = {agent: trainable(tree)
                        for agent, tree in params.items()}
+
         self.optim = OptimizerManager(opt, self.params)
+        if resumed:
+            # the Adam moments and counts beside the params (ref
+            # optimizer.py:149-188)
+            self.ckpt.load_optimizers(self.optim)
+        elif not getattr(opt, "share_embed", 0):
+            # cross-stage seeding of the speaker's Adam state (ref
+            # optimizer.py:49-96; skipped under share_embed)
+            p2 = getattr(opt, "speaker_stage_2_optimizer_path", "") or ""
+            if p2:
+                self.ckpt.load_agent_optimizer(self.optim, "speaker", p2)
         self.turns = effective_turns(opt)
 
-        self.iteration = 0
-        self.epoch = 0
-        self.epoch_start = 0
-        self.gumbel_temp = opt.gumbel_temp
-        self.loss_history = {}
-        self.lr_history = {}
-        self.ss_prob_history = {}
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(seed + 1)
+        # resume counters (ref train.py:360-375)
+        self.iteration = infos.get("iter", 0)
+        self.epoch = infos.get("epoch", 0)
+        self.epoch_start = self.epoch
+        self.loader.iterators = infos.get("iterators", self.loader.iterators)
+        self.loader.split_ix = infos.get("split_ix", self.loader.split_ix)
+        self.gumbel_temp = infos.get("gumbel_temp", opt.gumbel_temp)
+        self.best_val_score = infos.get("best_val_score", None) \
+            if opt.load_best_score else None
+        self.best_val_score_vse = infos.get("best_val_score_vse", None) \
+            if opt.load_best_score else None
+        self.infos = infos
+        self.histories = histories
+        self.val_result_history = histories.get("val_result_history", {})
+        self.loss_history = histories.get("loss_history", {})
+        self.lr_history = histories.get("lr_history", {})
+        self.ss_prob_history = histories.get("ss_prob_history", {})
+
+        # an iteration's streams are seeded from this and its number
+        self._seed = seed + 1
         self._grad_fn = joint.value_and_grad(opt, "optimizer")
+        self._sample_fn = joint.sampler(opt, "optimizer")
+        self._evaluator = None
+        # stage A's and stage B's sampled ids of the last reward iteration
+        self.last_reward_seqs = None
+        if opt.cider_optimization > 0:
+            self_critical.init_scorer(opt.cached_tokens)
         self._update_schedules()
 
     # -- schedules -----------------------------------------------------------
@@ -140,6 +182,23 @@ class Trainer:
                 batch["att_masks"] = put(data["att_masks"], f32)
         return batch
 
+    def iteration_streams(self):
+        """The named streams of the current iteration (joint.streams):
+        stage A and stage B each take a fresh set from the same seed."""
+        return joint.streams(self._seed * 1_000_003 + self.iteration,
+                             self.device)
+
+    def reward(self, batch, data, hp):
+        """Stage A and the host reward: (reward [B] on the device, the
+        loss-dict entries avg_reward and cider_greedy, stage A's sampled
+        ids) -- JAX loop.py:440-460."""
+        gen, greedy = self._sample_fn(self.params, batch,
+                                      self.iteration_streams(), hp)
+        reward, avg, cider_greedy = joint.host_reward(self.opt, data["gts"],
+                                                      gen, greedy)
+        return (torch.from_numpy(reward).to(self.device),
+                {"avg_reward": avg, "cider_greedy": cider_greedy}, gen)
+
     # -- one iteration ---------------------------------------------------------
     def train_iteration(self, data=None):
         opt = self.opt
@@ -150,8 +209,16 @@ class Trainer:
         if data is None:
             data = self.loader.get_batch("train")
         batch = self._prepare_batch(data)
-        (loss, aux), grads = self._grad_fn(self.params, batch, self.gen,
-                                           self._hyper())
+        hp = self._hyper()
+        reward, aux_host, seq_a = None, {}, None
+        if joint.needs_reward(opt, turn):
+            reward, aux_host, seq_a = self.reward(batch, data, hp)
+        sampled = {}
+        (loss, aux), grads = self._grad_fn(self.params, batch,
+                                           self.iteration_streams(), hp,
+                                           reward, sampled)
+        if seq_a is not None:
+            self.last_reward_seqs = (seq_a, sampled["seq"])
         # the non-finite guard runs on the device inside the update
         self.optim.step(self.params, grads, turn)
 
@@ -168,6 +235,7 @@ class Trainer:
                         sp["att_bn"][k].copy_(new["att_bn"][k])
 
         loss_dict = dict(aux)  # device scalars; converted lazily by loggers
+        loss_dict.update(aux_host)
         loss_dict["loss"] = loss
         self.iteration += 1
         if self.iteration % opt.losses_log_every == 0:
@@ -179,13 +247,88 @@ class Trainer:
             self._update_schedules()
         return loss_dict, turn, data
 
+    # -- checkpoint ops (ref train.py:438-470) --------------------------------
+    def evaluator(self):
+        if self._evaluator is None:
+            from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split \
+                import Evaluator
+            self._evaluator = Evaluator(self.opt, device=self.device)
+        return self._evaluator
+
     def checkpoint_operations(self):
-        raise NotImplementedError(
-            f"checkpoint_operations (checkpoints and histories on disk) is "
-            f"not ported yet ({_JOINT}: the rest of training/checkpoint.py); "
-            f"evaluation is ported (evaluation/eval_split.Evaluator scores "
-            f"this trainer's params): keep save_checkpoint_every above the "
-            f"iterations of a run")
+        """Evaluate on val, then write the run dir: model (latest and this
+        iteration's), optimizer, infos, histories, and the -best files when
+        the score improved (JAX loop.py:721-790)."""
+        opt = self.opt
+        eval_kwargs = {"split": "val", "dataset": opt.input_json}
+        eval_kwargs.update(vars(opt))
+        val_loss, predictions, lang_stats = self.evaluator().eval_split(
+            self.params, self.loader, eval_kwargs,
+            use_gen_sent=opt.rank_on_gen_captions)
+        self.val_result_history[self.iteration] = {
+            "loss": val_loss, "lang_stats": lang_stats,
+            "predictions": predictions}
+        skipped = self.optim.skipped_steps()
+        if skipped:
+            print(f"warning: non-finite guard skipped {skipped} update steps")
+        self.val_result_history[self.iteration]["skipped_steps"] = skipped
+
+        current_score, current_score_vse = self._current_scores(
+            lang_stats, val_loss)
+        best_flag = self.best_val_score is None or \
+            current_score > self.best_val_score
+        if best_flag:
+            self.best_val_score = current_score
+        best_flag_vse = self.best_val_score_vse is None or \
+            current_score_vse > self.best_val_score_vse
+        if best_flag_vse:
+            self.best_val_score_vse = current_score_vse
+
+        self.ckpt.save_model(self.params, self.iteration)
+        self.ckpt.save_optimizers(self.optim)
+        infos = self.infos
+        res_it, res_six = self.loader.resume_state()
+        infos.update({"iter": self.iteration, "epoch": self.epoch,
+                      "iterators": res_it, "split_ix": res_six,
+                      "best_val_score": self.best_val_score,
+                      "best_val_score_vse": self.best_val_score_vse,
+                      "opt": self.opt, "vocab": self.loader.get_vocab(),
+                      "gumbel_temp": self.gumbel_temp})
+        # device scalars accumulated by train_iteration -> host floats once
+        self.loss_history = {k: float(v) for k, v in self.loss_history.items()}
+        histories = self.histories
+        histories.update({"val_result_history": self.val_result_history,
+                          "loss_history": self.loss_history,
+                          "lr_history": self.lr_history,
+                          "ss_prob_history": self.ss_prob_history})
+        self.ckpt.save_infos(infos, self.iteration)
+        self.ckpt.save_histories(histories)
+        if best_flag:
+            self.ckpt.save_best(self.params)
+            self.ckpt.save_best_infos(infos)
+        if best_flag_vse:
+            self.ckpt.save_best(self.params, vse=True)
+            self.ckpt.save_best_infos(infos, vse=True)
+        return val_loss, lang_stats
+
+    def _current_scores(self, lang_stats, val_loss):
+        """ref train.py:262-282."""
+        opt = self.opt
+        if opt.language_eval == 1:
+            if opt.phase == 1:
+                current = lang_stats.get("val", {}).get("CIDEr", 0)
+            else:
+                current = lang_stats.get("CIDEr", 0)
+        else:
+            current = 0 if opt.phase == 1 else -val_loss.get("loss_cap", 0.0)
+        crit = opt.vse_eval_criterion
+        if crit in val_loss:
+            vse_score = val_loss[crit] * 100
+        elif isinstance(val_loss.get("val"), dict):
+            vse_score = val_loss["val"].get(crit, 0) * 100  # phase-1 nesting
+        else:
+            vse_score = 0
+        return current, vse_score
 
     def close(self):
         closer = getattr(self.loader, "close", None)
@@ -204,8 +347,10 @@ class Trainer:
                                for k, v in sorted(loss_dict.items()))
                 print(f"iter {self.iteration} (epoch {self.epoch}) [{turn}] "
                       f"{msg} time/batch = {dur:.2f}s")
-            if self.iteration % opt.save_checkpoint_every == 0:
+            if self.iteration % opt.save_checkpoint_every == 0 or \
+                    opt.start_with_checkpoint:
                 self.checkpoint_operations()
+                opt.start_with_checkpoint = 0
             if max_iterations is not None and \
                     self.iteration >= max_iterations:
                 break

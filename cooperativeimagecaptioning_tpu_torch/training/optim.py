@@ -96,6 +96,9 @@ class OptimizerManager:
         self.opt = opt
         self.states = {agent: adam_init(tree)
                        for agent, tree in params.items()}
+        # each agent's leaf paths, in the order of its moment lists
+        self.paths = {agent: [k for k, _ in leaves(tree)]
+                      for agent, tree in params.items()}
         self.lr = float(opt.learning_rate)
         first = leaves(params)[0][1]
         self._skipped = torch.zeros((), dtype=torch.int32,
@@ -114,6 +117,28 @@ class OptimizerManager:
         self.last_step_ok = ok
         self._skipped += (~ok).to(torch.int32)
         return params
+
+    def state_dict(self):
+        """The live Adam states, {agent: {'count', 'mu': [...], 'nu':
+        [...]}} (JAX optim.py:95-99); the moment lists follow
+        `self.paths[agent]`."""
+        return self.states
+
+    def load_state_dict(self, states):
+        """Copy `states` (the layout of state_dict, tensors or numpy
+        arrays; any subset of the agents) into the live states, onto each
+        leaf's device and dtype."""
+        with torch.no_grad():
+            for agent, st in states.items():
+                cur = self.states[agent]
+                cur["count"].copy_(torch.as_tensor(st["count"]))
+                for key in ("mu", "nu"):
+                    if len(st[key]) != len(cur[key]):
+                        raise ValueError(
+                            f"{agent} {key}: {len(st[key])} leaves, the "
+                            f"params have {len(cur[key])}")
+                    for dst, src in zip(cur[key], st[key]):
+                        dst.copy_(torch.as_tensor(src))
 
     def skipped_steps(self) -> int:
         """Steps the non-finite guard rejected so far (a host sync: call at

@@ -41,6 +41,8 @@ def to_numpy(tree):
     """
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_numpy(v) for v in tree]
     if isinstance(tree, torch.Tensor):
         t = tree.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -81,6 +83,14 @@ def trainable(tree):
     if isinstance(tree, dict):
         return {k: trainable(v) for k, v in tree.items()}
     return nn.Parameter(tree.detach(), requires_grad=True)
+
+
+def detached(tree):
+    """The tree with every tensor leaf detached (a view that needs no
+    gradient, sharing storage)."""
+    if isinstance(tree, dict):
+        return {k: detached(v) for k, v in tree.items()}
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
 
 
 def leaves(tree, prefix=""):

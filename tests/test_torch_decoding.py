@@ -69,11 +69,13 @@ def test_constraint_forbids_immediate_repeats():
     assert not np.any((seq[:, 1:] == seq[:, :-1]) & live)
 
 
-def test_other_sampling_modes_are_not_ported_yet():
+def test_unknown_sampling_mode_raises():
+    """All seven modes of the JAX package are ported
+    (tests/test_torch_sampling.py); any other name is refused, as there."""
     opt = tiny_opt()
     _, tp, _, tctx = contexts(opt)
-    with pytest.raises(NotImplementedError):
-        tdec.sample(tp, tctx, opt.seq_length, mode="sample")
+    with pytest.raises(ValueError, match="unknown sampling mode"):
+        tdec.sample(tp, tctx, opt.seq_length, mode="beam")
 
 
 def test_beam_expansion_is_repeat_interleave():

@@ -7,7 +7,8 @@ The same captions per image id; `loss_cap` rtol 1e-5; every language metric
 within 1e-6 (both sides score with their pure-Python tokenizer and METEOR:
 the JAX package's C++ tier is switched off for the comparison).  The
 branches the port does not have yet raise NotImplementedError naming their
-ROADMAP item."""
+ROADMAP item.  The sampling modes and the CIDEr-D term of the eval loss
+are held to the JAX package given its noise (its fixed key 123)."""
 
 import importlib.util
 import os
@@ -23,15 +24,21 @@ from cooperativeimagecaptioning_tpu import config as jconfig  # noqa: E402
 from cooperativeimagecaptioning_tpu import data as jdata  # noqa: E402
 from cooperativeimagecaptioning_tpu.evaluation import eval_split as jeval  # noqa: E402
 from cooperativeimagecaptioning_tpu.native import bindings  # noqa: E402
+from cooperativeimagecaptioning_tpu.rewards import self_critical as jsc  # noqa: E402
+from cooperativeimagecaptioning_tpu.training import joint as jjoint  # noqa: E402
 from cooperativeimagecaptioning_tpu.training import checkpoint as jckpt  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch import config as tconfig  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch import data as tdata  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch import eval as teval_entry  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.evaluation import eval_split as teval  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.evaluation import language_eval as tlang  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch.ops import draws  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch.rewards import self_critical as tsc  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch.training import joint as tjoint  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.training import checkpoint as tckpt  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.utils.tree import to_torch  # noqa: E402
 from test_torch_att_model import jax_params  # noqa: E402
+from test_torch_sampling import jax_sample_noise  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 6
@@ -116,6 +123,65 @@ def test_eval_split_matches_jax(layout, beam):
     assert os.path.isfile(os.path.join("eval_results", "evt_val.json"))
 
 
+@pytest.mark.parametrize("sample_max,temperature", [(0, 1.0), (0, 0.7),
+                                                    (2, 1.0)])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_eval_sampling_modes_match_jax(layout, sample_max, temperature):
+    """sample_max 0 (multinomial at `temperature`) and 2 (Gumbel-noise
+    max): the port's decode fed the noise the JAX evaluator draws from its
+    fixed key 123 on every batch, through each layout's attention."""
+    (jopt, jloader, jparams), (topt, tloader, tparams) = build(
+        language_eval=0, rank_eval=0, **LAYOUTS[layout])
+    ek = {"split": "val", "num_images": -1, "sample_max": sample_max,
+          "temperature": temperature}
+    want = jeval.Evaluator(jopt).eval_split(jparams, jloader, ek)
+    mode = "sample" if sample_max == 0 else "gumbel_noise_max"
+    noise = jax_sample_noise(jax.random.PRNGKey(teval.EVAL_SEED), mode,
+                             topt.batch_size, topt.vocab_size + 1,
+                             topt.seq_length)
+    ev = teval.Evaluator(topt, device="cpu")
+    ev.decode_draws = lambda: draws.Replay(noise)
+    got = ev.eval_split(tparams, tloader, ek)
+    assert_same_result(want, got)
+    assert len({p["caption"] for p in got[1]}) > 1
+    # and by default the draws come from a generator seeded with 123 on
+    # each batch: the same again, run after run
+    a = teval.Evaluator(topt, device="cpu").eval_split(tparams, tloader, ek)
+    b = teval.Evaluator(topt, device="cpu").eval_split(tparams, tloader, ek)
+    assert a[1] == b[1]
+
+
+def test_eval_cider_loss_matches_jax(monkeypatch):
+    """cider_optimization in the eval loss: stage A and the host reward,
+    then the CIDEr term on the same trajectory; the port's streams replay
+    what the JAX evaluator draws from key 123 (joint.py:123-127)."""
+    (jopt, jloader, jparams), (topt, tloader, tparams) = build(
+        language_eval=0, rank_eval=0, cider_optimization=1)
+    for m in (jsc, tsc):
+        m.reset_scorer()
+        m.init_scorer("corpus")
+    ek = {"split": "val", "num_images": -1}
+    want = jeval.Evaluator(jopt).eval_split(jparams, jloader, ek)
+    B = tloader.batch_size * tloader.seq_per_img
+    r = jjoint._rngs(jax.random.PRNGKey(teval.EVAL_SEED))
+    noise = jax_sample_noise(r["cider"], "sample", B, topt.vocab_size + 1,
+                             topt.seq_length)
+
+    def replayed(seed, device):
+        assert seed == teval.EVAL_SEED
+        out = {name: draws.Replay([]) for name in tjoint.STREAMS}
+        out["cider"] = draws.Replay(noise)
+        return out
+
+    monkeypatch.setattr(tjoint, "streams", replayed)
+    got = teval.Evaluator(topt, device="cpu").eval_split(tparams, tloader,
+                                                         ek)
+    for m in (jsc, tsc):
+        m.reset_scorer()
+    assert "loss_cider" in got[0] and got[0]["loss_cider"] != 0.0
+    assert_same_result(want, got)
+
+
 @pytest.mark.parametrize("in_flight", [1, 2, 100])
 def test_in_flight_bound_changes_nothing(monkeypatch, in_flight):
     """Draining early (at most `MAX_IN_FLIGHT` undrained batches) gives the
@@ -194,8 +260,7 @@ def test_evalrank_without_a_listener_is_empty():
 
 
 @pytest.mark.parametrize("what,match", [
-    ("sample_max0", "sampling modes"), ("sample_max2", "sampling modes"),
-    ("reward", "joint training"), ("feat_cache", "joint training"),
+    ("feat_cache", "joint training"),
     ("mesh", "multi-device"), ("evalrank", "listener"),
     ("encode_data", "listener"), ("encode_fn", "listener"),
     ("gt_listener", "listener"), ("spice", "spice")])
@@ -203,13 +268,7 @@ def test_unported_branches_name_their_roadmap_item(tmp_path, what, match):
     _, (topt, tloader, tparams) = build(language_eval=0, rank_eval=0)
     with_listener = dict(tparams, listener={})
     with pytest.raises(NotImplementedError, match="ROADMAP.*" + match):
-        if what.startswith("sample_max"):
-            teval.Evaluator(topt, device="cpu").eval_split(
-                tparams, tloader, {"sample_max": int(what[-1])})
-        elif what == "reward":
-            teval.Evaluator(topt.replace(cider_optimization=1),
-                            device="cpu").eval_split(tparams, tloader, {})
-        elif what == "feat_cache":
+        if what == "feat_cache":
             teval.Evaluator(topt, feat_cache={}, device="cpu")
         elif what == "mesh":
             teval.Evaluator(topt, mesh=object(), device="cpu")

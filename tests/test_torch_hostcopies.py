@@ -284,7 +284,8 @@ def test_the_unpickler_maps_only_the_config_module(tmp_path):
 def jax_run_dir(tmp_path_factory):
     """A run dir written by the JAX package: infos pickled with its Options,
     params saved by its checkpoint module."""
-    pytest.importorskip("jax")
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
     from cooperativeimagecaptioning_tpu.config import Options
     from cooperativeimagecaptioning_tpu.training import checkpoint as jckpt
     from test_torch_att_model import jax_params
@@ -294,8 +295,16 @@ def jax_run_dir(tmp_path_factory):
                   fc_feat_size=20, att_feat_size=20, seq_length=8,
                   batch_size=4, seq_per_img=1, id="hc", language_eval=1,
                   max_att_len=6, phase=2, checkpoint_path=str(d))
-    jckpt.save_params({"speaker": jax_params(opt, seed=5)},
-                      str(d / "model-best.pth"))
+    params = {"speaker": jax_params(opt, seed=5)}
+    jckpt.save_params(params, str(d / "model-best.pth"))
+    # a phase-2 model.pth and an optax optimizer.pth after one update, for
+    # start_from
+    from cooperativeimagecaptioning_tpu.training import optim as joptim
+    jckpt.save_params(params, str(d / "model.pth"))
+    jm = joptim.OptimizerManager(opt, jax.tree.map(jnp.asarray, params))
+    jm.step(jax.tree.map(jnp.asarray, params), jax.tree.map(
+        lambda x: jnp.full(x.shape, 1e-3, jnp.float32), params), "optimizer")
+    jckpt.CheckpointManager(opt).save_optimizers(jm)
     vocab = {str(i): f"w{i}" for i in range(1, opt.vocab_size + 1)}
     with open(d / "infos_hc.pkl", "wb") as f:
         pickle.dump({"opt": opt, "vocab": vocab}, f)
@@ -337,6 +346,18 @@ _ENTRY_CODE = {
         "tr = loop.train(opt, dataset=ds, max_iterations=2, device='cpu', "
         "verbose=False)\n"
         "assert tr.iteration == 2\n"),
+    "training.scst": (
+        "from cooperativeimagecaptioning_tpu_torch import config\n"
+        "from cooperativeimagecaptioning_tpu_torch.training import loop\n"
+        "opt = config.load_infos(os.path.join(d, 'infos_hc.pkl'))['opt']\n"
+        "opt.start_from = d\n"
+        "opt.checkpoint_path = os.path.join(os.getcwd(), 'scst')\n"
+        "opt.cider_optimization, opt.caption_loss_weight = 1, 0\n"
+        "opt.save_checkpoint_every, opt.language_eval = 2, 0\n"
+        "tr = loop.train(opt, dataset=ds, max_iterations=2, device='cpu', "
+        "verbose=False)\n"
+        "assert int(tr.optim.states['speaker']['count']) == 3\n"
+        "assert os.path.isfile(os.path.join('scst', 'optimizer.pth'))\n"),
     "evaluation.eval_split": (
         "from cooperativeimagecaptioning_tpu_torch import config, data\n"
         "from cooperativeimagecaptioning_tpu_torch.evaluation import "

@@ -19,6 +19,7 @@ gradient near 0 may take opposite signs in the two frameworks.
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -58,7 +59,8 @@ def tiny_opt(**kw):
         caption_model="att2in2", vse_model="None", phase=2, batch_size=4,
         seq_per_img=1, rnn_size=16, input_encoding_size=12, att_hid_size=8,
         fc_feat_size=20, att_feat_size=20, drop_prob_lm=0.0,
-        learning_rate=1e-3, grad_clip=0.1, checkpoint_path="/tmp/cic_tt",
+        learning_rate=1e-3, grad_clip=0.1,
+        checkpoint_path=os.path.join(tempfile.gettempdir(), "cic_tt"),
         save_checkpoint_every=10_000, losses_log_every=1, language_eval=0,
         max_epochs=-1, cached_tokens="corpus", vocab_size=25, seq_length=8,
         prefetch_batches=0)
@@ -200,7 +202,11 @@ def test_loss_fn_matches_jax(remat):
 @pytest.mark.parametrize("turn,kw,match", [
     ("listener", {}, "listener"),
     ("optimizer", {"vse_model": "fc"}, "listener"),
-    ("optimizer", {"cider_optimization": 1}, "CIDEr"),
+    ("optimizer", {"cider_optimization": 1, "on_device_cider": 1},
+     "ROADMAP.*device rewards"),
+    ("optimizer", {"cider_optimization": 1, "soft_cider": 1},
+     "ROADMAP.*device rewards"),
+    ("speaker", {"is_alternating": 1}, "ROADMAP.*joint training"),
 ])
 def test_loss_fn_raises_on_unported_branches(turn, kw, match):
     opt = tiny_opt(**kw)
@@ -588,9 +594,10 @@ def test_trainer_learns_and_is_deterministic():
     ({"device_feature_cache": 1}, "device_feature_cache"),
     ({"is_alternating": 1}, "alternating"),
     ({"vse_model": "fc"}, "listener"),
-    ({"cider_optimization": 1}, "rewards"),
+    ({"cider_optimization": 1, "on_device_cider": 1}, "device rewards"),
     ({"mesh_data_axis": 2}, "mesh"),
-    ({"start_from": "/nonexistent"}, "checkpoint"),
+    ({"initialize_retrieval": "/nonexistent.pth"}, "listener"),
+    ({"cider_optimization": 1, "soft_cider": 1}, "device rewards"),
 ])
 def test_trainer_raises_on_unported_options(kw, match):
     opt = tiny_opt(**kw)
@@ -599,13 +606,18 @@ def test_trainer_raises_on_unported_options(kw, match):
                       verbose=False)
 
 
-def test_train_stops_at_max_iterations_and_refuses_checkpoint_ops():
-    opt = tiny_opt()
+def test_train_stops_at_max_iterations_and_checkpoints(tmp_path):
+    """train() stops at max_iterations, and checkpoint_operations writes the
+    run dir (tests/test_torch_resume.py holds it to the JAX package's)."""
+    opt = tiny_opt(checkpoint_path=str(tmp_path), id="t")
     tr = tloop.train(opt, dataset=tiny_dataset(opt), max_iterations=2,
                      device="cpu", verbose=False)
     assert tr.iteration == 2
-    with pytest.raises(NotImplementedError, match="checkpoint_operations"):
-        tr.checkpoint_operations()
+    val_loss, _ = tr.checkpoint_operations()
+    assert np.isfinite(val_loss["loss_cap"])
+    for name in ("model.pth", "model-2.pth", "optimizer.pth", "infos_t.pkl",
+                 "histories_t.pkl"):
+        assert (tmp_path / name).is_file(), name
 
 
 def test_train_main_parses_device(monkeypatch):
@@ -616,6 +628,19 @@ def test_train_main_parses_device(monkeypatch):
     assert seen["device"] == "cpu" and seen["opt"].rnn_size == 24
     ttrain.main(["--phase", "2"])
     assert seen["device"] == "cuda"
+
+
+def test_train_main_passes_resume_and_scst_flags(monkeypatch):
+    """--start_from and --cider_optimization reach the Trainer's opt."""
+    seen = {}
+    monkeypatch.setattr(ttrain, "train", lambda opt, device: seen.update(
+        opt=opt, device=device))
+    ttrain.main(["--device", "cpu", "--phase", "3", "--start_from", "runs/a",
+                 "--cider_optimization", "1", "--caption_loss_weight", "0"])
+    opt = seen["opt"]
+    assert (opt.start_from, opt.cider_optimization, opt.caption_loss_weight,
+            opt.phase) == ("runs/a", 1, 0, 3)
+    assert tloop.unported(opt) is None
 
 
 def test_training_imports_no_jax():

@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
-"""Where a phase-2 training step's time goes, for the PyTorch port on one GPU.
+"""Where a training step's time goes, for the PyTorch port on one GPU.
 
     python3 train_breakdown.py                       # on a CUDA card
+    python3 train_breakdown.py --scst                # self-critical steps
     python3 train_breakdown.py --device cpu --batch 4 --width 16 --vocab 50
                                                      # dry run, tiny width
 
 Trains chip_smoke.py's configuration (Att2in2, vocab 9487, 512-wide, K=36,
 L=16, f32, drop_prob_lm 0.5, synthetic batches) and splits one step into
-its three stages, each between two synchronizes:
+its stages, each between two synchronizes.  A phase-2 (MLE) step:
 
   forward   joint.loss_fn: encode, the 17 checkpointed teacher-forced steps
   backward  torch.autograd.grad: each step's recompute (the checkpoint), the
             attention's and the cell's recomputed plain backward, the rest
   adam      OptimizerManager.step: the guarded Adam over the param tree
+
+A self-critical step (--scst: cider_optimization 1, no caption loss, chip
+smoke's phase 7 without its resume):
+
+  stage_a   joint.sampler: a sampled and a greedy 16-step decode, no grad
+  reward    the ids to the host, CIDEr-D of 2B captions, the reward back
+  stage_b   joint.value_and_grad: the sampled decode again under autograd
+            (15 checkpointed steps) and its backward
+  adam      as above
 
 Each stage is then traced in its own torch.profiler session, and its GPU
 time is summed into:
@@ -38,7 +48,8 @@ import numpy as np
 
 import chip_smoke as cs
 
-STAGES = ("forward", "backward", "adam")
+MLE_STAGES = ("forward", "backward", "adam")
+SCST_STAGES = ("stage_a", "reward", "stage_b", "adam")  # cs.scst_stages
 MATMULS = ("aten::mm", "aten::addmm", "aten::bmm")
 # the kernels' autograd Functions: the profiler records each as an op whose
 # self GPU time is the package kernel it launched, counted by kernel name
@@ -55,12 +66,8 @@ def category(e, v1):
     return "elementwise+reduce"
 
 
-def step_stages(trainer, data, sync, wrap=None):
-    """Run one training step as its three stages, each ending in a
-    synchronize and run inside `wrap(stage)` (a context manager; the
-    profiler) when given.  Returns {stage: host-clock ms}."""
-    import contextlib
-
+def mle_stages(trainer, data):
+    """The stages of one phase-2 step: {name: fn}, in order."""
     import torch
     from cooperativeimagecaptioning_tpu_torch import models as model_zoo
     from cooperativeimagecaptioning_tpu_torch.training import joint
@@ -71,12 +78,12 @@ def step_stages(trainer, data, sync, wrap=None):
                                           "caption_model")}
     batch = trainer._prepare_batch(data)
     named = leaves(trainer.params)
-    out, ms = {}, {}
+    out = {}
 
     def forward():
         out["loss"], _ = joint.loss_fn(modules, trainer.params, opt, batch,
-                                       trainer.gen, trainer._hyper(),
-                                       "optimizer")
+                                       trainer.iteration_streams(),
+                                       trainer._hyper(), "optimizer")
 
     def backward():
         got = torch.autograd.grad(out["loss"], [x for _, x in named])
@@ -86,8 +93,17 @@ def step_stages(trainer, data, sync, wrap=None):
     def adam():
         trainer.optim.step(trainer.params, out["grads"], "optimizer")
 
+    return dict(zip(MLE_STAGES, (forward, backward, adam)))
+
+
+def step_stages(stages, trainer, data, sync, wrap=None):
+    """Run one step's stages (`stages(trainer, data)`), each followed by a
+    synchronize and run inside `wrap(stage)` (a context manager; the
+    profiler) when given.  Returns {stage: host-clock ms}."""
+    import contextlib
+    ms = {}
     sync()
-    for stage, fn in zip(STAGES, (forward, backward, adam)):
+    for stage, fn in stages(trainer, data).items():
         with (wrap(stage) if wrap else contextlib.nullcontext()):
             t0 = time.perf_counter()
             fn()
@@ -96,7 +112,7 @@ def step_stages(trainer, data, sync, wrap=None):
     return ms
 
 
-def breakdown(trainer, data, device, reps):
+def breakdown(stages, trainer, data, device, reps):
     """Untraced stage times (median of reps), then one step traced stage by
     stage: one profiler session for each stage, so that every kernel and op
     belongs to the stage it ran in (the backward runs on autograd's own
@@ -107,10 +123,11 @@ def breakdown(trainer, data, device, reps):
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     v1 = trainer.opt.vocab_size + 1
-    step_stages(trainer, data, sync)  # warm-up
-    walls = {s: [] for s in STAGES}
+    names = tuple(stages(trainer, data))
+    step_stages(stages, trainer, data, sync)  # warm-up
+    walls = {s: [] for s in names}
     for _ in range(reps):
-        for s, v in step_stages(trainer, data, sync).items():
+        for s, v in step_stages(stages, trainer, data, sync).items():
             walls[s].append(v)
     r = {"wall_ms": {s: float(np.median(v)) for s, v in walls.items()}}
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -120,9 +137,9 @@ def breakdown(trainer, data, device, reps):
         profs[stage] = profile(activities=acts, record_shapes=True)
         return profs[stage]
 
-    step_stages(trainer, data, sync, wrap)
-    table = {s: {} for s in STAGES}
-    kernel_ms = {s: 0.0 for s in STAGES}
+    step_stages(stages, trainer, data, sync, wrap)
+    table = {s: {} for s in names}
+    kernel_ms = {s: 0.0 for s in names}
     top_ops = {}
     for stage, prof in profs.items():
         cats = table[stage]
@@ -149,7 +166,7 @@ def breakdown(trainer, data, device, reps):
     r["top_ops_ms"] = top_ops
     r["by_category_ms"] = table
     r["idle_share"] = ({s: 1.0 - kernel_ms[s] / r["wall_ms"][s]
-                        for s in STAGES} if cuda else None)
+                        for s in names} if cuda else None)
     return r
 
 
@@ -162,6 +179,8 @@ def main(argv=None):
                         "cuts it)")
     p.add_argument("--vocab", type=int, default=cs.VOCAB)
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--scst", action="store_true",
+                   help="self-critical steps instead of phase-2 steps")
     a = p.parse_args(argv)
     import torch
 
@@ -173,21 +192,27 @@ def main(argv=None):
     cs.WIDTH, cs.VOCAB = a.width, a.vocab
     ds = cs.train_dataset()
     results = {"card": card, "batch": a.batch, "width": a.width,
-               "vocab": a.vocab}
+               "vocab": a.vocab, "step": "scst" if a.scst else "mle"}
+    opt = cs.train_opt(a.batch)
+    stages, names = mle_stages, MLE_STAGES
+    if a.scst:
+        opt = opt.replace(phase=3, cider_optimization=1,
+                          caption_loss_weight=0)
+        stages, names = cs.scst_stages, SCST_STAGES
     for cell, on in (("cell_kernel", True), ("plain_cell", False)):
         with cs.fused_cell_switch(on):
-            tr = Trainer(cs.train_opt(a.batch), dataset=ds, device=a.device,
+            tr = Trainer(opt.replace(), dataset=ds, device=a.device,
                          verbose=False)
             data = tr.loader.get_batch("train")
-            r = breakdown(tr, data, device, a.reps)
+            r = breakdown(stages, tr, data, device, a.reps)
             if device.type == "cuda":
                 r["it_per_s"] = cs.iterations_per_s(tr, data)
         results[cell] = r
         print(f"== {cell} ({card}; B={a.batch}, f32): "
-              + " | ".join(f"{s} {r['wall_ms'][s]:.2f} ms" for s in STAGES)
+              + " | ".join(f"{s} {r['wall_ms'][s]:.2f} ms" for s in names)
               + (f" | {r['it_per_s']:.2f} it/s" if "it_per_s" in r else ""),
               flush=True)
-        for s in STAGES:
+        for s in names:
             cats = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
                 r["by_category_ms"][s].items(), key=lambda kv: -kv[1]))
             idle = (f"; idle share {r['idle_share'][s]:.3f}"
