@@ -114,6 +114,29 @@ Phases, in order; any failure exits non-zero:
                  listener/txt_enc/embed, share_embed=1) through eval.eval
                  and from_run_dir, with the captions and ids of phase 4's
                  speaker-only dir.
+  8. listener -- the VSE listener at the config's defaults (vse_embed 1024,
+                 GRU, 'last' pooling, margin 0.2, max violation), f32,
+                 B=128: (a) phase 1 (scripts/run_fc_con.py's flag set, FC
+                 speaker) through loop.train and Trainer.train: no kernel
+                 launched, only listener leaves move, the B=16 step against
+                 the CPU port, loss_vse falling over 20 steps on one batch,
+                 it/s, checkpoint_operations ranking val and test and
+                 writing the stage-1 run dir; (b) run_joint.py -o gumbel
+                 seeded from phase 5's speaker and (a)'s listener (params
+                 and both Adam states equal the files), five iterations
+                 with CIC_FUSED_CELL unset and five with it set: finite
+                 losses, stage B's ids equal stage A's, both agents move,
+                 the launches of A, B and F an iteration, the time split
+                 and it/s; (c) the B=16 step of each relaxed mode on the
+                 card against the CPU port replaying its draws; (d)
+                 checkpoint_operations (generated-caption and GT ranks,
+                 the alternating artifacts), eval.eval with the trained and
+                 the ground-truth listener, the rank arrays of every
+                 split against the CPU port's, the rank pass at the
+                 protocol's size; (e) the
+                 FC speaker served from (a)'s run dir, greedy and beam 2,
+                 f32 and bf16, every step through B or C and F, f32 ids
+                 against the CPU service.
 Two lines before the last name the card and describe the kernels (one JSON
 object); the last line is {"ok": true, "device": {...}}.
 
@@ -188,6 +211,61 @@ EVAL_CPU_BATCHES = 2
 SCST_ITERS = 5       # self-critical iterations a cell-kernel setting
 SCST_CPU_B = 16      # rows of the card-vs-CPU self-critical step
 DEVICE = "cuda"
+FC_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_fc_con_run")
+DISC_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_disc_run")
+LISTENER_ITERS = 5   # joint iterations a cell-kernel setting
+# phase-1 iterations of the main path: after 34 the listener maps the
+# captions close together, and 7 of 51 val i2t rank queries sat within
+# 1e-6 of a tie on an H100, which leaves the card-vs-CPU rank check nothing
+# to decide there; after 300, 1 to 3 of them did
+PHASE1_ITERS = 300
+LISTENER_CPU_B = 16  # rows of the card-vs-CPU phase-1 and joint steps
+DISC_MODES = ("gumbel", "multinomial", "gumbel_softmax", "multinomial_soft")
+
+# scripts/run_fc_con.py's STAGE_FLAGS; and scripts/run_joint.py's Options
+# (JOINT_BASE) with build_run's overrides at the script's defaults
+# (`joint_flags`).  tests/test_torch_listener_training.py holds both equal
+# to the scripts.
+PHASE1_FLAGS = dict(
+    id="fc_con", caption_model="fc", vse_model="fc", phase=1,
+    vse_loss_weight=1, caption_loss_weight=0, rank_eval=1, language_eval=0,
+    seq_per_img=1, learning_rate=5e-4, learning_rate_decay_start=0,
+    learning_rate_decay_every=15, scheduled_sampling_start=0)
+JOINT_BASE = dict(
+    caption_model="att2in2", vse_model="fc", language_eval=1, rank_eval=1,
+    rank_on_gen_captions=True, seq_per_img=1, learning_rate_decay_start=0,
+    scheduled_sampling_start=0)
+
+
+def joint_flags(optimization):
+    """run_joint.py -o <optimization> at its defaults: -D 0.01 (cider
+    weight 1 - 0.01), temperature 1, lr 5e-4 decaying 0.8 every 15 epochs,
+    B=128, probability 0.25."""
+    d = 0.01
+    ov = dict(retrieval_reward_weight=d, cider_optimization=1 - d,
+              learning_rate=5e-4, learning_rate_decay_rate=0.8,
+              learning_rate_decay_every=15, batch_size=128,
+              caption_loss_weight=0, vse_loss_weight=0, share_embed=0,
+              max_epochs=350, is_alternating=1,
+              alternating_turn=["speaker", "listener"],
+              retrieval_reward=optimization)
+    ov.update({
+        "gumbel": dict(gumbel_temp=1.0, gumbel_temperature_annealing_factor=0,
+                       num_iteration_for_annealing=500),
+        "gumbel_softmax": dict(gumbel_temp=1.0, prob_gumbel_softmax=0.25,
+                               softmax_cooling_decay_factor=0),
+        "multinomial": dict(multinomial_temp=1.0),
+        "multinomial_soft": dict(multinomial_temp=1.0,
+                                 prob_multinomial_soft=0.25,
+                                 softmax_cooling_decay_factor=0),
+        "gumbel_speaker": dict(is_alternating=0, alternating_turn=None,
+                               phase=3, gumbel_temp=1.0,
+                               retrieval_reward="gumbel"),
+        "multinomial_speaker": dict(is_alternating=0, alternating_turn=None,
+                                    phase=3, multinomial_temp=1.0,
+                                    retrieval_reward="multinomial"),
+    }[optimization])
+    return ov
 
 # The card's published peaks (NVIDIA's H100 SXM data sheet, dense): device
 # memory rate, and operations per second by input type (bf16 on the tensor
@@ -1427,6 +1505,31 @@ def iterations_per_s(trainer, data, n=10):
     return n / (time.perf_counter() - t0)
 
 
+def grads_against(grads_g, grads_c):
+    """(worst ratio to phase 5's rule atol + rtol * |cpu| -- above 1 is
+    outside it somewhere in the leaf --, its leaf, the largest absolute
+    difference) over every gradient leaf of the card's tree against the
+    CPU's."""
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    worst, worst_key, max_abs = 0.0, "", 0.0
+    cpu = dict(leaves(grads_c))
+    for key, g in leaves(grads_g):
+        g, c = g.cpu(), cpu[key]
+        ratio = ((g - c).abs() / (STEP_GRAD_ATOL + STEP_GRAD_RTOL * c.abs())
+                 ).max().item()
+        max_abs = max(max_abs, (g - c).abs().max().item())
+        if ratio > worst:
+            worst, worst_key = ratio, key
+    return worst, worst_key, max_abs
+
+
+def cpu_copy(params):
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import (
+        to_numpy, to_torch, trainable)
+    return {agent: trainable(to_torch(to_numpy(tree), "cpu"))
+            for agent, tree in params.items()}
+
+
 def compare_first_step(ds):
     """The first step at B=16 on the card against the same step on the CPU
     port: same params, same batch, dropout off (the two devices' generators
@@ -1434,8 +1537,7 @@ def compare_first_step(ds):
     import torch
     from cooperativeimagecaptioning_tpu_torch.training import joint
     from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
-    from cooperativeimagecaptioning_tpu_torch.utils.tree import (
-        leaves, to_numpy, to_torch, trainable)
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
     opt = train_opt(16, drop_prob_lm=0.0)
     tr = Trainer(opt, dataset=ds, device=DEVICE, verbose=False)
     data = tr.loader.get_batch("train")
@@ -1443,8 +1545,7 @@ def compare_first_step(ds):
     fn = joint.value_and_grad(opt, "optimizer")
     hp = joint.Hyper.from_opt(opt)
     (loss_g, _), grads_g = fn(tr.params, batch, tr.iteration_streams(), hp)
-    cpu_params = {"speaker": trainable(to_torch(to_numpy(
-        tr.params["speaker"]), "cpu"))}
+    cpu_params = cpu_copy(tr.params)
     cpu_batch = {k: None if v is None else v.cpu() for k, v in batch.items()}
     (loss_c, _), grads_c = fn(cpu_params, cpu_batch, torch.Generator(), hp)
     rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
@@ -1452,18 +1553,9 @@ def compare_first_step(ds):
           f"vs {loss_c.item():.6f} (relative {rel:.2e}, tol "
           f"{STEP_LOSS_RTOL:.0e})", flush=True)
     require(rel <= STEP_LOSS_RTOL, f"first-step loss: relative {rel}")
-    worst, worst_key, max_abs = 0.0, "", 0.0
-    cpu = dict(leaves(grads_c))
-    for key, g in leaves(grads_g):
-        g, c = g.cpu(), cpu[key]
-        # > 1 means outside atol + rtol * |cpu| somewhere in the leaf
-        ratio = ((g - c).abs() / (STEP_GRAD_ATOL + STEP_GRAD_RTOL * c.abs())
-                 ).max().item()
-        max_abs = max(max_abs, (g - c).abs().max().item())
-        if ratio > worst:
-            worst, worst_key = ratio, key
-    print(f"  B=16 first step gradients, {len(cpu)} leaves: max abs "
-          f"difference {max_abs:.3e}; worst leaf {worst_key} at "
+    worst, worst_key, max_abs = grads_against(grads_g, grads_c)
+    print(f"  B=16 first step gradients, {len(leaves(grads_c))} leaves: "
+          f"max abs difference {max_abs:.3e}; worst leaf {worst_key} at "
           f"{worst:.3f} of its tolerance (rtol {STEP_GRAD_RTOL:.0e}, atol "
           f"{STEP_GRAD_ATOL:.0e})", flush=True)
     require(worst <= 1.0, f"first-step gradient {worst_key}: {worst} of "
@@ -1831,7 +1923,7 @@ def scst_stages(trainer, data):
                                            out["reward"])
 
     def adam():
-        trainer.optim.step(trainer.params, out["grads"], "optimizer")
+        trainer.optim.step(trainer.params, out["grads"], trainer.turn)
 
     return {"stage_a": stage_a, "reward": reward, "stage_b": stage_b,
             "adam": adam}
@@ -1862,8 +1954,6 @@ def scst_against_cpu(ds):
     from cooperativeimagecaptioning_tpu_torch.ops import draws
     from cooperativeimagecaptioning_tpu_torch.training import joint
     from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
-    from cooperativeimagecaptioning_tpu_torch.utils.tree import (
-        leaves, to_numpy, to_torch, trainable)
     opt = scst_opt(SCST_CPU_B, drop_prob_lm=0.0)
     tr = Trainer(opt, dataset=ds, device=DEVICE, verbose=False)
     data = tr.loader.get_batch("train")
@@ -1873,8 +1963,7 @@ def scst_against_cpu(ds):
     gen, greedy = tr._sample_fn(tr.params, batch, rec, hp)
     scores, _, _ = joint.host_reward(opt, data["gts"], gen, greedy)
     taken = {k: [x.cpu() for x in r.taken] for k, r in rec.items()}
-    cpu_params = {"speaker": trainable(to_torch(to_numpy(
-        tr.params["speaker"]), "cpu"))}
+    cpu_params = cpu_copy(tr.params)
     cpu_batch = {k: None if v is None else v.cpu() for k, v in batch.items()}
     fn = joint.value_and_grad(opt, "optimizer")
 
@@ -1903,14 +1992,7 @@ def scst_against_cpu(ds):
     loss_c, grads_c, _ = step(cpu_params, rows_of(cpu_batch, rows), rows,
                               "cpu")
     rel = abs(loss_g - loss_c) / abs(loss_c)
-    worst, worst_key = 0.0, ""
-    cpu = dict(leaves(grads_c))
-    for key, g in leaves(grads_g):
-        g, c = g.cpu(), cpu[key]
-        ratio = ((g - c).abs() / (STEP_GRAD_ATOL + STEP_GRAD_RTOL * c.abs())
-                 ).max().item()
-        if ratio > worst:
-            worst, worst_key = ratio, key
+    worst, worst_key, _ = grads_against(grads_g, grads_c)
     print(f"  B={SCST_CPU_B} first SCST step, card vs cpu port on the same "
           f"noise: sampled ids of {share * 100:.1f}% of the rows equal (need "
           f">= {AGREE_F32 * 100:.0f}%); on those {len(rows)} rows loss_cider "
@@ -2138,6 +2220,567 @@ def phase_scst(smi, phase5):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# 8. the listener: phase 1, joint DISC training, retrieval, the FC speaker
+# ---------------------------------------------------------------------------
+
+def listener_opt(flags, batch_size, **kw):
+    """Options of a flag set (PHASE1_FLAGS, or JOINT_BASE with
+    joint_flags(mode)) at reference width, f32; the listener at the
+    config's defaults (vse_embed_size 1024, GRU, 'last' pooling, margin
+    0.2, max violation)."""
+    from cooperativeimagecaptioning_tpu_torch.config import Options
+    base = dict(flags, batch_size=batch_size, rnn_size=WIDTH,
+                input_encoding_size=WIDTH, att_hid_size=WIDTH,
+                fc_feat_size=FEAT, att_feat_size=FEAT, max_att_len=K,
+                save_checkpoint_every=10 ** 9, losses_log_every=1,
+                prefetch_batches=0, seed=SEED, max_epochs=-1)
+    base.update(kw)
+    return Options(**base)
+
+
+def phase1_opt(batch_size):
+    return listener_opt(PHASE1_FLAGS, batch_size, checkpoint_path=FC_RUN_DIR)
+
+
+def disc_opt(mode, batch_size, **kw):
+    """run_joint.py -o <mode>, seeded as that script seeds it: phase 5's
+    stage-2 speaker with its Adam state, (a)'s listener."""
+    base = dict(
+        checkpoint_path=DISC_RUN_DIR, start_from=DISC_RUN_DIR,
+        speaker_stage_2_model_path=os.path.join(TRAIN_RUN_DIR, "model.pth"),
+        speaker_stage_2_optimizer_path=os.path.join(TRAIN_RUN_DIR,
+                                                    "optimizer.pth"),
+        initialize_retrieval=os.path.join(FC_RUN_DIR, "model_vse-best.pth"))
+    base.update(kw)
+    return listener_opt({**JOINT_BASE, **joint_flags(mode)}, batch_size,
+                        **base)
+
+
+def listener_phase1(ds, add, out):
+    """(a) Phase 1 through loop.train: the listener alone moves, loss_vse
+    falls on one batch, the B=16 step on the card against the CPU port,
+    it/s, and checkpoint_operations writing the stage-1 run dir."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint
+    from cooperativeimagecaptioning_tpu_torch.training import joint, loop
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    opt = phase1_opt(TRAIN_B)
+    steps = 3
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    tr = loop.train(opt, dataset=ds, max_iterations=steps, device=DEVICE,
+                    verbose=False)
+    torch.cuda.synchronize()
+    got = _dispatch.launches()
+    add(got)
+    # the loss holds the listener alone: no kernel, the speaker untouched
+    # (the Trainer's initial tree, made again from the seed once the loader
+    # has set the vocabulary)
+    require(not any(got.values()), f"phase 1 launched {got}")
+    fresh = dict(leaves(joint.init_params(SEED, opt)))
+    for key, x in leaves(tr.params):
+        same = torch.equal(x.detach().cpu(), fresh[key])
+        require(same == key.startswith("speaker."),
+                f"phase 1: {key} {'did not move' if same else 'moved'}")
+    losses = [float(v) for v in tr.loss_history.values()]
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"phase-1 losses {losses}")
+    print(f"  loop.train(phase 1, max_iterations={steps}) in "
+          f"{time.perf_counter() - t0:.1f} s: loss_vse {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; only the listener's "
+          f"{sum(k.startswith('listener.') for k in fresh)} leaves moved",
+          flush=True)
+
+    # the B=16 step on the card against the CPU port (no draws: the
+    # listener has no dropout and the speaker is not in the loss)
+    small = Trainer(phase1_opt(LISTENER_CPU_B), dataset=ds, device=DEVICE,
+                    verbose=False)
+    data = small.loader.get_batch("train")
+    batch = small._prepare_batch(data)
+    fn = joint.value_and_grad(small.opt, small.turn)
+    hp = small._hyper()
+    (loss_g, _), grads_g = fn(small.params, batch, None, hp)
+    cpu_batch = {k: None if v is None else v.cpu() for k, v in batch.items()}
+    (loss_c, _), grads_c = fn(cpu_copy(small.params), cpu_batch, None, hp)
+    rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    worst, worst_key, max_abs = grads_against(grads_g["listener"],
+                                              grads_c["listener"])
+    print(f"  B={LISTENER_CPU_B} phase-1 step, card vs cpu port: loss_vse "
+          f"{loss_g.item():.6f} vs {loss_c.item():.6f} (relative {rel:.2e}, "
+          f"tol {STEP_LOSS_RTOL:.0e}); listener gradients max abs "
+          f"difference {max_abs:.3e}, worst leaf {worst_key} at {worst:.3f} "
+          f"of its tolerance", flush=True)
+    require(rel <= STEP_LOSS_RTOL, f"phase-1 B=16 loss: relative {rel}")
+    require(worst <= 1.0, f"phase-1 B=16 gradient {worst_key}: {worst}")
+    del small
+
+    data = tr.loader.get_batch("train")
+    curve = [tr.train_iteration(data)[0]["loss_vse"].item()
+             for _ in range(LEARN_STEPS)]
+    print(f"  {LEARN_STEPS} phase-1 steps on one batch: loss_vse "
+          f"{curve[0]:.4f} -> {curve[-1]:.4f}", flush=True)
+    require(all(np.isfinite(curve)) and curve[-1] < curve[0]
+            and np.mean(curve[-5:]) < np.mean(curve[:5]),
+            f"loss_vse did not fall: {curve}")
+    out["p1_its"] = iterations_per_s(tr, data)
+    print(f"  phase-1 throughput (B={TRAIN_B}, f32, one fixed host batch): "
+          f"{out['p1_its']:.2f} it/s", flush=True)
+
+    # on to PHASE1_ITERS iterations through Trainer.train, as a user goes on
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    tr.train(max_iterations=PHASE1_ITERS)
+    torch.cuda.synchronize()
+    got = _dispatch.launches()
+    add(got)
+    require(not any(got.values()), f"phase 1 launched {got}")
+    last = float(tr.loss_history[tr.iteration])
+    require(np.isfinite(last), f"phase-1 loss {last}")
+    print(f"  Trainer.train(max_iterations={PHASE1_ITERS}) in "
+          f"{time.perf_counter() - t0:.1f} s: loss_vse {last:.4f} at "
+          f"iteration {tr.iteration}", flush=True)
+
+    with fused_cell_switch(True):  # the FC decode of the eval through F
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        val_loss, _ = tr.checkpoint_operations()
+        torch.cuda.synchronize()
+        got = _dispatch.launches()
+    add(got)
+    out["p1_ckpt_s"] = time.perf_counter() - t0
+    out["p1_rank_s"] = tr.evaluator().last_timings["rank_eval_s"]
+    require(got["greedy_head"] > 0 and got["cell"] > 0,
+            f"phase-1 eval decode: launches {got}")
+    for split in ("val", "test"):
+        ranks = val_loss.get(split, {})
+        require(all(np.isfinite(ranks.get(k, np.nan)) for k in
+                    ("rsum", "i2t_r1", "t2i_r1", "i2t_medr", "t2i_medr")),
+                f"phase-1 ranks on {split}: {ranks}")
+    written = sorted(os.listdir(FC_RUN_DIR))
+    for name in ("model.pth", "model-best.pth", "model_vse-best.pth",
+                 "optimizer.pth", "infos_fc_con.pkl",
+                 "histories_fc_con.pkl"):
+        require(name in written, f"phase-1 checkpoint_operations: {written}")
+    st = checkpoint.read_optimizer_file(os.path.join(FC_RUN_DIR,
+                                                     "optimizer.pth"))
+    require(st["paths"] == tr.optim.paths["listener"] and
+            int(st["count"]) == tr.iteration,
+            "phase-1 optimizer.pth does not hold the listener")
+    print(f"  phase-1 checkpoint_operations in {out['p1_ckpt_s']:.1f} s "
+          f"(rank pass {out['p1_rank_s']:.3f} s): val rsum "
+          f"{val_loss['val']['rsum']:.1f}, test rsum "
+          f"{val_loss['test']['rsum']:.1f}; wrote {written}; launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    return tr
+
+
+def check_joint_seeded(tr):
+    """The joint trainer's params and both agents' Adam moments equal the
+    stage files: phase 5's speaker and (a)'s listener."""
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    import torch
+    files = {
+        "speaker": (os.path.join(TRAIN_RUN_DIR, "model.pth"),
+                    os.path.join(TRAIN_RUN_DIR, "optimizer.pth")),
+        "listener": (os.path.join(FC_RUN_DIR, "model_vse-best.pth"),
+                     os.path.join(FC_RUN_DIR, "optimizer.pth"))}
+    for agent, (model, optim) in files.items():
+        saved = checkpoint.load_params(model)[agent]
+        got = leaves(tr.params[agent])
+        require([k for k, _ in got] == [k for k, _ in leaves(saved)],
+                f"joint {agent}: another tree")
+        for (k, a), (_, b) in zip(got, leaves(saved)):
+            require(torch.equal(a.detach().cpu(), b), f"joint {agent} {k}")
+        st = checkpoint.read_optimizer_file(optim)
+        cur = tr.optim.states[agent]
+        require(int(cur["count"]) == int(st["count"]) > 0,
+                f"joint {agent} Adam count")
+        for key in ("mu", "nu"):
+            for path, a, b in zip(st["paths"], cur[key], st[key]):
+                require(np.array_equal(a.cpu().numpy(), b),
+                        f"joint {agent} Adam {key} {path}")
+    n = {a: len(tr.optim.paths[a]) for a in files}
+    print(f"  joint Trainer seeded: speaker and {n['speaker']} x 2 Adam "
+          f"moments from phase 5's run dir, listener and {n['listener']} x 2 "
+          f"from (a)'s", flush=True)
+
+
+def listener_joint(ds, add, out, smi):
+    """(b) run_joint.py -o gumbel: five iterations with the cell kernel
+    off and five with it on, the launches of A, B and F an iteration, the
+    time split and it/s."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    tr = Trainer(disc_opt("gumbel", TRAIN_B), dataset=ds, device=DEVICE,
+                 verbose=False)
+    require(tr.turns == ["speaker"] and tr.turn == "speaker",
+            f"joint turns {tr.turns}")
+    check_joint_seeded(tr)
+    probes = {"speaker": ("logit", "b"), "listener": ("img_enc", "fc", "b")}
+
+    def probe(agent):
+        x = tr.params[agent]
+        for k in probes[agent]:
+            x = x[k]
+        return x.detach().clone()
+
+    keys = ("loss", "retrieval_loss", "loss_cider", "avg_reward",
+            "cider_greedy")
+    _dispatch.reset_launches()
+    for on in (False, True):
+        before = _dispatch.launches()
+        with fused_cell_switch(on):
+            t0 = time.perf_counter()
+            for _ in range(LISTENER_ITERS):
+                old = {a: probe(a) for a in probes}
+                loss_dict, turn, _ = tr.train_iteration()
+                a, b = tr.last_reward_seqs
+                require(turn == "speaker" and torch.equal(a, b),
+                        "joint: stage B's sampled ids differ from stage A's")
+                vals = {k: float(loss_dict[k]) for k in keys}
+                require(all(np.isfinite(v) for v in vals.values()),
+                        f"joint iteration: {vals}")
+                for agent in probes:
+                    require(not torch.equal(old[agent], probe(agent)),
+                            f"joint: the {agent}'s leaves did not move")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        after = _dispatch.launches()
+        got = {k: after[k] - before[k] for k in after}
+        # a joint iteration launches what an SCST iteration does: stage A's
+        # gumbel_st decode and the greedy baseline, stage B's gumbel_st
+        # decode and its recompute; the listener runs no kernel
+        per = scst_per_iteration(on)
+        want = {k: LISTENER_ITERS * per.get(k, 0) for k in got}
+        require(got == want, f"joint, CIC_FUSED_CELL={int(on)}: launches "
+                f"{got}, expected {want} ({per} an iteration)")
+        print(f"  {LISTENER_ITERS} joint iterations (-o gumbel), "
+              f"CIC_FUSED_CELL={int(on)}: {wall:.2f} s; last "
+              + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+              + f"; stage B's ids equal stage A's, both agents moved every "
+              f"iteration; launches {got}", flush=True)
+    launches = _dispatch.launches()
+    add(launches)
+    require_vector_width("joint", launches)
+    require(_dispatch.head_pass_launches()["greedy_head_fma"] ==
+            launches["greedy_head"], "joint: the f32 greedy head must take "
+            "the FMA pass")
+
+    data = tr.loader.get_batch("train")
+    with fused_cell_switch(True):
+        out["joint_split_ms"] = scst_split(tr, data, n=LISTENER_ITERS)
+        out["joint_its"] = iterations_per_s(tr, data, n=LISTENER_ITERS)
+    sp = out["joint_split_ms"]
+    print(f"  joint iteration ({smi}; B={TRAIN_B}, f32, CIC_FUSED_CELL=1, "
+          f"one fixed host batch, medians of {LISTENER_ITERS}): stage A "
+          f"{sp['stage_a']:.2f} ms, host reward {sp['reward']:.2f} ms, stage "
+          f"B forward + backward {sp['stage_b']:.2f} ms, Adam "
+          f"{sp['adam']:.2f} ms; {out['joint_its']:.2f} it/s", flush=True)
+    return tr
+
+
+def disc_against_cpu(ds):
+    """(c) The first joint step at B=16, dropout off, in each relaxed mode:
+    stage B on the card with its draws recorded, then on the CPU port
+    replaying them: DISC's and the CIDEr sample's rows all equal,
+    retrieval_loss and loss_cider to 1e-4 relative, every gradient leaf of
+    both agents by phase 5's rule."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops import draws
+    from cooperativeimagecaptioning_tpu_torch.training import joint
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    out = {}
+    for mode in DISC_MODES:
+        tr = Trainer(disc_opt(mode, LISTENER_CPU_B, drop_prob_lm=0.0,
+                              start_from=None),
+                     dataset=ds, device=DEVICE, verbose=False)
+        data = tr.loader.get_batch("train")
+        batch = tr._prepare_batch(data)
+        hp = tr._hyper()
+        gen, greedy = tr._sample_fn(tr.params, batch,
+                                    tr.iteration_streams(), hp)
+        reward, _, _ = joint.host_reward(tr.opt, data["gts"], gen, greedy)
+        reward = torch.from_numpy(reward)
+        rec = {k: draws.Record(v) for k, v in tr.iteration_streams().items()}
+        seen_g, seen_c = {}, {}
+        (_, aux_g), grads_g = tr._grad_fn(tr.params, batch, rec, hp,
+                                          reward.to(DEVICE), seen_g)
+        require(torch.equal(seen_g["seq"], gen),
+                f"{mode}: stage B's ids on the card differ from stage A's")
+        replay = {k: draws.Replay([x.cpu() for x in r.taken])
+                  for k, r in rec.items()}
+        cpu_batch = {k: None if v is None else v.cpu()
+                     for k, v in batch.items()}
+        (_, aux_c), grads_c = tr._grad_fn(cpu_copy(tr.params), cpu_batch,
+                                          replay, hp, reward, seen_c)
+        shares = {k: float((seen_g[k].cpu() == seen_c[k]).all(dim=1).float()
+                           .mean()) for k in ("disc_seq", "seq")}
+        rels = {k: abs(aux_g[k].item() - aux_c[k].item()) /
+                abs(aux_c[k].item()) for k in ("retrieval_loss", "loss_cider")}
+        worst, worst_key, max_abs = grads_against(grads_g, grads_c)
+        print(f"  B={LISTENER_CPU_B} {mode} step, card vs cpu port on the "
+              f"card's noise: rows equal {shares}; relative "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+              + f"; gradients of both agents max abs difference "
+              f"{max_abs:.3e}, worst leaf {worst_key} at {worst:.3f} of its "
+              f"tolerance", flush=True)
+        require(all(v == 1.0 for v in shares.values()),
+                f"{mode}: rows equal {shares}")
+        require(all(v <= 1e-4 for v in rels.values()), f"{mode}: {rels}")
+        require(worst <= 1.0, f"{mode}: gradient {worst_key} at {worst}")
+        out[mode] = {"rel": rels, "worst": worst}
+        del tr
+    return out
+
+
+def near_tie_queries(scores, targets, topk, tol=1e-6):
+    """Queries (rows of the CPU's f32 scores) whose ranks or top-k hits a
+    rounding difference may move: (a target score within `tol` of another
+    column's, two of the top topk + 1 scores within `tol`), as two [Q]
+    bool arrays."""
+    import torch
+    s = scores
+    tgt = torch.as_tensor(np.asarray(targets, np.int64))
+    tval = torch.gather(s, 1, tgt)                       # [Q, T]
+    close = (s[:, None, :] - tval[:, :, None]).abs() <= tol
+    close.scatter_(2, tgt[:, :, None], False)
+    top = torch.topk(s, min(topk + 1, s.shape[1]), dim=1).values
+    gaps = (top[:, :-1] - top[:, 1:]) <= tol
+    return close.any(dim=2).any(dim=1).numpy(), gaps.any(dim=1).numpy()
+
+
+def ranks_against_cpu(tr):
+    """(d) The joint listener's embeddings of every split (GT and generated
+    captions) through scores_ranks_hits on the card and on the CPU: equal
+    ranks and hits except on near-tie queries, which are at most 1% of
+    them.  All three splits: the held-out captions of random synthetic
+    words lie close together (about 3% of a held-out split's i2t queries
+    hold a tie within 1e-6), so one split alone leaves the 1% gate a few
+    queries of room."""
+    from cooperativeimagecaptioning_tpu_torch.evaluation import retrieval
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import detached
+    ev = tr.evaluator()
+    cpi = tr.loader.ds.gt_caps_per_image
+    queries = differ = near_n = 0
+    for split, gen in [(s, g) for s in ("train", "val", "test")
+                       for g in (False, True)]:
+        img, cap, _ = ev.encode_data(detached(tr.params), tr.loader,
+                                     {"split": split, "num_images": -1},
+                                     use_gen_sent=gen)
+        c = 1 if gen else cpi
+        n = img.shape[0] // c
+        cases = [("t2i", cap[:c * n], img[::c][:n],
+                  np.repeat(np.arange(n), c)[:, None], 4)]
+        if not gen:
+            cases.append(("i2t", img[::c][:n], cap,
+                          np.arange(n)[:, None] * c + np.arange(c)[None, :],
+                          1))
+        for name, q, pool, tgt, topk in cases:
+            got = retrieval.scores_ranks_hits(q, pool, tgt, topk)
+            qc, pc = q.cpu(), pool.cpu()
+            want = retrieval.scores_ranks_hits(qc, pc, tgt, topk)
+            with retrieval._full_f32_matmul():
+                target_tie, hit_tie = near_tie_queries(qc @ pc.T, tgt, topk)
+            near = target_tie | hit_tie
+            bad = (got[0] != want[0]).any(axis=1) | \
+                (got[1] != want[1]).any(axis=1)
+            require(not (bad & ~near).any(),
+                    f"ranks {name}: {int((bad & ~near).sum())} queries "
+                    f"differ between the card and the CPU off near-ties")
+            queries += len(bad)
+            differ += int(bad.sum())
+            near_n += int(near.sum())
+            print(f"  ranks {name} ({split}, "
+                  f"{'generated' if gen else 'GT'} captions, "
+                  f"{len(bad)} queries x {pool.shape[0]}): card vs cpu "
+                  f"port, {int(bad.sum())} differ; near ties within 1e-6: "
+                  f"{int(target_tie.sum())} at a target, "
+                  f"{int(hit_tie.sum())} among the top {topk + 1}",
+                  flush=True)
+    print(f"  ranks card vs cpu port, all splits: {differ} of {queries} "
+          f"queries differ, {near_n} near ties", flush=True)
+    require(near_n <= 0.01 * queries,
+            f"{near_n} near-tie queries of {queries}")
+    return {"queries": queries, "differ": differ, "near_ties": near_n}
+
+
+def protocol_rank_seconds():
+    """rank_metrics at the COCO protocol's size on the card: 5000 images x
+    5 GT captions of random unit embeddings, E=1024 (i2t and t2i); median
+    seconds of 3 after a warm-up."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.evaluation import retrieval
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    n, c, e = 5000, 5, 1024
+    img = torch.randn((n, e), generator=gen, device=DEVICE)
+    cap = torch.randn((n * c, e), generator=gen, device=DEVICE)
+    img = (img / img.norm(dim=1, keepdim=True)).repeat_interleave(c, 0)
+    cap = cap / cap.norm(dim=1, keepdim=True)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = retrieval.rank_metrics(img, cap, caps_per_image=c)
+        times.append(time.perf_counter() - t0)
+    require(np.isfinite(m["rsum"]), f"protocol ranks {m['rsum']}")
+    return float(np.median(times[1:]))
+
+
+def listener_eval(tr, ds, add, out):
+    """(d) checkpoint_operations of the joint trainer, eval.eval with the
+    trained and the ground-truth listener, the rank arrays against the CPU
+    port, and the rank pass at the protocol's size."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch import eval as eval_entry
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    val_loss, _ = tr.checkpoint_operations()
+    torch.cuda.synchronize()
+    got = _dispatch.launches()
+    add(got)
+    out["joint_ckpt_s"] = time.perf_counter() - t0
+    out["joint_rank_s"] = tr.evaluator().last_timings["rank_eval_s"]
+    written = sorted(os.listdir(DISC_RUN_DIR))
+    for name in ("alternatingModel.pth",
+                 f"alternatingModel-{tr.iteration}.pth", "model-best.pth",
+                 "model_vse-best.pth", "speaker_optimizer.pth",
+                 "listener_optimizer.pth", "infos_.pkl", "histories_.pkl"):
+        require(name in written, f"joint checkpoint_operations: {written}")
+    gt = val_loss.get("gt_ranks", {})
+    require(np.isfinite(val_loss.get("t2i_r1", np.nan)) and
+            np.isfinite(gt.get("i2t_r1", np.nan)) and
+            np.isfinite(val_loss["retrieval_loss"]),
+            f"joint val: {sorted(val_loss)}")
+    print(f"  joint checkpoint_operations in {out['joint_ckpt_s']:.1f} s "
+          f"(rank pass {out['joint_rank_s']:.3f} s): generated-caption t2i "
+          f"r1 {val_loss['t2i_r1']:.2f} rsum {val_loss['rsum']:.2f}, GT "
+          f"rsum {gt['rsum']:.2f}, retrieval_loss "
+          f"{val_loss['retrieval_loss']:.4f}; wrote {written}; launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+
+    results = {}
+    os.chdir(DISC_RUN_DIR)  # eval_results/ is written under the run dir
+    try:
+        for listener in (None, "gt"):
+            buf = io.StringIO()
+            _dispatch.reset_launches()
+            with contextlib.redirect_stdout(buf):
+                res = eval_entry.eval(
+                    None, os.path.join(DISC_RUN_DIR, "alternatingModel.pth"),
+                    os.path.join(DISC_RUN_DIR, "infos_.pkl"),
+                    listener=listener, split="test", dataset=ds,
+                    device=DEVICE)
+            torch.cuda.synchronize()
+            got = _dispatch.launches()
+            add(got)
+            loss = res["loss"]
+            require(got["beam_head"] > 0 and got["attention"] > 0,
+                    f"eval.eval launches {got}")
+            require(np.isfinite(loss.get("t2i_r1", np.nan)) and
+                    np.isfinite(loss.get("gt_ranks", {}).get("rsum",
+                                                             np.nan)),
+                    f"eval.eval(listener={listener}): {sorted(loss)}")
+            if listener == "gt":
+                require("gt listener is loaded" in buf.getvalue(),
+                        "eval.eval(listener='gt') did not swap the listener")
+            results[listener] = loss
+            print(f"  eval.eval(listener={listener!r}), beam 2, test: "
+                  f"{len(res['split_predictions'])} captions, t2i r1 "
+                  f"{loss['t2i_r1']:.2f}, rsum {loss['rsum']:.2f}, GT rsum "
+                  f"{loss['gt_ranks']['rsum']:.2f}; launches "
+                  f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    finally:
+        os.chdir(REPO)
+    out["ranks_cpu"] = ranks_against_cpu(tr)
+    out["protocol_rank_s"] = protocol_rank_seconds()
+    print(f"  rank_metrics at the protocol's size (5000 images x 5 "
+          f"captions, E=1024, i2t + t2i on the card): "
+          f"{out['protocol_rank_s']:.3f} s", flush=True)
+
+
+def fc_served(add, out):
+    """(e) from_run_dir on the stage-1 run dir: the FC speaker served,
+    greedy and beam 2, bucket 512, f32 and bf16, every step through B or C
+    and, with the switch set, every cell step through F; the f32 ids
+    against the CPU service's."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
+    fc, _, _ = features(512, seed=808)
+    for dt, pass_ in (("float32", "fma"), ("bfloat16", "mma")):
+        for beam in (0, 2):
+            head = "beam_head" if beam else "greedy_head"
+            kw = dict(run_id="fc_con", beam_size=beam, buckets=(512,),
+                      compute_dtype=dt)
+            with fused_cell_switch(True):
+                svc = CaptioningService.from_run_dir(FC_RUN_DIR,
+                                                     device=DEVICE, **kw)
+                svc.caption_ids(fc[:1])
+                _dispatch.reset_launches()
+                ids = svc.caption_ids(fc)
+                torch.cuda.synchronize()
+                got = _dispatch.launches()
+                passes = _dispatch.head_pass_launches()
+            add(got)
+            want = {k: 0 for k in _dispatch.KERNELS}
+            want[head], want["cell"] = L, L + 1  # the image step, BOS, L-1
+            require(got == want, f"FC {dt} beam {beam}: launches {got}, "
+                    f"expected {want}")
+            require(passes[f"{head}_{pass_}"] == L,
+                    f"FC {dt} beam {beam}: head passes {passes}")
+            require(ids.shape == (512, L) and ids.min() >= 0 and
+                    ids.max() <= VOCAB, f"FC ids {ids.shape}")
+            how = "beam 2" if beam else "greedy"
+            line = (f"  FC speaker served ({dt}, {how}, bucket 512): "
+                    f"{len({tuple(r) for r in ids})} distinct rows; "
+                    f"launches { {k: v for k, v in got.items() if v} }")
+            if dt == "float32":
+                cpu = CaptioningService.from_run_dir(FC_RUN_DIR,
+                                                     device="cpu", **kw)
+                rate = float((cpu.caption_ids(fc) == ids).all(axis=1).mean())
+                out[f"fc_agree_beam{beam}"] = rate
+                line += f"; {rate * 100:.1f}% of rows equal the CPU service's"
+                require(rate >= AGREE_F32, f"FC f32 beam {beam}: {rate}")
+            print(line, flush=True)
+
+
+def phase_listener(smi):
+    """Phase 8: (a) phase 1, (b) joint -o gumbel, (c) the four relaxed
+    modes against the CPU port, (d) evaluation and ranks, (e) the FC
+    speaker served.  Returns the launches of the main path's segments
+    (each counted from 0 before it to just after it) and the numbers."""
+    import shutil
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    for d in (FC_RUN_DIR, DISC_RUN_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+    ds = train_dataset()
+    print(f"listener: phase 1 (FC speaker, VSE listener: vse_embed 1024, "
+          f"GRU, 'last' pooling, margin 0.2, max violation), then "
+          f"run_joint.py -o gumbel (att2in2 + listener, DISC 0.01, CIDEr-D "
+          f"0.99), vocab {VOCAB}, width {WIDTH}, K={K}, L={L}, B={TRAIN_B}, "
+          f"f32", flush=True)
+    launches = {k: 0 for k in _dispatch.KERNELS}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    out = {}
+    listener_phase1(ds, add, out)
+    tr = listener_joint(ds, add, out, smi)
+    with fused_cell_switch(False):
+        out["cpu"] = disc_against_cpu(ds)
+        listener_eval(tr, ds, add, out)
+    fc_served(add, out)
+    return launches, out
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, REPO)
@@ -2161,11 +2804,15 @@ def main():
     scst_launches, _ = phase_scst(smi, phase5)
     print(f"elapsed after self-critical training: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
+    listener_launches, _ = phase_listener(smi)
+    print(f"elapsed after the listener: "
+          f"{time.perf_counter() - t_start:.0f} s", flush=True)
     # each path's counts run from 0 just before it to just after it
     kernels = []
     for k in SOURCES:
         by_path = {"serve": serve_launches[k], "train": train_launches[k],
-                   "eval": eval_launches[k], "scst": scst_launches[k]}
+                   "eval": eval_launches[k], "scst": scst_launches[k],
+                   "listener": listener_launches[k]}
         require(sum(by_path.values()) > 0,
                 f"{k} was never launched on a main path")
         kernels.append({

@@ -2,14 +2,11 @@
 eval.py; ref: eval.py).
 
 eval(opt, model_name, infos_name, ann_file, listener, split, iteration):
-rebuild the model at a specific checkpoint and run eval_split under the
-final-eval protocol (beam 2), on the card unless `device="cpu"`.  A run dir
-written by either package loads (config.load_infos).  The speaker of a
-joint run (a listener beside it) loads into `joint.speaker_template` when
-`rank_eval` is 0: its captions and its own losses are evaluated, the
-listener's leaves are reported and left out.  Ranking with the listener and
-swapping in a ground-truth listener need the listener, which is not ported
-yet."""
+rebuild the joint model at a specific checkpoint, optionally swap in a
+ground-truth listener (listener="gt": the `initialize_retrieval` listener),
+and run eval_split under the final-eval protocol (beam 2) with
+generated-caption ranking, on the card unless `device="cpu"`.  A run dir
+written by either package loads (config.load_infos)."""
 
 from __future__ import annotations
 
@@ -25,11 +22,6 @@ from cooperativeimagecaptioning_tpu_torch.training import joint
 def eval(opt, model_name, infos_name, ann_file=None, listener=None,
          split="test", iteration=None, dataset=None, device="cuda"):
     """ref: eval.py:20-91."""
-    if listener == "gt":
-        raise NotImplementedError(
-            "listener='gt': the ground-truth listener swap needs the "
-            "listener, which is not ported yet (ROADMAP.md queue 1: the "
-            "listener and retrieval)")
     infos = config.load_infos(infos_name)
     if not hasattr(opt, "att_hid_size") or opt is None:
         opt = infos["opt"]
@@ -55,16 +47,18 @@ def eval(opt, model_name, infos_name, ann_file=None, listener=None,
     opt.vocab_size = loader.vocab_size
     opt.seq_length = loader.seq_length
 
-    seed = getattr(opt, "seed", 123)
-    if joint.has_listener(opt) and not opt.rank_eval:
-        # the speaker of a joint run: the listener's losses are left out
-        params = joint.speaker_template(opt, device, seed)
-        opt = opt.replace(vse_model="None")
-    else:
-        params = joint.init_params(seed, opt, device)
-    params = ck.load_params_into(params, model_name)
-
     ev = Evaluator(opt, device=device)
+    params = joint.init_params(getattr(opt, "seed", 123), opt, device)
+    params = ck.load_params_into(params, model_name)
+    if listener == "gt" and getattr(opt, "initialize_retrieval", None):
+        gt = ck.load_params(opt.initialize_retrieval, device)
+        if "listener" in gt:
+            params["listener"] = gt["listener"]
+            print("gt listener is loaded for evaluation")
+        else:
+            print(f"warning: {opt.initialize_retrieval} has no 'listener' "
+                  "subtree; evaluating with the TRAINED listener")
+
     eval_kwargs = dict(vars(opt))
     eval_kwargs["split"] = split
     loss, split_predictions, lang_stats = ev.eval_split(

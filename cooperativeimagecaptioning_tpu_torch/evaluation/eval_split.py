@@ -1,25 +1,29 @@
 """Split evaluation: loss accumulation + caption generation + metric hooks
 (counterpart of the JAX package's evaluation/eval_split.py; ref
-eval_utils.py:89-280 eval_split).
+eval_utils.py:89-280 eval_split, :283-412 encode_data, :415-542 evalrank).
 
 The `Evaluator` takes the joint param tree (tensors on its device) and a
 `DataLoader`, and runs on one device: the card unless the caller passes
-`device="cpu"`.  Each batch runs the teacher-forced loss (f32, the b-major
-attention kernel) and one decode (greedy or beam; `compute_dtype`,
-`att_quant` and `att_kmajor` as in the service).  The loop does not
+`device="cpu"`.  Each batch runs the loss of training in eval mode (f32:
+the caption loss, and with a listener its contrastive and DISC terms) and
+one decode (greedy or beam; `compute_dtype`, `att_quant` and `att_kmajor`
+as in the service), of the Att2in2 or the FC speaker.  The loop does not
 synchronise per batch: the loss sums stay on the device and the decoded ids
 are converted after the loop, but at most `MAX_IN_FLIGHT` batches are kept
 undrained, so the host never runs further ahead of the device than that.
 
-Ported: a speaker-only tree; greedy, beam search, and `sample_max` 0
-(multinomial at `temperature`) and 2 (Gumbel-noise max), whose draws come
-from a generator seeded with 123 on each batch, as the JAX package's fixed
-key; the CIDEr-D term of the eval loss under `cider_optimization` (stage A
-and the host reward, then the loss on the same trajectory); the language
-metrics.  Not ported yet, each raising NotImplementedError that names its
-ROADMAP.md queue-1 item: the device feature cache, a device mesh, and
-everything that needs the listener (`encode_fn`, `encode_data`, and
-`evalrank` on a tree that has one).
+Ported: greedy, beam search, and `sample_max` 0 (multinomial at
+`temperature`) and 2 (Gumbel-noise max), whose draws come from a generator
+seeded with 123 on each batch, as the JAX package's fixed key; the CIDEr-D
+term of the eval loss under `cider_optimization` (stage A and the host
+reward, then the loss on the same trajectory); the language metrics; and
+the listener's half: `encode_fn`, `encode_data` (GT captions, or generated
+ones with BOS prepended on the device) and `evalrank` (the rank metrics of
+evaluation/retrieval.py on embeddings that stay on the device), ranked
+each checkpoint on both val and test in phase 1, with the GT ranks beside
+the generated-caption ranks when there is no ann_file.  Not ported yet,
+each raising NotImplementedError that names its ROADMAP.md queue-1 item:
+the device feature cache and a device mesh.
 """
 
 from __future__ import annotations
@@ -30,14 +34,15 @@ import numpy as np
 import torch
 
 from cooperativeimagecaptioning_tpu_torch import models as model_zoo
-from cooperativeimagecaptioning_tpu_torch.evaluation import language_eval
-from cooperativeimagecaptioning_tpu_torch.ops import decoding, draws
+from cooperativeimagecaptioning_tpu_torch.evaluation import (
+    language_eval, retrieval)
+from cooperativeimagecaptioning_tpu_torch.models import vse
+from cooperativeimagecaptioning_tpu_torch.ops import decoding, draws, losses
 from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
 from cooperativeimagecaptioning_tpu_torch.training import joint
 from cooperativeimagecaptioning_tpu_torch.utils.text import decode_sequence
 from cooperativeimagecaptioning_tpu_torch.utils.tree import detached, to_torch
 
-_LISTENER = "ROADMAP.md queue 1: the listener and retrieval"
 _JOINT = "ROADMAP.md queue 1: joint training"
 # the fixed seed of the evaluation's random draws (JAX: PRNGKey(123))
 EVAL_SEED = 123
@@ -95,17 +100,20 @@ class Evaluator:
             "bfloat16" else None
 
         def run(params, fc, att, att_masks):
-            del fc  # att2in2 never reads the fc features
             with torch.inference_mode():
                 spk = self.speaker(to_torch(joint.speaker_view(params, opt),
                                             self.device, dtype))
                 if dtype is not None:  # serving precision (--compute_dtype)
-                    att = att.to(dtype)
-                ctx = spk.encode_features(None, att, att_masks)
-                if getattr(opt, "att_quant", "") == "int8":
-                    ctx = spk.quantize_ctx(ctx)
-                elif getattr(opt, "att_kmajor", 0):
-                    ctx = spk.kmajor_ctx(ctx)
+                    fc = fc.to(dtype)
+                    att = None if att is None else att.to(dtype)
+                ctx = spk.encode_features(fc, att, att_masks)
+                # the layouts of an attention context (the FC speaker's
+                # context holds the fc features only)
+                if "att_feats" in ctx:
+                    if getattr(opt, "att_quant", "") == "int8":
+                        ctx = spk.quantize_ctx(ctx)
+                    elif getattr(opt, "att_kmajor", 0):
+                        ctx = spk.kmajor_ctx(ctx)
                 if beam_size > 1:
                     out = decoding.beam_search(
                         spk, ctx, opt.seq_length, beam_size,
@@ -144,9 +152,12 @@ class Evaluator:
         return torch.from_numpy(reward).to(self.device)
 
     def encode_fn(self, params, fc, seqs, masks):
-        raise NotImplementedError(
-            f"encode_fn needs the listener, which is not ported yet "
-            f"({_LISTENER})")
+        """The listener's (image, caption) embeddings of one batch (JAX
+        eval_split.py:117-126)."""
+        with torch.inference_mode():
+            listener = vse.VSEModel(params["listener"], self.opt)
+            return listener.encode_image(fc), listener.encode_text(seqs,
+                                                                   masks)
 
     # -- helpers -------------------------------------------------------------
     def _put(self, x, dtype=torch.float32):
@@ -301,13 +312,70 @@ class Evaluator:
     # -- retrieval (ref: eval_utils.py:283-542) --------------------------------
     def encode_data(self, params, loader, eval_kwargs=None,
                     use_gen_sent=False):
-        raise NotImplementedError(
-            f"encode_data needs the listener, which is not ported yet "
-            f"({_LISTENER})")
+        """(image embeddings, caption embeddings, the images' infos) of a
+        split (JAX eval_split.py:324-380): the GT captions, gt_caps_per_image
+        rows an image, or one caption an image generated greedily (or, with
+        `gen_sample_max`, sampled) with BOS prepended on the device.  The
+        embeddings stay on the device."""
+        opt = self.opt
+        ek = dict(eval_kwargs or {})
+        num_images = ek.get("num_images", ek.get("val_images_use",
+                                                 opt.val_images_use))
+        split = ek.get("split", "val")
+        params = detached(to_torch(params, self.device))
+        saved_spi = loader.seq_per_img
+        gt_cpi = getattr(loader.ds, "gt_caps_per_image", 5)
+        loader.seq_per_img = 1 if use_gen_sent else gt_cpi
+        loader.reset_iterator(split)
+        img_embs, cap_embs, images_data = [], [], []
+        n = 0
+        # the reference pins the generated captions to greedy
+        # (eval_utils.py:347); gen_sample_max ranks sampled ones instead
+        decode = self._decode_fn(1, int(ek.get("gen_sample_max", 1)))
+        V = opt.vocab_size
+        try:
+            while True:
+                data = loader.get_batch(split)
+                n += loader.batch_size
+                if not use_gen_sent:
+                    img_emb, cap_emb = self.encode_fn(
+                        params, self._put(data["fc_feats"]),
+                        self._put(data["labels"], torch.int64),
+                        self._put(data["masks"]))
+                else:
+                    fc, att, am = self._dedup(data, loader)
+                    seq, _ = decode(params, fc, att, am)
+                    img_emb, cap_emb = self.encode_fn(
+                        params, fc, joint._prepend_bos_ids(seq.long(), V),
+                        losses.masks_from_seq(seq))
+                ix1 = data["bounds"]["it_max"]
+                if num_images != -1:
+                    ix1 = min(ix1, num_images)
+                if n > ix1:
+                    keep = (ix1 - n) * loader.seq_per_img
+                    img_emb, cap_emb = img_emb[:keep], cap_emb[:keep]
+                    images_data += data["infos"][: ix1 - n]
+                else:
+                    images_data += data["infos"]
+                img_embs.append(img_emb)
+                cap_embs.append(cap_emb)
+                if data["bounds"]["wrapped"]:
+                    break
+                if 0 <= num_images <= n:
+                    break
+        finally:
+            loader.seq_per_img = saved_spi
+        return torch.cat(img_embs), torch.cat(cap_embs), images_data
 
     def evalrank(self, params, loader, eval_kwargs=None, use_gen_sent=False):
+        """The rank metrics of a split (JAX eval_split.py:382-392; {} for a
+        tree without a listener)."""
         if "listener" not in params:
             return {}
-        raise NotImplementedError(
-            f"evalrank on a tree with a listener is not ported yet "
-            f"({_LISTENER})")
+        img, cap, images_data = self.encode_data(params, loader, eval_kwargs,
+                                                 use_gen_sent)
+        cpi = 1 if use_gen_sent else getattr(loader.ds, "gt_caps_per_image",
+                                             5)
+        return retrieval.rank_metrics(
+            img, cap, images_data, use_gen_sent=use_gen_sent,
+            fold5=(eval_kwargs or {}).get("fold5", 0), caps_per_image=cpi)

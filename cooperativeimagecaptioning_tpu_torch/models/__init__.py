@@ -1,28 +1,23 @@
-"""Model zoo of the port (counterpart of the JAX package's models/).
+"""Model zoo of the port (counterpart of the JAX package's models/): the
+Att2in2 and FC speakers and the VSE listener."""
 
-Ported: the Att2in2 speaker.  The FC speaker and the VSE listener follow in
-later slices (ROADMAP.md, queue 1).
-"""
-
-from cooperativeimagecaptioning_tpu_torch.models import att_model
+from cooperativeimagecaptioning_tpu_torch.models import (
+    att_model, fc_model, vse)
 
 
 def setup(opt, name, model_type):
     """Return the model class for a model name (ref models/__init__.py): an
     nn.Module built from a param tree, with `init_params(seed, opt)` making
-    one."""
+    one.  A speaker is built as `cls(params)`, the listener as
+    `cls(params, opt)`."""
     if model_type == "caption_model":
+        if name == "fc":
+            return fc_model.FCModel
         if name == "att2in2":
             return att_model.AttModel
-        if name == "fc":
-            raise NotImplementedError(
-                "caption model 'fc' is not ported yet (ROADMAP.md queue 1: "
-                "the FC speaker)")
         raise ValueError(f"caption model not supported: {name}")
     if model_type == "vse_model":
         if name == "fc":
-            raise NotImplementedError(
-                "vse model 'fc' is not ported yet (ROADMAP.md queue 1: the "
-                "listener and retrieval)")
+            return vse.VSEModel
         raise ValueError(f"vse model not supported: {name}")
     raise ValueError(f"model_type not supported: {model_type}")

@@ -69,6 +69,10 @@ class AttModel(nn.Module):
     checkpoint).  Calling it runs one decode `step`."""
 
     init_params = staticmethod(init_params)
+    # no pre-BOS step whose output teacher forcing would discard
+    TEACHER_FORCING_DROPS_PREFIX_OUTPUT = False
+    # dropout of the embedded token (ref AttModel.py:74-76)
+    EMBED_DROPOUT = True
 
     def __init__(self, params: dict):
         super().__init__()

@@ -47,6 +47,12 @@ def embedding_lookup(table, ids):
         tuple(ids.shape) + (table.shape[1],))
 
 
+def l2norm(x, dim=-1, eps=1e-7):
+    """L2-normalize along `dim`, eps added to the norm (JAX layers.py:39;
+    ref VSEFCModel.py:12-17)."""
+    return x / (torch.linalg.vector_norm(x, dim=dim, keepdim=True) + eps)
+
+
 def keep_mask(shape, rate: float, gen, device):
     """Bernoulli(1 - rate) keep mask from `gen` (a generator on `device`, or
     a draw source): `uniform < 1 - rate`, as jax.random.bernoulli draws."""

@@ -59,13 +59,19 @@ def _draws(speaker, j, it, prev_lp, gen, drop_prob, ss_prob, use_ss):
         sampled = torch.argmax(prev_lp.detach() + src.gumbel(
             prev_lp.shape, device), dim=-1)
         it = torch.where(replace, sampled.to(it.dtype), it)
-    masks = (None, None)
-    if drop_prob > 0.0:
-        w = speaker.params.logit.w  # [H, V+1]
-        masks = (layers.keep_mask((B, speaker.params.embed.shape[1]),
-                                  drop_prob, gen, w.device),
-                 layers.keep_mask((B, w.shape[0]), drop_prob, gen, w.device))
-    return it, masks
+    return it, _step_masks(speaker, B, drop_prob, gen)
+
+
+def _step_masks(speaker, B, drop_prob, gen):
+    """One step's dropout keep masks (embedding, output), drawn in that
+    order; a speaker without dropout on its embedding (EMBED_DROPOUT false:
+    the FC speaker) draws the output's only."""
+    if drop_prob <= 0.0:
+        return None, None
+    w = speaker.params.logit.w  # [H, V+1]
+    emb = layers.keep_mask((B, speaker.params.embed.shape[1]), drop_prob,
+                           gen, w.device) if speaker.EMBED_DROPOUT else None
+    return emb, layers.keep_mask((B, w.shape[0]), drop_prob, gen, w.device)
 
 
 def _tf_step(speaker, ctx, h, c, it, emb_mask, out_mask, drop_prob):
@@ -146,10 +152,14 @@ def teacher_forced_loss(speaker, ctx, inputs, targets, masks, gen=None,
 
 def _batch_size(ctx):
     """Rows of a context in any of its layouts: the K-major one carries the
-    batch on axis 1 (JAX decoding.py:219-224)."""
+    batch on axis 1; the FC speaker's holds the fc features only (JAX
+    decoding.py:219-224)."""
     if "att_feats_t" in ctx:
         return ctx["att_feats_t"].shape[1]
-    return ctx.get("att_feats", ctx.get("att_feats_q")).shape[0]
+    for key in ("att_feats", "att_feats_q", "fc_feats"):
+        if ctx.get(key) is not None:
+            return ctx[key].shape[0]
+    raise ValueError(f"a context without features: {sorted(ctx)}")
 
 
 def _div(x, t):
@@ -269,14 +279,6 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
     use_fused = mode == "greedy" and not decoding_constraint
     shape = (B, nclass)
 
-    def masks():
-        """One step's dropout keep masks (embedding, output)."""
-        if drop <= 0.0:
-            return None, None
-        return (layers.keep_mask((B, speaker.params.embed.shape[1]), drop,
-                                 rng, device),
-                layers.keep_mask((B, w.shape[0]), drop, rng, device))
-
     state = speaker.init_state(B)
     for pe in speaker.prefix_embeddings(ctx):
         state, _ = speaker.step(ctx, state, pe, drop, rng)
@@ -321,7 +323,7 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
         return state, lp, unfinished, it_masked, sample_lp, oh
 
     # t = 0: the BOS step
-    em, om = masks()
+    em, om = _step_masks(speaker, B, drop, rng)
     xt = speaker.embed_token(
         torch.full((B,), bos, dtype=torch.int32, device=device), drop,
         mask=em)
@@ -333,7 +335,7 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
     seqs, lps, ohs = [], [], []
     for t in range(1, seq_length):
         noise = _select_noise(rng, mode, shape, device)
-        em, om = masks()
+        em, om = _step_masks(speaker, B, drop, rng)
         if use_ckpt:
             state, lp, unfinished, it_masked, sample_lp, oh = checkpoint(
                 body, t, state, lp, unfinished, noise, em, om,

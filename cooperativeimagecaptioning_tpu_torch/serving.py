@@ -4,11 +4,13 @@ CUDA device (counterpart of the JAX package's serving.py).
 Requests are padded up to a fixed set of batch buckets and a fixed attention
 length, as in the JAX service, so every decode runs at one of a few static
 shapes.  Decode is greedy, or beam search (the final-eval protocol is beam
-2, ref eval.py:33), in bf16 by default.  Each decode step runs the
-attention kernel and the greedy or beam head kernel (ops/kernels/) on the
-card; on device="cpu" the same code takes their plain versions.  The
-attention context is b-major by default, int8 with `att_quant="int8"` or
-K-major with `att_kmajor=1`, each with its own attention kernel.
+2, ref eval.py:33), in bf16 by default, of the Att2in2 speaker or of the FC
+speaker (a phase-1 run's), which reads the fc features alone.  Each decode
+step runs the Att2in2 speaker's attention kernel and the greedy or beam
+head kernel (ops/kernels/) on the card; on device="cpu" the same code
+takes their plain versions.  The attention context is b-major by default,
+int8 with `att_quant="int8"` or K-major with `att_kmajor=1`, each with its
+own attention kernel.
 
 Usage:
     svc = CaptioningService.from_run_dir("runs/gumbel_x", beam_size=2)
@@ -67,6 +69,9 @@ class CaptioningService:
         self._warned_trunc = False
         self._warned_zero_mask = False
         self._dtype = _DTYPES[compute_dtype]
+        # the FC speaker reads the fc features, the Att2in2 speaker the
+        # attention features only (JAX serving.py:141)
+        self.use_att = opt.caption_model != "fc"
         speaker_cls = model_zoo.setup(opt, opt.caption_model, "caption_model")
         # the JAX service casts the f32 leaves (serving.py:59-64); a speaker
         # tree has no other floating leaves
@@ -112,9 +117,13 @@ class CaptioningService:
         """Run every bucket once (builds the kernels, warms allocator and
         caches) before serving."""
         for b in self.buckets:
-            self._run_bucket(np.zeros((b, self.max_att_len,
-                                       self.opt.att_feat_size), np.float32),
-                             np.ones((b, self.max_att_len), np.float32))
+            att = masks = None
+            if self.use_att:
+                att = np.zeros((b, self.max_att_len, self.opt.att_feat_size),
+                               np.float32)
+                masks = np.ones((b, self.max_att_len), np.float32)
+            self._run_bucket(np.zeros((b, self.opt.fc_feat_size),
+                                      np.float32), att, masks)
 
     def _to_device(self, x):
         """Cast on the host before the copy: bf16 features move half the
@@ -122,18 +131,21 @@ class CaptioningService:
         t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
         return t.to(self._dtype).to(self.device)
 
-    def _run_bucket(self, att, att_masks):
+    def _run_bucket(self, fc, att, att_masks):
         opt, spk, m = self.opt, self.speaker, self.beam_size
         constraint = getattr(opt, "decoding_constraint", 0)
         with torch.inference_mode():
-            am = torch.from_numpy(np.ascontiguousarray(
-                att_masks, dtype=np.float32)).to(self.device)
-            # att2in2 never reads the fc features: they stay on the host
-            ctx = spk.encode_features(None, self._to_device(att), am)
-            if self.att_quant == "int8":
-                ctx = spk.quantize_ctx(ctx)
-            elif getattr(opt, "att_kmajor", 0):
-                ctx = spk.kmajor_ctx(ctx)
+            if self.use_att:
+                # att2in2 never reads the fc features: they stay on the host
+                am = torch.from_numpy(np.ascontiguousarray(
+                    att_masks, dtype=np.float32)).to(self.device)
+                ctx = spk.encode_features(None, self._to_device(att), am)
+                if self.att_quant == "int8":
+                    ctx = spk.quantize_ctx(ctx)
+                elif getattr(opt, "att_kmajor", 0):
+                    ctx = spk.kmajor_ctx(ctx)
+            else:
+                ctx = spk.encode_features(self._to_device(fc), None, None)
             if m > 1:
                 out = decoding.beam_search(spk, ctx, opt.seq_length, m,
                                            decoding_constraint=constraint)
@@ -149,6 +161,8 @@ class CaptioningService:
         n = int(np.asarray(fc_feats).shape[0])
         if n == 0:
             return np.zeros((0, self.opt.seq_length), np.int32)
+        if not self.use_att:
+            return self._caption_ids_fc(np.asarray(fc_feats))
         if att_feats is None:
             raise ValueError("the att2in2 speaker needs att_feats")
         if np.asarray(att_feats).shape[1] > self.max_att_len and \
@@ -204,8 +218,22 @@ class CaptioningService:
             m = pad0(m, cb)
             if rows < cb:
                 m[rows:, 0] = 1.0
-            seq = self._run_bucket(att, m)
+            seq = self._run_bucket(None, att, m)
             outs.append(seq[:rows])
+        return np.concatenate(outs, axis=0)
+
+    def _caption_ids_fc(self, fc_feats):
+        """caption_ids of the FC speaker: the fc features padded to the
+        buckets (JAX serving.py:193-196)."""
+        n = fc_feats.shape[0]
+        b = self._bucket_for(n)
+        outs = []
+        for start in range(0, n, b):
+            rows = min(b, n - start)
+            cb = self._bucket_for(rows)
+            fc = np.zeros((cb,) + fc_feats.shape[1:], np.float32)
+            fc[:rows] = fc_feats[start:start + rows]
+            outs.append(self._run_bucket(fc, None, None)[:rows])
         return np.concatenate(outs, axis=0)
 
     def caption(self, fc_feats, att_feats=None, att_masks=None):

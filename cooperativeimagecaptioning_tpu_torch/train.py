@@ -4,16 +4,26 @@
         --phase 2 --caption_model att2in2 --input_json data/cocotalk.json ...
 
 Takes the JAX package's flags (config.parse_opt, the reference's CLI) plus
-`--device` (default cuda), and runs `training.loop.train`.  The port trains
-the speaker without a listener: phase 2 (MLE) and self-critical CIDEr-D
-fine-tuning with the host reward (`--cider_optimization 1
---caption_loss_weight 0 --phase 3`), resumed with `--start_from DIR` (or
-seeded with `--speaker_stage_2_model_path`); other configurations raise
-NotImplementedError naming what is missing.
+`--device` (default cuda), and runs `training.loop.train`: phase 1 (the
+listener, run_fc_con.py's flag set), phase 2 (MLE), self-critical CIDEr-D
+fine-tuning with the host reward, and phase-3 joint training with the
+relaxed DISC loss (run_joint.py's flag sets for -o gumbel, multinomial,
+gumbel_softmax, multinomial_soft and their `_speaker` ablations), seeded
+with `--speaker_stage_2_model_path` / `--initialize_retrieval` or resumed
+with `--start_from DIR`; other configurations raise NotImplementedError
+naming what is missing.
 
-    python -m cooperativeimagecaptioning_tpu_torch.train --device cuda \\
-        --phase 3 --cider_optimization 1 --caption_loss_weight 0 \\
-        --start_from runs/att_phase2 --checkpoint_path runs/att_scst ...
+    python -m cooperativeimagecaptioning_tpu_torch.train --device cuda \
+        --phase 1 --caption_model fc --vse_model fc --vse_loss_weight 1 \
+        --caption_loss_weight 0 --rank_eval 1 --checkpoint_path runs/fc_con
+
+    python -m cooperativeimagecaptioning_tpu_torch.train --device cuda \
+        --phase 3 --vse_model fc --is_alternating 1 \
+        --alternating_turn speaker --alternating_turn listener \
+        --retrieval_reward gumbel --retrieval_reward_weight 0.01 \
+        --cider_optimization 0.99 --caption_loss_weight 0 \
+        --speaker_stage_2_model_path runs/att/model.pth \
+        --initialize_retrieval runs/fc_con/model_vse-best.pth ...
 """
 
 from __future__ import annotations

@@ -1,22 +1,34 @@
-"""Joint model: the speaker side of the joint param tree and its losses
+"""Joint model: the cooperative loss of a speaker and a listener
 (counterpart of the JAX package's training/joint.py; ref
 models/AlternatingJointModel.py).
 
 The joint tree is {'speaker': ..., 'listener': ...}.  With share_embed the
 word embedding is stored only under the listener and injected into the
-speaker's view (ref AlternatingJointModel.py:83-88).
+speaker's view (ref AlternatingJointModel.py:83-88), so one update keeps
+the two identical.
 
-Ported: `Hyper`, `speaker_view`, a speaker-only `init_params`,
-`speaker_template` (the speaker of any run, a joint one included), the
-named random streams, and for the 'optimizer' and 'speaker' turns the
-caption (MLE) loss and the self-critical CIDEr-D loss with the host reward,
-in two stages as in the JAX package:
+    loss = caption_loss_weight * XE
+         + vse_loss_weight * contrastive(GT captions)
+         + retrieval_reward_weight * DISC
+         + cider_optimization * CIDEr-RL
+
+Ported: `Hyper`, `init_params` (the speaker, and the listener when the run
+has one), `speaker_view`, `speaker_template` (the speaker of any run), the
+named random streams, and for the 'optimizer' and 'speaker' turns every
+branch of the JAX loss but REINFORCE: the caption (MLE) loss, the
+listener's contrastive loss on the GT captions (zeroed on the speaker
+turn), the straight-through / partial-sampling DISC loss (the relaxed
+one-hots of `decoding.sample`, a one-hot BOS row in front, through the
+listener; the gradient reaches both agents), and the self-critical CIDEr-D
+loss with the host reward, which reuses DISC's sample in the 'gumbel' and
+'multinomial' modes.  The CIDEr reward runs in two stages as in the JAX
+package:
   stage A `sample_for_reward`: sampled and greedy captions, no gradient;
   host: the CIDEr-D reward (rewards/self_critical.py);
   stage B `loss_fn`: re-draws the same sampled trajectory (the same
   streams, reseeded) under autograd and takes the reward as a constant.
 `value_and_grad` and `sampler` stand in for the JAX `make_raw_fns`.  The
-listener, DISC, alternating turns and the device reward tiers raise
+listener turn, REINFORCE DISC and the device reward tiers raise
 NotImplementedError naming their ROADMAP.md item.
 """
 
@@ -28,16 +40,20 @@ import numpy as np
 import torch
 
 from cooperativeimagecaptioning_tpu_torch import models as model_zoo
+from cooperativeimagecaptioning_tpu_torch.models import vse
 from cooperativeimagecaptioning_tpu_torch.ops import decoding, draws, losses
 from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
 from cooperativeimagecaptioning_tpu_torch.utils.tree import (
     detached, from_leaves, leaves)
 
-_LISTENER = "ROADMAP.md queue 1: the listener and retrieval"
 _JOINT = "ROADMAP.md queue 1: joint training"
 _DEVICE_REWARDS = "ROADMAP.md queue 1: device rewards"
 # the named streams of one iteration (JAX joint.py:123-127)
 STREAMS = ("xe", "disc", "cider", "greedy", "listener")
+# retrieval_reward -> the sampling mode of the relaxed DISC branch
+_MODE_MAP = {"gumbel": "gumbel_st", "multinomial": "multinomial_st",
+             "gumbel_softmax": "gumbel_soft",
+             "multinomial_soft": "multinomial_soft"}
 
 
 class Hyper(NamedTuple):
@@ -75,12 +91,17 @@ def has_listener(opt) -> bool:
 
 
 def init_params(seed: int, opt, device="cpu"):
-    """A joint tree holding only the speaker, from a numpy seed."""
+    """The joint tree from numpy seeds: the speaker from `seed` (as
+    `speaker_template`) and, when the run has a listener, the listener
+    from `seed + 1`; under share_embed the table lives only under the
+    listener (JAX joint.py:78-93)."""
+    params = speaker_template(opt, device, seed)
     if has_listener(opt):
-        raise NotImplementedError(
-            f"vse_model {opt.vse_model!r}: the listener is not ported yet "
-            f"({_LISTENER})")
-    return speaker_template(opt, device, seed)
+        shared = params.get("listener", {}).get("txt_enc", {}).get("embed")
+        params["listener"] = vse.init_params(seed + 1, opt, device)
+        if shared is not None:
+            params["listener"]["txt_enc"]["embed"] = shared
+    return params
 
 
 def speaker_template(opt, device="cpu", seed: int = 0):
@@ -146,6 +167,34 @@ def _sample_kwargs(opt, hp, train):
         remat=bool(getattr(opt, "remat", 0)) and train)
 
 
+def _prepend_bos_ids(seq, vocab_size):
+    """cat(BOS column, seq) (JAX joint.py:109-113; ref :238-240)."""
+    bos = torch.full((seq.shape[0], 1), vocab_size + 1, dtype=seq.dtype,
+                     device=seq.device)
+    return torch.cat([bos, seq], dim=1)
+
+
+def _prepend_bos_one_hot(soft_seq, vocab_size):
+    """A one-hot BOS row in front of relaxed sequences [B, L, V+2] (JAX
+    joint.py:116-120; ref :358-370)."""
+    B, _, C = soft_seq.shape
+    bos = soft_seq.new_zeros((B, 1, C))
+    bos[:, 0, vocab_size + 1] = 1.0
+    return torch.cat([bos, soft_seq], dim=1)
+
+
+def _disc_active(opt, turn) -> bool:
+    return (opt.retrieval_reward_weight > 0 and has_listener(opt)
+            and turn != "listener")
+
+
+def _cider_reuses_disc(opt, turn) -> bool:
+    """Whether the CIDEr branch takes DISC's sample (JAX joint.py:142-148;
+    ref :490-495: the soft modes, or an inactive DISC, sample anew)."""
+    return _disc_active(opt, turn) and \
+        opt.retrieval_reward in ("reinforce", "gumbel", "multinomial")
+
+
 def _cider_active(opt, turn) -> bool:
     return opt.cider_optimization > 0 and turn != "listener"
 
@@ -161,15 +210,15 @@ def check_ported(opt, turn):
     that this port does not have yet."""
     if turn == "listener":
         raise NotImplementedError(
-            f"the listener turn is not ported yet ({_LISTENER})")
-    if has_listener(opt):
+            f"the listener turn (real alternation, with the listener "
+            f"trained on the frozen speaker's samples) is not ported yet "
+            f"({_JOINT})")
+    if _disc_active(opt, turn) and opt.retrieval_reward == "reinforce":
         raise NotImplementedError(
-            f"vse_model {opt.vse_model!r}: the VSE contrastive loss and DISC "
-            f"need the listener, which is not ported yet ({_LISTENER}; "
-            f"{_JOINT})")
-    if getattr(opt, "is_alternating", 0):
-        raise NotImplementedError(
-            f"alternating turns are not ported yet ({_JOINT})")
+            f"retrieval_reward 'reinforce': REINFORCE DISC and its "
+            f"baselines are not ported yet ({_JOINT})")
+    if _disc_active(opt, turn) and opt.retrieval_reward not in _MODE_MAP:
+        raise ValueError(f"unknown retrieval_reward {opt.retrieval_reward!r}")
     if _cider_active(opt, turn) and (getattr(opt, "on_device_cider", 0) or
                                      getattr(opt, "soft_cider", 0)):
         raise NotImplementedError(
@@ -190,17 +239,24 @@ def _speaker(modules, params, opt, batch, rng, train, drop):
 
 def sample_for_reward(modules, params, opt, batch, rng, hp, turn,
                       train=True):
-    """Stage A (JAX joint.py:159-178): the (sampled, greedy) ids the CIDEr
+    """Stage A (JAX joint.py:155-178): the (sampled, greedy) ids the CIDEr
     reward scores, without autograd, on a detached view of the params.  It
-    draws from the streams exactly as loss_fn's CIDEr branch does, so that
-    stage B, given the same streams, samples the same ids."""
+    draws from the streams exactly as loss_fn's CIDEr branch does -- from
+    the 'disc' stream in the DISC mode when that branch reuses DISC's
+    sample -- so that stage B, given the same streams, samples the same
+    ids."""
     check_ported(opt, turn)
     kw = _sample_kwargs(opt, hp, train)
     with torch.no_grad():
         spk, r, ctx = _speaker(modules, detached(params), opt, batch, rng,
                                train, kw["drop_prob"])
-        out = decoding.sample(spk, ctx, opt.seq_length, r["cider"],
-                              mode="sample", temperature=1.0, **kw)
+        if _cider_reuses_disc(opt, turn):
+            out = decoding.sample(spk, ctx, opt.seq_length, r["disc"],
+                                  mode=_MODE_MAP[opt.retrieval_reward],
+                                  temperature=1.0, **kw)
+        else:
+            out = decoding.sample(spk, ctx, opt.seq_length, r["cider"],
+                                  mode="sample", temperature=1.0, **kw)
         greedy = decoding.sample(spk, ctx, opt.seq_length, r["greedy"],
                                  mode="greedy", **kw)
     return out.seq, greedy.seq
@@ -225,27 +281,44 @@ def host_reward(opt, gts, gen, greedy):
             float(cider_greedy))
 
 
+def _listener_loss(params, opt, hp, fc, seqs, masks):
+    """The listener's contrastive loss of (fc, seqs), with the hinge weight
+    as a tensor (the JAX package passes it traced: the blended form)."""
+    listener = vse.VSEModel(params["listener"], opt)
+    return listener(fc, None, seqs, masks,
+                    only_one_retrieval=opt.only_one_retrieval,
+                    max_violation_w=torch.as_tensor(
+                        hp.vse_max_w, dtype=torch.float32, device=fc.device))
+
+
 def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
             train=True, sampled=None):
     """Stage B: total loss and aux dict (JAX joint.py:181-345) for the turns
-    'optimizer' and 'speaker': the caption loss and the self-critical
-    CIDEr-D loss with the host reward.
+    'optimizer' and 'speaker'.
 
     modules: {'speaker': the speaker class}; params: the joint tree;
-    batch: tensors on the device ('att_feats', 'att_masks', 'labels' [B,
-    L+2], 'masks' [B, L+2]); rng: the named streams (`streams`), or one
-    torch.Generator / draw source for all of them; reward: [B], the CIDEr
-    coefficient from the host (cider(sample) - cider(greedy), or the raw
-    scores under use_gen_cider_scores).  `sampled`, a dict when given,
-    receives the CIDEr branch's sampled ids under 'seq'.  Returns (loss,
-    aux) with aux keys of the JAX package's."""
+    batch: tensors on the device ('fc_feats', 'att_feats', 'att_masks',
+    'labels' [B, L+2], 'masks' [B, L+2]); rng: the named streams
+    (`streams`), or one torch.Generator / draw source for all of them;
+    reward: [B], the CIDEr coefficient from the host (cider(sample) -
+    cider(greedy), or the raw scores under use_gen_cider_scores).
+    `sampled`, a dict when given, receives the CIDEr branch's sampled ids
+    under 'seq' and DISC's under 'disc_seq'.  Returns (loss, aux) with aux
+    keys of the JAX package's."""
     check_ported(opt, turn)
-    drop = opt.drop_prob_lm if train else 0.0
+    kw = _sample_kwargs(opt, hp, train)
+    drop = kw["drop_prob"]
     spk, r, ctx = _speaker(modules, params, opt, batch, rng, train, drop)
+    V = opt.vocab_size
+    fc = batch.get("fc_feats")
     labels = batch["labels"]
     masks = batch["masks"]
     loss = torch.zeros((), dtype=torch.float32, device=labels.device)
     aux = {}
+    if sampled is None:
+        sampled = {}
+
+    # ---- MLE (ref :196-207) ----
     if opt.caption_loss_weight > 0:
         if getattr(opt, "remat", 0):
             # fused CE + per-step recompute: no [B, T, V+1] residual
@@ -260,19 +333,43 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
         loss = loss + hp.caption_loss_weight * loss_cap
         aux["loss_cap"] = loss_cap
         aux["cap_xe"] = loss_cap
+
+    # ---- GT contrastive (ref :209-224), zeroed on the speaker turn ----
+    if opt.vse_loss_weight > 0 and has_listener(opt) and turn != "speaker":
+        loss_vse = _listener_loss(params, opt, hp, fc, labels, masks)
+        loss = loss + hp.vse_loss_weight * loss_vse
+        aux["loss_vse"] = loss_vse
+        aux["vse_contrastive"] = loss_vse
+
+    gen = None  # (seq, logprobs, masks) of the sample the CIDEr loss takes
+    # ---- DISC, straight-through / partial sampling (ref :343-376) ----
+    if _disc_active(opt, turn):
+        out = decoding.sample(spk, ctx, opt.seq_length, r["disc"],
+                              mode=_MODE_MAP[opt.retrieval_reward],
+                              temperature=1.0, **kw)
+        out_masks = losses.masks_from_seq(out.seq)
+        retrieval_loss = _listener_loss(
+            params, opt, hp, fc, _prepend_bos_one_hot(out.soft, V),
+            out_masks)
+        loss = loss + hp.retrieval_reward_weight * retrieval_loss
+        aux["retrieval_loss"] = retrieval_loss
+        sampled["disc_seq"] = out.seq
+        gen = (out.seq, out.logprobs, out_masks)
+
+    # ---- CIDEr-D self-critical (ref :489-503) ----
     if _cider_active(opt, turn):
-        # the self-critical CIDEr-D loss (ref AlternatingJointModel.py:
-        # 489-503): the sampled trajectory of stage A, the reward constant
-        out = decoding.sample(spk, ctx, opt.seq_length, r["cider"],
-                              mode="sample", temperature=1.0,
-                              **_sample_kwargs(opt, hp, train))
-        if sampled is not None:
-            sampled["seq"] = out.seq
+        # the sampled trajectory of stage A, the reward a constant
+        if not _cider_reuses_disc(opt, turn):
+            out = decoding.sample(spk, ctx, opt.seq_length, r["cider"],
+                                  mode="sample", temperature=1.0, **kw)
+            gen = (out.seq, out.logprobs, losses.masks_from_seq(out.seq))
+        seq, logprobs, gen_masks = gen
+        sampled["seq"] = seq
         if reward is None:
-            reward = torch.zeros(out.seq.shape[0], dtype=torch.float32,
-                                 device=out.seq.device)
-        loss_cider = losses.self_critical_loss(
-            out.logprobs, -reward.detach(), losses.masks_from_seq(out.seq))
+            reward = torch.zeros(seq.shape[0], dtype=torch.float32,
+                                 device=seq.device)
+        loss_cider = losses.self_critical_loss(logprobs, -reward.detach(),
+                                               gen_masks)
         loss = loss + hp.cider_weight * loss_cider
         aux["loss_cider"] = loss_cider
     return loss, aux

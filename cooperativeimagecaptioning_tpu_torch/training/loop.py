@@ -6,18 +6,23 @@ One iteration = schedules -> batch (host numpy -> device tensors) ->
 (`joint.value_and_grad`) -> guarded per-agent Adam -> the BN running
 statistics -> loss history; `checkpoint_operations` evaluates and writes
 the run dir (model, optimizer, infos and histories; JAX loop.py:721-815),
-from which `start_from` resumes.  Ported: the speaker's non-alternating
-stages (`vse_model="None"`): phase-2 MLE (run_att.sh) and self-critical
-CIDEr-D fine-tuning with the host reward (`cider_optimization`, phase 3 of
-run_joint.py at -D 0 with is_alternating=0), resumed or seeded from a
-phase-2 run.  The device is explicit (`device=`); every random draw of an
-iteration comes from the named streams of `joint.streams`, seeded from
-`opt.seed` and the iteration, so stage B re-draws stage A's trajectory.
+from which `start_from` resumes.  Ported: phase-1 listener pretraining
+(run_fc_con.py), phase-2 MLE (run_att.sh), self-critical CIDEr-D
+fine-tuning with the host reward, and phase-3 joint training with the
+relaxed DISC loss (run_joint.py -o gumbel / multinomial / gumbel_softmax /
+multinomial_soft, alternating with its one effective turn, and the
+non-alternating `_speaker` ablations), seeded by the JAX package's
+bootstrap cascade (a stage-2 speaker, an `initialize_retrieval` listener,
+a `start_from` dir) or resumed.  The device is explicit (`device=`); every
+random draw of an iteration comes from the named streams of
+`joint.streams`, seeded from `opt.seed` and the iteration, so stage B
+re-draws stage A's trajectory.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
 queue-1 item: the device mesh, fused multi-step chunks (`fused_steps > 1`),
-the device feature cache, alternating turns, the listener and its rewards,
-the device reward tiers, the grad-isolation audit and the profiler window.
+the device feature cache, REINFORCE DISC and real alternation (more than
+one effective turn, or the listener turn), the device reward tiers, the
+grad-isolation audit and the profiler window.
 """
 
 from __future__ import annotations
@@ -39,7 +44,6 @@ from cooperativeimagecaptioning_tpu_torch.training.optim import (
 from cooperativeimagecaptioning_tpu_torch.utils.tree import trainable
 
 _JOINT = "ROADMAP.md queue 1: joint training"
-_LISTENER = "ROADMAP.md queue 1: the listener and retrieval"
 
 
 def unported(opt):
@@ -51,11 +55,13 @@ def unported(opt):
         return f"fused_steps > 1 (a CUDA graph of K steps; {_JOINT})"
     if getattr(opt, "device_feature_cache", 0):
         return f"device_feature_cache ({_JOINT})"
-    if opt.is_alternating:
-        return f"alternating turns ({_JOINT})"
-    if joint.has_listener(opt) or getattr(opt, "initialize_retrieval", ""):
-        return (f"vse_model {opt.vse_model!r} / initialize_retrieval: the "
-                f"listener, its rewards and DISC ({_LISTENER}; {_JOINT})")
+    if joint.has_listener(opt) and opt.retrieval_reward_weight > 0 and \
+            opt.retrieval_reward == "reinforce":
+        return f"retrieval_reward 'reinforce': REINFORCE DISC ({_JOINT})"
+    turns = effective_turns(opt)
+    if len(turns) > 1 or "listener" in turns:
+        return (f"effective turns {turns}: real alternation with the "
+                f"listener turn ({_JOINT})")
     if opt.cider_optimization > 0 and (getattr(opt, "on_device_cider", 0)
                                        or getattr(opt, "soft_cider", 0)):
         return ("on_device_cider / soft_cider (ROADMAP.md queue 1: device "
@@ -67,8 +73,9 @@ def unported(opt):
 
 
 class Trainer:
-    """Non-alternating training of the speaker on one device: phase-2 MLE
-    and self-critical CIDEr-D with the host reward."""
+    """Training on one device: phase 1 (the listener), phase 2 (MLE), and
+    phase 3 (self-critical CIDEr-D and the relaxed DISC loss), with one
+    effective turn."""
 
     def __init__(self, opt, dataset=None, rng_seed=None, verbose=True,
                  device="cuda"):
@@ -92,14 +99,9 @@ class Trainer:
         infos = self.ckpt.load_infos()
         histories = self.ckpt.load_histories()
 
-        # the non-alternating load order (JAX loop.py:74-82): start_from's
-        # model.pth first; without it the stage-2 speaker seeds the run
         seed = rng_seed if rng_seed is not None else getattr(opt, "seed", 123)
-        params = joint.init_params(seed, opt, self.device)
-        params, resumed = self.ckpt.try_load_model(params)
-        stage2 = getattr(opt, "speaker_stage_2_model_path", "") or ""
-        if not resumed and stage2 and os.path.isfile(stage2):
-            params = ck.load_params_into(params, stage2)
+        params, resumed = self._bootstrap(joint.init_params(
+            seed, opt, self.device))
         self.params = {agent: trainable(tree)
                        for agent, tree in params.items()}
 
@@ -109,12 +111,20 @@ class Trainer:
             # optimizer.py:149-188)
             self.ckpt.load_optimizers(self.optim)
         elif not getattr(opt, "share_embed", 0):
-            # cross-stage seeding of the speaker's Adam state (ref
-            # optimizer.py:49-96; skipped under share_embed)
+            # cross-stage seeding: the stage-2 speaker's Adam state and the
+            # stage-1 listener's (its optimizer.pth beside
+            # initialize_retrieval); both skipped under share_embed (ref
+            # optimizer.py:49-96; JAX loop.py:126-141)
             p2 = getattr(opt, "speaker_stage_2_optimizer_path", "") or ""
             if p2:
                 self.ckpt.load_agent_optimizer(self.optim, "speaker", p2)
+            ir = getattr(opt, "initialize_retrieval", "") or ""
+            p1 = os.path.join(os.path.dirname(ir), "optimizer.pth")
+            if ir and "listener" in self.params and os.path.isfile(p1):
+                self.ckpt.load_agent_optimizer(self.optim, "listener", p1)
         self.turns = effective_turns(opt)
+        # the turn of every iteration (`unported` refuses more than one)
+        self.turn = self.turns[0] if opt.is_alternating else "optimizer"
 
         # resume counters (ref train.py:360-375)
         self.iteration = infos.get("iter", 0)
@@ -136,14 +146,48 @@ class Trainer:
 
         # an iteration's streams are seeded from this and its number
         self._seed = seed + 1
-        self._grad_fn = joint.value_and_grad(opt, "optimizer")
-        self._sample_fn = joint.sampler(opt, "optimizer")
+        self._grad_fn = joint.value_and_grad(opt, self.turn)
+        self._sample_fn = joint.sampler(opt, self.turn)
         self._evaluator = None
         # stage A's and stage B's sampled ids of the last reward iteration
         self.last_reward_seqs = None
         if opt.cider_optimization > 0:
             self_critical.init_scorer(opt.cached_tokens)
         self._update_schedules()
+
+    def _bootstrap(self, params):
+        """(params, resumed) after the JAX package's bootstrap cascade (JAX
+        loop.py:42-88; ref AlternatingJointModel.py:131-177).  Alternating:
+        the stage-2 speaker, then the `initialize_retrieval` listener, then
+        a lenient merge of start_from's model, so a fresh seeded dir keeps
+        the seeds and a mid-joint resume keeps the trained listener; with
+        continue_from_existing_models off nothing loads.  Not alternating:
+        start_from's model first (or, without it, the stage-2 speaker),
+        then the listener overlay."""
+        opt = self.opt
+        stage2 = getattr(opt, "speaker_stage_2_model_path", "") or ""
+
+        def overlay_listener(params):
+            ir = getattr(opt, "initialize_retrieval", "") or ""
+            if ir and os.path.isfile(ir):
+                loaded = ck.load_params(ir, self.device)
+                if "listener" in loaded:
+                    params = dict(params, listener=loaded["listener"])
+            return params
+
+        resumed = False
+        if opt.is_alternating:
+            if getattr(opt, "continue_from_existing_models", True):
+                if stage2 and os.path.isfile(stage2):
+                    params = ck.load_params_into(params, stage2)
+                params = overlay_listener(params)
+                params, resumed = self.ckpt.try_load_model(params)
+        else:
+            params, resumed = self.ckpt.try_load_model(params)
+            if not resumed and stage2 and os.path.isfile(stage2):
+                params = ck.load_params_into(params, stage2)
+            params = overlay_listener(params)
+        return params, resumed
 
     # -- schedules -----------------------------------------------------------
     def _update_schedules(self):
@@ -202,10 +246,15 @@ class Trainer:
     # -- one iteration ---------------------------------------------------------
     def train_iteration(self, data=None):
         opt = self.opt
-        turn = "optimizer"
+        turn = self.turn
         if schedules.should_anneal(opt, self.iteration):
             self.gumbel_temp = schedules.anneal_gumbel_temp(
                 self.gumbel_temp, opt, self.iteration)
+        if opt.softmax_cooling_decay_factor > 0:
+            # the partial-sampling probabilities, every iteration (JAX
+            # loop.py:422-424)
+            self._pg, self._pm = schedules.soft_sampling_probs(
+                opt, self.epoch, self.epoch_start)
         if data is None:
             data = self.loader.get_batch("train")
         batch = self._prepare_batch(data)

@@ -257,6 +257,9 @@ def _port_files():
 def test_no_file_of_the_port_imports_the_jax_package():
     files = _port_files()
     assert len(files) > 30
+    names = {os.path.relpath(f, os.path.join(REPO, PORT)) for f in files}
+    assert {"models/vse.py", "models/fc_model.py", "evaluation/retrieval.py",
+            "evaluation/caption_retrieval.py"} <= names
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -358,6 +361,50 @@ _ENTRY_CODE = {
         "verbose=False)\n"
         "assert int(tr.optim.states['speaker']['count']) == 3\n"
         "assert os.path.isfile(os.path.join('scst', 'optimizer.pth'))\n"),
+    "training.phase1": (
+        "from cooperativeimagecaptioning_tpu_torch import config\n"
+        "from cooperativeimagecaptioning_tpu_torch.training import loop\n"
+        "opt = config.load_infos(os.path.join(d, 'infos_hc.pkl'))['opt']\n"
+        "opt = opt.replace(caption_model='fc', vse_model='fc', phase=1, "
+        "vse_embed_size=16, vse_loss_weight=1, caption_loss_weight=0, "
+        "rank_eval=1, language_eval=0, save_checkpoint_every=2, "
+        "checkpoint_path=os.path.join(os.getcwd(), 'fc_con'))\n"
+        "tr = loop.train(opt, dataset=ds, max_iterations=2, device='cpu', "
+        "verbose=False)\n"
+        "assert int(tr.optim.states['listener']['count']) == 2\n"
+        "assert os.path.isfile(os.path.join('fc_con', "
+        "'model_vse-best.pth'))\n"),
+    "training.joint": (
+        "from cooperativeimagecaptioning_tpu_torch import config\n"
+        "from cooperativeimagecaptioning_tpu_torch.training import loop\n"
+        "opt = config.load_infos(os.path.join(d, 'infos_hc.pkl'))['opt']\n"
+        "opt = opt.replace(vse_model='fc', vse_embed_size=16, phase=3, "
+        "is_alternating=1, alternating_turn=['speaker', 'listener'], "
+        "retrieval_reward='gumbel', retrieval_reward_weight=0.5, "
+        "cider_optimization=0.5, caption_loss_weight=0, language_eval=0, "
+        "rank_eval=1, rank_on_gen_captions=True, save_checkpoint_every=2, "
+        "cached_tokens='corpus', "
+        "speaker_stage_2_model_path=os.path.join(d, 'model.pth'), "
+        "speaker_stage_2_optimizer_path=os.path.join(d, 'optimizer.pth'), "
+        "checkpoint_path=os.path.join(os.getcwd(), 'joint'))\n"
+        "tr = loop.train(opt, dataset=ds, max_iterations=2, device='cpu', "
+        "verbose=False)\n"
+        "assert int(tr.optim.states['speaker']['count']) == 3\n"
+        "assert os.path.isfile(os.path.join('joint', "
+        "'listener_optimizer.pth'))\n"),
+    "eval.listener": (
+        "from cooperativeimagecaptioning_tpu_torch import config\n"
+        "from cooperativeimagecaptioning_tpu_torch import eval as ev\n"
+        "from cooperativeimagecaptioning_tpu_torch.training import "
+        "checkpoint, joint\n"
+        "opt = config.load_infos(os.path.join(d, 'infos_hc.pkl'))['opt']\n"
+        "opt = opt.replace(vse_model='fc', vse_embed_size=16, rank_eval=1, "
+        "initialize_retrieval='gt.pth')\n"
+        "checkpoint.save_params(joint.init_params(3, opt), 'gt.pth')\n"
+        "out = ev.eval(opt, os.path.join(d, 'model-best.pth'), "
+        "os.path.join(d, 'infos_hc.pkl'), listener='gt', split='test', "
+        "dataset=ds, device='cpu')\n"
+        "assert 't2i_r1' in out['loss'] and 'gt_ranks' in out['loss']\n"),
     "evaluation.eval_split": (
         "from cooperativeimagecaptioning_tpu_torch import config, data\n"
         "from cooperativeimagecaptioning_tpu_torch.evaluation import "

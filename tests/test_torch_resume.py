@@ -309,7 +309,9 @@ def test_eval_of_a_joint_run_matches_jax(joint_run, capsys):
     got = teval_entry.eval(None, model, infos, split="test",
                            dataset=SyntheticDataset(**DS), device="cpu")
     out = capsys.readouterr().out
-    assert "key listener" in out  # the listener's leaves are reported
+    # the joint tree holds the listener now: every leaf of the file loads
+    assert "key listener" not in out
+    assert set(got["loss"]) == set(want["loss"])
     caps = [(p["image_id"], p["caption"]) for p in got["split_predictions"]]
     assert caps == [(p["image_id"], p["caption"])
                     for p in want["split_predictions"]]
@@ -347,12 +349,42 @@ def test_serving_a_joint_run_matches_jax(joint_run):
     assert torch.equal(svc.speaker.params.embed, src)
 
 
-def test_a_joint_run_still_needs_the_listener_to_train_or_rank(joint_run):
-    _, model, infos = joint_run
+def test_a_joint_run_still_needs_the_listener_to_train_or_rank(joint_run,
+                                                               tmp_path):
+    """The listener is ported: a joint run dir ranks through eval.eval
+    (rank_eval=1) as the JAX package ranks it, and seeds a joint Trainer
+    (its speaker and its listener) that trains."""
+    share, model, infos = joint_run
     opt = tckpt.load_pkl(infos)["opt"]
-    with pytest.raises(NotImplementedError, match="listener"):
-        tjoint.init_params(0, opt)
-    with pytest.raises(NotImplementedError, match="listener"):
-        teval_entry.eval(opt.replace(rank_eval=1), model, infos,
-                         split="test", dataset=SyntheticDataset(**DS),
-                         device="cpu")
+    assert "listener" in tjoint.init_params(0, opt)
+    want = _root_eval().eval(jax_opt(opt).replace(rank_eval=1), model, infos,
+                             split="test",
+                             dataset=jdata.SyntheticDataset(**DS))
+    got = teval_entry.eval(opt.replace(rank_eval=1), model, infos,
+                           split="test", dataset=SyntheticDataset(**DS),
+                           device="cpu")
+    assert [(p["image_id"], p["caption"]) for p in got[
+        "split_predictions"]] == [(p["image_id"], p["caption"])
+                                  for p in want["split_predictions"]]
+    assert set(got["loss"]) == set(want["loss"]) >= {"t2i_r1", "gt_ranks"}
+    for k, v in want["loss"].items():
+        if isinstance(v, dict):
+            assert got["loss"][k] == v, k
+        else:
+            np.testing.assert_allclose(got["loss"][k], v, rtol=1e-5)
+
+    run = opt.replace(
+        phase=3, is_alternating=1, alternating_turn=["speaker", "listener"],
+        retrieval_reward="gumbel", retrieval_reward_weight=0.5,
+        cider_optimization=0.5, caption_loss_weight=0, cached_tokens="corpus",
+        checkpoint_path=str(tmp_path / "joint"), start_from=None,
+        speaker_stage_2_model_path=model, initialize_retrieval=model)
+    tr = tloop.Trainer(run, dataset=SyntheticDataset(**DS), device="cpu",
+                       verbose=False)
+    saved = tckpt.load_params(model)
+    for (k, a), (_, b) in zip(leaves(saved), leaves(tr.params)):
+        assert torch.equal(a, b.detach()), k
+    loss_dict, turn, _ = tr.train_iteration()
+    assert turn == "speaker"
+    assert all(np.isfinite(float(v)) for v in loss_dict.values())
+    assert {"retrieval_loss", "loss_cider"} <= set(loss_dict)

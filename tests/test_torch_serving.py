@@ -229,9 +229,14 @@ def test_decode_layout_precedence(run_dir, monkeypatch):
 @pytest.mark.parametrize("name,kind", [("fc", "caption_model"),
                                        ("fc", "vse_model")])
 def test_unported_models_raise(run_dir, name, kind):
+    """Both models are ported: setup returns the FC speaker and the VSE
+    listener (unknown names still raise)."""
+    from cooperativeimagecaptioning_tpu_torch.models import fc_model, vse
     _, opt = run_dir
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.setup(opt, name, kind)
+    want = {"caption_model": fc_model.FCModel, "vse_model": vse.VSEModel}
+    assert tmodels.setup(opt, name, kind) is want[kind]
+    with pytest.raises(ValueError, match="not supported"):
+        tmodels.setup(opt, "fc2", kind)
 
 
 def test_checkpoints_load_in_both_packages(run_dir, tmp_path):

@@ -201,12 +201,16 @@ def test_loss_fn_matches_jax(remat):
 
 @pytest.mark.parametrize("turn,kw,match", [
     ("listener", {}, "listener"),
-    ("optimizer", {"vse_model": "fc"}, "listener"),
+    ("optimizer", {"vse_model": "fc", "retrieval_reward": "reinforce",
+                   "retrieval_reward_weight": 0.5},
+     "REINFORCE.*ROADMAP.*joint training"),
     ("optimizer", {"cider_optimization": 1, "on_device_cider": 1},
      "ROADMAP.*device rewards"),
     ("optimizer", {"cider_optimization": 1, "soft_cider": 1},
      "ROADMAP.*device rewards"),
-    ("speaker", {"is_alternating": 1}, "ROADMAP.*joint training"),
+    ("listener", {"vse_model": "fc", "is_alternating": 1,
+                  "retrieval_reward": "reinforce"},
+     "listener turn.*ROADMAP.*joint training"),
 ])
 def test_loss_fn_raises_on_unported_branches(turn, kw, match):
     opt = tiny_opt(**kw)
@@ -592,11 +596,14 @@ def test_trainer_learns_and_is_deterministic():
 @pytest.mark.parametrize("kw,match", [
     ({"fused_steps": 2}, "fused_steps"),
     ({"device_feature_cache": 1}, "device_feature_cache"),
-    ({"is_alternating": 1}, "alternating"),
-    ({"vse_model": "fc"}, "listener"),
+    ({"vse_model": "fc", "retrieval_reward": "reinforce",
+      "retrieval_reward_weight": 0.5}, "REINFORCE DISC"),
+    ({"vse_model": "fc", "is_alternating": 1, "retrieval_reward": "reinforce",
+      "alternating_turn": ["speaker", "listener"]},
+     "effective turns.*listener turn"),
     ({"cider_optimization": 1, "on_device_cider": 1}, "device rewards"),
     ({"mesh_data_axis": 2}, "mesh"),
-    ({"initialize_retrieval": "/nonexistent.pth"}, "listener"),
+    ({"vse_model": "fc", "fused_steps": 2}, "fused_steps"),
     ({"cider_optimization": 1, "soft_cider": 1}, "device rewards"),
 ])
 def test_trainer_raises_on_unported_options(kw, match):

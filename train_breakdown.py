@@ -3,6 +3,7 @@
 
     python3 train_breakdown.py                       # on a CUDA card
     python3 train_breakdown.py --scst                # self-critical steps
+    python3 train_breakdown.py --joint               # joint DISC steps
     python3 train_breakdown.py --device cpu --batch 4 --width 16 --vocab 50
                                                      # dry run, tiny width
 
@@ -23,6 +24,13 @@ smoke's phase 7 without its resume):
   stage_b   joint.value_and_grad: the sampled decode again under autograd
             (15 checkpointed steps) and its backward
   adam      as above
+
+A joint step (--joint: scripts/run_joint.py -o gumbel, chip smoke's
+phase 8 without its seeding: the Att2in2 speaker and the VSE listener,
+one effective turn, DISC 0.01 and CIDEr-D 0.99 on DISC's sample) has the
+self-critical step's stages: stage_a samples in the gumbel_st mode, stage_b
+adds the listener's contrastive loss of the relaxed one-hots and the
+backward into both agents, adam steps both.
 
 Each stage is then traced in its own torch.profiler session, and its GPU
 time is summed into:
@@ -179,8 +187,12 @@ def main(argv=None):
                         "cuts it)")
     p.add_argument("--vocab", type=int, default=cs.VOCAB)
     p.add_argument("--reps", type=int, default=3)
-    p.add_argument("--scst", action="store_true",
-                   help="self-critical steps instead of phase-2 steps")
+    step = p.add_mutually_exclusive_group()
+    step.add_argument("--scst", action="store_true",
+                      help="self-critical steps instead of phase-2 steps")
+    step.add_argument("--joint", action="store_true",
+                      help="joint DISC steps (run_joint.py -o gumbel) "
+                           "instead of phase-2 steps")
     a = p.parse_args(argv)
     import torch
 
@@ -192,12 +204,17 @@ def main(argv=None):
     cs.WIDTH, cs.VOCAB = a.width, a.vocab
     ds = cs.train_dataset()
     results = {"card": card, "batch": a.batch, "width": a.width,
-               "vocab": a.vocab, "step": "scst" if a.scst else "mle"}
+               "vocab": a.vocab,
+               "step": "scst" if a.scst else "joint" if a.joint else "mle"}
     opt = cs.train_opt(a.batch)
     stages, names = mle_stages, MLE_STAGES
     if a.scst:
         opt = opt.replace(phase=3, cider_optimization=1,
                           caption_loss_weight=0)
+        stages, names = cs.scst_stages, SCST_STAGES
+    elif a.joint:
+        opt = cs.listener_opt({**cs.JOINT_BASE, **cs.joint_flags("gumbel")},
+                              a.batch, checkpoint_path=cs.DISC_RUN_DIR)
         stages, names = cs.scst_stages, SCST_STAGES
     for cell, on in (("cell_kernel", True), ("plain_cell", False)):
         with cs.fused_cell_switch(on):
