@@ -137,8 +137,29 @@ Phases, in order; any failure exits non-zero:
                  FC speaker served from (a)'s run dir, greedy and beam 2,
                  f32 and bf16, every step through B or C and F, f32 ids
                  against the CPU service.
+  9. mesh     -- the (data, model) process grid, its ranks sharing the one
+                 card over gloo (one process each, started by the port's
+                 launcher after the build, so that no two run nvcc):
+                 head_merge against its plain version (the gathered
+                 candidates of a logit layer split in two, ties across the
+                 shard seam, m = 1, 2, 17, 32) and timed; a two-rank world:
+                 (1, 2) -- the sharded heads against the plain heads on the
+                 whole layer (ties across the seam), Evaluator.eval_split of
+                 phase 4's and phase 5's speakers, f32, beam 2 and greedy,
+                 against the single-process evaluator on the card (>= 99%
+                 of the captions, loss_cap), C and head_merge L times a
+                 decode on every rank and B never; (2, 1) -- phase-2 MLE at
+                 B=128, CIC_FUSED_CELL=1, three steps against the
+                 single-process Trainer (loss rtol 2e-5, params), it/s,
+                 checkpoint_operations writing a mesh run dir, eval.eval on
+                 it; a four-rank world, (2, 2): one training step and one
+                 evaluation batch; and a world of one rank over NCCL (one
+                 all_gather, one all_reduce through the port's helpers).
+                 Its it/s and images/s are of ranks sharing one card, not a
+                 scaling figure.
 Two lines before the last name the card and describe the kernels (one JSON
-object); the last line is {"ok": true, "device": {...}}.
+object, with each kernel's launches by path, "mesh" the launches of every
+rank of the mesh runs); the last line is {"ok": true, "device": {...}}.
 
 Imports no JAX.  Writes only under build/ in the checkout.
 """
@@ -174,6 +195,7 @@ ATT_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/att_step.cu"
 GREEDY_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/logit_head.cu"
 BEAM_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/beam_head.cu"
 CELL_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/cell_step.cu"
+MERGE_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/head_merge.cu"
 REPLACES = {
     "attention": "cooperativeimagecaptioning_tpu/ops/pallas/att_step.py:130",
     "attention_q":
@@ -184,10 +206,15 @@ REPLACES = {
         "cooperativeimagecaptioning_tpu/ops/pallas/logit_head.py:138",
     "beam_head": "cooperativeimagecaptioning_tpu/ops/pallas/beam_head.py:58",
     "cell": "cooperativeimagecaptioning_tpu/ops/pallas/cell_step.py:75",
+    # the merge of beam_head_sharded (:111; its lines :131-142), which
+    # greedy_head_sharded (logit_head.py:202) takes at m = 1
+    "head_merge": "cooperativeimagecaptioning_tpu/ops/pallas/beam_head.py:111"
+                  " (G), cooperativeimagecaptioning_tpu/ops/pallas/"
+                  "logit_head.py:202 (H)",
 }
 SOURCES = {"attention": ATT_SRC, "attention_q": ATT_SRC,
            "attention_kmajor": ATT_SRC, "greedy_head": GREEDY_SRC,
-           "beam_head": BEAM_SRC, "cell": CELL_SRC}
+           "beam_head": BEAM_SRC, "cell": CELL_SRC, "head_merge": MERGE_SRC}
 # the attention kernel each decode layout of the context must go through
 LAYOUTS = {"b-major": ({}, "attention"),
            "int8": ({"att_quant": "int8"}, "attention_q"),
@@ -397,6 +424,11 @@ def phase_build():
                       f"registers, {res['stack_bytes']} bytes of stack, "
                       f"{res['spill_bytes']} bytes spilled", flush=True)
                 require(res["spill_bytes"] == 0, f"{name} spills registers")
+        if "head_merge_kernel" in name:
+            print(f"  head_merge head_merge_kernel: {res['registers']} "
+                  f"registers, {res['stack_bytes']} bytes of stack, "
+                  f"{res['spill_bytes']} bytes spilled", flush=True)
+            require(res["spill_bytes"] == 0, f"{name} spills registers")
 
 
 # ---------------------------------------------------------------------------
@@ -2781,6 +2813,477 @@ def phase_listener(smi):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# 9. mesh: the (data, model) process grid, its ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_mesh_run")
+MESH_EVAL_IMAGES = 640  # 256 images in the val and in the test split
+MESH_TRAIN_STEPS = 3    # (2, 1) steps held against the single-process Trainer
+MESH_TIMED_STEPS = 5
+MESH_MERGE_M = (1, 2, 17, 32)
+# the (2, 1) and (2, 2) training losses against the single-process Trainer:
+# the JAX mesh test's tolerance (tests/test_parallel.py).  The params after
+# MESH_TRAIN_STEPS steps: every entry within 2 lr steps (Adam's first update
+# is lr * sign(g), and a gradient that is rounding noise -- the attention's
+# alpha_net.b, whose true gradient is 0 -- may change sign when the batch's
+# rows are summed in two halves), and all but MESH_PARAMS_OUTSIDE of the
+# entries within phase 5's gradient rule (STEP_GRAD_ATOL + STEP_GRAD_RTOL *
+# |p|); an H100 gave 7 of 14452497 entries outside it.
+MESH_LOSS_RTOL = 2e-5
+MESH_PARAMS_OUTSIDE = 1e-5
+# module globals a rank takes from the parent (a spawned rank imports this
+# file anew; a CPU rehearsal changes them)
+MESH_CFG = ("DEVICE", "VOCAB", "WIDTH", "FEAT", "K", "L", "SEED", "TRAIN_B",
+            "TRAIN_IMAGES", "EVAL_B", "MESH_EVAL_IMAGES", "MESH_RUN_DIR",
+            "MESH_TRAIN_STEPS", "MESH_TIMED_STEPS", "TRAIN_RUN_DIR",
+            "RUN_DIR")
+
+
+def mesh_cfg():
+    return {k: globals()[k] for k in MESH_CFG}
+
+
+def mesh_eval_dataset():
+    """Two batches of EVAL_B images in the val and in the test split."""
+    from cooperativeimagecaptioning_tpu_torch.data import SyntheticDataset
+    return SyntheticDataset(num_images=MESH_EVAL_IMAGES, vocab_size=VOCAB,
+                            seq_length=L, fc_feat_size=FEAT,
+                            att_feat_size=FEAT, max_K=K,
+                            splits=(0.2, 0.4, 0.4), seed=SEED + 2)
+
+
+def sync():
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_evaluate(run_dir, mesh, ds, beams=(2, 1), num_images=-1):
+    """Evaluator.eval_split of `run_dir`'s speaker on val (f32, no language
+    metrics) on `mesh` (None: this process alone) with each beam width ->
+    {beam: (captions by image id, launches, head passes, seconds)}."""
+    from cooperativeimagecaptioning_tpu_torch import config, data
+    from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split import (
+        Evaluator)
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.parallel import mesh as M
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint
+    opt = config.load_infos(os.path.join(run_dir, "infos_.pkl"))["opt"]
+    loader = data.DataLoader(opt, dataset=ds)
+    device = DEVICE if mesh is None else mesh.device
+    params = checkpoint.load_params(os.path.join(run_dir, "model-best.pth"),
+                                    device)
+    if mesh is not None:
+        params = M.shard_params(params, mesh, M.param_specs(params, mesh))
+    ev = Evaluator(opt, mesh=mesh, device=device)
+    out = {}
+    for beam in beams:
+        ek = {"split": "val", "beam_size": beam, "language_eval": 0,
+              "num_images": num_images}
+        sync()
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        losses, preds, _ = ev.eval_split(params, loader, ek)
+        sync()
+        out[beam] = ({p["image_id"]: p["caption"] for p in preds},
+                     _dispatch.launches(), _dispatch.head_pass_launches(),
+                     time.perf_counter() - t0, losses["loss_cap"])
+    return out
+
+
+def mesh_heads_check(mesh):
+    """The sharded heads on this rank's slice against the plain heads on the
+    whole logit layer, f32 at R=256 and H=WIDTH, with exact ties planted
+    across the shard seam (the slice's last and the next slice's first
+    columns, and a group around them): ids equal, vals and lse to
+    TOL["head"].  Returns the largest error."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
+        beam_head, logit_head)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    V1 = VOCAB + 1
+    vl = V1 // mesh.n_model
+    w = (torch.randn(WIDTH, V1, generator=g) * 0.1)
+    b = (torch.randn(V1, generator=g) * 0.1)
+    h = (torch.randn(256, WIDTH, generator=g) * 0.5)
+    ties = [vl - 2, vl - 1, vl, vl + 1, 3, V1 - 1]
+    w[:, ties] = 0.0
+    b[ties] = 10.0
+    want = sorted(ties)
+    dev = mesh.device
+    w, b, h = w.to(dev), b.to(dev), h.to(dev)
+    j = mesh.model_index
+    wl = w[:, j * vl:(j + 1) * vl].contiguous()
+    bl = b[j * vl:(j + 1) * vl].contiguous()
+    err = 0.0
+    for m in (1, 2, 5, 17):
+        vals, idx, lse = beam_head.beam_head(h, wl, bl, m)
+        vp, ip, lp = beam_head.beam_head_reference(h, w, b, m)
+        require(torch.equal(idx.long(), ip.long()),
+                f"mesh rank {mesh.rank}: sharded beam head m={m} ids")
+        n = min(m, len(want))
+        require(bool((idx[:, :n].long().cpu() == torch.tensor(want[:n])
+                      ).all()), f"sharded beam head m={m}: ties across the "
+                f"seam not in lower-id order")
+        err = max(err, (vals - vp).abs().max().item(),
+                  (lse - lp).abs().max().item())
+    it, lpr = logit_head.greedy_head(h, wl, bl)
+    it_p, lp_p = logit_head.greedy_head_reference(h, w, b)
+    require(bool((it == it_p).all()) and bool((it == want[0]).all()),
+            f"mesh rank {mesh.rank}: sharded greedy head ids")
+    err = max(err, (lpr - lp_p).abs().max().item())
+    require(err <= TOL["head"], f"sharded heads: max abs error {err}")
+    return err
+
+
+def mesh_train(n_data, n_model, steps, timed, ds, write):
+    """A mesh Trainer (this rank) over phase-2 MLE at B=TRAIN_B, f32,
+    CIC_FUSED_CELL=1 -> (losses, gathered params as numpy, launches of the
+    steps, it/s over `timed` more steps on one batch, the trainer)."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import to_numpy
+    opt = train_opt(TRAIN_B)
+    opt.mesh_data_axis, opt.mesh_model_axis = n_data, n_model
+    opt.checkpoint_path = MESH_RUN_DIR
+    with fused_cell_switch(True):
+        tr = Trainer(opt, dataset=ds, device=DEVICE, verbose=False)
+        sync()
+        _dispatch.reset_launches()
+        losses = [float(tr.train_iteration()[0]["loss"])
+                  for _ in range(steps)]
+        sync()
+        launches = _dispatch.launches()
+        params = to_numpy(tr.saved_state()[0])
+        its = None
+        if timed:
+            data = tr.loader.get_batch("train")
+            tr.train_iteration(data)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                tr.train_iteration(data)
+            sync()
+            its = timed / (time.perf_counter() - t0)
+        if write:
+            tr.checkpoint_operations()
+    return losses, params, launches, its, tr
+
+
+def mesh_pair_rank(cfg):
+    """Rank of the two-rank world: (1, 2) evaluation, then (2, 1) training
+    and its run dir, then eval.eval on that mesh run dir."""
+    globals().update(cfg)
+    import torch
+    from cooperativeimagecaptioning_tpu_torch import config
+    from cooperativeimagecaptioning_tpu_torch import eval as eval_entry
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    mesh = make_mesh(1, 2, DEVICE)
+    _dispatch.set_vocab_mesh(mesh, VOCAB)
+    out["heads_err"] = mesh_heads_check(mesh)
+    ds = mesh_eval_dataset()
+    # a first, untimed batch takes this rank's one-time costs (the gloo
+    # groups' first collectives, cuBLAS's first f32 products)
+    mesh_evaluate(RUN_DIR, mesh, ds, beams=(2,), num_images=EVAL_B)
+    out["eval"] = {d: mesh_evaluate(d, mesh, ds)
+                   for d in (RUN_DIR, TRAIN_RUN_DIR)}
+    _dispatch.set_vocab_mesh(None)
+    losses, params, launches, its, tr = mesh_train(
+        2, 1, MESH_TRAIN_STEPS, MESH_TIMED_STEPS, train_dataset(), True)
+    tr.close()
+    out["train"] = (losses, params if tr.mesh.rank == 0 else None, launches,
+                    its)
+    opt = config.load_infos(os.path.join(MESH_RUN_DIR, "infos_.pkl"))["opt"]
+    got = eval_entry.eval(opt, os.path.join(MESH_RUN_DIR, "model-best.pth"),
+                          os.path.join(MESH_RUN_DIR, "infos_.pkl"),
+                          split="test", dataset=ds, device=DEVICE)
+    out["eval_entry"] = {p["image_id"]: p["caption"]
+                         for p in got["split_predictions"]}
+    return out
+
+
+def mesh_quad_rank(cfg):
+    """Rank of the four-rank world, a (2, 2) mesh: one training step, and
+    one evaluation batch of RUN_DIR's speaker."""
+    globals().update(cfg)
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    losses, _, launches, _, tr = mesh_train(2, 2, 1, 0, train_dataset(),
+                                            False)
+    ev = mesh_evaluate(RUN_DIR, tr.mesh, mesh_eval_dataset(), beams=(2,),
+                       num_images=EVAL_B)
+    vm = _dispatch.vocab_mesh()
+    tr.close()
+    require(_dispatch.vocab_mesh() is None and vm is not None,
+            "Trainer.close() must clear the vocab mesh it registered")
+    return {"loss": losses[0], "launches": launches, "eval": ev[2],
+            "rank": tr.mesh.rank}
+
+
+def mesh_nccl_world_of_one():
+    """A world of one rank over NCCL on the card: one all_gather and one
+    all_reduce through the port's helpers, so that the NCCL route runs."""
+    import torch
+    import torch.distributed as dist
+    from cooperativeimagecaptioning_tpu_torch.parallel import (
+        collectives, launch, make_mesh)
+    require(launch.backend_for("cuda", 1) == "nccl",
+            "a rank with a card of its own must take NCCL")
+    launch.init_rank(0, 1, launch.free_init_method(), "cuda", "nccl")
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        x = torch.arange(6, dtype=torch.float32, device="cuda")
+        g = collectives.all_gather(x, mesh.world)
+        r = collectives.all_reduce(x, mesh.world, "max")
+        torch.cuda.synchronize()
+        require(mesh.backend == "nccl" and not mesh.world.staged
+                and torch.equal(g, x) and torch.equal(r, x),
+                f"NCCL world of one: {mesh.backend}, {g}, {r}")
+    finally:
+        dist.destroy_process_group()
+
+
+def check_head_merge(errs, times, bounds, shapes):
+    """head_merge on the card against its plain version, the model group's
+    candidates of a logit layer split in two (R=256 rows, the evaluation's
+    beam-2 decode), ties planted across the shard seam, at m = 1, 2, 17 and
+    32; then timed at the (1, 2) evaluation's two shapes."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
+        _dispatch, beam_head, head_merge)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    R, n, V1 = 256, 2, VOCAB + 1
+    vl = V1 // n
+    logits = torch.randn(R, V1, generator=g)
+    group = [vl - 3, vl - 2, vl - 1, vl, vl + 1, vl + 2, 5, V1 - 1]
+    logits[:, group] = 9.0  # above every random logit
+    logits = logits.cuda()
+    errs["head_merge"] = 0.0
+    print("head_merge vs plain (n=2 shards of a 9488-wide logit layer, "
+          "R=256, ties across the shard seam)", flush=True)
+    for m in MESH_MERGE_M:
+        vals, idx, lses = [], [], []
+        for s in range(n):
+            part = logits[:, s * vl:(s + 1) * vl]
+            v, i = beam_head.top_k(part, m)
+            vals.append(v)
+            idx.append(i.to(torch.int32))
+            lses.append(torch.logsumexp(part, dim=1))
+        vals = torch.cat(vals, 1).contiguous()
+        idx = torch.cat(idx, 1).contiguous()
+        lse = torch.stack(lses).contiguous()
+        before = _dispatch.launches()["head_merge"]
+        got = head_merge.head_merge(vals, idx, lse, vl, m)
+        torch.cuda.synchronize()
+        require(_dispatch.launches()["head_merge"] == before + 1,
+                "head_merge: one launch")
+        want = head_merge.head_merge_reference(vals, idx, lse, vl, m)
+        full_v, full_i = beam_head.top_k(logits, m)
+        require(torch.equal(got[1], want[1])
+                and torch.equal(got[1].long(), full_i),
+                f"head_merge m={m}: ids differ from the plain merge or the "
+                f"top-{m} of the whole row")
+        k = min(m, len(group))
+        require(bool((got[1][:, :k].cpu() == torch.tensor(sorted(group)[:k])
+                      ).all()), f"head_merge m={m}: ties across the seam "
+                f"not in lower-id order")
+        err = max((got[0] - want[0]).abs().max().item(),
+                  (got[2] - want[2]).abs().max().item(),
+                  (got[0] - full_v).abs().max().item())
+        errs["head_merge"] = max(errs["head_merge"], err)
+        report("head_merge", f"f32 R={R} n={n} m={m} vals/lse", err,
+               TOL["head"])
+    for rows, m in ((2 * EVAL_B, 2), (EVAL_B, 1)):
+        vals = torch.randn(rows, n * m, device="cuda")
+        idx = torch.randint(0, vl, (rows, n * m), device="cuda",
+                            dtype=torch.int32)
+        lse = torch.randn(n, rows, device="cuda")
+        outs = (torch.empty(rows, m), torch.empty(rows, m).int(),
+                torch.empty(rows))
+        pair = timed_pair(
+            lambda: head_merge.head_merge(vals, idx, lse, vl, m),
+            lambda: head_merge.head_merge_reference(vals, idx, lse, vl, m))
+        bound = bound_ms((vals, idx, lse) + outs, 0, "float32")
+        label = f"f32 R={rows} n={n} m={m}"
+        shapes["head_merge"].append(timed_shape(label, pair, bound))
+        print(f"  time head_merge   {label}: kernel {pair[0]:.4f} ms  plain "
+              f"{pair[1]:.4f} ms  bound {bound[0]:.6f} ms ({bound[1]})",
+              flush=True)
+        if m == 2:
+            times["head_merge"], bounds["head_merge"] = pair, bound
+    # kernel C on one rank's slice of the logit layer at the same shapes:
+    # the other kernel of the sharded heads G (kk=2) and H (kk=1)
+    w = torch.randn(WIDTH, vl, generator=g).cuda() * 0.1
+    b = torch.randn(vl, generator=g).cuda() * 0.1
+    for rows, m in ((2 * EVAL_B, 2), (EVAL_B, 1)):
+        h = torch.randn(rows, WIDTH, generator=g).cuda() * 0.5
+        pair = timed_pair(lambda: beam_head.local_beam_head(h, w, b, m),
+                          lambda: beam_head.beam_head_reference(h, w, b, m))
+        outs = (torch.empty(rows, m), torch.empty(rows, m).int(),
+                torch.empty(rows))
+        bound = bound_ms((h, w, b) + outs, 2 * rows * WIDTH * vl, "float32")
+        label = f"f32 slice R={rows} V/2={vl} kk={m} (sharded head " + (
+            "G)" if m == 2 else "H)")
+        shapes["beam_head"].append(timed_shape(label, pair, bound))
+        print(f"  time beam_head    {label}: kernel {pair[0]:.4f} ms  plain "
+              f"{pair[1]:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]})",
+              flush=True)
+
+
+def ids_rate(caps, want):
+    require(sorted(caps) == sorted(want), "mesh: not the same images")
+    return float(np.mean([caps[i] == want[i] for i in want]))
+
+
+def phase_mesh(smi, errs, times, bounds, shapes):
+    """Phase 9.  Returns the launches of the mesh runs (every rank's, summed)
+    and the numbers."""
+    import shutil
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.parallel import launch
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_RUN_DIR, ignore_errors=True)
+    print(f"mesh: ranks of a (data, model) process grid sharing one card "
+          f"over gloo ({smi}); att2in2 vocab {VOCAB}, width {WIDTH}, K={K}, "
+          f"L={L}, f32", flush=True)
+    if DEVICE == "cuda":
+        check_head_merge(errs, times, bounds, shapes)
+
+    # the single-process references on the card
+    ds = mesh_eval_dataset()
+    single = {d: mesh_evaluate(d, None, ds) for d in (RUN_DIR, TRAIN_RUN_DIR)}
+    losses1, params1, _, _, tr1 = mesh_train(0, 1, MESH_TRAIN_STEPS, 0,
+                                             train_dataset(), False)
+    lr = tr1.opt.current_lr
+    del tr1
+
+    t0 = time.perf_counter()
+    pair = launch.spawn(mesh_pair_rank, (mesh_cfg(),), 2, DEVICE)
+    t_pair = time.perf_counter() - t0
+    total = {k: 0 for k in _dispatch.KERNELS}
+    batches = -(-sum(1 for im in ds.info["images"]
+                     if im["split"] == "val") // EVAL_B)
+    out = {"pair_s": t_pair}
+    for r, got in enumerate(pair):
+        require(got["heads_err"] <= TOL["head"], "sharded heads")
+        for d, by_beam in got["eval"].items():
+            for beam, (caps, launches, passes, secs, loss) in by_beam.items():
+                rate = ids_rate(caps, single[d][beam][0])
+                what = f"(1, 2) rank {r} {os.path.basename(d)} " + (
+                    "beam 2" if beam == 2 else "greedy")
+                rel = abs(loss - single[d][beam][4]) / abs(single[d][beam][4])
+                print(f"  {what}: captions of {rate * 100:.1f}% of "
+                      f"{len(caps)} images equal the single process's (need "
+                      f">= {AGREE_F32 * 100:.0f}%); loss_cap relative "
+                      f"{rel:.2e}; {len(caps) / secs:.1f} images/s (two "
+                      f"ranks sharing one card, {smi}: not a scaling "
+                      f"figure); "
+                      f"launches { {k: v for k, v in launches.items() if v} }",
+                      flush=True)
+                require(rate >= AGREE_F32, f"{what}: {rate} of the captions")
+                require(rel <= EVAL_LOSS_RTOL, f"{what}: loss_cap {rel}")
+                want = {k: 0 for k in _dispatch.KERNELS}
+                want["attention"] = batches * (L + 1 + L)
+                want["beam_head"] = want["head_merge"] = batches * L
+                require(launches == want, f"{what}: launches {launches}, "
+                        f"expected {want} (C at kk={beam} and head_merge L "
+                        f"times a decode, B never)")
+                require(passes["beam_head_fma"] == batches * L,
+                        f"{what}: the f32 head slice takes the FMA pass")
+                for k, v in launches.items():
+                    total[k] += v
+        tl, tp, tlaunch, its = got["train"]
+        for k, v in tlaunch.items():
+            total[k] += v
+        T = L + 1
+        require(tlaunch["attention"] == tlaunch["cell"]
+                == MESH_TRAIN_STEPS * 2 * T, f"(2, 1) rank {r}: launches "
+                f"{tlaunch}")
+        for s, (a, b) in enumerate(zip(tl, losses1)):
+            rel = abs(a - b) / abs(b)
+            require(rel <= MESH_LOSS_RTOL, f"(2, 1) rank {r} step {s}: loss "
+                    f"{a} vs {b} (relative {rel})")
+        print(f"  (2, 1) rank {r}: losses {tl} vs single {losses1}; "
+              f"{its:.2f} it/s (B={TRAIN_B} over two ranks sharing one "
+              f"card, {smi}: not a scaling figure)", flush=True)
+        if tp is not None:
+            got_p, want_p = dict(leaves(tp)), dict(leaves(params1))
+            bound = 2 * lr * MESH_TRAIN_STEPS
+            worst, worst_key, outside = 0.0, "", 0
+            for key, w in want_p.items():
+                d = np.abs(got_p[key] - w)
+                require(d.max() <= bound, f"(2, 1) params {key}: {d.max()}")
+                ratio = d / (STEP_GRAD_ATOL + STEP_GRAD_RTOL * np.abs(w))
+                outside += int((ratio > 1).sum())
+                if ratio.max() > worst:
+                    worst, worst_key = float(ratio.max()), key
+            n_el = sum(w.size for w in want_p.values())
+            print(f"  (2, 1) params after {MESH_TRAIN_STEPS} steps vs single: "
+                  f"{outside} of {n_el} entries outside phase 5's rule "
+                  f"(worst {worst_key} at {worst:.3f}; at most "
+                  f"{MESH_PARAMS_OUTSIDE:.0e} of them may be); all within "
+                  f"2 lr steps = {bound:.1e}", flush=True)
+            require(outside <= MESH_PARAMS_OUTSIDE * n_el,
+                    f"(2, 1) params: {outside} entries outside phase 5's "
+                    f"rule")
+            out["params_outside"] = outside
+        rate = ids_rate(got["eval_entry"], single_eval_entry(ds))
+        print(f"  eval.eval on the (2, 1) mesh run dir, rank {r}: captions "
+              f"of {rate * 100:.1f}% of the test images equal the single "
+              f"process's", flush=True)
+        require(rate >= AGREE_F32, "eval.eval on the mesh run dir")
+    out["its"] = pair[0]["train"][3]
+
+    t0 = time.perf_counter()
+    quad = launch.spawn(mesh_quad_rank, (mesh_cfg(),), 4, DEVICE)
+    t_quad = time.perf_counter() - t0
+    for got in quad:
+        rel = abs(got["loss"] - losses1[0]) / abs(losses1[0])
+        caps, launches, passes, secs, _ = got["eval"]
+        rate = ids_rate(caps, {i: single[RUN_DIR][2][0][i] for i in caps})
+        print(f"  (2, 2) rank {got['rank']}: first-step loss relative "
+              f"{rel:.2e} to single; one eval batch, captions of "
+              f"{rate * 100:.1f}% equal; launches "
+              f"{ {k: v for k, v in got['launches'].items() if v} } / "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        require(rel <= MESH_LOSS_RTOL, f"(2, 2) loss {rel}")
+        require(rate >= AGREE_F32, f"(2, 2) eval {rate}")
+        require(launches["beam_head"] == launches["head_merge"] == L
+                and launches["greedy_head"] == 0,
+                f"(2, 2) eval launches {launches}")
+        for k in total:
+            total[k] += got["launches"][k] + launches[k]
+
+    if DEVICE == "cuda":
+        mesh_nccl_world_of_one()
+        print(f"  NCCL world of one: all_gather and all_reduce through the "
+              f"port's helpers ok", flush=True)
+    out["quad_s"] = t_quad
+    print(f"  mesh phase in {time.perf_counter() - t_phase:.1f} s (two-rank "
+          f"world {t_pair:.1f} s, four-rank world {t_quad:.1f} s)",
+          flush=True)
+    return total, out
+
+
+def single_eval_entry(ds):
+    """eval.eval of the mesh run dir in this process, the mesh options
+    cleared."""
+    from cooperativeimagecaptioning_tpu_torch import config
+    from cooperativeimagecaptioning_tpu_torch import eval as eval_entry
+    infos = os.path.join(MESH_RUN_DIR, "infos_.pkl")
+    opt = config.load_infos(infos)["opt"]
+    opt.mesh_data_axis, opt.mesh_model_axis = 0, 1
+    got = eval_entry.eval(opt, os.path.join(MESH_RUN_DIR, "model-best.pth"),
+                          infos, split="test", dataset=ds, device=DEVICE)
+    return {p["image_id"]: p["caption"] for p in got["split_predictions"]}
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, REPO)
@@ -2807,12 +3310,16 @@ def main():
     listener_launches, _ = phase_listener(smi)
     print(f"elapsed after the listener: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
+    mesh_launches, _ = phase_mesh(smi, errs, times, bounds, shapes)
+    print(f"elapsed after the mesh: {time.perf_counter() - t_start:.0f} s",
+          flush=True)
     # each path's counts run from 0 just before it to just after it
     kernels = []
     for k in SOURCES:
         by_path = {"serve": serve_launches[k], "train": train_launches[k],
                    "eval": eval_launches[k], "scst": scst_launches[k],
-                   "listener": listener_launches[k]}
+                   "listener": listener_launches[k],
+                   "mesh": mesh_launches[k]}
         require(sum(by_path.values()) > 0,
                 f"{k} was never launched on a main path")
         kernels.append({

@@ -6,15 +6,23 @@ rebuild the joint model at a specific checkpoint, optionally swap in a
 ground-truth listener (listener="gt": the `initialize_retrieval` listener),
 and run eval_split under the final-eval protocol (beam 2) with
 generated-caption ranking, on the card unless `device="cpu"`.  A run dir
-written by either package loads (config.load_infos)."""
+written by either package loads (config.load_infos).
+
+A run whose options name a mesh (`mesh_data_axis`, `mesh_model_axis`: a
+mesh run dir) is evaluated on that process grid: called outside a rank,
+`eval` starts the ranks itself (or joins torchrun's) and returns rank 0's
+result; each rank loads the whole checkpoint and keeps its slices."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch.distributed as dist
 
 from cooperativeimagecaptioning_tpu_torch import config
 from cooperativeimagecaptioning_tpu_torch.data import DataLoader
 from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split import Evaluator
+from cooperativeimagecaptioning_tpu_torch.parallel import launch
+from cooperativeimagecaptioning_tpu_torch.parallel import mesh as mesh_mod
 from cooperativeimagecaptioning_tpu_torch.training import checkpoint as ck
 from cooperativeimagecaptioning_tpu_torch.training import joint
 
@@ -25,6 +33,11 @@ def eval(opt, model_name, infos_name, ann_file=None, listener=None,
     infos = config.load_infos(infos_name)
     if not hasattr(opt, "att_hid_size") or opt is None:
         opt = infos["opt"]
+    shape = mesh_mod.mesh_shape(opt, device)
+    if shape is not None and not dist.is_initialized():
+        return launch.run(eval, (opt, model_name, infos_name, ann_file,
+                                 listener, split, iteration, dataset, device),
+                          shape[0] * shape[1], device)
     opt.split = split
     opt.beam_size = 2          # final-eval protocol (ref: eval.py:33)
     np.random.seed(123)        # determinism pin (ref: eval.py:34)
@@ -47,7 +60,10 @@ def eval(opt, model_name, infos_name, ann_file=None, listener=None,
     opt.vocab_size = loader.vocab_size
     opt.seq_length = loader.seq_length
 
-    ev = Evaluator(opt, device=device)
+    mesh = None if shape is None else mesh_mod.make_mesh(*shape, device)
+    if mesh is not None:
+        device = mesh.device
+    ev = Evaluator(opt, mesh=mesh, device=device)
     params = joint.init_params(getattr(opt, "seed", 123), opt, device)
     params = ck.load_params_into(params, model_name)
     if listener == "gt" and getattr(opt, "initialize_retrieval", None):
@@ -59,6 +75,10 @@ def eval(opt, model_name, infos_name, ann_file=None, listener=None,
             print(f"warning: {opt.initialize_retrieval} has no 'listener' "
                   "subtree; evaluating with the TRAINED listener")
 
+    if mesh is not None:
+        mesh_mod.replicate(params, mesh)
+        params = mesh_mod.shard_params(params, mesh,
+                                       mesh_mod.param_specs(params, mesh))
     eval_kwargs = dict(vars(opt))
     eval_kwargs["split"] = split
     loss, split_predictions, lang_stats = ev.eval_split(

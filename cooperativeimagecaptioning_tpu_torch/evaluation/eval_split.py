@@ -21,9 +21,18 @@ the listener's half: `encode_fn`, `encode_data` (GT captions, or generated
 ones with BOS prepended on the device) and `evalrank` (the rank metrics of
 evaluation/retrieval.py on embeddings that stay on the device), ranked
 each checkpoint on both val and test in phase 1, with the GT ranks beside
-the generated-caption ranks when there is no ann_file.  Not ported yet,
-each raising NotImplementedError that names its ROADMAP.md queue-1 item:
-the device feature cache and a device mesh.
+the generated-caption ranks when there is no ann_file.
+
+On a mesh (`mesh=`, one rank of a (data, model) process grid; JAX
+eval_split.py:30-60) the params are the rank's slices, each batch's rows
+are split over the data group where they divide it (the last partial batch
+stays whole on every rank), decoding on a model axis goes through the
+vocab-sharded heads, and the decoded ids and the loss sums are gathered over
+the data group in image order before the language metrics, which rank 0
+computes (and writes) and broadcasts.  Not ported yet, each raising
+NotImplementedError that names its ROADMAP.md queue-1 item: the device
+feature cache, and on a mesh the listener's half, the CIDEr-D eval loss
+and the sampled decodes (`sample_max` 0 and 2).
 """
 
 from __future__ import annotations
@@ -38,6 +47,9 @@ from cooperativeimagecaptioning_tpu_torch.evaluation import (
     language_eval, retrieval)
 from cooperativeimagecaptioning_tpu_torch.models import vse
 from cooperativeimagecaptioning_tpu_torch.ops import decoding, draws, losses
+from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+from cooperativeimagecaptioning_tpu_torch.parallel import collectives
+from cooperativeimagecaptioning_tpu_torch.parallel import mesh as mesh_mod
 from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
 from cooperativeimagecaptioning_tpu_torch.training import joint
 from cooperativeimagecaptioning_tpu_torch.utils.text import decode_sequence
@@ -46,23 +58,30 @@ from cooperativeimagecaptioning_tpu_torch.utils.tree import detached, to_torch
 _JOINT = "ROADMAP.md queue 1: joint training"
 # the fixed seed of the evaluation's random draws (JAX: PRNGKey(123))
 EVAL_SEED = 123
-_MESH = "ROADMAP.md queue 1: multi-device"
 # batches whose decoded ids may wait on the device before the loop stops to
 # fetch the oldest: enough to keep the card fed, few enough to bound the queue
 MAX_IN_FLIGHT = 4
 
 
 class Evaluator:
-    """Evaluation programs for one opt configuration on one device."""
+    """Evaluation programs for one opt configuration on one device, or on
+    one rank of a mesh (`mesh`, whose device it takes)."""
 
     def __init__(self, opt, mesh=None, feat_cache=None, device="cuda"):
-        if mesh is not None:
+        if mesh is not None and (joint.has_listener(opt)
+                                 or joint.needs_reward(opt, "optimizer")):
             raise NotImplementedError(
-                f"Evaluator: a device mesh is not ported yet ({_MESH})")
+                f"Evaluator: on a device mesh the listener's terms and ranks "
+                f"and the CIDEr-D eval loss are not ported yet "
+                f"({mesh_mod.REST})")
         if feat_cache is not None:
             raise NotImplementedError(
                 f"Evaluator: the device feature cache is not ported yet "
                 f"({_JOINT})")
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
+            _dispatch.set_vocab_mesh(mesh, opt.vocab_size)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -84,6 +103,21 @@ class Evaluator:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(EVAL_SEED)
         return draws.Draws(gen)
+
+    def _split_rows(self, arrays, n_rows):
+        """(arrays, rows): this rank's share of a batch's rows and the data
+        group they are split over, or the arrays whole and None (no mesh, a
+        data axis of 1, or rows that do not divide it)."""
+        mesh = self.mesh
+        if mesh is None or mesh.n_data == 1 or n_rows % mesh.n_data:
+            return arrays, None
+        return mesh_mod.shard_batch(arrays, mesh), mesh.data
+
+    def _fetch(self, seq, rows):
+        """Decoded ids to the host, in image order across the data group."""
+        if rows is not None:
+            seq = collectives.all_gather(seq, rows)
+        return seq.cpu().numpy()
 
     def _decode_fn(self, beam_size, sample_max=1, temperature=1.0):
         """Decode program for the eval protocol: fn(params, fc, att,
@@ -127,17 +161,18 @@ class Evaluator:
                 return out.seq, out.logprobs
         return run
 
-    def loss_fn(self, params, batch, reward=None):
+    def loss_fn(self, params, batch, reward=None, rows=None):
         """The training loss of one batch in eval mode (no dropout, no
         scheduled sampling), in f32: (loss, aux), scalars on the device.
         Under cider_optimization the CIDEr term samples from the streams of
-        EVAL_SEED, as `_reward_for` does."""
+        EVAL_SEED, as `_reward_for` does.  `rows`: the data group the
+        batch's rows are split over (this rank's share of the loss)."""
         opt = self.opt
         with torch.no_grad():
             return joint.loss_fn({"speaker": self.speaker}, params, opt,
                                  batch, joint.streams(EVAL_SEED, self.device),
                                  joint.Hyper.from_opt(opt), "optimizer",
-                                 reward, train=False)
+                                 reward, train=False, rows=rows)
 
     def _reward_for(self, params, batch, data):
         """The host CIDEr-D reward of the eval loss (JAX
@@ -202,6 +237,10 @@ class Evaluator:
         sample_max = ek.get("sample_max", 1)
         temperature = ek.get("temperature", 1.0)
         verbose = ek.get("verbose", False)
+        if self.mesh is not None and beam_size == 1 and sample_max != 1:
+            raise NotImplementedError(
+                f"Evaluator: sample_max {sample_max} (a sampled decode) on a "
+                f"device mesh is not ported yet ({mesh_mod.REST})")
 
         np.random.seed(123)  # determinism pin (ref: eval_utils.py:105)
         # a view without gradients: the heads refuse inputs that need them
@@ -211,10 +250,12 @@ class Evaluator:
         _t = {"start": time.time()}
         loader.reset_iterator(split)
         n = 0
-        losses_acc = {}
+        # loss sums of whole batches, and (on a mesh) of this rank's shares
+        losses_acc, shares_acc = {}, {}
         loss_evals = 1e-8
         predictions = []
-        # [seq, infos, keep]: seq stays on the device until it is drained
+        # [seq, infos, keep, rows]: seq stays on the device until it is
+        # drained (gathered over `rows` on a mesh)
         pending = []
         drained = 0  # pending[:drained] hold host arrays already
         decode = self._decode_fn(beam_size, sample_max, temperature)
@@ -222,30 +263,34 @@ class Evaluator:
             data = loader.get_batch(split)
             n += loader.batch_size
             if data.get("labels") is not None:
-                batch = self._batch_arrays(data)
+                batch, rows = self._split_rows(self._batch_arrays(data),
+                                               data["labels"].shape[0])
                 reward = None
                 if joint.needs_reward(opt, "optimizer"):
                     reward = self._reward_for(params, batch, data)
-                loss, aux = self.loss_fn(params, batch, reward)
+                loss, aux = self.loss_fn(params, batch, reward, rows)
                 # accumulate device scalars: converting per batch would
                 # synchronise host and device every batch; one transfer per
                 # key at the end
+                acc = losses_acc if rows is None else shares_acc
                 for k, v in aux.items():
-                    losses_acc[k] = losses_acc.get(k, 0.0) + v
-                losses_acc["loss"] = losses_acc.get("loss", 0.0) + loss
+                    acc[k] = acc.get(k, 0.0) + v
+                acc["loss"] = acc.get("loss", 0.0) + loss
                 loss_evals += 1
 
-            fc, att, am = self._dedup(data, loader)
+            (fc, att, am), rows = self._split_rows(
+                self._dedup(data, loader), loader.batch_size)
             seq, _ = decode(params, fc, att, am)
             ix1 = data["bounds"]["it_max"]
             if num_images != -1:
                 ix1 = min(ix1, num_images)
             keep = len(data["infos"]) - max(0, n - ix1)
-            pending.append([seq, data["infos"], keep])
+            pending.append([seq, data["infos"], keep, rows])
             # bound the work in flight: waiting for the oldest undrained
             # batch leaves the newer ones queued on the device
             while len(pending) - drained > MAX_IN_FLIGHT:
-                pending[drained][0] = pending[drained][0].cpu().numpy()
+                oldest = pending[drained]
+                oldest[0] = self._fetch(oldest[0], oldest[3])
                 drained += 1
             if data["bounds"]["wrapped"]:
                 break
@@ -253,9 +298,9 @@ class Evaluator:
                 break
         _t["loop_dispatch"] = time.time()
         self.drained_in_loop = drained
-        for seq, infos, keep in pending:
+        for seq, infos, keep, rows in pending:
             if torch.is_tensor(seq):
-                seq = seq.cpu().numpy()
+                seq = self._fetch(seq, rows)
             sents = decode_sequence(loader.get_vocab(), seq)
             for k, sent in enumerate(sents[:keep]):
                 predictions.append({"image_id": infos[k]["id"],
@@ -264,9 +309,17 @@ class Evaluator:
                     print(f"image {infos[k]['id']}: {sent}")
 
         _t["decode_drain"] = time.time()
+        if shares_acc:
+            keys = sorted(shares_acc)
+            total = collectives.all_reduce(
+                torch.stack([torch.as_tensor(shares_acc[k]) for k in keys]),
+                self.mesh.data)
+            for k, v in zip(keys, total):
+                losses_acc[k] = losses_acc.get(k, 0.0) + v
         lang_stats = {}
         phase = getattr(opt, "phase", 0)
-        if lang_eval == 1:
+        writer = self.mesh is None or self.mesh.rank == 0
+        if lang_eval == 1 and writer:
             if phase == 1:
                 # phase-1 twist: language metrics for both val and test each
                 # checkpoint (ref: eval_utils.py:230-236)
@@ -280,6 +333,10 @@ class Evaluator:
                     opt.dataset, predictions, opt.id, split,
                     ann_file=ann_file, loader=loader)
 
+        if self.mesh is not None:
+            # rank 0 computed them (and wrote eval_results/)
+            lang_stats = collectives.broadcast_object(lang_stats,
+                                                      self.mesh.world)
         _t["lang"] = time.time()
         out_losses = {k: float(v) / loss_evals for k, v in losses_acc.items()}
         if rank_eval:

@@ -33,6 +33,7 @@ from torch import nn
 
 from cooperativeimagecaptioning_tpu_torch.models import layers
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import att_step, cell_step
+from cooperativeimagecaptioning_tpu_torch.parallel import vocab
 from cooperativeimagecaptioning_tpu_torch.utils.tree import ParamTree, to_torch
 
 
@@ -197,7 +198,10 @@ class AttModel(nn.Module):
     forward = step
 
     def logits(self, out):
-        return layers.linear(self.params.logit, out)
+        """out @ W + b; on a vocab mesh this rank's slice of the logits,
+        with out's gradient summed over the model group."""
+        p = self.params.logit
+        return layers.linear(p, vocab.into_shard(out, p.w))
 
 
 def bn_running_update(params, att_feats, att_masks, momentum=0.1):

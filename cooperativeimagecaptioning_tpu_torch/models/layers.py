@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from cooperativeimagecaptioning_tpu_torch.ops import draws
+from cooperativeimagecaptioning_tpu_torch.parallel import vocab
 
 
 def uniform_init(rng: np.random.RandomState, shape, scale: float):
@@ -42,9 +43,10 @@ def linear(params, x):
 
 
 def embedding_lookup(table, ids):
-    """table [N, D], integer ids of any shape -> [*ids.shape, D]."""
-    return table.index_select(0, ids.reshape(-1)).reshape(
-        tuple(ids.shape) + (table.shape[1],))
+    """table [N, D], integer ids of any shape -> [*ids.shape, D].  A rank's
+    slice of a vocab-sharded table takes the masked lookup summed over the
+    model group (parallel/vocab.py)."""
+    return vocab.embedding_lookup(table, ids)
 
 
 def l2norm(x, dim=-1, eps=1e-7):

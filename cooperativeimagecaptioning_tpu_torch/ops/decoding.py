@@ -13,6 +13,12 @@ its fused masked-NLL form with per-step rematerialization), `sample` in
 all seven modes (greedy, gumbel_noise_max, sample and the four
 relaxations of ops/relaxations.py), and `beam_search` (backpointer
 formulation).  Random draws come from explicit sources (ops/draws.py).
+
+On a vocab mesh (parallel/vocab.py) the logits are a rank's slice: teacher
+forcing takes the vocab-parallel log-softmax and pick, greedy decoding and
+beam search the vocab-sharded heads, and the loss is normalised over the
+data group (`rows`); the other sampling modes, the decoding constraint of
+greedy decoding and scheduled sampling raise NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from cooperativeimagecaptioning_tpu_torch.models import layers
 from cooperativeimagecaptioning_tpu_torch.ops import draws, relaxations
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import beam_head
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import logit_head
+from cooperativeimagecaptioning_tpu_torch.parallel import collectives, vocab
+from cooperativeimagecaptioning_tpu_torch.parallel.mesh import REST
 
 NEG_INF = -1e38
 
@@ -52,6 +60,10 @@ def _draws(speaker, j, it, prev_lp, gen, drop_prob, ss_prob, use_ss):
     is a torch.Generator or a draw source (ops/draws.py)."""
     B = it.shape[0]
     if use_ss and j >= 1:
+        if vocab.logit_mesh(prev_lp) is not None:
+            raise NotImplementedError(
+                f"scheduled sampling on a vocab-sharded speaker: a "
+                f"categorical draw over the model group's slices ({REST})")
         device = it.device
         src = draws.source(gen)
         replace = src.uniform((B,), device) < ss_prob
@@ -78,7 +90,7 @@ def _tf_step(speaker, ctx, h, c, it, emb_mask, out_mask, drop_prob):
     """Embed the input ids, run one step, log-softmax of the logits."""
     xt = speaker.embed_token(it, drop_prob, mask=emb_mask)
     (h, c), out = speaker.step(ctx, (h, c), xt, drop_prob, mask=out_mask)
-    lp = torch.log_softmax(speaker.logits(out), dim=-1)
+    lp = vocab.log_softmax(speaker.logits(out))
     return h, c, lp
 
 
@@ -115,7 +127,7 @@ def teacher_forced_logprobs(speaker, ctx, inputs, gen=None, train=False,
 
 
 def teacher_forced_loss(speaker, ctx, inputs, targets, masks, gen=None,
-                        train=False, drop_prob=0.0, ss_prob=0.0):
+                        train=False, drop_prob=0.0, ss_prob=0.0, rows=None):
     """Fused masked-NLL teacher forcing (JAX decoding.py:87-139, the
     --remat 1 path): the math of teacher_forced_logprobs +
     language_model_criterion, with each step's cross-entropy reduced inside
@@ -123,7 +135,14 @@ def teacher_forced_loss(speaker, ctx, inputs, targets, masks, gen=None,
     under torch.utils.checkpoint (non-reentrant) in place of
     jax.checkpoint(body): backward recomputes the step's logits instead of
     storing them.  The step's random draws are made outside the checkpoint
-    and passed in, so the recompute sees the same masks."""
+    and passed in, so the recompute sees the same masks.
+
+    `rows`, the data group of a mesh run whose ranks hold shares of the
+    batch's rows, makes the denominator the global batch's mask sum (JAX
+    losses.py:20): the ranks' losses then add up to the global loss, and
+    their gradients too.  Under autograd every rank recomputes the
+    checkpointed steps in the same order, so the collectives of the
+    vocab-parallel log-softmax meet."""
     B, T = inputs.shape
     targets = targets[:, :T]
     masks = masks[:, :T]
@@ -132,7 +151,7 @@ def teacher_forced_loss(speaker, ctx, inputs, targets, masks, gen=None,
 
     def body(h, c, it, tgt, msk, em, om):
         h, c, lp = _tf_step(speaker, ctx, h, c, it, em, om, drop)
-        picked = torch.gather(lp, 1, tgt[:, None].long())[:, 0]
+        picked = vocab.pick(lp, tgt)
         # lp leaves the step only for the next step's sampling draw
         return h, c, (picked * msk).sum(), (lp if use_ss else None)
 
@@ -147,6 +166,8 @@ def teacher_forced_loss(speaker, ctx, inputs, targets, masks, gen=None,
                                       preserve_rng_state=False)
         num = num + picked
         den = den + msk.sum()
+    if rows is not None:
+        den = collectives.all_reduce(den, rows)
     return -num / den
 
 
@@ -273,10 +294,15 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
     drop = drop_prob if train else 0.0
     B = _batch_size(ctx)
     w, b = speaker.params.logit.w, speaker.params.logit.b
-    nclass = w.shape[1]  # V+1
-    bos = nclass         # BOS id = vocab_size + 1
+    nclass = vocab.nclass(w)  # V+1, also where w is a vocab slice
+    bos = nclass              # BOS id = vocab_size + 1
     device = w.device
     use_fused = mode == "greedy" and not decoding_constraint
+    if vocab.logit_mesh(w) is not None and not use_fused:
+        raise NotImplementedError(
+            f"sample(mode={mode!r}, decoding_constraint="
+            f"{decoding_constraint}) on a vocab-sharded speaker: only greedy "
+            f"decoding through the sharded head is ported ({REST})")
     shape = (B, nclass)
 
     state = speaker.init_state(B)
@@ -386,7 +412,7 @@ def beam_search(speaker, ctx, seq_length, beam_size, decoding_constraint=0):
     m = beam_size
     L = seq_length
     w, b = speaker.params.logit.w, speaker.params.logit.b
-    bos = w.shape[1]
+    bos = vocab.nclass(w)
     device = w.device
     f32 = torch.float32
     ectx = _expand_for_beams(ctx, m)

@@ -15,6 +15,10 @@ ids.
              checkpointed step replays the noise drawn before it.
   Record  -- passes another source's draws through and keeps them, so
              that one run's noise can be replayed in another.
+  RowShard -- a data-parallel rank's rows of another source's draws: each
+             draw is made at the global batch's size and sliced, so a mesh
+             run draws the single-device run's noise (under GSPMD the
+             global masks are drawn once and sharded).
 """
 
 from __future__ import annotations
@@ -84,6 +88,26 @@ class Record:
         x = self.source.gumbel(shape, device)
         self.taken.append(x)
         return x
+
+
+class RowShard:
+    """Rows [index * b, (index + 1) * b) of `source`'s draws of n * b rows,
+    where b is the leading dim asked for."""
+
+    def __init__(self, source, n: int, index: int):
+        self.source, self.n, self.index = source, n, index
+
+    def _rows(self, kind, shape, device):
+        b = shape[0]
+        full = getattr(self.source, kind)((b * self.n,) + tuple(shape[1:]),
+                                          device)
+        return full[self.index * b:(self.index + 1) * b]
+
+    def uniform(self, shape, device):
+        return self._rows("uniform", shape, device)
+
+    def gumbel(self, shape, device):
+        return self._rows("gumbel", shape, device)
 
 
 def source(rng):

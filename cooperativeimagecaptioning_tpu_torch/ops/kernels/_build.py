@@ -67,6 +67,8 @@ SIGNATURES = {
     # xt, h, c, att|NULL, wi, bi, wh, bh, wc|NULL, bc|NULL, h_out, c_out,
     # B, D, H, is_bf16, use_mma, stream
     "cic_cell": [_P] * 12 + [_I] * 5 + [_P],
+    # vals, idx, lse, out_vals, out_idx, out_lse, R, n, m, v_local, stream
+    "cic_head_merge": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -22,6 +22,13 @@ bf16, FMAs for the rest: `cell_step.cell_pass`) are counted the same way.
 The three attention kernels have two widths (16-byte
 vectors, or single elements for unaligned shapes: `att_step.vector_width`),
 counted the same way.
+
+A registered vocabulary mesh (`set_vocab_mesh`, the JAX package's
+_dispatch.py:53-83) switches the two heads to their vocab-sharded paths:
+each rank of a model group runs kernel C on its slice of the logit layer
+and `head_merge` merges the group's candidates.  It is process-level state,
+set by the Trainer and the Evaluator of a mesh run and cleared by
+`Trainer.close()`.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import os
 import torch
 
 KERNELS = ("attention", "attention_q", "attention_kmajor", "greedy_head",
-           "beam_head", "cell")
+           "beam_head", "cell", "head_merge")
 
 # the heads' launches by first pass: "<head>_mma" (wgmma) or "<head>_fma";
 # the cell's by kernel: "cell_mma" (mma.sync) or "cell_fma"
@@ -46,6 +53,29 @@ ATT_WIDTHS = ("attention_vec", "attention_scalar", "attention_kmajor_vec",
 
 _launches = {name: 0 for name in
              KERNELS + HEAD_PASSES + CELL_PASSES + ATT_WIDTHS}
+
+
+_vocab_mesh = None
+
+
+def set_vocab_mesh(mesh, vocab_size: int = 0) -> None:
+    """Register (or clear, mesh=None) the mesh whose model axis shards the
+    vocabulary matrices of a speaker of `vocab_size` words (logit [H, V+1],
+    embedding [V+2, D]); a model axis of 1 clears it.  The port's ranks hold
+    local slices, whose shapes do not show the global vocabulary, so it is
+    registered beside the mesh (the JAX package reads it off the global
+    arrays)."""
+    global _vocab_mesh
+    if mesh is None or mesh.n_model <= 1:
+        _vocab_mesh = None
+    else:
+        _vocab_mesh = (mesh, int(vocab_size))
+
+
+def vocab_mesh():
+    """(mesh, vocab_size) while a model-sharded mesh is registered, else
+    None."""
+    return _vocab_mesh
 
 
 def use_kernel(x: torch.Tensor) -> bool:

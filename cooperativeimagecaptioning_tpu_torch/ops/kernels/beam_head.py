@@ -14,6 +14,12 @@ fails raises.  Any 1 <= kk <= V is taken on every device, as the JAX head
 takes any m: on the card a kk above the longest compiled list (ROUND_KK)
 runs the kernel's two passes in rounds of ROUND_KK candidates, each round
 admitting only candidates after the last one the round before took.
+
+On a registered vocab mesh (`_dispatch.set_vocab_mesh`) whose rank holds a
+slice of the logit layer, `beam_head` takes `beam_head_sharded` (JAX
+beam_head.py:97-160): kernel C on the slice, the model group's [R, n*m]
+candidates and [n, R] logsumexps gathered in shard-major order, and the
+`head_merge` kernel.
 """
 
 from __future__ import annotations
@@ -21,8 +27,11 @@ from __future__ import annotations
 import torch
 
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build, _dispatch
+from cooperativeimagecaptioning_tpu_torch.ops.kernels.head_merge import (
+    head_merge)
 from cooperativeimagecaptioning_tpu_torch.ops.kernels.logit_head import (
     check_head_inputs, logits_f32, partials_scratch, plan_first_pass)
+from cooperativeimagecaptioning_tpu_torch.parallel import collectives, vocab
 
 ROW_TILE = 8          # rows per block of the beam kernel (kBeamRows)
 SLOTS = (1, 2, 4, 8, 16)  # compiled top-list lengths; kk rounds up to one
@@ -48,7 +57,32 @@ def beam_head_reference(h, w, b, kk: int):
 
 
 def beam_head(h, w, b, kk: int):
-    """h [R, H], w [H, V], b [V], 1 <= kk <= V -> (vals, idx, lse)."""
+    """h [R, H], w [H, V], b [V], 1 <= kk <= V -> (vals, idx, lse); on a
+    vocab mesh, where w is this rank's slice, the global result."""
+    mesh = vocab.logit_mesh(w)
+    if mesh is not None:
+        return beam_head_sharded(h, w, b, kk, mesh)
+    return local_beam_head(h, w, b, kk)
+
+
+def beam_head_sharded(h, w, b, m: int, mesh):
+    """The beam head over the model group's vocabulary slices: w [H, V/n]
+    and b [V/n] are this rank's (shard = its model index), h [R, H] the
+    group's common rows.  Kernel C gives the slice's top-m, one all_gather
+    each of the candidates (shard-major) and of the logsumexps, and
+    `head_merge` the global top-m (global ids) and logsumexp, the same on
+    every rank of the group."""
+    _dispatch.forward_only("beam_head", h, w, b)
+    vals, idx, lse = local_beam_head(h, w, b, m)
+    g = mesh.model
+    return head_merge(collectives.all_gather(vals, g, dim=1),
+                      collectives.all_gather(idx, g, dim=1),
+                      collectives.all_gather(lse[None], g, dim=0),
+                      w.shape[1], m)
+
+
+def local_beam_head(h, w, b, kk: int):
+    """The head on one device's w, whole or a slice (ids local to it)."""
     _dispatch.forward_only("beam_head", h, w, b)
     if not 1 <= kk <= w.shape[1]:
         raise ValueError(f"beam_head takes 1 <= kk <= V = {w.shape[1]}, "

@@ -15,6 +15,13 @@ inputs' type, shape and alignment alone: bfloat16 with H a multiple of 64
 (csrc/vocab_head_mma.cuh: wgmma fed by cp.async); float32, and any other
 bfloat16 input, takes the FMA pass (csrc/vocab_head.cuh).  Neither gives way
 to the other or to the plain version when a launch fails: that raises.
+
+On a registered vocab mesh whose rank holds a slice of the logit layer,
+`greedy_head` takes `greedy_head_sharded` (JAX logit_head.py:202-238): the
+m = 1 case of the sharded beam head, so the per-shard kernel is C at kk=1
+and the merge `head_merge`; it returns idx[:, 0] and vals[:, 0] - lse.  It
+is forward-only as the local head (the JAX package's zero-gradient
+custom_vjp).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import functools
 import torch
 
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build, _dispatch
+from cooperativeimagecaptioning_tpu_torch.parallel import vocab
 
 CHUNK = 512      # columns one block sweeps at a time (kChunk)
 ROW_TILE = 16    # rows per block of the greedy kernel (kGreedyRows)
@@ -122,8 +130,21 @@ def check_head_inputs(name, h, w, b):
     _dispatch.check_cuda_inputs(name, {"h": h, "w": w, "b": b}, h.dtype)
 
 
+def greedy_head_sharded(h, w, b, mesh):
+    """The greedy head over the model group's vocabulary slices -> (global
+    argmax int32 [B], its log-prob float32 [B])."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import beam_head
+    _dispatch.forward_only("greedy_head", h, w, b)
+    vals, idx, lse = beam_head.beam_head_sharded(h, w, b, 1, mesh)
+    return idx[:, 0], vals[:, 0] - lse
+
+
 def greedy_head(h, w, b):
-    """h [B, H], w [H, V], b [V] -> (it int32 [B], lp float32 [B])."""
+    """h [B, H], w [H, V], b [V] -> (it int32 [B], lp float32 [B]); on a
+    vocab mesh, where w is this rank's slice, the global result."""
+    mesh = vocab.logit_mesh(w)
+    if mesh is not None:
+        return greedy_head_sharded(h, w, b, mesh)
     _dispatch.forward_only("greedy_head", h, w, b)
     if not _dispatch.use_kernel(h):
         return greedy_head_reference(h, w, b)

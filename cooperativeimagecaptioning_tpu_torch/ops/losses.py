@@ -8,17 +8,25 @@ from __future__ import annotations
 
 import torch
 
+from cooperativeimagecaptioning_tpu_torch.parallel import collectives, vocab
 
-def language_model_criterion(logprobs, targets, masks):
+
+def language_model_criterion(logprobs, targets, masks, rows=None):
     """Masked NLL (JAX losses.py:9-19).
 
-    logprobs: [B, T, C]; targets/masks: [B, >=T] -- truncated to T like the
-    reference (whose time loop may stop early)."""
+    logprobs: [B, T, C] (on a vocab mesh this rank's slice of C); targets /
+    masks: [B, >=T] -- truncated to T like the reference (whose time loop may
+    stop early).  `rows`, the data group of a mesh run whose ranks hold
+    shares of the rows, normalises by the global batch's mask sum, so the
+    ranks' losses add up to the global one."""
     T = logprobs.shape[1]
     targets = targets[:, :T]
     masks = masks[:, :T]
-    picked = torch.gather(logprobs, 2, targets[..., None].long())[..., 0]
-    return -(picked * masks).sum() / masks.sum()
+    picked = vocab.pick(logprobs, targets)
+    den = masks.sum()
+    if rows is not None:
+        den = collectives.all_reduce(den, rows)
+    return -(picked * masks).sum() / den
 
 
 def self_critical_loss(sample_logprobs, reward, gen_masks):

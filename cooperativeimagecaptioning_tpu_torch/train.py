@@ -24,6 +24,17 @@ naming what is missing.
         --cider_optimization 0.99 --caption_loss_weight 0 \
         --speaker_stage_2_model_path runs/att/model.pth \
         --initialize_retrieval runs/fc_con/model_vse-best.pth ...
+
+Phase 2 also on a (data, model) process grid: `--mesh_data_axis N
+--mesh_model_axis M` starts the N*M ranks from this one command (one
+process per mesh position: NCCL where each has a card, gloo where they
+share one or run on the CPU), or, under torchrun, each process is the rank
+the environment names:
+
+    python -m cooperativeimagecaptioning_tpu_torch.train --device cuda \
+        --phase 2 --mesh_data_axis 2 --mesh_model_axis 2 ...
+    torchrun --nproc_per_node 4 -m cooperativeimagecaptioning_tpu_torch.train \
+        --device cuda --phase 2 --mesh_data_axis 2 --mesh_model_axis 2 ...
 """
 
 from __future__ import annotations
@@ -31,7 +42,14 @@ from __future__ import annotations
 import argparse
 
 from cooperativeimagecaptioning_tpu_torch import config
+from cooperativeimagecaptioning_tpu_torch.parallel import launch
+from cooperativeimagecaptioning_tpu_torch.parallel.mesh import mesh_shape
 from cooperativeimagecaptioning_tpu_torch.training.loop import train
+
+
+def train_rank(opt, device):
+    """One rank of a mesh run -> the iterations it trained."""
+    return train(opt, device=device).iteration
 
 
 def main(argv=None):
@@ -41,7 +59,11 @@ def main(argv=None):
                           "plain versions of the kernels)")
     known, rest = pre.parse_known_args(argv)
     opt = config.parse_opt(rest)
-    return train(opt, device=known.device)
+    shape = mesh_shape(opt, known.device)
+    if shape is None:
+        return train(opt, device=known.device)
+    return launch.run(train_rank, (opt, known.device), shape[0] * shape[1],
+                      known.device)
 
 
 if __name__ == "__main__":

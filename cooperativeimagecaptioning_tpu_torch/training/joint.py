@@ -292,7 +292,7 @@ def _listener_loss(params, opt, hp, fc, seqs, masks):
 
 
 def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
-            train=True, sampled=None):
+            train=True, sampled=None, rows=None):
     """Stage B: total loss and aux dict (JAX joint.py:181-345) for the turns
     'optimizer' and 'speaker'.
 
@@ -303,8 +303,11 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
     reward: [B], the CIDEr coefficient from the host (cider(sample) -
     cider(greedy), or the raw scores under use_gen_cider_scores).
     `sampled`, a dict when given, receives the CIDEr branch's sampled ids
-    under 'seq' and DISC's under 'disc_seq'.  Returns (loss, aux) with aux
-    keys of the JAX package's."""
+    under 'seq' and DISC's under 'disc_seq'.  `rows`, the data group of a
+    mesh run whose ranks hold shares of the batch's rows, normalises the
+    caption loss over the global batch (a rank's loss is its share of the
+    global one).  Returns (loss, aux) with aux keys of the JAX
+    package's."""
     check_ported(opt, turn)
     kw = _sample_kwargs(opt, hp, train)
     drop = kw["drop_prob"]
@@ -324,12 +327,12 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
             # fused CE + per-step recompute: no [B, T, V+1] residual
             loss_cap = decoding.teacher_forced_loss(
                 spk, ctx, labels[:, :-1], labels[:, 1:], masks[:, 1:],
-                r["xe"], train, drop, hp.ss_prob)
+                r["xe"], train, drop, hp.ss_prob, rows=rows)
         else:
             lps = decoding.teacher_forced_logprobs(
                 spk, ctx, labels[:, :-1], r["xe"], train, drop, hp.ss_prob)
             loss_cap = losses.language_model_criterion(
-                lps, labels[:, 1:], masks[:, 1:])
+                lps, labels[:, 1:], masks[:, 1:], rows=rows)
         loss = loss + hp.caption_loss_weight * loss_cap
         aux["loss_cap"] = loss_cap
         aux["cap_xe"] = loss_cap
@@ -375,18 +378,19 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
     return loss, aux
 
 
-def value_and_grad(opt, turn):
+def value_and_grad(opt, turn, rows=None):
     """fn(params, batch, rng, hp, reward=None, sampled=None) -> ((loss,
     aux), grads), standing in for the JAX `make_raw_fns(opt, turn)[1]`
     (joint.py:350-365).  grads has the structure of params, one gradient
     per leaf that requires grad (zeros where the loss does not reach a
-    leaf, as JAX gives); aux values are detached."""
+    leaf, as JAX gives); aux values are detached.  `rows`: as loss_fn's
+    (a mesh run's data group)."""
     modules = {"speaker": model_zoo.setup(opt, opt.caption_model,
                                           "caption_model")}
 
     def fn(params, batch, rng, hp, reward=None, sampled=None):
         loss, aux = loss_fn(modules, params, opt, batch, rng, hp, turn,
-                            reward, sampled=sampled)
+                            reward, sampled=sampled, rows=rows)
         named = [(k, x) for k, x in leaves(params) if x.requires_grad]
         got = torch.autograd.grad(loss, [x for _, x in named],
                                   allow_unused=True)

@@ -18,8 +18,17 @@ random draw of an iteration comes from the named streams of
 `joint.streams`, seeded from `opt.seed` and the iteration, so stage B
 re-draws stage A's trajectory.
 
+Phase-2 MLE also runs on a (data, model) process grid (`mesh_data_axis`,
+`mesh_model_axis`; one process per mesh position, started by the port's
+train entry point or torchrun): each rank keeps its rows of the global
+batch and its slices of the vocabulary matrices, and steps through
+`parallel.train_step.make_distributed_train_step`; rank 0 writes the run
+dir, with the slices gathered, so it is the file set of a single-device
+run and either resumes the other.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-queue-1 item: the device mesh, fused multi-step chunks (`fused_steps > 1`),
+queue-1 item: the rest of a mesh run (SCST, the listener, att_bn's batch
+statistics), fused multi-step chunks (`fused_steps > 1`),
 the device feature cache, REINFORCE DISC and real alternation (more than
 one effective turn, or the listener turn), the device reward tiers, the
 grad-isolation audit and the profiler window.
@@ -27,6 +36,7 @@ grad-isolation audit and the profiler window.
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 
@@ -36,6 +46,11 @@ import torch
 from cooperativeimagecaptioning_tpu_torch import config as config_mod
 from cooperativeimagecaptioning_tpu_torch.data import DataLoader
 from cooperativeimagecaptioning_tpu_torch.models import att_model
+from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+from cooperativeimagecaptioning_tpu_torch.parallel import collectives
+from cooperativeimagecaptioning_tpu_torch.parallel import mesh as mesh_mod
+from cooperativeimagecaptioning_tpu_torch.parallel.train_step import (
+    make_distributed_train_step)
 from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
 from cooperativeimagecaptioning_tpu_torch.training import checkpoint as ck
 from cooperativeimagecaptioning_tpu_torch.training import joint, schedules
@@ -46,11 +61,28 @@ from cooperativeimagecaptioning_tpu_torch.utils.tree import trainable
 _JOINT = "ROADMAP.md queue 1: joint training"
 
 
+def mesh_unported(opt):
+    """Why this port cannot train `opt` on a mesh yet (None = it can):
+    phase-2 MLE of a speaker is ported."""
+    what = []
+    if joint.has_listener(opt):
+        what.append("a listener (phase 1 and joint training: the listener's "
+                    "in-batch contrastive matrix over the data group)")
+    if opt.cider_optimization > 0:
+        what.append("self-critical CIDEr-D (the reward over gathered ids)")
+    if getattr(opt, "use_bn", 0):
+        what.append("att_bn (batch statistics over the data group)")
+    return f"on a device mesh, {'; '.join(what)} ({mesh_mod.REST})" \
+        if what else None
+
+
 def unported(opt):
     """Why this port cannot train `opt` yet (None = it can)."""
     if int(getattr(opt, "mesh_data_axis", 0) or 0) > 1 or \
             int(getattr(opt, "mesh_model_axis", 1) or 1) > 1:
-        return "a device mesh (ROADMAP.md queue 1: multi-device)"
+        why = mesh_unported(opt)
+        if why:
+            return why
     if int(getattr(opt, "fused_steps", 1) or 1) > 1:
         return f"fused_steps > 1 (a CUDA graph of K steps; {_JOINT})"
     if getattr(opt, "device_feature_cache", 0):
@@ -75,7 +107,7 @@ def unported(opt):
 class Trainer:
     """Training on one device: phase 1 (the listener), phase 2 (MLE), and
     phase 3 (self-critical CIDEr-D and the relaxed DISC loss), with one
-    effective turn."""
+    effective turn; phase 2 also as one rank of a mesh (`self.mesh`)."""
 
     def __init__(self, opt, dataset=None, rng_seed=None, verbose=True,
                  device="cuda"):
@@ -95,6 +127,19 @@ class Trainer:
         opt.vocab_size = self.loader.vocab_size
         opt.seq_length = self.loader.seq_length
 
+        # the device mesh (JAX loop.py:96-119): this process is one rank of
+        # it, on the rank's device
+        self.mesh = None
+        shape = mesh_mod.mesh_shape(opt, self.device.type)
+        if shape is not None:
+            eff_batch = opt.batch_size * opt.seq_per_img
+            if eff_batch % shape[0]:
+                raise ValueError(
+                    f"batch_size*seq_per_img ({eff_batch}) must divide the "
+                    f"data axis ({shape[0]})")
+            self.mesh = mesh_mod.make_mesh(*shape, device=self.device.type)
+            self.device = self.mesh.device
+
         self.ckpt = ck.CheckpointManager(opt)
         infos = self.ckpt.load_infos()
         histories = self.ckpt.load_histories()
@@ -102,10 +147,15 @@ class Trainer:
         seed = rng_seed if rng_seed is not None else getattr(opt, "seed", 123)
         params, resumed = self._bootstrap(joint.init_params(
             seed, opt, self.device))
+        if self.mesh is not None:
+            # replicated from rank 0; each rank keeps its slices below
+            mesh_mod.replicate(params, self.mesh)
+            self.param_specs = mesh_mod.param_specs(params, self.mesh)
         self.params = {agent: trainable(tree)
                        for agent, tree in params.items()}
 
-        self.optim = OptimizerManager(opt, self.params)
+        self.optim = OptimizerManager(
+            opt, self.params, None if self.mesh is None else self.mesh.world)
         if resumed:
             # the Adam moments and counts beside the params (ref
             # optimizer.py:149-188)
@@ -122,6 +172,16 @@ class Trainer:
             p1 = os.path.join(os.path.dirname(ir), "optimizer.pth")
             if ir and "listener" in self.params and os.path.isfile(p1):
                 self.ckpt.load_agent_optimizer(self.optim, "listener", p1)
+        if self.mesh is not None:
+            # Adam states load at whole shapes (either package's files),
+            # then each rank keeps its slices
+            self.optim.states = mesh_mod.shard_states(
+                self.optim.states, self.optim.paths, self.mesh,
+                self.param_specs)
+            self.params = {agent: trainable(tree) for agent, tree in
+                           mesh_mod.shard_params(params, self.mesh,
+                                                 self.param_specs).items()}
+            _dispatch.set_vocab_mesh(self.mesh, opt.vocab_size)
         self.turns = effective_turns(opt)
         # the turn of every iteration (`unported` refuses more than one)
         self.turn = self.turns[0] if opt.is_alternating else "optimizer"
@@ -147,6 +207,8 @@ class Trainer:
         # an iteration's streams are seeded from this and its number
         self._seed = seed + 1
         self._grad_fn = joint.value_and_grad(opt, self.turn)
+        self._mesh_step = None if self.mesh is None else \
+            make_distributed_train_step(opt, self.turn, self.mesh)
         self._sample_fn = joint.sampler(opt, self.turn)
         self._evaluator = None
         # stage A's and stage B's sampled ids of the last reward iteration
@@ -262,14 +324,19 @@ class Trainer:
         reward, aux_host, seq_a = None, {}, None
         if joint.needs_reward(opt, turn):
             reward, aux_host, seq_a = self.reward(batch, data, hp)
-        sampled = {}
-        (loss, aux), grads = self._grad_fn(self.params, batch,
-                                           self.iteration_streams(), hp,
-                                           reward, sampled)
-        if seq_a is not None:
-            self.last_reward_seqs = (seq_a, sampled["seq"])
-        # the non-finite guard runs on the device inside the update
-        self.optim.step(self.params, grads, turn)
+        if self._mesh_step is not None:
+            # the rank's rows, the gradients summed, the guarded update
+            loss, aux = self._mesh_step(self.params, self.optim, batch,
+                                        self.iteration_streams(), hp)
+        else:
+            sampled = {}
+            (loss, aux), grads = self._grad_fn(self.params, batch,
+                                               self.iteration_streams(), hp,
+                                               reward, sampled)
+            if seq_a is not None:
+                self.last_reward_seqs = (seq_a, sampled["seq"])
+            # the non-finite guard runs on the device inside the update
+            self.optim.step(self.params, grads, turn)
 
         # BN running statistics (torch train-mode BatchNorm1d semantics),
         # once per iteration (JAX loop.py:481-501)
@@ -301,13 +368,29 @@ class Trainer:
         if self._evaluator is None:
             from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split \
                 import Evaluator
-            self._evaluator = Evaluator(self.opt, device=self.device)
+            self._evaluator = Evaluator(self.opt, mesh=self.mesh,
+                                        device=self.device)
         return self._evaluator
+
+    def saved_state(self):
+        """(params, optimizer) as a single-device run holds them: on a mesh
+        the ranks' slices gathered over the model group (a collective: every
+        rank calls it)."""
+        if self.mesh is None:
+            return self.params, self.optim
+        params = mesh_mod.gather_params(self.params, self.mesh,
+                                        self.param_specs)
+        optim = copy.copy(self.optim)
+        optim.states = mesh_mod.gather_states(
+            self.optim.states, self.optim.paths, self.mesh, self.param_specs)
+        return params, optim
 
     def checkpoint_operations(self):
         """Evaluate on val, then write the run dir: model (latest and this
         iteration's), optimizer, infos, histories, and the -best files when
-        the score improved (JAX loop.py:721-790)."""
+        the score improved (JAX loop.py:721-790).  On a mesh every rank
+        evaluates its share and gathers the slices, and global rank 0
+        writes."""
         opt = self.opt
         eval_kwargs = {"split": "val", "dataset": opt.input_json}
         eval_kwargs.update(vars(opt))
@@ -333,8 +416,11 @@ class Trainer:
         if best_flag_vse:
             self.best_val_score_vse = current_score_vse
 
-        self.ckpt.save_model(self.params, self.iteration)
-        self.ckpt.save_optimizers(self.optim)
+        params, optim = self.saved_state()
+        writer = self.mesh is None or self.mesh.rank == 0
+        if writer:
+            self.ckpt.save_model(params, self.iteration)
+            self.ckpt.save_optimizers(optim)
         infos = self.infos
         res_it, res_six = self.loader.resume_state()
         infos.update({"iter": self.iteration, "epoch": self.epoch,
@@ -350,14 +436,18 @@ class Trainer:
                           "loss_history": self.loss_history,
                           "lr_history": self.lr_history,
                           "ss_prob_history": self.ss_prob_history})
-        self.ckpt.save_infos(infos, self.iteration)
-        self.ckpt.save_histories(histories)
-        if best_flag:
-            self.ckpt.save_best(self.params)
-            self.ckpt.save_best_infos(infos)
-        if best_flag_vse:
-            self.ckpt.save_best(self.params, vse=True)
-            self.ckpt.save_best_infos(infos, vse=True)
+        if writer:
+            self.ckpt.save_infos(infos, self.iteration)
+            self.ckpt.save_histories(histories)
+            if best_flag:
+                self.ckpt.save_best(params)
+                self.ckpt.save_best_infos(infos)
+            if best_flag_vse:
+                self.ckpt.save_best(params, vse=True)
+                self.ckpt.save_best_infos(infos, vse=True)
+        if self.mesh is not None:
+            # no rank reads the run dir before rank 0 has written it
+            collectives.barrier(self.mesh.world)
         return val_loss, lang_stats
 
     def _current_scores(self, lang_stats, val_loss):
@@ -380,9 +470,15 @@ class Trainer:
         return current, vse_score
 
     def close(self):
+        """Stop the loader's prefetch thread, and deregister the vocab mesh
+        this Trainer installed (JAX loop.py:380-394): left registered, it
+        would route later single-device heads to the sharded path."""
         closer = getattr(self.loader, "close", None)
         if closer is not None:
             closer()
+        vm = _dispatch.vocab_mesh()
+        if self.mesh is not None and vm is not None and vm[0] is self.mesh:
+            _dispatch.set_vocab_mesh(None)
 
     # -- full loop (ref: train.py:473-562) --------------------------------------
     def train(self, max_iterations=None):

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from cooperativeimagecaptioning_tpu_torch.parallel import collectives
 from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
 
 
@@ -55,15 +56,19 @@ def adam_init(tree):
             "nu": [torch.zeros_like(z) for z in zeros]}
 
 
-def guarded_update(opt, params, grads, states, agents, lr):
+def guarded_update(opt, params, grads, states, agents, lr, group=None):
     """Apply one guarded Adam step to each agent in `agents`, in place.
 
     A NaN or inf in any gradient of an updated agent leaves params and
-    moments (and the step count) untouched.  Returns `ok`, a 0-d bool
-    tensor on the device."""
+    moments (and the step count) untouched.  With `group` (a mesh run's
+    world) the flag is the MIN over the group, so every rank takes or skips
+    the step together, as the JAX package's single GSPMD flag does
+    (optim.py:102-123).  Returns `ok`, a 0-d bool tensor on the device."""
     grads_of = {a: [g for _, g in leaves(grads[a])] for a in agents}
     ok = torch.stack([torch.isfinite(g).all()
                       for a in agents for g in grads_of[a]]).all()
+    if group is not None:
+        ok = collectives.all_reduce(ok.to(torch.int32), group, "min").bool()
     b1, b2, eps = opt.optim_alpha, opt.optim_beta, opt.optim_epsilon
     with torch.no_grad():
         for agent in agents:
@@ -90,10 +95,13 @@ def guarded_update(opt, params, grads, states, agents, lr):
 
 
 class OptimizerManager:
-    """One Adam state per agent; applies per-turn guarded updates."""
+    """One Adam state per agent; applies per-turn guarded updates.  On a
+    mesh (`group`: its world) each rank keeps the moments of its own slices
+    and the non-finite flag is taken over the group."""
 
-    def __init__(self, opt, params):
+    def __init__(self, opt, params, group=None):
         self.opt = opt
+        self.group = group
         self.states = {agent: adam_init(tree)
                        for agent, tree in params.items()}
         # each agent's leaf paths, in the order of its moment lists
@@ -113,7 +121,7 @@ class OptimizerManager:
         agents = tuple(a for a in agents_to_update(self.opt, turn)
                        if a in params)
         ok = guarded_update(self.opt, params, grads, self.states, agents,
-                            self.lr)
+                            self.lr, self.group)
         self.last_step_ok = ok
         self._skipped += (~ok).to(torch.int32)
         return params

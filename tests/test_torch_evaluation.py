@@ -267,6 +267,8 @@ UNPORTED_LOSS = {
     "device_reward_loss": dict(cider_optimization=1, on_device_cider=1),
     "soft_cider_loss": dict(cider_optimization=1, soft_cider=1),
 }
+# an evaluation a mesh does not run yet (phase-2 speakers do)
+UNPORTED_ON_A_MESH = dict(cider_optimization=1)
 
 
 @pytest.mark.parametrize("what,match", [
@@ -275,8 +277,10 @@ UNPORTED_LOSS = {
     ("device_reward_loss", "device rewards"), ("coco_spice", "spice"),
     ("soft_cider_loss", "device rewards"), ("spice", "spice")])
 def test_unported_branches_name_their_roadmap_item(tmp_path, what, match):
-    _, (topt, tloader, tparams) = build(language_eval=0, rank_eval=0,
-                                        **UNPORTED_LOSS.get(what, {}))
+    _, (topt, tloader, tparams) = build(
+        language_eval=0, rank_eval=0,
+        **(UNPORTED_ON_A_MESH if what == "mesh" else
+           UNPORTED_LOSS.get(what, {})))
     with pytest.raises(NotImplementedError, match="ROADMAP.*" + match):
         if what == "feat_cache":
             teval.Evaluator(topt, feat_cache={}, device="cpu")

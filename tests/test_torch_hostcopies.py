@@ -248,7 +248,8 @@ def _imports(path):
 def _port_files():
     files = [os.path.join(REPO, f) for f in
              ("chip_smoke.py", "serve_breakdown.py", "train_breakdown.py",
-              "att_stream_bench.py", "cell_bench.py")]
+              "att_stream_bench.py", "cell_bench.py",
+              "tests/torch_mesh_ranks.py")]
     for root, _, names in os.walk(os.path.join(REPO, PORT)):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -259,7 +260,11 @@ def test_no_file_of_the_port_imports_the_jax_package():
     assert len(files) > 30
     names = {os.path.relpath(f, os.path.join(REPO, PORT)) for f in files}
     assert {"models/vse.py", "models/fc_model.py", "evaluation/retrieval.py",
-            "evaluation/caption_retrieval.py"} <= names
+            "evaluation/caption_retrieval.py", "parallel/mesh.py",
+            "parallel/collectives.py", "parallel/launch.py",
+            "parallel/train_step.py", "parallel/vocab.py",
+            "ops/kernels/head_merge.py", "../tests/torch_mesh_ranks.py"
+            } <= names
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -454,6 +459,54 @@ def test_jax_run_dir_loads_without_the_jax_package(jax_run_dir, tmp_path,
         "fc_feat_size=20, att_feat_size=20, max_K=6)\n"
         + _ENTRY_CODE[entry] + _CLEAN + "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", code, jax_run_dir],
+                          cwd=str(tmp_path), env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("clean")
+
+
+_RANK_CODE = (
+    "from cooperativeimagecaptioning_tpu_torch import config\n"
+    "from cooperativeimagecaptioning_tpu_torch import eval as ev\n"
+    "from cooperativeimagecaptioning_tpu_torch.data import SyntheticDataset\n"
+    "from cooperativeimagecaptioning_tpu_torch.training import loop\n"
+    "ds = SyntheticDataset(num_images=20, vocab_size=25, seq_length=8, "
+    "fc_feat_size=20, att_feat_size=20, max_K=6)\n"
+    "opt = config.load_infos(os.path.join(d, 'infos_hc.pkl'))['opt']\n"
+    "opt = opt.replace(mesh_data_axis=1, mesh_model_axis=2, language_eval=0, "
+    "save_checkpoint_every=100, "
+    "checkpoint_path=os.path.join(os.getcwd(), 'mesh'))\n"
+    "tr = loop.train(opt, dataset=ds, max_iterations=2, device='cpu', "
+    "verbose=False)\n"
+    "assert tr.iteration == 2 and tr.mesh.shape == {'data': 1, 'model': 2}\n"
+    "out = ev.eval(opt, os.path.join(d, 'model-best.pth'), "
+    "os.path.join(d, 'infos_hc.pkl'), split='test', dataset=ds, "
+    "device='cpu')\n"
+    "assert len(out['split_predictions']) == 4\n")
+
+
+def test_a_spawned_rank_imports_no_jax(jax_run_dir, tmp_path):
+    """Two ranks of a (1, 2) mesh (spawned by the port's launcher from a
+    process that cannot import the JAX package) train on a run dir that
+    package wrote and evaluate it through the vocab-sharded heads; neither
+    rank, nor the parent, holds `jax` or the JAX package after."""
+    code = (
+        "import importlib.abc, sys\n"
+        "class Refuse(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', %r):\n"
+        "            raise ImportError('hidden for this test: ' + name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        "import torch_mesh_ranks\n"
+        "from cooperativeimagecaptioning_tpu_torch.parallel import launch\n"
+        "leaked = launch.spawn(torch_mesh_ranks.clean_rank, "
+        "(%r, sys.argv[1]), 2, 'cpu')\n"
+        "assert leaked == [[], []], leaked\n" % (JAXPKG, _RANK_CODE)
+        + _CLEAN + "print('clean')\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO,
+                                                              "tests")]))
     proc = subprocess.run([sys.executable, "-c", code, jax_run_dir],
                           cwd=str(tmp_path), env=env, capture_output=True,
                           text=True, timeout=300)

@@ -602,7 +602,8 @@ def test_trainer_learns_and_is_deterministic():
       "alternating_turn": ["speaker", "listener"]},
      "effective turns.*listener turn"),
     ({"cider_optimization": 1, "on_device_cider": 1}, "device rewards"),
-    ({"mesh_data_axis": 2}, "mesh"),
+    ({"mesh_data_axis": 2, "cider_optimization": 1},
+     "mesh.*multi-device, the rest"),
     ({"vse_model": "fc", "fused_steps": 2}, "fused_steps"),
     ({"cider_optimization": 1, "soft_cider": 1}, "device rewards"),
 ])
