@@ -157,9 +157,32 @@ Phases, in order; any failure exits non-zero:
                  all_gather, one all_reduce through the port's helpers).
                  Its it/s and images/s are of ranks sharing one card, not a
                  scaling figure.
+ 10. reinforce -- joint REINFORCE at full width (f32, B=128), seeded as
+                 8(b) from phase 5's speaker and 8(a)'s listener, under
+                 audit_grad_isolation: (a) run_joint.py -o reinforce -v 1
+                 (the gt baseline) with real speaker / listener
+                 alternation, six iterations with CIC_FUSED_CELL unset and
+                 six with it set, every iteration's launches of A, B and F
+                 against its turn's (a speaker turn as an SCST iteration, a
+                 listener turn one sampled decode), stage B's ids equal
+                 stage A's, the stage split and it/s of each turn, with and
+                 without the audit; (b) the greedy and the no baseline (the
+                 greedy one adds a greedy decode to a speaker turn); (c) the
+                 reinforce_listener and reinforce_speaker ablations through
+                 loop.train, only the expected agent moved; (d) the B=16
+                 speaker step of each baseline and a listener turn on the
+                 card against the CPU port on recorded draws (all rows
+                 equal, losses to 1e-4, gradients by phase 5's rule, the
+                 frozen agent's gradient zero); (e) checkpoint_operations at
+                 an odd iteration, a Trainer resumed from it (params and
+                 Adam states equal, its next turn the listener's), eval.eval
+                 on the run dir (beam 2, through C); (f) a profiler window
+                 of two iterations through Trainer.train, whose trace must
+                 name the attention and the greedy head's kernels.
 Two lines before the last name the card and describe the kernels (one JSON
 object, with each kernel's launches by path, "mesh" the launches of every
-rank of the mesh runs); the last line is {"ok": true, "device": {...}}.
+rank of the mesh runs, "joint_reinforce" those of phase 10); the last line
+is {"ok": true, "device": {...}}.
 
 Imports no JAX.  Writes only under build/ in the checkout.
 """
@@ -264,15 +287,15 @@ JOINT_BASE = dict(
     scheduled_sampling_start=0)
 
 
-def joint_flags(optimization):
-    """run_joint.py -o <optimization> at its defaults: -D 0.01 (cider
-    weight 1 - 0.01), temperature 1, lr 5e-4 decaying 0.8 every 15 epochs,
-    B=128, probability 0.25."""
+def joint_flags(optimization, vse=0):
+    """run_joint.py -o <optimization> -v <vse> at its other defaults: -D
+    0.01 (cider weight 1 - 0.01), temperature 1, lr 5e-4 decaying 0.8 every
+    15 epochs, B=128, probability 0.25, the gt baseline."""
     d = 0.01
     ov = dict(retrieval_reward_weight=d, cider_optimization=1 - d,
               learning_rate=5e-4, learning_rate_decay_rate=0.8,
               learning_rate_decay_every=15, batch_size=128,
-              caption_loss_weight=0, vse_loss_weight=0, share_embed=0,
+              caption_loss_weight=0, vse_loss_weight=vse, share_embed=0,
               max_epochs=350, is_alternating=1,
               alternating_turn=["speaker", "listener"],
               retrieval_reward=optimization)
@@ -291,6 +314,13 @@ def joint_flags(optimization):
         "multinomial_speaker": dict(is_alternating=0, alternating_turn=None,
                                     phase=3, multinomial_temp=1.0,
                                     retrieval_reward="multinomial"),
+        "reinforce": dict(reinforce_baseline_type="gt"),
+        "reinforce_listener": dict(
+            alternating_turn=["listener"], retrieval_reward="reinforce",
+            reinforce_baseline_type="gt", max_epochs=500, vse_loss_weight=1,
+            cider_optimization=0, caption_loss_weight=0),
+        "reinforce_speaker": dict(is_alternating=0, alternating_turn=None,
+                                  phase=3, retrieval_reward="reinforce"),
     }[optimization])
     return ov
 
@@ -1929,20 +1959,23 @@ def check_resumed(trainer, phase5):
           f"{trainer.epoch}", flush=True)
 
 
-def scst_stages(trainer, data):
-    """The stages of one self-critical iteration on one host batch, {name:
-    fn} in order: stage A (the sampled and the greedy decode), the host
-    reward (ids to the host, CIDEr-D of 2B captions, the reward to the
-    card), stage B (forward + backward), Adam."""
+def scst_stages(trainer, data, turn=None):
+    """The stages of one self-critical iteration of `turn` (the trainer's
+    next one by default) on one host batch, {name: fn} in order: stage A
+    (the sampled and the greedy decode), the host reward (ids to the host,
+    CIDEr-D of 2B captions, the reward to the card), stage B (forward +
+    backward), Adam; a turn without the reward (the listener's) has stage B
+    and Adam only."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.training import joint
+    turn = trainer.turn if turn is None else turn
     batch = trainer._prepare_batch(data)
     hp = trainer._hyper()
-    out = {}
+    out = {"reward": None}
 
     def stage_a():
-        out["ids"] = trainer._sample_fn(trainer.params, batch,
-                                        trainer.iteration_streams(), hp)
+        out["ids"] = trainer._sample_fns[turn](
+            trainer.params, batch, trainer.iteration_streams(), hp)
 
     def reward():
         reward, _, _ = joint.host_reward(trainer.opt, data["gts"],
@@ -1950,24 +1983,26 @@ def scst_stages(trainer, data):
         out["reward"] = torch.from_numpy(reward).to(trainer.device)
 
     def stage_b():
-        _, out["grads"] = trainer._grad_fn(trainer.params, batch,
-                                           trainer.iteration_streams(), hp,
-                                           out["reward"])
+        _, out["grads"] = trainer._grad_fns[turn](
+            trainer.params, batch, trainer.iteration_streams(), hp,
+            out["reward"])
 
     def adam():
-        trainer.optim.step(trainer.params, out["grads"], trainer.turn)
+        trainer.optim.step(trainer.params, out["grads"], turn)
 
+    if not joint.needs_reward(trainer.opt, turn):
+        return {"stage_b": stage_b, "adam": adam}
     return {"stage_a": stage_a, "reward": reward, "stage_b": stage_b,
             "adam": adam}
 
 
-def scst_split(trainer, data, n=SCST_ITERS):
+def scst_split(trainer, data, n=SCST_ITERS, turn=None):
     """Median ms of each stage of `scst_stages`, each ended by a
-    synchronize, over n iterations on one host batch."""
+    synchronize, over n iterations of `turn` on one host batch."""
     import torch
     t = {}
     for _ in range(n):
-        for stage, fn in scst_stages(trainer, data).items():
+        for stage, fn in scst_stages(trainer, data, turn).items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
@@ -1992,7 +2027,7 @@ def scst_against_cpu(ds):
     batch = tr._prepare_batch(data)
     hp = tr._hyper()
     rec = {k: draws.Record(v) for k, v in tr.iteration_streams().items()}
-    gen, greedy = tr._sample_fn(tr.params, batch, rec, hp)
+    gen, greedy = tr._sample_fns[tr.turn](tr.params, batch, rec, hp)
     scores, _, _ = joint.host_reward(opt, data["gts"], gen, greedy)
     taken = {k: [x.cpu() for x in r.taken] for k, r in rec.items()}
     cpu_params = cpu_copy(tr.params)
@@ -2534,22 +2569,22 @@ def disc_against_cpu(ds):
         data = tr.loader.get_batch("train")
         batch = tr._prepare_batch(data)
         hp = tr._hyper()
-        gen, greedy = tr._sample_fn(tr.params, batch,
-                                    tr.iteration_streams(), hp)
+        gen, greedy = tr._sample_fns[tr.turn](tr.params, batch,
+                                              tr.iteration_streams(), hp)
         reward, _, _ = joint.host_reward(tr.opt, data["gts"], gen, greedy)
         reward = torch.from_numpy(reward)
         rec = {k: draws.Record(v) for k, v in tr.iteration_streams().items()}
         seen_g, seen_c = {}, {}
-        (_, aux_g), grads_g = tr._grad_fn(tr.params, batch, rec, hp,
-                                          reward.to(DEVICE), seen_g)
+        (_, aux_g), grads_g = tr._grad_fns[tr.turn](
+            tr.params, batch, rec, hp, reward.to(DEVICE), seen_g)
         require(torch.equal(seen_g["seq"], gen),
                 f"{mode}: stage B's ids on the card differ from stage A's")
         replay = {k: draws.Replay([x.cpu() for x in r.taken])
                   for k, r in rec.items()}
         cpu_batch = {k: None if v is None else v.cpu()
                      for k, v in batch.items()}
-        (_, aux_c), grads_c = tr._grad_fn(cpu_copy(tr.params), cpu_batch,
-                                          replay, hp, reward, seen_c)
+        (_, aux_c), grads_c = tr._grad_fns[tr.turn](
+            cpu_copy(tr.params), cpu_batch, replay, hp, reward, seen_c)
         shares = {k: float((seen_g[k].cpu() == seen_c[k]).all(dim=1).float()
                            .mean()) for k in ("disc_seq", "seq")}
         rels = {k: abs(aux_g[k].item() - aux_c[k].item()) /
@@ -3284,6 +3319,447 @@ def single_eval_entry(ds):
     return {p["image_id"]: p["caption"] for p in got["split_predictions"]}
 
 
+# ---------------------------------------------------------------------------
+# 10. joint REINFORCE: real speaker / listener alternation
+# ---------------------------------------------------------------------------
+
+REINFORCE_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_reinforce_run")
+PROFILE_DIR = os.path.join(REPO, "build", "chip_smoke_profile")
+REINFORCE_ITERS = 6   # iterations a cell-kernel setting: 3 turns an agent
+BASELINE_ITERS = 2    # the greedy and no baselines: one turn an agent
+ABLATION_ITERS = 2
+PROFILE_ITERS = 2
+TIMED_ITERS = 4       # iterations an agent in the stage split and it/s
+BASELINES = ("gt", "greedy", "no")
+
+
+def reinforce_opt(batch_size, baseline="gt", which="reinforce", **kw):
+    """run_joint.py -o <which> -v 1 (-o reinforce with the REINFORCE
+    baseline `baseline`), seeded as 8(b) is: phase 5's stage-2 speaker with
+    its Adam state, 8(a)'s listener with its; under the audit."""
+    flags = {**JOINT_BASE, **joint_flags(which, vse=1)}
+    if which == "reinforce":
+        flags["reinforce_baseline_type"] = baseline
+    base = dict(
+        checkpoint_path=REINFORCE_RUN_DIR, start_from=REINFORCE_RUN_DIR,
+        speaker_stage_2_model_path=os.path.join(TRAIN_RUN_DIR, "model.pth"),
+        speaker_stage_2_optimizer_path=os.path.join(TRAIN_RUN_DIR,
+                                                    "optimizer.pth"),
+        initialize_retrieval=os.path.join(FC_RUN_DIR, "model_vse-best.pth"),
+        audit_grad_isolation=1)
+    base.update(kw)
+    return listener_opt(flags, batch_size, **base)
+
+
+def reinforce_per_turn(opt, turn, cell_on):
+    """Launches of one iteration of `turn`: a speaker turn launches what an
+    SCST iteration does (stage A: the sample and the greedy decode; stage
+    B: the sample under autograd and its L - 1 recomputed steps), and the
+    greedy baseline one more greedy decode in stage B (L steps of A and of
+    B); a listener turn one sampled decode without autograd (L steps of A,
+    no head)."""
+    if turn == "listener":
+        want = {"attention": L}
+        if cell_on:
+            want["cell"] = L
+        return want
+    want = dict(scst_per_iteration(cell_on))
+    if opt.reinforce_baseline_type == "greedy":
+        for k in list(want):
+            want[k] += L
+    return want
+
+
+def reinforce_turns(tr, n, cell_on, add, what):
+    """n iterations of `tr` with the cell switch `cell_on`: each one's
+    launches against `reinforce_per_turn`, finite losses, stage B's ids
+    equal to stage A's on a reward turn, and (the audit on) only the
+    turn's agents moved.  Returns {turn: its last loss dict's numbers}."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training import joint
+    last = {}
+    with fused_cell_switch(cell_on):
+        for _ in range(n):
+            _dispatch.reset_launches()
+            tr.last_reward_seqs = None
+            loss_dict, turn, _ = tr.train_iteration()
+            torch.cuda.synchronize()
+            got = _dispatch.launches()
+            add(got)
+            per = reinforce_per_turn(tr.opt, turn, cell_on)
+            want = {k: per.get(k, 0) for k in got}
+            require(got == want, f"{what}, {turn} turn, CIC_FUSED_CELL="
+                    f"{int(cell_on)}: launches {got}, expected {want}")
+            if joint.needs_reward(tr.opt, turn):
+                a, b = tr.last_reward_seqs
+                require(torch.equal(a, b), f"{what}: stage B's ids differ "
+                        f"from stage A's")
+            vals = {k: float(v) for k, v in loss_dict.items()}
+            require(all(np.isfinite(v) for v in vals.values()),
+                    f"{what}, {turn} turn: {vals}")
+            last[turn] = vals
+    require(tr.optim.skipped_steps() == 0, f"{what}: skipped steps")
+    return last
+
+
+def reinforce_stage_split(tr, data):
+    """(the stage split of each turn, medians of TIMED_ITERS, and each
+    turn's it/s on one fixed host batch with the audit off, and the audit's
+    cost a turn), CIC_FUSED_CELL=1."""
+    import torch
+    split = {t: scst_split(tr, data, n=TIMED_ITERS, turn=t)
+             for t in tr.turns}
+    its = {}
+    for audit in (0, 1):
+        tr.opt.audit_grad_isolation = audit
+        tr.train_iteration(data)  # warm-up
+        times = {}
+        for _ in range(2 * TIMED_ITERS):
+            turn = tr.turn
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_iteration(data)
+            torch.cuda.synchronize()
+            times.setdefault(turn, []).append(time.perf_counter() - t0)
+        its[audit] = {t: 1.0 / float(np.median(v)) for t, v in times.items()}
+        its[audit]["alternating"] = 2 * TIMED_ITERS / sum(
+            sum(v) for v in times.values())
+    tr.opt.audit_grad_isolation = 1
+    return split, its[0], its[1]
+
+
+def reinforce_alternation(ds, add, out, smi):
+    """(a) -o reinforce -v 1 with the gt baseline, then (b) the greedy and
+    the no baseline: the launches of each turn, the audit, the stage split
+    and it/s of each turn."""
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    tr = Trainer(reinforce_opt(TRAIN_B), dataset=ds, device=DEVICE,
+                 verbose=False)
+    require(tr.turns == ["speaker", "listener"] and tr.turn == "speaker",
+            f"reinforce turns {tr.turns}")
+    check_joint_seeded(tr)
+    for on in (False, True):
+        t0 = time.perf_counter()
+        last = reinforce_turns(tr, REINFORCE_ITERS, on, add, "gt baseline")
+        print(f"  {REINFORCE_ITERS} iterations of -o reinforce -v 1 (gt "
+              f"baseline), CIC_FUSED_CELL={int(on)}, audited: "
+              f"{time.perf_counter() - t0:.2f} s; per turn the launches "
+              f"{ {t: reinforce_per_turn(tr.opt, t, on) for t in tr.turns} }"
+              f"; last speaker turn "
+              + ", ".join(f"{k} {v:.4f}" for k, v in
+                          sorted(last['speaker'].items()))
+              + "; last listener turn loss_vse "
+              f"{last['listener']['loss_vse']:.4f}", flush=True)
+    data = tr.loader.get_batch("train")
+    with fused_cell_switch(True):
+        split, its, its_audit = reinforce_stage_split(tr, data)
+    out["split_ms"], out["its"], out["its_audit"] = split, its, its_audit
+    for turn, sp in split.items():
+        print(f"  {turn} turn ({smi}; B={TRAIN_B}, f32, CIC_FUSED_CELL=1, "
+              f"one fixed host batch, medians of {TIMED_ITERS}): "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in sp.items())
+              + f"; {its[turn]:.2f} it/s ({its_audit[turn]:.2f} audited)",
+              flush=True)
+    print(f"  alternating speaker / listener: {its['alternating']:.2f} it/s "
+          f"({its_audit['alternating']:.2f} audited)", flush=True)
+
+    for baseline in BASELINES[1:]:
+        other = Trainer(reinforce_opt(TRAIN_B, baseline), dataset=ds,
+                        device=DEVICE, verbose=False)
+        for on in (False, True):
+            last = reinforce_turns(other, BASELINE_ITERS, on, add,
+                                   f"{baseline} baseline")
+        sp = last["speaker"]
+        print(f"  -o reinforce -v 1, {baseline} baseline: {BASELINE_ITERS} "
+              f"iterations with the cell switch unset and set, audited; "
+              f"speaker turn launches "
+              f"{reinforce_per_turn(other.opt, 'speaker', True)}; "
+              f"retrieval_loss {sp['retrieval_loss']:.4f}, "
+              f"retrieval_loss_greedy {sp['retrieval_loss_greedy']:.4f}, "
+              f"retrieval_sc_loss {sp['retrieval_sc_loss']:.6f}", flush=True)
+        del other
+    return tr
+
+
+def reinforce_ablations(ds, add, out):
+    """(c) The reinforce_listener and reinforce_speaker ablations through
+    loop.train: each iteration's launches, and only the expected agent
+    moved from the stage files."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint
+    from cooperativeimagecaptioning_tpu_torch.training import loop
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    seeds = {"speaker": checkpoint.load_params(
+                 os.path.join(TRAIN_RUN_DIR, "model.pth"))["speaker"],
+             "listener": checkpoint.load_params(
+                 os.path.join(FC_RUN_DIR, "model_vse-best.pth"))["listener"]}
+    for which, turn, moves in (("reinforce_listener", "listener",
+                                "listener"),
+                               ("reinforce_speaker", "optimizer",
+                                "speaker")):
+        opt = reinforce_opt(TRAIN_B, which=which, start_from=None)
+        with fused_cell_switch(True):
+            _dispatch.reset_launches()
+            t0 = time.perf_counter()
+            tr = loop.train(opt, dataset=ds, max_iterations=ABLATION_ITERS,
+                            device=DEVICE, verbose=False)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = _dispatch.launches()
+        add(got)
+        per = reinforce_per_turn(opt, turn, True)
+        want = {k: ABLATION_ITERS * per.get(k, 0) for k in got}
+        require(tr.turn == turn, f"{which}: turn {tr.turn}")
+        require(got == want, f"{which}: launches {got}, expected {want}")
+        for agent, seeded in seeds.items():
+            same = all(torch.equal(x.detach().cpu(), y) for (_, x), (_, y)
+                       in zip(leaves(tr.params[agent]), leaves(seeded)))
+            require(same != (agent == moves), f"{which}: the {agent} "
+                    f"{'did not move' if same else 'moved'}")
+        print(f"  loop.train({which}, max_iterations={ABLATION_ITERS}) in "
+              f"{secs:.1f} s, audited: turn {turn!r}, only the {moves} "
+              f"moved; launches { {k: v for k, v in got.items() if v} } "
+              f"({per} an iteration)", flush=True)
+        out[which] = secs
+        del tr
+
+
+def reinforce_against_cpu(ds):
+    """(d) The first speaker step of each baseline and a listener turn at
+    B=16, dropout off: stage B on the card with its draws recorded, then on
+    the CPU port replaying them: the sampled rows all equal, the losses to
+    1e-4 relative, every gradient leaf of both agents by phase 5's rule."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops import draws
+    from cooperativeimagecaptioning_tpu_torch.training import joint
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    out = {}
+    for baseline in BASELINES:
+        tr = Trainer(reinforce_opt(LISTENER_CPU_B, baseline,
+                                   drop_prob_lm=0.0, start_from=None),
+                     dataset=ds, device=DEVICE, verbose=False)
+        data = tr.loader.get_batch("train")
+        batch = tr._prepare_batch(data)
+        cpu_batch = {k: None if v is None else v.cpu()
+                     for k, v in batch.items()}
+        hp = tr._hyper()
+        turns = ("speaker", "listener") if baseline == "gt" else ("speaker",)
+        for turn in turns:
+            reward = None
+            if joint.needs_reward(tr.opt, turn):
+                gen, greedy = tr._sample_fns[turn](
+                    tr.params, batch, tr.iteration_streams(), hp)
+                reward, _, _ = joint.host_reward(tr.opt, data["gts"], gen,
+                                                 greedy)
+                reward = torch.from_numpy(reward)
+            rec = {k: draws.Record(v)
+                   for k, v in tr.iteration_streams().items()}
+            seen_g, seen_c = {}, {}
+            (_, aux_g), grads_g = tr._grad_fns[turn](
+                tr.params, batch, rec, hp,
+                None if reward is None else reward.to(DEVICE), seen_g)
+            replay = {k: draws.Replay([x.cpu() for x in r.taken])
+                      for k, r in rec.items()}
+            (_, aux_c), grads_c = tr._grad_fns[turn](
+                cpu_copy(tr.params), cpu_batch, replay, hp, reward, seen_c)
+            if reward is not None:
+                require(torch.equal(seen_g["seq"], gen),
+                        f"{baseline}: stage B's ids on the card differ "
+                        f"from stage A's")
+            shares = {k: float((seen_g[k].cpu() == seen_c[k]).all(dim=1)
+                               .float().mean()) for k in seen_g}
+            rels = {k: abs(aux_g[k].item() - aux_c[k].item())
+                    / abs(aux_c[k].item()) for k in aux_c
+                    if aux_c[k].item() != 0.0}
+            worst, worst_key, max_abs = grads_against(grads_g, grads_c)
+            what = f"{turn} turn" + (f", {baseline} baseline"
+                                     if turn == "speaker" else "")
+            print(f"  B={LISTENER_CPU_B} {what}, card vs cpu port on the "
+                  f"card's noise: rows equal {shares}; relative "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in sorted(rels.items()))
+                  + f"; gradients of both agents max abs difference "
+                  f"{max_abs:.3e}, worst leaf {worst_key} at {worst:.3f} of "
+                  f"its tolerance", flush=True)
+            require(shares and all(v == 1.0 for v in shares.values()),
+                    f"{what}: rows equal {shares}")
+            require(all(v <= 1e-4 for v in rels.values()), f"{what}: {rels}")
+            require(worst <= 1.0, f"{what}: gradient {worst_key} at {worst}")
+            frozen = "listener" if turn == "speaker" else "speaker"
+            require(all(g.abs().sum().item() == 0 for _, g in
+                        leaves(grads_g[frozen])),
+                    f"{what}: a {frozen} gradient is not zero")
+            out[what] = {"rel": rels, "worst": worst}
+        del tr
+    return out
+
+
+def reinforce_resume_and_eval(tr, ds, add, out):
+    """(e) checkpoint_operations at an odd iteration (the alternating
+    artifacts), a new Trainer resumed from the run dir (params and both
+    Adam states equal, its next turn the listener's), and eval.eval on the
+    run dir (beam 2, through C)."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch import eval as eval_entry
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    with fused_cell_switch(False):
+        if tr.iteration % 2 == 0:
+            reinforce_turns(tr, 1, False, add, "odd iteration")
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        val_loss, _ = tr.checkpoint_operations()
+        torch.cuda.synchronize()
+        got = _dispatch.launches()
+    add(got)
+    out["ckpt_s"] = time.perf_counter() - t0
+    written = sorted(os.listdir(REINFORCE_RUN_DIR))
+    for name in ("alternatingModel.pth",
+                 f"alternatingModel-{tr.iteration}.pth",
+                 "speaker_optimizer.pth", "listener_optimizer.pth",
+                 "infos_.pkl", "histories_.pkl"):
+        require(name in written, f"reinforce checkpoint_operations: "
+                f"{written}")
+    require(all(np.isfinite(val_loss.get(k, np.nan)) for k in
+                ("retrieval_sc_loss", "retrieval_loss",
+                 "retrieval_loss_greedy", "t2i_r1")),
+            f"reinforce val: {sorted(val_loss)}")
+    print(f"  checkpoint_operations at iteration {tr.iteration} in "
+          f"{out['ckpt_s']:.1f} s: val retrieval_sc_loss "
+          f"{val_loss['retrieval_sc_loss']:.6f}, retrieval_loss "
+          f"{val_loss['retrieval_loss']:.4f}, generated-caption t2i r1 "
+          f"{val_loss['t2i_r1']:.2f}; wrote {written}; launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+
+    again = Trainer(reinforce_opt(TRAIN_B), dataset=ds, device=DEVICE,
+                    verbose=False)
+    require(again.iteration == tr.iteration and again.turn == "listener",
+            f"resumed at {again.iteration}, next turn {again.turn}")
+    for (k, a), (_, b) in zip(leaves(tr.params), leaves(again.params)):
+        require(torch.equal(a, b), f"resumed param {k}")
+    for agent in ("speaker", "listener"):
+        a, b = tr.optim.states[agent], again.optim.states[agent]
+        require(int(a["count"]) == int(b["count"]),
+                f"resumed {agent} Adam count")
+        for key in ("mu", "nu"):
+            require(all(torch.equal(x, y) for x, y in zip(a[key], b[key])),
+                    f"resumed {agent} Adam {key}")
+    print(f"  Trainer resumed from the run dir at iteration "
+          f"{again.iteration}: params and both agents' Adam states equal "
+          f"(counts speaker {int(again.optim.states['speaker']['count'])}, "
+          f"listener {int(again.optim.states['listener']['count'])}); its "
+          f"next turn is the listener's", flush=True)
+
+    os.chdir(REINFORCE_RUN_DIR)  # eval_results/ is written under the run dir
+    try:
+        buf = io.StringIO()
+        _dispatch.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            res = eval_entry.eval(
+                None, os.path.join(REINFORCE_RUN_DIR, "alternatingModel.pth"),
+                os.path.join(REINFORCE_RUN_DIR, "infos_.pkl"), split="test",
+                dataset=ds, device=DEVICE)
+        torch.cuda.synchronize()
+        got = _dispatch.launches()
+    finally:
+        os.chdir(REPO)
+    add(got)
+    loss = res["loss"]
+    require(got["beam_head"] > 0 and got["attention"] > 0,
+            f"eval.eval launches {got}")
+    require(all(np.isfinite(loss.get(k, np.nan)) for k in
+                ("retrieval_sc_loss", "retrieval_loss", "t2i_r1")),
+            f"eval.eval of the reinforce run: {sorted(loss)}")
+    print(f"  eval.eval on the reinforce run dir, beam 2, test: "
+          f"{len(res['split_predictions'])} captions, retrieval_sc_loss "
+          f"{loss['retrieval_sc_loss']:.6f}, t2i r1 {loss['t2i_r1']:.2f}; "
+          f"launches { {k: v for k, v in got.items() if v} }", flush=True)
+    return again
+
+
+def reinforce_profile(tr, add, out):
+    """(f) A profiler window of PROFILE_ITERS iterations through
+    Trainer.train: the trace file exists and names the attention and head
+    kernels among its kernels."""
+    import shutil
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    start = tr.iteration
+    tr.opt.profile_dir = PROFILE_DIR
+    tr.opt.profile_start, tr.opt.profile_steps = start, PROFILE_ITERS
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    tr.train(max_iterations=start + PROFILE_ITERS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    add(_dispatch.launches())
+    path = tr.last_trace
+    require(path is not None and os.path.isfile(path),
+            f"profiler window: no trace under {PROFILE_DIR}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0.0) + e.get("dur", 0)
+    iters = sorted({e["name"] for e in events
+                    if e.get("name", "").startswith("train_iteration ")})
+    att = [n for n in kernels if "attention_kernel" in n or "att_h_" in n]
+    head = [n for n in kernels if "vocab_partials" in n
+            or "greedy_merge" in n]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  profiler window, iterations {start}-{start + PROFILE_ITERS - 1}"
+          f" ({iters}) in {secs:.1f} s: {path} "
+          f"({os.path.getsize(path) / 1e6:.1f} MB), {len(kernels)} kernel "
+          f"names, {len(att)} of the attention, {len(head)} of the greedy "
+          f"head; largest device time (us): "
+          + ", ".join(f"{n[:48]} {d:.0f}" for n, d in top), flush=True)
+    require(len(iters) == PROFILE_ITERS, f"profiler window: {iters}")
+    require(att and head, f"profiler window: the trace names no attention "
+            f"or head kernel among {sorted(kernels)[:20]}")
+    out["profile_s"] = secs
+
+
+def phase_reinforce(smi):
+    """Phase 10: (a) -o reinforce -v 1 (gt baseline), (b) the greedy and
+    no baselines, (c) the two ablations, (d) the B=16 steps against the
+    CPU port, (e) the resume at an odd iteration and eval.eval, (f) the
+    profiler window.  Returns the launches of the main path's segments
+    (each counted from 0 before it to just after it) and the numbers."""
+    import shutil
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    t_phase = time.perf_counter()
+    shutil.rmtree(REINFORCE_RUN_DIR, ignore_errors=True)
+    ds = train_dataset()
+    print(f"joint REINFORCE: run_joint.py -o reinforce -v 1 (att2in2 + "
+          f"listener, DISC 0.01 by REINFORCE, CIDEr-D 0.99 on its sample), "
+          f"seeded from phase 5's speaker and 8(a)'s listener, vocab "
+          f"{VOCAB}, width {WIDTH}, K={K}, L={L}, B={TRAIN_B}, f32",
+          flush=True)
+    launches = {k: 0 for k in _dispatch.KERNELS}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    out = {}
+    tr = reinforce_alternation(ds, add, out, smi)
+    reinforce_ablations(ds, add, out)
+    with fused_cell_switch(False):
+        out["cpu"] = reinforce_against_cpu(ds)
+    resumed = reinforce_resume_and_eval(tr, ds, add, out)
+    del tr
+    with fused_cell_switch(True):
+        reinforce_profile(resumed, add, out)
+    print(f"  joint REINFORCE phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, out
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, REPO)
@@ -3313,13 +3789,17 @@ def main():
     mesh_launches, _ = phase_mesh(smi, errs, times, bounds, shapes)
     print(f"elapsed after the mesh: {time.perf_counter() - t_start:.0f} s",
           flush=True)
+    reinforce_launches, _ = phase_reinforce(smi)
+    print(f"elapsed after joint REINFORCE: "
+          f"{time.perf_counter() - t_start:.0f} s", flush=True)
     # each path's counts run from 0 just before it to just after it
     kernels = []
     for k in SOURCES:
         by_path = {"serve": serve_launches[k], "train": train_launches[k],
                    "eval": eval_launches[k], "scst": scst_launches[k],
                    "listener": listener_launches[k],
-                   "mesh": mesh_launches[k]}
+                   "mesh": mesh_launches[k],
+                   "joint_reinforce": reinforce_launches[k]}
         require(sum(by_path.values()) > 0,
                 f"{k} was never launched on a main path")
         kernels.append({

@@ -16,7 +16,9 @@ Ported: greedy, beam search, and `sample_max` 0 (multinomial at
 `temperature`) and 2 (Gumbel-noise max), whose draws come from a generator
 seeded with 123 on each batch, as the JAX package's fixed key; the CIDEr-D
 term of the eval loss under `cider_optimization` (stage A and the host
-reward, then the loss on the same trajectory); the language metrics; and
+reward, then the loss on the same trajectory); the REINFORCE DISC term of a
+reinforce run (its sample from the streams of EVAL_SEED, its baseline's
+greedy decode without autograd); the language metrics; and
 the listener's half: `encode_fn`, `encode_data` (GT captions, or generated
 ones with BOS prepended on the device) and `evalrank` (the rank metrics of
 evaluation/retrieval.py on embeddings that stay on the device), ranked
@@ -55,7 +57,8 @@ from cooperativeimagecaptioning_tpu_torch.training import joint
 from cooperativeimagecaptioning_tpu_torch.utils.text import decode_sequence
 from cooperativeimagecaptioning_tpu_torch.utils.tree import detached, to_torch
 
-_JOINT = "ROADMAP.md queue 1: joint training"
+_JOINT = ("ROADMAP.md queue 1, item 4b: joint training's device feature "
+          "cache and fused steps")
 # the fixed seed of the evaluation's random draws (JAX: PRNGKey(123))
 EVAL_SEED = 123
 # batches whose decoded ids may wait on the device before the loop stops to

@@ -82,10 +82,15 @@ def _rank_main(rank, world_size, init_method, device, backend, fn, args,
             dist.destroy_process_group()
 
 
-def spawn(fn, args=(), world_size: int = 2, device: str = "cpu",
+def spawn(fn, args=(), world_size: int = 2, device: str = "cuda",
           timeout: float = 900.0) -> list:
     """fn(*args) in `world_size` new ranks -> their results, in rank
-    order."""
+    order.  The ranks run on the card unless the caller passes
+    device="cpu"."""
+    if device != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"spawn: device {device!r} asked for but no CUDA device is "
+            f"available (pass device='cpu' to run the ranks on the host)")
     backend = backend_for(device, world_size)
     init_method = free_init_method()
     where = "the CPU" if device == "cpu" else (

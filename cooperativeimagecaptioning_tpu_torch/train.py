@@ -7,11 +7,15 @@ Takes the JAX package's flags (config.parse_opt, the reference's CLI) plus
 `--device` (default cuda), and runs `training.loop.train`: phase 1 (the
 listener, run_fc_con.py's flag set), phase 2 (MLE), self-critical CIDEr-D
 fine-tuning with the host reward, and phase-3 joint training with the
-relaxed DISC loss (run_joint.py's flag sets for -o gumbel, multinomial,
-gumbel_softmax, multinomial_soft and their `_speaker` ablations), seeded
-with `--speaker_stage_2_model_path` / `--initialize_retrieval` or resumed
-with `--start_from DIR`; other configurations raise NotImplementedError
-naming what is missing.
+relaxed or the REINFORCE DISC loss (run_joint.py's flag sets for -o
+gumbel, multinomial, gumbel_softmax, multinomial_soft, reinforce and their
+ablations: `--retrieval_reward reinforce --reinforce_baseline_type
+gt|greedy|no`, alternating speaker and listener turns), seeded with
+`--speaker_stage_2_model_path` / `--initialize_retrieval` or resumed with
+`--start_from DIR`; `--audit_grad_isolation 1` checks that each step moved
+only its turn's agents, and `--profile_dir D --profile_start S
+--profile_steps N` traces the iterations [S, S + N) with torch.profiler.
+Other configurations raise NotImplementedError naming what is missing.
 
     python -m cooperativeimagecaptioning_tpu_torch.train --device cuda \
         --phase 1 --caption_model fc --vse_model fc --vse_loss_weight 1 \

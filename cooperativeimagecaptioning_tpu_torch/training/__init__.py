@@ -1,4 +1,4 @@
-"""Training stack of the port: phase-2 MLE training of the speaker
-(`loop.Trainer`), its loss (`joint`), the per-agent Adam (`optim`), the
-schedules (`schedules`, shared with the JAX package), and the pickled-numpy
-checkpoint format (`checkpoint`)."""
+"""Training stack of the port: the three training phases and their turns
+(`loop.Trainer`), their loss (`joint`), the per-agent Adam (`optim`), the
+grad-isolation audit (`audit`), the schedules (`schedules`, shared with the
+JAX package), and the pickled-numpy checkpoint format (`checkpoint`)."""

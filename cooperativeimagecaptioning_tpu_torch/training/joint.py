@@ -14,22 +14,25 @@ the two identical.
 
 Ported: `Hyper`, `init_params` (the speaker, and the listener when the run
 has one), `speaker_view`, `speaker_template` (the speaker of any run), the
-named random streams, and for the 'optimizer' and 'speaker' turns every
-branch of the JAX loss but REINFORCE: the caption (MLE) loss, the
-listener's contrastive loss on the GT captions (zeroed on the speaker
-turn), the straight-through / partial-sampling DISC loss (the relaxed
-one-hots of `decoding.sample`, a one-hot BOS row in front, through the
-listener; the gradient reaches both agents), and the self-critical CIDEr-D
-loss with the host reward, which reuses DISC's sample in the 'gumbel' and
-'multinomial' modes.  The CIDEr reward runs in two stages as in the JAX
-package:
+named random streams, and every turn of the JAX loss but the device reward
+tiers.  On the 'optimizer' and 'speaker' turns: the caption (MLE) loss,
+the listener's contrastive loss on the GT captions (zeroed on the speaker
+turn), the DISC loss -- REINFORCE over the listener's per-sample retrieval
+loss of a multinomial sample with a greedy, GT or no baseline, or the
+straight-through / partial-sampling relaxation (the relaxed one-hots of
+`decoding.sample`, a one-hot BOS row in front, through the listener; the
+gradient reaches both agents) -- and the self-critical CIDEr-D loss with
+the host reward, which reuses DISC's sample in the 'reinforce', 'gumbel'
+and 'multinomial' modes.  On the 'listener' turn: the listener's
+contrastive loss on captions sampled from the frozen speaker.  The CIDEr
+reward runs in two stages as in the JAX package:
   stage A `sample_for_reward`: sampled and greedy captions, no gradient;
   host: the CIDEr-D reward (rewards/self_critical.py);
   stage B `loss_fn`: re-draws the same sampled trajectory (the same
   streams, reseeded) under autograd and takes the reward as a constant.
 `value_and_grad` and `sampler` stand in for the JAX `make_raw_fns`.  The
-listener turn, REINFORCE DISC and the device reward tiers raise
-NotImplementedError naming their ROADMAP.md item.
+device reward tiers raise NotImplementedError naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -46,7 +49,6 @@ from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
 from cooperativeimagecaptioning_tpu_torch.utils.tree import (
     detached, from_leaves, leaves)
 
-_JOINT = "ROADMAP.md queue 1: joint training"
 _DEVICE_REWARDS = "ROADMAP.md queue 1: device rewards"
 # the named streams of one iteration (JAX joint.py:123-127)
 STREAMS = ("xe", "disc", "cider", "greedy", "listener")
@@ -208,23 +210,15 @@ def needs_reward(opt, turn) -> bool:
 def check_ported(opt, turn):
     """Raise NotImplementedError, naming its ROADMAP item, for a loss branch
     that this port does not have yet."""
-    if turn == "listener":
-        raise NotImplementedError(
-            f"the listener turn (real alternation, with the listener "
-            f"trained on the frozen speaker's samples) is not ported yet "
-            f"({_JOINT})")
-    if _disc_active(opt, turn) and opt.retrieval_reward == "reinforce":
-        raise NotImplementedError(
-            f"retrieval_reward 'reinforce': REINFORCE DISC and its "
-            f"baselines are not ported yet ({_JOINT})")
-    if _disc_active(opt, turn) and opt.retrieval_reward not in _MODE_MAP:
+    if _disc_active(opt, turn) and opt.retrieval_reward != "reinforce" and \
+            opt.retrieval_reward not in _MODE_MAP:
         raise ValueError(f"unknown retrieval_reward {opt.retrieval_reward!r}")
     if _cider_active(opt, turn) and (getattr(opt, "on_device_cider", 0) or
                                      getattr(opt, "soft_cider", 0)):
         raise NotImplementedError(
             f"on_device_cider / soft_cider: the device CIDEr-D tiers are not "
             f"ported yet ({_DEVICE_REWARDS}); the host reward is")
-    if turn not in ("optimizer", "speaker"):
+    if turn not in ("optimizer", "speaker", "listener"):
         raise ValueError(f"unknown turn {turn!r}")
 
 
@@ -251,9 +245,10 @@ def sample_for_reward(modules, params, opt, batch, rng, hp, turn,
         spk, r, ctx = _speaker(modules, detached(params), opt, batch, rng,
                                train, kw["drop_prob"])
         if _cider_reuses_disc(opt, turn):
-            out = decoding.sample(spk, ctx, opt.seq_length, r["disc"],
-                                  mode=_MODE_MAP[opt.retrieval_reward],
-                                  temperature=1.0, **kw)
+            out = decoding.sample(
+                spk, ctx, opt.seq_length, r["disc"],
+                mode=_MODE_MAP.get(opt.retrieval_reward, "sample"),
+                temperature=1.0, **kw)
         else:
             out = decoding.sample(spk, ctx, opt.seq_length, r["cider"],
                                   mode="sample", temperature=1.0, **kw)
@@ -281,20 +276,87 @@ def host_reward(opt, gts, gen, greedy):
             float(cider_greedy))
 
 
-def _listener_loss(params, opt, hp, fc, seqs, masks):
+def _listener_loss(params, opt, hp, fc, seqs, masks, whole_batch=False):
     """The listener's contrastive loss of (fc, seqs), with the hinge weight
-    as a tensor (the JAX package passes it traced: the blended form)."""
+    as a tensor (the JAX package passes it traced: the blended form); per
+    sample [B] with `whole_batch`, else summed."""
     listener = vse.VSEModel(params["listener"], opt)
-    return listener(fc, None, seqs, masks,
+    return listener(fc, None, seqs, masks, whole_batch=whole_batch,
                     only_one_retrieval=opt.only_one_retrieval,
                     max_violation_w=torch.as_tensor(
                         hp.vse_max_w, dtype=torch.float32, device=fc.device))
 
 
+def _sampled_captions(seq, vocab_size):
+    """(ids with a BOS column in front, their masks): a sampled sequence
+    as the listener reads it (JAX joint.py:210-212, 255-256)."""
+    return _prepend_bos_ids(seq.long(), vocab_size), \
+        losses.masks_from_seq(seq)
+
+
+def _listener_turn(modules, params, opt, batch, rng, hp, train, sampled):
+    """The listener turn (JAX joint.py:205-219; ref :528-555): captions
+    sampled from the frozen speaker on the 'listener' stream train the
+    listener's contrastive loss; the sample runs without autograd on a
+    detached view (JAX stop-gradients the ids), so the speaker's gradient
+    is zero."""
+    kw = _sample_kwargs(opt, hp, train)
+    with torch.no_grad():
+        spk, r, ctx = _speaker(modules, detached(params), opt, batch, rng,
+                               train, kw["drop_prob"])
+        out = decoding.sample(spk, ctx, opt.seq_length, r["listener"],
+                              mode="sample", temperature=1.0, **kw)
+    sampled["listener_seq"] = out.seq
+    seqs, masks = _sampled_captions(out.seq, opt.vocab_size)
+    loss_vse = _listener_loss(params, opt, hp, batch.get("fc_feats"), seqs,
+                              masks)
+    return hp.vse_loss_weight * loss_vse, {"loss_vse": loss_vse,
+                                           "vse_contrastive": loss_vse}
+
+
+def _reinforce_disc(modules, spk, ctx, r, params, opt, hp, batch, kw):
+    """REINFORCE DISC (JAX joint.py:252-289; ref :226-332): a multinomial
+    sample from the 'disc' stream, the listener's per-sample retrieval loss
+    of it, less a baseline -- the retrieval loss of a greedy decode (on the
+    'greedy' stream, without autograd on a detached view: the heads have no
+    backward, and JAX stop-gradients it), of the GT captions, or none --
+    as the constant coefficient of the sample's log-probs.  Returns (the
+    sample, its masks, the surrogate loss, the aux entries)."""
+    V = opt.vocab_size
+    fc = batch.get("fc_feats")
+    out = decoding.sample(spk, ctx, opt.seq_length, r["disc"], mode="sample",
+                          temperature=1.0, **kw)
+    seqs, out_masks = _sampled_captions(out.seq, V)
+    with torch.no_grad():
+        # values only: the coefficient is a constant, so neither agent
+        # takes a gradient from these forwards
+        retrieval_loss = _listener_loss(params, opt, hp, fc, seqs, out_masks,
+                                        whole_batch=True)
+        kind = opt.reinforce_baseline_type
+        if kind == "greedy":
+            gspk = modules["speaker"](detached(speaker_view(params, opt)))
+            gout = decoding.sample(gspk, detached(ctx), opt.seq_length,
+                                   r["greedy"], mode="greedy", **kw)
+            baseline = _listener_loss(params, opt, hp, fc,
+                                      *_sampled_captions(gout.seq, V),
+                                      whole_batch=True)
+        elif kind == "gt":
+            baseline = _listener_loss(params, opt, hp, fc, batch["labels"],
+                                      batch["masks"], whole_batch=True)
+        else:
+            baseline = torch.zeros_like(retrieval_loss)
+        coeff = retrieval_loss - baseline
+    sc_loss = losses.self_critical_loss(out.logprobs, coeff, out_masks)
+    aux = {"retrieval_sc_loss": sc_loss,
+           "retrieval_loss": retrieval_loss.sum(),
+           "retrieval_loss_greedy": baseline.sum()}
+    return out, out_masks, sc_loss, aux
+
+
 def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
             train=True, sampled=None, rows=None):
     """Stage B: total loss and aux dict (JAX joint.py:181-345) for the turns
-    'optimizer' and 'speaker'.
+    'optimizer', 'speaker' and 'listener'.
 
     modules: {'speaker': the speaker class}; params: the joint tree;
     batch: tensors on the device ('fc_feats', 'att_feats', 'att_masks',
@@ -303,12 +365,18 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
     reward: [B], the CIDEr coefficient from the host (cider(sample) -
     cider(greedy), or the raw scores under use_gen_cider_scores).
     `sampled`, a dict when given, receives the CIDEr branch's sampled ids
-    under 'seq' and DISC's under 'disc_seq'.  `rows`, the data group of a
+    under 'seq', DISC's under 'disc_seq' and the listener turn's under
+    'listener_seq'.  `rows`, the data group of a
     mesh run whose ranks hold shares of the batch's rows, normalises the
     caption loss over the global batch (a rank's loss is its share of the
     global one).  Returns (loss, aux) with aux keys of the JAX
     package's."""
     check_ported(opt, turn)
+    if sampled is None:
+        sampled = {}
+    if turn == "listener":
+        return _listener_turn(modules, params, opt, batch, rng, hp, train,
+                              sampled)
     kw = _sample_kwargs(opt, hp, train)
     drop = kw["drop_prob"]
     spk, r, ctx = _speaker(modules, params, opt, batch, rng, train, drop)
@@ -318,8 +386,6 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
     masks = batch["masks"]
     loss = torch.zeros((), dtype=torch.float32, device=labels.device)
     aux = {}
-    if sampled is None:
-        sampled = {}
 
     # ---- MLE (ref :196-207) ----
     if opt.caption_loss_weight > 0:
@@ -345,8 +411,16 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
         aux["vse_contrastive"] = loss_vse
 
     gen = None  # (seq, logprobs, masks) of the sample the CIDEr loss takes
+    # ---- DISC, REINFORCE (ref :226-332) ----
+    if _disc_active(opt, turn) and opt.retrieval_reward == "reinforce":
+        out, out_masks, sc_loss, disc_aux = _reinforce_disc(
+            modules, spk, ctx, r, params, opt, hp, batch, kw)
+        loss = loss + hp.retrieval_reward_weight * sc_loss
+        aux.update(disc_aux)
+        sampled["disc_seq"] = out.seq
+        gen = (out.seq, out.logprobs, out_masks)
     # ---- DISC, straight-through / partial sampling (ref :343-376) ----
-    if _disc_active(opt, turn):
+    elif _disc_active(opt, turn):
         out = decoding.sample(spk, ctx, opt.seq_length, r["disc"],
                               mode=_MODE_MAP[opt.retrieval_reward],
                               temperature=1.0, **kw)

@@ -1,22 +1,30 @@
 """The training loop (counterpart of the JAX package's training/loop.py;
 ref train.py).
 
-One iteration = schedules -> batch (host numpy -> device tensors) ->
-[stage A sampling + host CIDEr-D reward] -> loss and gradients
-(`joint.value_and_grad`) -> guarded per-agent Adam -> the BN running
-statistics -> loss history; `checkpoint_operations` evaluates and writes
-the run dir (model, optimizer, infos and histories; JAX loop.py:721-815),
-from which `start_from` resumes.  Ported: phase-1 listener pretraining
+One iteration = the turn (alternating: `turns[iteration % len(turns)]`, so
+a resumed run keeps its parity) -> schedules -> batch (host numpy ->
+device tensors) -> [stage A sampling + host CIDEr-D reward] -> loss and
+gradients (the turn's `joint.value_and_grad`) -> guarded per-agent Adam
+[-> the grad-isolation audit] -> the BN running statistics -> loss
+history; `checkpoint_operations` evaluates and writes the run dir (model,
+optimizer, infos and histories; JAX loop.py:721-815), from which
+`start_from` resumes.  Ported: phase-1 listener pretraining
 (run_fc_con.py), phase-2 MLE (run_att.sh), self-critical CIDEr-D
-fine-tuning with the host reward, and phase-3 joint training with the
-relaxed DISC loss (run_joint.py -o gumbel / multinomial / gumbel_softmax /
+fine-tuning with the host reward, and phase-3 joint training: the relaxed
+DISC loss (run_joint.py -o gumbel / multinomial / gumbel_softmax /
 multinomial_soft, alternating with its one effective turn, and the
-non-alternating `_speaker` ablations), seeded by the JAX package's
-bootstrap cascade (a stage-2 speaker, an `initialize_retrieval` listener,
-a `start_from` dir) or resumed.  The device is explicit (`device=`); every
-random draw of an iteration comes from the named streams of
-`joint.streams`, seeded from `opt.seed` and the iteration, so stage B
-re-draws stage A's trajectory.
+non-alternating `_speaker` ablations) and REINFORCE DISC with its greedy,
+GT or no baseline (-o reinforce: real speaker / listener alternation, each
+turn stepping its own agent; the `reinforce_listener` and
+`reinforce_speaker` ablations), seeded by the JAX package's bootstrap
+cascade (a stage-2 speaker, an `initialize_retrieval` listener, a
+`start_from` dir) or resumed.  With --audit_grad_isolation 1 each
+accepted step is checked to have moved only the turn's agents
+(training/audit.py); --profile_dir traces the iterations [profile_start,
+profile_start + profile_steps) with torch.profiler (utils/profiling.py).
+The device is explicit (`device=`); every random draw of an iteration
+comes from the named streams of `joint.streams`, seeded from `opt.seed`
+and the iteration, so stage B re-draws stage A's trajectory.
 
 Phase-2 MLE also runs on a (data, model) process grid (`mesh_data_axis`,
 `mesh_model_axis`; one process per mesh position, started by the port's
@@ -28,14 +36,13 @@ run and either resumes the other.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
 queue-1 item: the rest of a mesh run (SCST, the listener, att_bn's batch
-statistics), fused multi-step chunks (`fused_steps > 1`),
-the device feature cache, REINFORCE DISC and real alternation (more than
-one effective turn, or the listener turn), the device reward tiers, the
-grad-isolation audit and the profiler window.
+statistics), fused multi-step chunks (`fused_steps > 1`), the device
+feature cache, and the device reward tiers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import time
@@ -52,13 +59,16 @@ from cooperativeimagecaptioning_tpu_torch.parallel import mesh as mesh_mod
 from cooperativeimagecaptioning_tpu_torch.parallel.train_step import (
     make_distributed_train_step)
 from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
+from cooperativeimagecaptioning_tpu_torch.training import audit
 from cooperativeimagecaptioning_tpu_torch.training import checkpoint as ck
 from cooperativeimagecaptioning_tpu_torch.training import joint, schedules
 from cooperativeimagecaptioning_tpu_torch.training.optim import (
-    OptimizerManager, effective_turns)
+    OptimizerManager, agents_to_update, effective_turns)
+from cooperativeimagecaptioning_tpu_torch.utils import profiling
 from cooperativeimagecaptioning_tpu_torch.utils.tree import trainable
 
-_JOINT = "ROADMAP.md queue 1: joint training"
+_JOINT = ("ROADMAP.md queue 1, item 4b: joint training's device feature "
+          "cache and fused steps")
 
 
 def mesh_unported(opt):
@@ -87,27 +97,18 @@ def unported(opt):
         return f"fused_steps > 1 (a CUDA graph of K steps; {_JOINT})"
     if getattr(opt, "device_feature_cache", 0):
         return f"device_feature_cache ({_JOINT})"
-    if joint.has_listener(opt) and opt.retrieval_reward_weight > 0 and \
-            opt.retrieval_reward == "reinforce":
-        return f"retrieval_reward 'reinforce': REINFORCE DISC ({_JOINT})"
-    turns = effective_turns(opt)
-    if len(turns) > 1 or "listener" in turns:
-        return (f"effective turns {turns}: real alternation with the "
-                f"listener turn ({_JOINT})")
     if opt.cider_optimization > 0 and (getattr(opt, "on_device_cider", 0)
                                        or getattr(opt, "soft_cider", 0)):
         return ("on_device_cider / soft_cider (ROADMAP.md queue 1: device "
                 "rewards)")
-    if getattr(opt, "audit_grad_isolation", 0) or \
-            getattr(opt, "profile_dir", ""):
-        return f"audit_grad_isolation / profile_dir ({_JOINT})"
     return None
 
 
 class Trainer:
     """Training on one device: phase 1 (the listener), phase 2 (MLE), and
-    phase 3 (self-critical CIDEr-D and the relaxed DISC loss), with one
-    effective turn; phase 2 also as one rank of a mesh (`self.mesh`)."""
+    phase 3 (self-critical CIDEr-D, the relaxed and the REINFORCE DISC
+    loss, alternating turns); phase 2 also as one rank of a mesh
+    (`self.mesh`)."""
 
     def __init__(self, opt, dataset=None, rng_seed=None, verbose=True,
                  device="cuda"):
@@ -183,8 +184,6 @@ class Trainer:
                                                  self.param_specs).items()}
             _dispatch.set_vocab_mesh(self.mesh, opt.vocab_size)
         self.turns = effective_turns(opt)
-        # the turn of every iteration (`unported` refuses more than one)
-        self.turn = self.turns[0] if opt.is_alternating else "optimizer"
 
         # resume counters (ref train.py:360-375)
         self.iteration = infos.get("iter", 0)
@@ -206,11 +205,16 @@ class Trainer:
 
         # an iteration's streams are seeded from this and its number
         self._seed = seed + 1
-        self._grad_fn = joint.value_and_grad(opt, self.turn)
+        # one loss and one stage-A program per turn
+        names = self.turns if opt.is_alternating else ["optimizer"]
+        self._grad_fns = {t: joint.value_and_grad(opt, t) for t in names}
+        self._sample_fns = {t: joint.sampler(opt, t) for t in names}
+        # a mesh trains phase 2 alone (`mesh_unported`): one turn
         self._mesh_step = None if self.mesh is None else \
-            make_distributed_train_step(opt, self.turn, self.mesh)
-        self._sample_fn = joint.sampler(opt, self.turn)
+            make_distributed_train_step(opt, names[0], self.mesh)
         self._evaluator = None
+        # the path of the last profiler trace `train` wrote
+        self.last_trace = None
         # stage A's and stage B's sampled ids of the last reward iteration
         self.last_reward_seqs = None
         if opt.cider_optimization > 0:
@@ -250,6 +254,13 @@ class Trainer:
                 params = ck.load_params_into(params, stage2)
             params = overlay_listener(params)
         return params, resumed
+
+    @property
+    def turn(self):
+        """The turn of the next iteration (JAX loop.py:413-416)."""
+        if not self.opt.is_alternating:
+            return "optimizer"
+        return self.turns[self.iteration % len(self.turns)]
 
     # -- schedules -----------------------------------------------------------
     def _update_schedules(self):
@@ -294,12 +305,12 @@ class Trainer:
         return joint.streams(self._seed * 1_000_003 + self.iteration,
                              self.device)
 
-    def reward(self, batch, data, hp):
+    def reward(self, batch, data, hp, turn):
         """Stage A and the host reward: (reward [B] on the device, the
         loss-dict entries avg_reward and cider_greedy, stage A's sampled
         ids) -- JAX loop.py:440-460."""
-        gen, greedy = self._sample_fn(self.params, batch,
-                                      self.iteration_streams(), hp)
+        gen, greedy = self._sample_fns[turn](self.params, batch,
+                                             self.iteration_streams(), hp)
         reward, avg, cider_greedy = joint.host_reward(self.opt, data["gts"],
                                                       gen, greedy)
         return (torch.from_numpy(reward).to(self.device),
@@ -323,20 +334,30 @@ class Trainer:
         hp = self._hyper()
         reward, aux_host, seq_a = None, {}, None
         if joint.needs_reward(opt, turn):
-            reward, aux_host, seq_a = self.reward(batch, data, hp)
+            reward, aux_host, seq_a = self.reward(batch, data, hp, turn)
+        # the params before the step, for the audit only (Adam updates in
+        # place; nothing is copied when the audit is off)
+        audit_on = bool(getattr(opt, "audit_grad_isolation", 0))
+        prev = audit.snapshot(self.params) if audit_on else None
         if self._mesh_step is not None:
             # the rank's rows, the gradients summed, the guarded update
             loss, aux = self._mesh_step(self.params, self.optim, batch,
                                         self.iteration_streams(), hp)
         else:
             sampled = {}
-            (loss, aux), grads = self._grad_fn(self.params, batch,
-                                               self.iteration_streams(), hp,
-                                               reward, sampled)
+            (loss, aux), grads = self._grad_fns[turn](
+                self.params, batch, self.iteration_streams(), hp, reward,
+                sampled)
             if seq_a is not None:
                 self.last_reward_seqs = (seq_a, sampled["seq"])
             # the non-finite guard runs on the device inside the update
             self.optim.step(self.params, grads, turn)
+        # a step the guard rejected leaves every agent unchanged: auditing
+        # it would raise a false UpdateError (JAX loop.py:468-479)
+        if audit_on and bool(self.optim.last_step_ok):
+            audit.audit_update(prev, self.params,
+                               tuple(a for a in agents_to_update(opt, turn)
+                                     if a in self.params))
 
         # BN running statistics (torch train-mode BatchNorm1d semantics),
         # once per iteration (JAX loop.py:481-501)
@@ -482,27 +503,50 @@ class Trainer:
 
     # -- full loop (ref: train.py:473-562) --------------------------------------
     def train(self, max_iterations=None):
+        """Iterations until max_iterations or max_epochs, checkpointing
+        every save_checkpoint_every.  With profile_dir, the iterations
+        [profile_start, profile_start + profile_steps) run inside a
+        torch.profiler trace, each under a 'train_iteration N' range; the
+        trace opens and closes at iteration boundaries (JAX
+        loop.py:817-850), and closes where the loop ends early.  The path
+        of the last trace written: `self.last_trace`."""
         opt = self.opt
-        while True:
-            start = time.time()
-            loss_dict, turn, _ = self.train_iteration()
-            if self.verbose:
-                dur = time.time() - start
-                msg = " ".join(f"{k} = {round(float(v), 2)}"
-                               for k, v in sorted(loss_dict.items()))
-                print(f"iter {self.iteration} (epoch {self.epoch}) [{turn}] "
-                      f"{msg} time/batch = {dur:.2f}s")
-            if self.iteration % opt.save_checkpoint_every == 0 or \
-                    opt.start_with_checkpoint:
-                self.checkpoint_operations()
-                opt.start_with_checkpoint = 0
-            if max_iterations is not None and \
-                    self.iteration >= max_iterations:
-                break
-            if self.epoch >= opt.max_epochs != -1:
+        profile_dir = getattr(opt, "profile_dir", "")
+        window, stop_at = None, None
+        try:
+            while True:
+                if profile_dir and window is None and \
+                        self.iteration == opt.profile_start:
+                    window = profiling.Trace(profile_dir).start()
+                    stop_at = self.iteration + opt.profile_steps
+                start = time.time()
+                region = contextlib.nullcontext() if window is None else \
+                    profiling.annotate(f"train_iteration {self.iteration}")
+                with region:
+                    loss_dict, turn, _ = self.train_iteration()
+                if window is not None and self.iteration >= stop_at:
+                    self.last_trace = window.stop()
+                    window = None
                 if self.verbose:
-                    print("Finished training")
-                break
+                    dur = time.time() - start
+                    msg = " ".join(f"{k} = {round(float(v), 2)}"
+                                   for k, v in sorted(loss_dict.items()))
+                    print(f"iter {self.iteration} (epoch {self.epoch}) "
+                          f"[{turn}] {msg} time/batch = {dur:.2f}s")
+                if self.iteration % opt.save_checkpoint_every == 0 or \
+                        opt.start_with_checkpoint:
+                    self.checkpoint_operations()
+                    opt.start_with_checkpoint = 0
+                if max_iterations is not None and \
+                        self.iteration >= max_iterations:
+                    break
+                if self.epoch >= opt.max_epochs != -1:
+                    if self.verbose:
+                        print("Finished training")
+                    break
+        finally:
+            if window is not None:
+                self.last_trace = window.stop()
         self.close()
         return self.params
 

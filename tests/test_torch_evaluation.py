@@ -23,6 +23,7 @@ jax = pytest.importorskip("jax")
 from cooperativeimagecaptioning_tpu import config as jconfig  # noqa: E402
 from cooperativeimagecaptioning_tpu import data as jdata  # noqa: E402
 from cooperativeimagecaptioning_tpu.evaluation import eval_split as jeval  # noqa: E402
+from cooperativeimagecaptioning_tpu.models import vse as jvse  # noqa: E402
 from cooperativeimagecaptioning_tpu.native import bindings  # noqa: E402
 from cooperativeimagecaptioning_tpu.rewards import self_critical as jsc  # noqa: E402
 from cooperativeimagecaptioning_tpu.training import joint as jjoint  # noqa: E402
@@ -182,6 +183,58 @@ def test_eval_cider_loss_matches_jax(monkeypatch):
     assert_same_result(want, got)
 
 
+def with_listener(sides, seed=6):
+    """Both sides of `build` with a JAX-initialised listener added."""
+    (jopt, jloader, jparams), (topt, tloader, tparams) = sides
+    listener = jax.tree.map(np.asarray, jvse.init_params(
+        jax.random.PRNGKey(seed), jopt))
+    listener["img_enc"]["fc"]["w"] = listener["img_enc"]["fc"]["w"] * 4.0
+    jparams = dict(jparams, listener=jax.tree.map(jax.numpy.asarray,
+                                                  listener))
+    tparams = dict(tparams, listener=to_torch(listener, "cpu"))
+    return (jopt, jloader, jparams), (topt, tloader, tparams)
+
+
+REINFORCE_EVAL = dict(vse_model="fc", vse_embed_size=8,
+                      retrieval_reward="reinforce",
+                      retrieval_reward_weight=0.5)
+
+
+def reinforce_eval_streams(opt, B):
+    """The port's streams of the evaluator replaying what the JAX evaluator
+    draws from its fixed key 123: the 'disc' sample (no dropout in eval, and
+    greedy draws nothing)."""
+    r = jjoint._rngs(jax.random.PRNGKey(teval.EVAL_SEED))
+    noise = jax_sample_noise(r["disc"], "sample", B, opt.vocab_size + 1,
+                             opt.seq_length)
+
+    def replayed(seed, device):
+        assert seed == teval.EVAL_SEED
+        out = {name: draws.Replay([]) for name in tjoint.STREAMS}
+        out["disc"] = draws.Replay(noise)
+        return out
+    return replayed
+
+
+def assert_reinforce_eval_matches_jax(monkeypatch, baseline):
+    """The eval loss of a reinforce run (JAX eval_split.py:104-115): the
+    REINFORCE branch in eval mode, its greedy baseline without autograd;
+    the loss sums of every val batch against the JAX Evaluator's."""
+    (jopt, jloader, jparams), (topt, tloader, tparams) = with_listener(build(
+        language_eval=0, rank_eval=0, reinforce_baseline_type=baseline,
+        **REINFORCE_EVAL))
+    ek = {"split": "val", "num_images": -1}
+    want = jeval.Evaluator(jopt).eval_split(jparams, jloader, ek)
+    monkeypatch.setattr(tjoint, "streams", reinforce_eval_streams(
+        topt, tloader.batch_size * tloader.seq_per_img))
+    got = teval.Evaluator(topt, device="cpu").eval_split(tparams, tloader,
+                                                         ek)
+    assert {"retrieval_sc_loss", "retrieval_loss",
+            "retrieval_loss_greedy"} <= set(got[0])
+    assert got[0]["retrieval_loss"] != 0.0
+    assert_same_result(want, got)
+
+
 @pytest.mark.parametrize("in_flight", [1, 2, 100])
 def test_in_flight_bound_changes_nothing(monkeypatch, in_flight):
     """Draining early (at most `MAX_IN_FLIGHT` undrained batches) gives the
@@ -261,9 +314,6 @@ def test_evalrank_without_a_listener_is_empty():
 
 # the eval loss of options the port does not train yet
 UNPORTED_LOSS = {
-    "reinforce_loss": dict(vse_model="fc", vse_embed_size=8,
-                           retrieval_reward="reinforce",
-                           retrieval_reward_weight=0.5),
     "device_reward_loss": dict(cider_optimization=1, on_device_cider=1),
     "soft_cider_loss": dict(cider_optimization=1, soft_cider=1),
 }
@@ -276,7 +326,15 @@ UNPORTED_ON_A_MESH = dict(cider_optimization=1)
     ("mesh", "multi-device"), ("reinforce_loss", "joint training"),
     ("device_reward_loss", "device rewards"), ("coco_spice", "spice"),
     ("soft_cider_loss", "device rewards"), ("spice", "spice")])
-def test_unported_branches_name_their_roadmap_item(tmp_path, what, match):
+def test_unported_branches_name_their_roadmap_item(tmp_path, monkeypatch,
+                                                   what, match):
+    """What the evaluator does not run yet raises, naming its ROADMAP item.
+    The eval loss of a reinforce run raised here until REINFORCE DISC was
+    ported (its id keeps the item it matched); it now runs and equals the
+    JAX Evaluator's."""
+    if what == "reinforce_loss":
+        assert_reinforce_eval_matches_jax(monkeypatch, "greedy")
+        return
     _, (topt, tloader, tparams) = build(
         language_eval=0, rank_eval=0,
         **(UNPORTED_ON_A_MESH if what == "mesh" else

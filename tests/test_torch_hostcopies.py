@@ -263,8 +263,8 @@ def test_no_file_of_the_port_imports_the_jax_package():
             "evaluation/caption_retrieval.py", "parallel/mesh.py",
             "parallel/collectives.py", "parallel/launch.py",
             "parallel/train_step.py", "parallel/vocab.py",
-            "ops/kernels/head_merge.py", "../tests/torch_mesh_ranks.py"
-            } <= names
+            "ops/kernels/head_merge.py", "../tests/torch_mesh_ranks.py",
+            "training/audit.py", "utils/profiling.py"} <= names
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -397,6 +397,25 @@ _ENTRY_CODE = {
         "assert int(tr.optim.states['speaker']['count']) == 3\n"
         "assert os.path.isfile(os.path.join('joint', "
         "'listener_optimizer.pth'))\n"),
+    "training.reinforce": (
+        "from cooperativeimagecaptioning_tpu_torch import config\n"
+        "from cooperativeimagecaptioning_tpu_torch.training import loop\n"
+        "opt = config.load_infos(os.path.join(d, 'infos_hc.pkl'))['opt']\n"
+        "opt = opt.replace(vse_model='fc', vse_embed_size=16, phase=3, "
+        "is_alternating=1, alternating_turn=['speaker', 'listener'], "
+        "retrieval_reward='reinforce', reinforce_baseline_type='greedy', "
+        "retrieval_reward_weight=0.5, cider_optimization=0.5, "
+        "vse_loss_weight=1, caption_loss_weight=0, language_eval=0, "
+        "save_checkpoint_every=100, cached_tokens='corpus', "
+        "audit_grad_isolation=1, profile_dir='prof', profile_start=1, "
+        "profile_steps=1, "
+        "speaker_stage_2_model_path=os.path.join(d, 'model.pth'), "
+        "checkpoint_path=os.path.join(os.getcwd(), 'reinforce'))\n"
+        "tr = loop.train(opt, dataset=ds, max_iterations=2, device='cpu', "
+        "verbose=False)\n"
+        "assert [int(tr.optim.states[a]['count']) for a in "
+        "('speaker', 'listener')] == [1, 1]\n"
+        "assert os.path.isfile(tr.last_trace)\n"),
     "eval.listener": (
         "from cooperativeimagecaptioning_tpu_torch import config\n"
         "from cooperativeimagecaptioning_tpu_torch import eval as ev\n"

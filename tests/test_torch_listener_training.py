@@ -37,6 +37,8 @@ from cooperativeimagecaptioning_tpu.rewards import self_critical as jsc  # noqa:
 from cooperativeimagecaptioning_tpu.training import joint as jjoint  # noqa: E402
 from cooperativeimagecaptioning_tpu.training import loop as jloop  # noqa: E402
 from cooperativeimagecaptioning_tpu.training import optim as joptim  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch.models import att_model as tatt  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch.ops import decoding as tdec  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.ops import draws  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.rewards import self_critical as tsc  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.training import checkpoint as tckpt  # noqa: E402
@@ -44,7 +46,7 @@ from cooperativeimagecaptioning_tpu_torch.training import joint as tjoint  # noq
 from cooperativeimagecaptioning_tpu_torch.training import loop as tloop  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.training import optim as toptim  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.utils.tree import (  # noqa: E402
-    leaves, to_numpy)
+    detached, leaves, to_numpy)
 from test_torch_resume import (  # noqa: E402
     DS, _pure_python_metrics, adam_of, assert_adam_equal, jax_opt, run_opt)
 from test_torch_sampling import jax_sample_noise  # noqa: E402
@@ -108,14 +110,19 @@ def port_params(p):
 
 def replay_streams(key, opt, B, turn):
     """The port's named streams replaying what the JAX package draws from
-    `key` (dropout off): DISC's sample in its mode, the CIDEr sample where
-    it is not DISC's."""
+    `key` (dropout off): DISC's sample in its mode (REINFORCE's: a
+    multinomial sample), the CIDEr sample where it is not DISC's, the
+    listener turn's sample."""
     r = jjoint._rngs(key)
     out = {name: draws.Replay([]) for name in tjoint.STREAMS}
     C, L = opt.vocab_size + 1, opt.seq_length
+    if turn == "listener":
+        out["listener"] = draws.Replay(jax_sample_noise(
+            r["listener"], "sample", B, C, L))
     if tjoint._disc_active(opt, turn):
         out["disc"] = draws.Replay(jax_sample_noise(
-            r["disc"], tjoint._MODE_MAP[opt.retrieval_reward], B, C, L))
+            r["disc"], tjoint._MODE_MAP.get(opt.retrieval_reward, "sample"),
+            B, C, L))
     if opt.cider_optimization > 0 and \
             not tjoint._cider_reuses_disc(opt, turn):
         out["cider"] = draws.Replay(jax_sample_noise(r["cider"], "sample",
@@ -164,6 +171,160 @@ def assert_step_close(jout, tout):
         np.testing.assert_allclose(float(jaux[k]), aux[k].item(),
                                    **LOSS_TOL)
     assert_grads_close(jgrads, grads)
+
+
+# the aux terms of the total loss and their weights' options
+WEIGHTS = {"loss_cap": "caption_loss_weight", "loss_vse": "vse_loss_weight",
+           "retrieval_sc_loss": "retrieval_reward_weight",
+           "loss_cider": "cider_optimization"}
+
+
+def surrogate_scale(opt, p, data, key, turn):
+    """sum_i (|r_i| + |b_i|) |sum_t logp_it m_it| / sum(m): the surrogate
+    `self_critical_loss` taken over the magnitudes of its inputs, the
+    sample's retrieval loss r and the baseline b, before their difference
+    cancels.  The packages' r and b differ by f32 rounding (the GRU's and
+    the products' summation order), and the coefficient r - b is a small
+    difference of two such values, so LOSS_TOL's rtol holds the surrogate
+    relative to this scale, the standard bound of a difference."""
+    tp, tb = detached(port_params(p)), port_batch(data)
+    B = data["labels"].shape[0]
+    hp = tjoint.Hyper.from_opt(opt)
+    V, L = opt.vocab_size, opt.seq_length
+    with torch.no_grad():
+        spk, r, ctx = tjoint._speaker({"speaker": tatt.AttModel}, tp, opt,
+                                      tb, replay_streams(key, opt, B, turn),
+                                      False, 0.0)
+        out = tdec.sample(spk, ctx, L, r["disc"], mode="sample")
+        seqs, masks = tjoint._sampled_captions(out.seq, V)
+        fc = tb["fc_feats"]
+        ret = tjoint._listener_loss(tp, opt, hp, fc, seqs, masks,
+                                    whole_batch=True)
+        kind = opt.reinforce_baseline_type
+        if kind == "greedy":
+            gseq = tdec.sample(spk, ctx, L, None, mode="greedy").seq
+            base = tjoint._listener_loss(
+                tp, opt, hp, fc, *tjoint._sampled_captions(gseq, V),
+                whole_batch=True)
+        elif kind == "gt":
+            base = tjoint._listener_loss(tp, opt, hp, fc, tb["labels"],
+                                         tb["masks"], whole_batch=True)
+        else:
+            base = torch.zeros_like(ret)
+        m = masks[:, 1:]
+        return float(((ret.abs() + base.abs())
+                      * (out.logprobs * m).sum(dim=1).abs()).sum() / m.sum())
+
+
+def assert_losses_close(opt, jloss, jaux, loss, aux, rtol, scale=None):
+    """The total and each aux entry of the port (tensors) against JAX's
+    within `rtol`; with `scale` (`surrogate_scale`), REINFORCE's surrogate
+    relative to it, and the total relative to the sum of its weighted
+    terms' sizes."""
+    assert set(jaux) <= set(aux)
+    total = 0.0
+    for k in jaux:
+        want, got = float(jaux[k]), float(aux[k])
+        size = scale if k == "retrieval_sc_loss" and scale is not None \
+            else abs(want)
+        if k in WEIGHTS:
+            total += getattr(opt, WEIGHTS[k]) * size
+        assert abs(got - want) <= rtol * size, (k, got, want, size)
+    size = abs(float(jloss)) if scale is None else total
+    assert abs(float(loss) - float(jloss)) <= rtol * size
+
+
+def assert_reinforce_close(opt, jout, tout, scale):
+    """assert_step_close with the surrogate, and the total it enters, held
+    to LOSS_TOL's rtol of their scale (`surrogate_scale`; the other terms
+    at their magnitudes)."""
+    (jloss, jaux), jgrads = jout
+    (loss, aux), grads = tout
+    assert set(aux) == set(jaux)
+    assert_losses_close(opt, jloss, jaux, loss, aux, LOSS_TOL["rtol"], scale)
+    assert_grads_close(jgrads, grads)
+
+
+def reinforce_active(opt, turn):
+    return tjoint._disc_active(opt, turn) and \
+        opt.retrieval_reward == "reinforce"
+
+
+def reinforce_steps(opt, turn, seed):
+    """both_steps, and the surrogate's scale on the same inputs."""
+    (p, data, key), jout, tout, sampled = both_steps(opt, turn, seed=seed)
+    scale = surrogate_scale(opt, p, data, key, turn)
+    assert_reinforce_close(opt, jout, tout, scale)
+    return jout, tout, sampled
+
+
+def assert_turn_matches_jax(opt, turn, seed=0):
+    """loss_fn of `turn` (REINFORCE by its scale) and, where the turn runs
+    it, stage A's ids against JAX's on replayed noise."""
+    (p, data, key), jout, tout, _ = both_steps(opt, turn, seed=seed)
+    if reinforce_active(opt, turn):
+        assert_reinforce_close(opt, jout, tout,
+                               surrogate_scale(opt, p, data, key, turn))
+    else:
+        assert_step_close(jout, tout)
+    if not tjoint.needs_reward(opt, turn):
+        return tout
+    jsample, _ = jjoint.make_raw_fns(opt, turn)
+    want = jsample(jax.tree.map(jnp.asarray, p), jax_batch(data), key,
+                   jjoint.Hyper.from_opt(opt))
+    got = tjoint.sampler(opt, turn)(
+        port_params(p), port_batch(data),
+        replay_streams(key, opt, data["labels"].shape[0], turn),
+        tjoint.Hyper.from_opt(opt))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    return tout
+
+
+def assert_trainer_matches_jax(opt, steps, key0=100):
+    """`steps` Trainer iterations against the JAX make_raw_fns(opt, turn)
+    and OptimizerManager.step, turn by turn, on the same batches and start;
+    the port's streams replay what JAX draws from key(key0 + iteration):
+    stage A's ids equal JAX's, the losses within LOSS_TOL at the first
+    step and 1e-4 after (the params have moved apart; REINFORCE's surrogate
+    by `assert_losses_close`), the params within 2 lr steps, the Adam
+    counts equal.  Returns (port Trainer, JAX optimizer,
+    JAX params, the turns taken)."""
+    tr = tloop.Trainer(opt, dataset=tiny_dataset(opt), device="cpu",
+                       verbose=False)
+    jp = jax.tree.map(jnp.asarray, to_numpy(tr.params))
+    jm = joptim.OptimizerManager(opt, jp)
+    B = opt.batch_size * opt.seq_per_img
+    tr.iteration_streams = lambda: replay_streams(
+        jax.random.PRNGKey(key0 + tr.iteration), opt, B, tr.turn)
+    lr = opt.learning_rate
+    turns = []
+    for n in range(steps):
+        key = jax.random.PRNGKey(key0 + tr.iteration)
+        hp = jjoint.Hyper(*(jnp.float32(float(v)) for v in tr._hyper()))
+        jm.set_lr(tr.optim.lr)
+        before = to_numpy(tr.params)
+        loss_dict, turn, data = tr.train_iteration()
+        turns.append(turn)
+        jsample, jvg = jjoint.make_raw_fns(opt, turn)
+        jb = jax_batch(data)
+        reward = jnp.zeros((B,), jnp.float32)
+        if jjoint.needs_reward(opt, turn):
+            gen, greedy = (np.asarray(x) for x in jsample(jp, jb, key, hp))
+            np.testing.assert_array_equal(gen,
+                                          tr.last_reward_seqs[0].numpy())
+            scores, _ = jsc.get_self_critical_reward(data["gts"], gen, greedy)
+            reward = jnp.asarray(scores, jnp.float32)
+        (jloss, jaux), jg = jvg(jp, jb, key, hp, reward)
+        jp = jm.step(jp, jg, turn)
+        scale = surrogate_scale(opt, before, data, key, turn) \
+            if reinforce_active(opt, turn) else None
+        assert_losses_close(opt, jloss, jaux, loss_dict["loss"], loss_dict,
+                            LOSS_TOL["rtol"] if n == 0 else 1e-4, scale)
+        assert_tree_close(jp, tr.params, atol=2 * lr * (n + 1), rtol=0)
+        for agent, st in tr.optim.states.items():
+            assert int(st["count"]) == int(adam_of(jm.states[agent]).count)
+    return tr, jm, jp, turns
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +461,14 @@ def test_prepend_bos_matches_jax():
      "ROADMAP.*device rewards"),
 ])
 def test_loss_fn_refuses_what_is_not_ported(turn, kw, match):
+    """The device reward tiers raise in loss_fn and sample_for_reward,
+    naming their ROADMAP item.  The listener turn and REINFORCE raised here
+    until they were ported (their ids keep the messages they matched); they
+    now run, and loss_fn and stage A equal JAX's."""
     opt = disc_opt("gumbel", **kw)
+    if "device rewards" not in match:
+        assert_turn_matches_jax(opt, turn, seed=3)
+        return
     for fn in (tjoint.loss_fn, tjoint.sample_for_reward):
         with pytest.raises(NotImplementedError, match=match):
             fn({}, {}, opt, {}, None, tjoint.Hyper.from_opt(opt), turn)
@@ -595,9 +763,12 @@ def test_chip_smoke_flag_sets_equal_the_scripts(monkeypatch, tmp_path):
     run_joint = _module("run_joint_flags",
                         os.path.join(REPO, "scripts", "run_joint.py"))
     assert smoke.PHASE1_FLAGS == fc_con.STAGE_FLAGS
-    for mode in MODES + ("gumbel_speaker", "multinomial_speaker"):
-        assert smoke.joint_flags(mode) == \
-            run_joint.joint_flags(optimization=mode)[1], mode
+    for mode in MODES + ("gumbel_speaker", "multinomial_speaker",
+                         "reinforce", "reinforce_listener",
+                         "reinforce_speaker"):
+        for vse in (0, 1):
+            assert smoke.joint_flags(mode, vse=vse) == run_joint.joint_flags(
+                optimization=mode, vse=vse)[1], (mode, vse)
     # the script's Options beside build_run's overrides
     seen = {}
     from cooperativeimagecaptioning_tpu.evaluation import harvest

@@ -270,3 +270,13 @@ def test_a_rank_that_fails_fails_the_run():
     with pytest.raises(RuntimeError,
                        match="(?s)rank 1 of 2 failed.*ValueError: planted"):
         launch.spawn(ranks.fail_on_rank_one, (), 2, "cpu", timeout=120)
+
+
+def test_spawn_runs_on_the_card_unless_asked_for_the_cpu():
+    """Like every entry point of the port, spawn's ranks default to the
+    card: without one it raises, naming it, and starts no rank on the CPU
+    in its place."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.spawn(ranks.fail_on_rank_one, (), 2)

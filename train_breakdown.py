@@ -4,6 +4,7 @@
     python3 train_breakdown.py                       # on a CUDA card
     python3 train_breakdown.py --scst                # self-critical steps
     python3 train_breakdown.py --joint               # joint DISC steps
+    python3 train_breakdown.py --reinforce           # joint REINFORCE turns
     python3 train_breakdown.py --device cpu --batch 4 --width 16 --vocab 50
                                                      # dry run, tiny width
 
@@ -32,6 +33,15 @@ self-critical step's stages: stage_a samples in the gumbel_st mode, stage_b
 adds the listener's contrastive loss of the relaxed one-hots and the
 backward into both agents, adam steps both.
 
+A joint REINFORCE step (--reinforce: scripts/run_joint.py -o reinforce -v
+1, the gt baseline, chip smoke's phase 10 without its seeding) is split by
+turn.  The speaker turn has the self-critical step's stages: stage_a
+samples in the multinomial mode, stage_b adds the listener's no-grad
+forwards of the sample and the GT captions (the REINFORCE coefficient),
+adam steps the speaker.  The listener turn has two: stage_b (a sampled
+decode of the frozen speaker without autograd, the listener's contrastive
+loss of it and its backward) and adam (the listener).
+
 Each stage is then traced in its own torch.profiler session, and its GPU
 time is summed into:
 the attention kernel, the cell kernel, the logits and log-softmax (every
@@ -49,6 +59,7 @@ The last line is one JSON object with every number printed.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import time
 
@@ -57,7 +68,6 @@ import numpy as np
 import chip_smoke as cs
 
 MLE_STAGES = ("forward", "backward", "adam")
-SCST_STAGES = ("stage_a", "reward", "stage_b", "adam")  # cs.scst_stages
 MATMULS = ("aten::mm", "aten::addmm", "aten::bmm")
 # the kernels' autograd Functions: the profiler records each as an op whose
 # self GPU time is the package kernel it launched, counted by kernel name
@@ -193,6 +203,10 @@ def main(argv=None):
     step.add_argument("--joint", action="store_true",
                       help="joint DISC steps (run_joint.py -o gumbel) "
                            "instead of phase-2 steps")
+    step.add_argument("--reinforce", action="store_true",
+                      help="joint REINFORCE turns (run_joint.py -o "
+                           "reinforce -v 1), speaker and listener, instead "
+                           "of phase-2 steps")
     a = p.parse_args(argv)
     import torch
 
@@ -205,39 +219,59 @@ def main(argv=None):
     ds = cs.train_dataset()
     results = {"card": card, "batch": a.batch, "width": a.width,
                "vocab": a.vocab,
-               "step": "scst" if a.scst else "joint" if a.joint else "mle"}
+               "step": "scst" if a.scst else "joint" if a.joint else
+               "reinforce" if a.reinforce else "mle"}
     opt = cs.train_opt(a.batch)
-    stages, names = mle_stages, MLE_STAGES
+    # (result key suffix, stages) of each split: one step, or one a turn
+    splits = [("", mle_stages)]
     if a.scst:
         opt = opt.replace(phase=3, cider_optimization=1,
                           caption_loss_weight=0)
-        stages, names = cs.scst_stages, SCST_STAGES
+        splits = [("", cs.scst_stages)]
     elif a.joint:
         opt = cs.listener_opt({**cs.JOINT_BASE, **cs.joint_flags("gumbel")},
                               a.batch, checkpoint_path=cs.DISC_RUN_DIR)
-        stages, names = cs.scst_stages, SCST_STAGES
+        splits = [("", cs.scst_stages)]
+    elif a.reinforce:
+        opt = cs.listener_opt(
+            {**cs.JOINT_BASE, **cs.joint_flags("reinforce", vse=1)},
+            a.batch, checkpoint_path=cs.REINFORCE_RUN_DIR)
+        splits = [(f"_{turn}", functools.partial(cs.scst_stages, turn=turn))
+                  for turn in ("speaker", "listener")]
     for cell, on in (("cell_kernel", True), ("plain_cell", False)):
         with cs.fused_cell_switch(on):
             tr = Trainer(opt.replace(), dataset=ds, device=a.device,
                          verbose=False)
             data = tr.loader.get_batch("train")
-            r = breakdown(stages, tr, data, device, a.reps)
+            rs = {cell + key: breakdown(stages, tr, data, device, a.reps)
+                  for key, stages in splits}
             if device.type == "cuda":
-                r["it_per_s"] = cs.iterations_per_s(tr, data)
-        results[cell] = r
-        print(f"== {cell} ({card}; B={a.batch}, f32): "
-              + " | ".join(f"{s} {r['wall_ms'][s]:.2f} ms" for s in names)
-              + (f" | {r['it_per_s']:.2f} it/s" if "it_per_s" in r else ""),
-              flush=True)
-        for s in names:
-            cats = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
-                r["by_category_ms"][s].items(), key=lambda kv: -kv[1]))
-            idle = (f"; idle share {r['idle_share'][s]:.3f}"
-                    if r["idle_share"] else "")
-            print(f"  {s:8s} traced kernels {r['traced_kernel_ms'][s]:.3f} "
-                  f"ms{idle}: {cats}", flush=True)
-            print("           top ops: " + ", ".join(
-                f"{k} {v:.3f}" for k, v in r["top_ops_ms"][s]), flush=True)
+                # whole iterations: with turns, the turns in turn
+                its = cs.iterations_per_s(tr, data)
+                if len(splits) == 1:
+                    rs[cell]["it_per_s"] = its
+                else:
+                    results[f"{cell}_alternating_it_per_s"] = its
+                    print(f"== {cell}, the turns in turn: {its:.2f} it/s",
+                          flush=True)
+        for name, r in rs.items():
+            results[name] = r
+            print(f"== {name} ({card}; B={a.batch}, f32): "
+                  + " | ".join(f"{s} {v:.2f} ms"
+                               for s, v in r["wall_ms"].items())
+                  + (f" | {r['it_per_s']:.2f} it/s" if "it_per_s" in r
+                     else ""), flush=True)
+            for s in r["wall_ms"]:
+                cats = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                    r["by_category_ms"][s].items(), key=lambda kv: -kv[1]))
+                idle = (f"; idle share {r['idle_share'][s]:.3f}"
+                        if r["idle_share"] else "")
+                print(f"  {s:8s} traced kernels "
+                      f"{r['traced_kernel_ms'][s]:.3f} ms{idle}: {cats}",
+                      flush=True)
+                print("           top ops: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in r["top_ops_ms"][s]),
+                    flush=True)
         del tr
         if device.type == "cuda":
             torch.cuda.empty_cache()
