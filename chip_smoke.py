@@ -179,10 +179,31 @@ Phases, in order; any failure exits non-zero:
                  on the run dir (beam 2, through C); (f) a profiler window
                  of two iterations through Trainer.train, whose trace must
                  name the attention and the greedy head's kernels.
+ 11. device rewards -- the device tiers of the CIDEr-D reward, the feature
+                 cache and fused chunks at full width (f32, B=128): (a) stage
+                 A's ids of phase 7's configuration scored by the hashed
+                 n-gram tier on the card and by the host tier, with the
+                 corpus df and with the cached df of a pickle the port's
+                 preprocess/ngrams.py builds from the dataset (rtol 2e-4,
+                 atol 2e-5), the reward's device ms and peak memory; (b) SCST
+                 with on_device_cider and (c) run_joint.py -o gumbel with
+                 soft_cider: five iterations with CIC_FUSED_CELL unset and
+                 five with it set, no host reward stage, the launches of A,
+                 B and F an iteration, the stage split, it/s and the device
+                 idle share beside the host-reward SCST's in this run and
+                 phases 7's and 8's; (d) the B=16 step of each on the card
+                 against the CPU port replaying its draws; (e) phase-2 MLE
+                 and joint -o gumbel with on_device_cider in one fused chunk
+                 of 8 with device_feature_cache (one eager warm-up step, a
+                 CUDA graph captured and replayed) against 8 single steps
+                 from one seed: losses (rtol 1e-6), params (rtol 1e-6, atol
+                 1e-7), skipped steps, launches a replay, it/s of each in
+                 turns, the cache's bytes and build seconds.
 Two lines before the last name the card and describe the kernels (one JSON
 object, with each kernel's launches by path, "mesh" the launches of every
-rank of the mesh runs, "joint_reinforce" those of phase 10); the last line
-is {"ok": true, "device": {...}}.
+rank of the mesh runs, "joint_reinforce" those of phase 10,
+"device_rewards" those of phase 11); the last line is {"ok": true,
+"device": {...}}.
 
 Imports no JAX.  Writes only under build/ in the checkout.
 """
@@ -3760,6 +3781,457 @@ def phase_reinforce(smi):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# 11. the device rewards, the feature cache and fused chunks
+# ---------------------------------------------------------------------------
+
+DEV_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_device_run")
+DF_DIR = os.path.join(REPO, "build", "chip_smoke_df")
+DEV_ITERS = 5        # device-reward iterations a cell-kernel setting
+FUSED_K = 8          # steps of a fused chunk
+# the device tier against the host tier: JAX's own tolerance
+# (tests/test_ngram_device.py:45)
+NGRAM_RTOL, NGRAM_ATOL = 2e-4, 2e-5
+# a fused chunk against its per-step run on the card: losses, and params by
+# tests/test_fused_steps.py:28's rule
+FUSED_LOSS_RTOL = 1e-6
+FUSED_PARAM_RTOL, FUSED_PARAM_ATOL = 1e-6, 1e-7
+# soft CIDEr's B=16 step, card against CPU: the speaker's gradients reach
+# ~1e12 through the straight-through rows (log(0 + 1e-20)), so every leaf is
+# held to 1e-4 of its agent's largest entry (f32 summation order)
+SOFT_GRAD_REL = 1e-4
+
+
+def device_per_iteration(opt, cell_on):
+    """Launches of one iteration with a device reward tier (L steps, remat
+    on): on_device_cider samples under autograd (L attention steps),
+    decodes the greedy baseline (L steps through the greedy head) and its
+    backward recomputes the L - 1 checkpointed steps; the soft CIDEr of a
+    relaxed DISC sample has no greedy decode."""
+    steps = L + (L - 1) + (L if opt.on_device_cider else 0)
+    want = {"attention": steps,
+            "greedy_head": L if opt.on_device_cider else 0}
+    if cell_on:
+        want["cell"] = steps
+    return want
+
+
+def iteration_profile(trainer, data, n=SCST_ITERS):
+    """(it/s, traced kernel ms of one iteration, its idle share = 1 -
+    kernel ms / untraced ms) on one fixed host batch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    its = iterations_per_s(trainer, data, n=n)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_iteration(data)
+        torch.cuda.synchronize()
+    kernel_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    return its, kernel_ms, 1.0 - kernel_ms * its / 1e3
+
+
+def write_df_pickle(ds):
+    """The cached-df pickle of the synthetic dataset's train split, built by
+    the port's preprocess/ngrams.py from a Karpathy-format json and its
+    ix_to_word json (the ids' words are 'w<id>'); returns the -idxs.p
+    path, the one cached_tokens names."""
+    from cooperativeimagecaptioning_tpu_torch.preprocess import ngrams
+    os.makedirs(DF_DIR, exist_ok=True)
+    images = []
+    for ix in range(ds.num_images()):
+        sents = [{"tokens": [ds.ix_to_word[str(int(t))] for t in row if t]}
+                 for row in ds.get_refs(ix)]
+        images.append({"split": ds.info["images"][ix]["split"],
+                       "sentences": sents})
+    data = os.path.join(DF_DIR, "data.json")
+    words = os.path.join(DF_DIR, "dict.json")
+    with open(data, "w") as f:
+        json.dump({"images": images}, f)
+    with open(words, "w") as f:
+        json.dump({"ix_to_word": ds.ix_to_word}, f)
+    stem = os.path.join(DF_DIR, "synthetic-train")
+    n = ngrams.prepro_ngrams(data, words, stem, "train")
+    require(n == len([i for i in images if i["split"] == "train"]),
+            f"df pickle: ref_len {n}")
+    return stem + "-idxs.p"
+
+
+def reward_agreement(ds, out):
+    """Stage A's ids of a B=128 batch (phase 7's trainer and batch) scored
+    by the device tier and by the host tier: corpus df, and the cached df
+    of a pickle the port's preprocess/ngrams.py builds from the dataset;
+    the device reward's time and peak memory."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.rewards import (
+        cider_d, ngram_device, self_critical)
+    from cooperativeimagecaptioning_tpu_torch.training import joint
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    tr = Trainer(scst_opt(TRAIN_B), dataset=ds, device=DEVICE, verbose=False)
+    data = tr.loader.get_batch("train")
+    batch = tr._prepare_batch(data)
+    gen, greedy = tr._sample_fns[tr.turn](tr.params, batch,
+                                          tr.iteration_streams(),
+                                          tr._hyper())
+    refs, mask = (torch.from_numpy(x).to(DEVICE)
+                  for x in tr._padded_refs(data["gts"]))
+    B = gen.shape[0]
+
+    def device(table=None):
+        return ngram_device.ciderd_rewards_device(
+            gen, greedy, refs, mask, seq_per_img=1, df_table=table)
+
+    def agree(what, want_scores, want_greedy, table=None):
+        scores, _, cider_greedy = device(table)
+        got = scores.cpu().numpy()
+        err = float(np.abs(got - want_scores).max())
+        ok = np.allclose(got, want_scores, rtol=NGRAM_RTOL, atol=NGRAM_ATOL)
+        rel = abs(float(cider_greedy) - want_greedy) / abs(want_greedy)
+        print(f"  device CIDEr-D reward vs host, {what}, {2 * B} captions: "
+              f"max abs difference {err:.2e} (rtol {NGRAM_RTOL:.0e}, atol "
+              f"{NGRAM_ATOL:.0e}); cider_greedy {float(cider_greedy):.6f} vs "
+              f"{want_greedy:.6f}", flush=True)
+        require(ok and rel <= NGRAM_RTOL,
+                f"device reward ({what}) against the host tier: {err}")
+        return err
+
+    host, _, host_greedy = joint.host_reward(tr.opt, data["gts"], gen,
+                                             greedy)
+    out["reward_err_corpus"] = agree("corpus df", host, host_greedy)
+    path = write_df_pickle(ds)
+    scorer = cider_d.CiderD(df="synthetic-train-idxs", df_path=path)
+    both = torch.cat([gen, greedy]).cpu().numpy()
+    res = [{"image_id": i, "caption": [self_critical.array_to_str(both[i])]}
+           for i in range(2 * B)]
+    gts = {i: [self_critical.array_to_str(g) for g in data["gts"][i % B]]
+           for i in range(2 * B)}
+    _, s = scorer.compute_score(gts, res)
+    table = ngram_device.load_df_table(path, DEVICE)
+    out["reward_err_cached"] = agree("cached df (preprocess/ngrams.py "
+                                     "pickle)", s[:B] - s[B:],
+                                     float(s[B:].mean()), table)
+    for key, tb in (("corpus", None), ("cached", table)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        device(tb)
+        torch.cuda.synchronize()
+        out[f"reward_peak_mb_{key}"] = \
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        out[f"reward_ms_{key}"] = cuda_ms(lambda tb=tb: device(tb), 10)
+    print(f"  device reward at B={B}, R={refs.shape[1]}, L={L}: corpus df "
+          f"{out['reward_ms_corpus']:.3f} ms, peak "
+          f"{out['reward_peak_mb_corpus']:.1f} MiB above its inputs; cached "
+          f"df {out['reward_ms_cached']:.3f} ms, peak "
+          f"{out['reward_peak_mb_cached']:.1f} MiB", flush=True)
+    del tr
+    return path
+
+
+def device_tier_runs(tr, what, add, out, key):
+    """DEV_ITERS iterations with the cell kernel off and DEV_ITERS with it
+    on: finite losses, no host stage, the launches an iteration; then the
+    stage split, it/s and the idle share (cell kernel on)."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training import joint
+    opt = tr.opt
+    require(not joint.needs_reward(opt, tr.turn),
+            f"{what}: the host reward stage still runs")
+    _dispatch.reset_launches()
+    for on in (False, True):
+        before = _dispatch.launches()
+        with fused_cell_switch(on):
+            for _ in range(DEV_ITERS):
+                loss_dict, _, _ = tr.train_iteration()
+                require(tr.last_reward_seqs is None,
+                        f"{what}: a host reward stage ran")
+                vals = {k: float(v) for k, v in loss_dict.items()}
+                require(all(np.isfinite(v) for v in vals.values()),
+                        f"{what}: {vals}")
+            torch.cuda.synchronize()
+        after = _dispatch.launches()
+        got = {k: after[k] - before[k] for k in after}
+        per = device_per_iteration(opt, on)
+        want = {k: DEV_ITERS * per.get(k, 0) for k in got}
+        require(got == want, f"{what}, CIC_FUSED_CELL={int(on)}: launches "
+                f"{got}, expected {want} ({per} an iteration)")
+        print(f"  {DEV_ITERS} iterations of {what}, CIC_FUSED_CELL="
+              f"{int(on)}: last " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in sorted(vals.items()))
+              + f"; launches {per} an iteration", flush=True)
+    add(_dispatch.launches())
+    data = tr.loader.get_batch("train")
+    with fused_cell_switch(True):
+        split = scst_split(tr, data, n=DEV_ITERS)
+        require(set(split) == {"stage_b", "adam"},
+                f"{what}: stages {sorted(split)}")
+        its, kernel_ms, idle = iteration_profile(tr, data, n=DEV_ITERS)
+    out[key] = {"split_ms": split, "it_per_s": its,
+                "kernel_ms": kernel_ms, "idle_share": idle}
+    return out[key]
+
+
+def host_reward_profile(ds):
+    """Phase 7's host-reward SCST iteration, for its idle share beside the
+    device tier's in this run."""
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    tr = Trainer(scst_opt(TRAIN_B), dataset=ds, device=DEVICE, verbose=False)
+    data = tr.loader.get_batch("train")
+    with fused_cell_switch(True):
+        split = scst_split(tr, data, n=DEV_ITERS)
+        its, kernel_ms, idle = iteration_profile(tr, data, n=DEV_ITERS)
+    return {"split_ms": split, "it_per_s": its, "kernel_ms": kernel_ms,
+            "idle_share": idle}
+
+
+def device_step_against_cpu(opt, what, soft):
+    """The first step of `opt` (B=16, dropout off, the device tier inside)
+    on the card with its draws recorded, then on the CPU port replaying
+    them: the share of rows whose sampled ids are equal (>= AGREE_F32);
+    on the equal rows the losses to STEP_LOSS_RTOL and every gradient leaf
+    by phase 5's rule (soft CIDEr: SOFT_GRAD_REL of the agent's largest
+    entry)."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops import draws
+    from cooperativeimagecaptioning_tpu_torch.training import joint
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    tr = Trainer(opt, dataset=train_dataset(), device=DEVICE, verbose=False)
+    turn = tr.turn
+    data = tr.loader.get_batch("train")
+    batch = tr._prepare_batch(data)
+    hp = tr._hyper()
+    fn = joint.value_and_grad(opt, turn)
+    rec = {k: draws.Record(v) for k, v in tr.iteration_streams().items()}
+    sampled = {}
+    fn(tr.params, batch, rec, hp, None, sampled)
+    taken = {k: [x.cpu() for x in r.taken] for k, r in rec.items()}
+    seq_key = "disc_seq" if soft else "seq"
+    cpu_params = cpu_copy(tr.params)
+
+    def on(b, device):
+        return {k: (None if v is None else v if k == "df_table"
+                    else v.to(device)) for k, v in b.items()}
+
+    def step(params, b, rows):
+        replay = {k: draws.Replay([x[rows] for x in v])
+                  for k, v in taken.items()}
+        s = {}
+        (loss, aux), grads = fn(params, b, replay, hp, None, s)
+        return loss.item(), {k: float(v) for k, v in aux.items()}, grads, \
+            s[seq_key].cpu()
+
+    def rows_of(b, rows):
+        # seq_per_img is 1: the refs' rows are the captions' rows
+        return {k: v if v is None or k == "df_table"
+                else v[rows.to(v.device)] for k, v in b.items()}
+
+    every = torch.arange(opt.batch_size)
+    cpu_batch = on(batch, "cpu")
+    _, _, _, seq_g = step(tr.params, batch, every)
+    _, _, _, seq_c = step(cpu_params, cpu_batch, every)
+    require(torch.equal(seq_g, sampled[seq_key].cpu()),
+            f"{what} B=16: the replayed step differs from the recorded one")
+    equal = (seq_g == seq_c).all(dim=1)
+    share = float(equal.float().mean())
+    rows = torch.nonzero(equal)[:, 0]
+    loss_g, aux_g, grads_g, _ = step(tr.params, rows_of(batch, rows), rows)
+    loss_c, aux_c, grads_c, _ = step(cpu_params, rows_of(cpu_batch, rows),
+                                     rows)
+    rel = max(abs(aux_g[k] - aux_c[k]) / max(abs(aux_c[k]), 1e-12)
+              for k in aux_c if k.startswith("loss"))
+    if soft:
+        top = {}
+        for key, c in leaves(grads_c):
+            a = key.split(".")[0]
+            top[a] = max(top.get(a, 0.0), c.abs().max().item())
+        worst, worst_key = 0.0, ""
+        cpu = dict(leaves(grads_c))
+        for key, g in leaves(grads_g):
+            r = (g.cpu() - cpu[key]).abs().max().item() / (
+                SOFT_GRAD_REL * top[key.split(".")[0]])
+            if r > worst:
+                worst, worst_key = r, key
+    else:
+        worst, worst_key, _ = grads_against(grads_g, grads_c)
+    print(f"  B={opt.batch_size} first step of {what}, card vs cpu port on "
+          f"the same noise: sampled ids of {share * 100:.1f}% of the rows "
+          f"equal (need >= {AGREE_F32 * 100:.0f}%); on those {len(rows)} "
+          f"rows loss {loss_g:.6f} vs {loss_c:.6f}, the loss terms within "
+          f"{rel:.2e} relative (tol {STEP_LOSS_RTOL:.0e}); worst gradient "
+          f"leaf {worst_key} at {worst:.3f} of its tolerance", flush=True)
+    require(share >= AGREE_F32, f"{what} B=16: {share} of rows equal")
+    require(rel <= STEP_LOSS_RTOL, f"{what} B=16: loss terms at {rel}")
+    require(worst <= 1.0, f"{what} B=16: gradient {worst_key} at {worst}")
+    return share, rel
+
+
+def fused_pair(make_opt, what, add, out, key):
+    """FUSED_K single steps and one chunk of FUSED_K on the card from one
+    seed (the feature cache on both): per-step losses, params, skipped
+    counts; launches per replay; then it/s of FUSED_K more steps each, in
+    turns (per-step, fused, fused, per-step)."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    ds = train_dataset()
+    trs = {}
+    for k in (1, FUSED_K):
+        trs[k] = Trainer(make_opt().replace(
+            fused_steps=k, device_feature_cache=1,
+            checkpoint_path=os.path.join(DEV_RUN_DIR, f"fused{k}")),
+            dataset=ds, device=DEVICE, verbose=False)
+        require(trs[k]._fused_gate() == ("off" if k == 1 else None),
+                f"{what}: gate {trs[k]._fused_gate()}")
+    start = trs[1].iteration
+    _dispatch.reset_launches()
+    with fused_cell_switch(True):
+        for tr in trs.values():
+            t0 = time.perf_counter()
+            tr.train(max_iterations=start + FUSED_K)
+            torch.cuda.synchronize()
+            out[f"{key}_first_s_{tr.opt.fused_steps}"] = \
+                time.perf_counter() - t0
+    add(_dispatch.launches())
+    a, b = trs[1], trs[FUSED_K]
+    runner = next(iter(b._fused.values()))
+    require(runner.graph is not None and runner.replays == FUSED_K - 1,
+            f"{what}: {runner.replays} replays of the captured iteration")
+    la = {i: float(v) for i, v in a.loss_history.items()}
+    lb = {i: float(v) for i, v in b.loss_history.items()}
+    require(la.keys() == lb.keys() and len(la) == FUSED_K,
+            f"{what}: histories {sorted(la)} vs {sorted(lb)}")
+    loss_rel = max(abs(lb[i] - la[i]) / abs(la[i]) for i in la)
+    worst, worst_key, max_abs = 0.0, "", 0.0
+    pb = dict(leaves(b.params))
+    for k_, x in leaves(a.params):
+        d = (pb[k_] - x).abs()
+        r = (d / (FUSED_PARAM_ATOL + FUSED_PARAM_RTOL * x.abs())).max().item()
+        max_abs = max(max_abs, d.max().item())
+        if r > worst:
+            worst, worst_key = r, k_
+    skipped = (a.optim.skipped_steps(), b.optim.skipped_steps())
+    per_replay = {k_: v for k_, v in (runner.launches or {}).items() if v}
+    print(f"  {what}: {FUSED_K} single steps vs one fused chunk of "
+          f"{FUSED_K} (one eager warm-up step, the capture, {runner.replays} "
+          f"replays): losses within {loss_rel:.2e} relative (tol "
+          f"{FUSED_LOSS_RTOL:.0e}); params max abs difference {max_abs:.3e},"
+          f" worst leaf {worst_key} at {worst:.3f} of rtol "
+          f"{FUSED_PARAM_RTOL:.0e} / atol {FUSED_PARAM_ATOL:.0e}; skipped "
+          f"steps {skipped[0]} vs {skipped[1]}; launches a replay "
+          f"{per_replay}", flush=True)
+    require(loss_rel <= FUSED_LOSS_RTOL, f"{what}: losses at {loss_rel}")
+    require(worst <= 1.0, f"{what}: param {worst_key} at {worst} of the "
+            f"tolerance")
+    require(skipped[0] == skipped[1], f"{what}: skipped {skipped}")
+    rates = {1: [], FUSED_K: []}
+    with fused_cell_switch(True):
+        for k in (1, FUSED_K, FUSED_K, 1):
+            tr = trs[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train(max_iterations=tr.iteration + FUSED_K)
+            torch.cuda.synchronize()
+            rates[k].append(FUSED_K / (time.perf_counter() - t0))
+    out[key] = {"loss_rel": loss_rel, "param_max_abs": max_abs,
+                "param_worst": worst, "skipped": skipped,
+                "per_replay": per_replay,
+                "per_step_it_per_s": float(np.mean(rates[1])),
+                "fused_it_per_s": float(np.mean(rates[FUSED_K])),
+                "cache_bytes": b.feature_cache_bytes,
+                "cache_build_s": a.feature_cache_seconds}
+    print(f"  {what}: per-step {out[key]['per_step_it_per_s']:.2f} it/s, "
+          f"fused {out[key]['fused_it_per_s']:.2f} it/s (in turns: "
+          + ", ".join(f"{r:.2f}" for r in rates[1] + rates[FUSED_K])
+          + f"); the feature cache {b.feature_cache_bytes / 2 ** 20:.1f} "
+          f"MiB resident, built in {a.feature_cache_seconds:.3f} s (the "
+          f"chunked trainer reuses it)", flush=True)
+    require(b._feat_cache is a._feat_cache, f"{what}: the cache was built "
+            f"twice")
+
+
+def phase_device_rewards(smi, scst_out, listener_out):
+    """Phase 11: (a) the device reward against the host reward on stage A's
+    ids (corpus and cached df), its time and memory; (b) SCST with
+    on_device_cider and (c) joint -o gumbel with soft_cider, beside the
+    host-reward iterations; (d) their B=16 steps against the CPU port; (e)
+    fused chunks of FUSED_K with the feature cache against FUSED_K single
+    steps, phase-2 MLE and joint gumbel with on_device_cider.  Returns the
+    launches of the main path's segments and the numbers."""
+    import shutil
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    t_phase = time.perf_counter()
+    shutil.rmtree(DEV_RUN_DIR, ignore_errors=True)
+    ds = train_dataset()
+    print(f"device rewards, feature cache, fused chunks: att2in2 vocab "
+          f"{VOCAB}, width {WIDTH}, K={K}, L={L}, B={TRAIN_B}, f32", flush=True)
+    launches = {k: 0 for k in _dispatch.KERNELS}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    out = {}
+    reward_agreement(ds, out)
+
+    scst_dev = scst_opt(TRAIN_B).replace(on_device_cider=1,
+                                         checkpoint_path=DEV_RUN_DIR)
+    tr = Trainer(scst_dev, dataset=ds, device=DEVICE, verbose=False)
+    dev = device_tier_runs(tr, "SCST with on_device_cider", add, out,
+                           "scst_device")
+    del tr
+    host = host_reward_profile(ds)
+    out["scst_host"] = host
+    soft_opt = disc_opt("gumbel", TRAIN_B, soft_cider=1, start_from="",
+                        checkpoint_path=DEV_RUN_DIR)
+    tr = Trainer(soft_opt, dataset=ds, device=DEVICE, verbose=False)
+    soft = device_tier_runs(tr, "joint -o gumbel with soft_cider", add, out,
+                            "joint_soft")
+    del tr
+    for name, r, base in (
+            ("SCST, on_device_cider", dev, scst_out),
+            ("SCST, host reward", host, scst_out),
+            ("joint -o gumbel, soft_cider", soft, listener_out)):
+        sp = r["split_ms"]
+        print(f"  {name} ({smi}; B={TRAIN_B}, f32, CIC_FUSED_CELL=1, one "
+              f"fixed host batch, medians of {DEV_ITERS}): "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in sp.items())
+              + f"; {r['it_per_s']:.2f} it/s; one traced iteration "
+              f"{r['kernel_ms']:.2f} ms of kernels, idle share "
+              f"{r['idle_share']:.3f}", flush=True)
+    print(f"  beside phase 7 (host reward): {scst_out['its']:.2f} it/s, "
+          f"reward stage {scst_out['split_ms']['reward']:.2f} ms; phase 8 "
+          f"joint -o gumbel (host reward): {listener_out['joint_its']:.2f} "
+          f"it/s, reward stage "
+          f"{listener_out['joint_split_ms']['reward']:.2f} ms", flush=True)
+
+    with fused_cell_switch(False):
+        out["scst_cpu"] = device_step_against_cpu(
+            scst_opt(SCST_CPU_B, drop_prob_lm=0.0).replace(
+                on_device_cider=1, checkpoint_path=DEV_RUN_DIR),
+            "SCST with on_device_cider", soft=False)
+        out["soft_cpu"] = device_step_against_cpu(
+            disc_opt("gumbel", LISTENER_CPU_B, soft_cider=1, start_from="",
+                     drop_prob_lm=0.0, checkpoint_path=DEV_RUN_DIR),
+            "joint -o gumbel with soft_cider", soft=True)
+
+    fused_pair(lambda: train_opt(TRAIN_B), "phase-2 MLE", add, out,
+               "fused_mle")
+    fused_pair(lambda: disc_opt("gumbel", TRAIN_B, on_device_cider=1,
+                                start_from=""),
+               "joint -o gumbel with on_device_cider", add, out,
+               "fused_joint")
+    torch.cuda.empty_cache()
+    print(f"  device rewards phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, out
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, REPO)
@@ -3780,10 +4252,10 @@ def main():
         eval_launches = phase_eval(smi)
     print(f"elapsed after evaluation: {time.perf_counter() - t_start:.0f} s",
           flush=True)
-    scst_launches, _ = phase_scst(smi, phase5)
+    scst_launches, scst_out = phase_scst(smi, phase5)
     print(f"elapsed after self-critical training: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
-    listener_launches, _ = phase_listener(smi)
+    listener_launches, listener_out = phase_listener(smi)
     print(f"elapsed after the listener: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
     mesh_launches, _ = phase_mesh(smi, errs, times, bounds, shapes)
@@ -3792,6 +4264,9 @@ def main():
     reinforce_launches, _ = phase_reinforce(smi)
     print(f"elapsed after joint REINFORCE: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
+    device_launches, _ = phase_device_rewards(smi, scst_out, listener_out)
+    print(f"elapsed after the device rewards and fused chunks: "
+          f"{time.perf_counter() - t_start:.0f} s", flush=True)
     # each path's counts run from 0 just before it to just after it
     kernels = []
     for k in SOURCES:
@@ -3799,7 +4274,8 @@ def main():
                    "eval": eval_launches[k], "scst": scst_launches[k],
                    "listener": listener_launches[k],
                    "mesh": mesh_launches[k],
-                   "joint_reinforce": reinforce_launches[k]}
+                   "joint_reinforce": reinforce_launches[k],
+                   "device_rewards": device_launches[k]}
         require(sum(by_path.values()) > 0,
                 f"{k} was never launched on a main path")
         kernels.append({

@@ -31,10 +31,15 @@ are split over the data group where they divide it (the last partial batch
 stays whole on every rank), decoding on a model axis goes through the
 vocab-sharded heads, and the decoded ids and the loss sums are gathered over
 the data group in image order before the language metrics, which rank 0
-computes (and writes) and broadcasts.  Not ported yet, each raising
-NotImplementedError that names its ROADMAP.md queue-1 item: the device
-feature cache, and on a mesh the listener's half, the CIDEr-D eval loss
-and the sampled decodes (`sample_max` 0 and 2).
+computes (and writes) and broadcasts.  With a device feature cache
+(`feat_cache`, the Trainer's: every image's features on the device) the
+batches' features are gathered there by their image indices.  The eval
+loss of an on_device_cider or soft_cider run is what the JAX Evaluator
+computes: its eval batches carry no refs, so the CIDEr term takes a zero
+reward (JAX eval_split.py:211-214).  Not ported yet, each raising
+NotImplementedError that names ROADMAP.md queue 1 item [12]: on a mesh the
+listener's half, the CIDEr-D eval loss, the sampled decodes (`sample_max`
+0 and 2) and the feature cache.
 """
 
 from __future__ import annotations
@@ -57,8 +62,6 @@ from cooperativeimagecaptioning_tpu_torch.training import joint
 from cooperativeimagecaptioning_tpu_torch.utils.text import decode_sequence
 from cooperativeimagecaptioning_tpu_torch.utils.tree import detached, to_torch
 
-_JOINT = ("ROADMAP.md queue 1, item 4b: joint training's device feature "
-          "cache and fused steps")
 # the fixed seed of the evaluation's random draws (JAX: PRNGKey(123))
 EVAL_SEED = 123
 # batches whose decoded ids may wait on the device before the loop stops to
@@ -77,10 +80,11 @@ class Evaluator:
                 f"Evaluator: on a device mesh the listener's terms and ranks "
                 f"and the CIDEr-D eval loss are not ported yet "
                 f"({mesh_mod.REST})")
-        if feat_cache is not None:
+        if mesh is not None and feat_cache is not None:
             raise NotImplementedError(
-                f"Evaluator: the device feature cache is not ported yet "
-                f"({_JOINT})")
+                f"Evaluator: the device feature cache on a device mesh is "
+                f"not ported yet ({mesh_mod.REST})")
+        self.feat_cache = feat_cache
         self.mesh = mesh
         if mesh is not None:
             device = mesh.device
@@ -202,13 +206,38 @@ class Evaluator:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device,
                                                             dtype)
 
+    def _cached_feats(self, data, per_image):
+        """(fc, att, att_masks) gathered from the device feature cache by
+        the batch's image indices, att cast back to float32; None without a
+        cache.  per_image=False repeats each image's row to the caption
+        rows of the labels (JAX eval_split.py:129-150)."""
+        if self.feat_cache is None or not data.get("infos"):
+            return None
+        idx = np.asarray([i["ix"] for i in data["infos"]], np.int64)
+        if not per_image and data.get("labels") is not None:
+            rep = data["labels"].shape[0] // max(1, len(idx))
+            if rep > 1:
+                idx = np.repeat(idx, rep)
+        rows = self._put(idx, torch.int64)
+        cache = self.feat_cache
+        fc = cache["fc"].index_select(0, rows)
+        att = am = None
+        if self.opt.use_att and "att" in cache:
+            att = cache["att"].index_select(0, rows).to(torch.float32)
+            am = cache["att_mask"].index_select(0, rows)
+        return fc, att, am
+
     def _batch_arrays(self, data):
         """Host batch dict -> tensors on the device (labels int64, the rest
         float32), one feature row per caption row."""
         batch = {"labels": self._put(data["labels"], torch.int64),
                  "masks": self._put(data["masks"]),
-                 "fc_feats": self._put(data["fc_feats"]),
                  "att_feats": None, "att_masks": None}
+        cached = self._cached_feats(data, per_image=False)
+        if cached is not None:
+            batch["fc_feats"], batch["att_feats"], batch["att_masks"] = cached
+            return batch
+        batch["fc_feats"] = self._put(data["fc_feats"])
         if data.get("att_feats") is not None and self.opt.use_att:
             batch["att_feats"] = self._put(data["att_feats"])
             if data.get("att_masks") is not None:
@@ -217,6 +246,9 @@ class Evaluator:
 
     def _dedup(self, data, loader):
         """One feature row per image (ref: eval_utils.py:163-176)."""
+        cached = self._cached_feats(data, per_image=True)
+        if cached is not None:
+            return cached
         idx = np.arange(loader.batch_size) * loader.seq_per_img
         use_att = self.opt.use_att
         fc = self._put(data["fc_feats"][idx])

@@ -183,9 +183,7 @@ def _batch_size(ctx):
     raise ValueError(f"a context without features: {sorted(ctx)}")
 
 
-def _div(x, t):
-    """x / t with t as a tensor of x's dtype (see relaxations._div)."""
-    return x / torch.as_tensor(t, dtype=x.dtype, device=x.device)
+_div = relaxations._div  # x / t with t as a tensor of x's dtype
 
 
 ONE_HOT_MODES = ("gumbel_st", "multinomial_st", "gumbel_soft",

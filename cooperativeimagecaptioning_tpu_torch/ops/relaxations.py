@@ -22,8 +22,12 @@ import torch
 
 def _div(x, t):
     """x / t with t as a tensor of x's dtype: a CUDA tensor divided by a
-    Python number is a product with the rounded reciprocal."""
-    return x / torch.as_tensor(t, dtype=x.dtype, device=x.device)
+    Python number is a product with the rounded reciprocal.  A number
+    becomes a tensor by a fill on x's device (no host-to-device copy, so a
+    CUDA graph captures it); a staged tensor is used as it is."""
+    if isinstance(t, torch.Tensor):
+        return x / t.to(dtype=x.dtype, device=x.device)
+    return x / torch.full((), t, dtype=x.dtype, device=x.device)
 
 
 def sample_gumbel(rng, shape, device, eps: float = 1e-20):

@@ -97,8 +97,11 @@ def embedding_lookup(table, ids):
     shape -> [*ids.shape, D]."""
     mesh = embed_mesh(table)
     if mesh is None:
-        return table.index_select(0, ids.reshape(-1)).reshape(
-            tuple(ids.shape) + (table.shape[1],))
+        # F.embedding: its backward on the card sums each row's
+        # contributions in a fixed order (index_select's backward adds them
+        # with atomics, in whatever order they land), so two runs of one
+        # step, per-step or replayed from a CUDA graph, give equal bits
+        return torch.nn.functional.embedding(ids, table)
     local, inside = _local_ids(ids.reshape(-1), table.shape[0], mesh)
     rows = torch.where(inside[:, None], table.index_select(0, local),
                        torch.zeros((), dtype=table.dtype,

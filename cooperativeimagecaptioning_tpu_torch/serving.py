@@ -94,9 +94,11 @@ class CaptioningService:
         # artifacts live in run_dir here (a copy: the infos stay as loaded)
         opt = copy.copy(infos["opt"])
         opt.checkpoint_path = run_dir
+        ckpt_mod.refuse_orbax(opt=opt)
         if model_name is None:
             for cand in ("model-best.pth", "alternatingModel.pth",
                          "model.pth"):
+                ckpt_mod.refuse_orbax(os.path.join(run_dir, cand))
                 if os.path.isfile(os.path.join(run_dir, cand)):
                     model_name = cand
                     break

@@ -15,7 +15,10 @@ Per run dir (opt.checkpoint_path):
          keeps a fresh state: its structure check fails);
   infos_<id>.pkl (+ -<iter>, -best), histories_<id>.pkl
       -> the reference's keys.
-The orbax tier is not ported (no orbax on the machines the port runs on).
+The orbax tier is not ported: orbax imports JAX, which the port never
+imports.  A run whose options name it, and a model file that exists only as
+its `.orbax` directory, raise NotImplementedError (`refuse_orbax`) instead
+of training, evaluating or serving from initial weights.
 
 Unpickling a params file runs code from it: load only checkpoints this
 project wrote.
@@ -34,6 +37,33 @@ from cooperativeimagecaptioning_tpu_torch.utils.tree import (
     leaves, to_numpy, to_torch)
 
 
+ORBAX = ("the orbax checkpoint tier is not ported: orbax imports JAX, which "
+         "the port never imports (write the run with checkpoint_backend "
+         "'pth')")
+
+
+def orbax_sibling(path):
+    """The `.orbax` directory the JAX package writes in place of a `.pth`
+    under checkpoint_backend 'orbax' (JAX checkpoint.py:55-61), or None."""
+    if path.endswith(".pth"):
+        opath = path[:-4] + ".orbax"
+        if os.path.isdir(opath):
+            return opath
+    return None
+
+
+def refuse_orbax(path=None, opt=None):
+    """Raise NotImplementedError when `opt` names the orbax backend, or when
+    `path` is missing and its `.orbax` sibling stands in its place."""
+    if opt is not None and \
+            (getattr(opt, "checkpoint_backend", "pth") or "pth") == "orbax":
+        raise NotImplementedError(f"checkpoint_backend 'orbax': {ORBAX}")
+    if path is not None and not os.path.isfile(path):
+        opath = orbax_sibling(path)
+        if opath is not None:
+            raise NotImplementedError(f"{opath}: {ORBAX}")
+
+
 def save_params(params, path):
     """Write a tree of tensors (or numpy arrays) as pickled numpy."""
     with open(path, "wb") as f:
@@ -42,6 +72,7 @@ def save_params(params, path):
 
 def load_params(path, device="cpu"):
     """Read a pickled numpy tree into tensors on `device`."""
+    refuse_orbax(path)
     with open(path, "rb") as f:
         return to_torch(pickle.load(f), device)
 
@@ -50,7 +81,9 @@ def load_params_into(params, path, strict=False):
     """Lenient merge like ref misc/utils.py:89-107 (JAX checkpoint.py:63-105):
     copy the leaves the checkpoint shares with `params` (onto each leaf's
     device and dtype), report the others, keep the rest.  A leaf of another
-    shape is copied flat, as far as it reaches."""
+    shape is copied flat, as far as it reaches.  A `.pth` that exists only
+    as its `.orbax` sibling raises (`refuse_orbax`)."""
+    refuse_orbax(path)
     with open(path, "rb") as f:
         loaded = pickle.load(f)
 
@@ -198,9 +231,10 @@ def adam_state_from_file(st, paths, shapes):
 
 class CheckpointManager:
     """The run dir of one training run (JAX checkpoint.py:124-312, the .pth
-    tier)."""
+    tier; the orbax tier raises, `refuse_orbax`)."""
 
     def __init__(self, opt):
+        refuse_orbax(opt=opt)
         self.opt = opt
         os.makedirs(opt.checkpoint_path, exist_ok=True)
 
@@ -316,6 +350,7 @@ class CheckpointManager:
         name = f"{kind}-{iteration}.pth" if iteration is not None \
             else f"{kind}.pth"
         path = os.path.join(sf, name)
+        refuse_orbax(path)
         if not os.path.isfile(path):
             return params, False
         return load_params_into(params, path), True

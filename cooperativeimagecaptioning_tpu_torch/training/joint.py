@@ -14,8 +14,8 @@ the two identical.
 
 Ported: `Hyper`, `init_params` (the speaker, and the listener when the run
 has one), `speaker_view`, `speaker_template` (the speaker of any run), the
-named random streams, and every turn of the JAX loss but the device reward
-tiers.  On the 'optimizer' and 'speaker' turns: the caption (MLE) loss,
+named random streams, and every turn of the JAX loss.  On the 'optimizer'
+and 'speaker' turns: the caption (MLE) loss,
 the listener's contrastive loss on the GT captions (zeroed on the speaker
 turn), the DISC loss -- REINFORCE over the listener's per-sample retrieval
 loss of a multinomial sample with a greedy, GT or no baseline, or the
@@ -23,16 +23,20 @@ straight-through / partial-sampling relaxation (the relaxed one-hots of
 `decoding.sample`, a one-hot BOS row in front, through the listener; the
 gradient reaches both agents) -- and the self-critical CIDEr-D loss with
 the host reward, which reuses DISC's sample in the 'reinforce', 'gumbel'
-and 'multinomial' modes.  On the 'listener' turn: the listener's
+and 'multinomial' modes, or with the device tiers: on_device_cider scores
+the sample and a greedy decode with the hashed n-gram CIDEr-D inside the
+step (rewards/ngram_device.py), and soft_cider (with a relaxed DISC mode)
+takes the differentiable soft CIDEr of DISC's relaxed rows
+(rewards/cider_diff.py); both read the batch's padded refs ('refs',
+'ref_mask', and 'df_table' for a cached df).  On the 'listener' turn: the listener's
 contrastive loss on captions sampled from the frozen speaker.  The CIDEr
 reward runs in two stages as in the JAX package:
   stage A `sample_for_reward`: sampled and greedy captions, no gradient;
   host: the CIDEr-D reward (rewards/self_critical.py);
   stage B `loss_fn`: re-draws the same sampled trajectory (the same
   streams, reseeded) under autograd and takes the reward as a constant.
-`value_and_grad` and `sampler` stand in for the JAX `make_raw_fns`.  The
-device reward tiers raise NotImplementedError naming their ROADMAP.md
-item.
+With a device tier the step needs no host stage (`needs_reward`).
+`value_and_grad` and `sampler` stand in for the JAX `make_raw_fns`.
 """
 
 from __future__ import annotations
@@ -45,14 +49,16 @@ import torch
 from cooperativeimagecaptioning_tpu_torch import models as model_zoo
 from cooperativeimagecaptioning_tpu_torch.models import vse
 from cooperativeimagecaptioning_tpu_torch.ops import decoding, draws, losses
-from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
+from cooperativeimagecaptioning_tpu_torch.rewards import (
+    cider_diff, ngram_device, self_critical)
 from cooperativeimagecaptioning_tpu_torch.utils.tree import (
     detached, from_leaves, leaves)
 
-_DEVICE_REWARDS = "ROADMAP.md queue 1: device rewards"
 # the named streams of one iteration (JAX joint.py:123-127)
 STREAMS = ("xe", "disc", "cider", "greedy", "listener")
 # retrieval_reward -> the sampling mode of the relaxed DISC branch
+ONE_HOT_MODES = ("gumbel", "multinomial", "gumbel_softmax",
+                 "multinomial_soft")
 _MODE_MAP = {"gumbel": "gumbel_st", "multinomial": "multinomial_st",
              "gumbel_softmax": "gumbel_soft",
              "multinomial_soft": "multinomial_soft"}
@@ -60,7 +66,8 @@ _MODE_MAP = {"gumbel": "gumbel_st", "multinomial": "multinomial_st",
 
 class Hyper(NamedTuple):
     """Per-iteration hyperparameters (JAX joint.py:40-68), as Python floats
-    or 0-d tensors (the schedules of train.py:416-435)."""
+    or 0-d tensors (the schedules of train.py:416-435): a fused chunk
+    stages them as tensors that its CUDA graph reads."""
     ss_prob: Any
     gumbel_temp: Any
     multinomial_temp: Any
@@ -135,17 +142,24 @@ def speaker_view(params, opt):
     return sp
 
 
-def streams(seed: int, device):
+def streams(seed: int, device, gens=None):
     """One draw source per named stream, each on its own torch.Generator on
     `device`, all from one seed: the port's counterpart of splitting one
     PRNG key.  Stage B calls it again with the same seed to re-draw stage
-    A's trajectory."""
+    A's trajectory.  `gens` ({name: generator}, as `generators` makes)
+    reseeds those generators instead of making new ones: a CUDA graph
+    that registered them draws the same noise as fresh ones."""
     out = {}
     for i, name in enumerate(STREAMS):
-        gen = torch.Generator(device=device)
+        gen = torch.Generator(device=device) if gens is None else gens[name]
         gen.manual_seed(seed * len(STREAMS) + i)
         out[name] = draws.Draws(gen)
     return out
+
+
+def generators(device):
+    """{name: torch.Generator on `device`} for `streams(..., gens=)`."""
+    return {name: torch.Generator(device=device) for name in STREAMS}
 
 
 def _streams(rng):
@@ -201,10 +215,26 @@ def _cider_active(opt, turn) -> bool:
     return opt.cider_optimization > 0 and turn != "listener"
 
 
+def uses_soft_cider(opt, turn) -> bool:
+    """Whether the CIDEr term is the soft CIDEr of DISC's relaxed rows
+    (JAX joint.py:374-376)."""
+    return bool(getattr(opt, "soft_cider", 0) and _disc_active(opt, turn)
+                and opt.retrieval_reward in ONE_HOT_MODES)
+
+
+def needs_device_refs(opt) -> bool:
+    """Whether a batch carries the padded refs of a device tier (JAX
+    joint.py:379-381)."""
+    return bool(getattr(opt, "on_device_cider", 0) or
+                getattr(opt, "soft_cider", 0))
+
+
 def needs_reward(opt, turn) -> bool:
-    """Whether the host reward stage runs (JAX joint.py:384-388; the
-    device tiers are not ported, check_ported)."""
-    return _cider_active(opt, turn)
+    """Whether the host reward stage runs: the CIDEr term is active and no
+    device tier scores it (JAX joint.py:384-388)."""
+    return (_cider_active(opt, turn)
+            and not getattr(opt, "on_device_cider", 0)
+            and not uses_soft_cider(opt, turn))
 
 
 def check_ported(opt, turn):
@@ -213,11 +243,6 @@ def check_ported(opt, turn):
     if _disc_active(opt, turn) and opt.retrieval_reward != "reinforce" and \
             opt.retrieval_reward not in _MODE_MAP:
         raise ValueError(f"unknown retrieval_reward {opt.retrieval_reward!r}")
-    if _cider_active(opt, turn) and (getattr(opt, "on_device_cider", 0) or
-                                     getattr(opt, "soft_cider", 0)):
-        raise NotImplementedError(
-            f"on_device_cider / soft_cider: the device CIDEr-D tiers are not "
-            f"ported yet ({_DEVICE_REWARDS}); the host reward is")
     if turn not in ("optimizer", "speaker", "listener"):
         raise ValueError(f"unknown turn {turn!r}")
 
@@ -283,8 +308,16 @@ def _listener_loss(params, opt, hp, fc, seqs, masks, whole_batch=False):
     listener = vse.VSEModel(params["listener"], opt)
     return listener(fc, None, seqs, masks, whole_batch=whole_batch,
                     only_one_retrieval=opt.only_one_retrieval,
-                    max_violation_w=torch.as_tensor(
-                        hp.vse_max_w, dtype=torch.float32, device=fc.device))
+                    max_violation_w=_scalar(hp.vse_max_w, fc.device))
+
+
+def _scalar(x, device):
+    """x as a 0-d float32 tensor on `device`: a staged tensor as it is, a
+    Python number by a fill (no host-to-device copy, so a CUDA graph can
+    capture it)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
 
 
 def _sampled_captions(seq, vocab_size):
@@ -353,6 +386,27 @@ def _reinforce_disc(modules, spk, ctx, r, params, opt, hp, batch, kw):
     return out, out_masks, sc_loss, aux
 
 
+def _device_reward(modules, params, opt, batch, ctx, r, kw, seq, aux):
+    """The on-device CIDEr-D reward of the sampled ids `seq` (JAX
+    joint.py:318-338): a greedy decode from the 'greedy' stream, without
+    autograd on detached views (the heads refuse inputs that need one; JAX
+    stop-gradients it), both scored by the hashed n-gram tier against the
+    batch's padded refs.  Returns the reward (cider(sample) -
+    cider(greedy), or the sample's own score under use_gen_cider_scores)
+    and adds avg_reward and cider_greedy to `aux`, as device scalars."""
+    with torch.no_grad():
+        gspk = modules["speaker"](detached(speaker_view(params, opt)))
+        greedy = decoding.sample(gspk, detached(ctx), opt.seq_length,
+                                 r["greedy"], mode="greedy", **kw).seq
+        scores, cider_gen, cider_greedy = \
+            ngram_device.ciderd_rewards_device(
+                seq.detach(), greedy, batch["refs"], batch["ref_mask"],
+                seq_per_img=opt.seq_per_img, df_table=batch.get("df_table"))
+    aux["avg_reward"] = scores.mean()
+    aux["cider_greedy"] = cider_greedy
+    return cider_gen if opt.use_gen_cider_scores else scores
+
+
 def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
             train=True, sampled=None, rows=None):
     """Stage B: total loss and aux dict (JAX joint.py:181-345) for the turns
@@ -363,7 +417,10 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
     'labels' [B, L+2], 'masks' [B, L+2]); rng: the named streams
     (`streams`), or one torch.Generator / draw source for all of them;
     reward: [B], the CIDEr coefficient from the host (cider(sample) -
-    cider(greedy), or the raw scores under use_gen_cider_scores).
+    cider(greedy), or the raw scores under use_gen_cider_scores); with
+    on_device_cider and 'refs' in the batch the step computes it itself,
+    and with soft_cider the soft CIDEr replaces it (batch keys 'refs' [n_img,
+    R, L], 'ref_mask' [n_img, R], optionally 'df_table').
     `sampled`, a dict when given, receives the CIDEr branch's sampled ids
     under 'seq', DISC's under 'disc_seq' and the listener turn's under
     'listener_seq'.  `rows`, the data group of a
@@ -411,6 +468,7 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
         aux["vse_contrastive"] = loss_vse
 
     gen = None  # (seq, logprobs, masks) of the sample the CIDEr loss takes
+    soft = None  # the relaxed rows of the DISC sample (soft CIDEr)
     # ---- DISC, REINFORCE (ref :226-332) ----
     if _disc_active(opt, turn) and opt.retrieval_reward == "reinforce":
         out, out_masks, sc_loss, disc_aux = _reinforce_disc(
@@ -432,9 +490,18 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
         aux["retrieval_loss"] = retrieval_loss
         sampled["disc_seq"] = out.seq
         gen = (out.seq, out.logprobs, out_masks)
+        soft = out.soft
 
     # ---- CIDEr-D self-critical (ref :489-503) ----
     if _cider_active(opt, turn):
+        if uses_soft_cider(opt, turn) and "refs" in batch:
+            # the differentiable soft CIDEr of DISC's relaxed rows, in
+            # place of the REINFORCE term (JAX joint.py:306-317)
+            loss_cider = cider_diff.soft_cider_loss(
+                soft, batch["refs"], batch["ref_mask"])
+            loss = loss + hp.cider_weight * loss_cider
+            aux["loss_cider"] = loss_cider
+            return loss, aux
         # the sampled trajectory of stage A, the reward a constant
         if not _cider_reuses_disc(opt, turn):
             out = decoding.sample(spk, ctx, opt.seq_length, r["cider"],
@@ -442,6 +509,9 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
             gen = (out.seq, out.logprobs, losses.masks_from_seq(out.seq))
         seq, logprobs, gen_masks = gen
         sampled["seq"] = seq
+        if getattr(opt, "on_device_cider", 0) and "refs" in batch:
+            reward = _device_reward(modules, params, opt, batch, ctx, r,
+                                    kw, seq, aux)
         if reward is None:
             reward = torch.zeros(seq.shape[0], dtype=torch.float32,
                                  device=seq.device)

@@ -34,10 +34,22 @@ batch and its slices of the vocabulary matrices, and steps through
 dir, with the slices gathered, so it is the file set of a single-device
 run and either resumes the other.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-queue-1 item: the rest of a mesh run (SCST, the listener, att_bn's batch
-statistics), fused multi-step chunks (`fused_steps > 1`), the device
-feature cache, and the device reward tiers.
+The device tiers of the CIDEr-D reward (on_device_cider: the hashed n-gram
+CIDEr-D inside the step; soft_cider: the differentiable soft CIDEr) need
+no host stage: each batch carries its refs padded to the dataset's largest
+ref count, so every batch has one shape, and a cached df (cached_tokens
+other than 'corpus') is loaded once as a device `DfTable`.  With
+device_feature_cache every image's fc / att features sit on the device
+(`_build_feature_cache`, f32 or bf16) and batches are gathered there by
+their image indices.  With fused_steps K > 1 (and the cache) up to K
+iterations are staged on the host and run as one chunk (`train_chunk`): on
+the card one iteration captured as a CUDA graph and replayed per step
+(training/fused.py); `_fused_gate` names what keeps a configuration on the
+per-step path, as the JAX package's gate does.
+
+Not ported yet, each raising NotImplementedError that names ROADMAP.md
+queue 1 item [12]: the rest of a mesh run (SCST and the device rewards, the
+listener, att_bn's batch statistics, the feature cache and fused chunks).
 """
 
 from __future__ import annotations
@@ -58,17 +70,26 @@ from cooperativeimagecaptioning_tpu_torch.parallel import collectives
 from cooperativeimagecaptioning_tpu_torch.parallel import mesh as mesh_mod
 from cooperativeimagecaptioning_tpu_torch.parallel.train_step import (
     make_distributed_train_step)
-from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
+from cooperativeimagecaptioning_tpu_torch.rewards import (
+    ngram_device, self_critical)
 from cooperativeimagecaptioning_tpu_torch.training import audit
 from cooperativeimagecaptioning_tpu_torch.training import checkpoint as ck
-from cooperativeimagecaptioning_tpu_torch.training import joint, schedules
+from cooperativeimagecaptioning_tpu_torch.training import (
+    fused, joint, schedules)
 from cooperativeimagecaptioning_tpu_torch.training.optim import (
     OptimizerManager, agents_to_update, effective_turns)
 from cooperativeimagecaptioning_tpu_torch.utils import profiling
 from cooperativeimagecaptioning_tpu_torch.utils.tree import trainable
 
-_JOINT = ("ROADMAP.md queue 1, item 4b: joint training's device feature "
-          "cache and fused steps")
+def cache_bytes(cache):
+    """Bytes of the tensors of a feature cache."""
+    return sum(v.numel() * v.element_size() for k, v in cache.items()
+               if not k.startswith("_"))
+
+
+class _Overflow(Exception):
+    """An image has more att slots than max_att_len (the cache then pads
+    to the largest image)."""
 
 
 def mesh_unported(opt):
@@ -79,9 +100,14 @@ def mesh_unported(opt):
         what.append("a listener (phase 1 and joint training: the listener's "
                     "in-batch contrastive matrix over the data group)")
     if opt.cider_optimization > 0:
-        what.append("self-critical CIDEr-D (the reward over gathered ids)")
+        what.append("self-critical CIDEr-D, with the host reward or the "
+                    "device tiers (the reward over gathered ids)")
     if getattr(opt, "use_bn", 0):
         what.append("att_bn (batch statistics over the data group)")
+    if getattr(opt, "device_feature_cache", 0):
+        what.append("the device feature cache")
+    if int(getattr(opt, "fused_steps", 1) or 1) > 1:
+        what.append("fused chunks (fused_steps > 1)")
     return f"on a device mesh, {'; '.join(what)} ({mesh_mod.REST})" \
         if what else None
 
@@ -93,21 +119,14 @@ def unported(opt):
         why = mesh_unported(opt)
         if why:
             return why
-    if int(getattr(opt, "fused_steps", 1) or 1) > 1:
-        return f"fused_steps > 1 (a CUDA graph of K steps; {_JOINT})"
-    if getattr(opt, "device_feature_cache", 0):
-        return f"device_feature_cache ({_JOINT})"
-    if opt.cider_optimization > 0 and (getattr(opt, "on_device_cider", 0)
-                                       or getattr(opt, "soft_cider", 0)):
-        return ("on_device_cider / soft_cider (ROADMAP.md queue 1: device "
-                "rewards)")
     return None
 
 
 class Trainer:
     """Training on one device: phase 1 (the listener), phase 2 (MLE), and
-    phase 3 (self-critical CIDEr-D, the relaxed and the REINFORCE DISC
-    loss, alternating turns); phase 2 also as one rank of a mesh
+    phase 3 (self-critical CIDEr-D with the host or a device reward, the
+    relaxed and the REINFORCE DISC loss, alternating turns), step by step
+    or in fused chunks; phase 2 also as one rank of a mesh
     (`self.mesh`)."""
 
     def __init__(self, opt, dataset=None, rng_seed=None, verbose=True,
@@ -219,7 +238,144 @@ class Trainer:
         self.last_reward_seqs = None
         if opt.cider_optimization > 0:
             self_critical.init_scorer(opt.cached_tokens)
+        # the cached-df tier of the device reward: df lookups linear in B
+        # (ref non-corpus mode, ciderD_scorer.py:62-75; JAX loop.py:166-180)
+        self._df_table = None
+        if joint.needs_device_refs(opt) and opt.cached_tokens != "corpus":
+            self._df_table = ngram_device.load_df_table(
+                f"data/{opt.cached_tokens}.p", self.device)
+        # every batch's refs padded to the dataset's largest ref count, so
+        # that every batch has one shape (one graph serves them all)
+        ds = self.loader.ds
+        self._max_refs = int(np.max(np.asarray(ds.label_end_ix)
+                                    - np.asarray(ds.label_start_ix) + 1)) \
+            if getattr(ds, "label", None) is not None else 0
+        self._feat_cache = None
+        # seconds this Trainer spent building the cache (0 when it reuses
+        # the dataset's)
+        self.feature_cache_seconds = 0.0
+        if getattr(opt, "device_feature_cache", 0):
+            self._feat_cache = self._shared_feature_cache()
+            self.loader.set_feature_free("train")
+        # (turn, use_ss) -> fused.FusedStep; the one-time gate notice
+        self._fused = {}
+        self._fused_notice = None
         self._update_schedules()
+
+    # -- the device feature cache (JAX loop.py:217-310) -------------------------
+    def _shared_feature_cache(self):
+        """The dataset's device cache when an earlier Trainer of this
+        process built one on this device with the same att transforms (it
+        rides the dataset object, so multi-stage protocols copy the
+        features once), else a new one; a phase-1 cache without att is
+        extended with it."""
+        ds = self.loader.ds
+        cache = getattr(ds, "_device_feat_cache", None)
+        if cache is not None and (cache["fc"].device != self.device or (
+                self.opt.use_att and "att" in cache
+                and cache.get("_att_sig") != self._att_cache_sig())):
+            # another device, or att cached under other transforms or
+            # another storage dtype: keep nothing of another device, and
+            # drop another stage's att block
+            cache = None if cache["fc"].device != self.device else {
+                k: v for k, v in cache.items()
+                if k not in ("att", "att_mask", "_att_sig")}
+        if cache is None or (self.opt.use_att and "att" not in cache):
+            cache = self._build_feature_cache(base=cache)
+            try:
+                ds._device_feat_cache = cache
+            except AttributeError:
+                pass
+        return cache
+
+    def _put_chunked(self, rows, shape, dtype, chunk_bytes=64 << 20):
+        """A [N, ...] tensor of `dtype` on the device, filled from `rows(i,
+        j)` (numpy float32 rows i..j) in chunks of about `chunk_bytes`: one
+        preallocated buffer, so the peak is N plus one chunk, on the host
+        and on the device; a bf16 buffer rounds each chunk on the device."""
+        buf = torch.empty(shape, dtype=dtype, device=self.device)
+        row_bytes = max(1, int(np.prod(shape[1:])) * 4)
+        step = max(1, chunk_bytes // row_bytes)
+        for i in range(0, shape[0], step):
+            j = min(shape[0], i + step)
+            buf[i:j].copy_(torch.from_numpy(
+                np.ascontiguousarray(rows(i, j), np.float32)))
+        return buf
+
+    def _att_cache_sig(self):
+        """What the att block's content depends on: the opt-gated
+        transforms applied when it was built, and the storage dtype."""
+        o = self.opt
+        return (int(getattr(o, "norm_att_feat", 0)),
+                int(getattr(o, "use_box", 0)),
+                int(getattr(o, "norm_box_feat", 0)),
+                getattr(o, "feature_cache_dtype", "f32"))
+
+    def _build_feature_cache(self, base=None):
+        """{'fc' [N, F] f32, 'att' [N, K, D] (f32, or bf16 with
+        feature_cache_dtype 'bf16'), 'att_mask' [N, K] f32} for every image
+        of the dataset; K is max_att_len, or the largest image's slots
+        (also where an image outgrows max_att_len, as the streaming
+        loader's batches grow)."""
+        ds, loader = self.loader.ds, self.loader
+        N = ds.num_images()
+        t0 = time.perf_counter()
+        if base is not None and "fc" in base:
+            cache = {k: v for k, v in base.items() if k != "_att_sig"}
+        else:
+            fc = np.stack([np.asarray(ds.get_fc(ix), np.float32)
+                           for ix in range(N)])
+            cache = {"fc": self._put_chunked(lambda i, j: fc[i:j], fc.shape,
+                                             torch.float32)}
+        if self.opt.use_att and "att" not in cache:
+            store = torch.bfloat16 if self.opt.feature_cache_dtype == \
+                "bf16" else torch.float32
+            atts = None
+            K = loader.max_att_len
+            first = np.asarray(loader.get_transformed_att(0), np.float32)
+            D = first.shape[1]
+            if not K:
+                atts = [np.asarray(loader.get_transformed_att(ix), np.float32)
+                        for ix in range(N)]
+                K = max(a.shape[0] for a in atts)
+            lens = np.zeros((N,), np.int64)
+
+            def rows(i, j):
+                out = np.zeros((j - i, K, D), np.float32)
+                for r in range(i, j):
+                    a = atts[r] if atts is not None else np.asarray(
+                        loader.get_transformed_att(r), np.float32)
+                    if a.shape[0] > K:
+                        raise _Overflow()
+                    out[r - i, :a.shape[0]] = a
+                    lens[r] = a.shape[0]
+                return out
+
+            try:
+                att = self._put_chunked(rows, (N, K, D), store)
+            except _Overflow:
+                # an image outgrows max_att_len: K = the largest image
+                atts = [np.asarray(loader.get_transformed_att(ix), np.float32)
+                        for ix in range(N)]
+                K = max(K, max(a.shape[0] for a in atts))
+                att = self._put_chunked(rows, (N, K, D), store)
+            cache["att"] = att
+            mask = (np.arange(K)[None, :] < lens[:, None]).astype(np.float32)
+            cache["att_mask"] = torch.from_numpy(mask).to(self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.feature_cache_seconds = time.perf_counter() - t0
+        if "att" in cache:
+            cache["_att_sig"] = self._att_cache_sig()
+        if self.verbose:
+            print(f"device feature cache resident: {N} images, "
+                  f"{cache_bytes(cache) / 2 ** 30:.2f} GB")
+        return cache
+
+    @property
+    def feature_cache_bytes(self):
+        """Bytes the device feature cache holds (0 without one)."""
+        return cache_bytes(self._feat_cache or {})
 
     def _bootstrap(self, params):
         """(params, resumed) after the JAX package's bootstrap cascade (JAX
@@ -281,22 +437,58 @@ class Trainer:
             vse_max_w=schedules.vse_max_violation_w(self.opt,
                                                     self.iteration))
 
+    def _cache_rows(self, infos):
+        """The feature cache's row of each caption row of a batch: its
+        image's index, repeated seq_per_img times (the loader's layout)."""
+        return np.repeat(np.asarray([i["ix"] for i in infos], np.int64),
+                         self.loader.seq_per_img)
+
+    def _gather_cached(self, rows):
+        """(fc, att, att_masks) of the cache's `rows` (a tensor on the
+        device), att cast back to float32."""
+        cache = self._feat_cache
+        fc = cache["fc"].index_select(0, rows)
+        att = am = None
+        if self.opt.use_att and "att" in cache:
+            att = cache["att"].index_select(0, rows).to(torch.float32)
+            am = cache["att_mask"].index_select(0, rows)
+        return fc, att, am
+
+    def _padded_refs(self, gts):
+        """(refs [n_img, R, L] int32, ref_mask [n_img, R]) numpy, padded to
+        the dataset's largest ref count."""
+        return ngram_device.pad_gts_np(gts, max_refs=self._max_refs or None,
+                                       seq_length=self.loader.seq_length)
+
     def _prepare_batch(self, data):
         """Host batch dict -> tensors on the device (labels int64, the rest
-        float32)."""
+        float32): the features from the device cache when there is one,
+        and the padded refs of a device reward tier (JAX loop.py:351-378)."""
         def put(x, dtype):
             return torch.from_numpy(np.ascontiguousarray(x)).to(
                 self.device, dtype)
 
         f32 = torch.float32
-        batch = {"fc_feats": put(data["fc_feats"], f32),
-                 "labels": put(data["labels"], torch.int64),
+        batch = {"labels": put(data["labels"], torch.int64),
                  "masks": put(data["masks"], f32),
                  "att_feats": None, "att_masks": None}
-        if self.opt.use_att and data.get("att_feats") is not None:
-            batch["att_feats"] = put(data["att_feats"], f32)
-            if data.get("att_masks") is not None:
-                batch["att_masks"] = put(data["att_masks"], f32)
+        if self._feat_cache is not None and data.get("infos"):
+            batch["fc_feats"], batch["att_feats"], batch["att_masks"] = \
+                self._gather_cached(put(self._cache_rows(data["infos"]),
+                                        torch.int64))
+        else:
+            batch["fc_feats"] = put(data["fc_feats"], f32)
+            if self.opt.use_att and data.get("att_feats") is not None:
+                batch["att_feats"] = put(data["att_feats"], f32)
+                if data.get("att_masks") is not None:
+                    batch["att_masks"] = put(data["att_masks"], f32)
+        if joint.needs_device_refs(self.opt) and \
+                self.opt.cider_optimization > 0 and data.get("gts"):
+            refs, ref_mask = self._padded_refs(data["gts"])
+            batch["refs"] = put(refs, torch.int64)
+            batch["ref_mask"] = put(ref_mask, f32)
+            if self._df_table is not None:
+                batch["df_table"] = self._df_table
         return batch
 
     def iteration_streams(self):
@@ -384,13 +576,164 @@ class Trainer:
             self._update_schedules()
         return loss_dict, turn, data
 
+    # -- fused chunks (JAX loop.py:518-720) ------------------------------------
+    def _fused_gate(self):
+        """Why a fused chunk cannot run (None = it can), JAX loop.py:525-552:
+        each reason is a per-step host interaction a captured iteration
+        cannot hold -- the host CIDEr reward, a turn flip per iteration,
+        the BN running statistics, the audit, the profiler window -- or a
+        missing feature cache."""
+        opt = self.opt
+        if int(getattr(opt, "fused_steps", 1) or 1) <= 1:
+            return "off"
+        if opt.is_alternating and len(self.turns) != 1:
+            return "reinforce turn alternation changes the step graph " \
+                   "per iteration"
+        turn = self.turns[0] if opt.is_alternating else "optimizer"
+        if joint.needs_reward(opt, turn):
+            return "host-side reward stage (use --on_device_cider 1)"
+        if getattr(opt, "use_bn", 0):
+            return "BN running-stat tracking updates per step on host"
+        if getattr(opt, "audit_grad_isolation", 0):
+            return "grad-isolation audit host-syncs per step"
+        if getattr(opt, "profile_dir", ""):
+            return "profiler window needs per-step boundaries"
+        if self._feat_cache is None:
+            return "requires --device_feature_cache 1 (per-step feature " \
+                   "streaming would dominate the fused step)"
+        if opt.use_att and "att" not in self._feat_cache:
+            return "att features missing from the device cache"
+        return None
+
+    def _hyper_row(self, epoch, g_temp, iteration):
+        """One step's Hyper values as host floats (field order of
+        joint.Hyper), a function of (epoch, g_temp, iteration) alone, as
+        _update_schedules and train_iteration compute them (JAX
+        loop.py:554-566)."""
+        opt = self.opt
+        pg, pm = schedules.soft_sampling_probs(opt, epoch, self.epoch_start)
+        return (schedules.scheduled_sampling_prob(opt, epoch), g_temp,
+                opt.multinomial_temp, pg, pm, opt.caption_loss_weight,
+                opt.vse_loss_weight,
+                schedules.retrieval_reward_weight(opt, epoch),
+                opt.cider_optimization,
+                schedules.vse_max_violation_w(opt, iteration))
+
+    def _stage_chunk(self, max_steps):
+        """Fetch up to max_steps train batches and every step's schedule
+        values on the host (JAX loop.py:568-621), packed one row per step
+        (fused.RowLayout).  Stops right after a wrap that reaches
+        max_epochs, and before a step whose scheduled sampling switches on
+        or off (a captured iteration draws its noise or not)."""
+        opt, loader = self.opt, self.loader
+        turn = self.turns[0] if opt.is_alternating else "optimizer"
+        want_refs = joint.needs_device_refs(opt) and \
+            joint._cider_active(opt, turn)
+        steps, lrs, ss = [], [], []
+        epoch, g_temp, wraps = self.epoch, self.gumbel_temp, 0
+        last_data, use_ss = None, None
+        for j in range(max_steps):
+            it_j = self.iteration + j
+            # train_iteration's order: the anneal on the iteration's
+            # number, the schedules of the current epoch
+            g_next = schedules.anneal_gumbel_temp(g_temp, opt, it_j) \
+                if schedules.should_anneal(opt, it_j) else g_temp
+            hp = self._hyper_row(epoch, g_next, it_j)
+            if use_ss is None:
+                use_ss = hp[0] > 0.0
+            elif (hp[0] > 0.0) != use_ss:
+                break
+            g_temp = g_next
+            data = loader.get_batch("train")
+            last_data = data
+            step = {"idx": self._cache_rows(data["infos"]),
+                    "labels": data["labels"], "masks": data["masks"],
+                    "lr": [schedules.current_lr(opt, epoch)], "hp": hp,
+                    "seed": self._seed * 1_000_003 + it_j}
+            if want_refs and data.get("gts"):
+                step["refs"], step["ref_mask"] = self._padded_refs(
+                    data["gts"])
+            steps.append(step)
+            lrs.append(step["lr"][0])
+            ss.append(hp[0])
+            if data["bounds"]["wrapped"]:
+                epoch += 1
+                wraps += 1
+                if epoch >= opt.max_epochs != -1:
+                    break
+        first = steps[0]
+        layout = fused.RowLayout(
+            [(k, np.shape(first[k])) for k in
+             ("idx", "labels", "masks", "lr", "hp", "refs", "ref_mask")
+             if k in first])
+        rows = np.stack([layout.pack(st) for st in steps])
+        return {"n_steps": len(steps), "turn": turn, "wraps": wraps,
+                "g_temp": g_temp, "last_data": last_data, "lrs": lrs,
+                "ss": ss, "use_ss": use_ss, "layout": layout, "rows": rows,
+                "seeds": [st["seed"] for st in steps]}
+
+    def _fused_step(self, turn, use_ss, layout):
+        """The captured iteration of (turn, use_ss), made at first use."""
+        key = (turn, use_ss)
+        step = self._fused.get(key)
+        if step is None or step.layout.width != layout.width:
+            step = fused.FusedStep(self, turn, use_ss, layout)
+            self._fused[key] = step
+        return step
+
+    def train_chunk(self, max_steps):
+        """Up to max_steps iterations as one fused chunk (JAX
+        loop.py:677-720), with the per-step path's semantics: the same
+        streams, schedule values, guarded updates and histories cadence.
+        The staged rows reach the device in one copy.  Returns (the last
+        step's loss dict, turn, last data, steps run)."""
+        opt = self.opt
+        st = self._stage_chunk(max_steps)
+        K, turn = st["n_steps"], st["turn"]
+        rows = torch.from_numpy(st["rows"]).to(self.device)
+        runner = self._fused_step(turn, st["use_ss"], st["layout"])
+        losses, auxs, oks = runner.run(rows, st["seeds"])
+        self.optim.last_step_ok = oks[-1]
+        for j in range(K):
+            it_j = self.iteration + j + 1
+            if it_j % opt.losses_log_every == 0:
+                self.loss_history[it_j] = losses[j]
+                self.lr_history[it_j] = st["lrs"][j]
+                self.ss_prob_history[it_j] = st["ss"][j]
+        self.iteration += K
+        self.epoch += st["wraps"]
+        self.gumbel_temp = st["g_temp"]
+        self._update_schedules()
+        loss_dict = {k: v[-1] for k, v in auxs.items()}
+        loss_dict["loss"] = losses[-1]
+        return loss_dict, turn, st["last_data"], K
+
+    def _chunk_size(self, max_iterations):
+        """The next chunk's steps: fused_steps, cut at the next checkpoint
+        and at max_iterations; 1 before a forced first checkpoint (JAX
+        loop.py:817-850)."""
+        opt = self.opt
+        chunk = min(int(opt.fused_steps), opt.save_checkpoint_every -
+                    (self.iteration % opt.save_checkpoint_every))
+        if max_iterations is not None:
+            chunk = min(chunk, max_iterations - self.iteration)
+        if opt.start_with_checkpoint:
+            chunk = 1
+        return max(1, chunk)
+
     # -- checkpoint ops (ref train.py:438-470) --------------------------------
     def evaluator(self):
+        """The evaluator of checkpoint_operations; it gathers val and test
+        features from the device cache too (it covers every image)."""
         if self._evaluator is None:
             from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split \
                 import Evaluator
             self._evaluator = Evaluator(self.opt, mesh=self.mesh,
+                                        feat_cache=self._feat_cache,
                                         device=self.device)
+            if self._feat_cache is not None:
+                for split in ("val", "test"):
+                    self.loader.set_feature_free(split)
         return self._evaluator
 
     def saved_state(self):
@@ -504,7 +847,9 @@ class Trainer:
     # -- full loop (ref: train.py:473-562) --------------------------------------
     def train(self, max_iterations=None):
         """Iterations until max_iterations or max_epochs, checkpointing
-        every save_checkpoint_every.  With profile_dir, the iterations
+        every save_checkpoint_every; with fused_steps > 1 and nothing in
+        the way (`_fused_gate`) in chunks that never cross a checkpoint,
+        max_iterations or max_epochs.  With profile_dir, the iterations
         [profile_start, profile_start + profile_steps) run inside a
         torch.profiler trace, each under a 'train_iteration N' range; the
         trace opens and closes at iteration boundaries (JAX
@@ -513,6 +858,12 @@ class Trainer:
         opt = self.opt
         profile_dir = getattr(opt, "profile_dir", "")
         window, stop_at = None, None
+        gate = self._fused_gate()
+        if gate not in (None, "off") and self.verbose and \
+                self._fused_notice != gate:
+            print(f"fused_steps={opt.fused_steps} requested but falling back "
+                  f"to per-step execution: {gate}")
+            self._fused_notice = gate
         try:
             while True:
                 if profile_dir and window is None and \
@@ -523,16 +874,25 @@ class Trainer:
                 region = contextlib.nullcontext() if window is None else \
                     profiling.annotate(f"train_iteration {self.iteration}")
                 with region:
-                    loss_dict, turn, _ = self.train_iteration()
+                    if gate is None:
+                        loss_dict, turn, _, n_steps = self.train_chunk(
+                            self._chunk_size(max_iterations))
+                    else:
+                        loss_dict, turn, _ = self.train_iteration()
+                        n_steps = 1
                 if window is not None and self.iteration >= stop_at:
                     self.last_trace = window.stop()
                     window = None
                 if self.verbose:
+                    # one host sync per chunk, from its last step
                     dur = time.time() - start
                     msg = " ".join(f"{k} = {round(float(v), 2)}"
                                    for k, v in sorted(loss_dict.items()))
-                    print(f"iter {self.iteration} (epoch {self.epoch}) "
-                          f"[{turn}] {msg} time/batch = {dur:.2f}s")
+                    span = f"iter {self.iteration}" if n_steps == 1 else \
+                        f"iter {self.iteration - n_steps + 1}-" \
+                        f"{self.iteration}"
+                    print(f"{span} (epoch {self.epoch}) [{turn}] {msg} "
+                          f"time/batch = {dur / n_steps:.2f}s")
                 if self.iteration % opt.save_checkpoint_every == 0 or \
                         opt.start_with_checkpoint:
                     self.checkpoint_operations()

@@ -60,7 +60,10 @@ def guarded_update(opt, params, grads, states, agents, lr, group=None):
     """Apply one guarded Adam step to each agent in `agents`, in place.
 
     A NaN or inf in any gradient of an updated agent leaves params and
-    moments (and the step count) untouched.  With `group` (a mesh run's
+    moments (and the step count) untouched.  `lr` is a Python float, or a
+    0-d tensor on the params' device (a fused chunk's staged rate, which
+    its CUDA graph reads); params, moments and counts are written in place,
+    so a graph that captured the update keeps its buffers.  With `group` (a mesh run's
     world) the flag is the MIN over the group, so every rank takes or skips
     the step together, as the JAX package's single GSPMD flag does
     (optim.py:102-123).  Returns `ok`, a 0-d bool tensor on the device."""
@@ -76,8 +79,8 @@ def guarded_update(opt, params, grads, states, agents, lr, group=None):
             count = st["count"] + 1
             # bias corrections in float32, as optax computes decay**count
             c = count.to(torch.float32)
-            bc1 = 1 - torch.pow(torch.tensor(b1, device=c.device), c)
-            bc2 = 1 - torch.pow(torch.tensor(b2, device=c.device), c)
+            bc1 = 1 - torch.pow(torch.full((), b1, device=c.device), c)
+            bc2 = 1 - torch.pow(torch.full((), b2, device=c.device), c)
             params_of = [p for _, p in leaves(params[agent])]
             for p, g, mu, nu in zip(params_of, grads_of[agent], st["mu"],
                                     st["nu"]):
@@ -90,7 +93,8 @@ def guarded_update(opt, params, grads, states, agents, lr, group=None):
                 p.copy_(torch.where(ok, p + (-lr) * upd, p))
                 mu.copy_(torch.where(ok, mu_new, mu))
                 nu.copy_(torch.where(ok, nu_new, nu))
-            st["count"] = torch.where(ok, count, st["count"])
+            # in place: a captured graph holds this tensor's address
+            st["count"].copy_(torch.where(ok, count, st["count"]))
     return ok
 
 

@@ -312,8 +312,9 @@ def test_evalrank_without_a_listener_is_empty():
     assert ev.evalrank(tparams, tloader, {"split": "val"}) == {}
 
 
-# the eval loss of options the port does not train yet
-UNPORTED_LOSS = {
+# the eval loss of the device reward tiers (each raised here until the tiers
+# were ported)
+DEVICE_TIER_LOSS = {
     "device_reward_loss": dict(cider_optimization=1, on_device_cider=1),
     "soft_cider_loss": dict(cider_optimization=1, soft_cider=1),
 }
@@ -329,24 +330,25 @@ UNPORTED_ON_A_MESH = dict(cider_optimization=1)
 def test_unported_branches_name_their_roadmap_item(tmp_path, monkeypatch,
                                                    what, match):
     """What the evaluator does not run yet raises, naming its ROADMAP item.
-    The eval loss of a reinforce run raised here until REINFORCE DISC was
-    ported (its id keeps the item it matched); it now runs and equals the
+    The eval loss of a reinforce run, the device feature cache and the eval
+    loss of the device reward tiers raised here until they were ported
+    (their ids keep the items they matched); they now run and equal the
     JAX Evaluator's."""
     if what == "reinforce_loss":
         assert_reinforce_eval_matches_jax(monkeypatch, "greedy")
         return
+    if what == "feat_cache":
+        assert_cached_eval_matches_jax()
+        return
+    if what in DEVICE_TIER_LOSS:
+        assert_tier_eval_matches_jax(monkeypatch, DEVICE_TIER_LOSS[what])
+        return
     _, (topt, tloader, tparams) = build(
         language_eval=0, rank_eval=0,
-        **(UNPORTED_ON_A_MESH if what == "mesh" else
-           UNPORTED_LOSS.get(what, {})))
+        **(UNPORTED_ON_A_MESH if what == "mesh" else {}))
     with pytest.raises(NotImplementedError, match="ROADMAP.*" + match):
-        if what == "feat_cache":
-            teval.Evaluator(topt, feat_cache={}, device="cpu")
-        elif what == "mesh":
+        if what == "mesh":
             teval.Evaluator(topt, mesh=object(), device="cpu")
-        elif what in UNPORTED_LOSS:
-            teval.Evaluator(topt, device="cpu").eval_split(
-                tparams, tloader, {"split": "val"})
         elif what == "coco_spice":
             from cooperativeimagecaptioning_tpu_torch.evaluation import (
                 coco_eval)
@@ -356,6 +358,79 @@ def test_unported_branches_name_their_roadmap_item(tmp_path, monkeypatch,
         else:
             tlang.language_eval("coco", [], "x", "val", loader=tloader,
                                 out_dir=str(tmp_path), include_spice=True)
+
+
+def feature_cache(loader, K=K):
+    """{'fc', 'att', 'att_mask'} numpy arrays of every image, att with the
+    loader's transforms and padded to K slots (the Trainer's device feature
+    cache, built by hand)."""
+    ds = loader.ds
+    n = ds.num_images()
+    att = np.zeros((n, K, DS["att_feat_size"]), np.float32)
+    mask = np.zeros((n, K), np.float32)
+    for i in range(n):
+        a = loader.get_transformed_att(i)
+        att[i, :len(a)] = a
+        mask[i, :len(a)] = 1.0
+    fc = np.stack([ds.get_fc(i) for i in range(n)]).astype(np.float32)
+    return {"fc": fc, "att": att, "att_mask": mask}
+
+
+def assert_cached_eval_matches_jax():
+    """Evaluator.eval_split with a feature cache (the features gathered by
+    image index, the loss's rows repeated per caption) against the JAX
+    Evaluator with the same cache; the captions also equal the streamed
+    evaluation's."""
+    (jopt, jloader, jparams), (topt, tloader, tparams) = build(
+        language_eval=1, rank_eval=0, seq_per_img=2)
+    cache = feature_cache(tloader)
+    ek = {"split": "val", "num_images": -1, "beam_size": 2}
+    want = jeval.Evaluator(jopt, feat_cache={
+        k: jax.numpy.asarray(v) for k, v in cache.items()}).eval_split(
+        jparams, jloader, ek)
+    tloader.set_feature_free("val")
+    got = teval.Evaluator(topt, device="cpu", feat_cache={
+        k: torch.from_numpy(v) for k, v in cache.items()}).eval_split(
+        tparams, tloader, ek)
+    assert_same_result(want, got)
+    tloader.set_feature_free("val", False)
+    streamed = teval.Evaluator(topt, device="cpu").eval_split(
+        tparams, tloader, ek)
+    assert got[1] == streamed[1]
+
+
+def assert_tier_eval_matches_jax(monkeypatch, kw):
+    """The eval loss of an on_device_cider or soft_cider run against the
+    JAX Evaluator's: the eval batches carry no refs, so the CIDEr term
+    takes a zero reward where no host stage runs (JAX
+    eval_split.py:211-214); soft_cider without a listener keeps the host
+    reward, on the noise of key 123 replayed."""
+    (jopt, jloader, jparams), (topt, tloader, tparams) = build(
+        language_eval=0, rank_eval=0, **kw)
+    for m in (jsc, tsc):
+        m.reset_scorer()
+        m.init_scorer("corpus")
+    ek = {"split": "val", "num_images": -1}
+    want = jeval.Evaluator(jopt).eval_split(jparams, jloader, ek)
+    B = tloader.batch_size * tloader.seq_per_img
+    r = jjoint._rngs(jax.random.PRNGKey(teval.EVAL_SEED))
+    noise = jax_sample_noise(r["cider"], "sample", B, topt.vocab_size + 1,
+                             topt.seq_length)
+
+    def replayed(seed, device, gens=None):
+        out = {name: draws.Replay([]) for name in tjoint.STREAMS}
+        out["cider"] = draws.Replay(noise)
+        return out
+
+    monkeypatch.setattr(tjoint, "streams", replayed)
+    got = teval.Evaluator(topt, device="cpu").eval_split(tparams, tloader,
+                                                         ek)
+    for m in (jsc, tsc):
+        m.reset_scorer()
+    assert "loss_cider" in got[0]
+    assert (got[0]["loss_cider"] == 0.0) == \
+        (not tjoint.needs_reward(topt, "optimizer"))
+    assert_same_result(want, got)
 
 
 def test_cuda_evaluator_without_a_gpu_raises():

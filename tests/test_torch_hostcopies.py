@@ -264,7 +264,10 @@ def test_no_file_of_the_port_imports_the_jax_package():
             "parallel/collectives.py", "parallel/launch.py",
             "parallel/train_step.py", "parallel/vocab.py",
             "ops/kernels/head_merge.py", "../tests/torch_mesh_ranks.py",
-            "training/audit.py", "utils/profiling.py"} <= names
+            "training/audit.py", "utils/profiling.py",
+            "rewards/ngram_device.py", "rewards/cider_diff.py",
+            "preprocess/__init__.py", "preprocess/ngrams.py",
+            "training/fused.py"} <= names
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -274,6 +277,28 @@ def test_no_file_of_the_port_imports_the_jax_package():
         src = open(path).read()
         assert f'"{JAXPKG}.' not in src.replace(f'"{JAXPKG}.config"', ""), \
             path
+
+
+def _code_of(path):
+    """A module's AST dump without its docstrings."""
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and \
+                isinstance(body[0], ast.Expr) and \
+                isinstance(getattr(body[0], "value", None), ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            node.body = body[1:]
+    return ast.dump(tree)
+
+
+def test_the_ngrams_copy_equals_the_jax_packages():
+    """preprocess/ngrams.py (the df pickles of the cached-df reward) is the
+    JAX package's module as it is, but for its docstring; the pickles it
+    writes are held to the original's in test_torch_device_rewards.py."""
+    want = _code_of(os.path.join(REPO, JAXPKG, "preprocess", "ngrams.py"))
+    got = _code_of(os.path.join(REPO, PORT, "preprocess", "ngrams.py"))
+    assert got == want
 
 
 def test_the_unpickler_maps_only_the_config_module(tmp_path):
@@ -416,6 +441,18 @@ _ENTRY_CODE = {
         "assert [int(tr.optim.states[a]['count']) for a in "
         "('speaker', 'listener')] == [1, 1]\n"
         "assert os.path.isfile(tr.last_trace)\n"),
+    "training.fused": (
+        "from cooperativeimagecaptioning_tpu_torch import config\n"
+        "from cooperativeimagecaptioning_tpu_torch.training import loop\n"
+        "opt = config.load_infos(os.path.join(d, 'infos_hc.pkl'))['opt']\n"
+        "opt = opt.replace(start_from=d, phase=3, cider_optimization=1, "
+        "caption_loss_weight=0, on_device_cider=1, device_feature_cache=1, "
+        "fused_steps=3, max_att_len=6, save_checkpoint_every=100, "
+        "checkpoint_path=os.path.join(os.getcwd(), 'fused'))\n"
+        "tr = loop.train(opt, dataset=ds, max_iterations=5, device='cpu', "
+        "verbose=False)\n"
+        "assert tr._fused_gate() is None and tr._fused\n"
+        "assert int(tr.optim.states['speaker']['count']) == 6\n"),
     "eval.listener": (
         "from cooperativeimagecaptioning_tpu_torch import config\n"
         "from cooperativeimagecaptioning_tpu_torch import eval as ev\n"

@@ -33,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 from cooperativeimagecaptioning_tpu import data as jdata  # noqa: E402
 from cooperativeimagecaptioning_tpu.models import att_model as jatt  # noqa: E402
 from cooperativeimagecaptioning_tpu.ops import decoding as jdec  # noqa: E402
+from cooperativeimagecaptioning_tpu.rewards import ngram_device as jnd  # noqa: E402
 from cooperativeimagecaptioning_tpu.rewards import self_critical as jsc  # noqa: E402
 from cooperativeimagecaptioning_tpu.training import joint as jjoint  # noqa: E402
 from cooperativeimagecaptioning_tpu.training import loop as jloop  # noqa: E402
@@ -308,6 +309,9 @@ def assert_trainer_matches_jax(opt, steps, key0=100):
         turns.append(turn)
         jsample, jvg = jjoint.make_raw_fns(opt, turn)
         jb = jax_batch(data)
+        if jjoint.needs_device_refs(opt) and jjoint._cider_active(opt, turn):
+            # a device reward tier's refs, as the JAX Trainer pads them
+            jb["refs"], jb["ref_mask"] = jnd.pad_gts(data["gts"])
         reward = jnp.zeros((B,), jnp.float32)
         if jjoint.needs_reward(opt, turn):
             gen, greedy = (np.asarray(x) for x in jsample(jp, jb, key, hp))
@@ -461,17 +465,16 @@ def test_prepend_bos_matches_jax():
      "ROADMAP.*device rewards"),
 ])
 def test_loss_fn_refuses_what_is_not_ported(turn, kw, match):
-    """The device reward tiers raise in loss_fn and sample_for_reward,
-    naming their ROADMAP item.  The listener turn and REINFORCE raised here
-    until they were ported (their ids keep the messages they matched); they
-    now run, and loss_fn and stage A equal JAX's."""
+    """The listener turn, REINFORCE and the device reward tiers raised
+    here until they were ported (their ids keep the messages they
+    matched); they now run, and loss_fn (with the batch's refs for a
+    device tier) and stage A equal JAX's."""
     opt = disc_opt("gumbel", **kw)
-    if "device rewards" not in match:
-        assert_turn_matches_jax(opt, turn, seed=3)
+    if "device rewards" in match:
+        from test_torch_device_rewards import assert_tier_step_matches_jax
+        assert_tier_step_matches_jax(opt, turn, seed=3)
         return
-    for fn in (tjoint.loss_fn, tjoint.sample_for_reward):
-        with pytest.raises(NotImplementedError, match=match):
-            fn({}, {}, opt, {}, None, tjoint.Hyper.from_opt(opt), turn)
+    assert_turn_matches_jax(opt, turn, seed=3)
 
 
 # ---------------------------------------------------------------------------

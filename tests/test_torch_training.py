@@ -32,6 +32,7 @@ from cooperativeimagecaptioning_tpu.models import att_model as jatt  # noqa: E40
 from cooperativeimagecaptioning_tpu.ops import decoding as jdec  # noqa: E402
 from cooperativeimagecaptioning_tpu.ops import losses as jlosses  # noqa: E402
 from cooperativeimagecaptioning_tpu.training import joint as jjoint  # noqa: E402
+from cooperativeimagecaptioning_tpu.training import loop as jloop  # noqa: E402
 from cooperativeimagecaptioning_tpu.training import optim as joptim  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch import train as ttrain  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.config import Options  # noqa: E402
@@ -218,18 +219,18 @@ TINY_LISTENER = {"vse_model": "fc", "vse_embed_size": 16,
      "listener turn.*ROADMAP.*joint training"),
 ])
 def test_loss_fn_raises_on_unported_branches(turn, kw, match):
-    """The device reward tiers raise, naming their ROADMAP item.  The
-    listener turn and REINFORCE DISC raised here until they were ported
-    (their ids keep the messages they matched); they now run, and loss_fn
-    and stage A equal JAX's (tests/test_torch_listener_training.py)."""
+    """The listener turn, REINFORCE DISC and the device reward tiers
+    raised here until they were ported (their ids keep the messages they
+    matched); they now run, and loss_fn (with the batch's refs for a
+    device tier) and stage A equal JAX's (tests/test_torch_listener_
+    training.py, tests/test_torch_device_rewards.py)."""
     opt = tiny_opt(**kw)
-    if "device rewards" not in match:
-        from test_torch_listener_training import assert_turn_matches_jax
-        assert_turn_matches_jax(opt, turn, seed=1)
+    if "device rewards" in match:
+        from test_torch_device_rewards import assert_tier_step_matches_jax
+        assert_tier_step_matches_jax(opt, turn, seed=1)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        tjoint.loss_fn({"speaker": tatt.AttModel}, {}, opt, {}, None,
-                       tjoint.Hyper.from_opt(opt), turn)
+    from test_torch_listener_training import assert_turn_matches_jax
+    assert_turn_matches_jax(opt, turn, seed=1)
 
 
 def test_language_model_criterion_matches_jax():
@@ -621,20 +622,41 @@ def test_trainer_learns_and_is_deterministic():
     ({"cider_optimization": 1, "soft_cider": 1}, "device rewards"),
 ])
 def test_trainer_raises_on_unported_options(kw, match):
-    """What the Trainer does not train yet raises, naming its ROADMAP item.
-    REINFORCE DISC and real alternation raised here until they were ported
-    (their ids keep the messages they matched); they now train, two
-    iterations equal to the JAX steps turn by turn."""
+    """What the Trainer does not train yet raises, naming its ROADMAP item:
+    here a mesh run of SCST.  REINFORCE DISC and real alternation, fused
+    steps, the device feature cache and the device reward tiers raised
+    here until they were ported (their ids keep the messages they
+    matched); they now train: two iterations equal to the JAX steps turn
+    by turn (a fused_steps run without the cache on JAX's per-step path,
+    with JAX's gate reason), and with the cache equal to the streamed
+    Trainer's."""
     opt = tiny_opt(**kw)
-    if kw.get("retrieval_reward") == "reinforce":
-        from test_torch_listener_training import assert_trainer_matches_jax
-        _, _, _, turns = assert_trainer_matches_jax(opt, 2)
-        assert turns == (["speaker", "listener"] if opt.is_alternating
-                         else ["optimizer"] * 2)
+    if "mesh" in match:
+        with pytest.raises(NotImplementedError, match=match):
+            tloop.Trainer(opt, dataset=tiny_dataset(opt), device="cpu",
+                          verbose=False)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        tloop.Trainer(opt, dataset=tiny_dataset(opt), device="cpu",
-                      verbose=False)
+    if kw.get("device_feature_cache"):
+        from test_torch_fused_steps import assert_cache_trains_as_streamed
+        assert_cache_trains_as_streamed(opt, 2)
+        return
+    from test_torch_listener_training import assert_trainer_matches_jax
+    from cooperativeimagecaptioning_tpu.rewards import self_critical as jsc
+    for m in (jsc, tloop.self_critical):
+        m.reset_scorer()
+        m.init_scorer("corpus")
+    try:
+        tr, _, _, turns = assert_trainer_matches_jax(opt, 2)
+    finally:
+        for m in (jsc, tloop.self_critical):
+            m.reset_scorer()
+    assert turns == (["speaker", "listener"] if opt.is_alternating
+                     else ["optimizer"] * 2)
+    if "fused_steps" in kw:
+        jtr = jloop.Trainer(opt.replace(), dataset=tiny_dataset(opt),
+                             verbose=False)
+        assert tr._fused_gate() == jtr._fused_gate() != None  # noqa: E711
+        jtr.close()
 
 
 def test_train_stops_at_max_iterations_and_checkpoints(tmp_path):

@@ -5,6 +5,9 @@
     python3 train_breakdown.py --scst                # self-critical steps
     python3 train_breakdown.py --joint               # joint DISC steps
     python3 train_breakdown.py --reinforce           # joint REINFORCE turns
+    python3 train_breakdown.py --device-cider        # SCST, host and device
+                                                     # reward side by side
+    python3 train_breakdown.py --fused 8             # fused chunks vs steps
     python3 train_breakdown.py --device cpu --batch 4 --width 16 --vocab 50
                                                      # dry run, tiny width
 
@@ -41,6 +44,17 @@ forwards of the sample and the GT captions (the REINFORCE coefficient),
 adam steps the speaker.  The listener turn has two: stage_b (a sampled
 decode of the frozen speaker without autograd, the listener's contrastive
 loss of it and its backward) and adam (the listener).
+
+An SCST step with the device reward (--device-cider: on_device_cider 1)
+has two stages, stage_b (the sampled decode under autograd, the greedy
+baseline and the hashed n-gram CIDEr-D on the card, the backward) and
+adam; the same call splits the host-reward SCST step beside it.
+
+--fused K times phase-2 steps with the device feature cache as fused
+chunks of K (one CUDA graph of an iteration, replayed per step) against
+single steps, K iterations at a time in turns (per-step, fused, fused,
+per-step) after a warm-up chunk of each, and traces one chunk of each for
+its kernel time and idle share.
 
 Each stage is then traced in its own torch.profiler session, and its GPU
 time is summed into:
@@ -207,7 +221,16 @@ def main(argv=None):
                       help="joint REINFORCE turns (run_joint.py -o "
                            "reinforce -v 1), speaker and listener, instead "
                            "of phase-2 steps")
+    step.add_argument("--device-cider", action="store_true",
+                      help="SCST steps with the device reward "
+                           "(on_device_cider 1) beside SCST steps with the "
+                           "host reward")
+    step.add_argument("--fused", type=int, default=0, metavar="K",
+                      help="phase-2 it/s in fused chunks of K against "
+                           "single steps, with the device feature cache")
     a = p.parse_args(argv)
+    if a.fused:
+        return fused_rates(a)
     import torch
 
     from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
@@ -220,11 +243,20 @@ def main(argv=None):
     results = {"card": card, "batch": a.batch, "width": a.width,
                "vocab": a.vocab,
                "step": "scst" if a.scst else "joint" if a.joint else
-               "reinforce" if a.reinforce else "mle"}
+               "reinforce" if a.reinforce else "device_cider"
+               if a.device_cider else "mle"}
     opt = cs.train_opt(a.batch)
-    # (result key suffix, stages) of each split: one step, or one a turn
+    # (result key suffix, stages, options) of each split: one step, one a
+    # turn, or one a reward tier
     splits = [("", mle_stages)]
-    if a.scst:
+    opts = None
+    if a.device_cider:
+        opt = opt.replace(phase=3, cider_optimization=1,
+                          caption_loss_weight=0)
+        splits = [("_host_reward", cs.scst_stages),
+                  ("_device_reward", cs.scst_stages)]
+        opts = [opt, opt.replace(on_device_cider=1)]
+    elif a.scst:
         opt = opt.replace(phase=3, cider_optimization=1,
                           caption_loss_weight=0)
         splits = [("", cs.scst_stages)]
@@ -240,6 +272,23 @@ def main(argv=None):
                   for turn in ("speaker", "listener")]
     for cell, on in (("cell_kernel", True), ("plain_cell", False)):
         with cs.fused_cell_switch(on):
+            if opts is not None:
+                # one Trainer (and it/s) a reward tier
+                rs = {}
+                for (key, stages), o in zip(splits, opts):
+                    tr = Trainer(o.replace(), dataset=ds, device=a.device,
+                                 verbose=False)
+                    data = tr.loader.get_batch("train")
+                    rs[cell + key] = breakdown(stages, tr, data, device,
+                                               a.reps)
+                    if device.type == "cuda":
+                        rs[cell + key]["it_per_s"] = cs.iterations_per_s(
+                            tr, data)
+                    del tr
+                for name, r in rs.items():
+                    results[name] = r
+                    print_split(name, r, card, a.batch)
+                continue
             tr = Trainer(opt.replace(), dataset=ds, device=a.device,
                          verbose=False)
             data = tr.loader.get_batch("train")
@@ -256,25 +305,90 @@ def main(argv=None):
                           flush=True)
         for name, r in rs.items():
             results[name] = r
-            print(f"== {name} ({card}; B={a.batch}, f32): "
-                  + " | ".join(f"{s} {v:.2f} ms"
-                               for s, v in r["wall_ms"].items())
-                  + (f" | {r['it_per_s']:.2f} it/s" if "it_per_s" in r
-                     else ""), flush=True)
-            for s in r["wall_ms"]:
-                cats = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
-                    r["by_category_ms"][s].items(), key=lambda kv: -kv[1]))
-                idle = (f"; idle share {r['idle_share'][s]:.3f}"
-                        if r["idle_share"] else "")
-                print(f"  {s:8s} traced kernels "
-                      f"{r['traced_kernel_ms'][s]:.3f} ms{idle}: {cats}",
-                      flush=True)
-                print("           top ops: " + ", ".join(
-                    f"{k} {v:.3f}" for k, v in r["top_ops_ms"][s]),
-                    flush=True)
+            print_split(name, r, card, a.batch)
         del tr
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    print(json.dumps(results))
+
+
+def print_split(name, r, card, batch):
+    print(f"== {name} ({card}; B={batch}, f32): "
+          + " | ".join(f"{s} {v:.2f} ms" for s, v in r["wall_ms"].items())
+          + (f" | {r['it_per_s']:.2f} it/s" if "it_per_s" in r else ""),
+          flush=True)
+    for s in r["wall_ms"]:
+        cats = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+            r["by_category_ms"][s].items(), key=lambda kv: -kv[1]))
+        idle = (f"; idle share {r['idle_share'][s]:.3f}"
+                if r["idle_share"] else "")
+        print(f"  {s:8s} traced kernels "
+              f"{r['traced_kernel_ms'][s]:.3f} ms{idle}: {cats}", flush=True)
+        print("           top ops: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in r["top_ops_ms"][s]), flush=True)
+
+
+def fused_rates(a):
+    """--fused K: phase-2 it/s with the feature cache, fused chunks of K
+    against single steps, in turns, CIC_FUSED_CELL=1; one traced chunk of
+    each: its kernel time and idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    device = torch.device(a.device)
+    cuda = device.type == "cuda"
+    card = cs.phase_device() if cuda else "cpu"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cs.WIDTH, cs.VOCAB = a.width, a.vocab
+    ds = cs.train_dataset()
+    K = a.fused
+    results = {"card": card, "batch": a.batch, "width": a.width,
+               "vocab": a.vocab, "step": "mle", "fused_steps": K}
+    trs = {}
+    with cs.fused_cell_switch(True):
+        for k in (1, K):
+            trs[k] = Trainer(cs.train_opt(a.batch).replace(
+                fused_steps=k, device_feature_cache=1), dataset=ds,
+                device=a.device, verbose=False)
+
+        def chunk(k):
+            tr = trs[k]
+            sync()
+            t0 = time.perf_counter()
+            tr.train(max_iterations=tr.iteration + K)
+            sync()
+            return K / (time.perf_counter() - t0)
+
+        for k in (1, K):
+            chunk(k)  # warm-up (the fused trainer captures its graph)
+        rates = {1: [], K: []}
+        for k in (1, K, K, 1):
+            rates[k].append(chunk(k))
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                         else [])
+        for k, name in ((1, "per_step"), (K, "fused")):
+            wall = K / np.mean(rates[k])
+            with profile(activities=acts) as prof:
+                chunk(k)
+            kernel_s = sum(e.time_range.elapsed_us() for e in prof.events()
+                           if e.device_type == DeviceType.CUDA) / 1e6
+            results[name] = {
+                "it_per_s": float(np.mean(rates[k])),
+                "in_turns": rates[k],
+                "traced_kernel_ms_per_step": kernel_s / K * 1e3,
+                "idle_share": (1.0 - kernel_s / wall) if cuda else None}
+            print(f"== {name} ({card}; B={a.batch}, f32, K={K}): "
+                  f"{results[name]['it_per_s']:.2f} it/s (in turns "
+                  + ", ".join(f"{r:.2f}" for r in rates[k])
+                  + f"); traced kernels "
+                  f"{results[name]['traced_kernel_ms_per_step']:.3f} ms a "
+                  f"step" + (f", idle share "
+                             f"{results[name]['idle_share']:.3f}"
+                             if cuda else ""), flush=True)
     print(json.dumps(results))
 
 
