@@ -186,6 +186,14 @@ def _batch_size(ctx):
 _div = relaxations._div  # x / t with t as a tensor of x's dtype
 
 
+def _one_hot_row(n, hot, like):
+    """[n] zeros of `like`'s dtype and device with a 1 at `hot`, written by
+    kernels alone (item assignment of a Python number copies it from the
+    host, which a CUDA graph capture refuses)."""
+    idx = torch.full((1,), hot, dtype=torch.long, device=like.device)
+    return like.new_zeros((n,)).index_fill_(0, idx, 1.0)
+
+
 ONE_HOT_MODES = ("gumbel_st", "multinomial_st", "gumbel_soft",
                  "multinomial_soft")
 SOFT_INPUT_MODES = ("gumbel_soft", "multinomial_soft")
@@ -312,8 +320,8 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
             return logit_head.greedy_head(out, w, b)
         logits = speaker.logits(out)
         if prev_it is not None:
-            penalty = torch.zeros_like(logits)
-            penalty[torch.arange(B, device=device), prev_it.long()] = NEG_INF
+            penalty = torch.zeros_like(logits).scatter_(
+                1, prev_it.long()[:, None], NEG_INF)
             logits = logits + penalty
         return torch.log_softmax(logits, dim=-1)
 
@@ -329,8 +337,7 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
         oh = None
         if one_hot:
             oh = torch.cat([y, y.new_zeros((B, 1))], dim=1)  # [B, V+2]
-            eos = torch.zeros_like(oh[0])
-            eos[0] = 1.0
+            eos = _one_hot_row(oh.shape[1], 0, oh)
             oh = torch.where(unfinished[:, None], oh, eos)
         return it, it_masked, sample_lp, y, unfinished, oh
 

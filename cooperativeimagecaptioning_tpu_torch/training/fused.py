@@ -106,16 +106,9 @@ class FusedStep:
         """One iteration from the static row: (loss, aux, ok)."""
         tr, opt = self.tr, self.tr.opt
         x = self.layout.unpack(self.row)
-        cache = tr._feat_cache
-        rows = x["idx"].to(torch.int64)
-        batch = {"fc_feats": cache["fc"].index_select(0, rows),
-                 "labels": x["labels"].to(torch.int64),
-                 "masks": x["masks"],
-                 "att_feats": None, "att_masks": None}
-        if opt.use_att:
-            batch["att_feats"] = cache["att"].index_select(0, rows).to(
-                torch.float32)
-            batch["att_masks"] = cache["att_mask"].index_select(0, rows)
+        batch = {"labels": x["labels"].to(torch.int64), "masks": x["masks"]}
+        batch["fc_feats"], batch["att_feats"], batch["att_masks"] = \
+            tr._gather_cached(x["idx"].to(torch.int64))
         if "refs" in x:
             batch["refs"] = x["refs"].to(torch.int64)
             batch["ref_mask"] = x["ref_mask"]

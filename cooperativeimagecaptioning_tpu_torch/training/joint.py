@@ -194,9 +194,8 @@ def _prepend_bos_one_hot(soft_seq, vocab_size):
     """A one-hot BOS row in front of relaxed sequences [B, L, V+2] (JAX
     joint.py:116-120; ref :358-370)."""
     B, _, C = soft_seq.shape
-    bos = soft_seq.new_zeros((B, 1, C))
-    bos[:, 0, vocab_size + 1] = 1.0
-    return torch.cat([bos, soft_seq], dim=1)
+    bos = decoding._one_hot_row(C, vocab_size + 1, soft_seq)
+    return torch.cat([bos.expand(B, 1, C), soft_seq], dim=1)
 
 
 def _disc_active(opt, turn) -> bool:

@@ -81,6 +81,14 @@ from cooperativeimagecaptioning_tpu_torch.training.optim import (
 from cooperativeimagecaptioning_tpu_torch.utils import profiling
 from cooperativeimagecaptioning_tpu_torch.utils.tree import trainable
 
+def _on(tensor, device):
+    """Whether `tensor` lies on `device` ('cuda' means the current card)."""
+    want = torch.device(device)
+    if want.type == "cuda" and want.index is None:
+        want = torch.device("cuda", torch.cuda.current_device())
+    return tensor.device == want
+
+
 def cache_bytes(cache):
     """Bytes of the tensors of a feature cache."""
     return sum(v.numel() * v.element_size() for k, v in cache.items()
@@ -271,13 +279,14 @@ class Trainer:
         extended with it."""
         ds = self.loader.ds
         cache = getattr(ds, "_device_feat_cache", None)
-        if cache is not None and (cache["fc"].device != self.device or (
+        here = cache is not None and _on(cache["fc"], self.device)
+        if cache is not None and (not here or (
                 self.opt.use_att and "att" in cache
                 and cache.get("_att_sig") != self._att_cache_sig())):
             # another device, or att cached under other transforms or
             # another storage dtype: keep nothing of another device, and
             # drop another stage's att block
-            cache = None if cache["fc"].device != self.device else {
+            cache = None if not here else {
                 k: v for k, v in cache.items()
                 if k not in ("att", "att_mask", "_att_sig")}
         if cache is None or (self.opt.use_att and "att" not in cache):
