@@ -13,7 +13,6 @@ rule of the listener tests (test_torch_listener_training.py).
 """
 
 import json
-import os
 import pickle
 
 import numpy as np

@@ -30,7 +30,7 @@ from cooperativeimagecaptioning_tpu_torch.training import fused  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.training import loop as tloop  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.utils.tree import (  # noqa: E402
     leaves, to_numpy)
-from test_torch_listener_training import LISTENER, disc_opt  # noqa: E402
+from test_torch_listener_training import LISTENER  # noqa: E402
 from test_torch_training import (  # noqa: E402
     LOSS_TOL, assert_tree_close, tiny_dataset, tiny_opt)
 
