@@ -200,11 +200,35 @@ Phases, in order; any failure exits non-zero:
                  captured too) against 8 single steps from one seed: losses (rtol 1e-6), params (rtol 1e-6, atol
                  1e-7), skipped steps, launches a replay, it/s of each in
                  turns, the cache's bytes and build seconds.
+ 12. reproduction -- the reproduction chain's device parts: (a) ResNet-101
+                 (preprocess/resnet.py) at full depth and width, 448 x 448,
+                 att 14, f32 with TF32 off, random weights from the seed:
+                 two host-resized images (640 x 480 and a grayscale one) on
+                 the card against the port on the CPU (1e-4 of the largest
+                 value), the forward timed on device-resident input (16 x
+                 448, 10 iterations; bench.py's ResNet measurement) beside
+                 its operations bound, with NCHW weights and with TF32
+                 allowed beside it, peak device memory; (b) extract_to_dirs
+                 on 64 raw images of mixed sizes into
+                 build/chip_smoke_feats_{fc,att} (host load and resize,
+                 device forward, host write), a second call computing
+                 nothing, DirFeatureSource reading every file back as
+                 [14, 14, 2048], and phase 4's speaker served over them
+                 through from_run_dir(max_att_len=196), greedy and beam 2,
+                 f32 ids against the CPU service; (c) evaluation/harvest.py
+                 over a copy of phase 8's joint run dir: the val / test
+                 dicts and the json, only the best checkpoints left, the
+                 test re-evaluation through eval.eval on the card (A and
+                 C).  The labels, the n-grams and the three stage scripts
+                 end to end (scripts/reproduce_coco.py) need h5py and PIL,
+                 which this script does not require of the card's host:
+                 they run in the CPU tests; the stage scripts' flag sets
+                 train phases 8 and 10 here.
 Two lines before the last name the card and describe the kernels (one JSON
 object, with each kernel's launches by path, "mesh" the launches of every
 rank of the mesh runs, "joint_reinforce" those of phase 10,
-"device_rewards" those of phase 11); the last line is {"ok": true,
-"device": {...}}.
+"device_rewards" those of phase 11, "extracted_features" and "harvest"
+those of phase 12); the last line is {"ok": true, "device": {...}}.
 
 Imports no JAX.  Writes only under build/ in the checkout.
 """
@@ -223,6 +247,8 @@ import time
 import urllib.request
 
 import numpy as np
+
+from cooperativeimagecaptioning_tpu_torch.scripts import run_fc_con, run_joint
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, "build", "chip_smoke_run")
@@ -294,57 +320,20 @@ PHASE1_ITERS = 300
 LISTENER_CPU_B = 16  # rows of the card-vs-CPU phase-1 and joint steps
 DISC_MODES = ("gumbel", "multinomial", "gumbel_softmax", "multinomial_soft")
 
-# scripts/run_fc_con.py's STAGE_FLAGS; and scripts/run_joint.py's Options
-# (JOINT_BASE) with build_run's overrides at the script's defaults
-# (`joint_flags`).  tests/test_torch_listener_training.py holds both equal
-# to the scripts.
-PHASE1_FLAGS = dict(
-    id="fc_con", caption_model="fc", vse_model="fc", phase=1,
-    vse_loss_weight=1, caption_loss_weight=0, rank_eval=1, language_eval=0,
-    seq_per_img=1, learning_rate=5e-4, learning_rate_decay_start=0,
-    learning_rate_decay_every=15, scheduled_sampling_start=0)
-JOINT_BASE = dict(
-    caption_model="att2in2", vse_model="fc", language_eval=1, rank_eval=1,
-    rank_on_gen_captions=True, seq_per_img=1, learning_rate_decay_start=0,
-    scheduled_sampling_start=0)
+# The stage drivers' flag sets, imported from the port's drivers: run_fc_con's
+# STAGE_FLAGS (phase 1), and run_joint's Options (JOINT_BASE) with
+# build_run's overrides at run_joint's defaults (`joint_flags`).
+# tests/test_torch_listener_training.py holds them equal to the JAX
+# package's scripts.
+PHASE1_FLAGS = run_fc_con.STAGE_FLAGS
+JOINT_BASE = run_joint.JOINT_BASE
 
 
 def joint_flags(optimization, vse=0):
-    """run_joint.py -o <optimization> -v <vse> at its other defaults: -D
+    """run_joint -o <optimization> -v <vse> at its other defaults: -D
     0.01 (cider weight 1 - 0.01), temperature 1, lr 5e-4 decaying 0.8 every
     15 epochs, B=128, probability 0.25, the gt baseline."""
-    d = 0.01
-    ov = dict(retrieval_reward_weight=d, cider_optimization=1 - d,
-              learning_rate=5e-4, learning_rate_decay_rate=0.8,
-              learning_rate_decay_every=15, batch_size=128,
-              caption_loss_weight=0, vse_loss_weight=vse, share_embed=0,
-              max_epochs=350, is_alternating=1,
-              alternating_turn=["speaker", "listener"],
-              retrieval_reward=optimization)
-    ov.update({
-        "gumbel": dict(gumbel_temp=1.0, gumbel_temperature_annealing_factor=0,
-                       num_iteration_for_annealing=500),
-        "gumbel_softmax": dict(gumbel_temp=1.0, prob_gumbel_softmax=0.25,
-                               softmax_cooling_decay_factor=0),
-        "multinomial": dict(multinomial_temp=1.0),
-        "multinomial_soft": dict(multinomial_temp=1.0,
-                                 prob_multinomial_soft=0.25,
-                                 softmax_cooling_decay_factor=0),
-        "gumbel_speaker": dict(is_alternating=0, alternating_turn=None,
-                               phase=3, gumbel_temp=1.0,
-                               retrieval_reward="gumbel"),
-        "multinomial_speaker": dict(is_alternating=0, alternating_turn=None,
-                                    phase=3, multinomial_temp=1.0,
-                                    retrieval_reward="multinomial"),
-        "reinforce": dict(reinforce_baseline_type="gt"),
-        "reinforce_listener": dict(
-            alternating_turn=["listener"], retrieval_reward="reinforce",
-            reinforce_baseline_type="gt", max_epochs=500, vse_loss_weight=1,
-            cider_optimization=0, caption_loss_weight=0),
-        "reinforce_speaker": dict(is_alternating=0, alternating_turn=None,
-                                  phase=3, retrieval_reward="reinforce"),
-    }[optimization])
-    return ov
+    return run_joint.joint_flags(optimization=optimization, vse=vse)[1]
 
 # The card's published peaks (NVIDIA's H100 SXM data sheet, dense): device
 # memory rate, and operations per second by input type (bf16 on the tensor
@@ -4255,6 +4244,322 @@ def phase_device_rewards(smi, scst_out, listener_out):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# 12. the reproduction chain: features from images, harvest
+# ---------------------------------------------------------------------------
+
+FEATS_BASE = os.path.join(REPO, "build", "chip_smoke_feats")
+HARVEST_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_harvest_run")
+HARVEST_JSON_DIR = os.path.join(REPO, "build", "chip_smoke_harvest_json")
+RESNET_ARCH = "resnet101"
+RESNET_B = 16        # bench.py's ResNet batch
+RESNET_HW = 448      # the extractor's input side
+RESNET_ITERS = 10
+ATT_SIDE = 14        # the 14 x 14 attention grid
+EXTRACT_IMAGES = 64
+# card against CPU, f32 with TF32 off: random weights at the He scale grow
+# activations to ~1e4 at depth 101, so the error is held relative to the
+# largest value of the CPU's output
+RESNET_REL = 1e-4
+# raw image shapes of the extraction: COCO's common 640 x 480 and 500 x 375,
+# and a grayscale 2-D image (the loader's channel fix)
+RAW_SHAPES = ((480, 640, 3), (375, 500, 3), (480, 640))
+
+
+def raw_images(n, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 256, RAW_SHAPES[i % len(RAW_SHAPES)], np.uint8)
+            for i in range(n)]
+
+
+def conv_flops(model, hw):
+    """Multiply-adds x 2 of every convolution of one image at hw x hw (the
+    forward's operations; the norms and pools add under 1%)."""
+    import torch
+    total = [0]
+
+    def hook(mod, _inp, out):
+        k = mod.kernel_size[0] * mod.kernel_size[1]
+        total[0] += 2 * out.shape[1] * out.shape[2] * out.shape[3] * \
+            mod.in_channels * k
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 3, hw, hw, device=next(
+                model.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def resnet_on_card(smi, out):
+    """(a) ResNet-101 at full depth and width, f32: two host-resized images
+    (640 x 480, and a grayscale one) on the card against the port on the
+    CPU; then the network timed on device-resident input (bench.py's
+    16 x 448, 10 iterations) beside its operations bound, as the extractor
+    runs it (NHWC input view, weights as loaded), and beside it with the
+    weights in channels_last and with TF32 allowed (neither is used); peak
+    device memory."""
+    import copy
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.preprocess import feats, resnet
+    model = resnet.init_model(torch.Generator().manual_seed(SEED),
+                              RESNET_ARCH)
+    cpu_model = copy.deepcopy(model)
+    card = feats.make_extractor(model, ATT_SIDE, DEVICE)
+    host = feats.make_extractor(cpu_model, ATT_SIDE, "cpu")
+    imgs = raw_images(3, seed=SEED + 12)
+    batch = np.stack([feats._resize_bilinear(feats._to_rgb_float(imgs[i]),
+                                             RESNET_HW) for i in (0, 2)])
+    got, want = card(batch), host(batch)
+    for name, g, w in (("fc", got[0], want[0]), ("att", got[1], want[1])):
+        require(g.shape == w.shape and np.isfinite(g).all(),
+                f"ResNet {name} shape {g.shape}")
+        scale = float(np.abs(w).max())
+        err = float(np.abs(g - w).max())
+        print(f"  ResNet-101 {name} {list(g.shape)}, card vs CPU: max abs "
+              f"err {err:.3e}, max |value| {scale:.3e}, relative "
+              f"{err / scale:.2e} (tol {RESNET_REL:.0e})", flush=True)
+        require(err <= RESNET_REL * scale,
+                f"ResNet {name}: card vs CPU error {err} above "
+                f"{RESNET_REL} x {scale}")
+    del cpu_model, host
+
+    mean = torch.as_tensor(resnet.IMAGENET_MEAN, device=DEVICE)
+    std = torch.as_tensor(resnet.IMAGENET_STD, device=DEVICE)
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        RESNET_B, RESNET_HW, RESNET_HW, 3).astype(np.float32)).to(DEVICE)
+
+    cudnn = torch.backends.cudnn
+
+    def forward(m, tf32=False):
+        def run():
+            precision = cudnn.flags(
+                enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                deterministic=cudnn.deterministic, allow_tf32=True) \
+                if tf32 else resnet.f32_convolutions()
+            with torch.no_grad(), precision:
+                return resnet.features(m, (x - mean) / std, ATT_SIDE)
+        return run
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(forward(model), RESNET_ITERS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    cl = copy.deepcopy(model).to(memory_format=torch.channels_last)
+    ms_cl = cuda_ms(forward(cl), RESNET_ITERS)
+    del cl
+    ms_tf32 = cuda_ms(forward(model, tf32=True), RESNET_ITERS)
+    flops = conv_flops(model, RESNET_HW)
+    weights = [p for p in model.parameters()]
+    fc, att = forward(model)()
+    bound, by = bound_ms([x, fc, att] + weights, flops * RESNET_B, "float32")
+    ips = RESNET_B / (ms / 1e3)
+    out.update(resnet_ms=ms, resnet_ips=ips, resnet_bound_ms=bound,
+               resnet_peak_mib=peak, resnet_gflop=flops / 1e9,
+               resnet_ms_channels_last=ms_cl, resnet_ms_tf32=ms_tf32)
+    print(f"  ResNet-101 forward ({smi}; f32, TF32 off, NHWC input view, "
+          f"{RESNET_B} x {RESNET_HW} x {RESNET_HW}, att {ATT_SIDE}, device-"
+          f"resident input, {RESNET_ITERS} iterations): {ms:.2f} ms a batch, "
+          f"{ips:.1f} images/s; bound {bound:.2f} ms by {by} "
+          f"({flops / 1e9:.1f} GFLOP an image at 67 TFLOP/s f32), "
+          f"{bound / ms * 100:.1f}% of it; peak device memory {peak:.0f} "
+          f"MiB; channels_last weights (not used) {ms_cl:.2f} ms; TF32 "
+          f"allowed (not used) "
+          f"{ms_tf32:.2f} ms", flush=True)
+    del x, fc, att
+    return model
+
+
+def extract_on_card(model, out):
+    """(b) extract_to_dirs on EXTRACT_IMAGES raw images of mixed sizes into
+    build/chip_smoke_feats_{fc,att}, the host and device split; a second
+    call computes nothing; DirFeatureSource reads every file back."""
+    import shutil
+    from cooperativeimagecaptioning_tpu_torch.data.sources import (
+        DirFeatureSource)
+    from cooperativeimagecaptioning_tpu_torch.preprocess import feats
+    for suffix in ("_fc", "_att"):
+        shutil.rmtree(FEATS_BASE + suffix, ignore_errors=True)
+    imgs = raw_images(EXTRACT_IMAGES, seed=SEED + 13)
+    ids = list(range(EXTRACT_IMAGES))
+    split = {}
+    t0 = time.perf_counter()
+    dir_fc, dir_att = feats.extract_to_dirs(
+        model, imgs, ids, FEATS_BASE, att_size=ATT_SIDE, batch_size=RESNET_B,
+        resize_to=RESNET_HW, device=DEVICE, timings=split)
+    wall = time.perf_counter() - t0
+    require(split["images"] == EXTRACT_IMAGES, f"extracted {split}")
+    mtimes = {f: os.path.getmtime(os.path.join(dir_att, f))
+              for f in os.listdir(dir_att)}
+    again = {}
+    feats.extract_to_dirs(model, imgs, ids, FEATS_BASE, att_size=ATT_SIDE,
+                          batch_size=RESNET_B, resize_to=RESNET_HW,
+                          device=DEVICE, timings=again)
+    require(again["images"] == 0 and again["forward"] == 0.0,
+            f"the second extraction recomputed {again}")
+    require({f: os.path.getmtime(os.path.join(dir_att, f))
+             for f in os.listdir(dir_att)} == mtimes,
+            "the second extraction rewrote files")
+    fcs = DirFeatureSource(dir_fc, ".npy")
+    atts = DirFeatureSource(dir_att, ".npz")
+    fc = np.stack([fcs.get(str(i)) for i in ids])
+    att = np.stack([atts.get(str(i)) for i in ids])
+    require(fc.shape == (EXTRACT_IMAGES, FEAT) and fc.dtype == np.float32
+            and att.shape == (EXTRACT_IMAGES, ATT_SIDE, ATT_SIDE, FEAT)
+            and att.dtype == np.float32 and np.isfinite(att).all(),
+            f"features read back: fc {fc.shape}, att {att.shape}")
+    out["extract"] = dict(split, wall=wall)
+    print(f"  extract_to_dirs: {EXTRACT_IMAGES} images "
+          f"({', '.join('x'.join(map(str, s)) for s in RAW_SHAPES)}) -> "
+          f"{ATT_SIDE} x {ATT_SIDE} x {FEAT} in {wall:.2f} s: host load + "
+          f"resize {split['load']:.2f} s, device forward (batches of "
+          f"{RESNET_B}, synchronized) {split['forward']:.2f} s, host write "
+          f"{split['write']:.2f} s; a second call computed 0 images and "
+          f"rewrote nothing; DirFeatureSource read back fc "
+          f"{list(fc.shape)} and att {list(att.shape)}", flush=True)
+    return fc, att.reshape(EXTRACT_IMAGES, ATT_SIDE * ATT_SIDE, FEAT)
+
+
+def serve_extracted(fc, att, add):
+    """(b) phase 4's speaker served over the extracted features through
+    from_run_dir(max_att_len=196), greedy and beam 2, f32: every step
+    through the attention kernel and the head; ids against the CPU
+    service's."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
+    n = fc.shape[0]
+    masks = np.ones(att.shape[:2], np.float32)
+    for beam in (0, 2):
+        kw = dict(beam_size=beam, compute_dtype="float32", buckets=(n,),
+                  max_att_len=K_GRID)
+        svc = CaptioningService.from_run_dir(RUN_DIR, device=DEVICE, **kw)
+        _dispatch.reset_launches()
+        ids = svc.caption_ids(fc, att, masks)
+        sync()
+        got = _dispatch.launches()
+        add(got)
+        head = "beam_head" if beam else "greedy_head"
+        require(got["attention"] == L and got[head] == L,
+                f"extracted features, beam {beam}: launches {got}")
+        cpu = CaptioningService.from_run_dir(RUN_DIR, device="cpu", **kw)
+        rate = float((cpu.caption_ids(fc, att, masks) == ids).all(
+            axis=1).mean())
+        print(f"  phase 4's speaker over the extracted features (f32, "
+              f"{'beam 2' if beam else 'greedy'}, {K_GRID} slots): "
+              f"{len({tuple(r) for r in ids})} distinct rows of {n}; card vs "
+              f"CPU {rate * 100:.1f}% of rows equal (need >= "
+              f"{AGREE_F32 * 100:.0f}%); launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        require(rate >= AGREE_F32, f"extracted features, beam {beam}: "
+                f"{rate} of rows equal to the CPU service")
+        del svc, cpu
+
+
+def harvest_on_card(add, out):
+    """(c) harvest of a copy of phase 8's joint run dir on the card: the
+    val / test dicts and the json written, only the best per-iteration
+    checkpoints left (a stale alternatingModel-1.pth is planted to be
+    pruned), the test re-evaluation through the port's eval.eval (beam 2:
+    A and C)."""
+    import pickle as pkl
+    import shutil
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.config import load_infos
+    from cooperativeimagecaptioning_tpu_torch.evaluation import harvest
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    shutil.rmtree(HARVEST_RUN_DIR, ignore_errors=True)
+    shutil.rmtree(HARVEST_JSON_DIR, ignore_errors=True)
+    shutil.copytree(DISC_RUN_DIR, HARVEST_RUN_DIR)
+    shutil.copy(os.path.join(HARVEST_RUN_DIR, "alternatingModel.pth"),
+                os.path.join(HARVEST_RUN_DIR, "alternatingModel-1.pth"))
+    opt = load_infos(os.path.join(HARVEST_RUN_DIR, "infos_.pkl"))["opt"]
+    opt.checkpoint_path = HARVEST_RUN_DIR
+    ds = train_dataset()
+    os.chdir(HARVEST_RUN_DIR)  # eval_results/ is written under the run dir
+    try:
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        path = harvest.create_dicts_and_json_after_training(
+            opt, dataset=ds, json_dir=HARVEST_JSON_DIR, device=DEVICE)
+        sync()
+        seconds = time.perf_counter() - t0
+        got = _dispatch.launches()
+    finally:
+        os.chdir(REPO)
+    add(got)
+    require(got["attention"] > 0 and got["beam_head"] > 0,
+            f"harvest's test re-evaluation launches {got}")
+    require(path is not None and os.path.isfile(path),
+            f"harvest wrote no json ({path})")
+    with open(os.path.join(HARVEST_RUN_DIR, "val_dict.pkl"), "rb") as f:
+        metrics = pkl.load(f)
+    with open(os.path.join(HARVEST_RUN_DIR, "test_dict.pkl"), "rb") as f:
+        test = pkl.load(f)
+    kept = sorted(int(n[len("alternatingModel-"):-len(".pth")])
+                  for n in os.listdir(HARVEST_RUN_DIR)
+                  if harvest._is_iter_model(n))
+    best = sorted(set(metrics["test_models"].values()))
+    require(best and kept == best, f"harvest kept {kept}, best {best}")
+    require(test and all(np.isfinite(r["loss"]["loss"]) and
+                         np.isfinite(r["loss"]["t2i_r1"]) and
+                         "CIDEr" in r["lang_stats"] for r in test.values()),
+            f"harvest test dict {test}")
+    with open(path) as f:
+        report = json.load(f)
+    require(set(report["test"]) == set(test), f"harvest json {report}")
+    out["harvest_s"] = seconds
+    crit = sorted(test)[0]
+    print(f"  harvest of phase 8's joint run dir (a copy) in {seconds:.1f} "
+          f"s: best iterations {metrics['test_models']}, kept "
+          f"alternatingModel-{kept}, the planted -1 pruned; test "
+          f"re-evaluation (beam 2) {crit}: CIDEr "
+          f"{test[crit]['lang_stats']['CIDEr']:.4f}, loss "
+          f"{test[crit]['loss']['loss']:.4f}, t2i r1 "
+          f"{test[crit]['loss']['t2i_r1']:.2f}; wrote val_dict.pkl, "
+          f"test_dict.pkl and {os.path.relpath(path, REPO)}; launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+
+
+def phase_reproduction(smi):
+    """12. The reproduction chain's device parts: ResNet-101 feature
+    extraction (the port's preprocess/resnet.py and feats.py), the extracted
+    features served, and harvest (evaluation/harvest.py) of phase 8's joint
+    run dir.  The other stages of reproduce_coco (labels, n-grams and the
+    three stage scripts end to end) need h5py and PIL, which this script
+    does not require of the card's host: they run in the CPU tests
+    (tests/test_torch_drivers.py); the stage scripts' flag sets train
+    phases 8 and 10 here (PHASE1_FLAGS, JOINT_BASE, joint_flags).  Returns
+    the launch counts of (b) and (c) by path."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    t_phase = time.perf_counter()
+    print(f"phase 12, the reproduction chain: {RESNET_ARCH} at "
+          f"{RESNET_HW} x {RESNET_HW}, f32, random weights from seed {SEED}",
+          flush=True)
+    launches = {p: {k: 0 for k in _dispatch.KERNELS}
+                for p in ("extracted", "harvest")}
+
+    def adder(path):
+        def add(got):
+            for k in launches[path]:
+                launches[path][k] += got[k]
+        return add
+    out = {}
+    model = resnet_on_card(smi, out)
+    fc, att = extract_on_card(model, out)
+    del model
+    torch.cuda.empty_cache()
+    serve_extracted(fc, att, adder("extracted"))
+    harvest_on_card(adder("harvest"), out)
+    torch.cuda.empty_cache()
+    print(f"  reproduction phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, out
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, REPO)
@@ -4290,6 +4595,9 @@ def main():
     device_launches, _ = phase_device_rewards(smi, scst_out, listener_out)
     print(f"elapsed after the device rewards and fused chunks: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
+    repro_launches, _ = phase_reproduction(smi)
+    print(f"elapsed after the reproduction chain: "
+          f"{time.perf_counter() - t_start:.0f} s", flush=True)
     # each path's counts run from 0 just before it to just after it
     kernels = []
     for k in SOURCES:
@@ -4298,7 +4606,9 @@ def main():
                    "listener": listener_launches[k],
                    "mesh": mesh_launches[k],
                    "joint_reinforce": reinforce_launches[k],
-                   "device_rewards": device_launches[k]}
+                   "device_rewards": device_launches[k],
+                   "extracted_features": repro_launches["extracted"][k],
+                   "harvest": repro_launches["harvest"][k]}
         require(sum(by_path.values()) > 0,
                 f"{k} was never launched on a main path")
         kernels.append({

@@ -267,7 +267,11 @@ def test_no_file_of_the_port_imports_the_jax_package():
             "training/audit.py", "utils/profiling.py",
             "rewards/ngram_device.py", "rewards/cider_diff.py",
             "preprocess/__init__.py", "preprocess/ngrams.py",
-            "training/fused.py"} <= names
+            "training/fused.py", "preprocess/resnet.py",
+            "preprocess/feats.py", "preprocess/labels.py",
+            "evaluation/harvest.py", "scripts/__init__.py",
+            "scripts/run_fc_con.py", "scripts/run_att.py",
+            "scripts/run_joint.py", "scripts/reproduce_coco.py"} <= names
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -298,6 +302,15 @@ def test_the_ngrams_copy_equals_the_jax_packages():
     writes are held to the original's in test_torch_device_rewards.py."""
     want = _code_of(os.path.join(REPO, JAXPKG, "preprocess", "ngrams.py"))
     got = _code_of(os.path.join(REPO, PORT, "preprocess", "ngrams.py"))
+    assert got == want
+
+
+def test_the_labels_copy_equals_the_jax_packages():
+    """preprocess/labels.py is the JAX package's module as it is, but for
+    its docstring; what it writes is held to the original's in
+    test_torch_preprocess.py."""
+    want = _code_of(os.path.join(REPO, JAXPKG, "preprocess", "labels.py"))
+    got = _code_of(os.path.join(REPO, PORT, "preprocess", "labels.py"))
     assert got == want
 
 
@@ -478,6 +491,51 @@ _ENTRY_CODE = {
         "out = eval_split.Evaluator(opt, device='cpu').eval_split(params, "
         "loader, {'split': 'val', 'beam_size': 2})\n"
         "assert len(out[1]) == 4 and 'CIDEr' in out[2]\n"),
+    "preprocess.labels": (
+        "from cooperativeimagecaptioning_tpu_torch.preprocess import labels\n"
+        "from cooperativeimagecaptioning_tpu_torch.scripts import "
+        "reproduce_coco\n"
+        "raw, _ = reproduce_coco.fabricate_synthetic_raw('raw', 4, size=16)\n"
+        "labels.main(['--input_json', raw, '--output_json', 'talk.json', "
+        "'--output_h5', 'talk'])\n"
+        "assert os.path.isfile('talk_label.h5')\n"),
+    "preprocess.feats": (
+        "from cooperativeimagecaptioning_tpu_torch.preprocess import feats\n"
+        "from cooperativeimagecaptioning_tpu_torch.scripts import "
+        "reproduce_coco\n"
+        "raw, root = reproduce_coco.fabricate_synthetic_raw('raw', 2, "
+        "size=16)\n"
+        "feats.main(['--input_json', raw, '--output_dir', 'talk', "
+        "'--images_root', root, '--batch_size', '2', '--device', 'cpu'])\n"
+        "assert np.load('talk_att/1.npz')['feat'].shape == (14, 14, 2048)\n"),
+    "evaluation.harvest": (
+        "import pickle, shutil\n"
+        "from cooperativeimagecaptioning_tpu_torch import config\n"
+        "from cooperativeimagecaptioning_tpu_torch.evaluation import harvest\n"
+        "shutil.copytree(d, 'run')\n"
+        "hist = {'val_result_history': {}}\n"
+        "for it, cider in ((3, 0.2), (5, 0.4)):\n"
+        "    shutil.copy(os.path.join(d, 'model-best.pth'), "
+        "f'run/model-{it}.pth')\n"
+        "    hist['val_result_history'][it] = {'lang_stats': {'CIDEr': "
+        "cider, 'Bleu_4': cider / 2}, 'loss': {}, 'predictions': []}\n"
+        "pickle.dump(hist, open('run/histories_hc.pkl', 'wb'))\n"
+        "out = harvest.main(['--dir', 'run', '--json_dir', 'js', "
+        "'--device', 'cpu'])\n"
+        "assert list(out.values()) == [os.path.join('js', 'run.json')]\n"
+        "opt = config.load_infos('run/infos_hc.pkl')['opt']\n"
+        "opt.checkpoint_path = 'run'\n"
+        "harvest.create_dicts_and_json_after_training(opt, dataset=ds, "
+        "json_dir='js', device='cpu')\n"
+        "test = pickle.load(open('run/test_dict.pkl', 'rb'))\n"
+        "assert 'CIDEr' in test['cider']['lang_stats']\n"
+        "assert not os.path.isfile('run/model-3.pth')\n"),
+    "scripts.reproduce_coco": (
+        "from cooperativeimagecaptioning_tpu_torch.scripts import "
+        "reproduce_coco\n"
+        "reproduce_coco.main(['--synthetic', '8', '--device', 'cpu', "
+        "'--workdir', 'rc'])\n"
+        "assert os.listdir(os.path.join('rc', 'gumbel', 'json_dir'))\n"),
     "eval": (
         "from cooperativeimagecaptioning_tpu_torch import eval as ev\n"
         "out = ev.eval(None, os.path.join(d, 'model-best.pth'), "
@@ -507,6 +565,8 @@ def test_jax_run_dir_loads_without_the_jax_package(jax_run_dir, tmp_path,
         "import os, sys\n"
         + (hide if hide_jax_package else "") +
         "import numpy as np\n"
+        "import torch\n"
+        "torch.set_num_threads(min(2, torch.get_num_threads()))\n"
         "d = sys.argv[1]\n"
         "rng = np.random.RandomState(0)\n"
         "from cooperativeimagecaptioning_tpu_torch.data import "

@@ -760,18 +760,26 @@ def _module(name, path):
 
 
 def test_chip_smoke_flag_sets_equal_the_scripts(monkeypatch, tmp_path):
+    """chip_smoke.py trains with the port's drivers' flag sets (it imports
+    them); those equal the JAX package's scripts."""
+    from cooperativeimagecaptioning_tpu_torch.scripts import (
+        run_fc_con as port_fc_con, run_joint as port_joint)
     smoke = _module("chip_smoke_flags", os.path.join(REPO, "chip_smoke.py"))
     fc_con = _module("run_fc_con_flags",
                      os.path.join(REPO, "scripts", "run_fc_con.py"))
     run_joint = _module("run_joint_flags",
                         os.path.join(REPO, "scripts", "run_joint.py"))
+    assert smoke.PHASE1_FLAGS is port_fc_con.STAGE_FLAGS
+    assert smoke.JOINT_BASE is port_joint.JOINT_BASE
     assert smoke.PHASE1_FLAGS == fc_con.STAGE_FLAGS
     for mode in MODES + ("gumbel_speaker", "multinomial_speaker",
                          "reinforce", "reinforce_listener",
                          "reinforce_speaker"):
         for vse in (0, 1):
-            assert smoke.joint_flags(mode, vse=vse) == run_joint.joint_flags(
-                optimization=mode, vse=vse)[1], (mode, vse)
+            assert smoke.joint_flags(mode, vse=vse) == \
+                port_joint.joint_flags(optimization=mode, vse=vse)[1] == \
+                run_joint.joint_flags(optimization=mode, vse=vse)[1], \
+                (mode, vse)
     # the script's Options beside build_run's overrides
     seen = {}
     from cooperativeimagecaptioning_tpu.evaluation import harvest
