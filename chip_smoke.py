@@ -4257,19 +4257,81 @@ RESNET_HW = 448      # the extractor's input side
 RESNET_ITERS = 10
 ATT_SIDE = 14        # the 14 x 14 attention grid
 EXTRACT_IMAGES = 64
-# card against CPU, f32 with TF32 off: random weights at the He scale grow
-# activations to ~1e4 at depth 101, so the error is held relative to the
-# largest value of the CPU's output
+# card against CPU, f32 with TF32 off: the error is held relative to the
+# largest value of the CPU's output (the norms are scaled to keep the
+# activations at one scale through the depth: see seeded_resnet)
 RESNET_REL = 1e-4
 # raw image shapes of the extraction: COCO's common 640 x 480 and 500 x 375,
 # and a grayscale 2-D image (the loader's channel fix)
 RAW_SHAPES = ((480, 640, 3), (375, 500, 3), (480, 640))
+CALIBRATION_IMAGES = 4
+# distinct caption rows of the 64 served images, greedy and beam 2: the
+# floor of phase 6's evaluation (16)
+EXTRACT_MIN_DISTINCT = 16
 
 
 def raw_images(n, seed):
+    """n uint8 images of RAW_SHAPES in turn, each a smooth field of colours
+    (a random 4 x 4 grid resized up) under mild noise, so that the images
+    differ in colour and layout (images of i.i.d. noise give nearly equal
+    features)."""
+    from cooperativeimagecaptioning_tpu_torch.preprocess import feats
     rng = np.random.RandomState(seed)
-    return [rng.randint(0, 256, RAW_SHAPES[i % len(RAW_SHAPES)], np.uint8)
-            for i in range(n)]
+    out = []
+    for i in range(n):
+        shape = RAW_SHAPES[i % len(RAW_SHAPES)]
+        field = feats._resize_bilinear(rng.rand(4, 4, 3).astype(np.float32),
+                                       max(shape[:2]))[:shape[0], :shape[1]]
+        img = np.clip(255 * (field + 0.1 * rng.randn(*field.shape)), 0, 255)
+        out.append(img.astype(np.uint8)[..., 0] if len(shape) == 2
+                   else img.astype(np.uint8))
+    return out
+
+
+def host_batch(imgs):
+    """Raw images -> the extractor's float batch [n, 448, 448, 3]."""
+    from cooperativeimagecaptioning_tpu_torch.preprocess import feats
+    return np.stack([feats._resize_bilinear(feats._to_rgb_float(im),
+                                            RESNET_HW) for im in imgs])
+
+
+def seeded_resnet():
+    """ResNet-101 on the card with random weights from SEED at one scale:
+    the convolutions from init_model (He scale), each batch norm's scale
+    and bias drawn from SEED, and its scale divided by the RMS of its whole
+    input on CALIBRATION_IMAGES images of their own (one number a norm), so
+    that every norm's output has an RMS near 1.  init_model's identity
+    norms let the activations grow with depth to ~2e5, where one random
+    speaker gives one caption for every image.  The running statistics stay
+    the identity: statistics calibrated per channel would scale the weak
+    channels up to the strong ones and amplify f32 rounding with them, so
+    that the CPU alone would differ from float64 by about the card-vs-CPU
+    tolerance; one number a norm leaves the rounding where it is."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.preprocess import feats, resnet
+    model = resnet.init_model(torch.Generator().manual_seed(SEED),
+                              RESNET_ARCH)
+    rng = np.random.RandomState(SEED)
+    norms = [m for m in model.modules()
+             if isinstance(m, torch.nn.BatchNorm2d)]
+
+    def calibrate(m, inp):
+        m.weight.div_(inp[0].pow(2).mean().sqrt())
+    with torch.no_grad():
+        for m in norms:
+            c = m.num_features
+            m.weight.copy_(torch.from_numpy(
+                rng.uniform(0.5, 1.5, c).astype(np.float32)))
+            m.bias.copy_(torch.from_numpy(
+                rng.uniform(-0.2, 0.2, c).astype(np.float32)))
+    hooks = [m.register_forward_pre_hook(calibrate) for m in norms]
+    try:
+        feats.make_extractor(model, ATT_SIDE, DEVICE)(host_batch(
+            raw_images(CALIBRATION_IMAGES, seed=SEED + 11)))
+    finally:
+        for h in hooks:
+            h.remove()
+    return model
 
 
 def conv_flops(model, hw):
@@ -4299,20 +4361,18 @@ def resnet_on_card(smi, out):
     (640 x 480, and a grayscale one) on the card against the port on the
     CPU; then the network timed on device-resident input (bench.py's
     16 x 448, 10 iterations) beside its operations bound, as the extractor
-    runs it (NHWC input view, weights as loaded), and beside it with the
-    weights in channels_last and with TF32 allowed (neither is used); peak
-    device memory."""
+    runs it (NHWC input view, weights as loaded), and beside it with TF32
+    allowed (not used: the reference for what f32 costs); peak device
+    memory."""
     import copy
     import torch
     from cooperativeimagecaptioning_tpu_torch.preprocess import feats, resnet
-    model = resnet.init_model(torch.Generator().manual_seed(SEED),
-                              RESNET_ARCH)
-    cpu_model = copy.deepcopy(model)
+    model = seeded_resnet()
+    cpu_model = copy.deepcopy(model).cpu()
     card = feats.make_extractor(model, ATT_SIDE, DEVICE)
     host = feats.make_extractor(cpu_model, ATT_SIDE, "cpu")
     imgs = raw_images(3, seed=SEED + 12)
-    batch = np.stack([feats._resize_bilinear(feats._to_rgb_float(imgs[i]),
-                                             RESNET_HW) for i in (0, 2)])
+    batch = host_batch([imgs[0], imgs[2]])
     got, want = card(batch), host(batch)
     for name, g, w in (("fc", got[0], want[0]), ("att", got[1], want[1])):
         require(g.shape == w.shape and np.isfinite(g).all(),
@@ -4320,7 +4380,8 @@ def resnet_on_card(smi, out):
         scale = float(np.abs(w).max())
         err = float(np.abs(g - w).max())
         print(f"  ResNet-101 {name} {list(g.shape)}, card vs CPU: max abs "
-              f"err {err:.3e}, max |value| {scale:.3e}, relative "
+              f"err {err:.3e}, max |value| {scale:.3e}, median |value| "
+              f"{float(np.median(np.abs(w))):.3e}, relative "
               f"{err / scale:.2e} (tol {RESNET_REL:.0e})", flush=True)
         require(err <= RESNET_REL * scale,
                 f"ResNet {name}: card vs CPU error {err} above "
@@ -4334,40 +4395,33 @@ def resnet_on_card(smi, out):
 
     cudnn = torch.backends.cudnn
 
-    def forward(m, tf32=False):
-        def run():
-            precision = cudnn.flags(
-                enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                deterministic=cudnn.deterministic, allow_tf32=True) \
-                if tf32 else resnet.f32_convolutions()
-            with torch.no_grad(), precision:
-                return resnet.features(m, (x - mean) / std, ATT_SIDE)
-        return run
+    def forward(tf32=False):
+        precision = cudnn.flags(
+            enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+            deterministic=cudnn.deterministic, allow_tf32=True) \
+            if tf32 else resnet.f32_convolutions()
+        with torch.no_grad(), precision:
+            return resnet.features(model, (x - mean) / std, ATT_SIDE)
     sync()
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(forward(model), RESNET_ITERS)
+    ms = cuda_ms(forward, RESNET_ITERS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    cl = copy.deepcopy(model).to(memory_format=torch.channels_last)
-    ms_cl = cuda_ms(forward(cl), RESNET_ITERS)
-    del cl
-    ms_tf32 = cuda_ms(forward(model, tf32=True), RESNET_ITERS)
+    ms_tf32 = cuda_ms(lambda: forward(tf32=True), RESNET_ITERS)
     flops = conv_flops(model, RESNET_HW)
     weights = [p for p in model.parameters()]
-    fc, att = forward(model)()
+    fc, att = forward()
     bound, by = bound_ms([x, fc, att] + weights, flops * RESNET_B, "float32")
     ips = RESNET_B / (ms / 1e3)
     out.update(resnet_ms=ms, resnet_ips=ips, resnet_bound_ms=bound,
                resnet_peak_mib=peak, resnet_gflop=flops / 1e9,
-               resnet_ms_channels_last=ms_cl, resnet_ms_tf32=ms_tf32)
+               resnet_ms_tf32=ms_tf32)
     print(f"  ResNet-101 forward ({smi}; f32, TF32 off, NHWC input view, "
           f"{RESNET_B} x {RESNET_HW} x {RESNET_HW}, att {ATT_SIDE}, device-"
           f"resident input, {RESNET_ITERS} iterations): {ms:.2f} ms a batch, "
           f"{ips:.1f} images/s; bound {bound:.2f} ms by {by} "
           f"({flops / 1e9:.1f} GFLOP an image at 67 TFLOP/s f32), "
           f"{bound / ms * 100:.1f}% of it; peak device memory {peak:.0f} "
-          f"MiB; channels_last weights (not used) {ms_cl:.2f} ms; TF32 "
-          f"allowed (not used) "
-          f"{ms_tf32:.2f} ms", flush=True)
+          f"MiB; TF32 allowed (not used) {ms_tf32:.2f} ms", flush=True)
     del x, fc, att
     return model
 
@@ -4426,11 +4480,18 @@ def serve_extracted(fc, att, add):
     """(b) phase 4's speaker served over the extracted features through
     from_run_dir(max_att_len=196), greedy and beam 2, f32: every step
     through the attention kernel and the head; ids against the CPU
-    service's."""
-    import torch
+    service's, and at least EXTRACT_MIN_DISTINCT distinct rows, so that the
+    captions depend on the features the kernels read.  Phase 4's speaker is
+    random and its input layers were drawn for features like phase 4's,
+    N(0, 1): the extracted features are served standardized per channel
+    over the images (an affine map a channel, which keeps how the images
+    differ)."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
     n = fc.shape[0]
+    fc = ((fc - fc.mean(0)) / (fc.std(0) + 1e-6)).astype(np.float32)
+    att = ((att - att.mean((0, 1))) /
+           (att.std((0, 1)) + 1e-6)).astype(np.float32)
     masks = np.ones(att.shape[:2], np.float32)
     for beam in (0, 2):
         kw = dict(beam_size=beam, compute_dtype="float32", buckets=(n,),
@@ -4447,12 +4508,15 @@ def serve_extracted(fc, att, add):
         cpu = CaptioningService.from_run_dir(RUN_DIR, device="cpu", **kw)
         rate = float((cpu.caption_ids(fc, att, masks) == ids).all(
             axis=1).mean())
+        distinct = len({tuple(r) for r in ids})
         print(f"  phase 4's speaker over the extracted features (f32, "
               f"{'beam 2' if beam else 'greedy'}, {K_GRID} slots): "
-              f"{len({tuple(r) for r in ids})} distinct rows of {n}; card vs "
-              f"CPU {rate * 100:.1f}% of rows equal (need >= "
-              f"{AGREE_F32 * 100:.0f}%); launches "
+              f"{distinct} distinct rows of {n} (need >= "
+              f"{EXTRACT_MIN_DISTINCT}); card vs CPU {rate * 100:.1f}% of "
+              f"rows equal (need >= {AGREE_F32 * 100:.0f}%); launches "
               f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        require(distinct >= EXTRACT_MIN_DISTINCT, f"extracted features, "
+                f"beam {beam}: {distinct} distinct rows of {n}")
         require(rate >= AGREE_F32, f"extracted features, beam {beam}: "
                 f"{rate} of rows equal to the CPU service")
         del svc, cpu

@@ -163,16 +163,17 @@ def _resize_bilinear(img, size):
     return np.einsum("oh,hwc,pw->opc", wy, img, wx, optimize=True)
 
 
-def load_model(model_weights=None, arch="resnet101", seed=0):
+def load_model(model_weights=None, arch="resnet101"):
     """The extractor's ResNet: a pickled torchvision state_dict when given
-    (`--model_weights`), else random weights from `seed`."""
+    (`--model_weights`), else random weights from seed 0 (as the JAX
+    package's PRNGKey(0))."""
     if model_weights:
         import pickle
         with open(model_weights, "rb") as f:
             state_dict = pickle.load(f)
         return resnet.load_weights(resnet.ResNet(resnet._blocks_of(arch)),
                                    state_dict)
-    return resnet.init_model(torch.Generator().manual_seed(seed), arch)
+    return resnet.init_model(torch.Generator().manual_seed(0), arch)
 
 
 def prepro_feats(input_json, images_root, output_dir, model_weights=None,

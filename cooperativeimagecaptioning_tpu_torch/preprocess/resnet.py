@@ -17,8 +17,8 @@ Layouts: the JAX package is NHWC / HWIO; here the model is NCHW / OIHW.
 `features` takes NHWC images, as the JAX function does, and hands the
 network their NCHW view, which has channels_last strides (no copy): the
 convolutions follow the input's memory format, so cuDNN runs its NHWC
-kernels.  Converting the weights to channels_last as well changed nothing
-on an H100 (chip_smoke.py phase 12 times both), so they stay as loaded.
+kernels.  Converting the weights to channels_last as well changed the
+forward by under 1% on an H100, so they stay as loaded.
 `att` comes back NHWC, [B, att, att, 2048], which is the layout the feature
 files hold.  `params_from_jax` carries a JAX parameter tree (HWIO) over as
 this model's `state_dict` (OIHW).
@@ -94,12 +94,6 @@ class ResNet(nn.Module):
         """NCHW normalized images -> the layer4 map [B, 2048, ~H/32, ~W/32]."""
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
-
-
-def resnet_forward(model, x):
-    """NHWC normalized images -> the layer4 map, NHWC (the JAX function's
-    layouts)."""
-    return model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 def features(model, images, att_size=14):

@@ -109,7 +109,8 @@ def test_resnet_features_match_jax(jx, arch, hw, att_size):
     with torch.no_grad():
         model = port_model(tree, arch)
         got = tresnet.features(model, torch.from_numpy(x), att_size)
-        fmap = tresnet.resnet_forward(model, torch.from_numpy(x)).numpy()
+        fmap = model(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(
+            0, 2, 3, 1).numpy()
     assert_features_close([t.numpy() for t in got],
                           jax_features(jx, tree, x, att_size))
     want = np.asarray(jx["jax"].jit(jx["resnet"].resnet_forward)(
