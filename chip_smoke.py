@@ -8,9 +8,10 @@ Phases, in order; any failure exits non-zero:
                  power limit (nvidia-smi).
   2. build    -- builds the hand-written kernels from the package's csrc/
                  with nvcc (timed) and prints the registers, stack and
-                 spills ptxas reports for the heads' tensor-core pass, the
-                 attention's pre-pass and stream kernels and the cell's two
-                 kernels (no spill allowed).
+                 spills ptxas reports for the heads' two tensor-core passes
+                 (bf16 wgmma, f32 split TF32), the attention's pre-pass and
+                 stream kernels and the cell's two kernels (no spill
+                 allowed).
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes the paths give it, in float32 and bfloat16:
                  attention (masked and unmasked; the b-major, the int8 and
@@ -31,8 +32,10 @@ Phases, in order; any failure exits non-zero:
                  4096 and 300 rows; beam kk = 2, 3, 6, 16 at R=1024 and kk = 2
                  at the evaluation's R=256, at 300 and at 8192 rows, and kk =
                  17, 32, 64 at R=1024, in rounds of 16, with a group of 24
-                 tied ids across the rounds' seam; every bf16 launch must
-                 take the tensor-core pass, every f32 launch the FMA pass).
+                 tied ids across the rounds' seam; greedy also at the f32
+                 paths' R=128; every bf16 launch must take the wgmma pass,
+                 every f32 launch the split-TF32 pass, and an f32 W that
+                 does not start on 16 bytes the FMA pass).
                  Each check prints its maximum error beside its tolerance;
                  each kernel is timed beside its plain version.  The fused
                  maxout-LSTM cell (kernel F, CIC_FUSED_CELL=1) against its
@@ -45,15 +48,20 @@ Phases, in order; any failure exits non-zero:
                  bound: the larger of its bytes over the card's memory rate
                  and its operations over the card's peak rate.  The heads are
                  timed at B=512 and 4096 (greedy) and R=1024 and 8192 (beam,
-                 kk=2), each beside torch.matmul of h @ w alone, a yardstick
-                 the port never calls.
+                 kk=2) in bf16, and in f32 at the f32 paths' shapes (greedy
+                 R=128 and 512, beam kk=2 at R=256 and 1024, and the vocab
+                 slices of a model axis of 2: R=256 kk=2 and R=128 kk=1),
+                 each beside torch.matmul of h @ w alone, a yardstick the
+                 port never calls (f32 with TF32 off), and in f32 beside the
+                 split product's floor (three TF32 products at 495
+                 TFLOP/s).
   4. slice    -- writes a full-width run dir (Att2in2, vocab 9487, 512-wide,
                  K=36, L=16, random weights from a numpy seed), serves it
                  through CaptioningService.from_run_dir + warmup +
                  make_http_server (greedy and beam 2, bf16), checks the
                  answers and that every request went through the kernels
                  (launch counts; every head launch of a bf16 service on the
-                 tensor-core pass, of an f32 service on the FMA pass),
+                 wgmma pass, of an f32 service on the split-TF32 pass),
                  compares the CUDA services with CPU
                  services (plain versions) in float32 and in bfloat16, and
                  times captions/s.  Then the same for the two other decode
@@ -224,6 +232,9 @@ Phases, in order; any failure exits non-zero:
                  which this script does not require of the card's host:
                  they run in the CPU tests; the stage scripts' flag sets
                  train phases 8 and 10 here.
+Every f32 head launch of a path (services, evaluation, SCST, joint,
+reinforce, device rewards and fused chunks, mesh slices, harvest) must take
+the split-TF32 pass, by the per-pass launch counts.
 Two lines before the last name the card and describe the kernels (one JSON
 object, with each kernel's launches by path, "mesh" the launches of every
 rank of the mesh runs, "joint_reinforce" those of phase 10,
@@ -341,6 +352,9 @@ def joint_flags(optimization, vse=0):
 # the first and its operations over the second.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# TF32 on the tensor cores: the floor of the f32 heads' split product, three
+# TF32 products of 2*R*H*V operations each
+TF32_OPS_PER_S = 495e12
 
 # Tolerances (kernel vs plain version on the same inputs, max abs error):
 #  attention out: f32 differs only by summation order -> 1e-4; bf16 output
@@ -440,16 +454,22 @@ def phase_build():
     print(f"build: {how} from {os.path.relpath(str(_build.CSRC), REPO)}/ "
           f"for sm_90a in {info['seconds']:.1f} s -> "
           f"{os.path.relpath(info['path'], REPO)}", flush=True)
-    # what ptxas gave the tensor-core pass: KK is the top-list length
+    # what ptxas gave the two tensor-core passes: KK is the top-list
+    # length, THR a later round's instantiation
     for name, res in sorted(info["resources"].items()):
-        if "vocab_partials_mma" in name:
-            kk = name.split("vocab_partials_mmaILi")[1].split("E")[0]
-            src = "logit_head_mma" if "logit_head_mma" in name else \
-                "beam_head_mma"
-            print(f"  {src} vocab_partials_mma<KK={kk}>: {res['registers']} "
-                  f"registers, {res['stack_bytes']} bytes of stack, "
-                  f"{res['spill_bytes']} bytes spilled", flush=True)
-            require(res["spill_bytes"] == 0, f"{name} spills registers")
+        for kind in ("mma", "tf32"):
+            kernel = f"vocab_partials_{kind}"
+            if kernel in name:
+                args = name.split(kernel + "ILi")[1]
+                kk = args.split("E")[0]
+                thr = ", THR" if args.split("E")[1].startswith("Lb1") else ""
+                src = ("logit_head" if f"logit_head_{kind}" in name
+                       else "beam_head") + f"_{kind}"
+                print(f"  {src} {kernel}<KK={kk}{thr}>: "
+                      f"{res['registers']} registers, {res['stack_bytes']} "
+                      f"bytes of stack, {res['spill_bytes']} bytes spilled",
+                      flush=True)
+                require(res["spill_bytes"] == 0, f"{name} spills registers")
     # the attention's pre-pass and stream kernels (template arguments as
     # mangled: type, vector width, columns a thread, layout) and the cell's
     # two kernels (mma: warps along the rows; fma: type, asynchronous fill)
@@ -603,6 +623,19 @@ def att_widths_moved(before):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
+def require_head_pass(what, first_pass, passes=None):
+    """Every head launch counted in `passes` (per-pass counts; by default
+    those since the last reset) took `first_pass`: "tf32x3" for a path's
+    f32 heads, "mma" for its bf16 heads (every such launch is at an aligned
+    full-width shape)."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    passes = _dispatch.head_pass_launches() if passes is None else passes
+    other = {k: v for k, v in passes.items()
+             if v and not k.endswith(f"_{first_pass}")}
+    require(not other, f"{what}: every head launch must take the "
+            f"{first_pass} pass, counted {passes}")
+
+
 def require_vector_width(what, launches):
     """Every launch of the three attention kernels since the last reset took
     the 16-byte vector width (`launches`: _dispatch.launches())."""
@@ -618,26 +651,29 @@ def require_vector_width(what, launches):
 def check_heads(rn, dt, errs):
     """Kernels B and C against their plain versions in type `dt`, random rows
     and rows with planted exact ties, at every row count a path gives them
-    and a few it does not: greedy at the buckets 512 and 4096 and at 300 rows
-    (no multiple of the 64-row warpgroup tile); beam at the service's R=1024
-    (kk 2, 3, 6 and the longest list, 16), the evaluation's R=256, 300 rows,
-    and the 8192 rows of a beam-2 bucket of 4096.  Each launch must take the
-    first pass its type asks for: the tensor-core pass in bf16, the FMA pass
-    in f32 (the per-pass launch counts).  Returns (w, b) for the timings."""
+    and a few it does not: greedy at the f32 paths' R=128, the buckets 512
+    and 4096 and at 300 rows (no multiple of the 64-row warpgroup tile);
+    beam at the service's R=1024 (kk 2, 3, 6 and the longest list, 16), the
+    evaluation's R=256, 300 rows, and the 8192 rows of a beam-2 bucket of
+    4096.  Each launch must take the first pass its type asks for: the
+    wgmma pass in bf16, the split-TF32 pass in f32 (the per-pass launch
+    counts); in f32 one greedy and one beam launch on a W that does not
+    start on 16 bytes must take the FMA pass.  Returns (w, b) for the
+    timings."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
         _dispatch, beam_head, logit_head)
     dn = str(dt).split(".")[-1]
-    first_pass = "mma" if dt == torch.bfloat16 else "fma"
+    first_pass = "mma" if dt == torch.bfloat16 else "tf32x3"
     H, V1, R = WIDTH, VOCAB + 1, 1024
 
-    def launch(head, fn):
+    def launch(head, fn, which=first_pass):
         before = _dispatch.head_pass_launches()
         out = fn()
         torch.cuda.synchronize()
         moved = head_passes_moved(before)
-        require(moved == {f"{head}_{first_pass}": 1},
-                f"{head} {dn}: expected one launch on the {first_pass} pass, "
+        require(moved == {f"{head}_{which}": 1},
+                f"{head} {dn}: expected one launch on the {which} pass, "
                 f"counted {moved}")
         return out
 
@@ -674,8 +710,33 @@ def check_heads(rn, dt, errs):
                       idx_p, logits_b, TOL["head"])
             del hb, logits_b
     del wg, bg
+    if dt == torch.float32:
+        # the FMA pass keeps every f32 shape the split-TF32 pass does not
+        # take: here a W whose storage starts 4 bytes past 16
+        store = torch.empty(H * V1 + 1, device=w.device)
+        w_off = store[1:].view(H, V1)
+        w_off.copy_(wt)
+        h = rn(300, H, scale=0.5)
+        it, lp = launch("greedy_head",
+                        lambda: logit_head.greedy_head(h, w_off, bt), "fma")
+        it_p, lp_p = logit_head.greedy_head_reference(h, wt, bt)
+        vals, idx, lse = launch(
+            "beam_head", lambda: beam_head.beam_head(h, w_off, bt, 2), "fma")
+        vals_p, idx_p, lse_p = beam_head.beam_head_reference(h, wt, bt, 2)
+        err = max((lp - lp_p).abs().max().item(),
+                  (vals - vals_p).abs().max().item(),
+                  (lse - lse_p).abs().max().item())
+        errs["greedy_head"] = max(errs["greedy_head"], err)
+        errs["beam_head"] = max(errs["beam_head"], err)
+        report("heads", "f32 FMA pass (W off 16 bytes) B=300", err,
+               TOL["head"])
+        want = torch.tensor(planted[:2], dtype=torch.int32, device=idx.device)
+        require(bool((it == planted[0]).all())
+                and bool((idx == want[None]).all()),
+                "the FMA pass: planted ties not in lower-id order")
+        del store, w_off, h
     for ww, bb, what in ((w, b, "random"), (wt, bt, "planted ties")):
-        for rows in (512, 4096, 300):
+        for rows in (128, 512, 4096, 300):
             h = rn(rows, H, scale=0.5).to(dt)
             logits = logit_head.logits_f32(h, ww, bb)
             it, lp = launch("greedy_head",
@@ -725,61 +786,80 @@ def check_heads(rn, dt, errs):
     return w, b
 
 
+# (kernel, rows, kk, shards: 0 for the whole logit layer, 2 for a model
+# axis' slice) at which the f32 heads are timed: the SCST / joint greedy
+# baseline, the f32 service's bucket 512, the evaluation's beam-2 decode,
+# the f32 beam service's R=1024, and the per-rank slices of G and H
+HEAD_F32_TIMED = (("greedy_head", 128, 1, 0), ("greedy_head", 512, 1, 0),
+                  ("beam_head", 256, 2, 0), ("beam_head", 1024, 2, 0),
+                  ("beam_head", 256, 2, 2), ("beam_head", 128, 1, 2))
+HEAD_BF16_TIMED = (("greedy_head", 512, 1, 0), ("greedy_head", 4096, 1, 0),
+                   ("beam_head", 1024, 2, 0), ("beam_head", 8192, 2, 0),
+                   ("beam_head", 1024, 32, 0))
+
+
 def time_heads(rn, w, b):
-    """bf16 times of B (buckets 512 and 4096) and C (kk=2 at R=1024 and at
-    the 8192 rows of a beam-2 bucket of 4096; kk=32, two rounds, at
-    R=1024), each beside its plain version,
-    its bound, and `h @ w` alone through torch.matmul: a yardstick for the
-    product inside the kernel, which the port never calls for the heads;
-    and the wrapper call on the host's clock, back to back on an idle card
-    (`call_ms`: what a decode loop pays where enqueueing takes longer than
-    the kernels).  Returns {(kernel, rows, kk): {"ms", "plain_ms",
-    "bound_ms", "bound_by", "matmul_ms", "call_ms"}}."""
+    """Times of B and C, each beside its plain version, its bound, and `h @
+    w` alone through torch.matmul: a yardstick for the product inside the
+    kernel, which the port never calls for the heads; and the wrapper call
+    on the host's clock, back to back on an idle card (`call_ms`: what a
+    decode loop pays where enqueueing takes longer than the kernels).  In
+    bf16 HEAD_BF16_TIMED: B at the buckets 512 and 4096, C at kk=2 at
+    R=1024 and at the 8192 rows of a beam-2 bucket of 4096, kk=32 (two
+    rounds) at R=1024.  In f32 (TF32 off for `h @ w`) HEAD_F32_TIMED, with
+    the split product's floor (three TF32 products at 495 TFLOP/s) beside
+    the bound.  Returns {(kernel, rows, kk, shards): {"ms", "plain_ms",
+    "bound_ms", "bound_by", "matmul_ms", "call_ms"[, "split_floor_ms"]}}."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
         beam_head, logit_head)
+    f32 = w.dtype == torch.float32
     H, V1 = w.shape
     out = {}
-    for name, rows, kk in (("greedy_head", 512, 1), ("greedy_head", 4096, 1),
-                           ("beam_head", 1024, 2), ("beam_head", 8192, 2),
-                           ("beam_head", 1024, 32)):
+    for name, rows, kk, shards in HEAD_F32_TIMED if f32 else HEAD_BF16_TIMED:
+        V = V1 // shards if shards else V1
+        ws, bs = w[:, :V].contiguous(), b[:V].contiguous()
         h = rn(rows, H, scale=0.5).to(w.dtype)
         iters = 20 if rows <= 1024 else 10
         if name == "greedy_head":
             def kernel():
-                return logit_head.greedy_head(h, w, b)
+                return logit_head.greedy_head(h, ws, bs)
 
             def plain():
-                return logit_head.greedy_head_reference(h, w, b)
+                return logit_head.greedy_head_reference(h, ws, bs)
             outs = (torch.empty(rows, dtype=torch.int32),
                     torch.empty(rows, dtype=torch.float32))
         else:
             def kernel():
-                return beam_head.beam_head(h, w, b, kk)
+                return beam_head.beam_head(h, ws, bs, kk)
 
             def plain():
-                return beam_head.beam_head_reference(h, w, b, kk)
+                return beam_head.beam_head_reference(h, ws, bs, kk)
             outs = (torch.empty(rows, kk), torch.empty(rows, kk).int(),
                     torch.empty(rows))
         pair = timed_pair(kernel, plain, iters)
-        bound = bound_ms((h, w, b) + outs, 2 * rows * H * V1, "bfloat16")
-        mm = cuda_ms(lambda: h @ w, iters)
+        ops = 2 * rows * H * V
+        bound = bound_ms((h, ws, bs) + outs, ops, str(w.dtype).split(".")[-1])
+        mm = cuda_ms(lambda: h @ ws, iters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
             kernel()
         torch.cuda.synchronize()
         call = (time.perf_counter() - t0) * 1e3 / iters
-        out[name, rows, kk] = {"ms": pair[0], "plain_ms": pair[1],
-                               "bound_ms": bound[0], "bound_by": bound[1],
-                               "matmul_ms": mm, "call_ms": call}
-        print(f"  time {name:12s} bf16 rows={rows:<5d} kk={kk:<2d} kernel "
-              f"{pair[0]:.4f} ms  plain {pair[1]:.4f} ms  bound "
-              f"{bound[0]:.4f} ms "
-              f"({bound[1]}; {pair[0] / bound[0]:.1f}x)  h @ w alone "
-              f"{mm:.4f} ms  wrapper on the host's clock {call:.4f} ms",
-              flush=True)
-        del h
+        t = {"ms": pair[0], "plain_ms": pair[1], "bound_ms": bound[0],
+             "bound_by": bound[1], "matmul_ms": mm, "call_ms": call}
+        floor = ""
+        if f32:
+            t["split_floor_ms"] = 3 * ops / TF32_OPS_PER_S * 1e3
+            floor = f"  split floor {t['split_floor_ms']:.4f} ms"
+        out[name, rows, kk, shards] = t
+        print(f"  time {name:12s} {'f32' if f32 else 'bf16'} rows={rows:<5d} "
+              f"kk={kk:<2d} V={V:<5d} kernel {pair[0]:.4f} ms  plain "
+              f"{pair[1]:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]}; "
+              f"{pair[0] / bound[0]:.1f}x){floor}  h @ w alone {mm:.4f} ms  "
+              f"wrapper on the host's clock {call:.4f} ms", flush=True)
+        del h, ws, bs
     return out
 
 
@@ -827,14 +907,18 @@ def phase_kernels():
 
         w, b = check_heads(rn, dt, errs)
 
-        if dt == torch.bfloat16:  # serving dtype: time the heads
-            for (name, rows, kk), t in time_heads(rn, w, b).items():
-                label = f"bf16 rows={rows}" + (f" kk={kk}" if kk > 2 else "")
-                shapes[name].append({"shape": label, **t})
-                if (name, rows, kk) in (("greedy_head", B, 1),
-                                        ("beam_head", R, 2)):
-                    times[name] = (t["ms"], t["plain_ms"])
-                    bounds[name] = (t["bound_ms"], t["bound_by"])
+        for (name, rows, kk, shards), t in time_heads(rn, w, b).items():
+            label = f"{'bf16' if dt == torch.bfloat16 else 'f32'} rows={rows}"
+            if kk > 2 or (shards and name == "beam_head"):
+                label += f" kk={kk}"
+            if shards:
+                label += f" V/{shards}"
+            shapes[name].append({"shape": label, **t})
+            # the kernels line's own numbers: the bf16 serving shapes
+            if dt == torch.bfloat16 and (name, rows, kk) in (
+                    ("greedy_head", B, 1), ("beam_head", R, 2)):
+                times[name] = (t["ms"], t["plain_ms"])
+                bounds[name] = (t["bound_ms"], t["bound_by"])
         del w, b
     errs["cell"], times["cell"], bounds["cell"] = check_cell(rn, shapes)
     errs["attention"] = max(errs["attention"],
@@ -1284,9 +1368,9 @@ def phase_slice(smi):
         ids32 = gpu32.caption_ids(fc, att, masks)
         passes = head_passes_moved(passes)
         head = "beam_head" if m else "greedy_head"
-        require(passes == {f"{head}_fma": L},
+        require(passes == {f"{head}_tf32x3": L},
                 f"f32 {mode} service: the head launches must all take the "
-                f"FMA pass, counted {passes}")
+                f"split-TF32 pass, counted {passes}")
         for what, ids_a, ids_b, floor in (
                 ("f32 cuda vs f32 cpu", ids32, cpu["float32"], AGREE_F32),
                 ("bf16 cuda vs bf16 cpu", ids_served, cpu["bfloat16"],
@@ -1340,6 +1424,8 @@ def phase_grid_features():
             torch.cuda.synchronize()
             got = _dispatch.launches()
             require_vector_width(f"{K_GRID}-slot {dn} {mode}", got)
+            require_head_pass(f"{K_GRID}-slot {dn} {mode}",
+                              "tf32x3" if dn == "float32" else "mma")
             for k in _dispatch.KERNELS:
                 want = L if k in ("attention", head) else 0
                 require(got[k] == want, f"{K_GRID}-slot {dn} {mode}: {k} "
@@ -1495,9 +1581,9 @@ def phase_layouts(smi, plain, plain_ids, plain_rates):
         q_gpu = ids(att_quant="int8")
         passes = head_passes_moved(passes)
         head = "beam_head" if m else "greedy_head"
-        require(passes == {f"{head}_fma": 2 * L},
+        require(passes == {f"{head}_tf32x3": 2 * L},
                 f"f32 {mode} services: the head launches must all take the "
-                f"FMA pass, counted {passes}")
+                f"split-TF32 pass, counted {passes}")
         for what, a, b, floor in (
                 ("f32 K-major cuda vs f32 b-major cuda", ids(att_kmajor=1),
                  base, AGREE_F32),
@@ -1861,10 +1947,10 @@ def phase_eval(smi):
         require(launches == want, f"evaluation {name}: launches {launches}, "
                 f"expected {want}")
         require_vector_width(f"evaluation {name}", launches)
-        require(_dispatch.head_pass_launches()["beam_head_fma"]
+        require(_dispatch.head_pass_launches()["beam_head_tf32x3"]
                 == want["beam_head"],
-                f"evaluation {name}: the f32 beam head must take the FMA "
-                f"pass")
+                f"evaluation {name}: the f32 beam head must take the "
+                f"split-TF32 pass")
         for k, v in launches.items():
             total[k] += v
         losses[name] = out["loss"]["loss_cap"]
@@ -2274,9 +2360,9 @@ def phase_scst(smi, phase5):
               f"every iteration; launches {got}", flush=True)
     launches = _dispatch.launches()
     require_vector_width("SCST", launches)
-    require(_dispatch.head_pass_launches()["greedy_head_fma"] ==
+    require(_dispatch.head_pass_launches()["greedy_head_tf32x3"] ==
             launches["greedy_head"], "SCST: the f32 greedy head must take "
-            "the FMA pass")
+            "the split-TF32 pass")
 
     # where an iteration's time goes, and it/s, the cell kernel on
     data = trainer.loader.get_batch("train")
@@ -2545,9 +2631,9 @@ def listener_joint(ds, add, out, smi):
     launches = _dispatch.launches()
     add(launches)
     require_vector_width("joint", launches)
-    require(_dispatch.head_pass_launches()["greedy_head_fma"] ==
+    require(_dispatch.head_pass_launches()["greedy_head_tf32x3"] ==
             launches["greedy_head"], "joint: the f32 greedy head must take "
-            "the FMA pass")
+            "the split-TF32 pass")
 
     data = tr.loader.get_batch("train")
     with fused_cell_switch(True):
@@ -2760,6 +2846,7 @@ def listener_eval(tr, ds, add, out):
             loss = res["loss"]
             require(got["beam_head"] > 0 and got["attention"] > 0,
                     f"eval.eval launches {got}")
+            require_head_pass(f"eval.eval(listener={listener})", "tf32x3")
             require(np.isfinite(loss.get("t2i_r1", np.nan)) and
                     np.isfinite(loss.get("gt_ranks", {}).get("rsum",
                                                              np.nan)),
@@ -2791,7 +2878,7 @@ def fc_served(add, out):
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
     fc, _, _ = features(512, seed=808)
-    for dt, pass_ in (("float32", "fma"), ("bfloat16", "mma")):
+    for dt, pass_ in (("float32", "tf32x3"), ("bfloat16", "mma")):
         for beam in (0, 2):
             head = "beam_head" if beam else "greedy_head"
             kw = dict(run_id="fc_con", beam_size=beam, buckets=(512,),
@@ -3240,8 +3327,9 @@ def phase_mesh(smi, errs, times, bounds, shapes):
                 require(launches == want, f"{what}: launches {launches}, "
                         f"expected {want} (C at kk={beam} and head_merge L "
                         f"times a decode, B never)")
-                require(passes["beam_head_fma"] == batches * L,
-                        f"{what}: the f32 head slice takes the FMA pass")
+                require(passes["beam_head_tf32x3"] == batches * L,
+                        f"{what}: the f32 head slice takes the split-TF32 "
+                        f"pass")
                 for k, v in launches.items():
                     total[k] += v
         tl, tp, tlaunch, its = got["train"]
@@ -3402,6 +3490,7 @@ def reinforce_turns(tr, n, cell_on, add, what):
             want = {k: per.get(k, 0) for k in got}
             require(got == want, f"{what}, {turn} turn, CIC_FUSED_CELL="
                     f"{int(cell_on)}: launches {got}, expected {want}")
+            require_head_pass(f"{what}, {turn} turn", "tf32x3")
             if joint.needs_reward(tr.opt, turn):
                 a, b = tr.last_reward_seqs
                 require(torch.equal(a, b), f"{what}: stage B's ids differ "
@@ -3524,6 +3613,7 @@ def reinforce_ablations(ds, add, out):
         want = {k: ABLATION_ITERS * per.get(k, 0) for k in got}
         require(tr.turn == turn, f"{which}: turn {tr.turn}")
         require(got == want, f"{which}: launches {got}, expected {want}")
+        require_head_pass(which, "tf32x3")
         for agent, seeded in seeds.items():
             same = all(torch.equal(x.detach().cpu(), y) for (_, x), (_, y)
                        in zip(leaves(tr.params[agent]), leaves(seeded)))
@@ -3681,6 +3771,7 @@ def reinforce_resume_and_eval(tr, ds, add, out):
     loss = res["loss"]
     require(got["beam_head"] > 0 and got["attention"] > 0,
             f"eval.eval launches {got}")
+    require_head_pass("eval.eval of the reinforce run", "tf32x3")
     require(all(np.isfinite(loss.get(k, np.nan)) for k in
                 ("retrieval_sc_loss", "retrieval_loss", "t2i_r1")),
             f"eval.eval of the reinforce run: {sorted(loss)}")
@@ -3708,6 +3799,7 @@ def reinforce_profile(tr, add, out):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     add(_dispatch.launches())
+    require_head_pass("the profiler window", "tf32x3")
     path = tr.last_trace
     require(path is not None and os.path.isfile(path),
             f"profiler window: no trace under {PROFILE_DIR}")
@@ -3959,6 +4051,7 @@ def device_tier_runs(tr, what, add, out, key):
         want = {k: DEV_ITERS * per.get(k, 0) for k in got}
         require(got == want, f"{what}, CIC_FUSED_CELL={int(on)}: launches "
                 f"{got}, expected {want} ({per} an iteration)")
+        require_head_pass(what, "tf32x3")
         print(f"  {DEV_ITERS} iterations of {what}, CIC_FUSED_CELL="
               f"{int(on)}: last " + ", ".join(
                   f"{k} {v:.4f}" for k, v in sorted(vals.items()))
@@ -4098,6 +4191,8 @@ def fused_pair(make_opt, what, add, out, key):
             out[f"{key}_first_s_{tr.opt.fused_steps}"] = \
                 time.perf_counter() - t0
     add(_dispatch.launches())
+    # a replay's head launches are the captured ones, counted at capture
+    require_head_pass(f"{what}, single steps and fused chunks", "tf32x3")
     a, b = trs[1], trs[FUSED_K]
     # one captured iteration per (turn, scheduled sampling on); a chunk
     # ends where scheduled sampling switches on, and each capture follows
@@ -4505,6 +4600,7 @@ def serve_extracted(fc, att, add):
         head = "beam_head" if beam else "greedy_head"
         require(got["attention"] == L and got[head] == L,
                 f"extracted features, beam {beam}: launches {got}")
+        require_head_pass(f"extracted features, beam {beam}", "tf32x3")
         cpu = CaptioningService.from_run_dir(RUN_DIR, device="cpu", **kw)
         rate = float((cpu.caption_ids(fc, att, masks) == ids).all(
             axis=1).mean())
@@ -4556,6 +4652,7 @@ def harvest_on_card(add, out):
     add(got)
     require(got["attention"] > 0 and got["beam_head"] > 0,
             f"harvest's test re-evaluation launches {got}")
+    require_head_pass("harvest's test re-evaluation", "tf32x3")
     require(path is not None and os.path.isfile(path),
             f"harvest wrote no json ({path})")
     with open(os.path.join(HARVEST_RUN_DIR, "val_dict.pkl"), "rb") as f:

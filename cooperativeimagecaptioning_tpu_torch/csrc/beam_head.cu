@@ -13,7 +13,7 @@
 //
 // Design: a first pass over (row tile, vocab split) with a per-thread
 // top-KK list, KK a compile-time slot count (1, 2, 4, 8 or 16) of at least
-// kk, so the lists stay in registers; then one thread per row merges the
+// kk, so the lists stay in registers; then one warp per row merges the
 // vocab splits' lists and log-sum-exp partials and writes the first kk.
 // A kk above the longest list (16: registers) takes rounds of both passes:
 // round n yields the row's candidates 16n .. 16n + 15, because the first
@@ -21,10 +21,10 @@
 // cic::before order (a strict total order: value, then id), which the merge
 // of round n - 1 leaves per row in thr_v / thr_i.  Each round recomputes
 // the product; the log-sum-exp comes from the first.
-// The first pass is vocab_head_mma.cuh's tensor-core pass (use_mma, bf16
-// only; instantiated in beam_head_mma.cu) or vocab_head.cuh's FMA pass with
-// an 8-row tile (float32, and bf16 shapes the tensor-core pass does not
-// take).
+// The first pass (first_pass) is vocab_head_mma.cuh's wgmma pass (bf16;
+// instantiated in beam_head_mma.cu), vocab_head_tf32.cuh's split-TF32 pass
+// (f32; beam_head_tf32.cu) or vocab_head.cuh's FMA pass with an 8-row tile
+// (the shapes neither tensor-core pass takes).
 // The top-KK list holds the top-kk in the same order, so rounding kk up to
 // KK changes no result.
 #include "vocab_head.cuh"
@@ -46,14 +46,16 @@ __global__ void beam_merge(const float* __restrict__ part_val,
                            float* __restrict__ lse, float* __restrict__ thr_v,
                            int* __restrict__ thr_i, int R, int splits, int kk,
                            int off) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= R) return;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kMergeRows + (threadIdx.x >> 5);
+  if (row >= R) return;  // a whole warp: the merge shuffles
   float fv[KK];
   int fi[KK];
-  float M, S;
-  merge_splits<KK>(part_val, part_id, part_m, part_s, row, splits, fv, fi, M,
-                   S);
-  if (off == 0) lse[row] = M + logf(S);
+  double row_lse;
+  merge_splits<KK>(part_val, part_id, part_m, part_s, row, splits, lane, fv,
+                   fi, row_lse);
+  if (lane != 0) return;
+  if (off == 0) lse[row] = (float)row_lse;
 #pragma unroll
   for (int j = 0; j < KK; ++j) {
     if (off + j < kk) {
@@ -67,31 +69,42 @@ __global__ void beam_merge(const float* __restrict__ part_val,
   }
 }
 
+// One first pass of a round: thr_v / thr_i NULL in the first round, the
+// rows' thresholds in a later one (only the longest list takes rounds).
+template <typename T, int KK>
+int first_pass_partials(int first_pass, const void* h, const void* w,
+                        const void* b, float* pv, int* pi, float* pm,
+                        float* ps, int R, int H, int V, int splits,
+                        int split_cols, const float* thr_v, const int* thr_i,
+                        cudaStream_t s) {
+  if (first_pass == cic::kPassMma)
+    return cic::beam_partials_mma(KK, h, w, b, pv, pi, pm, ps, R, H, V,
+                                  splits, split_cols, thr_v, thr_i, s);
+  if (first_pass == cic::kPassTf32)
+    return cic::beam_partials_tf32(KK, h, w, b, pv, pi, pm, ps, R, H, V,
+                                   splits, split_cols, thr_v, thr_i, s);
+  if (thr_v == nullptr)
+    return launch_vocab_partials<T, kBeamRows, KK>(
+        h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols, s);
+  if constexpr (KK == kRoundKK)
+    return launch_vocab_partials<T, kBeamRows, KK, true>(
+        h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols, s, thr_v,
+        thr_i);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, int KK>
 int launch(const void* h, const void* w, const void* b, float* pv, int* pi,
            float* pm, float* ps, float* vals, int* idx, float* lse,
            float* thr_v, int* thr_i, int R, int H, int V, int kk, int splits,
-           int split_cols, bool use_mma, cudaStream_t s) {
+           int split_cols, int first_pass, cudaStream_t s) {
   for (int off = 0; off < kk; off += KK) {
-    int e;
-    if (off == 0)
-      e = use_mma ? cic::beam_partials_mma(KK, h, w, b, pv, pi, pm, ps, R, H,
-                                           V, splits, split_cols, nullptr,
-                                           nullptr, s)
-                  : launch_vocab_partials<T, kBeamRows, KK>(
-                        h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols,
-                        s);
-    else if constexpr (KK == kRoundKK)
-      e = use_mma ? cic::beam_partials_mma(KK, h, w, b, pv, pi, pm, ps, R, H,
-                                           V, splits, split_cols, thr_v,
-                                           thr_i, s)
-                  : launch_vocab_partials<T, kBeamRows, KK, true>(
-                        h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols,
-                        s, thr_v, thr_i);
-    else
-      e = (int)cudaErrorInvalidValue;  // only the longest list takes rounds
+    const int e = first_pass_partials<T, KK>(
+        first_pass, h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols,
+        off == 0 ? nullptr : thr_v, off == 0 ? nullptr : thr_i, s);
     if (e != 0) return e;
-    beam_merge<KK><<<(R + 127) / 128, 128, 0, s>>>(
+    beam_merge<KK><<<(R + kMergeRows - 1) / kMergeRows, 32 * kMergeRows, 0,
+                     s>>>(
         pv, pi, pm, ps, vals, idx, lse, thr_v, thr_i, R, splits, kk, off);
     const cudaError_t m = cudaGetLastError();
     if (m != cudaSuccess) return (int)m;
@@ -104,11 +117,12 @@ int dispatch_slots(int kk_slots, const void* h, const void* w, const void* b,
                    float* pv, int* pi, float* pm, float* ps, float* vals,
                    int* idx, float* lse, float* thr_v, int* thr_i, int R,
                    int H, int V, int kk, int splits, int split_cols,
-                   bool use_mma, cudaStream_t s) {
+                   int first_pass, cudaStream_t s) {
 #define CIC_SLOTS(KK)                                                        \
   case KK:                                                                   \
     return launch<T, KK>(h, w, b, pv, pi, pm, ps, vals, idx, lse, thr_v,      \
-                         thr_i, R, H, V, kk, splits, split_cols, use_mma, s)
+                         thr_i, R, H, V, kk, splits, split_cols, first_pass, \
+                         s)
   switch (kk_slots) {
     CIC_SLOTS(1);
     CIC_SLOTS(2);
@@ -130,10 +144,10 @@ CIC_EXPORT int cic_beam_head(const void* h, const void* w, const void* b,
                              void* part_s, void* vals, void* idx, void* lse,
                              void* thr, int R, int H, int V, int kk,
                              int kk_slots, int splits, int split_cols,
-                             int is_bf16, int use_mma, void* stream) {
+                             int is_bf16, int first_pass, void* stream) {
   if (R < 1 || H < 1 || kk < 1 || kk > V ||
       (kk > kk_slots && (!thr || kk_slots != kRoundKK)) ||
-      !valid_split(V, splits, split_cols) || (use_mma && !is_bf16))
+      !valid_split(V, splits, split_cols) || !valid_pass(first_pass, is_bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pv = static_cast<float*>(part_val);
@@ -146,10 +160,10 @@ CIC_EXPORT int cic_beam_head(const void* h, const void* w, const void* b,
     return dispatch_slots<__nv_bfloat16>(
         kk_slots, h, w, b, pv, pi, pm, ps, static_cast<float*>(vals),
         static_cast<int*>(idx), static_cast<float*>(lse), tv, ti, R, H, V, kk,
-        splits, split_cols, use_mma != 0, s);
+        splits, split_cols, first_pass, s);
   return dispatch_slots<float>(kk_slots, h, w, b, pv, pi, pm, ps,
                                static_cast<float*>(vals),
                                static_cast<int*>(idx),
                                static_cast<float*>(lse), tv, ti, R, H, V, kk,
-                               splits, split_cols, false, s);
+                               splits, split_cols, first_pass, s);
 }

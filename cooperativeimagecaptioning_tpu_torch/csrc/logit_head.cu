@@ -14,10 +14,11 @@
 // path.
 //
 // Design: a first pass over (row tile, vocab split) with a top-1 list, then
-// one thread per row merges the vocab splits' (best, id, max, sumexp).  The
-// first pass is vocab_head_mma.cuh's tensor-core pass (use_mma, bf16 only;
-// instantiated in logit_head_mma.cu) or vocab_head.cuh's FMA pass with a
-// 16-row tile (float32, and bf16 shapes the tensor-core pass does not take).
+// one warp per row merges the vocab splits' (best, id, max, sumexp).  The
+// first pass (first_pass) is vocab_head_mma.cuh's wgmma pass (bf16;
+// instantiated in logit_head_mma.cu), vocab_head_tf32.cuh's split-TF32 pass
+// (f32; logit_head_tf32.cu) or vocab_head.cuh's FMA pass with a 16-row tile
+// (the shapes neither tensor-core pass takes).
 #include "vocab_head.cuh"
 
 namespace {
@@ -30,15 +31,18 @@ __global__ void greedy_merge(const float* __restrict__ part_val,
                              const float* __restrict__ part_s,
                              int* __restrict__ it, float* __restrict__ lp,
                              int R, int splits) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= R) return;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kMergeRows + (threadIdx.x >> 5);
+  if (row >= R) return;  // a whole warp: the merge shuffles
   float fv[1];
   int fi[1];
-  float M, S;
-  merge_splits<1>(part_val, part_id, part_m, part_s, row, splits, fv, fi, M,
-                  S);
-  it[row] = fi[0];
-  lp[row] = fv[0] - (M + logf(S));
+  double lse;
+  merge_splits<1>(part_val, part_id, part_m, part_s, row, splits, lane, fv,
+                  fi, lse);
+  if (lane == 0) {
+    it[row] = fi[0];
+    lp[row] = (float)(fv[0] - lse);
+  }
 }
 
 }  // namespace
@@ -47,9 +51,9 @@ CIC_EXPORT int cic_greedy_head(const void* h, const void* w, const void* b,
                                void* part_val, void* part_id, void* part_m,
                                void* part_s, void* it, void* lp, int R, int H,
                                int V, int splits, int split_cols, int is_bf16,
-                               int use_mma, void* stream) {
+                               int first_pass, void* stream) {
   if (R < 1 || H < 1 || !valid_split(V, splits, split_cols) ||
-      (use_mma && !is_bf16))
+      !valid_pass(first_pass, is_bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pv = static_cast<float*>(part_val);
@@ -57,14 +61,18 @@ CIC_EXPORT int cic_greedy_head(const void* h, const void* w, const void* b,
   float* pm = static_cast<float*>(part_m);
   float* ps = static_cast<float*>(part_s);
   const int e =
-      use_mma ? cic::greedy_partials_mma(h, w, b, pv, pi, pm, ps, R, H, V,
-                                         splits, split_cols, s)
+      first_pass == cic::kPassMma
+          ? cic::greedy_partials_mma(h, w, b, pv, pi, pm, ps, R, H, V, splits,
+                                     split_cols, s)
+      : first_pass == cic::kPassTf32
+          ? cic::greedy_partials_tf32(h, w, b, pv, pi, pm, ps, R, H, V,
+                                      splits, split_cols, s)
       : is_bf16 ? launch_vocab_partials<__nv_bfloat16, kGreedyRows, 1>(
                       h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols, s)
                 : launch_vocab_partials<float, kGreedyRows, 1>(
                       h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols, s);
   if (e != 0) return e;
-  greedy_merge<<<(R + 127) / 128, 128, 0, s>>>(
+  greedy_merge<<<(R + kMergeRows - 1) / kMergeRows, 32 * kMergeRows, 0, s>>>(
       pv, pi, pm, ps, static_cast<int*>(it), static_cast<float*>(lp), R,
       splits);
   return (int)cudaGetLastError();

@@ -12,7 +12,8 @@
 //      per-thread top-KK and streaming log-sum-exp, merges them across the
 //      warp (shuffles) and the block (shared memory), and writes one
 //      partial (top-KK values and ids, max, sumexp) per (row, split).
-//   2. a small merge kernel per head (in its .cu) reduces the splits.
+//   2. a small merge kernel per head (in its .cu) reduces the splits, one
+//      warp a row (merge_splits).
 // Ties go to the lower id everywhere -- in a thread, across a warp, across
 // warps and across splits -- through cic::before.  Columns past V are masked
 // by bounds; nothing is padded.
@@ -22,9 +23,11 @@
 // after it in cic::before order enter the lists.
 //
 // vocab_partials runs the product on the CUDA cores (f32 FMAs) and takes
-// float32 and bfloat16.  For bfloat16 shapes that fit it, pass 1 is instead
-// vocab_head_mma.cuh's tensor-core pass (same grid idea, same partials, same
-// merge kernels); the Python wrappers choose by type and shape.
+// float32 and bfloat16.  Pass 1 is instead a tensor-core pass for the shapes
+// that fit one (same grid idea, same partials, same merge kernels):
+// vocab_head_mma.cuh's wgmma pass for bfloat16, vocab_head_tf32.cuh's
+// split-TF32 mma.sync pass for float32.  The Python wrappers choose by type,
+// shape and alignment (`first_pass`: kPassFma, kPassMma or kPassTf32).
 #pragma once
 
 #include <limits.h>
@@ -33,9 +36,17 @@
 
 namespace cic {
 
-// The tensor-core first pass (vocab_head_mma.cuh), bf16 only; defined in
-// logit_head_mma.cu (top-1 list) and beam_head_mma.cu (kk_slots of 1, 2, 4,
-// 8 or 16) so that nvcc compiles them beside the FMA instantiations.
+// The heads' first passes, as the entry points' first_pass argument names
+// them.
+constexpr int kPassFma = 0;
+constexpr int kPassMma = 1;   // bf16, wgmma
+constexpr int kPassTf32 = 2;  // f32, split TF32 on mma.sync
+
+// The tensor-core first passes, bf16 (vocab_head_mma.cuh) and f32
+// (vocab_head_tf32.cuh); defined in logit_head_{mma,tf32}.cu (top-1 list)
+// and beam_head_{mma,tf32}.cu (kk_slots of 1, 2, 4, 8 or 16; thr_v non-NULL:
+// a later round, kk_slots 16) so that nvcc compiles them beside the FMA
+// instantiations.
 int greedy_partials_mma(const void* h, const void* w, const void* b,
                         float* part_val, int* part_id, float* part_m,
                         float* part_s, int R, int H, int V, int splits,
@@ -45,6 +56,15 @@ int beam_partials_mma(int kk_slots, const void* h, const void* w,
                       float* part_m, float* part_s, int R, int H, int V,
                       int splits, int split_cols, const float* thr_v,
                       const int* thr_i, cudaStream_t stream);
+int greedy_partials_tf32(const void* h, const void* w, const void* b,
+                         float* part_val, int* part_id, float* part_m,
+                         float* part_s, int R, int H, int V, int splits,
+                         int split_cols, cudaStream_t stream);
+int beam_partials_tf32(int kk_slots, const void* h, const void* w,
+                       const void* b, float* part_val, int* part_id,
+                       float* part_m, float* part_s, int R, int H, int V,
+                       int splits, int split_cols, const float* thr_v,
+                       const int* thr_i, cudaStream_t stream);
 
 }  // namespace cic
 
@@ -252,24 +272,79 @@ vocab_partials(const T* __restrict__ h, const T* __restrict__ w,
   }
 }
 
-// Reduce the splits of one row: returns the row's top-KK and (M, S).
+// lse_merge with the sum in float64: the merge of a row's splits is the
+// last of the roundings its log-sum-exp takes, and the largest share of
+// them (beam search compares rows through it).
+__device__ __forceinline__ void lse_merge64(float& m, double& s, float m2,
+                                            double s2) {
+  const float mx = fmaxf(m, m2);
+  if (mx == -CUDART_INF_F) return;  // both empty
+  s = s * exp((double)m - mx) + s2 * exp((double)m2 - mx);
+  m = mx;
+}
+
+// Reduce the splits of one row with the 32 lanes of a warp: lane l folds
+// splits l, l + 32, ... into its own top-KK list and log-sum-exp, then the
+// warp merges them (log-sum-exp by shuffles; the lists by KK rounds of
+// pop-the-winner, each round's winner the row's next candidate).  Every lane
+// returns the row's top-KK and its log-sum-exp M + log(S), the sum S in
+// float64.  One warp a row, not one thread: the tensor-core passes' grids
+// give a row up to 132 splits, which one thread would read one after
+// another.
 template <int KK>
 __device__ __forceinline__ void merge_splits(
     const float* __restrict__ part_val, const int* __restrict__ part_id,
     const float* __restrict__ part_m, const float* __restrict__ part_s,
-    int row, int splits, float (&fv)[KK], int (&fi)[KK], float& M,
-    float& S) {
-  topk_clear<KK>(fv, fi);
-  M = -CUDART_INF_F;
-  S = 0.0f;
-  for (int sp = 0; sp < splits; ++sp) {
+    int row, int splits, int lane, float (&fv)[KK], int (&fi)[KK],
+    double& lse) {
+  float tv[KK];
+  int ti[KK];
+  topk_clear<KK>(tv, ti);
+  float M = -CUDART_INF_F;
+  double S = 0.0;
+  for (int sp = lane; sp < splits; sp += 32) {
     const size_t o = (size_t)row * splits + sp;
-    cic::lse_merge(M, S, part_m[o], part_s[o]);
+    lse_merge64(M, S, part_m[o], part_s[o]);
 #pragma unroll
     for (int j = 0; j < KK; ++j)
-      topk_insert<KK>(fv, fi, part_val[o * KK + j], part_id[o * KK + j]);
+      topk_insert<KK>(tv, ti, part_val[o * KK + j], part_id[o * KK + j]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float m2 = __shfl_xor_sync(cic::kFullMask, M, off);
+    const double s2 = __shfl_xor_sync(cic::kFullMask, S, off);
+    lse_merge64(M, S, m2, s2);
+  }
+  lse = (double)M + log(S);
+#pragma unroll
+  for (int j = 0; j < KK; ++j) {
+    float v = tv[0];
+    int id = ti[0];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(cic::kFullMask, v, off);
+      const int oi = __shfl_xor_sync(cic::kFullMask, id, off);
+      if (cic::before(ov, oi, v, id)) {
+        v = ov;
+        id = oi;
+      }
+    }
+    fv[j] = v;
+    fi[j] = id;
+    if (tv[0] == v && ti[0] == id) {  // this lane's head won: pop it
+#pragma unroll
+      for (int q = 0; q + 1 < KK; ++q) {
+        tv[q] = tv[q + 1];
+        ti[q] = ti[q + 1];
+      }
+      tv[KK - 1] = -CUDART_INF_F;
+      ti[KK - 1] = INT_MAX;
+    }
   }
 }
+
+// The merge kernels' launch: one warp a row, eight rows a block.
+constexpr int kMergeRows = 8;
 
 template <typename T, int RT, int KK, bool THR = false>
 int launch_vocab_partials(const void* h, const void* w, const void* b,
@@ -291,6 +366,13 @@ int launch_vocab_partials(const void* h, const void* w, const void* b,
       static_cast<const T*>(b), part_val, part_id, part_m, part_s, R, H, V,
       splits, split_cols, thr_v, thr_i);
   return (int)cudaGetLastError();
+}
+
+// The wgmma pass takes bf16 only, the split-TF32 pass f32 only.
+bool valid_pass(int first_pass, int is_bf16) {
+  return first_pass == cic::kPassFma ||
+         (first_pass == cic::kPassMma && is_bf16) ||
+         (first_pass == cic::kPassTf32 && !is_bf16);
 }
 
 bool valid_split(int V, int splits, int split_cols) {

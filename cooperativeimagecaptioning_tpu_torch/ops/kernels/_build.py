@@ -59,10 +59,11 @@ SIGNATURES = {
     # stream
     "cic_attention_q": [_P] * 12 + [_I] * 9 + [_P],
     # h, w, b, part_val, part_id, part_m, part_s, it, lp,
-    # R, H, V, splits, split_cols, is_bf16, use_mma, stream
+    # R, H, V, splits, split_cols, is_bf16, first_pass (0 FMA, 1 wgmma,
+    # 2 split TF32), stream
     "cic_greedy_head": [_P] * 9 + [_I] * 7 + [_P],
     # h, w, b, part_val, part_id, part_m, part_s, vals, idx, lse, thr|NULL,
-    # R, H, V, kk, kk_slots, splits, split_cols, is_bf16, use_mma, stream
+    # R, H, V, kk, kk_slots, splits, split_cols, is_bf16, first_pass, stream
     "cic_beam_head": [_P] * 11 + [_I] * 9 + [_P],
     # xt, h, c, att|NULL, wi, bi, wh, bh, wc|NULL, bc|NULL, h_out, c_out,
     # B, D, H, is_bf16, use_mma, stream

@@ -14,11 +14,12 @@ it unset the cell is the plain version on every device.
 
 Each kernel has one plain integer launch count, raised by one in its wrapper
 right after the launch succeeded and nowhere else, so a run can show that
-its main path went through the kernels.  The two vocabulary heads have two
-first passes (tensor cores for bf16, FMAs for the rest: `logit_head.head_pass`);
-a second count per head and pass, raised with the head's own, shows which
-one a launch took, and the cell's two kernels (tensor cores for aligned
-bf16, FMAs for the rest: `cell_step.cell_pass`) are counted the same way.
+its main path went through the kernels.  The two vocabulary heads have three
+first passes (wgmma for bf16, split TF32 on mma.sync for f32, FMAs for the
+shapes neither takes: `logit_head.head_pass`); a second count per head and
+pass, raised with the head's own, shows which one a launch took, and the
+cell's two kernels (tensor cores for aligned bf16, FMAs for the rest:
+`cell_step.cell_pass`) are counted the same way.
 The three attention kernels have two widths (16-byte
 vectors, or single elements for unaligned shapes: `att_step.vector_width`),
 counted the same way.
@@ -40,10 +41,11 @@ import torch
 KERNELS = ("attention", "attention_q", "attention_kmajor", "greedy_head",
            "beam_head", "cell", "head_merge")
 
-# the heads' launches by first pass: "<head>_mma" (wgmma) or "<head>_fma";
-# the cell's by kernel: "cell_mma" (mma.sync) or "cell_fma"
-HEAD_PASSES = ("greedy_head_mma", "greedy_head_fma", "beam_head_mma",
-               "beam_head_fma")
+# the heads' launches by first pass: "<head>_mma" (wgmma, bf16),
+# "<head>_tf32x3" (split TF32, f32) or "<head>_fma"; the cell's by kernel:
+# "cell_mma" (mma.sync) or "cell_fma"
+HEAD_PASSES = ("greedy_head_mma", "greedy_head_tf32x3", "greedy_head_fma",
+               "beam_head_mma", "beam_head_tf32x3", "beam_head_fma")
 CELL_PASSES = ("cell_mma", "cell_fma")
 
 # the dense attentions' launches by width: "<kernel>_vec" or "<kernel>_scalar"
@@ -89,9 +91,9 @@ def use_kernel(x: torch.Tensor) -> bool:
 
 
 def count(name: str, variant: str = "") -> None:
-    """One launch of kernel `name`; a head or the cell also names the pass
-    it took ("mma" or "fma"), an attention kernel its width ("vec" or
-    "scalar")."""
+    """One launch of kernel `name`; a head also names the pass it took
+    ("mma", "tf32x3" or "fma"), the cell its kernel ("mma" or "fma"), an
+    attention kernel its width ("vec" or "scalar")."""
     _launches[name] += 1
     if variant:
         _launches[f"{name}_{variant}"] += 1
@@ -104,7 +106,7 @@ def launches() -> dict:
 
 def head_pass_launches() -> dict:
     """{"<head>_<pass>": launches since the last reset}; for each head the
-    two passes add up to its entry in `launches()`."""
+    three passes add up to its entry in `launches()`."""
     return {name: _launches[name] for name in HEAD_PASSES}
 
 

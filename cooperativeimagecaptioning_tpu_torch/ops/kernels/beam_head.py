@@ -7,10 +7,11 @@ launches the kernel in csrc/beam_head.cu for CUDA tensors and takes
 larger logit first, the lower id first on an exact tie.  log-softmax values
 are vals - lse[:, None].  Forward only.
 
-As in the greedy head, the kernel's first pass is the tensor-core pass for
-bfloat16 inputs that fit it and the FMA pass for everything else
-(`logit_head.head_pass`, by type, shape and alignment alone); a launch that
-fails raises.  Any 1 <= kk <= V is taken on every device, as the JAX head
+As in the greedy head, the kernel's first pass is the wgmma pass for
+bfloat16 inputs that fit it, the split-TF32 pass for float32 inputs that fit
+it and the FMA pass for everything else (`logit_head.head_pass`, by type,
+shape and alignment alone); a launch that fails raises.  Any 1 <= kk <= V
+is taken on every device, as the JAX head
 takes any m: on the card a kk above the longest compiled list (ROUND_KK)
 runs the kernel's two passes in rounds of ROUND_KK candidates, each round
 admitting only candidates after the last one the round before took.
@@ -30,7 +31,8 @@ from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build, _dispatch
 from cooperativeimagecaptioning_tpu_torch.ops.kernels.head_merge import (
     head_merge)
 from cooperativeimagecaptioning_tpu_torch.ops.kernels.logit_head import (
-    check_head_inputs, logits_f32, partials_scratch, plan_first_pass)
+    PASS_CODES, check_head_inputs, logits_f32, partials_scratch,
+    plan_first_pass)
 from cooperativeimagecaptioning_tpu_torch.parallel import collectives, vocab
 
 ROW_TILE = 8          # rows per block of the beam kernel (kBeamRows)
@@ -108,7 +110,7 @@ def local_beam_head(h, w, b, kk: int):
         _build.ptr(vals), _build.ptr(idx), _build.ptr(lse), _build.ptr(thr),
         R, H, V, kk,
         slots, splits, split_cols, int(h.dtype == torch.bfloat16),
-        int(which == "mma"), _build.stream(dev))
+        PASS_CODES[which], _build.stream(dev))
     _build.check(lib, code, "beam_head")
     _dispatch.count("beam_head", which)
     return vals, idx, lse

@@ -9,12 +9,15 @@ logits are float32 (f32 accumulation from bf16 or f32 inputs); the outputs
 are it int32 [B] and lp float32 [B].  Forward only.
 
 The kernel is two passes: partials per (row tile, vocab split), then a merge
-of the splits.  The first pass has two forms, chosen by `head_pass` from the
-inputs' type, shape and alignment alone: bfloat16 with H a multiple of 64
-(at most 640) and V a multiple of 8 takes the tensor-core pass
-(csrc/vocab_head_mma.cuh: wgmma fed by cp.async); float32, and any other
-bfloat16 input, takes the FMA pass (csrc/vocab_head.cuh).  Neither gives way
-to the other or to the plain version when a launch fails: that raises.
+of the splits.  The first pass has three forms, chosen by `head_pass` from
+the inputs' type, shape and alignment alone: bfloat16 with H a multiple of
+64 (at most 640) and V a multiple of 8 takes the wgmma pass
+(csrc/vocab_head_mma.cuh); float32 with H a multiple of 64 and V a multiple
+of 4 takes the split-TF32 pass (csrc/vocab_head_tf32.cuh: three TF32
+mma.sync products of each operand's two TF32 parts); every other input,
+and any whose tensors do not start on 16 bytes, takes the FMA pass
+(csrc/vocab_head.cuh).  None gives way to another or to the plain version
+when a launch fails: that raises.
 
 On a registered vocab mesh whose rank holds a slice of the logit layer,
 `greedy_head` takes `greedy_head_sharded` (JAX logit_head.py:202-238): the
@@ -35,11 +38,16 @@ from cooperativeimagecaptioning_tpu_torch.parallel import vocab
 
 CHUNK = 512      # columns one block sweeps at a time (kChunk)
 ROW_TILE = 16    # rows per block of the greedy kernel (kGreedyRows)
-# the tensor-core pass (csrc/vocab_head_mma.cuh)
-MMA_ROW_TILE = 128   # rows per block (kMmaRows)
+# the tensor-core passes (csrc/vocab_head_mma.cuh, csrc/vocab_head_tf32.cuh)
+MMA_ROW_TILE = 128   # rows per block (kMmaRows, kTf32Rows)
 MMA_COL_TILE = 128   # columns per tile (kMmaCols)
 MMA_DEPTH = 64       # H must be a multiple (kMmaDepth)
 MMA_MAX_DEPTH = 640  # largest H whose rows fit in shared memory (kMmaMaxDepth)
+# the split-TF32 pass (csrc/vocab_head_tf32.cuh)
+TF32_COL_TILE = 72   # columns per tile, nine n8 tiles (kTf32Cols)
+TF32_DEPTH = 64      # H must be a multiple (kTf32Depth)
+# the entry points' first_pass argument (cic::kPassFma, kPassMma, kPassTf32)
+PASS_CODES = {"fma": 0, "mma": 1, "tf32x3": 2}
 
 
 def logits_f32(h, w, b):
@@ -74,24 +82,33 @@ def vocab_split(rows: int, row_tile: int, V: int, device) -> tuple:
 
 
 def head_pass(dtype, H: int, V: int, aligned: bool = True) -> str:
-    """Which first pass a head's CUDA launch takes: "mma" (tensor cores) for
-    bfloat16 with H % 64 == 0, H <= 640, V % 8 == 0 and 16-byte aligned
-    tensors (its 16-byte copies need both), "fma" for everything else."""
+    """Which first pass a head's CUDA launch takes: "mma" (wgmma) for
+    bfloat16 with H % 64 == 0, H <= 640 and V % 8 == 0; "tf32x3" (split
+    TF32 on mma.sync) for float32 with H % 64 == 0 and V % 4 == 0; each only
+    with 16-byte aligned tensors (their 16-byte copies need both); "fma" for
+    everything else."""
     if (dtype == torch.bfloat16 and aligned and MMA_DEPTH <= H <= MMA_MAX_DEPTH
             and H % MMA_DEPTH == 0 and V % 8 == 0):
         return "mma"
+    if (dtype == torch.float32 and aligned and H >= TF32_DEPTH
+            and H % TF32_DEPTH == 0 and V % 4 == 0):
+        return "tf32x3"
     return "fma"
 
 
-def mma_split(rows: int, V: int, sm_count: int) -> tuple:
-    """(splits, split_cols) for the tensor-core pass, one block an SM: as
-    many vocab splits as keep (row tiles x splits) within `sm_count` blocks
-    (one wave), each a whole number of MMA_COL_TILE-column tiles and none
-    empty."""
+def mma_split(rows: int, V: int, sm_count: int,
+              col_tile: int = MMA_COL_TILE) -> tuple:
+    """(splits, split_cols) for a tensor-core pass (128-row blocks; tiles
+    of `col_tile` columns: MMA_COL_TILE for the wgmma pass, TF32_COL_TILE
+    for the split-TF32 pass), one block an SM: as many vocab splits as keep
+    (row tiles x splits) within `sm_count` blocks (one wave), each a whole
+    number of tiles and none empty.  The passes compute whole tiles, so
+    only the vocab's last tile is ragged; at V=9488 the split-TF32 pass's
+    132 tiles give R=128 one tile a block on 132 SMs, R=256 two."""
     row_tiles = -(-rows // MMA_ROW_TILE)
-    col_tiles = -(-V // MMA_COL_TILE)
+    col_tiles = -(-V // col_tile)
     want = max(1, min(col_tiles, sm_count // row_tiles))
-    split_cols = -(-col_tiles // want) * MMA_COL_TILE
+    split_cols = -(-col_tiles // want) * col_tile
     return -(-V // split_cols), split_cols
 
 
@@ -100,9 +117,11 @@ def plan_first_pass(rows: int, fma_row_tile: int, h, w, b) -> tuple:
     H, V = w.shape
     aligned = all(t.data_ptr() % 16 == 0 for t in (h, w, b))
     which = head_pass(h.dtype, H, V, aligned)
-    if which == "mma":
-        return (which, *mma_split(rows, V, _sm_count(h.device.index or 0)))
-    return (which, *vocab_split(rows, fma_row_tile, V, h.device))
+    if which == "fma":
+        return (which, *vocab_split(rows, fma_row_tile, V, h.device))
+    col_tile = MMA_COL_TILE if which == "mma" else TF32_COL_TILE
+    return (which, *mma_split(rows, V, _sm_count(h.device.index or 0),
+                              col_tile))
 
 
 def partials_scratch(rows: int, splits: int, slots: int, device) -> tuple:
@@ -160,7 +179,7 @@ def greedy_head(h, w, b):
     code = lib.cic_greedy_head(
         _build.ptr(h), _build.ptr(w), _build.ptr(b), *parts,
         _build.ptr(it), _build.ptr(lp), R, H, V, splits, split_cols,
-        int(h.dtype == torch.bfloat16), int(which == "mma"),
+        int(h.dtype == torch.bfloat16), PASS_CODES[which],
         _build.stream(dev))
     _build.check(lib, code, "greedy_head")
     _dispatch.count("greedy_head", which)

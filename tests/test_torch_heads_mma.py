@@ -13,7 +13,8 @@ JAX references on seeded inputs with exact ties planted at every level of
 that merge: ids bit-equal, values within 1e-5 (f32 on both sides).
 
 Also here: the split function of the new tiles, the routing function
-(`head_pass`), and the per-pass launch counts.
+(`head_pass`, the bf16, the f32 and the FMA passes), and the per-pass
+launch counts.
 """
 
 import numpy as np
@@ -307,8 +308,15 @@ def test_mma_split_covers_the_vocab(rows, V):
     (torch.bfloat16, 96, 9488, True, "fma"),     # H % 64
     (torch.bfloat16, 32, 9488, True, "fma"),
     (torch.bfloat16, 704, 9488, True, "fma"),    # rows exceed shared memory
-    (torch.float32, 512, 9488, True, "fma"),     # f32 stays on the FMA pass
-    (torch.float32, 64, 8, True, "fma"),
+    (torch.float32, 512, 9488, True, "tf32x3"),  # f32: the split-TF32 pass
+    (torch.float32, 64, 8, True, "tf32x3"),
+    (torch.float32, 64, 4, True, "tf32x3"),
+    (torch.float32, 704, 4744, True, "tf32x3"),  # no depth limit: h streams
+    (torch.float32, 512, 9488, False, "fma"),    # storage not on 16 bytes
+    (torch.float32, 512, 9486, True, "fma"),     # V % 4
+    (torch.float32, 512, 1302, True, "fma"),
+    (torch.float32, 96, 9488, True, "fma"),      # H % 64
+    (torch.float32, 32, 9488, True, "fma"),
     (torch.float16, 512, 9488, True, "fma"),
 ])
 def test_head_pass_routes_by_type_shape_and_alignment(dtype, H, V, aligned,
@@ -320,15 +328,19 @@ def test_pass_counts_follow_the_head_counts():
     _dispatch.reset_launches()
     try:
         _dispatch.count("greedy_head", "mma")
+        _dispatch.count("greedy_head", "tf32x3")
         _dispatch.count("beam_head", "fma")
         _dispatch.count("beam_head", "mma")
+        _dispatch.count("beam_head", "tf32x3")
+        _dispatch.count("beam_head", "tf32x3")
         _dispatch.count("attention")
         assert _dispatch.launches() == {
-            **{k: 0 for k in _dispatch.KERNELS}, "greedy_head": 1,
-            "beam_head": 2, "attention": 1}
+            **{k: 0 for k in _dispatch.KERNELS}, "greedy_head": 2,
+            "beam_head": 4, "attention": 1}
         assert _dispatch.head_pass_launches() == {
-            "greedy_head_mma": 1, "greedy_head_fma": 0, "beam_head_mma": 1,
-            "beam_head_fma": 1}
+            "greedy_head_mma": 1, "greedy_head_tf32x3": 1,
+            "greedy_head_fma": 0, "beam_head_mma": 1,
+            "beam_head_tf32x3": 2, "beam_head_fma": 1}
     finally:
         _dispatch.reset_launches()
     assert not any(_dispatch.head_pass_launches().values())

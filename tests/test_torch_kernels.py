@@ -272,7 +272,13 @@ def test_ctypes_table_matches_the_c_sources(name):
     (logit_head.MMA_ROW_TILE, "vocab_head_mma.cuh", "kMmaRows"),
     (logit_head.MMA_COL_TILE, "vocab_head_mma.cuh", "kMmaCols"),
     (logit_head.MMA_DEPTH, "vocab_head_mma.cuh", "kMmaDepth"),
-    (logit_head.MMA_MAX_DEPTH, "vocab_head_mma.cuh", "kMmaMaxDepth")])
+    (logit_head.MMA_MAX_DEPTH, "vocab_head_mma.cuh", "kMmaMaxDepth"),
+    (logit_head.MMA_ROW_TILE, "vocab_head_tf32.cuh", "kTf32Rows"),
+    (logit_head.TF32_COL_TILE, "vocab_head_tf32.cuh", "kTf32Cols"),
+    (logit_head.TF32_DEPTH, "vocab_head_tf32.cuh", "kTf32Depth"),
+    (logit_head.PASS_CODES["fma"], "vocab_head.cuh", "kPassFma"),
+    (logit_head.PASS_CODES["mma"], "vocab_head.cuh", "kPassMma"),
+    (logit_head.PASS_CODES["tf32x3"], "vocab_head.cuh", "kPassTf32")])
 def test_python_constants_match_the_c_sources(py, src, name):
     """The wrappers size grids and scratch from these; they must be the
     kernels' own values."""
@@ -287,7 +293,8 @@ def test_build_hash_tracks_the_sources(tmp_path, monkeypatch):
     assert {p.name for p in _build.sources()} >= {
         "att_step.cu", "logit_head.cu", "beam_head.cu", "cell_step.cu",
         "common.cuh", "vocab_head.cuh", "vocab_head_mma.cuh",
-        "logit_head_mma.cu", "beam_head_mma.cu"}
+        "logit_head_mma.cu", "beam_head_mma.cu", "vocab_head_tf32.cuh",
+        "logit_head_tf32.cu", "beam_head_tf32.cu"}
     before = _build.source_hash()
     fake = tmp_path / "csrc"
     fake.mkdir()
@@ -319,25 +326,54 @@ def test_mma_pass_fits_the_shared_memory_of_a_block():
     assert consts["kMmaStages"] >= 3
 
 
-@pytest.mark.parametrize("head,src", [("greedy", "logit_head_mma.cu"),
-                                      ("beam", "beam_head_mma.cu")])
-def test_mma_pass_is_defined_where_it_is_declared(head, src):
-    """vocab_head.cuh declares the tensor-core pass's two host functions; a
-    source of its own defines each (so that nvcc compiles them in parallel)
-    and the head's entry point calls it."""
-    name = f"{head}_partials_mma"
+def test_tf32_pass_fits_the_shared_memory_of_a_block():
+    """The split-TF32 pass's ring (each stage a [128 x 32] block of h, rows
+    padded to 36 floats, and a [32 x 72] block of W) stays within the 227
+    KB a block may ask for, whatever H (h streams); its row strides put a
+    fragment load's 32 lanes on 32 distinct banks."""
+    src = (_build.CSRC / "vocab_head_tf32.cuh").read_text()
+    consts = {}
+    for key, expr in re.findall(r"constexpr int (kTf32\w+) =\s*([^;]+);",
+                                src):
+        consts[key] = eval(expr, {}, dict(consts))  # noqa: S307 (own source)
+    rows, depth, cols = (consts[k] for k in ("kTf32Rows", "kTf32Depth",
+                                             "kTf32Cols"))
+    hs, ws = consts["kTf32HStride"], consts["kTf32WStride"]
+    assert consts["kTf32StageFloats"] == rows * hs + depth * ws
+    assert hs >= depth and ws >= cols
+    assert 4 * consts["kTf32Stages"] * consts["kTf32StageFloats"] <= 232448
+    assert rows == 16 * consts["kTf32Threads"] // 32
+    assert consts["kTf32Stages"] >= 2
+    # A fragment: lane (g, t) reads h row g, k t; B: W row k t, column g
+    assert len({(g * hs + t) % 32 for g in range(8) for t in range(4)}) == 32
+    assert len({(t * ws + g) % 32 for g in range(8) for t in range(4)}) == 32
+
+
+@pytest.mark.parametrize("head,src,kind", [
+    ("greedy", "logit_head_mma.cu", "mma"),
+    ("beam", "beam_head_mma.cu", "mma"),
+    ("greedy", "logit_head_tf32.cu", "tf32"),
+    ("beam", "beam_head_tf32.cu", "tf32")])
+def test_mma_pass_is_defined_where_it_is_declared(head, src, kind):
+    """vocab_head.cuh declares each tensor-core pass's two host functions;
+    a source of its own defines each (so that nvcc compiles them in
+    parallel) and the head's entry point calls it."""
+    name = f"{head}_partials_{kind}"
     assert re.search(r"int " + name + r"\(", (_build.CSRC / "vocab_head.cuh")
                      .read_text())
     assert re.search(r"int cic::" + name + r"\(",
                      (_build.CSRC / src).read_text())
-    entry = (_build.CSRC / src.replace("_mma", "")).read_text()
+    entry = (_build.CSRC / src.replace(f"_{kind}", "")).read_text()
     assert f"cic::{name}(" in entry
 
 
-def test_beam_mma_pass_compiles_every_slot_count():
-    src = (_build.CSRC / "beam_head_mma.cu").read_text()
+@pytest.mark.parametrize("src", ["beam_head_mma.cu", "beam_head_tf32.cu"])
+def test_beam_mma_pass_compiles_every_slot_count(src):
+    src = (_build.CSRC / src).read_text()
     assert tuple(int(k) for k in re.findall(r"CIC_SLOTS\((\d+)\);", src)) \
         == beam_head.SLOTS
+    # and the later rounds of the longest list
+    assert "<16, true>" in src
 
 
 def test_kernel_resources_reads_the_ptxas_log():
@@ -480,10 +516,12 @@ def test_attention_q_kernel_refuses_unaligned_rows(cuda, dtype, H, A):
 
 
 def expected_pass(dtype, H, V):
-    """The first pass a head launch must take, spelled out independently of
-    logit_head.head_pass."""
-    fits = H % 64 == 0 and 64 <= H <= 640 and V % 8 == 0
-    return "mma" if dtype == torch.bfloat16 and fits else "fma"
+    """The first pass a head launch on aligned tensors must take, spelled
+    out independently of logit_head.head_pass."""
+    if dtype == torch.bfloat16:
+        return "mma" if H % 64 == 0 and 64 <= H <= 640 and V % 8 == 0 \
+            else "fma"
+    return "tf32x3" if H % 64 == 0 and V % 4 == 0 else "fma"
 
 
 def assert_pass(head, which):
@@ -498,8 +536,9 @@ def assert_pass(head, which):
 @pytest.mark.parametrize("B,V", [(16, 150), (37, 1300), (37, 1304),
                                  (512, 9488), (4096, 9488)])
 def test_greedy_head_kernel_matches_plain(cuda, dtype, B, V):
-    """(16, 150) and (37, 1300) stay on the FMA pass in either type (V is no
-    multiple of 8); the others take the tensor-core pass in bf16."""
+    """(16, 150) stays on the FMA pass in either type (V is no multiple of
+    4), (37, 1300) in bf16 (no multiple of 8); every other case takes a
+    tensor-core pass: wgmma in bf16, split TF32 in f32."""
     h, w, b, planted = head_case(B=B, H=64, V=V, ties=True)
     h, w, b = (torch.from_numpy(x).to(cuda, dtype) for x in (h, w, b))
     it, lp = logit_head.greedy_head(h, w, b)
@@ -572,6 +611,67 @@ def test_head_kernels_take_the_fma_pass_for_unaligned_bf16(cuda):
     it, _ = logit_head.greedy_head(h, w_off, b)
     assert_pass("greedy_head", "fma")
     assert (it == planted[0]).all()
+
+
+@pytest.mark.cuda
+def test_head_kernels_take_the_fma_pass_for_unaligned_f32(cuda):
+    """An f32 W whose storage does not start on a 16-byte boundary cannot
+    feed the split-TF32 pass's 16-byte copies, nor can a V that is no
+    multiple of 4: the FMA pass takes both."""
+    h, w, b, planted = head_case(B=37, H=64, V=1304, ties=True)
+    h, b = (torch.from_numpy(x).to(cuda) for x in (h, b))
+    store = torch.empty(64 * 1304 + 1, device=cuda)
+    w_off = store[1:].view(64, 1304)
+    w_off.copy_(torch.from_numpy(w))
+    assert w_off.data_ptr() % 16 != 0 and w_off.is_contiguous()
+    it, _ = logit_head.greedy_head(h, w_off, b)
+    assert_pass("greedy_head", "fma")
+    assert (it == planted[0]).all()
+    _dispatch.reset_launches()
+    h, w, b, planted = head_case(B=37, H=64, V=1302, ties=True)
+    h, w, b = (torch.from_numpy(x).to(cuda) for x in (h, w, b))
+    vals, idx, lse = beam_head.beam_head(h, w, b, 3)
+    assert_pass("beam_head", "fma")
+    assert (idx[:, :3] == torch.tensor(planted[:3], device=cuda,
+                                       dtype=torch.int32)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,V,kk", [(128, 9488, 1), (256, 9488, 2),
+                                    (512, 9488, 1), (1024, 9488, 2),
+                                    (256, 4744, 2), (128, 4744, 1)])
+def test_f32_heads_take_the_split_tf32_pass_at_the_paths_shapes(cuda, R, V,
+                                                                 kk):
+    """The f32 paths' shapes (greedy baselines and services, the
+    evaluation's beam 2, the vocab slices of a model axis of 2) at H=512
+    take the split-TF32 pass and match the plain head: values and
+    log-sum-exp within 1e-4, ids equal but at near-ties within 1e-4,
+    planted ties exact."""
+    h, w, b, planted = head_case(B=R, H=512, V=V, seed=R + kk, ties=True)
+    h, w, b = (torch.from_numpy(x).to(cuda) for x in (h, w, b))
+    h, w = h * 0.5, w / 3  # logits of the decoders' scale
+    if kk == 1:
+        it, lp = logit_head.greedy_head(h, w, b)
+        torch.cuda.synchronize()
+        assert_pass("greedy_head", "tf32x3")
+        it_p, lp_p = logit_head.greedy_head_reference(h, w, b)
+        vals, idx, vals_p, idx_p = lp[:, None], it[:, None], \
+            lp_p[:, None], it_p[:, None]
+        lse = lse_p = torch.zeros(1, device=cuda)
+    else:
+        vals, idx, lse = beam_head.beam_head(h, w, b, kk)
+        torch.cuda.synchronize()
+        assert_pass("beam_head", "tf32x3")
+        vals_p, idx_p, lse_p = beam_head.beam_head_reference(h, w, b, kk)
+    assert (idx[:, 0] == planted[0]).all()
+    logits = logit_head.logits_f32(h, w, b)
+    differ = idx != idx_p
+    if differ.any():
+        gap = (torch.gather(logits, 1, idx.long())
+               - torch.gather(logits, 1, idx_p.long())).abs()
+        assert gap[differ].max().item() <= 1e-4
+    assert (vals - vals_p).abs().max().item() <= 1e-4
+    assert (lse - lse_p).abs().max().item() <= 1e-4
 
 
 def cell_case(B, D=512, H=512, with_att=True, seed=0):

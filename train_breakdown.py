@@ -8,6 +8,7 @@
     python3 train_breakdown.py --device-cider        # SCST, host and device
                                                      # reward side by side
     python3 train_breakdown.py --fused 8             # fused chunks vs steps
+    python3 train_breakdown.py --fused 8 --joint     # the same, joint DISC
     python3 train_breakdown.py --device cpu --batch 4 --width 16 --vocab 50
                                                      # dry run, tiny width
 
@@ -54,7 +55,9 @@ adam; the same call splits the host-reward SCST step beside it.
 chunks of K (one CUDA graph of an iteration, replayed per step) against
 single steps, K iterations at a time in turns (per-step, fused, fused,
 per-step) after a warm-up chunk of each, and traces one chunk of each for
-its kernel time and idle share.
+its kernel time and idle share; with --joint, joint DISC steps
+(run_joint.py -o gumbel) with the device reward (on_device_cider 1), whose
+stage B runs the greedy head.
 
 Each stage is then traced in its own torch.profiler session, and its GPU
 time is summed into:
@@ -225,11 +228,14 @@ def main(argv=None):
                       help="SCST steps with the device reward "
                            "(on_device_cider 1) beside SCST steps with the "
                            "host reward")
-    step.add_argument("--fused", type=int, default=0, metavar="K",
-                      help="phase-2 it/s in fused chunks of K against "
-                           "single steps, with the device feature cache")
+    p.add_argument("--fused", type=int, default=0, metavar="K",
+                   help="phase-2 it/s (with --joint: joint DISC with the "
+                        "device reward) in fused chunks of K against single "
+                        "steps, with the device feature cache")
     a = p.parse_args(argv)
     if a.fused:
+        if a.scst or a.reinforce or a.device_cider:
+            p.error("--fused takes phase-2 steps, or joint ones with --joint")
         return fused_rates(a)
     import torch
 
@@ -329,9 +335,10 @@ def print_split(name, r, card, batch):
 
 
 def fused_rates(a):
-    """--fused K: phase-2 it/s with the feature cache, fused chunks of K
-    against single steps, in turns, CIC_FUSED_CELL=1; one traced chunk of
-    each: its kernel time and idle share."""
+    """--fused K: phase-2 (--joint: joint DISC with the device reward) it/s
+    with the feature cache, fused chunks of K against single steps, in
+    turns, CIC_FUSED_CELL=1; one traced chunk of each: its kernel time and
+    idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -347,11 +354,18 @@ def fused_rates(a):
     ds = cs.train_dataset()
     K = a.fused
     results = {"card": card, "batch": a.batch, "width": a.width,
-               "vocab": a.vocab, "step": "mle", "fused_steps": K}
+               "vocab": a.vocab, "step": "joint" if a.joint else "mle",
+               "fused_steps": K}
+    if a.joint:
+        opt = cs.listener_opt({**cs.JOINT_BASE, **cs.joint_flags("gumbel")},
+                              a.batch, checkpoint_path=cs.DISC_RUN_DIR,
+                              on_device_cider=1)
+    else:
+        opt = cs.train_opt(a.batch)
     trs = {}
     with cs.fused_cell_switch(True):
         for k in (1, K):
-            trs[k] = Trainer(cs.train_opt(a.batch).replace(
+            trs[k] = Trainer(opt.replace(
                 fused_steps=k, device_feature_cache=1), dataset=ds,
                 device=a.device, verbose=False)
 
