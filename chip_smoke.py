@@ -161,10 +161,24 @@ Phases, in order; any failure exits non-zero:
                  single-process Trainer (loss rtol 2e-5, params), it/s,
                  checkpoint_operations writing a mesh run dir, eval.eval on
                  it; a four-rank world, (2, 2): one training step and one
-                 evaluation batch; and a world of one rank over NCCL (one
-                 all_gather, one all_reduce through the port's helpers).
-                 Its it/s and images/s are of ranks sharing one card, not a
-                 scaling figure.
+                 evaluation batch; then phase 1 and phase 3 on the mesh
+                 (`phase_mesh_joint`): the single-process Trainer on the
+                 card, then a two-rank world -- (2, 1): three iterations
+                 each of SCST with the device reward, run_joint.py -o
+                 gumbel and -o reinforce -v 1 (turns speaker, listener,
+                 speaker; audited), every iteration's sampled rows (>= 99%)
+                 and loss (rtol 2e-5 where every row agrees) against the
+                 single process's, A, B and F per rank and iteration equal
+                 to its counts; (1, 2): -o gumbel over the split vocabulary
+                 with its Evaluator first (beam 1, the generated and the GT
+                 captions' ranks: captions, eval loss, rsum), A and F equal,
+                 C in place of every B launch, head_merge also merging each
+                 categorical draw over the slices (>= 2L an iteration);
+                 it/s, traced kernel ms and idle share of an iteration per
+                 rank beside the single process's; and a world of one rank
+                 over NCCL (one all_gather, one all_reduce through the
+                 port's helpers).  Its it/s and images/s are of ranks
+                 sharing one card, not a scaling figure.
  10. reinforce -- joint REINFORCE at full width (f32, B=128), seeded as
                  8(b) from phase 5's speaker and 8(a)'s listener, under
                  audit_grad_isolation: (a) run_joint.py -o reinforce -v 1
@@ -2970,7 +2984,17 @@ MESH_PARAMS_OUTSIDE = 1e-5
 MESH_CFG = ("DEVICE", "VOCAB", "WIDTH", "FEAT", "K", "L", "SEED", "TRAIN_B",
             "TRAIN_IMAGES", "EVAL_B", "MESH_EVAL_IMAGES", "MESH_RUN_DIR",
             "MESH_TRAIN_STEPS", "MESH_TIMED_STEPS", "TRAIN_RUN_DIR",
-            "RUN_DIR")
+            "RUN_DIR", "FC_RUN_DIR", "SCST_RUN_DIR", "MESH_JOINT_DIR",
+            "MESH_JOINT_STEPS", "MESH_JOINT_TIMED")
+# phase 3 on the mesh: the (2, 1) and (1, 2) runs of each configuration
+# against the single-process Trainer, MESH_JOINT_STEPS iterations each; the
+# sampled rows of every iteration agree in at least MESH_AGREE_ROWS of the
+# rows (a near tie may flip where the ranks sum a gradient in two halves),
+# and an iteration whose rows all agree holds its loss to MESH_LOSS_RTOL
+MESH_JOINT_DIR = os.path.join(REPO, "build", "chip_smoke_mesh_joint_run")
+MESH_JOINT_STEPS = 3
+MESH_JOINT_TIMED = 3
+MESH_AGREE_ROWS = 0.99
 
 
 def mesh_cfg():
@@ -3102,6 +3126,229 @@ def mesh_train(n_data, n_model, steps, timed, ds, write):
         if write:
             tr.checkpoint_operations()
     return losses, params, launches, its, tr
+
+
+def mesh_joint_opts():
+    """Phase 3 on the mesh, f32 at B=TRAIN_B: SCST with the device reward
+    (resumed from phase 5's run dir), run_joint.py -o gumbel (seeded from
+    phase 5's speaker and 8(a)'s listener, with their Adam states) and -o
+    reinforce -v 1 (seeded likewise, audited; turns speaker, listener)."""
+    return {"scst_device": scst_opt(TRAIN_B).replace(
+                on_device_cider=1, checkpoint_path=MESH_JOINT_DIR),
+            "gumbel": disc_opt("gumbel", TRAIN_B, start_from="",
+                               checkpoint_path=MESH_JOINT_DIR),
+            "reinforce": reinforce_opt(TRAIN_B, "gt", start_from="",
+                                       checkpoint_path=MESH_JOINT_DIR)}
+
+
+def sampled_rows(tr):
+    """The last iteration's sampled ids by branch, the data group's rows
+    gathered on a mesh (numpy)."""
+    from cooperativeimagecaptioning_tpu_torch.parallel import collectives
+    out = {}
+    for k, v in tr.last_sampled.items():
+        if tr.mesh is not None and tr.mesh.n_data > 1:
+            v = collectives.all_gather(v, tr.mesh.data)
+        out[k] = v.cpu().numpy()
+    return out
+
+
+def mesh_joint_eval(tr):
+    """The joint Trainer's Evaluator on val before any step: beam 1, the
+    ranks of the generated captions and of the GT captions (JOINT_BASE's
+    rank_on_gen_captions) -> (losses and rank metrics, captions by image
+    id, launches, seconds)."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    ek = {"split": "val", "num_images": -1, "beam_size": 1,
+          "language_eval": 0, "rank_eval": 1}
+    sync()
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    losses, preds, _ = tr.evaluator().eval_split(tr.params, tr.loader, ek,
+                                                 use_gen_sent=True)
+    sync()
+    return (losses, {p["image_id"]: p["caption"] for p in preds},
+            _dispatch.launches(), time.perf_counter() - t0)
+
+
+def mesh_joint_run(opt, n_data, n_model, ds, steps, timed, evaluate=False):
+    """A Trainer of `opt` with CIC_FUSED_CELL=1, one rank of an (n_data,
+    n_model) mesh (or the single process: (0, 1)): [the Evaluator first,]
+    then each of `steps` iterations' (loss, turn, sampled rows, launches),
+    and it/s over `timed` more iterations on one batch, with the traced
+    kernel ms of one more and its idle share (`iteration_profile`, on the
+    card)."""
+    import copy
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    opt = copy.deepcopy(opt)
+    opt.mesh_data_axis, opt.mesh_model_axis = n_data, n_model
+    out = {"steps": []}
+    with fused_cell_switch(True):
+        tr = Trainer(opt, dataset=ds, device=DEVICE, verbose=False)
+        if evaluate:
+            out["eval"] = mesh_joint_eval(tr)
+        for _ in range(steps):
+            sync()
+            _dispatch.reset_launches()
+            loss_dict, turn, _ = tr.train_iteration()
+            sync()
+            out["steps"].append((float(loss_dict["loss"]), turn,
+                                 sampled_rows(tr), _dispatch.launches()))
+        if timed:
+            data = tr.loader.get_batch("train")
+            if DEVICE == "cuda":
+                out["its"], out["kernel_ms"], out["idle"] = \
+                    iteration_profile(tr, data, n=timed)
+            else:
+                tr.train_iteration(data)
+                t0 = time.perf_counter()
+                for _ in range(timed):
+                    tr.train_iteration(data)
+                out["its"] = timed / (time.perf_counter() - t0)
+    tr.close()
+    return out
+
+
+def mesh_joint_rank(cfg):
+    """Rank of the two-rank world of phase 3 on the mesh: each
+    configuration on (2, 1), then -o gumbel on (1, 2); -o gumbel evaluates
+    (the listener's ranks) before its steps on both, as the single process
+    does (the evaluation's batches draw their caption picks from the
+    Trainer's loader's generator: a run that skipped it would train on
+    other captions)."""
+    globals().update(cfg)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = train_dataset()
+    out = {name: mesh_joint_run(opt, 2, 1, ds, MESH_JOINT_STEPS,
+                                MESH_JOINT_TIMED, evaluate=name == "gumbel")
+           for name, opt in mesh_joint_opts().items()}
+    out["gumbel_1x2"] = mesh_joint_run(mesh_joint_opts()["gumbel"], 1, 2, ds,
+                                       MESH_JOINT_STEPS, MESH_JOINT_TIMED,
+                                       evaluate=True)
+    return out
+
+
+def rows_agree(got, want):
+    """The share of equal rows over the sampled branches of an
+    iteration."""
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    same = [np.all(got[k] == want[k], axis=1) for k in want]
+    return float(np.mean(np.concatenate(same))) if same else 1.0
+
+
+def compare_joint(what, got, want, smi):
+    """A mesh run's iterations against the single process's: the turns,
+    the sampled rows (>= MESH_AGREE_ROWS), the loss (MESH_LOSS_RTOL where
+    every row agrees); returns the worst row agreement."""
+    worst = 1.0
+    for s, ((loss, turn, ids, _), (wloss, wturn, wids, _)) in enumerate(
+            zip(got["steps"], want["steps"])):
+        require(turn == wturn, f"{what} step {s}: turn {turn} vs {wturn}")
+        rate = rows_agree(ids, wids)
+        worst = min(worst, rate)
+        rel = abs(loss - wloss) / max(abs(wloss), 1e-30)
+        print(f"  {what} step {s} [{turn}]: loss {loss:.7g} vs single "
+              f"{wloss:.7g} (relative {rel:.2e}); sampled rows equal "
+              f"{rate * 100:.2f}%", flush=True)
+        require(rate >= MESH_AGREE_ROWS, f"{what} step {s}: {rate} of the "
+                f"sampled rows")
+        require(rate < 1.0 or rel <= MESH_LOSS_RTOL,
+                f"{what} step {s}: loss relative {rel}")
+    idle = f"; idle share {got['idle']:.3f} vs {want['idle']:.3f}, " \
+        f"kernels {got['kernel_ms']:.2f} vs {want['kernel_ms']:.2f} ms an " \
+        f"iteration" if "idle" in got else ""
+    print(f"  {what}: {got['its']:.2f} it/s per rank vs {want['its']:.2f} "
+          f"single process (B={TRAIN_B}, ranks sharing one card over gloo, "
+          f"{smi}: not a scaling figure){idle}", flush=True)
+    return worst
+
+
+def phase_mesh_joint(smi, ds):
+    """Phase 9, phase 3 on the mesh: the single-process references on the
+    card, then the two-rank world (`mesh_joint_rank`); per rank and
+    iteration, A, B and F on (2, 1) equal the single process's counts,
+    and on (1, 2) A and F equal them, C replaces B launch for launch and
+    head_merge adds the categorical draws over the slices (at least 2L an
+    iteration: stage A's and stage B's selections).  Returns the launches
+    of the mesh runs (every rank's, summed) and the numbers."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    single = {name: mesh_joint_run(opt, 0, 1, ds, MESH_JOINT_STEPS,
+                                   MESH_JOINT_TIMED, evaluate=name == "gumbel")
+              for name, opt in mesh_joint_opts().items()}
+    t_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = launch.spawn(mesh_joint_rank, (mesh_cfg(),), 2, DEVICE)
+    t_world = time.perf_counter() - t0
+    total = {k: 0 for k in _dispatch.KERNELS}
+    out = {"single_s": t_single, "world_s": t_world, "its": {}}
+    for r, ranks_out in enumerate(got):
+        for name, run in ranks_out.items():
+            ref = single[name.replace("_1x2", "")]
+            axes = "(1, 2)" if name.endswith("_1x2") else "(2, 1)"
+            what = f"{axes} rank {r} {name.replace('_1x2', '')}"
+            out["worst_rows"] = min(out.get("worst_rows", 1.0),
+                                    compare_joint(what, run, ref, smi))
+            out["its"][f"{name} rank {r}"] = (
+                run["its"], ref["its"], run.get("idle"), ref.get("idle"))
+            for s, (step, wstep) in enumerate(zip(run["steps"],
+                                                  ref["steps"])):
+                la, wl = step[3], wstep[3]
+                for k in total:
+                    total[k] += la[k]
+                if axes == "(2, 1)":
+                    require(la == wl, f"{what} step {s}: launches {la} vs "
+                            f"the single process's {wl}")
+                    continue
+                cat = la["head_merge"] - la["beam_head"]
+                print(f"  {what} step {s}: C {la['beam_head']} (the single "
+                      f"process's B {wl['greedy_head']}), head_merge "
+                      f"{la['head_merge']} of which {cat} categorical draws "
+                      f"over the slices; A {la['attention']}, F "
+                      f"{la['cell']}", flush=True)
+                require(la["attention"] == wl["attention"]
+                        and la["cell"] == wl["cell"] and la["greedy_head"]
+                        == 0 and la["beam_head"] == wl["greedy_head"]
+                        and cat >= 2 * L, f"{what} step {s}: launches {la}"
+                        f" vs the single process's {wl}")
+            if "eval" in run:
+                losses, caps, la, secs = run["eval"]
+                wlosses, wcaps, wl, wsecs = ref["eval"]
+                rate = ids_rate(caps, wcaps)
+                for k in total:
+                    total[k] += la[k]
+                print(f"  {what} Evaluator (val, beam 1, the generated and "
+                      f"GT captions' ranks): captions {rate * 100:.1f}% "
+                      f"equal; rsum {losses['rsum']:.4f} vs "
+                      f"{wlosses['rsum']:.4f}, GT rsum "
+                      f"{losses['gt_ranks']['rsum']:.4f} vs "
+                      f"{wlosses['gt_ranks']['rsum']:.4f}; {secs:.2f} s vs "
+                      f"{wsecs:.2f} s; launches "
+                      f"{ {k: v for k, v in la.items() if v} }", flush=True)
+                require(rate >= AGREE_F32, f"{what} eval captions {rate}")
+                for k in ("loss", "rsum"):
+                    rel = abs(losses[k] - wlosses[k]) / max(abs(wlosses[k]),
+                                                            1e-30)
+                    require(rel <= EVAL_LOSS_RTOL, f"{what} eval {k} "
+                            f"relative {rel}")
+                require(abs(losses["gt_ranks"]["rsum"]
+                            - wlosses["gt_ranks"]["rsum"]) <= 1e-6 * max(
+                    1.0, abs(wlosses["gt_ranks"]["rsum"])),
+                    f"{what} eval GT rsum")
+                if axes == "(2, 1)":
+                    require(la == wl, f"{what} eval launches {la} vs {wl}")
+                else:
+                    require(la["greedy_head"] == 0 and la["beam_head"] > 0
+                            and la["head_merge"] >= la["beam_head"]
+                            and la["attention"] == wl["attention"],
+                            f"{what} eval launches {la} vs {wl}")
+    print(f"  phase 3 on the mesh: single-process references "
+          f"{t_single:.1f} s, the two-rank world {t_world:.1f} s",
+          flush=True)
+    return total, out
 
 
 def mesh_pair_rank(cfg):
@@ -3393,6 +3640,10 @@ def phase_mesh(smi, errs, times, bounds, shapes):
                 f"(2, 2) eval launches {launches}")
         for k in total:
             total[k] += got["launches"][k] + launches[k]
+
+    joint, out["joint"] = phase_mesh_joint(smi, train_dataset())
+    for k in total:
+        total[k] += joint[k]
 
     if DEVICE == "cuda":
         mesh_nccl_world_of_one()

@@ -29,17 +29,20 @@ On a mesh (`mesh=`, one rank of a (data, model) process grid; JAX
 eval_split.py:30-60) the params are the rank's slices, each batch's rows
 are split over the data group where they divide it (the last partial batch
 stays whole on every rank), decoding on a model axis goes through the
-vocab-sharded heads, and the decoded ids and the loss sums are gathered over
-the data group in image order before the language metrics, which rank 0
-computes (and writes) and broadcasts.  With a device feature cache
-(`feat_cache`, the Trainer's: every image's features on the device) the
-batches' features are gathered there by their image indices.  The eval
-loss of an on_device_cider or soft_cider run is what the JAX Evaluator
-computes: its eval batches carry no refs, so the CIDEr term takes a zero
-reward (JAX eval_split.py:211-214).  Not ported yet, each raising
-NotImplementedError that names ROADMAP.md queue 1 item [12]: on a mesh the
-listener's half, the CIDEr-D eval loss, the sampled decodes (`sample_max`
-0 and 2) and the feature cache.
+vocab-sharded heads (the sampled decodes, `sample_max` 0 and 2, over the
+model group's slices on the rank's rows of the global batch's draws), and
+the decoded ids and the loss sums are gathered over the data group in
+image order before the language metrics, which rank 0 computes (and
+writes) and broadcasts.  The eval loss on a mesh is the training loss's
+(training/joint.py): the listener's contrastive matrix over the data
+group, and the CIDEr-D term's host reward over the group's gathered stage
+A ids.  The listener's embeddings of a split (`encode_data`) are gathered
+over the data group, so every rank ranks the whole split.  With a device
+feature cache (`feat_cache`, the Trainer's: every image's features on the
+device, on a mesh on every rank) the batches' features are gathered there
+by their image indices.  The eval loss of an on_device_cider or soft_cider
+run is what the JAX Evaluator computes: its eval batches carry no refs, so
+the CIDEr term takes a zero reward (JAX eval_split.py:211-214).
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ from cooperativeimagecaptioning_tpu_torch.ops import decoding, draws, losses
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
 from cooperativeimagecaptioning_tpu_torch.parallel import collectives
 from cooperativeimagecaptioning_tpu_torch.parallel import mesh as mesh_mod
+from cooperativeimagecaptioning_tpu_torch.parallel.train_step import (
+    row_streams)
 from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
 from cooperativeimagecaptioning_tpu_torch.training import joint
 from cooperativeimagecaptioning_tpu_torch.utils.text import decode_sequence
@@ -74,16 +79,6 @@ class Evaluator:
     one rank of a mesh (`mesh`, whose device it takes)."""
 
     def __init__(self, opt, mesh=None, feat_cache=None, device="cuda"):
-        if mesh is not None and (joint.has_listener(opt)
-                                 or joint.needs_reward(opt, "optimizer")):
-            raise NotImplementedError(
-                f"Evaluator: on a device mesh the listener's terms and ranks "
-                f"and the CIDEr-D eval loss are not ported yet "
-                f"({mesh_mod.REST})")
-        if mesh is not None and feat_cache is not None:
-            raise NotImplementedError(
-                f"Evaluator: the device feature cache on a device mesh is "
-                f"not ported yet ({mesh_mod.REST})")
         self.feat_cache = feat_cache
         self.mesh = mesh
         if mesh is not None:
@@ -111,6 +106,20 @@ class Evaluator:
         gen.manual_seed(EVAL_SEED)
         return draws.Draws(gen)
 
+    def _decode_source(self, rows):
+        """`decode_draws`, as this rank's rows of its draws where a batch's
+        rows are split over the data group (`rows`)."""
+        src = self.decode_draws()
+        if rows is None:
+            return src
+        return draws.RowShard(src, self.mesh.n_data, self.mesh.data_index)
+
+    def _streams(self, rows):
+        """The named streams of EVAL_SEED (the eval loss's draws), as this
+        rank's rows where the batch's rows are split."""
+        streams = joint.streams(EVAL_SEED, self.device)
+        return streams if rows is None else row_streams(streams, self.mesh)
+
     def _split_rows(self, arrays, n_rows):
         """(arrays, rows): this rank's share of a batch's rows and the data
         group they are split over, or the arrays whole and None (no mesh, a
@@ -128,7 +137,8 @@ class Evaluator:
 
     def _decode_fn(self, beam_size, sample_max=1, temperature=1.0):
         """Decode program for the eval protocol: fn(params, fc, att,
-        att_masks) -> (seq, logprobs).  sample_max semantics follow the
+        att_masks, rows=None) -> (seq, logprobs) (`rows`: the data group the
+        rows are split over, for the sampled modes' draws).  sample_max semantics follow the
         reference (FCModel.py:262-301): 1 = greedy, 2 = Gumbel-noise max, 0 =
         multinomial at `temperature`; beam_size > 1 overrides.  The speaker
         module is rebuilt from `params` on each call (no copy in f32; one
@@ -140,7 +150,7 @@ class Evaluator:
         dtype = torch.bfloat16 if getattr(opt, "compute_dtype", "") == \
             "bfloat16" else None
 
-        def run(params, fc, att, att_masks):
+        def run(params, fc, att, att_masks, rows=None):
             with torch.inference_mode():
                 spk = self.speaker(to_torch(joint.speaker_view(params, opt),
                                             self.device, dtype))
@@ -162,7 +172,8 @@ class Evaluator:
                 else:
                     out = decoding.sample(
                         spk, ctx, opt.seq_length,
-                        None if mode == "greedy" else self.decode_draws(),
+                        None if mode == "greedy" else
+                        self._decode_source(rows),
                         mode=mode, temperature=temperature,
                         decoding_constraint=opt.decoding_constraint)
                 return out.seq, out.logprobs
@@ -177,20 +188,24 @@ class Evaluator:
         opt = self.opt
         with torch.no_grad():
             return joint.loss_fn({"speaker": self.speaker}, params, opt,
-                                 batch, joint.streams(EVAL_SEED, self.device),
+                                 batch, self._streams(rows),
                                  joint.Hyper.from_opt(opt), "optimizer",
                                  reward, train=False, rows=rows)
 
-    def _reward_for(self, params, batch, data):
+    def _reward_for(self, params, batch, data, rows=None):
         """The host CIDEr-D reward of the eval loss (JAX
         eval_split.py:296-321): stage A from the streams of EVAL_SEED, then
-        the self-critical reward of the batch's ground truth."""
+        the self-critical reward of the batch's ground truth; where the rows
+        are split (`rows`), this rank's rows of the global batch's."""
         opt = self.opt
         gen, greedy = joint.sample_for_reward(
-            {"speaker": self.speaker}, params, opt, batch,
-            joint.streams(EVAL_SEED, self.device), joint.Hyper.from_opt(opt),
-            "optimizer", train=False)
-        reward, _, _ = joint.host_reward(opt, data["gts"], gen, greedy)
+            {"speaker": self.speaker}, params, opt, batch, self._streams(rows),
+            joint.Hyper.from_opt(opt), "optimizer", train=False, rows=rows)
+        if rows is None:
+            reward, _, _ = joint.host_reward(opt, data["gts"], gen, greedy)
+        else:
+            reward, _, _ = joint.mesh_host_reward(opt, data["gts"], gen,
+                                                  greedy, rows)
         return torch.from_numpy(reward).to(self.device)
 
     def encode_fn(self, params, fc, seqs, masks):
@@ -272,10 +287,6 @@ class Evaluator:
         sample_max = ek.get("sample_max", 1)
         temperature = ek.get("temperature", 1.0)
         verbose = ek.get("verbose", False)
-        if self.mesh is not None and beam_size == 1 and sample_max != 1:
-            raise NotImplementedError(
-                f"Evaluator: sample_max {sample_max} (a sampled decode) on a "
-                f"device mesh is not ported yet ({mesh_mod.REST})")
 
         np.random.seed(123)  # determinism pin (ref: eval_utils.py:105)
         # a view without gradients: the heads refuse inputs that need them
@@ -302,7 +313,7 @@ class Evaluator:
                                                data["labels"].shape[0])
                 reward = None
                 if joint.needs_reward(opt, "optimizer"):
-                    reward = self._reward_for(params, batch, data)
+                    reward = self._reward_for(params, batch, data, rows)
                 loss, aux = self.loss_fn(params, batch, reward, rows)
                 # accumulate device scalars: converting per batch would
                 # synchronise host and device every batch; one transfer per
@@ -315,7 +326,7 @@ class Evaluator:
 
             (fc, att, am), rows = self._split_rows(
                 self._dedup(data, loader), loader.batch_size)
-            seq, _ = decode(params, fc, att, am)
+            seq, _ = decode(params, fc, att, am, rows)
             ix1 = data["bounds"]["it_max"]
             if num_images != -1:
                 ix1 = min(ix1, num_images)
@@ -408,7 +419,9 @@ class Evaluator:
         split (JAX eval_split.py:324-380): the GT captions, gt_caps_per_image
         rows an image, or one caption an image generated greedily (or, with
         `gen_sample_max`, sampled) with BOS prepended on the device.  The
-        embeddings stay on the device."""
+        embeddings stay on the device.  On a mesh each rank encodes its
+        share of a batch's rows and the data group's embeddings are
+        gathered in row order."""
         opt = self.opt
         ek = dict(eval_kwargs or {})
         num_images = ek.get("num_images", ek.get("val_images_use",
@@ -430,16 +443,23 @@ class Evaluator:
                 data = loader.get_batch(split)
                 n += loader.batch_size
                 if not use_gen_sent:
-                    img_emb, cap_emb = self.encode_fn(
-                        params, self._put(data["fc_feats"]),
-                        self._put(data["labels"], torch.int64),
-                        self._put(data["masks"]))
+                    (fc, labels, masks), rows = self._split_rows(
+                        (self._put(data["fc_feats"]),
+                         self._put(data["labels"], torch.int64),
+                         self._put(data["masks"])),
+                        data["labels"].shape[0])
+                    img_emb, cap_emb = self.encode_fn(params, fc, labels,
+                                                      masks)
                 else:
-                    fc, att, am = self._dedup(data, loader)
-                    seq, _ = decode(params, fc, att, am)
+                    (fc, att, am), rows = self._split_rows(
+                        self._dedup(data, loader), loader.batch_size)
+                    seq, _ = decode(params, fc, att, am, rows)
                     img_emb, cap_emb = self.encode_fn(
                         params, fc, joint._prepend_bos_ids(seq.long(), V),
                         losses.masks_from_seq(seq))
+                if rows is not None:
+                    img_emb = collectives.all_gather(img_emb, rows)
+                    cap_emb = collectives.all_gather(cap_emb, rows)
                 ix1 = data["bounds"]["it_max"]
                 if num_images != -1:
                     ix1 = min(ix1, num_images)

@@ -33,7 +33,7 @@ from torch import nn
 
 from cooperativeimagecaptioning_tpu_torch.models import layers
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import att_step, cell_step
-from cooperativeimagecaptioning_tpu_torch.parallel import vocab
+from cooperativeimagecaptioning_tpu_torch.parallel import collectives, vocab
 from cooperativeimagecaptioning_tpu_torch.utils.tree import ParamTree, to_torch
 
 
@@ -86,13 +86,15 @@ class AttModel(nn.Module):
         return (z, z.clone())
 
     def encode_features(self, fc_feats, att_feats, att_masks, train=False,
-                        drop_prob=0.0, gen=None):
+                        drop_prob=0.0, gen=None, rows=None):
         """Embed the attention features once per sequence (ref
         AttModel.py:108-114).  With `att_bn`, BatchNorm1d runs first: on its
         running statistics when the tree has them and `train` is false, else
         on batch statistics over the real (masked) positions, else over all
-        positions (JAX att_model.py:74).  In training, dropout on the
-        embedded features."""
+        positions (JAX att_model.py:74).  `rows`, the data group of a mesh
+        run whose ranks hold shares of the batch's rows, makes them the
+        global batch's statistics (`batch_stats`).  In training, dropout on
+        the embedded features."""
         del fc_feats  # att2in2 never reads the fc features
         p = self.params
         x = att_feats
@@ -100,15 +102,8 @@ class AttModel(nn.Module):
             bn = p.att_bn
             if hasattr(bn, "mean") and not train:
                 mean, var = bn.mean, bn.var
-            elif att_masks is not None:
-                w = att_masks[..., None]
-                n = torch.clamp(w.sum(), min=1.0)
-                mean = (x * w).sum(dim=(0, 1), keepdim=True) / n
-                var = (torch.square(x - mean) * w).sum(dim=(0, 1),
-                                                       keepdim=True) / n
             else:
-                mean = x.mean(dim=(0, 1), keepdim=True)
-                var = x.var(dim=(0, 1), unbiased=False, keepdim=True)
+                mean, var, _ = batch_stats(x, att_masks, rows, 1.0)
             x = (x - mean) / torch.sqrt(var + 1e-5)
             x = x * bn.scale + bn.bias
             # the mask promotes bf16 statistics to f32; the context stays in
@@ -160,8 +155,9 @@ class AttModel(nn.Module):
     def embed_soft(self, soft_vec, drop_prob=0.0, gen=None, mask=None):
         """Soft-vector embedding (ref AttModel.py:395-397; JAX
         att_model.py:172-178): soft_vec [B, V+2] times the raw table, then
-        ReLU and dropout, as embed_token."""
-        x = torch.relu(soft_vec @ self.params.embed)
+        ReLU and dropout, as embed_token.  On a vocab mesh either operand
+        may be a rank's share (`vocab.soft_embed`)."""
+        x = torch.relu(vocab.soft_embed(soft_vec, self.params.embed))
         if drop_prob > 0.0:
             x = layers.dropout(x, drop_prob, gen, mask)
         return x
@@ -204,25 +200,52 @@ class AttModel(nn.Module):
         return layers.linear(p, vocab.into_shard(out, p.w))
 
 
-def bn_running_update(params, att_feats, att_masks, momentum=0.1):
+def batch_stats(x, att_masks, rows=None, min_count=1.0, keepdim=True):
+    """(mean, biased variance, count) of the att features x [B, K, F] over
+    the real (masked) positions, or over all positions without masks, the
+    count clamped at `min_count` where masks weigh it.  With `rows` (a mesh
+    run's data group; each rank holds a share of the batch's rows) they are
+    the global batch's, in JAX's two passes: the global mean (sums and
+    count all-reduced), then the global sum of squared deviations from it.
+    Statistics of the inputs: no gradient flows through the collectives."""
+    dims = (0, 1)
+    if rows is None:
+        if att_masks is not None:
+            w = att_masks[..., None]
+            n = torch.clamp(w.sum(), min=min_count)
+            mean = (x * w).sum(dim=dims, keepdim=keepdim) / n
+            var = (torch.square(x - mean) * w).sum(
+                dim=dims, keepdim=keepdim) / n
+            return mean, var, n
+        n = torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
+        return (x.mean(dim=dims, keepdim=keepdim),
+                x.var(dim=dims, unbiased=False, keepdim=keepdim), n)
+    w = att_masks[..., None] if att_masks is not None else \
+        torch.ones_like(x[..., :1])
+    n = collectives.all_reduce(w.sum(), rows)
+    if att_masks is not None:
+        n = torch.clamp(n, min=min_count)
+    mean = collectives.all_reduce((x * w).sum(dim=dims, keepdim=keepdim),
+                                  rows) / n
+    var = collectives.all_reduce((torch.square(x - mean) * w).sum(
+        dim=dims, keepdim=keepdim), rows) / n
+    return mean, var, n
+
+
+def bn_running_update(params, att_feats, att_masks, momentum=0.1,
+                      rows=None):
     """EMA-update the att BN running statistics from one batch (JAX
     att_model.py:114-139; torch BatchNorm1d train-mode semantics: momentum
     0.1, unbiased variance; with masks the count is clamped at 2).  Takes and
     returns a speaker tree (dict); leaves other than the statistics are
-    passed through.  Call it without autograd."""
+    passed through.  `rows`: the data group of a mesh run, whose ranks hold
+    shares of the batch's rows (the global batch's statistics, the same
+    update on every rank).  Call it without autograd."""
     bn = params.get("att_bn")
     if bn is None or "mean" not in bn:
         return params
-    x = att_feats
-    if att_masks is not None:
-        w = att_masks[..., None]
-        n = torch.clamp(w.sum(), min=2.0)
-        mean = (x * w).sum(dim=(0, 1)) / n
-        var = (torch.square(x - mean) * w).sum(dim=(0, 1)) / n
-    else:
-        n = torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
-        mean = x.mean(dim=(0, 1))
-        var = x.var(dim=(0, 1), unbiased=False)
+    mean, var, n = batch_stats(att_feats, att_masks, rows, 2.0,
+                               keepdim=False)
     var_unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
     bn = dict(bn)
     bn["mean"] = (1 - momentum) * bn["mean"] + momentum * mean

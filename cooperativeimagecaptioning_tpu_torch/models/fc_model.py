@@ -26,6 +26,7 @@ from torch import nn
 
 from cooperativeimagecaptioning_tpu_torch.models import layers
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import cell_step
+from cooperativeimagecaptioning_tpu_torch.parallel import vocab
 from cooperativeimagecaptioning_tpu_torch.utils.tree import ParamTree, to_torch
 
 
@@ -69,9 +70,9 @@ class FCModel(nn.Module):
         return (z, z.clone())
 
     def encode_features(self, fc_feats, att_feats, att_masks, train=False,
-                        drop_prob=0.0, gen=None):
+                        drop_prob=0.0, gen=None, rows=None):
         """The FC speaker reads the fc features only."""
-        del att_feats, att_masks, train, drop_prob, gen
+        del att_feats, att_masks, train, drop_prob, gen, rows
         return {"fc_feats": fc_feats}
 
     def prefix_embeddings(self, ctx):
@@ -84,9 +85,10 @@ class FCModel(nn.Module):
         return layers.embedding_lookup(self.params.embed, ids)
 
     def embed_soft(self, soft_vec, drop_prob=0.0, gen=None, mask=None):
-        """Soft / one-hot rows [B, V+2] times the table."""
+        """Soft / one-hot rows [B, V+2] times the table (either a rank's
+        share on a vocab mesh: `vocab.soft_embed`)."""
         del drop_prob, gen, mask
-        return soft_vec @ self.params.embed
+        return vocab.soft_embed(soft_vec, self.params.embed)
 
     def step(self, ctx, state, xt, drop_prob=0.0, gen=None, mask=None):
         """One maxout-LSTM step (ref FCModel.py:24-43).  Returns ((next_h,

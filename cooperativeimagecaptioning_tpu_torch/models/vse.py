@@ -10,6 +10,13 @@ The text encoder takes integer ids [B, T] or one-hot / soft rows
 [B, T, V+2] multiplied into the embedding table: the differentiable bridge
 from the speaker's relaxed samples (ref VSEFCModel.py:102-106).
 
+On a mesh the contrastive matrix spans the data group: each rank gathers
+the group's image and caption embeddings (`collectives.gather_from_group`)
+and takes its own rows of the caption-side costs and its own columns of
+the image-side costs, so the ranks' losses add up to the global batch's.
+Soft rows and the embedding table may be a rank's vocabulary share
+(`vocab.soft_embed`).
+
 The recurrence is written as explicit steps on tensors, as the JAX
 package's lax.scan is, over the full length with masked pooling ('last'
 gathers position len-1), in the JAX tree layout: `w_ih` [D, G*E] applied as
@@ -26,6 +33,7 @@ import torch
 from torch import nn
 
 from cooperativeimagecaptioning_tpu_torch.models import layers
+from cooperativeimagecaptioning_tpu_torch.parallel import collectives, vocab
 from cooperativeimagecaptioning_tpu_torch.utils.tree import ParamTree, to_torch
 
 
@@ -81,23 +89,53 @@ def lstm_step(p, state, x):
     return o * torch.tanh(c), c
 
 
+def _group_costs(im, s, margin, rows):
+    """(cost_s [b, B], cost_im [B, b]) of this rank's b pairs against the
+    data group's B: its images' rows of the caption-side costs and its
+    captions' columns of the image-side costs, each positive pair zeroed."""
+    im_all = collectives.gather_from_group(im, rows)
+    s_all = collectives.gather_from_group(s, rows)
+    b = im.shape[0]
+    mine = torch.arange(b, device=im.device)
+    at = rows.rank * b + mine
+    scores_s = im @ s_all.T                                  # [b, B]
+    scores_im = im_all @ s.T                                 # [B, b]
+    diag_s = scores_s[mine, at][:, None]
+    diag_im = scores_im[at, mine][None, :]
+    eye_s = torch.zeros_like(scores_s, dtype=torch.bool)
+    eye_s[mine, at] = True
+    zero = scores_s.new_zeros(())
+    cost_s = torch.where(eye_s, zero, torch.clamp(
+        margin + scores_s - diag_s, min=0.0))
+    cost_im = torch.where(eye_s.T, zero, torch.clamp(
+        margin + scores_im - diag_im, min=0.0))
+    return cost_s, cost_im
+
+
 def contrastive_loss(im, s, margin, max_violation, whole_batch=False,
-                     only_one_retrieval="off"):
+                     only_one_retrieval="off", rows=None):
     """Bidirectional hinge ranking loss with hard negatives (JAX
     vse.py:134-175; ref VSEFCModel.py:149-207).
 
     im, s: [B, E], l2-normalized.  A Python number `max_violation` is the
     static flag (max over the negatives if true, else the mean); a tensor is
     the blended weight w * max + (1 - w) * mean (the mean-hinge warm-up).
-    Returns a scalar, or per-sample costs [B] with whole_batch."""
-    scores = im @ s.T
-    diag = torch.diagonal(scores)[:, None]
-    cost_s = torch.clamp(margin + scores - diag, min=0.0)    # caption side
-    cost_im = torch.clamp(margin + scores - diag.T, min=0.0)  # image side
-    eye = torch.eye(scores.shape[0], dtype=torch.bool, device=scores.device)
-    zero = scores.new_zeros(())
-    cost_s = torch.where(eye, zero, cost_s)
-    cost_im = torch.where(eye, zero, cost_im)
+    Returns a scalar, or per-sample costs [B] with whole_batch.  `rows`, the
+    data group of a mesh run whose ranks hold shares of the batch's pairs:
+    the matrix is the global batch's, and the result this rank's share (its
+    pairs' costs, or their sum)."""
+    if rows is not None:
+        cost_s, cost_im = _group_costs(im, s, margin, rows)
+    else:
+        scores = im @ s.T
+        diag = torch.diagonal(scores)[:, None]
+        cost_s = torch.clamp(margin + scores - diag, min=0.0)  # caption side
+        cost_im = torch.clamp(margin + scores - diag.T, min=0.0)  # image side
+        eye = torch.eye(scores.shape[0], dtype=torch.bool,
+                        device=scores.device)
+        zero = scores.new_zeros(())
+        cost_s = torch.where(eye, zero, cost_s)
+        cost_im = torch.where(eye, zero, cost_im)
     if isinstance(max_violation, (bool, int, float)):
         if max_violation:
             cost_s = cost_s.amax(dim=1)
@@ -144,7 +182,7 @@ class VSEModel(nn.Module):
         opt = self.opt
         table = self.params.txt_enc.embed
         if seqs.dim() > 2:
-            emb = seqs @ table
+            emb = vocab.soft_embed(seqs, table)
         else:
             emb = layers.embedding_lookup(table, seqs)
         B, T = emb.shape[0], emb.shape[1]
@@ -181,10 +219,11 @@ class VSEModel(nn.Module):
         return out
 
     def forward(self, fc_feats, att_feats, seqs, masks, whole_batch=False,
-                only_one_retrieval="off", max_violation_w=None):
+                only_one_retrieval="off", max_violation_w=None, rows=None):
         """The contrastive loss of images and captions (JAX vse.py:178-188;
         att_feats unused).  max_violation_w: the hinge weight as a tensor
-        (blended), or None for the static opt.vse_max_violation."""
+        (blended), or None for the static opt.vse_max_violation.  `rows`:
+        the data group of a mesh run (`contrastive_loss`)."""
         del att_feats
         img_emb = self.encode_image(fc_feats)
         cap_emb = self.encode_text(seqs, masks)
@@ -192,4 +231,4 @@ class VSEModel(nn.Module):
         mv = opt.vse_max_violation if max_violation_w is None \
             else max_violation_w
         return contrastive_loss(img_emb, cap_emb, opt.vse_margin, mv,
-                                whole_batch, only_one_retrieval)
+                                whole_batch, only_one_retrieval, rows)

@@ -17,8 +17,11 @@ formulation).  Random draws come from explicit sources (ops/draws.py).
 On a vocab mesh (parallel/vocab.py) the logits are a rank's slice: teacher
 forcing takes the vocab-parallel log-softmax and pick, greedy decoding and
 beam search the vocab-sharded heads, and the loss is normalised over the
-data group (`rows`); the other sampling modes, the decoding constraint of
-greedy decoding and scheduled sampling raise NotImplementedError there.
+data group (`rows`).  Every other sampling mode, the decoding constraint
+and scheduled sampling select over the model group's slices: the noise
+over the vocabulary is the rank's columns of the global draw
+(`draws.ColShard`), the arg-max a cross-slice merge (`vocab.argmax`), and
+the relaxed one-hot rows (`soft`) the rank's columns of the global rows.
 """
 
 from __future__ import annotations
@@ -33,7 +36,6 @@ from cooperativeimagecaptioning_tpu_torch.ops import draws, relaxations
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import beam_head
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import logit_head
 from cooperativeimagecaptioning_tpu_torch.parallel import collectives, vocab
-from cooperativeimagecaptioning_tpu_torch.parallel.mesh import REST
 
 NEG_INF = -1e38
 
@@ -60,16 +62,13 @@ def _draws(speaker, j, it, prev_lp, gen, drop_prob, ss_prob, use_ss):
     is a torch.Generator or a draw source (ops/draws.py)."""
     B = it.shape[0]
     if use_ss and j >= 1:
-        if vocab.logit_mesh(prev_lp) is not None:
-            raise NotImplementedError(
-                f"scheduled sampling on a vocab-sharded speaker: a "
-                f"categorical draw over the model group's slices ({REST})")
         device = it.device
         src = draws.source(gen)
         replace = src.uniform((B,), device) < ss_prob
-        # jax.random.categorical: a Gumbel-max over the log-probs
-        sampled = torch.argmax(prev_lp.detach() + src.gumbel(
-            prev_lp.shape, device), dim=-1)
+        # jax.random.categorical: a Gumbel-max over the log-probs (on a
+        # vocab slice over the model group's slices)
+        sampled = vocab.argmax(prev_lp.detach() + _cols(src, prev_lp).gumbel(
+            prev_lp.shape, device))
         it = torch.where(replace, sampled.to(it.dtype), it)
     return it, _step_masks(speaker, B, drop_prob, gen)
 
@@ -186,12 +185,13 @@ def _batch_size(ctx):
 _div = relaxations._div  # x / t with t as a tensor of x's dtype
 
 
-def _one_hot_row(n, hot, like):
-    """[n] zeros of `like`'s dtype and device with a 1 at `hot`, written by
-    kernels alone (item assignment of a Python number copies it from the
-    host, which a CUDA graph capture refuses)."""
-    idx = torch.full((1,), hot, dtype=torch.long, device=like.device)
-    return like.new_zeros((n,)).index_fill_(0, idx, 1.0)
+def _cols(src, lp):
+    """The draw source of noise over lp's vocabulary columns: on a logit
+    slice the rank's columns of the global draw."""
+    mesh = vocab.logit_mesh(lp)
+    if mesh is None:
+        return src
+    return draws.ColShard(src, mesh.n_model, mesh.model_index)
 
 
 ONE_HOT_MODES = ("gumbel_st", "multinomial_st", "gumbel_soft",
@@ -222,7 +222,7 @@ def _make_selector(mode, temperature, gumbel_temp, multinomial_temp,
       multinomial_soft retrieval_reward == 'multinomial_soft'
     """
     def gather(lp, it):
-        return torch.gather(lp, 1, it[:, None])[:, 0]
+        return vocab.pick(lp, it)
 
     def relaxed(fn, *args):
         def select(rng, lp):
@@ -232,19 +232,20 @@ def _make_selector(mode, temperature, gumbel_temp, multinomial_temp,
 
     if mode == "greedy":
         def select(rng, lp):
-            return lp.argmax(dim=-1), lp.max(dim=-1).values, None
+            it = vocab.argmax(lp)
+            return it, gather(lp, it), None
     elif mode == "gumbel_noise_max":
         def select(rng, lp):
             # ref FCModel.py:285-289: -log(-log(U + eps) + eps), eps = 1e-9
             u = rng.uniform(lp.shape, lp.device)
             noise = -torch.log(-torch.log(u + 1e-9) + 1e-9)
             perturbed = _div(lp + noise, temperature)
-            return (perturbed.argmax(dim=-1), perturbed.max(dim=-1).values,
-                    None)
+            it = vocab.argmax(perturbed)
+            return it, gather(perturbed, it), None
     elif mode == "sample":
         def select(rng, lp):
-            it = torch.argmax(_div(lp, temperature)
-                              + rng.gumbel(lp.shape, lp.device), dim=-1)
+            it = vocab.argmax(_div(lp, temperature)
+                              + rng.gumbel(lp.shape, lp.device))
             return it, gather(lp, it), None
     elif mode == "gumbel_st":
         select = relaxed(relaxations.gumbel_st, gumbel_temp)
@@ -261,10 +262,11 @@ def _make_selector(mode, temperature, gumbel_temp, multinomial_temp,
     return select
 
 
-def _select_noise(rng, mode, shape, device):
-    """The noise of one selection, drawn ahead of it."""
+def _select_noise(rng, mode, shape, device, cols=None):
+    """The noise of one selection, drawn ahead of it; the noise over the
+    vocabulary from `cols` (a rank's columns of it) when given."""
     return [rng.uniform(shape[:1], device) if kind == "rows"
-            else getattr(rng, kind)(shape, device)
+            else getattr(cols or rng, kind)(shape, device)
             for kind in _SELECT_NOISE[mode]]
 
 
@@ -300,16 +302,12 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
     drop = drop_prob if train else 0.0
     B = _batch_size(ctx)
     w, b = speaker.params.logit.w, speaker.params.logit.b
-    nclass = vocab.nclass(w)  # V+1, also where w is a vocab slice
-    bos = nclass              # BOS id = vocab_size + 1
+    bos = vocab.nclass(w)  # BOS id = vocab_size + 1, also on a vocab slice
     device = w.device
     use_fused = mode == "greedy" and not decoding_constraint
-    if vocab.logit_mesh(w) is not None and not use_fused:
-        raise NotImplementedError(
-            f"sample(mode={mode!r}, decoding_constraint="
-            f"{decoding_constraint}) on a vocab-sharded speaker: only greedy "
-            f"decoding through the sharded head is ported ({REST})")
-    shape = (B, nclass)
+    # this rank's columns: V+1, or its slice of them
+    shape = (B, w.shape[1])
+    cols = _cols(rng, w)
 
     state = speaker.init_state(B)
     for pe in speaker.prefix_embeddings(ctx):
@@ -320,10 +318,8 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
             return logit_head.greedy_head(out, w, b)
         logits = speaker.logits(out)
         if prev_it is not None:
-            penalty = torch.zeros_like(logits).scatter_(
-                1, prev_it.long()[:, None], NEG_INF)
-            logits = logits + penalty
-        return torch.log_softmax(logits, dim=-1)
+            logits = vocab.add_at(logits, prev_it, NEG_INF)
+        return vocab.log_softmax(logits)
 
     def emit(t, lp, unfinished, noise):
         """Select, then the unfinished-mask bookkeeping of
@@ -336,8 +332,8 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
         it_masked = it * unfinished.to(it.dtype)
         oh = None
         if one_hot:
-            oh = torch.cat([y, y.new_zeros((B, 1))], dim=1)  # [B, V+2]
-            eos = _one_hot_row(oh.shape[1], 0, oh)
+            oh = vocab.with_bos_column(y)  # [B, V+2], or a rank's columns
+            eos = vocab.one_hot_row(0, oh)
             oh = torch.where(unfinished[:, None], oh, eos)
         return it, it_masked, sample_lp, y, unfinished, oh
 
@@ -345,8 +341,7 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
         it, it_masked, sample_lp, y, unfinished, oh = emit(
             t, lp, unfinished, noise)
         if mode in SOFT_INPUT_MODES:
-            xt = speaker.embed_soft(torch.cat([y, y.new_zeros((B, 1))], 1),
-                                    drop, mask=em)
+            xt = speaker.embed_soft(vocab.with_bos_column(y), drop, mask=em)
         else:
             xt = speaker.embed_token(it, drop, mask=em)
         state, out = speaker.step(ctx, state, xt, drop, mask=om)
@@ -365,7 +360,7 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
     unfinished = None
     seqs, lps, ohs = [], [], []
     for t in range(1, seq_length):
-        noise = _select_noise(rng, mode, shape, device)
+        noise = _select_noise(rng, mode, shape, device, cols)
         em, om = _step_masks(speaker, B, drop, rng)
         if use_ckpt:
             state, lp, unfinished, it_masked, sample_lp, oh = checkpoint(
@@ -378,7 +373,7 @@ def sample(speaker, ctx, seq_length, rng=None, mode="greedy",
         lps.append(sample_lp)
         ohs.append(oh)
     # the last selection uses no further core step
-    noise = _select_noise(rng, mode, shape, device)
+    noise = _select_noise(rng, mode, shape, device, cols)
     _, it_masked, sample_lp, _, _, oh = emit(seq_length, lp, unfinished,
                                              noise)
     seqs.append(it_masked)

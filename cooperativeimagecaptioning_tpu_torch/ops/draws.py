@@ -19,6 +19,9 @@ ids.
              draw is made at the global batch's size and sliced, so a mesh
              run draws the single-device run's noise (under GSPMD the
              global masks are drawn once and sharded).
+  ColShard -- a model-group rank's columns of another source's draws: the
+             [rows, V+1] noise of a selection over the vocabulary is drawn
+             whole and each rank keeps the columns of its logit slice.
 """
 
 from __future__ import annotations
@@ -108,6 +111,26 @@ class RowShard:
 
     def gumbel(self, shape, device):
         return self._rows("gumbel", shape, device)
+
+
+class ColShard:
+    """Columns [index * c, (index + 1) * c) of `source`'s draws of n * c
+    columns, where c is the last dim asked for."""
+
+    def __init__(self, source, n: int, index: int):
+        self.source, self.n, self.index = source, n, index
+
+    def _cols(self, kind, shape, device):
+        c = shape[-1]
+        full = getattr(self.source, kind)(tuple(shape[:-1]) + (c * self.n,),
+                                          device)
+        return full[..., self.index * c:(self.index + 1) * c]
+
+    def uniform(self, shape, device):
+        return self._cols("uniform", shape, device)
+
+    def gumbel(self, shape, device):
+        return self._cols("gumbel", shape, device)
 
 
 def source(rng):

@@ -29,14 +29,18 @@ def language_model_criterion(logprobs, targets, masks, rows=None):
     return -(picked * masks).sum() / den
 
 
-def self_critical_loss(sample_logprobs, reward, gen_masks):
+def self_critical_loss(sample_logprobs, reward, gen_masks, rows=None):
     """REINFORCE surrogate, -E[r * logp] masked and mean-normalized (JAX
     losses.py:23-35; ref AlternatingJointModel.py:421-427):
     sum(logp * coeff * mask[:, 1:]) / sum(mask[:, 1:]), where the caller
     passes coeff = -reward, detached.  sample_logprobs [B, L], reward [B],
-    gen_masks [B, L+1] (column 0 dropped like the reference's masks[:, 1:])."""
+    gen_masks [B, L+1] (column 0 dropped like the reference's masks[:, 1:]).
+    `rows`: as language_model_criterion's (the global batch's mask sum)."""
     m = gen_masks[:, 1:]
-    return (sample_logprobs * reward[:, None] * m).sum() / m.sum()
+    den = m.sum()
+    if rows is not None:
+        den = collectives.all_reduce(den, rows)
+    return (sample_logprobs * reward[:, None] * m).sum() / den
 
 
 def masks_from_seq(seq):

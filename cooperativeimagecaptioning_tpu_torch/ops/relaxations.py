@@ -13,11 +13,18 @@ gumbel_soft models/gumbel_softmax.py:17-42, multinomial_st
 models/multinomial.py:4-27, multinomial_soft models/multinomial_soft.py:5-35.
 The draws follow the JAX package's key order: the Gumbel (or uniform)
 noise over [B, C] first, then the [B] row mask of the partial modes.
+
+On a vocab mesh (parallel/vocab.py) the logprobs may be a rank's slice of
+the vocabulary: the softmax, the arg-max and the one-hot then run over the
+model group's slices (the noise over [B, C] is the rank's columns of the
+global draw, `draws.ColShard`), and each relaxed row is the rank's slice.
 """
 
 from __future__ import annotations
 
 import torch
+
+from cooperativeimagecaptioning_tpu_torch.parallel import vocab
 
 
 def _div(x, t):
@@ -37,8 +44,8 @@ def sample_gumbel(rng, shape, device, eps: float = 1e-20):
 
 
 def _one_hot_of_argmax(y):
-    ind = torch.argmax(y, dim=-1)
-    return torch.nn.functional.one_hot(ind, y.shape[-1]).to(y.dtype), ind
+    ind = vocab.argmax(y)
+    return vocab.one_hot(ind, y), ind
 
 
 def _row_mask(rng, logprobs, ss_prob):
@@ -51,7 +58,7 @@ def gumbel_st(rng, logprobs, temperature):
     """Straight-through Gumbel-softmax: forward the one-hot of argmax(y),
     backward d softmax((lp + g) / T)."""
     g = sample_gumbel(rng, logprobs.shape, logprobs.device)
-    y = torch.softmax(_div(logprobs + g, temperature), dim=-1)
+    y = vocab.softmax(_div(logprobs + g, temperature))
     y_hard, ind = _one_hot_of_argmax(y)
     return (y_hard - y).detach() + y, ind
 
@@ -61,7 +68,7 @@ def gumbel_soft(rng, logprobs, temperature, ss_prob: float = 0.25):
     mask take the straight-through hard forward; the others pass the soft
     y through unchanged (ref `(part_y_hard - part_logits).detach() + y`)."""
     g = sample_gumbel(rng, logprobs.shape, logprobs.device)
-    y = torch.softmax(_div(logprobs + g, temperature), dim=-1)
+    y = vocab.softmax(_div(logprobs + g, temperature))
     y_hard, ind = _one_hot_of_argmax(y)
     mask = _row_mask(rng, logprobs, ss_prob)
     return (y_hard * mask - y * mask).detach() + y, ind
@@ -72,9 +79,9 @@ def multinomial_st(rng, logprobs, temperature):
     Categorical(y) (a Gumbel-max over lp / T), forward the one-hot of ind,
     backward d y."""
     x = _div(logprobs, temperature)
-    y = torch.softmax(x, dim=-1)
-    ind = torch.argmax(x + rng.gumbel(x.shape, x.device), dim=-1)
-    y_hard = torch.nn.functional.one_hot(ind, y.shape[-1]).to(y.dtype)
+    y = vocab.softmax(x)
+    ind = vocab.argmax(x + rng.gumbel(x.shape, x.device))
+    y_hard = vocab.one_hot(ind, y)
     return (y_hard - y).detach() + y, ind
 
 
@@ -84,7 +91,7 @@ def multinomial_soft(rng, logprobs, temperature, ss_prob: float = 0.25):
     renormalizes, but the soft rows carry the unnormalized y."""
     x = _div(logprobs, temperature)
     y = torch.exp(x)
-    ind = torch.argmax(x + rng.gumbel(x.shape, x.device), dim=-1)
-    y_hard = torch.nn.functional.one_hot(ind, y.shape[-1]).to(y.dtype)
+    ind = vocab.argmax(x + rng.gumbel(x.shape, x.device))
+    y_hard = vocab.one_hot(ind, y)
     mask = _row_mask(rng, logprobs, ss_prob)
     return (y_hard * mask - y * mask).detach() + y, ind

@@ -11,14 +11,19 @@ for CUDA tensors differs between PyTorch builds, and the buffers that cross
 are small (the heads' candidates, loss sums, flags) except the gradients of
 a data group, which a run over NCCL keeps on the card.
 
-Two autograd Functions make a layer split over the model group's vocabulary
-slices trainable (Megatron's pair):
+Three autograd Functions make a layer split over a group trainable:
   `copy_to_group`     forward identity, backward all-reduce SUM of the
                       gradient (an input every shard reads);
   `reduce_from_group` forward all-reduce SUM, backward identity (a sum of
-                      the shards' partial results).
+                      the shards' partial results);
+  `gather_from_group` forward all_gather (the group's parts concatenated),
+                      backward the gradient summed over the group and this
+                      rank's part of it kept (every rank's loss reads every
+                      part: the data group's embeddings of the contrastive
+                      matrix).
 `torch.distributed.nn.functional.all_reduce` would all-reduce the gradient
-of the second once more, multiplying it by the group's size.
+of the second once more, multiplying it by the group's size.  Integer ids
+(sampled captions, no gradient) go through `all_gather` as they are.
 """
 
 from __future__ import annotations
@@ -127,6 +132,25 @@ class _ReduceFromGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = all_reduce(grad, ctx.group)
+        return total.narrow(ctx.dim, ctx.group.rank * ctx.size,
+                            ctx.size), None, None
+
+
+def gather_from_group(x, group: Group, dim: int = 0):
+    """The group's x concatenated along `dim`; the gradient of this rank's
+    part is the sum over the group of the gradients of it."""
+    return x if group.size == 1 else _GatherFromGroup.apply(x, group, dim)
 
 
 def copy_to_group(x, group: Group):

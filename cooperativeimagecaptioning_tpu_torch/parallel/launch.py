@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from cooperativeimagecaptioning_tpu_torch.parallel.mesh import (
-    GROUP_TIMEOUT, backend_for, rank_device)
+    GROUP_TIMEOUT, backend_for, check_one_host, rank_device)
 
 
 def free_init_method() -> str:
@@ -62,6 +62,7 @@ def init_from_env(device: str) -> None:
     """Join the group that torchrun's environment describes."""
     world = int(os.environ["WORLD_SIZE"])
     rank = int(os.environ["RANK"])
+    check_one_host(world)
     backend = backend_for(device, int(os.environ.get("LOCAL_WORLD_SIZE",
                                                      world)))
     if rank == 0:

@@ -33,7 +33,8 @@ from cooperativeimagecaptioning_tpu_torch.parallel.collectives import Group
 from cooperativeimagecaptioning_tpu_torch.utils.tree import (
     from_leaves, leaves)
 
-# ROADMAP item of what a mesh run does not do yet
+# ROADMAP item of what a mesh run does not do yet: fused chunks
+# (fused_steps > 1) and a mesh over more than one host
 REST = "ROADMAP.md queue 1: multi-device, the rest"
 # every process group's timeout: a rank that died leaves the others waiting
 # no longer than this
@@ -101,6 +102,17 @@ def mesh_shape(opt, device: str = "cuda"):
     return n_data, n_model
 
 
+def check_one_host(world: int) -> None:
+    """Raise NotImplementedError for ranks on more than one host (torchrun's
+    LOCAL_WORLD_SIZE below the world's size): the port's mesh shares one
+    host's loader, run dir and cards."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if local < world:
+        raise NotImplementedError(
+            f"a mesh over more than one host ({world} ranks, {local} on this "
+            f"host) is not ported yet ({REST})")
+
+
 def make_mesh(n_data: int = 0, n_model: int = 1, device: str = "cuda") -> Mesh:
     """This rank's Mesh over the started process group (every rank calls it,
     in the same order as every other collective); n_data=0 takes all
@@ -112,6 +124,7 @@ def make_mesh(n_data: int = 0, n_model: int = 1, device: str = "cuda") -> Mesh:
             "train / eval entry points (they spawn one process per mesh "
             "position), under torchrun, or with parallel.launch.spawn")
     world, rank = dist.get_world_size(), dist.get_rank()
+    check_one_host(world)
     if n_data == 0:
         n_data = world // n_model
     if n_data * n_model != world:
@@ -148,8 +161,10 @@ def replicate(tree, mesh: Mesh):
     return tree
 
 
-# batch keys that are per-run constants, not per-step data: always replicated
-_REPLICATED_KEYS = frozenset({"df_table"})
+# batch keys that stay whole on every rank: per-run constants (the df table),
+# and the reward tiers' refs, which score the data group's gathered ids and
+# give soft CIDEr the global batch's document frequencies
+_REPLICATED_KEYS = frozenset({"df_table", "refs", "ref_mask"})
 
 
 def _rows(x, n: int, i: int, axis: int):

@@ -3,18 +3,24 @@ the JAX package's parallel/train_step.py, one GSPMD-partitioned program
 there).
 
 `make_distributed_train_step(opt, turn, mesh)` returns step(params, optim,
-batch, streams, hp) -> (loss, aux), which in one call:
-  * keeps this rank's rows of the global batch (`mesh.shard_batch`) and of
-    every random draw (`draws.RowShard`: the global noise, sliced);
-  * runs the loss and its backward, the caption loss normalised over the
-    global batch (the data group's mask sum), the vocabulary through the
-    model group's slices (parallel/vocab.py);
+batch, streams, hp, reward=None, sampled=None) -> (loss, aux) for one turn
+('optimizer', 'speaker' or 'listener'), which in one call:
+  * takes this rank's rows of the global batch (`mesh.shard_batch`: the
+    Trainer puts only those rows on the device) and of the global reward,
+    and draws this rank's rows of every random draw (`draws.RowShard`: the
+    global noise, sliced);
+  * runs the turn's loss and its backward, every term this rank's share of
+    the global batch's (training/joint.py: the normalisers summed over the
+    data group, the listener's contrastive matrix over it, the vocabulary
+    through the model group's slices, parallel/vocab.py);
   * sums the gradients over the data group (one all-reduce of one flat
     buffer): a replicated leaf then holds the global gradient on every rank,
     a vocab slice its slice of it (the model group summed the gradient of
     the hidden state already, in `copy_to_group`'s backward);
-  * applies the guarded Adam update of `optim` (an OptimizerManager over the
-    rank's params, its flag the MIN over the world).
+  * applies the guarded Adam update of the turn's agents
+    (`optim.agents_to_update`) through `optim` (an OptimizerManager over
+    the rank's params, its non-finite flag the MIN over the world, so
+    every rank takes or skips the turn's step together).
 The returned loss and aux are the global batch's (summed over the data
 group), the same on every rank.
 """
@@ -25,7 +31,6 @@ import torch
 
 from cooperativeimagecaptioning_tpu_torch.ops import draws
 from cooperativeimagecaptioning_tpu_torch.parallel import collectives
-from cooperativeimagecaptioning_tpu_torch.parallel.mesh import shard_batch
 from cooperativeimagecaptioning_tpu_torch.training import joint
 
 
@@ -36,6 +41,12 @@ def row_streams(streams, mesh):
         return streams
     return {name: draws.RowShard(src, mesh.n_data, mesh.data_index)
             for name, src in streams.items()}
+
+
+def data_rows(mesh):
+    """The data group whose ranks hold shares of the batch's rows, or None
+    on a data axis of 1 (every rank holds them all)."""
+    return mesh.data if mesh.n_data > 1 else None
 
 
 def global_sums(loss, aux, mesh):
@@ -49,12 +60,13 @@ def global_sums(loss, aux, mesh):
 
 
 def make_distributed_train_step(opt, turn, mesh):
-    grad_fn = joint.value_and_grad(
-        opt, turn, rows=mesh.data if mesh.n_data > 1 else None)
+    grad_fn = joint.value_and_grad(opt, turn, rows=data_rows(mesh))
 
-    def step(params, optim, batch, streams, hp):
-        (loss, aux), grads = grad_fn(params, shard_batch(batch, mesh),
-                                     row_streams(streams, mesh), hp)
+    def step(params, optim, batch, streams, hp, reward=None, sampled=None):
+        """`batch`: this rank's rows (`mesh.shard_batch`); `reward`: this
+        rank's rows of the host reward, or None."""
+        (loss, aux), grads = grad_fn(params, batch, row_streams(streams, mesh),
+                                     hp, reward, sampled)
         grads = collectives.all_reduce_tree(grads, mesh.data)
         optim.step(params, grads, turn)
         return global_sums(loss, aux, mesh)

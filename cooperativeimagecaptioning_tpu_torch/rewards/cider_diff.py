@@ -15,6 +15,11 @@ No length penalty.  Reference grams are token windows hashed as in
 ngram_device, distinct-gram sums use its 1/tf position weight, and the
 corpus df its dense containment.  Differentiable in `res`: autograd gives
 the gradient the JAX package takes with jax.grad.
+
+On a mesh the rows and the vocabulary may be split: a rank scores its rows
+of the batch against the df of the global batch's refs (`df_refs`), and a
+rank holding a slice of the vocabulary takes each ref word's log-prob from
+the slice that holds it (`vocab.gather_cols`).
 """
 
 from __future__ import annotations
@@ -22,22 +27,32 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from cooperativeimagecaptioning_tpu_torch.parallel import vocab
 from cooperativeimagecaptioning_tpu_torch.rewards.ngram_device import (
     NS, _gram_hashes, containment_df)
 
 
-def soft_cider_scores(res, refs, ref_mask, ref_len_log=None, eps=1e-20):
+def soft_cider_scores(res, refs, ref_mask, ref_len_log=None, eps=1e-20,
+                      df_refs=None, df_mask=None):
     """res: [B, T, C] word distributions; refs: [B, R, Lr] token ids (0 =
     EOS); ref_mask: [B, R].  Returns [B] scores, differentiable in `res`.
     Document frequency: corpus mode over the B ref sets
-    (cider_scorer.py:99-105)."""
+    (cider_scorer.py:99-105), or over `df_refs` [N, R, Lr] / `df_mask` (the
+    global batch's, on a rank that scores a share of its rows).  On a vocab
+    mesh C may be this rank's slice of the V+1 columns."""
     B, T, C = res.shape
     _, R, Lr = refs.shape
     dev = res.device
     ref_mask = ref_mask.to(torch.float32)
+    if df_refs is None:
+        df_refs, df_mask = refs, ref_mask
+    df_mask = df_mask.to(torch.float32)
+    N = df_refs.shape[0]
+    mesh = vocab.logit_mesh(res)
+    n_cols = C * (mesh.n_model if mesh is not None else 1)
     logres = torch.log(res + eps)                # [B, T, C]
     if ref_len_log is None:
-        ref_len_log = torch.full((), float(B), device=dev).log()
+        ref_len_log = torch.full((), float(N), device=dev).log()
     # logres_t[b, c, t]: one gather per gram offset picks [B, R*Lr, T]
     logres_t = logres.transpose(1, 2)
 
@@ -50,8 +65,13 @@ def soft_cider_scores(res, refs, ref_mask, ref_len_log=None, eps=1e-20):
         tf = ((gr[..., :, None] == gr[..., None, :]).to(torch.float32)
               * vr[..., None, :]).sum(dim=-1)    # [B, R, Lr]
         tf_total = vr.sum(dim=-1)                # [B, R]
-        df = containment_df(gr, gr.reshape(B, R * Lr),
-                            vr.reshape(B, R * Lr))
+        if df_refs is refs:
+            df = containment_df(gr, gr.reshape(B, R * Lr),
+                                vr.reshape(B, R * Lr))
+        else:
+            gd, vd = _gram_hashes(df_refs, n)
+            vd = vd * df_mask[..., None]
+            df = containment_df(gr, gd.reshape(N, -1), vd.reshape(N, -1))
         idf = ref_len_log - torch.log(df.clamp_min(1.0))
 
         # expected frequency of each ref position's gram in the hypothesis:
@@ -59,9 +79,10 @@ def soft_cider_scores(res, refs, ref_mask, ref_len_log=None, eps=1e-20):
         acc = None
         for m in range(n):
             w_m = torch.roll(refs, -m, dims=-1) if m else refs
-            idx = w_m.to(torch.int64).clamp(0, C - 1).reshape(B, R * Lr)
-            lp = torch.gather(logres_t, 1, idx[..., None].expand(
-                B, R * Lr, T)).reshape(B, R, Lr, T)
+            idx = w_m.to(torch.int64).clamp(0, n_cols - 1).reshape(
+                B, R * Lr)
+            lp = vocab.gather_cols(logres_t, idx[..., None].expand(
+                B, R * Lr, T), 1).reshape(B, R, Lr, T)
             if m == 0:
                 acc = lp
             else:
@@ -85,8 +106,17 @@ def soft_cider_scores(res, refs, ref_mask, ref_len_log=None, eps=1e-20):
     return (per_ref * ref_mask).sum(dim=1) / n_refs * 10.0
 
 
-def soft_cider_loss(soft_seq, refs, ref_mask):
+def soft_cider_loss(soft_seq, refs, ref_mask, rows=None):
     """-mean soft CIDEr of the relaxed caption distributions.  soft_seq:
     [B, L, V+2] relaxed one-hot / soft rows from the sampler; the trailing
-    BOS column is dropped to match the logit vocabulary."""
-    return -soft_cider_scores(soft_seq[..., :-1], refs, ref_mask).mean()
+    BOS column is dropped to match the logit vocabulary.  `rows`, the data
+    group of a mesh run whose ranks hold shares of the rows (refs and
+    ref_mask the global batch's): this rank's share of the global loss."""
+    res = vocab.drop_bos_column(soft_seq)
+    if rows is None:
+        return -soft_cider_scores(res, refs, ref_mask).mean()
+    b = res.shape[0]
+    mine = slice(rows.rank * b, (rows.rank + 1) * b)
+    scores = soft_cider_scores(res, refs[mine], ref_mask[mine],
+                               df_refs=refs, df_mask=ref_mask)
+    return -scores.sum() / refs.shape[0]

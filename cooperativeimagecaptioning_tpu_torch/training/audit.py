@@ -15,7 +15,10 @@ before it, and raise:
 The port's Adam updates in place, so the Trainer clones the params before
 the step (`snapshot`), and only with --audit_grad_isolation 1: nothing is
 copied when it is off.  The per-leaf flags any(old != new) are computed on
-the device and moved to the host in one transfer.
+the device and moved to the host in one transfer.  On a mesh each rank
+compares its own params (a vocab slice as a slice) and the flags are the
+MAX over the world, so a leaf has moved where any rank's share of it moved
+and every rank reaches the same verdict.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import warnings
 
 import torch
 
+from cooperativeimagecaptioning_tpu_torch.parallel import collectives
 from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
 
 
@@ -38,25 +42,30 @@ def snapshot(params):
                 for agent, tree in params.items()}
 
 
-def _changed_flags(prev, new_tree):
-    """Per leaf any(old != new): one stacked flag tensor, one transfer."""
+def _changed_flags(prev, new_tree, group=None):
+    """Per leaf any(old != new): one stacked flag tensor, one transfer (the
+    MAX over `group` first, where given)."""
     new = dict(leaves(new_tree))
     with torch.no_grad():
         flags = torch.stack([(old != new[k]).any() for k, old in prev])
+        if group is not None:
+            flags = collectives.all_reduce(flags.to(torch.int32), group,
+                                           "max").bool()
     return flags.tolist()
 
 
-def audit_update(prev_params, new_params, expected_agents):
+def audit_update(prev_params, new_params, expected_agents, group=None):
     """Verify per-agent update isolation for one optimizer step.
 
     prev_params: `snapshot` of the joint tree before `optim.step`;
     new_params: the tree after it; expected_agents: the agents that were
-    supposed to step this turn.
+    supposed to step this turn; group: a mesh run's world (each rank
+    passes its own params; every rank calls it).
     Returns {agent: {'updated': bool, 'consistent': bool}}.
     """
     report = {}
     for agent in prev_params:
-        flags = _changed_flags(prev_params[agent], new_params[agent])
+        flags = _changed_flags(prev_params[agent], new_params[agent], group)
         updated = any(flags)
         consistent = all(f == flags[0] for f in flags)
         report[agent] = {"updated": updated, "consistent": consistent}

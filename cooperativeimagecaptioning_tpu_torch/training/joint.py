@@ -37,6 +37,15 @@ reward runs in two stages as in the JAX package:
   streams, reseeded) under autograd and takes the reward as a constant.
 With a device tier the step needs no host stage (`needs_reward`).
 `value_and_grad` and `sampler` stand in for the JAX `make_raw_fns`.
+
+On a mesh (`rows`: the data group, whose ranks hold shares of the batch's
+rows; the vocabulary through parallel/vocab.py) every term is this rank's
+share of the global batch's: the normalisers are global sums, the
+listener's contrastive matrix spans the data group, att_bn takes the
+global batch's statistics, the device reward scores the group's gathered
+ids (`_device_reward`) and soft CIDEr the rank's rows against the global
+refs; `mesh_host_reward` is the host stage over the gathered ids.  The
+ranks' losses, aux entries and gradients add up to the single-device run's.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch
 from cooperativeimagecaptioning_tpu_torch import models as model_zoo
 from cooperativeimagecaptioning_tpu_torch.models import vse
 from cooperativeimagecaptioning_tpu_torch.ops import decoding, draws, losses
+from cooperativeimagecaptioning_tpu_torch.parallel import collectives, vocab
 from cooperativeimagecaptioning_tpu_torch.rewards import (
     cider_diff, ngram_device, self_critical)
 from cooperativeimagecaptioning_tpu_torch.utils.tree import (
@@ -194,7 +204,7 @@ def _prepend_bos_one_hot(soft_seq, vocab_size):
     """A one-hot BOS row in front of relaxed sequences [B, L, V+2] (JAX
     joint.py:116-120; ref :358-370)."""
     B, _, C = soft_seq.shape
-    bos = decoding._one_hot_row(C, vocab_size + 1, soft_seq)
+    bos = vocab.one_hot_row(vocab_size + 1, soft_seq)  # a rank's columns
     return torch.cat([bos.expand(B, 1, C), soft_seq], dim=1)
 
 
@@ -246,28 +256,29 @@ def check_ported(opt, turn):
         raise ValueError(f"unknown turn {turn!r}")
 
 
-def _speaker(modules, params, opt, batch, rng, train, drop):
+def _speaker(modules, params, opt, batch, rng, train, drop, rows=None):
     """(speaker module, the iteration's streams, the encoded context)."""
     spk = modules["speaker"](speaker_view(params, opt))
     r = _streams(rng)
     ctx = spk.encode_features(batch.get("fc_feats"), batch.get("att_feats"),
-                              batch.get("att_masks"), train, drop, r["xe"])
+                              batch.get("att_masks"), train, drop, r["xe"],
+                              rows=rows)
     return spk, r, ctx
 
 
 def sample_for_reward(modules, params, opt, batch, rng, hp, turn,
-                      train=True):
+                      train=True, rows=None):
     """Stage A (JAX joint.py:155-178): the (sampled, greedy) ids the CIDEr
     reward scores, without autograd, on a detached view of the params.  It
     draws from the streams exactly as loss_fn's CIDEr branch does -- from
     the 'disc' stream in the DISC mode when that branch reuses DISC's
     sample -- so that stage B, given the same streams, samples the same
-    ids."""
+    ids.  `rows`: a mesh run's data group (this rank's rows)."""
     check_ported(opt, turn)
     kw = _sample_kwargs(opt, hp, train)
     with torch.no_grad():
         spk, r, ctx = _speaker(modules, detached(params), opt, batch, rng,
-                               train, kw["drop_prob"])
+                               train, kw["drop_prob"], rows)
         if _cider_reuses_disc(opt, turn):
             out = decoding.sample(
                 spk, ctx, opt.seq_length, r["disc"],
@@ -300,14 +311,30 @@ def host_reward(opt, gts, gen, greedy):
             float(cider_greedy))
 
 
-def _listener_loss(params, opt, hp, fc, seqs, masks, whole_batch=False):
+def mesh_host_reward(opt, gts, gen, greedy, rows):
+    """host_reward on a mesh rank (JAX loop.py:441-460, `_shard_reward`):
+    the data group's sampled and greedy ids gathered (every rank holds the
+    global batch's refs `gts`), the global batch's reward, and this rank's
+    rows of it.  Returns (the rank's reward [b], the global avg_reward and
+    cider_greedy)."""
+    b = gen.shape[0]
+    reward, avg, cider_greedy = host_reward(
+        opt, gts, collectives.all_gather(gen, rows),
+        collectives.all_gather(greedy, rows))
+    return reward[rows.rank * b:(rows.rank + 1) * b], avg, cider_greedy
+
+
+def _listener_loss(params, opt, hp, fc, seqs, masks, whole_batch=False,
+                   rows=None):
     """The listener's contrastive loss of (fc, seqs), with the hinge weight
     as a tensor (the JAX package passes it traced: the blended form); per
-    sample [B] with `whole_batch`, else summed."""
+    sample [B] with `whole_batch`, else summed.  `rows`: a mesh run's data
+    group (the global batch's matrix, this rank's share)."""
     listener = vse.VSEModel(params["listener"], opt)
     return listener(fc, None, seqs, masks, whole_batch=whole_batch,
                     only_one_retrieval=opt.only_one_retrieval,
-                    max_violation_w=_scalar(hp.vse_max_w, fc.device))
+                    max_violation_w=_scalar(hp.vse_max_w, fc.device),
+                    rows=rows)
 
 
 def _scalar(x, device):
@@ -326,7 +353,8 @@ def _sampled_captions(seq, vocab_size):
         losses.masks_from_seq(seq)
 
 
-def _listener_turn(modules, params, opt, batch, rng, hp, train, sampled):
+def _listener_turn(modules, params, opt, batch, rng, hp, train, sampled,
+                   rows=None):
     """The listener turn (JAX joint.py:205-219; ref :528-555): captions
     sampled from the frozen speaker on the 'listener' stream train the
     listener's contrastive loss; the sample runs without autograd on a
@@ -335,18 +363,19 @@ def _listener_turn(modules, params, opt, batch, rng, hp, train, sampled):
     kw = _sample_kwargs(opt, hp, train)
     with torch.no_grad():
         spk, r, ctx = _speaker(modules, detached(params), opt, batch, rng,
-                               train, kw["drop_prob"])
+                               train, kw["drop_prob"], rows)
         out = decoding.sample(spk, ctx, opt.seq_length, r["listener"],
                               mode="sample", temperature=1.0, **kw)
     sampled["listener_seq"] = out.seq
     seqs, masks = _sampled_captions(out.seq, opt.vocab_size)
     loss_vse = _listener_loss(params, opt, hp, batch.get("fc_feats"), seqs,
-                              masks)
+                              masks, rows=rows)
     return hp.vse_loss_weight * loss_vse, {"loss_vse": loss_vse,
                                            "vse_contrastive": loss_vse}
 
 
-def _reinforce_disc(modules, spk, ctx, r, params, opt, hp, batch, kw):
+def _reinforce_disc(modules, spk, ctx, r, params, opt, hp, batch, kw,
+                    rows=None):
     """REINFORCE DISC (JAX joint.py:252-289; ref :226-332): a multinomial
     sample from the 'disc' stream, the listener's per-sample retrieval loss
     of it, less a baseline -- the retrieval loss of a greedy decode (on the
@@ -363,7 +392,7 @@ def _reinforce_disc(modules, spk, ctx, r, params, opt, hp, batch, kw):
         # values only: the coefficient is a constant, so neither agent
         # takes a gradient from these forwards
         retrieval_loss = _listener_loss(params, opt, hp, fc, seqs, out_masks,
-                                        whole_batch=True)
+                                        whole_batch=True, rows=rows)
         kind = opt.reinforce_baseline_type
         if kind == "greedy":
             gspk = modules["speaker"](detached(speaker_view(params, opt)))
@@ -371,38 +400,58 @@ def _reinforce_disc(modules, spk, ctx, r, params, opt, hp, batch, kw):
                                    r["greedy"], mode="greedy", **kw)
             baseline = _listener_loss(params, opt, hp, fc,
                                       *_sampled_captions(gout.seq, V),
-                                      whole_batch=True)
+                                      whole_batch=True, rows=rows)
         elif kind == "gt":
             baseline = _listener_loss(params, opt, hp, fc, batch["labels"],
-                                      batch["masks"], whole_batch=True)
+                                      batch["masks"], whole_batch=True,
+                                      rows=rows)
         else:
             baseline = torch.zeros_like(retrieval_loss)
         coeff = retrieval_loss - baseline
-    sc_loss = losses.self_critical_loss(out.logprobs, coeff, out_masks)
+    sc_loss = losses.self_critical_loss(out.logprobs, coeff, out_masks, rows)
     aux = {"retrieval_sc_loss": sc_loss,
            "retrieval_loss": retrieval_loss.sum(),
            "retrieval_loss_greedy": baseline.sum()}
     return out, out_masks, sc_loss, aux
 
 
-def _device_reward(modules, params, opt, batch, ctx, r, kw, seq, aux):
+def _device_reward(modules, params, opt, batch, ctx, r, kw, seq, aux,
+                   rows=None):
     """The on-device CIDEr-D reward of the sampled ids `seq` (JAX
     joint.py:318-338): a greedy decode from the 'greedy' stream, without
     autograd on detached views (the heads refuse inputs that need one; JAX
     stop-gradients it), both scored by the hashed n-gram tier against the
     batch's padded refs.  Returns the reward (cider(sample) -
     cider(greedy), or the sample's own score under use_gen_cider_scores)
-    and adds avg_reward and cider_greedy to `aux`, as device scalars."""
+    and adds avg_reward and cider_greedy to `aux`, as device scalars.  On
+    a mesh (`rows`; the refs the global batch's) the data group's ids are
+    gathered and scored as one batch, and the rank keeps its rows of the
+    reward and its shares of the two means."""
     with torch.no_grad():
         gspk = modules["speaker"](detached(speaker_view(params, opt)))
         greedy = decoding.sample(gspk, detached(ctx), opt.seq_length,
                                  r["greedy"], mode="greedy", **kw).seq
-        scores, cider_gen, cider_greedy = \
-            ngram_device.ciderd_rewards_device(
-                seq.detach(), greedy, batch["refs"], batch["ref_mask"],
-                seq_per_img=opt.seq_per_img, df_table=batch.get("df_table"))
-    aux["avg_reward"] = scores.mean()
-    aux["cider_greedy"] = cider_greedy
+        if rows is None:
+            scores, cider_gen, cider_greedy = \
+                ngram_device.ciderd_rewards_device(
+                    seq.detach(), greedy, batch["refs"], batch["ref_mask"],
+                    seq_per_img=opt.seq_per_img,
+                    df_table=batch.get("df_table"))
+            aux["avg_reward"] = scores.mean()
+            aux["cider_greedy"] = cider_greedy
+            return cider_gen if opt.use_gen_cider_scores else scores
+        b = seq.shape[0]
+        scores, cider_gen, _ = ngram_device.ciderd_rewards_device(
+            collectives.all_gather(seq.detach(), rows),
+            collectives.all_gather(greedy, rows), batch["refs"],
+            batch["ref_mask"], seq_per_img=opt.seq_per_img,
+            df_table=batch.get("df_table"))
+        mine = slice(rows.rank * b, (rows.rank + 1) * b)
+        scores, cider_gen = scores[mine], cider_gen[mine]
+        n = b * rows.size
+    # the global means, as shares the data group's sum restores
+    aux["avg_reward"] = scores.sum() / n
+    aux["cider_greedy"] = (cider_gen - scores).sum() / n
     return cider_gen if opt.use_gen_cider_scores else scores
 
 
@@ -422,20 +471,21 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
     R, L], 'ref_mask' [n_img, R], optionally 'df_table').
     `sampled`, a dict when given, receives the CIDEr branch's sampled ids
     under 'seq', DISC's under 'disc_seq' and the listener turn's under
-    'listener_seq'.  `rows`, the data group of a
-    mesh run whose ranks hold shares of the batch's rows, normalises the
-    caption loss over the global batch (a rank's loss is its share of the
-    global one).  Returns (loss, aux) with aux keys of the JAX
-    package's."""
+    'listener_seq'.  `rows`, the data group of a mesh run whose ranks hold
+    shares of the batch's rows (`reward` then this rank's rows of it, and
+    'refs' / 'ref_mask' the global batch's), makes every term this rank's
+    share of the global batch's loss (see the module's docstring).
+    Returns (loss, aux) with aux keys of the JAX package's."""
     check_ported(opt, turn)
     if sampled is None:
         sampled = {}
     if turn == "listener":
         return _listener_turn(modules, params, opt, batch, rng, hp, train,
-                              sampled)
+                              sampled, rows)
     kw = _sample_kwargs(opt, hp, train)
     drop = kw["drop_prob"]
-    spk, r, ctx = _speaker(modules, params, opt, batch, rng, train, drop)
+    spk, r, ctx = _speaker(modules, params, opt, batch, rng, train, drop,
+                           rows)
     V = opt.vocab_size
     fc = batch.get("fc_feats")
     labels = batch["labels"]
@@ -461,7 +511,8 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
 
     # ---- GT contrastive (ref :209-224), zeroed on the speaker turn ----
     if opt.vse_loss_weight > 0 and has_listener(opt) and turn != "speaker":
-        loss_vse = _listener_loss(params, opt, hp, fc, labels, masks)
+        loss_vse = _listener_loss(params, opt, hp, fc, labels, masks,
+                                  rows=rows)
         loss = loss + hp.vse_loss_weight * loss_vse
         aux["loss_vse"] = loss_vse
         aux["vse_contrastive"] = loss_vse
@@ -471,7 +522,7 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
     # ---- DISC, REINFORCE (ref :226-332) ----
     if _disc_active(opt, turn) and opt.retrieval_reward == "reinforce":
         out, out_masks, sc_loss, disc_aux = _reinforce_disc(
-            modules, spk, ctx, r, params, opt, hp, batch, kw)
+            modules, spk, ctx, r, params, opt, hp, batch, kw, rows)
         loss = loss + hp.retrieval_reward_weight * sc_loss
         aux.update(disc_aux)
         sampled["disc_seq"] = out.seq
@@ -484,7 +535,7 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
         out_masks = losses.masks_from_seq(out.seq)
         retrieval_loss = _listener_loss(
             params, opt, hp, fc, _prepend_bos_one_hot(out.soft, V),
-            out_masks)
+            out_masks, rows=rows)
         loss = loss + hp.retrieval_reward_weight * retrieval_loss
         aux["retrieval_loss"] = retrieval_loss
         sampled["disc_seq"] = out.seq
@@ -497,7 +548,7 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
             # the differentiable soft CIDEr of DISC's relaxed rows, in
             # place of the REINFORCE term (JAX joint.py:306-317)
             loss_cider = cider_diff.soft_cider_loss(
-                soft, batch["refs"], batch["ref_mask"])
+                soft, batch["refs"], batch["ref_mask"], rows)
             loss = loss + hp.cider_weight * loss_cider
             aux["loss_cider"] = loss_cider
             return loss, aux
@@ -510,12 +561,12 @@ def loss_fn(modules, params, opt, batch, rng, hp, turn, reward=None,
         sampled["seq"] = seq
         if getattr(opt, "on_device_cider", 0) and "refs" in batch:
             reward = _device_reward(modules, params, opt, batch, ctx, r,
-                                    kw, seq, aux)
+                                    kw, seq, aux, rows)
         if reward is None:
             reward = torch.zeros(seq.shape[0], dtype=torch.float32,
                                  device=seq.device)
         loss_cider = losses.self_critical_loss(logprobs, -reward.detach(),
-                                               gen_masks)
+                                               gen_masks, rows)
         loss = loss + hp.cider_weight * loss_cider
         aux["loss_cider"] = loss_cider
     return loss, aux
@@ -545,13 +596,15 @@ def value_and_grad(opt, turn, rows=None):
     return fn
 
 
-def sampler(opt, turn):
+def sampler(opt, turn, rows=None):
     """fn(params, batch, rng, hp) -> (sampled ids, greedy ids), stage A,
-    standing in for the JAX `make_raw_fns(opt, turn)[0]`."""
+    standing in for the JAX `make_raw_fns(opt, turn)[0]`.  `rows`: as
+    value_and_grad's."""
     modules = {"speaker": model_zoo.setup(opt, opt.caption_model,
                                           "caption_model")}
 
     def fn(params, batch, rng, hp):
-        return sample_for_reward(modules, params, opt, batch, rng, hp, turn)
+        return sample_for_reward(modules, params, opt, batch, rng, hp, turn,
+                                 rows=rows)
 
     return fn

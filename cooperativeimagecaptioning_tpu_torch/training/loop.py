@@ -26,13 +26,18 @@ The device is explicit (`device=`); every random draw of an iteration
 comes from the named streams of `joint.streams`, seeded from `opt.seed`
 and the iteration, so stage B re-draws stage A's trajectory.
 
-Phase-2 MLE also runs on a (data, model) process grid (`mesh_data_axis`,
+Every phase also runs on a (data, model) process grid (`mesh_data_axis`,
 `mesh_model_axis`; one process per mesh position, started by the port's
-train entry point or torchrun): each rank keeps its rows of the global
-batch and its slices of the vocabulary matrices, and steps through
-`parallel.train_step.make_distributed_train_step`; rank 0 writes the run
-dir, with the slices gathered, so it is the file set of a single-device
-run and either resumes the other.
+train entry point or torchrun): each rank puts its rows of the global
+batch on its device (from the device feature cache, which every rank
+holds whole, as the JAX package replicates it) and keeps its slices of the
+vocabulary matrices, and each turn steps through its
+`parallel.train_step.make_distributed_train_step`; stage A samples the
+rank's rows and the host reward scores the data group's gathered ids
+(`joint.mesh_host_reward`); att_bn's running statistics are the global
+batch's, the same on every rank; the audit and the profiler window run on
+every rank; rank 0 writes the run dir, with the slices gathered, so it is
+the file set of a single-device run and either resumes the other.
 
 The device tiers of the CIDEr-D reward (on_device_cider: the hashed n-gram
 CIDEr-D inside the step; soft_cider: the differentiable soft CIDEr) need
@@ -47,9 +52,11 @@ the card one iteration captured as a CUDA graph and replayed per step
 (training/fused.py); `_fused_gate` names what keeps a configuration on the
 per-step path, as the JAX package's gate does.
 
-Not ported yet, each raising NotImplementedError that names ROADMAP.md
-queue 1 item [12]: the rest of a mesh run (SCST and the device rewards, the
-listener, att_bn's batch statistics, the feature cache and fused chunks).
+Not ported yet, raising NotImplementedError that names ROADMAP.md queue 1
+item [12b] (`mesh.REST`): fused chunks (fused_steps > 1) on a mesh -- a
+chunk is one captured CUDA graph, and the gloo collectives of ranks that
+share a card cannot be captured --, and a mesh over more than one host
+(`mesh.check_one_host`).
 """
 
 from __future__ import annotations
@@ -69,7 +76,7 @@ from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
 from cooperativeimagecaptioning_tpu_torch.parallel import collectives
 from cooperativeimagecaptioning_tpu_torch.parallel import mesh as mesh_mod
 from cooperativeimagecaptioning_tpu_torch.parallel.train_step import (
-    make_distributed_train_step)
+    data_rows, make_distributed_train_step, row_streams)
 from cooperativeimagecaptioning_tpu_torch.rewards import (
     ngram_device, self_critical)
 from cooperativeimagecaptioning_tpu_torch.training import audit
@@ -102,22 +109,12 @@ class _Overflow(Exception):
 
 def mesh_unported(opt):
     """Why this port cannot train `opt` on a mesh yet (None = it can):
-    phase-2 MLE of a speaker is ported."""
-    what = []
-    if joint.has_listener(opt):
-        what.append("a listener (phase 1 and joint training: the listener's "
-                    "in-batch contrastive matrix over the data group)")
-    if opt.cider_optimization > 0:
-        what.append("self-critical CIDEr-D, with the host reward or the "
-                    "device tiers (the reward over gathered ids)")
-    if getattr(opt, "use_bn", 0):
-        what.append("att_bn (batch statistics over the data group)")
-    if getattr(opt, "device_feature_cache", 0):
-        what.append("the device feature cache")
+    every phase is ported, fused chunks are not (a chunk is one captured
+    CUDA graph, and gloo's collectives cannot be captured)."""
     if int(getattr(opt, "fused_steps", 1) or 1) > 1:
-        what.append("fused chunks (fused_steps > 1)")
-    return f"on a device mesh, {'; '.join(what)} ({mesh_mod.REST})" \
-        if what else None
+        return f"on a device mesh, fused chunks (fused_steps > 1) " \
+            f"({mesh_mod.REST})"
+    return None
 
 
 def unported(opt):
@@ -134,7 +131,7 @@ class Trainer:
     """Training on one device: phase 1 (the listener), phase 2 (MLE), and
     phase 3 (self-critical CIDEr-D with the host or a device reward, the
     relaxed and the REINFORCE DISC loss, alternating turns), step by step
-    or in fused chunks; phase 2 also as one rank of a mesh
+    or in fused chunks; each also step by step as one rank of a mesh
     (`self.mesh`)."""
 
     def __init__(self, opt, dataset=None, rng_seed=None, verbose=True,
@@ -232,18 +229,22 @@ class Trainer:
 
         # an iteration's streams are seeded from this and its number
         self._seed = seed + 1
-        # one loss and one stage-A program per turn
+        # one loss and one stage-A program per turn (on a mesh the turn's
+        # distributed step, and stage A on the rank's rows)
         names = self.turns if opt.is_alternating else ["optimizer"]
+        rows = None if self.mesh is None else data_rows(self.mesh)
         self._grad_fns = {t: joint.value_and_grad(opt, t) for t in names}
-        self._sample_fns = {t: joint.sampler(opt, t) for t in names}
-        # a mesh trains phase 2 alone (`mesh_unported`): one turn
-        self._mesh_step = None if self.mesh is None else \
-            make_distributed_train_step(opt, names[0], self.mesh)
+        self._sample_fns = {t: joint.sampler(opt, t, rows) for t in names}
+        self._mesh_steps = {} if self.mesh is None else {
+            t: make_distributed_train_step(opt, t, self.mesh) for t in names}
         self._evaluator = None
         # the path of the last profiler trace `train` wrote
         self.last_trace = None
         # stage A's and stage B's sampled ids of the last reward iteration
         self.last_reward_seqs = None
+        # the last iteration's sampled ids by branch ('seq', 'disc_seq',
+        # 'listener_seq'; on a mesh this rank's rows)
+        self.last_sampled = {}
         if opt.cider_optimization > 0:
             self_critical.init_scorer(opt.cached_tokens)
         # the cached-df tier of the device reward: df lookups linear in B
@@ -452,6 +453,15 @@ class Trainer:
         return np.repeat(np.asarray([i["ix"] for i in infos], np.int64),
                          self.loader.seq_per_img)
 
+    def _my_rows(self, x):
+        """This rank's rows of a global batch's host array (all of them off
+        a mesh or on a data axis of 1)."""
+        mesh = self.mesh
+        if mesh is None or mesh.n_data == 1:
+            return x
+        b = x.shape[0] // mesh.n_data
+        return x[mesh.data_index * b:(mesh.data_index + 1) * b]
+
     def _gather_cached(self, rows):
         """(fc, att, att_masks) of the cache's `rows` (a tensor on the
         device), att cast back to float32."""
@@ -472,8 +482,11 @@ class Trainer:
     def _prepare_batch(self, data):
         """Host batch dict -> tensors on the device (labels int64, the rest
         float32): the features from the device cache when there is one,
-        and the padded refs of a device reward tier (JAX loop.py:351-378)."""
-        def put(x, dtype):
+        and the padded refs of a device reward tier (JAX loop.py:351-378).
+        On a mesh the rank's rows of the per-row arrays (and of the cache's
+        rows), the refs whole (`mesh.shard_batch`'s rule)."""
+        def put(x, dtype, rows=True):
+            x = self._my_rows(x) if rows else x
             return torch.from_numpy(np.ascontiguousarray(x)).to(
                 self.device, dtype)
 
@@ -494,26 +507,36 @@ class Trainer:
         if joint.needs_device_refs(self.opt) and \
                 self.opt.cider_optimization > 0 and data.get("gts"):
             refs, ref_mask = self._padded_refs(data["gts"])
-            batch["refs"] = put(refs, torch.int64)
-            batch["ref_mask"] = put(ref_mask, f32)
+            batch["refs"] = put(refs, torch.int64, rows=False)
+            batch["ref_mask"] = put(ref_mask, f32, rows=False)
             if self._df_table is not None:
                 batch["df_table"] = self._df_table
         return batch
 
     def iteration_streams(self):
         """The named streams of the current iteration (joint.streams):
-        stage A and stage B each take a fresh set from the same seed."""
+        stage A and stage B each take a fresh set from the same seed (on a
+        mesh the global batch's draws, of which a rank keeps its rows)."""
         return joint.streams(self._seed * 1_000_003 + self.iteration,
                              self.device)
 
     def reward(self, batch, data, hp, turn):
         """Stage A and the host reward: (reward [B] on the device, the
         loss-dict entries avg_reward and cider_greedy, stage A's sampled
-        ids) -- JAX loop.py:440-460."""
-        gen, greedy = self._sample_fns[turn](self.params, batch,
-                                             self.iteration_streams(), hp)
-        reward, avg, cider_greedy = joint.host_reward(self.opt, data["gts"],
-                                                      gen, greedy)
+        ids) -- JAX loop.py:440-460.  On a mesh stage A samples the rank's
+        rows and the reward is its rows of the global batch's."""
+        streams = self.iteration_streams()
+        rows = None
+        if self.mesh is not None:
+            streams, rows = row_streams(streams, self.mesh), \
+                data_rows(self.mesh)
+        gen, greedy = self._sample_fns[turn](self.params, batch, streams, hp)
+        if rows is None:
+            reward, avg, cider_greedy = joint.host_reward(
+                self.opt, data["gts"], gen, greedy)
+        else:
+            reward, avg, cider_greedy = joint.mesh_host_reward(
+                self.opt, data["gts"], gen, greedy, rows)
         return (torch.from_numpy(reward).to(self.device),
                 {"avg_reward": avg, "cider_greedy": cider_greedy}, gen)
 
@@ -540,34 +563,39 @@ class Trainer:
         # place; nothing is copied when the audit is off)
         audit_on = bool(getattr(opt, "audit_grad_isolation", 0))
         prev = audit.snapshot(self.params) if audit_on else None
-        if self._mesh_step is not None:
+        sampled = {}
+        if self.mesh is not None:
             # the rank's rows, the gradients summed, the guarded update
-            loss, aux = self._mesh_step(self.params, self.optim, batch,
-                                        self.iteration_streams(), hp)
+            loss, aux = self._mesh_steps[turn](
+                self.params, self.optim, batch, self.iteration_streams(), hp,
+                reward, sampled)
         else:
-            sampled = {}
             (loss, aux), grads = self._grad_fns[turn](
                 self.params, batch, self.iteration_streams(), hp, reward,
                 sampled)
-            if seq_a is not None:
-                self.last_reward_seqs = (seq_a, sampled["seq"])
             # the non-finite guard runs on the device inside the update
             self.optim.step(self.params, grads, turn)
+        self.last_sampled = sampled
+        if seq_a is not None:
+            self.last_reward_seqs = (seq_a, sampled["seq"])
         # a step the guard rejected leaves every agent unchanged: auditing
         # it would raise a false UpdateError (JAX loop.py:468-479)
         if audit_on and bool(self.optim.last_step_ok):
             audit.audit_update(prev, self.params,
                                tuple(a for a in agents_to_update(opt, turn)
-                                     if a in self.params))
+                                     if a in self.params),
+                               None if self.mesh is None else self.mesh.world)
 
         # BN running statistics (torch train-mode BatchNorm1d semantics),
-        # once per iteration (JAX loop.py:481-501)
+        # once per iteration (JAX loop.py:481-501); on a mesh the global
+        # batch's, the same update on every rank
         sp = self.params["speaker"]
         if getattr(opt, "use_bn", 0) and batch["att_feats"] is not None \
                 and "att_bn" in sp:
             with torch.no_grad():
                 new = att_model.bn_running_update(
-                    sp, batch["att_feats"], batch["att_masks"])
+                    sp, batch["att_feats"], batch["att_masks"],
+                    rows=None if self.mesh is None else data_rows(self.mesh))
                 for k in ("mean", "var"):
                     if k in sp["att_bn"]:
                         sp["att_bn"][k].copy_(new["att_bn"][k])

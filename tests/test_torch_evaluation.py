@@ -318,8 +318,37 @@ DEVICE_TIER_LOSS = {
     "device_reward_loss": dict(cider_optimization=1, on_device_cider=1),
     "soft_cider_loss": dict(cider_optimization=1, soft_cider=1),
 }
-# an evaluation a mesh does not run yet (phase-2 speakers do)
+# an evaluation a mesh refused until it was ported (phase-2 speakers ran)
 UNPORTED_ON_A_MESH = dict(cider_optimization=1)
+
+
+def assert_mesh_cider_eval_matches_jax():
+    """The CIDEr-D eval loss (stage A and the host reward over the data
+    group's gathered ids, then the CIDEr term) on a (2, 1) mesh, each rank
+    replaying its rows of what the JAX evaluator draws from key 123:
+    captions, losses and the language stats equal the JAX Evaluator's."""
+    from cooperativeimagecaptioning_tpu_torch.parallel import launch
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import to_numpy
+    import torch_mesh_ranks as ranks
+    (jopt, jloader, jparams), (topt, tloader, tparams) = build(
+        language_eval=0, rank_eval=0, **UNPORTED_ON_A_MESH)
+    for m in (jsc, tsc):
+        m.reset_scorer()
+        m.init_scorer("corpus")
+    ek = {"split": "val", "num_images": -1}
+    want = jeval.Evaluator(jopt).eval_split(jparams, jloader, ek)
+    for m in (jsc, tsc):
+        m.reset_scorer()
+    B = tloader.batch_size * tloader.seq_per_img
+    r = jjoint._rngs(jax.random.PRNGKey(teval.EVAL_SEED))
+    noise = jax_sample_noise(r["cider"], "sample", B, topt.vocab_size + 1,
+                             topt.seq_length)
+    got = launch.spawn(ranks.eval_replayed_rank, (
+        (2, 1), topt, to_numpy(tparams), ek, {"cider": noise},
+        tdata.SyntheticDataset(**DS)), 2, "cpu")
+    assert "loss_cider" in want[0] and want[0]["loss_cider"] != 0.0
+    for g in got:
+        assert_same_result(want, g)
 
 
 @pytest.mark.parametrize("what,match", [
@@ -330,10 +359,10 @@ UNPORTED_ON_A_MESH = dict(cider_optimization=1)
 def test_unported_branches_name_their_roadmap_item(tmp_path, monkeypatch,
                                                    what, match):
     """What the evaluator does not run yet raises, naming its ROADMAP item.
-    The eval loss of a reinforce run, the device feature cache and the eval
-    loss of the device reward tiers raised here until they were ported
-    (their ids keep the items they matched); they now run and equal the
-    JAX Evaluator's."""
+    The eval loss of a reinforce run, the device feature cache, the eval
+    loss of the device reward tiers and the CIDEr-D eval loss on a mesh
+    raised here until they were ported (their ids keep the items they
+    matched); they now run and equal the JAX Evaluator's."""
     if what == "reinforce_loss":
         assert_reinforce_eval_matches_jax(monkeypatch, "greedy")
         return
@@ -343,13 +372,12 @@ def test_unported_branches_name_their_roadmap_item(tmp_path, monkeypatch,
     if what in DEVICE_TIER_LOSS:
         assert_tier_eval_matches_jax(monkeypatch, DEVICE_TIER_LOSS[what])
         return
-    _, (topt, tloader, tparams) = build(
-        language_eval=0, rank_eval=0,
-        **(UNPORTED_ON_A_MESH if what == "mesh" else {}))
+    if what == "mesh":
+        assert_mesh_cider_eval_matches_jax()
+        return
+    _, (topt, tloader, tparams) = build(language_eval=0, rank_eval=0)
     with pytest.raises(NotImplementedError, match="ROADMAP.*" + match):
-        if what == "mesh":
-            teval.Evaluator(topt, mesh=object(), device="cpu")
-        elif what == "coco_spice":
+        if what == "coco_spice":
             from cooperativeimagecaptioning_tpu_torch.evaluation import (
                 coco_eval)
             coco_eval.CocoEvalCap(coco_eval.CocoAnnotations(

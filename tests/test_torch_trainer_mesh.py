@@ -10,8 +10,12 @@ gloo (ranks in tests/torch_mesh_ranks.py), against single-device runs
 * a mesh run dir (rank 0 writes the gathered state) resumed single-device,
   and single-device run dirs of both packages resumed on a mesh;
 * `eval.eval` on a mesh run dir starts the ranks itself;
-* options a mesh does not run yet raise NotImplementedError naming
-  "multi-device, the rest".
+* the configurations a mesh refused until they were ported (SCST, joint
+  training with the listener, phase 1, att_bn; the sampled decodes) now
+  equal the single-device port and JAX (tests/test_torch_mesh_phase3.py
+  has the rest of the matrix);
+* what a mesh still does not run (fused chunks, more than one host) raises
+  NotImplementedError naming "multi-device, the rest".
 
 Tolerances: losses rtol 2e-5 (the JAX mesh test's); params after n steps
 atol 2 * lr * n (Adam's first update is lr * sign(g): a gradient near 0
@@ -43,6 +47,8 @@ from cooperativeimagecaptioning_tpu_torch.training import (  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves  # noqa: E402
 
+import test_torch_mesh_phase3 as phase3  # noqa: E402
+import test_torch_training as ttraining  # noqa: E402
 import torch_mesh_ranks as ranks  # noqa: E402
 
 LOSS_RTOL = 2e-5
@@ -226,7 +232,9 @@ def test_eval_entry_on_a_mesh_run_dir_starts_its_ranks(runs):
                                want["loss"]["loss_cap"], rtol=LOSS_RTOL)
 
 
-@pytest.mark.parametrize("kw", [
+# the configurations a mesh refused until they were ported (the cases below
+# pinned the refusal; their names and ids are kept)
+CONFIG_KW = [
     dict(cider_optimization=1, caption_loss_weight=0, phase=3),  # SCST
     dict(vse_model="fc", vse_embed_size=16, is_alternating=1,   # joint
          alternating_turn=["speaker", "listener"], phase=3,
@@ -234,15 +242,75 @@ def test_eval_entry_on_a_mesh_run_dir_starts_its_ranks(runs):
     dict(caption_model="fc", vse_model="fc", vse_embed_size=16, phase=1,
          vse_loss_weight=1, caption_loss_weight=0),               # phase 1
     dict(use_bn=1),
-])
-@pytest.mark.parametrize("axes", [(2, 1), (1, 2)])
-def test_what_a_mesh_does_not_run_names_its_roadmap_item(kw, axes):
-    opt = ranks.tiny_opt(mesh_data_axis=axes[0], mesh_model_axis=axes[1],
-                         **kw)
+]
+AXES = [(2, 1), (1, 2)]
+SAMPLE_MAX = [0, 2]
+
+
+def sampled_eval_case(sample_max):
+    """A speaker's eval_split with a sampled decode, its params whole."""
+    opt = ttraining.tiny_opt()
+    params = jax.tree.map(np.asarray, jjoint.init_params(
+        jax.random.PRNGKey(3), opt))
+    return (opt, params, {"split": "val", "beam_size": 1, "num_images": -1,
+                          "sample_max": sample_max, "temperature": 0.8})
+
+
+@pytest.fixture(scope="module")
+def configured():
+    """The references of each configuration (the single-device port and
+    JAX, tests/test_torch_mesh_phase3.py's `reference`), and one world per
+    axes running their Trainers and the sampled decodes."""
+    refs = [phase3.reference(ttraining.tiny_opt(**kw)) for kw in CONFIG_KW]
+    evals = {sm: sampled_eval_case(sm) for sm in SAMPLE_MAX}
+    worlds = {}
+    for axes in AXES:
+        cases = {i: (ttraining.tiny_opt(**kw), refs[i]["noise"],
+                     phase3.STEPS) for i, kw in enumerate(CONFIG_KW)}
+        worlds[axes] = launch.spawn(ranks.phase3_world_rank,
+                                    (axes, {}, cases, evals), 2, "cpu")
+    return refs, evals, worlds
+
+
+@pytest.mark.parametrize("kw", CONFIG_KW)
+@pytest.mark.parametrize("axes", AXES)
+def test_what_a_mesh_does_not_run_names_its_roadmap_item(configured, kw,
+                                                         axes):
+    """SCST with the host reward, joint training with the listener, phase
+    1 and att_bn, refused on a mesh until they were ported: two mesh
+    Trainer iterations on JAX's replayed draws equal the single-device
+    port's and JAX's (losses rtol 2e-5 at the first step, 1e-4 after
+    against JAX; params within 2 lr steps)."""
+    refs, _, worlds = configured
+    i = CONFIG_KW.index(kw)
+    for r in worlds[axes]:
+        phase3.assert_trainer_close(refs[i], r["trainer"][i])
+
+
+def test_what_a_mesh_still_refuses_names_its_roadmap_item():
+    """Fused chunks on a mesh and a mesh over more than one host raise,
+    naming "multi-device, the rest", before any collective."""
+    opt = ranks.tiny_opt(mesh_data_axis=2, fused_steps=4,
+                         cider_optimization=1, caption_loss_weight=0,
+                         phase=3)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue 1: multi-device, the rest"):
         Trainer(opt, dataset=ranks.tiny_dataset(opt), device="cpu",
                 verbose=False)
+    env = {"WORLD_SIZE": "4", "RANK": "0", "LOCAL_WORLD_SIZE": "2"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with pytest.raises(NotImplementedError,
+                           match="more than one host.*multi-device, the "
+                                 "rest"):
+            launch.init_from_env("cpu")
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def test_a_mesh_run_outside_its_ranks_says_how_to_start_them():
@@ -252,16 +320,17 @@ def test_a_mesh_run_outside_its_ranks_says_how_to_start_them():
                 verbose=False)
 
 
-@pytest.mark.parametrize("sample_max", [0, 2])
-def test_sampled_decodes_on_a_mesh_name_their_roadmap_item(sample_max):
-    """The evaluator's sampled decodes (sample_max 0 and 2) stay refused on
-    a mesh; the check comes before any collective."""
-    import types
-    opt = ranks.tiny_opt()
-    loader = tdata.DataLoader(opt, dataset=ranks.tiny_dataset(opt))
-    mesh = types.SimpleNamespace(n_data=2, n_model=1, device="cpu")
-    ev = Evaluator(opt, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1: multi-device, the rest"):
-        ev.eval_split({}, loader, {"split": "val", "beam_size": 1,
-                                   "sample_max": sample_max})
+@pytest.mark.parametrize("sample_max", SAMPLE_MAX)
+def test_sampled_decodes_on_a_mesh_name_their_roadmap_item(configured,
+                                                           sample_max):
+    """The evaluator's sampled decodes (sample_max 0 and 2), refused on a
+    mesh until they were ported: on (2, 1) (each rank the rows of the
+    global draws) and (1, 2) (the draw over the vocabulary slices) the
+    captions and losses equal the single-device Evaluator's, which
+    tests/test_torch_evaluation.py holds to JAX's."""
+    _, evals, worlds = configured
+    want = phase3.evaluate_single(*evals[sample_max])
+    assert len(set(want[1].values())) > 1
+    for axes in AXES:
+        for r in worlds[axes]:
+            phase3.assert_eval_equal(want, r["eval"][sample_max])

@@ -616,14 +616,16 @@ def test_trainer_learns_and_is_deterministic():
       "alternating_turn": ["speaker", "listener"]},
      "effective turns.*listener turn"),
     ({"cider_optimization": 1, "on_device_cider": 1}, "device rewards"),
-    ({"mesh_data_axis": 2, "cider_optimization": 1},
+    ({"mesh_data_axis": 2, "cider_optimization": 1, "fused_steps": 2},
      "mesh.*multi-device, the rest"),
     ({"vse_model": "fc", "fused_steps": 2}, "fused_steps"),
     ({"cider_optimization": 1, "soft_cider": 1}, "device rewards"),
 ])
 def test_trainer_raises_on_unported_options(kw, match):
     """What the Trainer does not train yet raises, naming its ROADMAP item:
-    here a mesh run of SCST.  REINFORCE DISC and real alternation, fused
+    here fused chunks on a mesh (a mesh run of SCST raised here until it
+    was ported; tests/test_torch_mesh_phase3.py runs it).  REINFORCE DISC
+    and real alternation, fused
     steps, the device feature cache and the device reward tiers raised
     here until they were ported (their ids keep the messages they
     matched); they now train: two iterations equal to the JAX steps turn

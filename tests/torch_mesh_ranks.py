@@ -125,7 +125,8 @@ def step_rank(cases):
         local2 = trainable(M.shard_params(full, mesh, specs))
         optim = OptimizerManager(opt, local2, mesh.world)
         step = make_distributed_train_step(opt, "optimizer", mesh)
-        loss2, aux2 = step(local2, optim, batch, replay_streams(noise), hp)
+        loss2, aux2 = step(local2, optim, M.shard_batch(batch, mesh),
+                           replay_streams(noise), hp)
         out[key] = {
             "loss": float(loss), "step_loss": float(loss2),
             "loss_cap": float(aux2["loss_cap"]),
@@ -276,3 +277,427 @@ def clean_rank(code, run_dir):
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib",
                                          "cooperativeimagecaptioning_tpu"))
+
+
+
+# ---------------------------------------------------------------------------
+# test_torch_mesh_vocab.py
+# ---------------------------------------------------------------------------
+
+def to_batch(arrays):
+    """A numpy batch dict -> tensors (labels int64; None kept)."""
+    out = {}
+    for k, v in arrays.items():
+        if v is None:
+            out[k] = None
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = x.long() if k == "labels" else x
+    return out
+
+
+def replays(noise):
+    """{stream: Replay of its arrays} from {stream: [arrays]}; streams not
+    given replay nothing."""
+    out = {name: draws.Replay([]) for name in joint.STREAMS}
+    out.update({k: draws.Replay(v) for k, v in noise.items()})
+    return out
+
+
+def cols(x, mesh):
+    """This rank's model slice of the last dim of a whole numpy array."""
+    n = x.shape[-1] // mesh.n_model
+    j = mesh.model_index
+    return torch.from_numpy(np.ascontiguousarray(x[..., j * n:(j + 1) * n]))
+
+
+def my_rows(x, mesh):
+    """This rank's data share of the leading dim."""
+    b = x.shape[0] // mesh.n_data
+    return x[mesh.data_index * b:(mesh.data_index + 1) * b]
+
+
+def soft_share(x, mesh):
+    """This rank's share of whole relaxed rows [.., V+2] on a logit split:
+    its slice of the V+1 logit columns, the last rank's with the BOS
+    column."""
+    n = (x.shape[-1] - 1) // mesh.n_model
+    j = mesh.model_index
+    end = (j + 1) * n + (1 if j == mesh.n_model - 1 else 0)
+    return torch.from_numpy(np.ascontiguousarray(x[..., j * n:end]))
+
+
+def whole_cols(x, mesh):
+    """The model group's slices of x's last dim, concatenated (numpy)."""
+    return collectives.all_gather(x.detach().contiguous(), mesh.model,
+                                  -1).numpy()
+
+
+def whole_soft(soft, mesh):
+    """Whole relaxed rows from the model group's shares (the last rank's
+    holds one column more): each padded to one width, gathered, unpadded."""
+    last = mesh.model_index == mesh.n_model - 1
+    pad = soft if last else torch.cat(
+        [soft, soft.new_zeros(soft.shape[:-1] + (1,))], -1)
+    w = pad.shape[-1]
+    parts = collectives.all_gather(pad.detach().contiguous(), mesh.model, -1)
+    chunks = [parts[..., j * w:(j + 1) * w] for j in range(mesh.n_model)]
+    return torch.cat([c[..., :-1] for c in chunks[:-1]] + [chunks[-1]],
+                     -1).numpy()
+
+
+def whole_rows(x, mesh):
+    """The data group's shares of x's leading dim, concatenated."""
+    x = x.detach() if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    return collectives.all_gather(x.contiguous(), mesh.data, 0) \
+        if mesh.n_data > 1 else x
+
+
+def vocab_world_rank(shape, jobs, cases):
+    """One world of tests/test_torch_mesh_vocab.py on a mesh of `shape`:
+    `_vocab_units` of each job {key: (V, units)}, and `_sample_cases`."""
+    mesh = make_mesh(*shape, "cpu")
+    return ({k: _vocab_units(mesh, V, u) for k, (V, u) in jobs.items()},
+            _sample_cases(mesh, cases))
+
+
+def _vocab_units(mesh, V, units):
+    """The building blocks of a mesh of `shape` on inputs given whole
+    (tests/test_torch_mesh_vocab.py): the autograd all_gather and the id
+    gather over the data group; over the model group's slices of a
+    vocabulary of V words: `vocab.argmax`, `softmax` (and its gradient),
+    `one_hot`, `add_at`, the four relaxations (forward, ids, gradient of
+    <y, c>), `soft_embed` with either operand split, the BOS row and
+    column; the contrastive loss of the data group (both branches and a
+    blended weight, values and gradients); soft CIDEr of the rank's rows
+    and vocabulary share.  Returns every result whole."""
+    from cooperativeimagecaptioning_tpu_torch.models import vse
+    from cooperativeimagecaptioning_tpu_torch.ops import relaxations
+    from cooperativeimagecaptioning_tpu_torch.parallel import vocab
+    from cooperativeimagecaptioning_tpu_torch.rewards import cider_diff
+    _dispatch.set_vocab_mesh(mesh, V)
+    split = mesh.n_model > 1 and (V + 1) % mesh.n_model == 0
+    out = {}
+    u = units.get("gather")
+    if u is not None:
+        x = my_rows(torch.from_numpy(u["x"]), mesh).clone().requires_grad_()
+        y = collectives.gather_from_group(x, mesh.data)
+        (y * torch.from_numpy(u["c"][mesh.data_index])).sum().backward()
+        ids = collectives.all_gather(my_rows(torch.from_numpy(u["ids"]),
+                                             mesh), mesh.data)
+        out["gather"] = (y.detach().numpy(), whole_rows(x.grad, mesh).numpy(),
+                         ids.numpy(), str(ids.dtype))
+    u = units.get("argmax")
+    if u is not None:
+        out["argmax"] = vocab.argmax(cols(u, mesh)).numpy()
+    u = units.get("softmax")
+    if u is not None:
+        x = cols(u["x"], mesh).requires_grad_()
+        y = vocab.softmax(x)
+        (y * cols(u["c"], mesh)).sum().backward()
+        ids = torch.from_numpy(u["ids"])
+        out["softmax"] = (whole_cols(y, mesh), whole_cols(x.grad, mesh),
+                          whole_cols(vocab.one_hot(ids, x), mesh),
+                          whole_cols(vocab.add_at(x.detach(), ids, -1e38),
+                                     mesh))
+    u = units.get("relax")
+    if u is not None:
+        got = {}
+        for name, (lp, noise, args, c) in u.items():
+            x = cols(lp, mesh).requires_grad_()
+            src = draws.Replay([cols(noise[0], mesh)] + list(noise[1:]))
+            y, ind = getattr(relaxations, name)(src, x, *args)
+            (y * cols(c, mesh)).sum().backward()
+            got[name] = (whole_cols(y, mesh), ind.numpy(),
+                         whole_cols(x.grad, mesh), src.done())
+        out["relax"] = got
+    u = units.get("soft_embed")
+    if u is not None:
+        soft = torch.from_numpy(u["soft"])
+        table = torch.from_numpy(u["table"])
+        if split:
+            soft = soft_share(u["soft"], mesh)
+        elif mesh.n_model > 1:
+            table = M.shard_params({"embed": table}, mesh, {
+                "embed": 0})["embed"]
+        soft = soft.clone().requires_grad_()
+        table = table.clone().requires_grad_()
+        y = vocab.soft_embed(soft, table)
+        (y * torch.from_numpy(u["c"])).sum().backward()
+        out["soft_embed"] = {
+            "y": y.detach().numpy(),
+            "soft_grad": whole_soft(soft.grad, mesh) if split
+            else soft.grad.numpy(),
+            "table_grad": table.grad.numpy() if split or mesh.n_model == 1
+            else collectives.all_gather(table.grad, mesh.model, 0).numpy(),
+            "bos_row": (whole_soft(vocab.one_hot_row(V + 1, soft.detach())[
+                None], mesh) if split
+                else vocab.one_hot_row(V + 1, soft.detach())[None].numpy()),
+            "dropped": (whole_cols(vocab.drop_bos_column(soft.detach()),
+                                   mesh) if split else
+                        vocab.drop_bos_column(soft.detach()).numpy())}
+    u = units.get("contrastive")
+    if u is not None:
+        got = {}
+        for key, mv in u["weights"].items():
+            im = my_rows(torch.from_numpy(u["im"]), mesh).clone() \
+                .requires_grad_()
+            s = my_rows(torch.from_numpy(u["s"]), mesh).clone() \
+                .requires_grad_()
+            w = mv if isinstance(mv, (int, float)) else torch.tensor(mv[0])
+            per = vse.contrastive_loss(im, s, 0.2, w, True, rows=mesh.data)
+            loss = vse.contrastive_loss(im, s, 0.2, w, rows=mesh.data)
+            loss.backward()
+            got[key] = (float(collectives.all_reduce(loss.detach(),
+                                                     mesh.data)),
+                        whole_rows(per, mesh).numpy(),
+                        whole_rows(im.grad, mesh).numpy(),
+                        whole_rows(s.grad, mesh).numpy())
+        out["contrastive"] = got
+    u = units.get("soft_cider")
+    if u is not None:
+        soft = u["soft"]
+        rows = mesh.data if mesh.n_data > 1 else None
+        soft = my_rows(soft, mesh)
+        soft = (soft_share(soft, mesh) if split else
+                torch.from_numpy(np.ascontiguousarray(soft))).requires_grad_()
+        loss = cider_diff.soft_cider_loss(
+            soft, torch.from_numpy(u["refs"]), torch.from_numpy(u["mask"]),
+            rows)
+        total = loss.detach() if rows is None else \
+            collectives.all_reduce(loss.detach(), rows)
+        loss.backward()
+        g = soft.grad
+        g = torch.from_numpy(whole_soft(g, mesh)) if split else g
+        out["soft_cider"] = (float(total), whole_rows(g, mesh).numpy())
+    _dispatch.set_vocab_mesh(None)
+    return out
+
+
+def _sample_cases(mesh, cases):
+    """`decoding.sample` on a mesh whose model axis splits the
+    speaker's vocabulary (the logit layer at V=25, the embedding at V=24):
+    each case {V, params (a whole speaker tree), att, masks, noise (the
+    whole batch's draws), L, kw, grad_w} -> ids, log-probs and soft rows
+    gathered whole; with grad_w the value of sum(logprobs) + <soft,
+    grad_w> and every leaf's gradient (slices gathered).  A 'tf' case runs
+    teacher forcing with scheduled sampling instead: its log-probs, whole.
+    Draws are this rank's rows and columns of the global ones."""
+    from cooperativeimagecaptioning_tpu_torch.models import att_model
+    from cooperativeimagecaptioning_tpu_torch.ops import decoding
+    from cooperativeimagecaptioning_tpu_torch.parallel import vocab
+    out = {}
+    for key, case in cases.items():
+        _dispatch.set_vocab_mesh(mesh, case["V"])
+        full = {"speaker": to_torch(case["params"], "cpu")}
+        specs = M.param_specs(full, mesh)
+        tree = M.shard_params(full, mesh, specs)
+        if case.get("grad_w") is not None:
+            tree = trainable(tree)
+        spk = att_model.AttModel(tree["speaker"])
+        att = my_rows(torch.from_numpy(case["att"]), mesh)
+        masks = my_rows(torch.from_numpy(case["masks"]), mesh)
+        rec = draws.Replay(case["noise"])
+        src = rec if mesh.n_data == 1 else draws.RowShard(
+            rec, mesh.n_data, mesh.data_index)
+        ctx = spk.encode_features(None, att, masks)
+        kw = dict(case["kw"])
+        if "tf" in case:
+            with torch.no_grad():
+                lp = decoding.teacher_forced_logprobs(
+                    spk, ctx, my_rows(torch.from_numpy(case["tf"]), mesh),
+                    src, **kw)
+            lp = torch.from_numpy(whole_cols(lp, mesh)) \
+                if vocab.logit_mesh(lp) is not None else lp
+            out[key] = {"lp": whole_rows(lp, mesh).numpy(),
+                        "used_all": rec.done()}
+            continue
+        grad_w = case.get("grad_w")
+        with torch.set_grad_enabled(grad_w is not None):
+            o = decoding.sample(spk, ctx, case["L"], src, **kw)
+        soft = o.soft
+        res = {"used_all": rec.done()}
+        if grad_w is not None:
+            loss = o.logprobs.sum()
+            if soft is not None:
+                w = soft_share(grad_w, mesh) if vocab.soft_slice(soft) \
+                    is not None else torch.from_numpy(grad_w)
+                part = (soft * w).sum()
+                loss = loss + (collectives.reduce_from_group(part, mesh.model)
+                               if vocab.soft_slice(soft) is not None
+                               else part)
+            named = leaves(tree)
+            grads = torch.autograd.grad(loss, [x for _, x in named],
+                                        allow_unused=True)
+            grads = from_leaves_zeros(named, grads)
+            grads = collectives.all_reduce_tree(grads, mesh.data)
+            res["value"] = float(collectives.all_reduce(
+                loss.detach(), mesh.data)) if mesh.n_data > 1 \
+                else float(loss)
+            res["grads"] = to_numpy(M.gather_params(grads, mesh, specs))
+        if soft is not None:
+            soft = torch.from_numpy(whole_soft(soft, mesh)) \
+                if vocab.soft_slice(soft) is not None else soft.detach()
+            soft = whole_rows(soft, mesh).numpy()
+        res.update(seq=whole_rows(o.seq, mesh).numpy(),
+                   lp=whole_rows(o.logprobs, mesh).numpy(), soft=soft)
+        out[key] = res
+    _dispatch.set_vocab_mesh(None)
+    return out
+
+
+def from_leaves_zeros(named, grads):
+    """A gradient tree from (path, leaf) pairs and their gradients, zeros
+    where a leaf took none."""
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import from_leaves
+    return from_leaves((k, torch.zeros_like(x) if g is None else g)
+                       for (k, x), g in zip(named, grads))
+
+
+# ---------------------------------------------------------------------------
+# test_torch_mesh_phase3.py (and test_torch_trainer_mesh.py's configurations)
+# ---------------------------------------------------------------------------
+
+def mesh_loss_cases(mesh, cases):
+    """joint.value_and_grad of each case {key: {opt, turn, params (whole
+    numpy tree), batch (whole numpy dict), noise ({stream: the global
+    draws}), reward (whole, or None)}} on this rank's mesh: the loss and
+    aux summed over the data group, the gradients summed over it and the
+    slices gathered, the sampled ids gathered."""
+    from cooperativeimagecaptioning_tpu_torch.parallel.train_step import (
+        data_rows, global_sums)
+    from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
+    out = {}
+    for key, case in cases.items():
+        opt = case["opt"]
+        self_critical.reset_scorer()
+        self_critical.init_scorer("corpus")
+        _dispatch.set_vocab_mesh(mesh, opt.vocab_size)
+        full = to_torch(case["params"], "cpu")
+        specs = M.param_specs(full, mesh)
+        local = trainable(M.shard_params(full, mesh, specs))
+        batch = M.shard_batch(to_batch(case["batch"]), mesh)
+        reward = case.get("reward")
+        if reward is not None:
+            reward = torch.from_numpy(my_rows(reward, mesh))
+        sampled = {}
+        fn = joint.value_and_grad(opt, case["turn"], rows=data_rows(mesh))
+        (loss, aux), grads = fn(local, batch, row_streams(
+            replays(case["noise"]), mesh), joint.Hyper.from_opt(opt), reward,
+            sampled)
+        grads = collectives.all_reduce_tree(grads, mesh.data)
+        loss, aux = global_sums(loss, aux, mesh)
+        out[key] = {"loss": float(loss),
+                    "aux": {k: float(v) for k, v in aux.items()},
+                    "grads": to_numpy(M.gather_params(grads, mesh, specs)),
+                    "sampled": {k: whole_rows(v, mesh).numpy()
+                                for k, v in sampled.items()}}
+        _dispatch.set_vocab_mesh(None)
+    return out
+
+
+def mesh_trainer_cases(shape, cases):
+    """Each case {key: (opt, {iteration: {stream: the global draws}},
+    steps)}: a mesh Trainer of `shape` over tiny_dataset(opt), its
+    iterations drawing the given noise -> the loss dict of each step, the
+    turns, and the state (slices gathered) after them."""
+    import copy
+    from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    out = {}
+    for key, (opt, noise, steps) in cases.items():
+        self_critical.reset_scorer()
+        opt = copy.deepcopy(opt)
+        opt.mesh_data_axis, opt.mesh_model_axis = shape
+        tr = Trainer(opt, dataset=tiny_dataset(opt), device="cpu",
+                     verbose=False)
+        tr.iteration_streams = lambda: replays(noise[tr.iteration])
+        losses, turns = [], []
+        for _ in range(steps):
+            loss_dict, turn, _ = tr.train_iteration()
+            losses.append({k: float(v) for k, v in loss_dict.items()})
+            turns.append(turn)
+        out[key] = dict(trainer_state(tr), losses=losses, turns=turns)
+        tr.close()
+    return out
+
+
+def mesh_evaluations(mesh, cases):
+    """Evaluator.eval_split of each case {key: (opt, params (whole),
+    eval_kwargs)} on this rank's mesh over tiny_dataset(opt) -> (losses,
+    captions by image id)."""
+    from cooperativeimagecaptioning_tpu_torch import data
+    from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split import (
+        Evaluator)
+    from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
+    out = {}
+    for key, (opt, params, ek) in cases.items():
+        self_critical.reset_scorer()
+        loader = data.DataLoader(opt, dataset=tiny_dataset(opt))
+        full = to_torch(params, "cpu")
+        local = M.shard_params(full, mesh, M.param_specs(full, mesh))
+        ev = Evaluator(opt, mesh=mesh, device="cpu")
+        losses, preds, _ = ev.eval_split(local, loader, dict(ek))
+        out[key] = (losses, {p["image_id"]: p["caption"] for p in preds})
+        _dispatch.set_vocab_mesh(None)
+    return out
+
+
+def mesh_audited_window(shape, opt, trace_dir):
+    """`Trainer.train` of `opt` on a mesh of `shape` for two iterations
+    under the grad-isolation audit, the profiler window over both: (the
+    turns' agents' Adam counts, the trace this rank wrote, or None)."""
+    import copy
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    opt = copy.deepcopy(opt)
+    opt.mesh_data_axis, opt.mesh_model_axis = shape
+    opt.audit_grad_isolation = 1
+    opt.profile_dir = os.path.join(trace_dir, f"rank{dist_rank()}")
+    opt.profile_start, opt.profile_steps = 0, 2
+    tr = Trainer(opt, dataset=tiny_dataset(opt), device="cpu", verbose=False)
+    tr.train(max_iterations=2)
+    counts = {a: int(st["count"]) for a, st in tr.optim.states.items()}
+    return counts, tr.last_trace
+
+
+def dist_rank():
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def phase3_world_rank(shape, loss_cases, trainer_cases, eval_cases,
+                      window=None):
+    """One world of tests/test_torch_mesh_phase3.py (or of
+    test_torch_trainer_mesh.py's configurations) on a mesh of `shape`;
+    `window`: (opt, trace dir) of `mesh_audited_window`."""
+    mesh = make_mesh(*shape, "cpu")
+    out = {"loss": mesh_loss_cases(mesh, loss_cases),
+           "eval": mesh_evaluations(mesh, eval_cases),
+           "trainer": mesh_trainer_cases(shape, trainer_cases)}
+    if window is not None:
+        out["window"] = mesh_audited_window(shape, *window)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_evaluation.py
+# ---------------------------------------------------------------------------
+
+def eval_replayed_rank(shape, opt, params, ek, noise, dataset):
+    """Evaluator.eval_split on a mesh of `shape` whose EVAL_SEED streams
+    replay `noise` ({stream: the global batch's draws}, each rank keeping
+    its rows) -> (losses, predictions, language stats)."""
+    from cooperativeimagecaptioning_tpu_torch import data
+    from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split import (
+        Evaluator)
+    from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
+    mesh = make_mesh(*shape, "cpu")
+    joint.streams = lambda seed, device, gens=None: replays(noise)
+    self_critical.reset_scorer()
+    loader = data.DataLoader(opt, dataset=dataset)
+    full = to_torch(params, "cpu")
+    local = M.shard_params(full, mesh, M.param_specs(full, mesh))
+    out = Evaluator(opt, mesh=mesh, device="cpu").eval_split(local, loader,
+                                                             dict(ek))
+    _dispatch.set_vocab_mesh(None)
+    return out
