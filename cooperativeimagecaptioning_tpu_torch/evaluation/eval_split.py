@@ -131,9 +131,7 @@ class Evaluator:
 
     def _fetch(self, seq, rows):
         """Decoded ids to the host, in image order across the data group."""
-        if rows is not None:
-            seq = collectives.all_gather(seq, rows)
-        return seq.cpu().numpy()
+        return collectives.all_gather(seq, rows).cpu().numpy()
 
     def _decode_fn(self, beam_size, sample_max=1, temperature=1.0):
         """Decode program for the eval protocol: fn(params, fc, att,
@@ -201,11 +199,7 @@ class Evaluator:
         gen, greedy = joint.sample_for_reward(
             {"speaker": self.speaker}, params, opt, batch, self._streams(rows),
             joint.Hyper.from_opt(opt), "optimizer", train=False, rows=rows)
-        if rows is None:
-            reward, _, _ = joint.host_reward(opt, data["gts"], gen, greedy)
-        else:
-            reward, _, _ = joint.mesh_host_reward(opt, data["gts"], gen,
-                                                  greedy, rows)
+        reward, _, _ = joint.host_reward(opt, data["gts"], gen, greedy, rows)
         return torch.from_numpy(reward).to(self.device)
 
     def encode_fn(self, params, fc, seqs, masks):
@@ -457,9 +451,8 @@ class Evaluator:
                     img_emb, cap_emb = self.encode_fn(
                         params, fc, joint._prepend_bos_ids(seq.long(), V),
                         losses.masks_from_seq(seq))
-                if rows is not None:
-                    img_emb = collectives.all_gather(img_emb, rows)
-                    cap_emb = collectives.all_gather(cap_emb, rows)
+                img_emb = collectives.all_gather(img_emb, rows)
+                cap_emb = collectives.all_gather(cap_emb, rows)
                 ix1 = data["bounds"]["it_max"]
                 if num_images != -1:
                     ix1 = min(ix1, num_images)

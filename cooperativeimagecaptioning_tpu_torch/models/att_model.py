@@ -209,19 +209,9 @@ def batch_stats(x, att_masks, rows=None, min_count=1.0, keepdim=True):
     count all-reduced), then the global sum of squared deviations from it.
     Statistics of the inputs: no gradient flows through the collectives."""
     dims = (0, 1)
-    if rows is None:
-        if att_masks is not None:
-            w = att_masks[..., None]
-            n = torch.clamp(w.sum(), min=min_count)
-            mean = (x * w).sum(dim=dims, keepdim=keepdim) / n
-            var = (torch.square(x - mean) * w).sum(
-                dim=dims, keepdim=keepdim) / n
-            return mean, var, n
-        n = torch.tensor(float(x.shape[0] * x.shape[1]), device=x.device)
-        return (x.mean(dim=dims, keepdim=keepdim),
-                x.var(dim=dims, unbiased=False, keepdim=keepdim), n)
-    w = att_masks[..., None] if att_masks is not None else \
-        torch.ones_like(x[..., :1])
+    # a mask weighs in f32, as the masks do
+    w = att_masks[..., None] if att_masks is not None else torch.ones(
+        x.shape[:2] + (1,), dtype=torch.float32, device=x.device)
     n = collectives.all_reduce(w.sum(), rows)
     if att_masks is not None:
         n = torch.clamp(n, min=min_count)

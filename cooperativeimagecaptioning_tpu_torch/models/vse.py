@@ -91,19 +91,22 @@ def lstm_step(p, state, x):
 
 def _group_costs(im, s, margin, rows):
     """(cost_s [b, B], cost_im [B, b]) of this rank's b pairs against the
-    data group's B: its images' rows of the caption-side costs and its
-    captions' columns of the image-side costs, each positive pair zeroed."""
+    data group's B (without a group, b = B): its images' rows of the
+    caption-side costs and its captions' columns of the image-side costs,
+    each positive pair zeroed."""
     im_all = collectives.gather_from_group(im, rows)
     s_all = collectives.gather_from_group(s, rows)
     b = im.shape[0]
     mine = torch.arange(b, device=im.device)
-    at = rows.rank * b + mine
+    at = (rows.rank * b if rows is not None else 0) + mine
     scores_s = im @ s_all.T                                  # [b, B]
-    scores_im = im_all @ s.T                                 # [B, b]
+    # nothing gathered: both sides read the one [B, B] matrix
+    scores_im = scores_s if im_all is im else im_all @ s.T   # [B, b]
     diag_s = scores_s[mine, at][:, None]
     diag_im = scores_im[at, mine][None, :]
-    eye_s = torch.zeros_like(scores_s, dtype=torch.bool)
-    eye_s[mine, at] = True
+    # by comparison, not item assignment: a CUDA graph capture refuses the
+    # host copy of an assigned Python value
+    eye_s = at[:, None] == torch.arange(s_all.shape[0], device=im.device)
     zero = scores_s.new_zeros(())
     cost_s = torch.where(eye_s, zero, torch.clamp(
         margin + scores_s - diag_s, min=0.0))
@@ -124,18 +127,7 @@ def contrastive_loss(im, s, margin, max_violation, whole_batch=False,
     data group of a mesh run whose ranks hold shares of the batch's pairs:
     the matrix is the global batch's, and the result this rank's share (its
     pairs' costs, or their sum)."""
-    if rows is not None:
-        cost_s, cost_im = _group_costs(im, s, margin, rows)
-    else:
-        scores = im @ s.T
-        diag = torch.diagonal(scores)[:, None]
-        cost_s = torch.clamp(margin + scores - diag, min=0.0)  # caption side
-        cost_im = torch.clamp(margin + scores - diag.T, min=0.0)  # image side
-        eye = torch.eye(scores.shape[0], dtype=torch.bool,
-                        device=scores.device)
-        zero = scores.new_zeros(())
-        cost_s = torch.where(eye, zero, cost_s)
-        cost_im = torch.where(eye, zero, cost_im)
+    cost_s, cost_im = _group_costs(im, s, margin, rows)
     if isinstance(max_violation, (bool, int, float)):
         if max_violation:
             cost_s = cost_s.amax(dim=1)

@@ -165,9 +165,7 @@ def teacher_forced_loss(speaker, ctx, inputs, targets, masks, gen=None,
                                       preserve_rng_state=False)
         num = num + picked
         den = den + msk.sum()
-    if rows is not None:
-        den = collectives.all_reduce(den, rows)
-    return -num / den
+    return -num / collectives.all_reduce(den, rows)
 
 
 def _batch_size(ctx):

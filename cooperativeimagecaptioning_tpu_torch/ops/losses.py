@@ -23,9 +23,7 @@ def language_model_criterion(logprobs, targets, masks, rows=None):
     targets = targets[:, :T]
     masks = masks[:, :T]
     picked = vocab.pick(logprobs, targets)
-    den = masks.sum()
-    if rows is not None:
-        den = collectives.all_reduce(den, rows)
+    den = collectives.all_reduce(masks.sum(), rows)
     return -(picked * masks).sum() / den
 
 
@@ -37,9 +35,7 @@ def self_critical_loss(sample_logprobs, reward, gen_masks, rows=None):
     gen_masks [B, L+1] (column 0 dropped like the reference's masks[:, 1:]).
     `rows`: as language_model_criterion's (the global batch's mask sum)."""
     m = gen_masks[:, 1:]
-    den = m.sum()
-    if rows is not None:
-        den = collectives.all_reduce(den, rows)
+    den = collectives.all_reduce(m.sum(), rows)
     return (sample_logprobs * reward[:, None] * m).sum() / den
 
 

@@ -6,7 +6,8 @@ A `Group` is one process group of the mesh (a model group: the ranks of one
 data row; a data group: the ranks of one model column; or the world) with
 this rank's place in it.  The helpers take a Group and always call the
 backend, whatever its size; callers skip a group of one where that saves a
-copy.  Under gloo a CUDA buffer is staged through the host: gloo's support
+copy.  A group of None (a run on one device) leaves x as it is, so that one
+code path serves both.  Under gloo a CUDA buffer is staged through the host: gloo's support
 for CUDA tensors differs between PyTorch builds, and the buffers that cross
 are small (the heads' candidates, loss sums, flags) except the gradients of
 a data group, which a run over NCCL keeps on the card.
@@ -63,6 +64,8 @@ def _buffer(x, group):
 def all_reduce(x, group: Group, op: str = "sum"):
     """The reduction ("sum", "max" or "min") of x over the group, a new
     tensor on x's device."""
+    if group is None:
+        return x
     buf = _buffer(x, group)
     dist.all_reduce(buf, op=_OPS[op], group=group.pg)
     return buf.to(x.device) if group.staged else buf
@@ -70,6 +73,8 @@ def all_reduce(x, group: Group, op: str = "sum"):
 
 def all_gather(x, group: Group, dim: int = 0):
     """The group's x, concatenated along `dim` in group-rank order."""
+    if group is None:
+        return x
     buf = _buffer(x, group)
     parts = [torch.empty_like(buf) for _ in range(group.size)]
     dist.all_gather(parts, buf, group=group.pg)
@@ -147,17 +152,29 @@ class _GatherFromGroup(torch.autograd.Function):
                             ctx.size), None, None
 
 
+def _alone(group) -> bool:
+    return group is None or group.size == 1
+
+
+def part_of(x, group: Group, size: int):
+    """This rank's `size` rows of a tensor or array gathered over the group
+    (x itself without a group)."""
+    if group is None:
+        return x
+    return x[group.rank * size:(group.rank + 1) * size]
+
+
 def gather_from_group(x, group: Group, dim: int = 0):
     """The group's x concatenated along `dim`; the gradient of this rank's
     part is the sum over the group of the gradients of it."""
-    return x if group.size == 1 else _GatherFromGroup.apply(x, group, dim)
+    return x if _alone(group) else _GatherFromGroup.apply(x, group, dim)
 
 
 def copy_to_group(x, group: Group):
     """Identity; the gradient is summed over the group."""
-    return x if group.size == 1 else _CopyToGroup.apply(x, group)
+    return x if _alone(group) else _CopyToGroup.apply(x, group)
 
 
 def reduce_from_group(x, group: Group):
     """The sum of x over the group; the gradient passes unchanged."""
-    return x if group.size == 1 else _ReduceFromGroup.apply(x, group)
+    return x if _alone(group) else _ReduceFromGroup.apply(x, group)

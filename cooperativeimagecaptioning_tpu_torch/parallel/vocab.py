@@ -109,8 +109,8 @@ def softmax(x):
 def argmax(x):
     """The global id of the largest entry along the last dim (the lowest of
     equal ones), int64, without gradient.  On a slice: each rank's largest
-    and its id, the model group's [R, n] candidates gathered, and
-    `head_merge` at m = 1 (R rows of n candidates)."""
+    and its id, the model group's [R, n] candidates gathered in one
+    collective, and `head_merge` at m = 1 (R rows of n candidates)."""
     mesh = logit_mesh(x)
     if mesh is None:
         return torch.argmax(x, dim=-1)
@@ -118,12 +118,14 @@ def argmax(x):
     flat = x.detach().reshape(-1, width).float()
     i = torch.argmax(flat, dim=-1, keepdim=True)
     v = torch.gather(flat, 1, i)
-    g = mesh.model
-    vals = collectives.all_gather(v, g, dim=1).contiguous()
-    idx = collectives.all_gather(i.to(torch.int32), g, dim=1).contiguous()
+    # one gather of (value, local id) pairs: a local id below 2^24 is exact
+    # in f32
+    got = collectives.all_gather(torch.cat([v, i.float()], dim=1),
+                                 mesh.model, dim=1)
+    vals = got[:, 0::2].contiguous()
+    idx = got[:, 1::2].to(torch.int32).contiguous()
     # head_merge also merges [n, R] logsumexps: the maxima serve, unused
-    lse = collectives.all_gather(v.T.contiguous(), g, dim=0).contiguous()
-    _, top, _ = head_merge(vals, idx, lse, width, 1)
+    _, top, _ = head_merge(vals, idx, vals.T.contiguous(), width, 1)
     return top[:, 0].long().reshape(lead)
 
 

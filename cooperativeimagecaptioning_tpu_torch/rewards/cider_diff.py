@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from cooperativeimagecaptioning_tpu_torch.parallel import vocab
+from cooperativeimagecaptioning_tpu_torch.parallel import collectives, vocab
 from cooperativeimagecaptioning_tpu_torch.rewards.ngram_device import (
     NS, _gram_hashes, containment_df)
 
@@ -113,10 +113,8 @@ def soft_cider_loss(soft_seq, refs, ref_mask, rows=None):
     group of a mesh run whose ranks hold shares of the rows (refs and
     ref_mask the global batch's): this rank's share of the global loss."""
     res = vocab.drop_bos_column(soft_seq)
-    if rows is None:
-        return -soft_cider_scores(res, refs, ref_mask).mean()
     b = res.shape[0]
-    mine = slice(rows.rank * b, (rows.rank + 1) * b)
-    scores = soft_cider_scores(res, refs[mine], ref_mask[mine],
+    scores = soft_cider_scores(res, collectives.part_of(refs, rows, b),
+                               collectives.part_of(ref_mask, rows, b),
                                df_refs=refs, df_mask=ref_mask)
     return -scores.sum() / refs.shape[0]

@@ -44,7 +44,7 @@ share of the global batch's: the normalisers are global sums, the
 listener's contrastive matrix spans the data group, att_bn takes the
 global batch's statistics, the device reward scores the group's gathered
 ids (`_device_reward`) and soft CIDEr the rank's rows against the global
-refs; `mesh_host_reward` is the host stage over the gathered ids.  The
+refs; `host_reward` is the host stage over the gathered ids.  The
 ranks' losses, aux entries and gradients add up to the single-device run's.
 """
 
@@ -292,13 +292,18 @@ def sample_for_reward(modules, params, opt, batch, rng, hp, turn,
     return out.seq, greedy.seq
 
 
-def host_reward(opt, gts, gen, greedy):
+def host_reward(opt, gts, gen, greedy, rows=None):
     """The host stage between stage A and stage B (JAX loop.py:444-458):
     the ids to the host and their CIDEr-D.  Returns (reward [B] float32
     numpy -- cider(sample) - cider(greedy), or the sample's own score under
     use_gen_cider_scores --, the mean of cider(sample) - cider(greedy),
-    cider(greedy) averaged)."""
-    gen, greedy = gen.cpu().numpy(), greedy.cpu().numpy()
+    cider(greedy) averaged).  On a mesh rank (`rows`; JAX loop.py:441-460,
+    `_shard_reward`) the data group's sampled and greedy ids are gathered
+    (every rank holds the global batch's refs `gts`): the means are the
+    global batch's, and the reward this rank's rows of it."""
+    b = gen.shape[0]
+    gen = collectives.all_gather(gen, rows).cpu().numpy()
+    greedy = collectives.all_gather(greedy, rows).cpu().numpy()
     if opt.use_gen_cider_scores:
         reward, scores, cider_greedy = \
             self_critical.get_self_critical_reward(gts, gen, greedy,
@@ -307,21 +312,8 @@ def host_reward(opt, gts, gen, greedy):
         scores, cider_greedy = self_critical.get_self_critical_reward(
             gts, gen, greedy)
         reward = scores
-    return (np.asarray(reward, np.float32), float(np.mean(scores)),
-            float(cider_greedy))
-
-
-def mesh_host_reward(opt, gts, gen, greedy, rows):
-    """host_reward on a mesh rank (JAX loop.py:441-460, `_shard_reward`):
-    the data group's sampled and greedy ids gathered (every rank holds the
-    global batch's refs `gts`), the global batch's reward, and this rank's
-    rows of it.  Returns (the rank's reward [b], the global avg_reward and
-    cider_greedy)."""
-    b = gen.shape[0]
-    reward, avg, cider_greedy = host_reward(
-        opt, gts, collectives.all_gather(gen, rows),
-        collectives.all_gather(greedy, rows))
-    return reward[rows.rank * b:(rows.rank + 1) * b], avg, cider_greedy
+    reward = collectives.part_of(np.asarray(reward, np.float32), rows, b)
+    return reward, float(np.mean(scores)), float(cider_greedy)
 
 
 def _listener_loss(params, opt, hp, fc, seqs, masks, whole_batch=False,
@@ -431,24 +423,15 @@ def _device_reward(modules, params, opt, batch, ctx, r, kw, seq, aux,
         gspk = modules["speaker"](detached(speaker_view(params, opt)))
         greedy = decoding.sample(gspk, detached(ctx), opt.seq_length,
                                  r["greedy"], mode="greedy", **kw).seq
-        if rows is None:
-            scores, cider_gen, cider_greedy = \
-                ngram_device.ciderd_rewards_device(
-                    seq.detach(), greedy, batch["refs"], batch["ref_mask"],
-                    seq_per_img=opt.seq_per_img,
-                    df_table=batch.get("df_table"))
-            aux["avg_reward"] = scores.mean()
-            aux["cider_greedy"] = cider_greedy
-            return cider_gen if opt.use_gen_cider_scores else scores
         b = seq.shape[0]
         scores, cider_gen, _ = ngram_device.ciderd_rewards_device(
             collectives.all_gather(seq.detach(), rows),
             collectives.all_gather(greedy, rows), batch["refs"],
             batch["ref_mask"], seq_per_img=opt.seq_per_img,
             df_table=batch.get("df_table"))
-        mine = slice(rows.rank * b, (rows.rank + 1) * b)
-        scores, cider_gen = scores[mine], cider_gen[mine]
-        n = b * rows.size
+        scores = collectives.part_of(scores, rows, b)
+        cider_gen = collectives.part_of(cider_gen, rows, b)
+        n = b * (rows.size if rows is not None else 1)
     # the global means, as shares the data group's sum restores
     aux["avg_reward"] = scores.sum() / n
     aux["cider_greedy"] = (cider_gen - scores).sum() / n

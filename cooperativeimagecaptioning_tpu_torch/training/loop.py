@@ -34,7 +34,7 @@ holds whole, as the JAX package replicates it) and keeps its slices of the
 vocabulary matrices, and each turn steps through its
 `parallel.train_step.make_distributed_train_step`; stage A samples the
 rank's rows and the host reward scores the data group's gathered ids
-(`joint.mesh_host_reward`); att_bn's running statistics are the global
+(`joint.host_reward`); att_bn's running statistics are the global
 batch's, the same on every rank; the audit and the profiler window run on
 every rank; rank 0 writes the run dir, with the slices gathered, so it is
 the file set of a single-device run and either resumes the other.
@@ -531,12 +531,8 @@ class Trainer:
             streams, rows = row_streams(streams, self.mesh), \
                 data_rows(self.mesh)
         gen, greedy = self._sample_fns[turn](self.params, batch, streams, hp)
-        if rows is None:
-            reward, avg, cider_greedy = joint.host_reward(
-                self.opt, data["gts"], gen, greedy)
-        else:
-            reward, avg, cider_greedy = joint.mesh_host_reward(
-                self.opt, data["gts"], gen, greedy, rows)
+        reward, avg, cider_greedy = joint.host_reward(
+            self.opt, data["gts"], gen, greedy, rows)
         return (torch.from_numpy(reward).to(self.device),
                 {"avg_reward": avg, "cider_greedy": cider_greedy}, gen)
 
