@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero:
   1. device   -- a CUDA device of capability 9.0; prints the card's name and
                  power limit (nvidia-smi).
-  2. build    -- builds the hand-written kernels from the package's csrc/
+  2. build    -- builds the C++ host library (native/, g++; it must
+                 build) and the hand-written kernels from the package's csrc/
                  with nvcc (timed) and prints the registers, stack and
                  spills ptxas reports for the heads' two tensor-core passes
                  (bf16 wgmma, f32 split TF32), the attention's pre-pass and
@@ -247,15 +248,39 @@ Phases, in order; any failure exits non-zero:
                  which this script does not require of the card's host:
                  they run in the CPU tests; the stage scripts' flag sets
                  train phases 8 and 10 here.
+ 13. paper drivers -- the paper's experiment drivers at full width (f32,
+                 B=128, CIC_FUSED_CELL=1), depth cut and each cut printed:
+                 (a) scripts/mode_grid.py over 1024 derived images (4
+                 listener, 4 MLE and 4 joint iterations, an evaluation every
+                 2 on 128 val images) with -o gumbel and -o reinforce and the
+                 fixed-listener rank grid (frozen-greedy, current-greedy,
+                 current-sample, current-gt): finite rsum, CIDEr and val_loss
+                 at every trajectory point, then mode_grid_report; the
+                 frozen-greedy point of the last checkpoint at 16 val images
+                 on the card against the CPU port (>= 99% of caption rows,
+                 rsum to a relative 1e-6); (b) scripts/time_eval_protocol.py
+                 at 256 val images, beam 2: both passes' timings, the JAX
+                 script's keys, every value finite; (c) -o gumbel's speaker
+                 and listener through utils/torch_interop.py (export, .pth,
+                 load, convert): the tree bit-equal, a B=128 greedy decode
+                 with the converted params 100% of id rows equal; (d) the
+                 C++ host tier (native/) built on the card's host, and
+                 language_eval with SPICE on (a)'s and (b)'s predictions
+                 and on each image's first reference against its other four
+                 equal from the C++ and the pure-Python tier (1e-9), each
+                 tier's host seconds.  A, B, C and F must each be launched.
 Every f32 head launch of a path (services, evaluation, SCST, joint,
-reinforce, device rewards and fused chunks, mesh slices, harvest) must take
+reinforce, device rewards and fused chunks, mesh slices, harvest, the
+paper's drivers) must take
 the split-TF32 pass, by the per-pass launch counts.
 Two lines before the last name the card and describe the kernels (one JSON
 object, with each kernel's launches by path, "mesh" the launches of every
 rank of the mesh runs, "joint_reinforce" those of phase 10,
 "device_rewards" those of phase 11, "extracted_features" and "harvest"
-those of phase 12); the last line is {"ok": true, "device": {...}}.
+those of phase 12, "paper_drivers" those of phase 13); the last line is
+{"ok": true, "device": {...}}.
 
+Builds the CUDA kernels and the C++ host library from the checkout.
 Imports no JAX.  Writes only under build/ in the checkout.
 """
 
@@ -462,7 +487,16 @@ def phase_device():
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    from cooperativeimagecaptioning_tpu_torch.native import bindings
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build
+    # the C++ host library (tokenizer, METEOR, SPICE-lite, npy/npz reader):
+    # every language metric of the run takes its tier, none the pure-Python
+    # one in its place
+    t0 = time.perf_counter()
+    require(bindings.available(), "the C++ host tier did not build on the "
+            f"card's host:\n{bindings.build_log()}")
+    print(f"build: the C++ host library (native/, g++ -lz) ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     info = _build.build()
     _build.library()
     how = "compiled" if info["compiled"] else "up to date"
@@ -4983,6 +5017,352 @@ def phase_reproduction(smi):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# 13. the paper's drivers
+# ---------------------------------------------------------------------------
+
+PAPER_DIR = os.path.join(REPO, "build", "chip_smoke_mode_grid")
+PROTOCOL_DIR = os.path.join(REPO, "build", "chip_smoke_eval_protocol")
+INTEROP_PTH = os.path.join(REPO, "build", "chip_smoke_interop.pth")
+# depth cut from the paper's protocol (mode_grid.py's defaults), widths kept
+PAPER_IMAGES = 1024      # the protocol: 20000 images
+PAPER_LISTENER_ITERS = 4  # the protocol: 2000
+PAPER_MLE_ITERS = 4      # the protocol: 20000
+PAPER_JOINT_ITERS = 4    # the protocol: 6000
+PAPER_EVAL_EVERY = 2     # the protocol: 500
+PAPER_VAL = 128          # the protocol: 1000 val images
+PAPER_MODES = ("gumbel", "reinforce")  # the two sides of the comparison
+PAPER_CONDITIONS = ("frozen-greedy", "current-greedy", "current-sample",
+                    "current-gt")
+PAPER_CPU_VAL = 16       # val images of the card-vs-CPU frozen-greedy point
+PAPER_ROWS_AGREE = 0.99
+PAPER_RSUM_RTOL = 1e-6
+PROTOCOL_VAL = 256       # the protocol: 5000 val images
+PROTOCOL_IMAGES = PAPER_IMAGES
+# --set overrides of the drivers' model dims: none on the card (the scripts'
+# defaults are the reference's widths); a CPU rehearsal shrinks them here
+PAPER_SET = ()
+# the keys of the JAX package's eval_protocol_timing.json
+PROTOCOL_KEYS = {"protocol", "weights", "platform", "setup_s",
+                 "eval_first_pass_s", "eval_steady_s", "phases_steady",
+                 "n_predictions", "CIDEr", "rsum"}
+# language metrics of the C++ tier against the pure-Python tier: the same
+# arithmetic in double precision on both sides
+TIER_ATOL = 1e-9
+
+
+def paper_args():
+    """mode_grid's arguments for (a): full width (the script's defaults:
+    vocab 9487, L=16, B=128, 512-wide, 2048-d features, K=36), depth cut."""
+    return ["--images", str(PAPER_IMAGES), "--batch", str(TRAIN_B),
+            "--listener-iters", str(PAPER_LISTENER_ITERS),
+            "--mle-iters", str(PAPER_MLE_ITERS),
+            "--joint-iters", str(PAPER_JOINT_ITERS),
+            "--eval-every", str(PAPER_EVAL_EVERY),
+            "--val-images-use", str(PAPER_VAL),
+            "--modes", ",".join(PAPER_MODES),
+            "--conditions", ",".join(PAPER_CONDITIONS),
+            "--workdir", PAPER_DIR, "--device", DEVICE] + paper_dims()
+
+
+def paper_dims():
+    """The drivers' vocabulary, caption length and --set overrides."""
+    return ["--vocab", str(VOCAB), "--seq", str(L)] + [
+        x for kv in PAPER_SET for x in ("--set", kv)]
+
+
+def finite(v):
+    return isinstance(v, (int, float)) and bool(np.isfinite(v))
+
+
+def paper_grid(out):
+    """(a) mode_grid.main: the pretrain stages, -o gumbel and -o reinforce
+    seeded from them, and the fixed-listener rank grid of each; then
+    mode_grid_report on the JSON it wrote."""
+    import shutil
+    from cooperativeimagecaptioning_tpu_torch.scripts import (
+        mode_grid, mode_grid_report)
+    shutil.rmtree(PAPER_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        res = mode_grid.main(paper_args())
+    finally:
+        os.chdir(REPO)
+    sync()
+    out["mode_grid_s"] = time.perf_counter() - t0
+    for mode in PAPER_MODES:
+        traj = res["modes"][mode]["train"]["trajectory"]
+        require(traj and all(finite(pt[k]) for pt in traj
+                             for k in ("rsum", "CIDEr", "val_loss")),
+                f"mode grid, {mode}: trajectory {traj}")
+        pts = res["modes"][mode]["rank_points"]
+        require({p["condition"] for p in pts} == set(PAPER_CONDITIONS)
+                and all(finite(p["rsum"]) for p in pts),
+                f"mode grid, {mode}: rank points {pts}")
+        last = traj[-1]
+        print(f"  {mode}: {len(traj)} trajectory points, last iteration "
+              f"{last['iteration']}: loss {last['loss']}, val_loss "
+              f"{last['val_loss']}, CIDEr {last['CIDEr']:.4f}, rsum "
+              f"{last['rsum']}; {len(pts)} rank points", flush=True)
+    print(f"  mode grid (pretrain {PAPER_LISTENER_ITERS} + "
+          f"{PAPER_MLE_ITERS} iterations, {len(PAPER_MODES)} modes x "
+          f"{PAPER_JOINT_ITERS}, the rank grid) in {out['mode_grid_s']:.1f} "
+          f"s; its report:", flush=True)
+    mode_grid_report.main([os.path.join(PAPER_DIR, "mode_grid.json")])
+    return res
+
+
+def paper_frozen_greedy(ds, device, n):
+    """The frozen-greedy point of -o gumbel's last checkpoint (its speaker,
+    the stage-1 listener) over the first n val images on `device`:
+    (val_loss, predictions)."""
+    import glob
+    from cooperativeimagecaptioning_tpu_torch.config import load_infos
+    from cooperativeimagecaptioning_tpu_torch.data import DataLoader
+    from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split import (
+        Evaluator)
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint as ck
+    jdir = os.path.join(PAPER_DIR, "joint_gumbel")
+    last = max(int(p.rsplit("-", 1)[1][:-len(".pth")]) for p in
+               glob.glob(os.path.join(jdir, "alternatingModel-*.pth")))
+    opt = load_infos(glob.glob(os.path.join(jdir, "infos_att_d*.pkl"))[0]
+                     )["opt"].replace(device_feature_cache=0)
+    params = ck.load_params(
+        os.path.join(jdir, f"alternatingModel-{last}.pth"), device)
+    params["listener"] = ck.load_params(os.path.join(
+        PAPER_DIR, "log_fc_con", "model_vse-best.pth"), device)["listener"]
+    ek = dict(vars(opt))
+    ek.update(split="val", num_images=n)
+    os.chdir(PAPER_DIR)  # data/synthtalk.p, eval_results/
+    try:
+        val_loss, preds, _ = Evaluator(opt, device=device).eval_split(
+            params, DataLoader(opt, dataset=ds), ek, use_gen_sent=True)
+    finally:
+        os.chdir(REPO)
+    return val_loss, preds, last
+
+
+def paper_against_cpu(ds, out):
+    """The frozen-greedy point of the last checkpoint on the card and on
+    the CPU port, at PAPER_CPU_VAL val images: caption rows and rsum."""
+    got, got_preds, last = paper_frozen_greedy(ds, DEVICE, PAPER_CPU_VAL)
+    want, want_preds, _ = paper_frozen_greedy(ds, "cpu", PAPER_CPU_VAL)
+    same = np.mean([g["caption"] == w["caption"] and
+                    g["image_id"] == w["image_id"]
+                    for g, w in zip(got_preds, want_preds)])
+    rel = abs(got["rsum"] - want["rsum"]) / max(abs(want["rsum"]), 1e-12)
+    print(f"  frozen-greedy point of alternatingModel-{last} at "
+          f"{PAPER_CPU_VAL} val images, card vs CPU: {same:.2%} of caption "
+          f"rows equal (>= {PAPER_ROWS_AGREE:.0%}), rsum {got['rsum']} vs "
+          f"{want['rsum']} (relative {rel:.1e}, <= {PAPER_RSUM_RTOL})",
+          flush=True)
+    require(len(got_preds) == len(want_preds) == PAPER_CPU_VAL and
+            same >= PAPER_ROWS_AGREE,
+            f"frozen-greedy captions, card vs CPU: {same:.2%} equal")
+    require(rel <= PAPER_RSUM_RTOL, f"frozen-greedy rsum, card "
+            f"{got['rsum']} vs CPU {want['rsum']}")
+    out["frozen_greedy_rows"] = float(same)
+
+
+def paper_protocol(smi, out):
+    """(b) time_eval_protocol.main at PROTOCOL_VAL val images, beam 2: its
+    JSON holds the JAX script's keys, every value finite."""
+    import shutil
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.scripts import (
+        time_eval_protocol)
+    shutil.rmtree(PROTOCOL_DIR, ignore_errors=True)
+    try:
+        res = time_eval_protocol.main([
+            "--images", str(PROTOCOL_IMAGES), "--val-images",
+            str(PROTOCOL_VAL), "--beam", "2", "--batch", str(TRAIN_B),
+            "--workdir", PROTOCOL_DIR, "--device", DEVICE] + paper_dims())
+    finally:
+        os.chdir(REPO)
+    require(set(res) == PROTOCOL_KEYS, f"eval protocol keys {sorted(res)}")
+    nums = [res[k] for k in ("setup_s", "eval_first_pass_s",
+                             "eval_steady_s", "n_predictions", "CIDEr",
+                             "rsum")]
+    nums += list(res["phases_steady"].values())
+    nums += [v for v in res["protocol"].values() if not isinstance(v, bool)]
+    require(all(finite(v) for v in nums) and
+            res["n_predictions"] == PROTOCOL_VAL and
+            res["platform"] == (torch.cuda.get_device_name(0)
+                                if DEVICE == "cuda" else DEVICE),
+            f"eval protocol result {res}")
+    out["protocol"] = res
+    print(f"  eval-protocol timer, {PROTOCOL_VAL} val images, beam 2, "
+          f"language metrics + generated-caption ranks ({smi}): first pass "
+          f"{res['eval_first_pass_s']} s, steady {res['eval_steady_s']} s "
+          f"(phases {res['phases_steady']}), setup {res['setup_s']} s",
+          flush=True)
+
+
+def paper_interop(out):
+    """(c) -o gumbel's speaker and listener through export_state_dict ->
+    save_torch_checkpoint -> load_torch_checkpoint -> convert_state_dict:
+    the tree comes back bit-equal, and a B=128 greedy decode on the card
+    with the converted params gives the ids of the unconverted ones."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.models.att_model import AttModel
+    from cooperativeimagecaptioning_tpu_torch.ops import decoding
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint as ck
+    from cooperativeimagecaptioning_tpu_torch.utils import torch_interop
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    params = ck.load_params(os.path.join(PAPER_DIR, "joint_gumbel",
+                                         "alternatingModel.pth"), DEVICE)
+    require(set(params) == {"speaker", "listener"}, f"joint tree {params}")
+    sd = torch_interop.export_state_dict(params, "att2in2")
+    torch_interop.save_torch_checkpoint(params, INTEROP_PTH)
+    back = torch_interop.load_torch_checkpoint(INTEROP_PTH, device=DEVICE)
+    again = torch_interop.convert_state_dict(sd, "att2in2", device=DEVICE)
+    want = dict(leaves(params))
+    for tree in (back, again):
+        got = dict(leaves(tree))
+        require(sorted(got) == sorted(want) and all(
+            got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+            for k in want), "interop round trip: the tree changed")
+    fc, att, masks = (torch.from_numpy(x).to(DEVICE)
+                      for x in features(TRAIN_B, SEED + 13))
+    ids = []
+    for tree in (params, back):
+        sp = AttModel(tree["speaker"])
+        with torch.no_grad():
+            ctx = sp.encode_features(fc, att, masks)
+            ids.append(decoding.sample(sp, ctx, L, mode="greedy").seq.cpu())
+    rows = float((ids[0] == ids[1]).all(1).float().mean())
+    require(rows == 1.0, f"interop decode: {rows:.2%} of id rows equal")
+    out["interop_rows"] = rows
+    print(f"  interop: {len(sd)} reference keys, the round trip through "
+          f"{os.path.relpath(INTEROP_PTH, REPO)} bit-equal; B={TRAIN_B} "
+          f"greedy decode with the converted params: {rows:.0%} of id rows "
+          f"equal", flush=True)
+
+
+def paper_annotations(ds, ids, path, first=0):
+    """A COCO annotation file of the references of `ids` from the `first`
+    on (SyntheticDataset image ids are their indices)."""
+    anns = []
+    for i in ids:
+        for row in ds.get_refs(i)[first:]:
+            anns.append({"image_id": i, "id": len(anns), "caption": " ".join(
+                ds.ix_to_word[str(int(t))] for t in row if t > 0)})
+    with open(path, "w") as f:
+        json.dump({"annotations": anns, "images": [{"id": i} for i in ids]},
+                  f)
+
+
+def paper_host_tier(ds, smi, out):
+    """(d) the C++ host tier is built on the card's host, and
+    language_eval(include_spice=True) gives the same scores from it as from
+    the pure-Python tier, on -o gumbel's last val predictions (PAPER_VAL
+    images) and on the eval-protocol timer's (PROTOCOL_VAL); both tiers'
+    host seconds.  The captions of four joint iterations and of random
+    weights score near 0, so the tiers are also held on each image's first
+    reference as its hypothesis against its other four (the derived
+    captions of an image share most of their words: every metric moves
+    off 0)."""
+    from cooperativeimagecaptioning_tpu_torch.config import load_infos
+    from cooperativeimagecaptioning_tpu_torch.evaluation.language_eval import (
+        language_eval)
+    from cooperativeimagecaptioning_tpu_torch.native import bindings
+    require(bindings.available(), "the C++ host tier did not build on the "
+            f"card's host:\n{bindings.build_log()}")
+    hist = load_infos(os.path.join(PAPER_DIR, "joint_gumbel",
+                                   "histories_att_d0.3.pkl"))
+    vrh = hist["val_result_history"]
+    with open(os.path.join(PROTOCOL_DIR, "eval_results",
+                           "evalproto_val_nofilt.json")) as f:
+        protocol_preds = json.load(f)
+    grid_preds = vrh[max(vrh)]["predictions"]
+    ids = [p["image_id"] for p in grid_preds]
+    own = [{"image_id": i, "caption": " ".join(
+        ds.ix_to_word[str(int(t))] for t in ds.get_refs(i)[0] if t > 0)}
+        for i in ids]
+    out["tiers"] = {}
+    for what, preds, first in (("mode grid", grid_preds, 0),
+                               ("eval protocol", protocol_preds, 0),
+                               ("a reference against the others", own, 1)):
+        n = len(preds)
+        preds = [{"image_id": p["image_id"], "caption": p["caption"]}
+                 for p in preds]
+        require(n == (PROTOCOL_VAL if what == "eval protocol" else
+                      PAPER_VAL), f"{what}: {n} predictions")
+        ann = os.path.join(REPO, "build", f"chip_smoke_refs_{n}_{first}.json")
+        paper_annotations(ds, [p["image_id"] for p in preds], ann, first)
+        scores, seconds = {}, {}
+        native = bindings.available
+        for tier in ("native", "python"):
+            if tier == "python":
+                bindings.available = lambda: False
+            try:
+                t0 = time.perf_counter()
+                scores[tier] = language_eval(
+                    "synthetic", [dict(p) for p in preds], "tiers",
+                    "val", ann_file=ann,
+                    out_dir=os.path.join(REPO, "build",
+                                         "chip_smoke_tiers"),
+                    include_spice=True)
+                seconds[tier] = time.perf_counter() - t0
+            finally:
+                bindings.available = native
+        a, b = scores["native"], scores["python"]
+        require(set(a) == set(b) and "SPICE" in a and all(
+            abs(a[k] - b[k]) <= TIER_ATOL for k in a),
+            f"language metrics, C++ vs Python tier, {what}: {a} vs {b}")
+        out["tiers"][what] = seconds
+        print(f"  language metrics with SPICE, {what}, {n} val images: C++ tier "
+              f"{seconds['native']:.3f} s, pure Python {seconds['python']:.3f}"
+              f" s of host time ({smi}), equal within {TIER_ATOL}: "
+              + ", ".join(f"{k} {a[k]:.4f}" for k in
+                          ("Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "SPICE")),
+              flush=True)
+
+
+def phase_paper_drivers(smi):
+    """13. The paper's experiment drivers at full width, depth cut (each
+    cut printed): (a) the mode grid, (b) the eval-protocol timer, (c)
+    reference-checkpoint interop, (d) the C++ host tier.  CIC_FUSED_CELL=1,
+    so the cell kernel runs beside A, B and C.  Returns the launch counts of
+    the phase."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.scripts import (
+        showcase_full_scale)
+    t_phase = time.perf_counter()
+    print(f"phase 13, the paper's drivers at full width (vocab {VOCAB}, "
+          f"{WIDTH}-wide, {FEAT}-d features, K={K}, L={L}, B={TRAIN_B}, f32),"
+          f" depth cut: {PAPER_IMAGES} images (the protocol: 20000), "
+          f"{PAPER_LISTENER_ITERS} / {PAPER_MLE_ITERS} / {PAPER_JOINT_ITERS} "
+          f"listener / MLE / joint iterations (2000 / 20000 / 6000), an "
+          f"evaluation every {PAPER_EVAL_EVERY} (500) on {PAPER_VAL} val "
+          f"images (1000), modes {', '.join(PAPER_MODES)} (of five); the "
+          f"eval protocol at {PROTOCOL_VAL} val images (5000)", flush=True)
+    out = {}
+    _dispatch.reset_launches()
+    with fused_cell_switch(True):
+        paper_grid(out)
+        sync()
+        ds = showcase_full_scale.build_dataset(
+            PAPER_IMAGES, VOCAB, L,
+            showcase_full_scale.protocol_dims(list(PAPER_SET))[0])
+        paper_against_cpu(ds, out)
+        paper_protocol(smi, out)
+        paper_interop(out)
+    sync()
+    launches = _dispatch.launches()
+    for k in ("attention", "greedy_head", "beam_head", "cell"):
+        require(launches[k] > 0, f"paper drivers: {k} never launched "
+                f"({launches})")
+    require_head_pass("the paper's drivers", "tf32x3")
+    paper_host_tier(ds, smi, out)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  launches {launches}", flush=True)
+    print(f"  paper drivers phase in {out['seconds']:.1f} s", flush=True)
+    return launches, out
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, REPO)
@@ -5021,6 +5401,9 @@ def main():
     repro_launches, _ = phase_reproduction(smi)
     print(f"elapsed after the reproduction chain: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
+    paper_launches, _ = phase_paper_drivers(smi)
+    print(f"elapsed after the paper's drivers: "
+          f"{time.perf_counter() - t_start:.0f} s", flush=True)
     # each path's counts run from 0 just before it to just after it
     kernels = []
     for k in SOURCES:
@@ -5031,7 +5414,8 @@ def main():
                    "joint_reinforce": reinforce_launches[k],
                    "device_rewards": device_launches[k],
                    "extracted_features": repro_launches["extracted"][k],
-                   "harvest": repro_launches["harvest"][k]}
+                   "harvest": repro_launches["harvest"][k],
+                   "paper_drivers": paper_launches[k]}
         require(sum(by_path.values()) > 0,
                 f"{k} was never launched on a main path")
         kernels.append({

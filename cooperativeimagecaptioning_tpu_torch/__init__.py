@@ -7,8 +7,10 @@ each counterpart can be found; parameters keep its nested-dict layout
 Pallas kernel on a ported path becomes a hand-written CUDA kernel under
 `csrc/`, with its plain PyTorch version beside it (`ops/kernels/`).
 
-Ported so far: the serving path (`serving.CaptioningService`) of the
-Att2in2 speaker, greedy and beam.  Importing this package imports nothing.
+Ported: the whole single-device surface (serving, the three training
+phases, evaluation, the reproduction chain, the paper's experiment drivers,
+reference-checkpoint interop, the C++ host tier) and the (data, model)
+process grid.  Importing this package imports nothing.
 """
 
 __version__ = "0.1.0"

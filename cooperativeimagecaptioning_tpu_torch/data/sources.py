@@ -17,16 +17,26 @@ import numpy as np
 
 
 class DirFeatureSource:
-    """npy/npz directory feature store (ref: dataloader.py:24-53), read
-    with np.load (the JAX package's C++ reader is not ported, ROADMAP.md
-    queue 1: the native host library)."""
+    """npy/npz directory feature store (ref: dataloader.py:24-53).
+
+    Reads go through the C++ parser (native/cic_io.cpp) when built — ctypes
+    releases the GIL for the whole read+inflate, so the thread prefetcher
+    parallelizes — with np.load for anything it can't parse, and while the
+    library is not built."""
 
     def __init__(self, db_path: str, ext: str):
+        from cooperativeimagecaptioning_tpu_torch.native import bindings
         self.db_path = db_path
         self.ext = ext
+        self._native = bindings if bindings.available() else None
 
     def get(self, key: str):
         path = os.path.join(self.db_path, key + self.ext)
+        if self._native is not None:
+            out = (self._native.read_npy(path) if self.ext == ".npy"
+                   else self._native.read_npz_feat(path))
+            if out is not None:
+                return out
         if self.ext == ".npy":
             return np.load(path)
         return np.load(path)["feat"]

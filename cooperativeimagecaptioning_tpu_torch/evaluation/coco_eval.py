@@ -7,8 +7,7 @@ CocoEvalCap.evaluate(): PTB-tokenize GT + results, run BLEU(4) / METEOR / ROUGE-
 CIDEr, fill `eval` (corpus) and `imgToEval` (per-image) like the reference.
 
 The port's own copy of the JAX package's evaluation/coco_eval.py, over the
-port's pure-Python scorers.  SPICE is not ported: `include_spice=True`
-raises."""
+port's scorers (each on its C++ tier once native/ is built)."""
 
 from __future__ import annotations
 
@@ -55,12 +54,9 @@ class CocoEvalCap:
 
     def __init__(self, coco: CocoAnnotations, coco_res: CocoAnnotations,
                  include_spice: bool = False):
-        if include_spice:
-            raise NotImplementedError(
-                "include_spice: SPICE is not ported yet (ROADMAP.md queue 1: "
-                "metrics/spice.py)")
         self.coco = coco
         self.coco_res = coco_res
+        self.include_spice = include_spice
         self.params = {"image_id": coco_res.get_img_ids()}
         self.eval = {}
         self.img_to_eval = {}
@@ -89,6 +85,10 @@ class CocoEvalCap:
         c_mean, c_per = cider.compute_score(
             gts, [{"image_id": i, "caption": res[i]} for i in ids])
         self._set("CIDEr", c_mean, c_per, ids)
+        if self.include_spice:
+            from cooperativeimagecaptioning_tpu_torch.metrics import spice
+            s_mean, s_per = spice.compute_spice(gts, res)
+            self._set("SPICE", s_mean, s_per, ids)
         return self.eval
 
     def _set(self, name, corpus_score, per_image, ids):

@@ -437,9 +437,13 @@ class Evaluator:
                 data = loader.get_batch(split)
                 n += loader.batch_size
                 if not use_gen_sent:
+                    # with a device feature cache the loader hands out no
+                    # features (JAX eval_split.py:347-349)
+                    cached = self._cached_feats(data, per_image=False)
+                    fc = cached[0] if cached is not None else \
+                        self._put(data["fc_feats"])
                     (fc, labels, masks), rows = self._split_rows(
-                        (self._put(data["fc_feats"]),
-                         self._put(data["labels"], torch.int64),
+                        (fc, self._put(data["labels"], torch.int64),
                          self._put(data["masks"])),
                         data["labels"].shape[0])
                     img_emb, cap_emb = self.encode_fn(params, fc, labels,

@@ -3,8 +3,7 @@
 
 Filters predictions to annotated image ids, writes eval_results/<id>_<split>.json
 and the _nofilt variant, returns the overall metric dict.  The port's own copy
-of the JAX package's evaluation/language_eval.py; SPICE is not ported, so
-`include_spice=True` raises (in CocoEvalCap)."""
+of the JAX package's evaluation/language_eval.py."""
 
 from __future__ import annotations
 
@@ -35,10 +34,6 @@ def annotations_from_loader(loader):
 def language_eval(dataset, preds, model_id, split, ann_file=None,
                   loader=None, out_dir="eval_results", include_spice=False):
     """ref: eval_utils.py:19-86."""
-    if include_spice:
-        raise NotImplementedError(
-            "include_spice: SPICE is not ported yet (ROADMAP.md queue 1: "
-            "metrics/spice.py)")
     if ann_file and os.path.isfile(ann_file):
         coco = CocoAnnotations(ann_file)
     elif loader is not None:
@@ -56,11 +51,20 @@ def language_eval(dataset, preds, model_id, split, ann_file=None,
         json.dump(preds_filt, f)
 
     coco_res = coco.load_res(preds_filt)
-    coco_eval = CocoEvalCap(coco, coco_res)
+    coco_eval = CocoEvalCap(coco, coco_res, include_spice=include_spice)
     coco_eval.params["image_id"] = coco_res.get_img_ids()
     coco_eval.evaluate()
 
     out = dict(coco_eval.eval)
+    if include_spice:
+        # per-category SPICE means (ref: eval_utils.py:66-70)
+        import numpy as np
+        vals = list(coco_eval.img_to_eval.values())
+        for k in vals[0]["SPICE"]:
+            if k == "All":
+                continue
+            arr = np.array([v["SPICE"][k]["f"] for v in vals])
+            out["SPICE_" + k] = float(arr[arr == arr].mean())
 
     img_to_eval = coco_eval.img_to_eval
     for p in preds_filt:

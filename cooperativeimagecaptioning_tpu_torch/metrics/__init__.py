@@ -1,6 +1,6 @@
-"""Language metrics: BLEU, ROUGE-L, METEOR and the PTB tokenizer (CIDEr-D is
-rewards/cider_d.py).
+"""Language metrics: BLEU, ROUGE-L, METEOR, SPICE-lite and the PTB tokenizer
+(CIDEr-D is rewards/cider_d.py).
 
-The port's own copies of the JAX package's pure-Python scorers: host code,
-no torch.  That package's C++ tier (native/) and SPICE are not ported yet
-(ROADMAP.md queue 1)."""
+The port's own copies of the JAX package's scorers: host code, no torch.
+The tokenizer, METEOR and SPICE-lite run on the C++ tier of native/ once it
+is built, and in pure Python otherwise."""

@@ -32,9 +32,10 @@ function-word list and its numbers are NOT comparable to jar-computed
 literature METEOR (a one-time runtime notice says so,
 evaluation/language_eval.py).
 
-The port's own copy of the JAX package's metrics/meteor.py, pure Python
-only: that package's C++ scorer (native/cic_native.cpp) is not ported
-(ROADMAP.md queue 1: the native host library).
+The port's own copy of the JAX package's metrics/meteor.py.  The C++
+implementation (native/cic_native.cpp) is used once it is built; both tiers
+agree bit-for-bit on the shared test corpus, including with resources
+(serialized to the native tier via cic_meteor_configure).
 """
 
 from __future__ import annotations
@@ -133,6 +134,19 @@ class MeteorResources:
                 if len(parts) >= 2 and parts[0] and parts[1]:
                     par.append((parts[0].split(), parts[1].split()))
         return cls(fw, syn, par)
+
+    def serialize(self) -> str:
+        """Wire format for the native tier's cic_meteor_configure:
+        FW '\\x03' SYNGROUPS '\\x03' PARAPHRASES; groups/entries separated by
+        '\\x01', paraphrase sides by '\\x02'; empty FW keeps the default."""
+        fw = " ".join(sorted(self.function_words)) \
+            if self.function_words else ""
+        syn = "\x01".join(" ".join(sorted(g)) for g in self.synonym_groups)
+        par = "\x01".join(
+            " ".join(src) + "\x02" + " ".join(d)
+            for src, ds in sorted(self.par_map.items()) for d in ds)
+        return fw + "\x03" + syn + "\x03" + par
+
 
 def _read_lines(path):
     op = gzip.open if path.endswith(".gz") else open
@@ -336,7 +350,7 @@ def compute_meteor(gts: dict, res: dict, resources: MeteorResources = None):
     """Returns (corpus_score, per-segment scores).  The corpus score is the
     micro-average over summed stats, matching the jar's final EVAL line.
     `resources` activates the synonym/paraphrase stages and a provided
-    function-word list."""
+    function-word list in BOTH tiers (native via cic_meteor_configure)."""
     if resources is None:
         resources = default_resources()
     if not _warned_lite and (
@@ -347,6 +361,9 @@ def compute_meteor(gts: dict, res: dict, resources: MeteorResources = None):
               "data (missing blobs upstream; provide them via "
               "CIC_METEOR_DATA / --meteor_data_dir) — scores are NOT "
               "comparable to jar-computed literature METEOR")
+    from cooperativeimagecaptioning_tpu_torch.native import bindings
+    if bindings.available():
+        return bindings.meteor(gts, res, resources)
     ids = sorted(gts.keys(), key=lambda x: str(x))
     scores, total = [], np.zeros(6)
     for i in ids:

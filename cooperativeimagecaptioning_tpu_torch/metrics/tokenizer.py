@@ -5,9 +5,9 @@ The reference invokes `PTBTokenizer -preserveLines -lowerCase` over one caption
 per line and then strips a fixed punctuation list (ptbtokenizer.py:23-24,77-84).
 For caption text (no URLs/abbrev-heavy prose) PTB tokenization reduces to:
 lowercase, split off punctuation, expand contractions — implemented here with the
-core PTB rules.  The port's own copy of the JAX package's metrics/tokenizer.py,
-pure Python only: that package's C++ tokenizer (native/) is not ported
-(ROADMAP.md queue 1: the native host library).
+core PTB rules.  The port's own copy of the JAX package's metrics/tokenizer.py:
+the C++ tokenizer of native/ (same contract) is used once it is built, and
+this module is the pure-Python tier otherwise.
 """
 
 from __future__ import annotations
@@ -50,6 +50,9 @@ def ptb_tokenize_line(line: str) -> list:
 def tokenize(captions_for_image: dict) -> dict:
     """Same contract as PTBTokenizer.tokenize: {id: [{'caption': str}, ...]} ->
     {id: [tokenized strings]} with the punctuation list stripped."""
+    from cooperativeimagecaptioning_tpu_torch.native import bindings
+    if bindings.available():
+        return bindings.ptb_tokenize(captions_for_image)
     out = {}
     for k, caps in captions_for_image.items():
         out[k] = []

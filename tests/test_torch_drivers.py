@@ -23,6 +23,7 @@ import pytest
 from cooperativeimagecaptioning_tpu_torch import config as tconfig
 from cooperativeimagecaptioning_tpu_torch.data import SyntheticDataset
 from cooperativeimagecaptioning_tpu_torch.evaluation import harvest as tharvest
+from cooperativeimagecaptioning_tpu_torch.native import bindings as tbindings
 from cooperativeimagecaptioning_tpu_torch.scripts import (
     reproduce_coco as trepro, run_att as trun_att, run_fc_con as trun_fc_con,
     run_joint as trun_joint)
@@ -275,7 +276,10 @@ def test_harvest_equals_the_jax_packages(jx, tmp_path, monkeypatch,
     package's harvest over copies of one run dir, with the test
     re-evaluation through each package's eval on the same dataset."""
     src, run_id = request.getfixturevalue(f"{written_by}_run_dir")
+    # both packages score on their pure-Python tier (the C++ tiers are held
+    # equal in test_torch_native.py)
     monkeypatch.setattr(jx["bindings"], "available", lambda: False)
+    monkeypatch.setattr(tbindings, "available", lambda: False)
     monkeypatch.chdir(tmp_path)
     out = {}
     for side, cfg, mod in (("jax", jx["config"], jx["harvest"]),

@@ -33,6 +33,7 @@ from cooperativeimagecaptioning_tpu_torch import data as tdata  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch import eval as teval_entry  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.evaluation import eval_split as teval  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.evaluation import language_eval as tlang  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch.native import bindings as tbindings  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.ops import draws  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.rewards import self_critical as tsc  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.training import joint as tjoint  # noqa: E402
@@ -51,9 +52,12 @@ DS = dict(num_images=20, vocab_size=25, seq_length=8, fc_feat_size=20,
 
 @pytest.fixture(autouse=True)
 def _pure_python_metrics(monkeypatch, tmp_path):
-    """Both sides score with the pure-Python tokenizer and METEOR, and write
-    their eval_results/ under a scratch directory."""
+    """Both sides score with the pure-Python tokenizer, METEOR and SPICE
+    (each package's tier against its counterpart; the C++ tiers are held
+    equal in test_torch_native.py), and write their eval_results/ under a
+    scratch directory."""
     monkeypatch.setattr(bindings, "available", lambda: False)
+    monkeypatch.setattr(tbindings, "available", lambda: False)
     monkeypatch.chdir(tmp_path)
 
 
@@ -360,9 +364,10 @@ def test_unported_branches_name_their_roadmap_item(tmp_path, monkeypatch,
                                                    what, match):
     """What the evaluator does not run yet raises, naming its ROADMAP item.
     The eval loss of a reinforce run, the device feature cache, the eval
-    loss of the device reward tiers and the CIDEr-D eval loss on a mesh
-    raised here until they were ported (their ids keep the items they
-    matched); they now run and equal the JAX Evaluator's."""
+    loss of the device reward tiers, the CIDEr-D eval loss on a mesh and
+    SPICE (CocoEvalCap and language_eval with include_spice) raised here
+    until they were ported (their ids keep the items they matched); they
+    now run and equal the JAX package's."""
     if what == "reinforce_loss":
         assert_reinforce_eval_matches_jax(monkeypatch, "greedy")
         return
@@ -375,17 +380,51 @@ def test_unported_branches_name_their_roadmap_item(tmp_path, monkeypatch,
     if what == "mesh":
         assert_mesh_cider_eval_matches_jax()
         return
-    _, (topt, tloader, tparams) = build(language_eval=0, rank_eval=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*" + match):
-        if what == "coco_spice":
-            from cooperativeimagecaptioning_tpu_torch.evaluation import (
-                coco_eval)
-            coco_eval.CocoEvalCap(coco_eval.CocoAnnotations(
-                dataset={"annotations": [], "images": []}), {},
-                include_spice=True)
-        else:
-            tlang.language_eval("coco", [], "x", "val", loader=tloader,
-                                out_dir=str(tmp_path), include_spice=True)
+    assert_spice_eval_matches_jax(what, tmp_path)
+
+
+def assert_spice_eval_matches_jax(what, tmp_path):
+    """include_spice=True: CocoEvalCap's corpus and per-image scores
+    ('coco_spice'), or language_eval over each loader's ground truth
+    ('spice'), equal the JAX package's."""
+    from cooperativeimagecaptioning_tpu.evaluation import coco_eval as jcoco
+    from cooperativeimagecaptioning_tpu.evaluation import (
+        language_eval as jlang)
+    from cooperativeimagecaptioning_tpu_torch.evaluation import (
+        coco_eval as tcoco)
+    (_, jloader, _), (_, tloader, _) = build(language_eval=0, rank_eval=0)
+    words = [w for _, w in sorted(tloader.ix_to_word.items(),
+                                  key=lambda kv: int(kv[0]))]
+    rng = np.random.RandomState(3)
+    ids = [tloader.ds.info["images"][ix]["id"]
+           for ix in tloader.split_ix["val"]]
+    preds = [{"image_id": i, "caption": " ".join(
+        rng.choice(words + ["a", "on", "in"], rng.randint(2, 7)))}
+        for i in ids]
+    if what == "coco_spice":
+        out = []
+        for mod, loader in ((jlang, jloader), (tlang, tloader)):
+            coco = mod.annotations_from_loader(loader)
+            cmod = jcoco if mod is jlang else tcoco
+            ev = cmod.CocoEvalCap(coco, coco.load_res(preds),
+                                  include_spice=True)
+            out.append((ev.evaluate(), ev.img_to_eval))
+        (want, want_img), (got, got_img) = out
+        assert "SPICE" in got and set(got) == set(want)
+        assert got_img == want_img
+    else:
+        want = jlang.language_eval("coco", [dict(p) for p in preds], "x",
+                                   "val", loader=jloader,
+                                   out_dir=str(tmp_path / "jax"),
+                                   include_spice=True)
+        got = tlang.language_eval("coco", [dict(p) for p in preds], "x",
+                                  "val", loader=tloader,
+                                  out_dir=str(tmp_path / "port"),
+                                  include_spice=True)
+        assert {"SPICE", "SPICE_Object", "SPICE_Relation"} <= set(got)
+        assert set(got) == set(want)
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-12, k
 
 
 def feature_cache(loader, K=K):

@@ -23,6 +23,7 @@ from cooperativeimagecaptioning_tpu_torch.evaluation import coco_eval as tcoco  
 from cooperativeimagecaptioning_tpu_torch.metrics import (  # noqa: E402
     bleu as tbleu, meteor as tmeteor, porter as tporter, rouge as trouge,
     tokenizer as ttok)
+from cooperativeimagecaptioning_tpu_torch.native import bindings as tbindings  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.rewards import cider_d as tcider  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.training import schedules as tsched  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.utils import text as ttext  # noqa: E402
@@ -184,10 +185,21 @@ def _corpus(seed=0, n=12):
     return gts, res
 
 
-def test_language_metrics_agree(jx, monkeypatch):
+def _same_tier(jx, monkeypatch, tier):
+    """Both packages on their pure-Python tier, or both on their C++ tier
+    (skips where that cannot be built)."""
+    if tier == "python":
+        monkeypatch.setattr(jx["bindings"], "available", lambda: False)
+        monkeypatch.setattr(tbindings, "available", lambda: False)
+    elif not (tbindings.available() and jx["bindings"].available()):
+        pytest.skip("the C++ host tier cannot be built here")
+
+
+@pytest.mark.parametrize("tier", ["python", "native"])
+def test_language_metrics_agree(jx, monkeypatch, tier):
     """Tokenizer, BLEU, ROUGE-L, METEOR, CIDEr-D and the Porter stemmer:
-    the port's pure-Python copies against the originals' pure-Python tier."""
-    monkeypatch.setattr(jx["bindings"], "available", lambda: False)
+    the port's copies against the originals, tier against tier."""
+    _same_tier(jx, monkeypatch, tier)
     gts, res = _corpus()
     tg, tr = ttok.tokenize(gts), ttok.tokenize(res)
     assert tg == jx["tokenizer"].tokenize(gts)
@@ -211,8 +223,9 @@ def test_language_metrics_agree(jx, monkeypatch):
     np.testing.assert_array_equal(got[1], want[1])
 
 
-def test_coco_eval_agrees(jx, monkeypatch):
-    monkeypatch.setattr(jx["bindings"], "available", lambda: False)
+@pytest.mark.parametrize("tier", ["python", "native"])
+def test_coco_eval_agrees(jx, monkeypatch, tier):
+    _same_tier(jx, monkeypatch, tier)
     gts, res = _corpus(seed=1)
     anns = [{"image_id": i, "caption": c["caption"], "id": 10 * i + j}
             for i, caps in gts.items() for j, c in enumerate(caps)]
@@ -271,7 +284,12 @@ def test_no_file_of_the_port_imports_the_jax_package():
             "preprocess/feats.py", "preprocess/labels.py",
             "evaluation/harvest.py", "scripts/__init__.py",
             "scripts/run_fc_con.py", "scripts/run_att.py",
-            "scripts/run_joint.py", "scripts/reproduce_coco.py"} <= names
+            "scripts/run_joint.py", "scripts/reproduce_coco.py",
+            "scripts/showcase_full_scale.py", "scripts/fixed_listener_rank.py",
+            "scripts/mode_grid.py", "scripts/mode_grid_report.py",
+            "scripts/time_eval_protocol.py", "utils/torch_interop.py",
+            "native/__init__.py", "native/bindings.py",
+            "metrics/spice.py"} <= names
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -536,6 +554,55 @@ _ENTRY_CODE = {
         "reproduce_coco.main(['--synthetic', '8', '--device', 'cpu', "
         "'--workdir', 'rc'])\n"
         "assert os.listdir(os.path.join('rc', 'gumbel', 'json_dir'))\n"),
+    "scripts.paper_drivers": (
+        "import importlib, json\n"
+        "for name in ('showcase_full_scale', 'fixed_listener_rank', "
+        "'mode_grid', 'mode_grid_report', 'time_eval_protocol'):\n"
+        "    importlib.import_module("
+        "'cooperativeimagecaptioning_tpu_torch.scripts.' + name)\n"
+        + "    " + _CLEAN.replace("\n", "\n    ").rstrip(" ") +
+        "from cooperativeimagecaptioning_tpu_torch.scripts import "
+        "mode_grid_report, time_eval_protocol\n"
+        "json.dump({'modes': {'gumbel': {'flags': {"
+        "'retrieval_reward_weight': 0.3}, 'rank_points': [{'iteration': "
+        "'seed', 'condition': 'current-sample', 'CIDEr': 0.5, 'rsum': 9.0}, "
+        "{'iteration': 4, 'condition': 'current-sample', 'CIDEr': 0.75, "
+        "'rsum': 12.0}]}}}, open('grid.json', 'w'))\n"
+        "assert mode_grid_report.main(['grid.json'])[0]['pair_rsum'] == "
+        "{'seed': 9.0, 'last': 12.0, 'peak': 12.0}\n"
+        "out = time_eval_protocol.main(['--images', '20', '--val-images', "
+        "'6', '--batch', '3', '--vocab', '25', '--seq', '8', '--device', "
+        "'cpu', '--workdir', 'tep', '--set', 'rnn_size=16', '--set', "
+        "'input_encoding_size=12', '--set', 'att_hid_size=8', '--set', "
+        "'vse_embed_size=16', '--set', 'fc_feat_size=20', '--set', "
+        "'att_feat_size=20', '--set', 'max_att_len=6'])\n"
+        "assert out['n_predictions'] == 6 and out['platform'] == 'cpu'\n"),
+    "host_tier": (
+        "import importlib\n"
+        "for name in ('utils.torch_interop', 'native.bindings', "
+        "'metrics.spice'):\n"
+        "    importlib.import_module("
+        "'cooperativeimagecaptioning_tpu_torch.' + name)\n"
+        + "    " + _CLEAN.replace("\n", "\n    ").rstrip(" ") +
+        "from cooperativeimagecaptioning_tpu_torch.evaluation import "
+        "coco_eval\n"
+        "from cooperativeimagecaptioning_tpu_torch.native import bindings\n"
+        "from cooperativeimagecaptioning_tpu_torch.training import "
+        "checkpoint\n"
+        "from cooperativeimagecaptioning_tpu_torch.utils import "
+        "torch_interop\n"
+        "params = checkpoint.load_params(os.path.join(d, 'model-best.pth'))\n"
+        "torch_interop.save_torch_checkpoint(params, 'ref.pth')\n"
+        "back = torch_interop.load_torch_checkpoint('ref.pth')\n"
+        "assert all(torch.equal(back['speaker']['logit'][k], "
+        "params['speaker']['logit'][k]) for k in ('w', 'b'))\n"
+        "assert bindings.available(), bindings.build_log()\n"
+        "coco = coco_eval.CocoAnnotations(dataset={'annotations': [{"
+        "'image_id': 0, 'caption': 'a man rides a bike', 'id': 0}], "
+        "'images': [{'id': 0}]})\n"
+        "ev = coco_eval.CocoEvalCap(coco, coco.load_res([{'image_id': 0, "
+        "'caption': 'a man riding a red bike'}]), include_spice=True)\n"
+        "assert 0 < ev.evaluate()['SPICE'] < 1\n"),
     "eval": (
         "from cooperativeimagecaptioning_tpu_torch import eval as ev\n"
         "out = ev.eval(None, os.path.join(d, 'model-best.pth'), "

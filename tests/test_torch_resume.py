@@ -30,6 +30,7 @@ from cooperativeimagecaptioning_tpu.training import loop as jloop  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch import eval as teval_entry  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch import serving as tserving  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.data import SyntheticDataset  # noqa: E402
+from cooperativeimagecaptioning_tpu_torch.native import bindings as tbindings  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.training import checkpoint as tckpt  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.training import joint as tjoint  # noqa: E402
 from cooperativeimagecaptioning_tpu_torch.training import loop as tloop  # noqa: E402
@@ -45,7 +46,10 @@ STEPS = 1  # the next batch does not wrap the train split
 
 @pytest.fixture(autouse=True)
 def _pure_python_metrics(monkeypatch, tmp_path):
+    """Both packages score on their pure-Python tier (the C++ tiers are held
+    equal in test_torch_native.py)."""
     monkeypatch.setattr(bindings, "available", lambda: False)
+    monkeypatch.setattr(tbindings, "available", lambda: False)
     monkeypatch.chdir(tmp_path)
 
 
