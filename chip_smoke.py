@@ -11,7 +11,7 @@ Phases, in order; any failure exits non-zero:
                  with nvcc (timed) and prints the registers, stack and
                  spills ptxas reports for the heads' two tensor-core passes
                  (bf16 wgmma, f32 split TF32), the attention's pre-pass and
-                 stream kernels and the cell's two kernels (no spill
+                 stream kernels and the cell's three kernels (no spill
                  allowed).
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes the paths give it, in float32 and bfloat16:
@@ -39,10 +39,15 @@ Phases, in order; any failure exits non-zero:
                  does not start on 16 bytes the FMA pass).
                  Each check prints its maximum error beside its tolerance;
                  each kernel is timed beside its plain version.  The fused
-                 maxout-LSTM cell (kernel F, CIC_FUSED_CELL=1) against its
-                 plain version with and without attention, f32 at B=128 and
-                 f32 / bf16 at B=512, 4096 and 130 (a partial row tile),
-                 bf16 on the tensor-core kernel and f32 on the FMA kernel;
+                 maxout-LSTM cell (kernel F) against its plain version with
+                 and without attention, f32 at B=128, 256, 640 and f32 /
+                 bf16 at B=512, 4096 and 130 (a partial row tile), and at
+                 D=H=500 (no multiple of 8); every aligned f32 launch must
+                 take the split-TF32 kernel, every aligned bf16 launch the
+                 tensor-core kernel, D=H=500 the FMA kernel; timed beside
+                 cell_reference (f32 also beside the split product's floor
+                 and the three products alone through torch.matmul), and
+                 the f32 kernel must beat cell_reference at B = 128-640;
                  the attention's autograd Function (kernel forward,
                  recomputed backward; the b-major and the int8 call) against
                  plain autograd, f32 at B=128.  Every timed shape gets its own
@@ -76,17 +81,17 @@ Phases, in order; any failure exits non-zero:
                  and beam 2, bf16 and f32; every step through the attention
                  kernel; f32 ids against the CPU service's), and a run dir
                  whose checkpoint lacks a leaf, which from_run_dir must
-                 report and fill.  CIC_FUSED_CELL is unset here (the
-                 default: the cell is the plain version).
+                 report and fill.  Every step runs the cell kernel (the
+                 tensor-core kernel for bf16, split TF32 for f32).
   5. training -- phase-2 MLE training at full width through
                  training.loop.train / Trainer over the shared
-                 SyntheticDataset (f32, B=128, drop_prob_lm 0.5), with
-                 CIC_FUSED_CELL=1: the attention and cell launch counts of
+                 SyntheticDataset (f32, B=128, drop_prob_lm 0.5): the
+                 attention and cell launch counts of
                  three steps (2*T each per step: forward, and the
                  checkpointed recompute in backward); the first step at
                  B=16 on the card against the same step on the CPU port
                  (loss and every gradient leaf); the loss falling over 20
-                 steps on one batch; it/s with and without the cell kernel;
+                 steps on one batch; it/s;
                  Trainer.checkpoint_operations, which evaluates and writes
                  the trained speaker's run dir (model, optimizer, infos,
                  histories); and that run dir served once (greedy, bucket
@@ -106,8 +111,7 @@ Phases, in order; any failure exits non-zero:
                  drop_prob_lm 0.5; scripts/run_joint.py's flag set at -D 0,
                  phase 3, not alternating), resumed from phase 5's run dir
                  by Trainer(start_from=...): params, every Adam leaf and the
-                 counters equal the files; five iterations with
-                 CIC_FUSED_CELL unset and five with it set, each with finite
+                 counters equal the files; five iterations, each with finite
                  loss_cider, avg_reward and cider_greedy and stage B's
                  sampled ids equal to stage A's, the launch counts of A, B
                  and F per iteration asserted; the time split of an
@@ -132,8 +136,8 @@ Phases, in order; any failure exits non-zero:
                  it/s, checkpoint_operations ranking val and test and
                  writing the stage-1 run dir; (b) run_joint.py -o gumbel
                  seeded from phase 5's speaker and (a)'s listener (params
-                 and both Adam states equal the files), five iterations
-                 with CIC_FUSED_CELL unset and five with it set: finite
+                 and both Adam states equal the files), five iterations:
+                 finite
                  losses, stage B's ids equal stage A's, both agents move,
                  the launches of A, B and F an iteration, the time split
                  and it/s; (c) the B=16 step of each relaxed mode on the
@@ -158,7 +162,7 @@ Phases, in order; any failure exits non-zero:
                  against the single-process evaluator on the card (>= 99%
                  of the captions, loss_cap), C and head_merge L times a
                  decode on every rank and B never; (2, 1) -- phase-2 MLE at
-                 B=128, CIC_FUSED_CELL=1, three steps against the
+                 B=128, three steps against the
                  single-process Trainer (loss rtol 2e-5, params), it/s,
                  checkpoint_operations writing a mesh run dir, eval.eval on
                  it; a four-rank world, (2, 2): one training step and one
@@ -185,8 +189,8 @@ Phases, in order; any failure exits non-zero:
                  8(b) from phase 5's speaker and 8(a)'s listener, under
                  audit_grad_isolation: (a) run_joint.py -o reinforce -v 1
                  (the gt baseline) with real speaker / listener
-                 alternation, six iterations with CIC_FUSED_CELL unset and
-                 six with it set, every iteration's launches of A, B and F
+                 alternation, six iterations, every iteration's launches of
+                 A, B and F
                  against its turn's (a speaker turn as an SCST iteration, a
                  listener turn one sampled decode), stage B's ids equal
                  stage A's, the stage split and it/s of each turn, with and
@@ -211,8 +215,8 @@ Phases, in order; any failure exits non-zero:
                  preprocess/ngrams.py builds from the dataset (rtol 2e-4,
                  atol 2e-5), the reward's device ms and peak memory; (b) SCST
                  with on_device_cider and (c) run_joint.py -o gumbel with
-                 soft_cider: five iterations with CIC_FUSED_CELL unset and
-                 five with it set, no host reward stage, the launches of A,
+                 soft_cider: five iterations, no host reward stage, the
+                 launches of A,
                  B and F an iteration, the stage split, it/s and the device
                  idle share beside the host-reward SCST's in this run and
                  phases 7's and 8's; (d) the B=16 step of each on the card
@@ -249,7 +253,7 @@ Phases, in order; any failure exits non-zero:
                  they run in the CPU tests; the stage scripts' flag sets
                  train phases 8 and 10 here.
  13. paper drivers -- the paper's experiment drivers at full width (f32,
-                 B=128, CIC_FUSED_CELL=1), depth cut and each cut printed:
+                 B=128), depth cut and each cut printed:
                  (a) scripts/mode_grid.py over 1024 derived images (4
                  listener, 4 MLE and 4 joint iterations, an evaluation every
                  2 on 128 val images) with -o gumbel and -o reinforce and the
@@ -269,10 +273,10 @@ Phases, in order; any failure exits non-zero:
                  and on each image's first reference against its other four
                  equal from the C++ and the pure-Python tier (1e-9), each
                  tier's host seconds.  A, B, C and F must each be launched.
-Every f32 head launch of a path (services, evaluation, SCST, joint,
-reinforce, device rewards and fused chunks, mesh slices, harvest, the
-paper's drivers) must take
-the split-TF32 pass, by the per-pass launch counts.
+Every f32 head and cell launch of a path (services, evaluation, SCST,
+joint, reinforce, device rewards and fused chunks, mesh slices, harvest,
+the paper's drivers) must take the split-TF32 pass, and every bf16 one the
+tensor-core pass, by the per-pass launch counts.
 Two lines before the last name the card and describe the kernels (one JSON
 object, with each kernel's launches by path, "mesh" the launches of every
 rank of the mesh runs, "joint_reinforce" those of phase 10,
@@ -451,18 +455,51 @@ def require(cond, msg):
 
 
 @contextlib.contextmanager
-def fused_cell_switch(on):
-    """Set (on) or unset CIC_FUSED_CELL, the JAX package's switch for the
-    fused cell, for the block; restore it after."""
-    old = os.environ.pop("CIC_FUSED_CELL", None)
-    if on:
-        os.environ["CIC_FUSED_CELL"] = "1"
+def cpu_cell_plain():
+    """CPU tensors through F's plain version, `cell_plain` (f32 inside, h'
+    and c' rounded to the inputs' type once, as every kernel of csrc/
+    cell_step.cu rounds them), in place of the port's CPU cell,
+    `cell_reference` (which rounds every op in bf16): a CPU service built
+    and run inside the block is the plain versions of the kernels a CUDA
+    service runs, rounding where the card does.  At f32 the two are
+    bit-equal."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import cell_step
+    fused = cell_step.fused_cell
+
+    def fused_cell(*args):
+        if args[1].device.type == "cpu":
+            return cell_step.cell_plain(*args)
+        return fused(*args)
+    cell_step.fused_cell = fused_cell
     try:
         yield
     finally:
-        os.environ.pop("CIC_FUSED_CELL", None)
-        if old is not None:
-            os.environ["CIC_FUSED_CELL"] = old
+        cell_step.fused_cell = fused
+
+
+def launch_counts():
+    """The launch counts since the last reset that a path reports: each
+    kernel's (`launch_counts()`) and the cell's by kernel
+    (`_dispatch.cell_pass_launches()`: cell_tf32x3, cell_mma, cell_fma)."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    return {**_dispatch.launches(), **_dispatch.cell_pass_launches()}
+
+
+def counted():
+    """The keys of `launch_counts`."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    return _dispatch.KERNELS + _dispatch.CELL_PASSES
+
+
+def with_cell_pass(want, first_pass):
+    """`want` (launches by kernel, missing ones 0) with the cell's by
+    kernel: every cell launch on `first_pass` ("tf32x3" on an f32 path,
+    "mma" on a bf16 one)."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    out = {k: want.get(k, 0) for k in _dispatch.KERNELS}
+    for p in _dispatch.CELL_PASSES:
+        out[p] = out["cell"] if p == f"cell_{first_pass}" else 0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -521,11 +558,13 @@ def phase_build():
                 require(res["spill_bytes"] == 0, f"{name} spills registers")
     # the attention's pre-pass and stream kernels (template arguments as
     # mangled: type, vector width, columns a thread, layout) and the cell's
-    # two kernels (mma: warps along the rows; fma: type, asynchronous fill)
+    # three kernels (tf32x3: warps along j; mma: warps along the rows; fma:
+    # type, asynchronous fill)
     for name, res in sorted(info["resources"].items()):
         for src, kernel in (("att_step", "att_h_mma_kernel"),
                             ("att_step", "att_h_fma_kernel"),
                             ("att_step", "attention_kernel"),
+                            ("cell_step", "cell_tf32x3_kernel"),
                             ("cell_step", "cell_mma_kernel"),
                             ("cell_step", "cell_fma_kernel")):
             if kernel in name:
@@ -674,20 +713,23 @@ def att_widths_moved(before):
 
 def require_head_pass(what, first_pass, passes=None):
     """Every head launch counted in `passes` (per-pass counts; by default
-    those since the last reset) took `first_pass`: "tf32x3" for a path's
-    f32 heads, "mma" for its bf16 heads (every such launch is at an aligned
-    full-width shape)."""
+    those of the heads and of the cell since the last reset) took
+    `first_pass`: "tf32x3" for a path's f32 heads and cell, "mma" for its
+    bf16 heads and cell (every such launch is at an aligned full-width
+    shape)."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
-    passes = _dispatch.head_pass_launches() if passes is None else passes
+    if passes is None:
+        passes = {**_dispatch.head_pass_launches(),
+                  **_dispatch.cell_pass_launches()}
     other = {k: v for k, v in passes.items()
              if v and not k.endswith(f"_{first_pass}")}
-    require(not other, f"{what}: every head launch must take the "
+    require(not other, f"{what}: every head and cell launch must take the "
             f"{first_pass} pass, counted {passes}")
 
 
 def require_vector_width(what, launches):
     """Every launch of the three attention kernels since the last reset took
-    the 16-byte vector width (`launches`: _dispatch.launches())."""
+    the 16-byte vector width (`launches`: launch_counts())."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     widths = _dispatch.att_width_launches()
     for k in ("attention", "attention_kmajor", "attention_q"):
@@ -983,8 +1025,8 @@ def timed_shape(shape, pair, bound):
             "bound_ms": bound[0], "bound_by": bound[1]}
 
 
-def cell_args(rn, B, dt, with_att):
-    H = D = WIDTH
+def cell_args(rn, B, dt, with_att, width=WIDTH):
+    H = D = width
     args = [rn(B, D), rn(B, H, scale=0.5), rn(B, H),
             rn(B, H) if with_att else None,
             rn(D, 5 * H, scale=D ** -0.5), rn(5 * H, scale=0.1),
@@ -994,61 +1036,94 @@ def cell_args(rn, B, dt, with_att):
     return [None if x is None else x.to(dt) for x in args]
 
 
+def cell_ops(B, width=WIDTH):
+    """Operations of one cell call: the three products [B,D]x[D,5H],
+    [B,H]x[H,5H] and [B,H]x[H,2H] at D = H = width."""
+    return 2 * B * width * (5 + 5 + 2) * width
+
+
+# F's shapes: f32 at the training step's B=128, the evaluation's beam-2
+# R=256 and five-caption loss rows 640, f32 serving buckets 512 and 4096 and
+# a partial row tile (130); bf16 at the serving buckets and 130; D = H =
+# CELL_ODD (no multiple of 8) takes the FMA kernel in both types
+CELL_SHAPES = {"float32": (TRAIN_B, 256, 512, 640, 4096, 130),
+               "bfloat16": (512, 4096, 130)}
+CELL_ODD = 500
+# the f32 kernel must beat cell_reference up to this B (the larger f32
+# buckets are measured and reported)
+CELL_F32_FASTER_TO = 640
+
+
 def check_cell(rn, shapes):
     """Kernel F against cell_plain (cell_reference in f32 on the same
-    inputs), with attention (Att2in2) and without (FC), at the training
-    shape (f32, B=128), the decode buckets (f32 and bf16, B=512 and 4096)
-    and a partial row tile (B=130); every bf16 launch must take the
-    tensor-core kernel, every f32 launch the FMA kernel.  Each
-    with-attention case but B=130 is timed beside cell_reference in the
-    inputs' type, the cell that runs with CIC_FUSED_CELL unset, and gets its
-    own bound (appended to shapes["cell"]).  Returns (max error, (kernel ms,
-    plain ms) at the training shape, its bound)."""
+    inputs), with attention (Att2in2) and without (FC), at CELL_SHAPES and
+    at D = H = CELL_ODD; every aligned f32 launch must take the split-TF32
+    kernel, every aligned bf16 launch the tensor-core kernel, D = H =
+    CELL_ODD the FMA kernel.  Each full-width with-attention case but
+    B=130 is timed beside cell_reference on the same inputs and gets its
+    own bound (appended to shapes["cell"]), in f32 also the split product's
+    floor (three TF32 products at 495 TFLOP/s) and the three products
+    alone through torch.matmul (TF32 off); the f32 kernel must be faster
+    than cell_reference up to B = CELL_F32_FASTER_TO.  Returns (max error,
+    (kernel ms, plain ms) at the training shape, its bound)."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
         _dispatch, cell_step)
-    f32, bf16 = torch.float32, torch.bfloat16
-    print("cell (kernel F) vs its plain version (D=H=512; CIC_FUSED_CELL=1)",
-          flush=True)
-    worst, timed, bound = 0.0, {}, {}
-    with fused_cell_switch(True):
-        for B, dts in ((TRAIN_B, (f32,)), (512, (f32, bf16)),
-                       (4096, (f32, bf16)), (130, (f32, bf16))):
-            for dt in dts:
-                dn = str(dt).split(".")[-1]
-                for with_att in (True, False):
-                    args = cell_args(rn, B, dt, with_att)
-                    before = _dispatch.cell_pass_launches()
-                    h_new, c_new = cell_step.fused_cell(*args)
-                    torch.cuda.synchronize()
-                    which = "cell_mma" if dt == bf16 else "cell_fma"
-                    after = _dispatch.cell_pass_launches()
-                    require(after[which] - before[which] == 1,
-                            f"cell {dn} B={B}: expected one launch of "
-                            f"{which}, counted {after} (before {before})")
-                    h_p, c_p = cell_step.cell_plain(*args)
-                    require(h_new.dtype == dt and c_new.shape == (B, WIDTH),
-                            "cell output type/shape")
-                    err = max((h_new.float() - h_p.float()).abs().max()
-                              .item(), (c_new.float() - c_p.float()).abs()
-                              .max().item())
-                    worst = max(worst, err)
-                    what = f"{dn} B={B} {'att2in2' if with_att else 'fc'}"
-                    report("cell", what, err, TOL[("cell", dn)])
-                    if with_att and B != 130:
-                        timed[(B, dn)] = timed_pair(
-                            lambda: cell_step.fused_cell(*args),
-                            lambda: cell_step.cell_reference(*args))
-                        # three products: [B,D]x[D,5H], [B,H]x[H,5H] and
-                        # [B,H]x[H,2H]
-                        bound[(B, dn)] = bound_ms(
-                            args + [h_new, c_new],
-                            2 * B * WIDTH * (5 + 5 + 2) * WIDTH, dn)
+    print(f"cell (kernel F) vs its plain version (D=H={WIDTH}, and "
+          f"{CELL_ODD})", flush=True)
+    worst, timed, bound, extra = 0.0, {}, {}, {}
+    cases = [(dn, B, WIDTH) for dn, bs in CELL_SHAPES.items() for B in bs]
+    cases += [(dn, 130, CELL_ODD) for dn in CELL_SHAPES]
+    for dn, B, width in cases:
+        dt = getattr(torch, dn)
+        which = ("cell_fma" if width % 8 else
+                 "cell_tf32x3" if dn == "float32" else "cell_mma")
+        for with_att in (True, False):
+            args = cell_args(rn, B, dt, with_att, width)
+            before = _dispatch.cell_pass_launches()
+            h_new, c_new = cell_step.fused_cell(*args)
+            torch.cuda.synchronize()
+            after = _dispatch.cell_pass_launches()
+            moved = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+            require(moved == {which: 1}, f"cell {dn} B={B} D=H={width}: "
+                    f"expected one launch of {which}, counted {moved}")
+            h_p, c_p = cell_step.cell_plain(*args)
+            require(h_new.dtype == dt and c_new.shape == (B, width),
+                    "cell output type/shape")
+            err = max((h_new.float() - h_p.float()).abs().max().item(),
+                      (c_new.float() - c_p.float()).abs().max().item())
+            worst = max(worst, err)
+            what = (f"{dn} B={B}{'' if width == WIDTH else f' D=H={width}'}"
+                    f" {'att2in2' if with_att else 'fc'} ({which})")
+            report("cell", what, err, TOL[("cell", dn)])
+            if with_att and B != 130 and width == WIDTH:
+                timed[(B, dn)] = timed_pair(
+                    lambda: cell_step.fused_cell(*args),
+                    lambda: cell_step.cell_reference(*args))
+                bound[(B, dn)] = bound_ms(args + [h_new, c_new],
+                                          cell_ops(B), dn)
+                if dn == "float32":
+                    xt, h, _, att, wi, _, wh, _, wc, _ = args
+                    extra[(B, dn)] = {
+                        "split_floor_ms": 3 * cell_ops(B) / TF32_OPS_PER_S
+                        * 1e3,
+                        "matmul_ms": cuda_ms(
+                            lambda: (xt @ wi, h @ wh, att @ wc), 20)}
     for (B, dn), (k_ms, p_ms) in timed.items():
         bd = bound[(B, dn)]
-        print(f"  time cell B={B:<5d} {dn:9s} kernel {k_ms:.4f} ms  plain "
-              f"{p_ms:.4f} ms  bound {bd[0]:.4f} ms ({bd[1]})", flush=True)
-        shapes["cell"].append(timed_shape(f"{dn} B={B}", (k_ms, p_ms), bd))
+        more = extra.get((B, dn), {})
+        print(f"  time cell B={B:<5d} {dn:9s} kernel {k_ms:.4f} ms  "
+              f"cell_reference {p_ms:.4f} ms  bound {bd[0]:.4f} ms ({bd[1]}; "
+              f"{k_ms / bd[0]:.1f}x)"
+              + (f"  split floor {more['split_floor_ms']:.4f} ms  products "
+                 f"alone {more['matmul_ms']:.4f} ms" if more else ""),
+              flush=True)
+        shapes["cell"].append({**timed_shape(f"{dn} B={B}", (k_ms, p_ms),
+                                             bd), **more})
+        if dn == "float32" and B <= CELL_F32_FASTER_TO:
+            require(k_ms < p_ms, f"cell f32 B={B}: the kernel ({k_ms:.4f} "
+                    f"ms) is not faster than cell_reference ({p_ms:.4f} ms)")
     at = (TRAIN_B, "float32")
     return worst, timed[at], bound[at]
 
@@ -1321,10 +1396,10 @@ def serve_requests(svc, label, kernel, att_kernel="attention",
                 f"/healthz answered {hz}")
         for n in sizes:
             fc, att, masks = features(n, seed=n)
-            before = _dispatch.launches()
+            before = launch_counts()
             passes = _dispatch.head_pass_launches()
             out = post_npz(base, fc, att, masks)
-            after = _dispatch.launches()
+            after = launch_counts()
             passes = head_passes_moved(passes)
             ids = np.asarray(out["ids"])
             require(ids.shape == (n, L), f"{label} n={n}: ids {ids.shape}")
@@ -1340,7 +1415,7 @@ def serve_requests(svc, label, kernel, att_kernel="attention",
                         f"{label} n={n}: caption does not decode its ids")
             calls = 1  # every n here fits one bucket
             for k in _dispatch.KERNELS:
-                want = L * calls if k in (att_kernel, kernel) else 0
+                want = L * calls if k in (att_kernel, kernel, "cell") else 0
                 got = after[k] - before[k]
                 require(got == want, f"{label} n={n}: {k} launched {got} "
                         f"times, expected {want}")
@@ -1393,24 +1468,27 @@ def phase_slice(smi):
     _dispatch.reset_launches()
     ids_greedy = serve_requests(greedy, "greedy bf16", "greedy_head")
     ids_beam = serve_requests(beam, "beam-2 bf16", "beam_head")
-    main_launches = _dispatch.launches()
+    main_launches = launch_counts()
     for k in ("attention", "greedy_head", "beam_head"):
         require(main_launches[k] > 0, f"{k} was never launched on the "
                 f"main path")
     require_vector_width("serving", main_launches)
+    require_head_pass("serving", "mma")
     print(f"  main-path launches: {main_launches}; heads by first pass: "
           f"{_dispatch.head_pass_launches()}; attention by width: "
           f"{_dispatch.att_width_launches()}", flush=True)
 
-    # the CUDA services against CPU services (the plain versions) on the
-    # same 64-image request, at the same bucket
+    # the CUDA services against CPU services (the plain versions, F's
+    # included: `cpu_cell_plain`) on the same 64-image request, at the same
+    # bucket
     fc, att, masks = features(64, seed=64)
     for m, ids_served in ((0, ids_greedy), (2, ids_beam)):
         mode = "beam-2" if m else "greedy"
-        cpu = {dn: CaptioningService.from_run_dir(
-            RUN_DIR, beam_size=m, compute_dtype=dn, buckets=(64,),
-            device="cpu").caption_ids(fc, att, masks)
-            for dn in ("float32", "bfloat16")}
+        with cpu_cell_plain():
+            cpu = {dn: CaptioningService.from_run_dir(
+                RUN_DIR, beam_size=m, compute_dtype=dn, buckets=(64,),
+                device="cpu").caption_ids(fc, att, masks)
+                for dn in ("float32", "bfloat16")}
         gpu32 = CaptioningService.from_run_dir(
             RUN_DIR, beam_size=m, compute_dtype="float32", buckets=(64,))
         passes = _dispatch.head_pass_launches()
@@ -1459,7 +1537,7 @@ def phase_grid_features():
     fc, att, masks = features(n, seed=196, k=K_GRID)
     print(f"196-slot features: from_run_dir(max_att_len={K_GRID}), {n} "
           f"images", flush=True)
-    total = {k: 0 for k in _dispatch.KERNELS}
+    total = {k: 0 for k in counted()}
     for m in (0, 2):
         mode = "beam-2" if m else "greedy"
         head = "beam_head" if m else "greedy_head"
@@ -1471,14 +1549,15 @@ def phase_grid_features():
             _dispatch.reset_launches()
             ids[dn] = svc.caption_ids(fc, att, masks)
             torch.cuda.synchronize()
-            got = _dispatch.launches()
+            got = launch_counts()
             require_vector_width(f"{K_GRID}-slot {dn} {mode}", got)
             require_head_pass(f"{K_GRID}-slot {dn} {mode}",
                               "tf32x3" if dn == "float32" else "mma")
             for k in _dispatch.KERNELS:
-                want = L if k in ("attention", head) else 0
+                want = L if k in ("attention", head, "cell") else 0
                 require(got[k] == want, f"{K_GRID}-slot {dn} {mode}: {k} "
                         f"launched {got[k]} times, expected {want}")
+            for k in total:
                 total[k] += got[k]
             require(ids[dn].shape == (n, L), f"{K_GRID}-slot ids shape")
             del svc
@@ -1606,11 +1685,12 @@ def phase_layouts(smi, plain, plain_ids, plain_rates):
         served[name, m] = serve_requests(
             svc, f"{name} {mode} bf16", "beam_head" if m else "greedy_head",
             att_kernel=LAYOUTS[name][1])
-    launches = _dispatch.launches()
+    launches = launch_counts()
     require(launches["attention"] == 0 and launches["attention_q"] > 0
             and launches["attention_kmajor"] > 0,
             f"decode layouts: launches {launches}")
     require_vector_width("decode layouts", launches)
+    require_head_pass("decode layouts", "mma")
     print(f"  launches of the int8 and K-major requests: {launches}",
           flush=True)
 
@@ -1782,57 +1862,50 @@ def phase_train(smi):
     ds = train_dataset()
     print(f"training: phase-2 MLE, att2in2 vocab {VOCAB}, width {WIDTH}, "
           f"K={K}, L={L}, B={TRAIN_B}, f32, drop_prob_lm 0.5, "
-          f"CIC_FUSED_CELL=1, {TRAIN_IMAGES} synthetic images", flush=True)
+          f"{TRAIN_IMAGES} synthetic images", flush=True)
     out = {}
-    with fused_cell_switch(True):
-        # the main path: three steps through the user's entry point
-        steps = 3
-        _dispatch.reset_launches()
-        t0 = time.perf_counter()
-        trainer = loop.train(train_opt(TRAIN_B), dataset=ds,
-                             max_iterations=steps, device=DEVICE,
-                             verbose=False)
-        torch.cuda.synchronize()
-        launches = _dispatch.launches()
-        T = L + 1  # labels[:, :-1] of the [B, L+2] labels
-        print(f"  train(max_iterations={steps}) in "
-              f"{time.perf_counter() - t0:.1f} s; launches {launches}",
-              flush=True)
-        for k in _dispatch.KERNELS:
-            want = steps * 2 * T if k in ("attention", "cell") else 0
-            require(launches[k] == want, f"training: {k} launched "
-                    f"{launches[k]} times in {steps} steps, expected {want} "
-                    f"(forward + checkpointed recompute, T={T})")
-        require_vector_width("training", launches)
-        losses = [float(v) for v in trainer.loss_history.values()]
-        require(len(losses) == steps and all(np.isfinite(losses)),
-                f"training losses {losses}")
-        require(trainer.optim.skipped_steps() == 0, "non-finite steps")
+    # the main path: three steps through the user's entry point
+    steps = 3
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    trainer = loop.train(train_opt(TRAIN_B), dataset=ds,
+                         max_iterations=steps, device=DEVICE,
+                         verbose=False)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    T = L + 1  # labels[:, :-1] of the [B, L+2] labels
+    print(f"  train(max_iterations={steps}) in "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    for k in _dispatch.KERNELS:
+        want = steps * 2 * T if k in ("attention", "cell") else 0
+        require(launches[k] == want, f"training: {k} launched "
+                f"{launches[k]} times in {steps} steps, expected {want} "
+                f"(forward + checkpointed recompute, T={T})")
+    require_vector_width("training", launches)
+    require_head_pass("training", "tf32x3")
+    losses = [float(v) for v in trainer.loss_history.values()]
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"training losses {losses}")
+    require(trainer.optim.skipped_steps() == 0, "non-finite steps")
 
-        out["step_rel"], out["step_abs"] = compare_first_step(ds)
+    out["step_rel"], out["step_abs"] = compare_first_step(ds)
 
-        data = trainer.loader.get_batch("train")
-        curve = [trainer.train_iteration(data)[0]["loss_cap"].item()
-                 for _ in range(LEARN_STEPS)]
-        print(f"  {LEARN_STEPS} steps on one batch: loss_cap "
-              f"{curve[0]:.4f} -> {curve[-1]:.4f}", flush=True)
-        require(all(np.isfinite(curve)) and curve[-1] < curve[0]
-                and np.mean(curve[-5:]) < np.mean(curve[:5]),
-                f"loss_cap did not fall: {curve}")
-        out["loss_first"], out["loss_last"] = curve[0], curve[-1]
+    data = trainer.loader.get_batch("train")
+    curve = [trainer.train_iteration(data)[0]["loss_cap"].item()
+             for _ in range(LEARN_STEPS)]
+    print(f"  {LEARN_STEPS} steps on one batch: loss_cap "
+          f"{curve[0]:.4f} -> {curve[-1]:.4f}", flush=True)
+    require(all(np.isfinite(curve)) and curve[-1] < curve[0]
+            and np.mean(curve[-5:]) < np.mean(curve[:5]),
+            f"loss_cap did not fall: {curve}")
+    out["loss_first"], out["loss_last"] = curve[0], curve[-1]
 
-    # it/s with and without the cell kernel, in turns: on, off, off, on
-    rates = {True: [], False: []}
-    for on in (True, False, False, True):
-        with fused_cell_switch(on):
-            rates[on].append(iterations_per_s(trainer, data))
-    out["its_cell_kernel"] = float(np.mean(rates[True]))
-    out["its_plain_cell"] = float(np.mean(rates[False]))
+    rates = [iterations_per_s(trainer, data) for _ in range(2)]
+    out["its"] = float(np.mean(rates))
     print(f"  throughput ({smi}; B={TRAIN_B}, f32, one fixed host batch): "
-          f"{out['its_cell_kernel']:.2f} it/s with the cell kernel "
-          f"({rates[True][0]:.2f}, {rates[True][1]:.2f}), "
-          f"{out['its_plain_cell']:.2f} it/s with CIC_FUSED_CELL unset "
-          f"({rates[False][0]:.2f}, {rates[False][1]:.2f})", flush=True)
+          f"{out['its']:.2f} it/s ({rates[0]:.2f}, {rates[1]:.2f})",
+          flush=True)
 
     # the trained speaker's run dir, written by the port: evaluate on val,
     # then model, optimizer, infos and histories
@@ -1849,20 +1922,20 @@ def phase_train(smi):
           f"{val_loss['loss_cap']:.4f}; wrote {written}", flush=True)
     out["iteration"], out["epoch"] = trainer.iteration, trainer.epoch
 
-    # serve the trained speaker: greedy, bucket 512, the cell kernel on
-    with fused_cell_switch(True):
-        svc = CaptioningService.from_run_dir(TRAIN_RUN_DIR,
-                                             compute_dtype="bfloat16",
-                                             buckets=(512,), device=DEVICE)
-        fc, att, masks = features(512, seed=512)
-        svc.caption_ids(fc[:1], att[:1], masks[:1])
-        _dispatch.reset_launches()
-        ids = svc.caption_ids(fc, att, masks)
-        torch.cuda.synchronize()
-        served = _dispatch.launches()
-        require(_dispatch.head_pass_launches()["greedy_head_mma"] == L,
-                "serving the trained speaker in bf16: the greedy head must "
-                "take the tensor-core pass")
+    # serve the trained speaker: greedy, bucket 512
+    svc = CaptioningService.from_run_dir(TRAIN_RUN_DIR,
+                                         compute_dtype="bfloat16",
+                                         buckets=(512,), device=DEVICE)
+    fc, att, masks = features(512, seed=512)
+    svc.caption_ids(fc[:1], att[:1], masks[:1])
+    _dispatch.reset_launches()
+    ids = svc.caption_ids(fc, att, masks)
+    torch.cuda.synchronize()
+    served = launch_counts()
+    require(_dispatch.head_pass_launches()["greedy_head_mma"] == L,
+            "serving the trained speaker in bf16: the greedy head must "
+            "take the tensor-core pass")
+    require_head_pass("serving the trained speaker", "mma")
     require(ids.shape == (512, L) and ids.min() >= 0 and ids.max() <= VOCAB,
             f"trained speaker ids {ids.shape}")
     for k in _dispatch.KERNELS:
@@ -1959,7 +2032,7 @@ def phase_eval(smi):
           f"image in the loss)", flush=True)
     os.chdir(TRAIN_RUN_DIR)  # eval_results/ is written under the run dir
     T = L + 1
-    total = {k: 0 for k in _dispatch.KERNELS}
+    total = {k: 0 for k in counted()}
     losses = {}
     for name, (kw, att_kernel) in LAYOUTS.items():
         # the user's entry point: eval.eval on the run dir
@@ -1973,7 +2046,7 @@ def phase_eval(smi):
                               device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _dispatch.launches()
+        launches = launch_counts()
         preds, stats = out["split_predictions"], out["lang_stats"]
         want_ids = sorted(im["id"] for im in ds.info["images"]
                           if im["split"] == "test")
@@ -1989,13 +2062,16 @@ def phase_eval(smi):
         # the loss runs the b-major attention T times a batch (no recompute
         # in eval mode), the decode its layout's attention and the beam head
         # L times a batch
-        want = {k: 0 for k in _dispatch.KERNELS}
+        want = {k: 0 for k in counted()}
         want["attention"] = batches * T
         want[att_kernel] += batches * L
         want["beam_head"] = batches * L
+        want["cell"] = batches * (T + L)
+        want = with_cell_pass(want, "tf32x3")
         require(launches == want, f"evaluation {name}: launches {launches}, "
                 f"expected {want}")
         require_vector_width(f"evaluation {name}", launches)
+        require_head_pass(f"evaluation {name}", "tf32x3")
         require(_dispatch.head_pass_launches()["beam_head_tf32x3"]
                 == want["beam_head"],
                 f"evaluation {name}: the f32 beam head must take the "
@@ -2063,17 +2139,15 @@ def scst_opt(batch_size, drop_prob_lm=0.5):
         start_from=TRAIN_RUN_DIR, checkpoint_path=SCST_RUN_DIR)
 
 
-def scst_per_iteration(cell_on):
+def scst_per_iteration():
     """Launches of one self-critical iteration (L steps, remat on, no
-    decoding constraint): stage A samples (L attention steps) and decodes
-    the greedy baseline (L steps, each through the greedy head); stage B
-    samples again under autograd (L steps) and its backward recomputes the
-    L - 1 checkpointed steps."""
+    decoding constraint): stage A samples (L attention and cell steps) and
+    decodes the greedy baseline (L steps, each through the greedy head);
+    stage B samples again under autograd (L steps) and its backward
+    recomputes the L - 1 checkpointed steps."""
     steps = L + L + L + (L - 1)
-    want = {"attention": steps, "greedy_head": L}
-    if cell_on:
-        want["cell"] = steps
-    return want
+    return with_cell_pass({"attention": steps, "greedy_head": L,
+                           "cell": steps}, "tf32x3")
 
 
 def check_resumed(trainer, phase5):
@@ -2230,7 +2304,7 @@ def scst_eval_sampling(trainer, ds):
     from cooperativeimagecaptioning_tpu_torch.evaluation.eval_split import (
         Evaluator)
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
-    total = {k: 0 for k in _dispatch.KERNELS}
+    total = {k: 0 for k in counted()}
     T = L + 1
     for sample_max in (0, 2):
         for name, (kw, att_kernel) in LAYOUTS.items():
@@ -2247,14 +2321,18 @@ def scst_eval_sampling(trainer, ds):
                 {"split": "val", "sample_max": sample_max, "beam_size": 1,
                  "language_eval": 0, "num_images": -1})
             torch.cuda.synchronize()
-            launches = _dispatch.launches()
-            want = {k: 0 for k in _dispatch.KERNELS}
+            launches = launch_counts()
+            want = {k: 0 for k in counted()}
             want["attention"] = batches * T
             want[att_kernel] += batches * L
+            want["cell"] = batches * (T + L)
+            want = with_cell_pass(want, "tf32x3")
             require(launches == want, f"eval sample_max={sample_max} {name}: "
                     f"launches {launches}, expected {want}")
             require_vector_width(f"eval sample_max={sample_max} {name}",
                                  launches)
+            require_head_pass(f"eval sample_max={sample_max} {name}",
+                              "tf32x3")
             ids = sorted(p["image_id"] for p in preds)
             require(len(ids) == n_val == len(set(ids)),
                     f"eval sample_max={sample_max} {name}: {len(ids)} "
@@ -2282,7 +2360,7 @@ def serve_run_dir(run_dir, fc, att, masks):
     _dispatch.reset_launches()
     ids = svc.caption_ids(fc, att, masks)
     torch.cuda.synchronize()
-    return ids, _dispatch.launches()
+    return ids, launch_counts()
 
 
 def scst_run_dirs(trainer, ds):
@@ -2311,8 +2389,8 @@ def scst_run_dirs(trainer, ds):
 
     fc, att, masks = features(512, seed=513)
     ids, served = serve_run_dir(SCST_RUN_DIR, fc, att, masks)
-    want = {k: 0 for k in _dispatch.KERNELS}
-    want["attention"] = want["greedy_head"] = L
+    want = with_cell_pass({"attention": L, "greedy_head": L, "cell": L},
+                          "mma")
     require(served == want, f"serving the SCST run: launches {served}")
     require(ids.shape == (512, L) and ids.min() >= 0 and ids.max() <= VOCAB,
             f"SCST ids {ids.shape}")
@@ -2376,60 +2454,52 @@ def phase_scst(smi, phase5):
                       verbose=False)
     check_resumed(trainer, phase5)
 
-    # the main path: SCST_ITERS iterations with the cell kernel off, then
-    # SCST_ITERS with it on; the counts run from 0 before the first
+    # the main path: SCST_ITERS iterations; the counts run from 0 before
+    # the first
     _dispatch.reset_launches()
-    by_setting = {}
-    for on in (False, True):
-        before = _dispatch.launches()
-        with fused_cell_switch(on):
-            t0 = time.perf_counter()
-            for _ in range(SCST_ITERS):
-                loss_dict, _, _ = trainer.train_iteration()
-                a, b = trainer.last_reward_seqs
-                require(torch.equal(a, b), "stage B's sampled ids differ "
-                        "from stage A's")
-                vals = {k: float(loss_dict[k]) for k in (
-                    "loss_cider", "avg_reward", "cider_greedy")}
-                require(all(np.isfinite(v) for v in vals.values()),
-                        f"SCST iteration: {vals}")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        after = _dispatch.launches()
-        got = {k: after[k] - before[k] for k in after}
-        per = scst_per_iteration(on)
-        want = {k: SCST_ITERS * per.get(k, 0) for k in got}
-        require(got == want, f"SCST, CIC_FUSED_CELL={int(on)}: launches "
-                f"{got}, expected {want} ({per} an iteration)")
-        by_setting[on] = got
-        print(f"  {SCST_ITERS} SCST iterations, CIC_FUSED_CELL={int(on)}: "
-              f"{wall:.2f} s; last loss_cider {vals['loss_cider']:.4f}, "
-              f"avg_reward {vals['avg_reward']:.4f}, cider_greedy "
-              f"{vals['cider_greedy']:.4f}; stage B's ids equal stage A's "
-              f"every iteration; launches {got}", flush=True)
-    launches = _dispatch.launches()
+    t0 = time.perf_counter()
+    for _ in range(SCST_ITERS):
+        loss_dict, _, _ = trainer.train_iteration()
+        a, b = trainer.last_reward_seqs
+        require(torch.equal(a, b), "stage B's sampled ids differ "
+                "from stage A's")
+        vals = {k: float(loss_dict[k]) for k in (
+            "loss_cider", "avg_reward", "cider_greedy")}
+        require(all(np.isfinite(v) for v in vals.values()),
+                f"SCST iteration: {vals}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    per = scst_per_iteration()
+    want = {k: SCST_ITERS * per.get(k, 0) for k in got}
+    require(got == want, f"SCST: launches {got}, expected {want} ({per} an "
+            f"iteration)")
+    print(f"  {SCST_ITERS} SCST iterations: {wall:.2f} s; last loss_cider "
+          f"{vals['loss_cider']:.4f}, avg_reward {vals['avg_reward']:.4f}, "
+          f"cider_greedy {vals['cider_greedy']:.4f}; stage B's ids equal "
+          f"stage A's every iteration; launches {got}", flush=True)
+    launches = launch_counts()
     require_vector_width("SCST", launches)
+    require_head_pass("SCST", "tf32x3")
     require(_dispatch.head_pass_launches()["greedy_head_tf32x3"] ==
             launches["greedy_head"], "SCST: the f32 greedy head must take "
             "the split-TF32 pass")
 
-    # where an iteration's time goes, and it/s, the cell kernel on
+    # where an iteration's time goes, and it/s
     data = trainer.loader.get_batch("train")
-    with fused_cell_switch(True):
-        out["split_ms"] = scst_split(trainer, data)
-        out["its"] = iterations_per_s(trainer, data, n=SCST_ITERS)
-    print(f"  SCST iteration ({smi}; B={TRAIN_B}, f32, CIC_FUSED_CELL=1, one "
-          f"fixed host batch, medians of {SCST_ITERS}): stage A "
+    out["split_ms"] = scst_split(trainer, data)
+    out["its"] = iterations_per_s(trainer, data, n=SCST_ITERS)
+    print(f"  SCST iteration ({smi}; B={TRAIN_B}, f32, one fixed host "
+          f"batch, medians of {SCST_ITERS}): stage A "
           f"{out['split_ms']['stage_a']:.2f} ms, host reward "
           f"{out['split_ms']['reward']:.2f} ms, stage B forward + backward "
           f"{out['split_ms']['stage_b']:.2f} ms, Adam "
           f"{out['split_ms']['adam']:.2f} ms; {out['its']:.2f} it/s",
           flush=True)
 
-    with fused_cell_switch(False):
-        out["cpu_share"], out["cpu_rel"] = scst_against_cpu(ds)
-        scst_eval_sampling(trainer, ds)
-        scst_run_dirs(trainer, ds)
+    out["cpu_share"], out["cpu_rel"] = scst_against_cpu(ds)
+    scst_eval_sampling(trainer, ds)
+    scst_run_dirs(trainer, ds)
     return launches, out
 
 
@@ -2487,7 +2557,7 @@ def listener_phase1(ds, add, out):
     tr = loop.train(opt, dataset=ds, max_iterations=steps, device=DEVICE,
                     verbose=False)
     torch.cuda.synchronize()
-    got = _dispatch.launches()
+    got = launch_counts()
     add(got)
     # the loss holds the listener alone: no kernel, the speaker untouched
     # (the Trainer's initial tree, made again from the seed once the loader
@@ -2547,7 +2617,7 @@ def listener_phase1(ds, add, out):
     t0 = time.perf_counter()
     tr.train(max_iterations=PHASE1_ITERS)
     torch.cuda.synchronize()
-    got = _dispatch.launches()
+    got = launch_counts()
     add(got)
     require(not any(got.values()), f"phase 1 launched {got}")
     last = float(tr.loss_history[tr.iteration])
@@ -2556,12 +2626,12 @@ def listener_phase1(ds, add, out):
           f"{time.perf_counter() - t0:.1f} s: loss_vse {last:.4f} at "
           f"iteration {tr.iteration}", flush=True)
 
-    with fused_cell_switch(True):  # the FC decode of the eval through F
-        _dispatch.reset_launches()
-        t0 = time.perf_counter()
-        val_loss, _ = tr.checkpoint_operations()
-        torch.cuda.synchronize()
-        got = _dispatch.launches()
+    # the FC decode of the eval through F
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    val_loss, _ = tr.checkpoint_operations()
+    torch.cuda.synchronize()
+    got = launch_counts()
     add(got)
     out["p1_ckpt_s"] = time.perf_counter() - t0
     out["p1_rank_s"] = tr.evaluator().last_timings["rank_eval_s"]
@@ -2623,9 +2693,8 @@ def check_joint_seeded(tr):
 
 
 def listener_joint(ds, add, out, smi):
-    """(b) run_joint.py -o gumbel: five iterations with the cell kernel
-    off and five with it on, the launches of A, B and F an iteration, the
-    time split and it/s."""
+    """(b) run_joint.py -o gumbel: five iterations, the launches of A, B
+    and F an iteration, the time split and it/s."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
@@ -2645,52 +2714,47 @@ def listener_joint(ds, add, out, smi):
     keys = ("loss", "retrieval_loss", "loss_cider", "avg_reward",
             "cider_greedy")
     _dispatch.reset_launches()
-    for on in (False, True):
-        before = _dispatch.launches()
-        with fused_cell_switch(on):
-            t0 = time.perf_counter()
-            for _ in range(LISTENER_ITERS):
-                old = {a: probe(a) for a in probes}
-                loss_dict, turn, _ = tr.train_iteration()
-                a, b = tr.last_reward_seqs
-                require(turn == "speaker" and torch.equal(a, b),
-                        "joint: stage B's sampled ids differ from stage A's")
-                vals = {k: float(loss_dict[k]) for k in keys}
-                require(all(np.isfinite(v) for v in vals.values()),
-                        f"joint iteration: {vals}")
-                for agent in probes:
-                    require(not torch.equal(old[agent], probe(agent)),
-                            f"joint: the {agent}'s leaves did not move")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        after = _dispatch.launches()
-        got = {k: after[k] - before[k] for k in after}
-        # a joint iteration launches what an SCST iteration does: stage A's
-        # gumbel_st decode and the greedy baseline, stage B's gumbel_st
-        # decode and its recompute; the listener runs no kernel
-        per = scst_per_iteration(on)
-        want = {k: LISTENER_ITERS * per.get(k, 0) for k in got}
-        require(got == want, f"joint, CIC_FUSED_CELL={int(on)}: launches "
-                f"{got}, expected {want} ({per} an iteration)")
-        print(f"  {LISTENER_ITERS} joint iterations (-o gumbel), "
-              f"CIC_FUSED_CELL={int(on)}: {wall:.2f} s; last "
-              + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
-              + f"; stage B's ids equal stage A's, both agents moved every "
-              f"iteration; launches {got}", flush=True)
-    launches = _dispatch.launches()
+    t0 = time.perf_counter()
+    for _ in range(LISTENER_ITERS):
+        old = {a: probe(a) for a in probes}
+        loss_dict, turn, _ = tr.train_iteration()
+        a, b = tr.last_reward_seqs
+        require(turn == "speaker" and torch.equal(a, b),
+                "joint: stage B's sampled ids differ from stage A's")
+        vals = {k: float(loss_dict[k]) for k in keys}
+        require(all(np.isfinite(v) for v in vals.values()),
+                f"joint iteration: {vals}")
+        for agent in probes:
+            require(not torch.equal(old[agent], probe(agent)),
+                    f"joint: the {agent}'s leaves did not move")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    # a joint iteration launches what an SCST iteration does: stage A's
+    # gumbel_st decode and the greedy baseline, stage B's gumbel_st decode
+    # and its recompute; the listener runs no kernel
+    per = scst_per_iteration()
+    want = {k: LISTENER_ITERS * per.get(k, 0) for k in got}
+    require(got == want, f"joint: launches {got}, expected {want} ({per} an "
+            f"iteration)")
+    print(f"  {LISTENER_ITERS} joint iterations (-o gumbel): {wall:.2f} s; "
+          f"last " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+          + f"; stage B's ids equal stage A's, both agents moved every "
+          f"iteration; launches {got}", flush=True)
+    launches = launch_counts()
     add(launches)
     require_vector_width("joint", launches)
+    require_head_pass("joint", "tf32x3")
     require(_dispatch.head_pass_launches()["greedy_head_tf32x3"] ==
             launches["greedy_head"], "joint: the f32 greedy head must take "
             "the split-TF32 pass")
 
     data = tr.loader.get_batch("train")
-    with fused_cell_switch(True):
-        out["joint_split_ms"] = scst_split(tr, data, n=LISTENER_ITERS)
-        out["joint_its"] = iterations_per_s(tr, data, n=LISTENER_ITERS)
+    out["joint_split_ms"] = scst_split(tr, data, n=LISTENER_ITERS)
+    out["joint_its"] = iterations_per_s(tr, data, n=LISTENER_ITERS)
     sp = out["joint_split_ms"]
-    print(f"  joint iteration ({smi}; B={TRAIN_B}, f32, CIC_FUSED_CELL=1, "
-          f"one fixed host batch, medians of {LISTENER_ITERS}): stage A "
+    print(f"  joint iteration ({smi}; B={TRAIN_B}, f32, one fixed host "
+          f"batch, medians of {LISTENER_ITERS}): stage A "
           f"{sp['stage_a']:.2f} ms, host reward {sp['reward']:.2f} ms, stage "
           f"B forward + backward {sp['stage_b']:.2f} ms, Adam "
           f"{sp['adam']:.2f} ms; {out['joint_its']:.2f} it/s", flush=True)
@@ -2855,7 +2919,7 @@ def listener_eval(tr, ds, add, out):
     t0 = time.perf_counter()
     val_loss, _ = tr.checkpoint_operations()
     torch.cuda.synchronize()
-    got = _dispatch.launches()
+    got = launch_counts()
     add(got)
     out["joint_ckpt_s"] = time.perf_counter() - t0
     out["joint_rank_s"] = tr.evaluator().last_timings["rank_eval_s"]
@@ -2890,7 +2954,7 @@ def listener_eval(tr, ds, add, out):
                     listener=listener, split="test", dataset=ds,
                     device=DEVICE)
             torch.cuda.synchronize()
-            got = _dispatch.launches()
+            got = launch_counts()
             add(got)
             loss = res["loss"]
             require(got["beam_head"] > 0 and got["attention"] > 0,
@@ -2921,7 +2985,7 @@ def listener_eval(tr, ds, add, out):
 def fc_served(add, out):
     """(e) from_run_dir on the stage-1 run dir: the FC speaker served,
     greedy and beam 2, bucket 512, f32 and bf16, every step through B or C
-    and, with the switch set, every cell step through F; the f32 ids
+    and every cell step through F; the f32 ids
     against the CPU service's."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
@@ -2932,22 +2996,22 @@ def fc_served(add, out):
             head = "beam_head" if beam else "greedy_head"
             kw = dict(run_id="fc_con", beam_size=beam, buckets=(512,),
                       compute_dtype=dt)
-            with fused_cell_switch(True):
-                svc = CaptioningService.from_run_dir(FC_RUN_DIR,
-                                                     device=DEVICE, **kw)
-                svc.caption_ids(fc[:1])
-                _dispatch.reset_launches()
-                ids = svc.caption_ids(fc)
-                torch.cuda.synchronize()
-                got = _dispatch.launches()
-                passes = _dispatch.head_pass_launches()
+            svc = CaptioningService.from_run_dir(FC_RUN_DIR,
+                                                 device=DEVICE, **kw)
+            svc.caption_ids(fc[:1])
+            _dispatch.reset_launches()
+            ids = svc.caption_ids(fc)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            passes = _dispatch.head_pass_launches()
             add(got)
-            want = {k: 0 for k in _dispatch.KERNELS}
-            want[head], want["cell"] = L, L + 1  # the image step, BOS, L-1
+            # the image step, BOS, L-1
+            want = with_cell_pass({head: L, "cell": L + 1}, pass_)
             require(got == want, f"FC {dt} beam {beam}: launches {got}, "
                     f"expected {want}")
             require(passes[f"{head}_{pass_}"] == L,
                     f"FC {dt} beam {beam}: head passes {passes}")
+            require_head_pass(f"FC {dt} beam {beam}", pass_)
             require(ids.shape == (512, L) and ids.min() >= 0 and
                     ids.max() <= VOCAB, f"FC ids {ids.shape}")
             how = "beam 2" if beam else "greedy"
@@ -2979,7 +3043,7 @@ def phase_listener(smi):
           f"run_joint.py -o gumbel (att2in2 + listener, DISC 0.01, CIDEr-D "
           f"0.99), vocab {VOCAB}, width {WIDTH}, K={K}, L={L}, B={TRAIN_B}, "
           f"f32", flush=True)
-    launches = {k: 0 for k in _dispatch.KERNELS}
+    launches = {k: 0 for k in counted()}
 
     def add(got):
         for k in launches:
@@ -2988,9 +3052,8 @@ def phase_listener(smi):
     out = {}
     listener_phase1(ds, add, out)
     tr = listener_joint(ds, add, out, smi)
-    with fused_cell_switch(False):
-        out["cpu"] = disc_against_cpu(ds)
-        listener_eval(tr, ds, add, out)
+    out["cpu"] = disc_against_cpu(ds)
+    listener_eval(tr, ds, add, out)
     fc_served(add, out)
     return launches, out
 
@@ -3081,7 +3144,7 @@ def mesh_evaluate(run_dir, mesh, ds, beams=(2, 1), num_images=-1):
         losses, preds, _ = ev.eval_split(params, loader, ek)
         sync()
         out[beam] = ({p["image_id"]: p["caption"] for p in preds},
-                     _dispatch.launches(), _dispatch.head_pass_launches(),
+                     launch_counts(), _dispatch.head_pass_launches(),
                      time.perf_counter() - t0, losses["loss_cap"])
     return out
 
@@ -3132,8 +3195,8 @@ def mesh_heads_check(mesh):
 
 
 def mesh_train(n_data, n_model, steps, timed, ds, write):
-    """A mesh Trainer (this rank) over phase-2 MLE at B=TRAIN_B, f32,
-    CIC_FUSED_CELL=1 -> (losses, gathered params as numpy, launches of the
+    """A mesh Trainer (this rank) over phase-2 MLE at B=TRAIN_B, f32 ->
+    (losses, gathered params as numpy, launches of the
     steps, it/s over `timed` more steps on one batch, the trainer)."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
@@ -3141,27 +3204,26 @@ def mesh_train(n_data, n_model, steps, timed, ds, write):
     opt = train_opt(TRAIN_B)
     opt.mesh_data_axis, opt.mesh_model_axis = n_data, n_model
     opt.checkpoint_path = MESH_RUN_DIR
-    with fused_cell_switch(True):
-        tr = Trainer(opt, dataset=ds, device=DEVICE, verbose=False)
+    tr = Trainer(opt, dataset=ds, device=DEVICE, verbose=False)
+    sync()
+    _dispatch.reset_launches()
+    losses = [float(tr.train_iteration()[0]["loss"])
+              for _ in range(steps)]
+    sync()
+    launches = launch_counts()
+    params = to_numpy(tr.saved_state()[0])
+    its = None
+    if timed:
+        data = tr.loader.get_batch("train")
+        tr.train_iteration(data)
         sync()
-        _dispatch.reset_launches()
-        losses = [float(tr.train_iteration()[0]["loss"])
-                  for _ in range(steps)]
-        sync()
-        launches = _dispatch.launches()
-        params = to_numpy(tr.saved_state()[0])
-        its = None
-        if timed:
-            data = tr.loader.get_batch("train")
+        t0 = time.perf_counter()
+        for _ in range(timed):
             tr.train_iteration(data)
-            sync()
-            t0 = time.perf_counter()
-            for _ in range(timed):
-                tr.train_iteration(data)
-            sync()
-            its = timed / (time.perf_counter() - t0)
-        if write:
-            tr.checkpoint_operations()
+        sync()
+        its = timed / (time.perf_counter() - t0)
+    if write:
+        tr.checkpoint_operations()
     return losses, params, launches, its, tr
 
 
@@ -3205,11 +3267,11 @@ def mesh_joint_eval(tr):
                                                  use_gen_sent=True)
     sync()
     return (losses, {p["image_id"]: p["caption"] for p in preds},
-            _dispatch.launches(), time.perf_counter() - t0)
+            launch_counts(), time.perf_counter() - t0)
 
 
 def mesh_joint_run(opt, n_data, n_model, ds, steps, timed, evaluate=False):
-    """A Trainer of `opt` with CIC_FUSED_CELL=1, one rank of an (n_data,
+    """A Trainer of `opt`, one rank of an (n_data,
     n_model) mesh (or the single process: (0, 1)): [the Evaluator first,]
     then each of `steps` iterations' (loss, turn, sampled rows, launches),
     and it/s over `timed` more iterations on one batch, with the traced
@@ -3222,28 +3284,27 @@ def mesh_joint_run(opt, n_data, n_model, ds, steps, timed, evaluate=False):
     opt = copy.deepcopy(opt)
     opt.mesh_data_axis, opt.mesh_model_axis = n_data, n_model
     out = {"steps": []}
-    with fused_cell_switch(True):
-        tr = Trainer(opt, dataset=ds, device=DEVICE, verbose=False)
-        if evaluate:
-            out["eval"] = mesh_joint_eval(tr)
-        for _ in range(steps):
-            sync()
-            _dispatch.reset_launches()
-            loss_dict, turn, _ = tr.train_iteration()
-            sync()
-            out["steps"].append((float(loss_dict["loss"]), turn,
-                                 sampled_rows(tr), _dispatch.launches()))
-        if timed:
-            data = tr.loader.get_batch("train")
-            if DEVICE == "cuda":
-                out["its"], out["kernel_ms"], out["idle"] = \
-                    iteration_profile(tr, data, n=timed)
-            else:
+    tr = Trainer(opt, dataset=ds, device=DEVICE, verbose=False)
+    if evaluate:
+        out["eval"] = mesh_joint_eval(tr)
+    for _ in range(steps):
+        sync()
+        _dispatch.reset_launches()
+        loss_dict, turn, _ = tr.train_iteration()
+        sync()
+        out["steps"].append((float(loss_dict["loss"]), turn,
+                             sampled_rows(tr), launch_counts()))
+    if timed:
+        data = tr.loader.get_batch("train")
+        if DEVICE == "cuda":
+            out["its"], out["kernel_ms"], out["idle"] = \
+                iteration_profile(tr, data, n=timed)
+        else:
+            tr.train_iteration(data)
+            t0 = time.perf_counter()
+            for _ in range(timed):
                 tr.train_iteration(data)
-                t0 = time.perf_counter()
-                for _ in range(timed):
-                    tr.train_iteration(data)
-                out["its"] = timed / (time.perf_counter() - t0)
+            out["its"] = timed / (time.perf_counter() - t0)
     tr.close()
     out["s"] = time.perf_counter() - t_run
     return out
@@ -3324,7 +3385,7 @@ def check_mesh_joint(smi, single, t_single, got):
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     t_world = max(sum(run["s"] for run in ranks_out.values())
                   for ranks_out in got)
-    total = {k: 0 for k in _dispatch.KERNELS}
+    total = {k: 0 for k in counted()}
     out = {"single_s": t_single, "world_s": t_world, "its": {}}
     for r, ranks_out in enumerate(got):
         for name, run in ranks_out.items():
@@ -3590,7 +3651,7 @@ def phase_mesh(smi, errs, times, bounds, shapes):
     t0 = time.perf_counter()
     pair = launch.spawn(mesh_pair_rank, (mesh_cfg(),), 2, DEVICE)
     t_pair = time.perf_counter() - t0
-    total = {k: 0 for k in _dispatch.KERNELS}
+    total = {k: 0 for k in counted()}
     batches = -(-sum(1 for im in ds.info["images"]
                      if im["split"] == "val") // EVAL_B)
     out = {"pair_s": t_pair}
@@ -3612,9 +3673,10 @@ def phase_mesh(smi, errs, times, bounds, shapes):
                       flush=True)
                 require(rate >= AGREE_F32, f"{what}: {rate} of the captions")
                 require(rel <= EVAL_LOSS_RTOL, f"{what}: loss_cap {rel}")
-                want = {k: 0 for k in _dispatch.KERNELS}
-                want["attention"] = batches * (L + 1 + L)
+                want = {k: 0 for k in counted()}
+                want["attention"] = want["cell"] = batches * (L + 1 + L)
                 want["beam_head"] = want["head_merge"] = batches * L
+                want = with_cell_pass(want, "tf32x3")
                 require(launches == want, f"{what}: launches {launches}, "
                         f"expected {want} (C at kk={beam} and head_merge L "
                         f"times a decode, B never)")
@@ -3746,7 +3808,7 @@ def reinforce_opt(batch_size, baseline="gt", which="reinforce", **kw):
     return listener_opt(flags, batch_size, **base)
 
 
-def reinforce_per_turn(opt, turn, cell_on):
+def reinforce_per_turn(opt, turn):
     """Launches of one iteration of `turn`: a speaker turn launches what an
     SCST iteration does (stage A: the sample and the greedy decode; stage
     B: the sample under autograd and its L - 1 recomputed steps), and the
@@ -3754,19 +3816,16 @@ def reinforce_per_turn(opt, turn, cell_on):
     B); a listener turn one sampled decode without autograd (L steps of A,
     no head)."""
     if turn == "listener":
-        want = {"attention": L}
-        if cell_on:
-            want["cell"] = L
-        return want
-    want = dict(scst_per_iteration(cell_on))
+        return with_cell_pass({"attention": L, "cell": L}, "tf32x3")
+    want = scst_per_iteration()
     if opt.reinforce_baseline_type == "greedy":
-        for k in list(want):
+        for k in ("attention", "greedy_head", "cell", "cell_tf32x3"):
             want[k] += L
     return want
 
 
-def reinforce_turns(tr, n, cell_on, add, what):
-    """n iterations of `tr` with the cell switch `cell_on`: each one's
+def reinforce_turns(tr, n, add, what):
+    """n iterations of `tr`: each one's
     launches against `reinforce_per_turn`, finite losses, stage B's ids
     equal to stage A's on a reward turn, and (the audit on) only the
     turn's agents moved.  Returns {turn: its last loss dict's numbers}."""
@@ -3774,27 +3833,26 @@ def reinforce_turns(tr, n, cell_on, add, what):
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     from cooperativeimagecaptioning_tpu_torch.training import joint
     last = {}
-    with fused_cell_switch(cell_on):
-        for _ in range(n):
-            _dispatch.reset_launches()
-            tr.last_reward_seqs = None
-            loss_dict, turn, _ = tr.train_iteration()
-            torch.cuda.synchronize()
-            got = _dispatch.launches()
-            add(got)
-            per = reinforce_per_turn(tr.opt, turn, cell_on)
-            want = {k: per.get(k, 0) for k in got}
-            require(got == want, f"{what}, {turn} turn, CIC_FUSED_CELL="
-                    f"{int(cell_on)}: launches {got}, expected {want}")
-            require_head_pass(f"{what}, {turn} turn", "tf32x3")
-            if joint.needs_reward(tr.opt, turn):
-                a, b = tr.last_reward_seqs
-                require(torch.equal(a, b), f"{what}: stage B's ids differ "
-                        f"from stage A's")
-            vals = {k: float(v) for k, v in loss_dict.items()}
-            require(all(np.isfinite(v) for v in vals.values()),
-                    f"{what}, {turn} turn: {vals}")
-            last[turn] = vals
+    for _ in range(n):
+        _dispatch.reset_launches()
+        tr.last_reward_seqs = None
+        loss_dict, turn, _ = tr.train_iteration()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        add(got)
+        per = reinforce_per_turn(tr.opt, turn)
+        want = {k: per.get(k, 0) for k in got}
+        require(got == want, f"{what}, {turn} turn: launches {got}, "
+                f"expected {want}")
+        require_head_pass(f"{what}, {turn} turn", "tf32x3")
+        if joint.needs_reward(tr.opt, turn):
+            a, b = tr.last_reward_seqs
+            require(torch.equal(a, b), f"{what}: stage B's ids differ "
+                    f"from stage A's")
+        vals = {k: float(v) for k, v in loss_dict.items()}
+        require(all(np.isfinite(v) for v in vals.values()),
+                f"{what}, {turn} turn: {vals}")
+        last[turn] = vals
     require(tr.optim.skipped_steps() == 0, f"{what}: skipped steps")
     return last
 
@@ -3802,7 +3860,7 @@ def reinforce_turns(tr, n, cell_on, add, what):
 def reinforce_stage_split(tr, data):
     """(the stage split of each turn, medians of TIMED_ITERS, and each
     turn's it/s on one fixed host batch with the audit off, and the audit's
-    cost a turn), CIC_FUSED_CELL=1."""
+    cost a turn)."""
     import torch
     split = {t: scst_split(tr, data, n=TIMED_ITERS, turn=t)
              for t in tr.turns}
@@ -3835,25 +3893,23 @@ def reinforce_alternation(ds, add, out, smi):
     require(tr.turns == ["speaker", "listener"] and tr.turn == "speaker",
             f"reinforce turns {tr.turns}")
     check_joint_seeded(tr)
-    for on in (False, True):
-        t0 = time.perf_counter()
-        last = reinforce_turns(tr, REINFORCE_ITERS, on, add, "gt baseline")
-        print(f"  {REINFORCE_ITERS} iterations of -o reinforce -v 1 (gt "
-              f"baseline), CIC_FUSED_CELL={int(on)}, audited: "
-              f"{time.perf_counter() - t0:.2f} s; per turn the launches "
-              f"{ {t: reinforce_per_turn(tr.opt, t, on) for t in tr.turns} }"
-              f"; last speaker turn "
-              + ", ".join(f"{k} {v:.4f}" for k, v in
-                          sorted(last['speaker'].items()))
-              + "; last listener turn loss_vse "
-              f"{last['listener']['loss_vse']:.4f}", flush=True)
+    t0 = time.perf_counter()
+    last = reinforce_turns(tr, REINFORCE_ITERS, add, "gt baseline")
+    print(f"  {REINFORCE_ITERS} iterations of -o reinforce -v 1 (gt "
+          f"baseline), audited: {time.perf_counter() - t0:.2f} s; per turn "
+          f"the launches "
+          f"{ {t: reinforce_per_turn(tr.opt, t) for t in tr.turns} }"
+          f"; last speaker turn "
+          + ", ".join(f"{k} {v:.4f}" for k, v in
+                      sorted(last['speaker'].items()))
+          + "; last listener turn loss_vse "
+          f"{last['listener']['loss_vse']:.4f}", flush=True)
     data = tr.loader.get_batch("train")
-    with fused_cell_switch(True):
-        split, its, its_audit = reinforce_stage_split(tr, data)
+    split, its, its_audit = reinforce_stage_split(tr, data)
     out["split_ms"], out["its"], out["its_audit"] = split, its, its_audit
     for turn, sp in split.items():
-        print(f"  {turn} turn ({smi}; B={TRAIN_B}, f32, CIC_FUSED_CELL=1, "
-              f"one fixed host batch, medians of {TIMED_ITERS}): "
+        print(f"  {turn} turn ({smi}; B={TRAIN_B}, f32, one fixed host "
+              f"batch, medians of {TIMED_ITERS}): "
               + ", ".join(f"{k} {v:.2f} ms" for k, v in sp.items())
               + f"; {its[turn]:.2f} it/s ({its_audit[turn]:.2f} audited)",
               flush=True)
@@ -3863,14 +3919,13 @@ def reinforce_alternation(ds, add, out, smi):
     for baseline in BASELINES[1:]:
         other = Trainer(reinforce_opt(TRAIN_B, baseline), dataset=ds,
                         device=DEVICE, verbose=False)
-        for on in (False, True):
-            last = reinforce_turns(other, BASELINE_ITERS, on, add,
-                                   f"{baseline} baseline")
+        last = reinforce_turns(other, BASELINE_ITERS, add,
+                               f"{baseline} baseline")
         sp = last["speaker"]
         print(f"  -o reinforce -v 1, {baseline} baseline: {BASELINE_ITERS} "
-              f"iterations with the cell switch unset and set, audited; "
+              f"iterations, audited; "
               f"speaker turn launches "
-              f"{reinforce_per_turn(other.opt, 'speaker', True)}; "
+              f"{reinforce_per_turn(other.opt, 'speaker')}; "
               f"retrieval_loss {sp['retrieval_loss']:.4f}, "
               f"retrieval_loss_greedy {sp['retrieval_loss_greedy']:.4f}, "
               f"retrieval_sc_loss {sp['retrieval_sc_loss']:.6f}", flush=True)
@@ -3896,16 +3951,15 @@ def reinforce_ablations(ds, add, out):
                                ("reinforce_speaker", "optimizer",
                                 "speaker")):
         opt = reinforce_opt(TRAIN_B, which=which, start_from=None)
-        with fused_cell_switch(True):
-            _dispatch.reset_launches()
-            t0 = time.perf_counter()
-            tr = loop.train(opt, dataset=ds, max_iterations=ABLATION_ITERS,
-                            device=DEVICE, verbose=False)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            got = _dispatch.launches()
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        tr = loop.train(opt, dataset=ds, max_iterations=ABLATION_ITERS,
+                        device=DEVICE, verbose=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = launch_counts()
         add(got)
-        per = reinforce_per_turn(opt, turn, True)
+        per = reinforce_per_turn(opt, turn)
         want = {k: ABLATION_ITERS * per.get(k, 0) for k in got}
         require(tr.turn == turn, f"{which}: turn {tr.turn}")
         require(got == want, f"{which}: launches {got}, expected {want}")
@@ -4003,14 +4057,13 @@ def reinforce_resume_and_eval(tr, ds, add, out):
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
     from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
-    with fused_cell_switch(False):
-        if tr.iteration % 2 == 0:
-            reinforce_turns(tr, 1, False, add, "odd iteration")
-        _dispatch.reset_launches()
-        t0 = time.perf_counter()
-        val_loss, _ = tr.checkpoint_operations()
-        torch.cuda.synchronize()
-        got = _dispatch.launches()
+    if tr.iteration % 2 == 0:
+        reinforce_turns(tr, 1, add, "odd iteration")
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    val_loss, _ = tr.checkpoint_operations()
+    torch.cuda.synchronize()
+    got = launch_counts()
     add(got)
     out["ckpt_s"] = time.perf_counter() - t0
     written = sorted(os.listdir(REINFORCE_RUN_DIR))
@@ -4060,7 +4113,7 @@ def reinforce_resume_and_eval(tr, ds, add, out):
                 os.path.join(REINFORCE_RUN_DIR, "infos_.pkl"), split="test",
                 dataset=ds, device=DEVICE)
         torch.cuda.synchronize()
-        got = _dispatch.launches()
+        got = launch_counts()
     finally:
         os.chdir(REPO)
     add(got)
@@ -4094,7 +4147,7 @@ def reinforce_profile(tr, add, out):
     tr.train(max_iterations=start + PROFILE_ITERS)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    add(_dispatch.launches())
+    add(launch_counts())
     require_head_pass("the profiler window", "tf32x3")
     path = tr.last_trace
     require(path is not None and os.path.isfile(path),
@@ -4139,7 +4192,7 @@ def phase_reinforce(smi):
           f"seeded from phase 5's speaker and 8(a)'s listener, vocab "
           f"{VOCAB}, width {WIDTH}, K={K}, L={L}, B={TRAIN_B}, f32",
           flush=True)
-    launches = {k: 0 for k in _dispatch.KERNELS}
+    launches = {k: 0 for k in counted()}
 
     def add(got):
         for k in launches:
@@ -4148,12 +4201,10 @@ def phase_reinforce(smi):
     out = {}
     tr = reinforce_alternation(ds, add, out, smi)
     reinforce_ablations(ds, add, out)
-    with fused_cell_switch(False):
-        out["cpu"] = reinforce_against_cpu(ds)
+    out["cpu"] = reinforce_against_cpu(ds)
     resumed = reinforce_resume_and_eval(tr, ds, add, out)
     del tr
-    with fused_cell_switch(True):
-        reinforce_profile(resumed, add, out)
+    reinforce_profile(resumed, add, out)
     print(f"  joint REINFORCE phase in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches, out
@@ -4180,18 +4231,16 @@ FUSED_PARAM_RTOL, FUSED_PARAM_ATOL = 1e-6, 1e-7
 SOFT_GRAD_REL = 1e-4
 
 
-def device_per_iteration(opt, cell_on):
+def device_per_iteration(opt):
     """Launches of one iteration with a device reward tier (L steps, remat
     on): on_device_cider samples under autograd (L attention steps),
     decodes the greedy baseline (L steps through the greedy head) and its
     backward recomputes the L - 1 checkpointed steps; the soft CIDEr of a
     relaxed DISC sample has no greedy decode."""
     steps = L + (L - 1) + (L if opt.on_device_cider else 0)
-    want = {"attention": steps,
-            "greedy_head": L if opt.on_device_cider else 0}
-    if cell_on:
-        want["cell"] = steps
-    return want
+    return with_cell_pass({"attention": steps, "cell": steps,
+                           "greedy_head": L if opt.on_device_cider else 0},
+                          "tf32x3")
 
 
 def iteration_profile(trainer, data, n=SCST_ITERS):
@@ -4320,9 +4369,8 @@ def reward_agreement(ds, out):
 
 
 def device_tier_runs(tr, what, add, out, key):
-    """DEV_ITERS iterations with the cell kernel off and DEV_ITERS with it
-    on: finite losses, no host stage, the launches an iteration; then the
-    stage split, it/s and the idle share (cell kernel on)."""
+    """DEV_ITERS iterations: finite losses, no host stage, the launches an
+    iteration; then the stage split, it/s and the idle share."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     from cooperativeimagecaptioning_tpu_torch.training import joint
@@ -4330,35 +4378,29 @@ def device_tier_runs(tr, what, add, out, key):
     require(not joint.needs_reward(opt, tr.turn),
             f"{what}: the host reward stage still runs")
     _dispatch.reset_launches()
-    for on in (False, True):
-        before = _dispatch.launches()
-        with fused_cell_switch(on):
-            for _ in range(DEV_ITERS):
-                loss_dict, _, _ = tr.train_iteration()
-                require(tr.last_reward_seqs is None,
-                        f"{what}: a host reward stage ran")
-                vals = {k: float(v) for k, v in loss_dict.items()}
-                require(all(np.isfinite(v) for v in vals.values()),
-                        f"{what}: {vals}")
-            torch.cuda.synchronize()
-        after = _dispatch.launches()
-        got = {k: after[k] - before[k] for k in after}
-        per = device_per_iteration(opt, on)
-        want = {k: DEV_ITERS * per.get(k, 0) for k in got}
-        require(got == want, f"{what}, CIC_FUSED_CELL={int(on)}: launches "
-                f"{got}, expected {want} ({per} an iteration)")
-        require_head_pass(what, "tf32x3")
-        print(f"  {DEV_ITERS} iterations of {what}, CIC_FUSED_CELL="
-              f"{int(on)}: last " + ", ".join(
-                  f"{k} {v:.4f}" for k, v in sorted(vals.items()))
-              + f"; launches {per} an iteration", flush=True)
-    add(_dispatch.launches())
+    for _ in range(DEV_ITERS):
+        loss_dict, _, _ = tr.train_iteration()
+        require(tr.last_reward_seqs is None,
+                f"{what}: a host reward stage ran")
+        vals = {k: float(v) for k, v in loss_dict.items()}
+        require(all(np.isfinite(v) for v in vals.values()),
+                f"{what}: {vals}")
+    torch.cuda.synchronize()
+    got = launch_counts()
+    per = device_per_iteration(opt)
+    want = {k: DEV_ITERS * per.get(k, 0) for k in got}
+    require(got == want, f"{what}: launches {got}, expected {want} ({per} "
+            f"an iteration)")
+    require_head_pass(what, "tf32x3")
+    print(f"  {DEV_ITERS} iterations of {what}: last " + ", ".join(
+              f"{k} {v:.4f}" for k, v in sorted(vals.items()))
+          + f"; launches {per} an iteration", flush=True)
+    add(got)
     data = tr.loader.get_batch("train")
-    with fused_cell_switch(True):
-        split = scst_split(tr, data, n=DEV_ITERS)
-        require(set(split) == {"stage_b", "adam"},
-                f"{what}: stages {sorted(split)}")
-        its, kernel_ms, idle = iteration_profile(tr, data, n=DEV_ITERS)
+    split = scst_split(tr, data, n=DEV_ITERS)
+    require(set(split) == {"stage_b", "adam"},
+            f"{what}: stages {sorted(split)}")
+    its, kernel_ms, idle = iteration_profile(tr, data, n=DEV_ITERS)
     out[key] = {"split_ms": split, "it_per_s": its,
                 "kernel_ms": kernel_ms, "idle_share": idle}
     return out[key]
@@ -4370,9 +4412,8 @@ def host_reward_profile(ds):
     from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
     tr = Trainer(scst_opt(TRAIN_B), dataset=ds, device=DEVICE, verbose=False)
     data = tr.loader.get_batch("train")
-    with fused_cell_switch(True):
-        split = scst_split(tr, data, n=DEV_ITERS)
-        its, kernel_ms, idle = iteration_profile(tr, data, n=DEV_ITERS)
+    split = scst_split(tr, data, n=DEV_ITERS)
+    its, kernel_ms, idle = iteration_profile(tr, data, n=DEV_ITERS)
     return {"split_ms": split, "it_per_s": its, "kernel_ms": kernel_ms,
             "idle_share": idle}
 
@@ -4479,14 +4520,13 @@ def fused_pair(make_opt, what, add, out, key):
                 f"{what}: gate {trs[k]._fused_gate()}")
     start = trs[1].iteration
     _dispatch.reset_launches()
-    with fused_cell_switch(True):
-        for tr in trs.values():
-            t0 = time.perf_counter()
-            tr.train(max_iterations=start + FUSED_K)
-            torch.cuda.synchronize()
-            out[f"{key}_first_s_{tr.opt.fused_steps}"] = \
-                time.perf_counter() - t0
-    add(_dispatch.launches())
+    for tr in trs.values():
+        t0 = time.perf_counter()
+        tr.train(max_iterations=start + FUSED_K)
+        torch.cuda.synchronize()
+        out[f"{key}_first_s_{tr.opt.fused_steps}"] = \
+            time.perf_counter() - t0
+    add(launch_counts())
     # a replay's head launches are the captured ones, counted at capture
     require_head_pass(f"{what}, single steps and fused chunks", "tf32x3")
     a, b = trs[1], trs[FUSED_K]
@@ -4529,14 +4569,13 @@ def fused_pair(make_opt, what, add, out, key):
             f"tolerance")
     require(skipped[0] == skipped[1], f"{what}: skipped {skipped}")
     rates = {1: [], FUSED_K: []}
-    with fused_cell_switch(True):
-        for k in (1, FUSED_K, FUSED_K, 1):
-            tr = trs[k]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr.train(max_iterations=tr.iteration + FUSED_K)
-            torch.cuda.synchronize()
-            rates[k].append(FUSED_K / (time.perf_counter() - t0))
+    for k in (1, FUSED_K, FUSED_K, 1):
+        tr = trs[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(max_iterations=tr.iteration + FUSED_K)
+        torch.cuda.synchronize()
+        rates[k].append(FUSED_K / (time.perf_counter() - t0))
     require(all(r.launches == runners[0].launches for r in runners),
             f"{what}: launches a replay differ between captures")
     out[key] = {"loss_rel": loss_rel, "param_max_abs": max_abs,
@@ -4573,7 +4612,7 @@ def phase_device_rewards(smi, scst_out, listener_out):
     ds = train_dataset()
     print(f"device rewards, feature cache, fused chunks: att2in2 vocab "
           f"{VOCAB}, width {WIDTH}, K={K}, L={L}, B={TRAIN_B}, f32", flush=True)
-    launches = {k: 0 for k in _dispatch.KERNELS}
+    launches = {k: 0 for k in counted()}
 
     def add(got):
         for k in launches:
@@ -4601,8 +4640,8 @@ def phase_device_rewards(smi, scst_out, listener_out):
             ("SCST, host reward", host, scst_out),
             ("joint -o gumbel, soft_cider", soft, listener_out)):
         sp = r["split_ms"]
-        print(f"  {name} ({smi}; B={TRAIN_B}, f32, CIC_FUSED_CELL=1, one "
-              f"fixed host batch, medians of {DEV_ITERS}): "
+        print(f"  {name} ({smi}; B={TRAIN_B}, f32, one fixed host batch, "
+              f"medians of {DEV_ITERS}): "
               + ", ".join(f"{k} {v:.2f} ms" for k, v in sp.items())
               + f"; {r['it_per_s']:.2f} it/s; one traced iteration "
               f"{r['kernel_ms']:.2f} ms of kernels, idle share "
@@ -4613,15 +4652,14 @@ def phase_device_rewards(smi, scst_out, listener_out):
           f"it/s, reward stage "
           f"{listener_out['joint_split_ms']['reward']:.2f} ms", flush=True)
 
-    with fused_cell_switch(False):
-        out["scst_cpu"] = device_step_against_cpu(
-            scst_opt(SCST_CPU_B, drop_prob_lm=0.0).replace(
-                on_device_cider=1, checkpoint_path=DEV_RUN_DIR),
-            "SCST with on_device_cider", soft=False)
-        out["soft_cpu"] = device_step_against_cpu(
-            disc_opt("gumbel", LISTENER_CPU_B, soft_cider=1, start_from="",
-                     drop_prob_lm=0.0, checkpoint_path=DEV_RUN_DIR),
-            "joint -o gumbel with soft_cider", soft=True)
+    out["scst_cpu"] = device_step_against_cpu(
+        scst_opt(SCST_CPU_B, drop_prob_lm=0.0).replace(
+            on_device_cider=1, checkpoint_path=DEV_RUN_DIR),
+        "SCST with on_device_cider", soft=False)
+    out["soft_cpu"] = device_step_against_cpu(
+        disc_opt("gumbel", LISTENER_CPU_B, soft_cider=1, start_from="",
+                 drop_prob_lm=0.0, checkpoint_path=DEV_RUN_DIR),
+        "joint -o gumbel with soft_cider", soft=True)
 
     fused_pair(lambda: train_opt(TRAIN_B), "phase-2 MLE", add, out,
                "fused_mle")
@@ -4891,10 +4929,10 @@ def serve_extracted(fc, att, add):
         _dispatch.reset_launches()
         ids = svc.caption_ids(fc, att, masks)
         sync()
-        got = _dispatch.launches()
+        got = launch_counts()
         add(got)
         head = "beam_head" if beam else "greedy_head"
-        require(got["attention"] == L and got[head] == L,
+        require(got["attention"] == got["cell"] == got[head] == L,
                 f"extracted features, beam {beam}: launches {got}")
         require_head_pass(f"extracted features, beam {beam}", "tf32x3")
         cpu = CaptioningService.from_run_dir(RUN_DIR, device="cpu", **kw)
@@ -4942,7 +4980,7 @@ def harvest_on_card(add, out):
             opt, dataset=ds, json_dir=HARVEST_JSON_DIR, device=DEVICE)
         sync()
         seconds = time.perf_counter() - t0
-        got = _dispatch.launches()
+        got = launch_counts()
     finally:
         os.chdir(REPO)
     add(got)
@@ -4996,7 +5034,7 @@ def phase_reproduction(smi):
     print(f"phase 12, the reproduction chain: {RESNET_ARCH} at "
           f"{RESNET_HW} x {RESNET_HW}, f32, random weights from seed {SEED}",
           flush=True)
-    launches = {p: {k: 0 for k in _dispatch.KERNELS}
+    launches = {p: {k: 0 for k in counted()}
                 for p in ("extracted", "harvest")}
 
     def adder(path):
@@ -5322,9 +5360,8 @@ def paper_host_tier(ds, smi, out):
 def phase_paper_drivers(smi):
     """13. The paper's experiment drivers at full width, depth cut (each
     cut printed): (a) the mode grid, (b) the eval-protocol timer, (c)
-    reference-checkpoint interop, (d) the C++ host tier.  CIC_FUSED_CELL=1,
-    so the cell kernel runs beside A, B and C.  Returns the launch counts of
-    the phase."""
+    reference-checkpoint interop, (d) the C++ host tier.  The cell kernel
+    runs beside A, B and C.  Returns the launch counts of the phase."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     from cooperativeimagecaptioning_tpu_torch.scripts import (
@@ -5340,17 +5377,16 @@ def phase_paper_drivers(smi):
           f"eval protocol at {PROTOCOL_VAL} val images (5000)", flush=True)
     out = {}
     _dispatch.reset_launches()
-    with fused_cell_switch(True):
-        paper_grid(out)
-        sync()
-        ds = showcase_full_scale.build_dataset(
-            PAPER_IMAGES, VOCAB, L,
-            showcase_full_scale.protocol_dims(list(PAPER_SET))[0])
-        paper_against_cpu(ds, out)
-        paper_protocol(smi, out)
-        paper_interop(out)
+    paper_grid(out)
     sync()
-    launches = _dispatch.launches()
+    ds = showcase_full_scale.build_dataset(
+        PAPER_IMAGES, VOCAB, L,
+        showcase_full_scale.protocol_dims(list(PAPER_SET))[0])
+    paper_against_cpu(ds, out)
+    paper_protocol(smi, out)
+    paper_interop(out)
+    sync()
+    launches = launch_counts()
     for k in ("attention", "greedy_head", "beam_head", "cell"):
         require(launches[k] > 0, f"paper drivers: {k} never launched "
                 f"({launches})")
@@ -5372,15 +5408,13 @@ def main():
     errs, times, bounds, shapes = phase_kernels()
     print(f"elapsed after the kernel checks: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
-    with fused_cell_switch(False):
-        serve_launches = phase_slice(smi)
+    serve_launches = phase_slice(smi)
     print(f"elapsed after serving: {time.perf_counter() - t_start:.0f} s",
           flush=True)
     train_launches, phase5 = phase_train(smi)
     print(f"elapsed after training: {time.perf_counter() - t_start:.0f} s",
           flush=True)
-    with fused_cell_switch(False):
-        eval_launches = phase_eval(smi)
+    eval_launches = phase_eval(smi)
     print(f"elapsed after evaluation: {time.perf_counter() - t_start:.0f} s",
           flush=True)
     scst_launches, scst_out = phase_scst(smi, phase5)
@@ -5405,17 +5439,17 @@ def main():
     print(f"elapsed after the paper's drivers: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
     # each path's counts run from 0 just before it to just after it
+    paths = {"serve": serve_launches, "train": train_launches,
+             "eval": eval_launches, "scst": scst_launches,
+             "listener": listener_launches, "mesh": mesh_launches,
+             "joint_reinforce": reinforce_launches,
+             "device_rewards": device_launches,
+             "extracted_features": repro_launches["extracted"],
+             "harvest": repro_launches["harvest"],
+             "paper_drivers": paper_launches}
     kernels = []
     for k in SOURCES:
-        by_path = {"serve": serve_launches[k], "train": train_launches[k],
-                   "eval": eval_launches[k], "scst": scst_launches[k],
-                   "listener": listener_launches[k],
-                   "mesh": mesh_launches[k],
-                   "joint_reinforce": reinforce_launches[k],
-                   "device_rewards": device_launches[k],
-                   "extracted_features": repro_launches["extracted"][k],
-                   "harvest": repro_launches["harvest"][k],
-                   "paper_drivers": paper_launches[k]}
+        by_path = {path: counts[k] for path, counts in paths.items()}
         require(sum(by_path.values()) > 0,
                 f"{k} was never launched on a main path")
         kernels.append({
@@ -5428,6 +5462,15 @@ def main():
             "library_ms": None,
             # every shape the kernel was timed at, each with its own bound
             "timed_shapes": shapes[k]})
+    # the cell's launches by kernel: split TF32 (f32), mma.sync (bf16), FMAs
+    cell = next(e for e in kernels if e["name"] == "cell")
+    cell["launches_by_pass"] = {
+        p: sum(counts[p] for counts in paths.values())
+        for p in ("cell_tf32x3", "cell_mma", "cell_fma")}
+    require(sum(cell["launches_by_pass"].values()) == cell["launches"]
+            and cell["launches_by_pass"]["cell_tf32x3"] > 0,
+            f"cell launches by kernel {cell['launches_by_pass']} of "
+            f"{cell['launches']}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

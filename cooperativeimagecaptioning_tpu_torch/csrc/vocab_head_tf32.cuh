@@ -94,42 +94,9 @@ static_assert(kTf32HStride % 32 == 4 && kTf32WStride % 32 == 8,
               "row strides for conflict-free fragment loads");
 static_assert(kTf32Cols % 8 == 0, "whole n8 tiles");
 
-// x rounded to TF32 (10 explicit mantissa bits, to nearest, ties away),
-// in a 32-bit register with the low 13 bits zero.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// d += a[16 x 8] * b[8 x 8], TF32 in, f32 accumulators (row-major A,
-// column-major B).
-__device__ __forceinline__ void mma_tf32_1688(float* d, const uint32_t (&a)[4],
-                                              uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a * b, from zero accumulators.
-__device__ __forceinline__ void mma_tf32_1688_zero(float* d,
-                                                   const uint32_t (&a)[4],
-                                                   uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.0f));
-}
+using cic::mma_tf32_1688;
+using cic::mma_tf32_1688_zero;
+using cic::split_tf32;
 
 constexpr size_t vocab_partials_tf32_smem() {
   return sizeof(float) * (size_t)kTf32Stages * kTf32StageFloats;

@@ -15,8 +15,8 @@ methods are the JAX module's functions without the params argument.
 
 `step` runs the attention through the fused kernel's wrapper (a Hopper
 kernel on CUDA tensors, its plain version on CPU tensors) and the cell
-through `fused_cell` (the Hopper cell kernel under CIC_FUSED_CELL=1, else
-the plain cell, as in the JAX package); both carry gradients.  The context
+through `fused_cell` (the Hopper cell kernel on CUDA tensors, the plain
+cell on CPU tensors); both carry gradients.  The context
 of `encode_features` is b-major; `quantize_ctx` (int8) and `kmajor_ctx`
 (K-major) turn it into one of the two decode-only layouts, and `step` picks
 the attention kernel by the context's keys.  Dropout (training) draws from

@@ -9,7 +9,7 @@ which treat both speakers alike.
 
 `FCModel` holds the JAX package's param tree (a ParamTree) and has the
 Att2in2 speaker's methods.  Its cell is `cell_step.fused_cell` without
-attention (`att_res=None`): the Hopper cell kernel under CIC_FUSED_CELL=1.
+attention (`att_res=None`): the Hopper cell kernel on CUDA tensors.
 Unlike the Att2in2 speaker, a token is embedded by a plain lookup (no ReLU,
 no dropout), and dropout applies to next_h *before* it enters the recurrent
 state (FCModel.py:39-42), so the dropped activation propagates.  Dropout

@@ -2,4 +2,5 @@
 stemmer, the npy/npz feature reader and SPICE-lite.
 
 Copies of the JAX package's native/*.cpp (host code that depends on no
-framework), built by bindings.py into build/native/ of the checkout."""
+framework), built by bindings.py into native/ under
+utils/build_dirs.build_root() (the checkout's build/)."""

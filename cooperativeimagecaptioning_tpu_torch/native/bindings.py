@@ -3,13 +3,14 @@ cic_io.cpp, cic_spice.cpp; the JAX package's native/bindings.py).
 
 At first use the three sources are compiled with
 `g++ -O2 -std=c++17 -shared -fPIC ... -lz` into
-`build/native/libcic_native-<hash>.so` at the root of the checkout, the hash
-taken over the sources, the flags and `g++ --version`, so that a changed
-source or compiler builds a new library and nothing is written beside the
-sources.  Every entry point has a pure-Python counterpart in metrics/ (and
-np.load for the readers), used while the library is not built; `available()`
-says which tier runs, and `build_log()` keeps the compiler's output of a
-failed build.
+`native/libcic_native-<hash>.so` under `utils/build_dirs.build_root()` (the
+checkout's `build/`, or a per-user cache directory for an installed copy),
+the hash taken over the sources, the flags and `g++ --version`, so that a
+changed source or compiler builds a new library and nothing is written
+beside the sources.  Every entry point has a pure-Python counterpart in
+metrics/ (and np.load for the readers), used while the library is not
+built; `available()` says which tier runs, and `build_log()` keeps the
+compiler's output of a failed build.
 """
 
 from __future__ import annotations
@@ -21,11 +22,12 @@ import subprocess
 import threading
 from pathlib import Path
 
+from cooperativeimagecaptioning_tpu_torch.utils import build_dirs
+
 _HERE = Path(__file__).resolve().parent
 SOURCES = [_HERE / "cic_native.cpp", _HERE / "cic_io.cpp",
            _HERE / "cic_spice.cpp"]
-ROOT = Path(__file__).resolve().parents[2]  # the checkout holding the package
-BUILD_DIR = ROOT / "build" / "native"
+BUILD_DIR = build_dirs.build_root() / "native"
 FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 LIBS = ["-lz"]
 _lock = threading.Lock()

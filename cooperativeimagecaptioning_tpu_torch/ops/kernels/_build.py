@@ -2,13 +2,13 @@
 
 At first use, every `.cu` under the package's `csrc/` is compiled for
 Hopper (`sm_90a`; one nvcc process per source, in parallel, then one link)
-into `build/kernels/libcic_kernels.so` at the root of the checkout, and
-loaded with ctypes.  The sources have a plain C interface and include no
-PyTorch header, so no PyTorch build machinery is involved.  A
-hash of the sources, the flags and `nvcc --version` is kept beside the
-library; the library is rebuilt when it changes.  Only the sources in the
-checkout are used, and the package builds only from a source checkout (a
-copy installed elsewhere has no `build/` of its own and raises).
+into `kernels/libcic_kernels.so` under `utils/build_dirs.build_root()` (the
+checkout's `build/`, or a per-user cache directory for an installed copy),
+and loaded with ctypes.  The sources have a plain C interface and include
+no PyTorch header, so no PyTorch build machinery is involved.  A hash of
+the sources, the flags and `nvcc --version` is kept beside the library;
+the library is rebuilt when it changes.  Only the package's own sources are
+used.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns `cudaGetLastError()` after its launches; `check` raises on a
@@ -28,9 +28,10 @@ import threading
 import time
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
-ROOT = Path(__file__).resolve().parents[3]  # the checkout holding the package
-BUILD_DIR = ROOT / "build" / "kernels"
+from cooperativeimagecaptioning_tpu_torch.utils import build_dirs
+
+CSRC = build_dirs.PACKAGE / "csrc"
+BUILD_DIR = build_dirs.build_root() / "kernels"
 LIB_NAME = "libcic_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v: each kernel's registers, stack and spills go to the compile log
@@ -66,8 +67,9 @@ SIGNATURES = {
     # R, H, V, kk, kk_slots, splits, split_cols, is_bf16, first_pass, stream
     "cic_beam_head": [_P] * 11 + [_I] * 9 + [_P],
     # xt, h, c, att|NULL, wi, bi, wh, bh, wc|NULL, bc|NULL, h_out, c_out,
-    # B, D, H, is_bf16, use_mma, stream
-    "cic_cell": [_P] * 12 + [_I] * 5 + [_P],
+    # B, D, H, is_bf16, first_pass (0 FMA, 1 mma.sync bf16, 2 split TF32),
+    # cols (the split-TF32 kernel's j a block), stream
+    "cic_cell": [_P] * 12 + [_I] * 6 + [_P],
     # vals, idx, lse, out_vals, out_idx, out_lse, R, n, m, v_local, stream
     "cic_head_merge": [_P] * 6 + [_I] * 4 + [_P],
 }
@@ -116,15 +118,10 @@ def kernel_resources(log: str) -> dict:
 
 
 def build() -> dict:
-    """Compile csrc/*.cu into build/kernels/libcic_kernels.so unless an
+    """Compile csrc/*.cu into BUILD_DIR/libcic_kernels.so unless an
     up-to-date build is there.  Returns {'compiled', 'seconds', 'path',
     'resources'}; 'resources' is `kernel_resources` of the compile logs
     (empty when nothing was compiled)."""
-    if not (ROOT / "pyproject.toml").is_file():
-        raise RuntimeError(
-            f"the CUDA kernels are built into build/kernels/ of a source "
-            f"checkout, and {ROOT} is not one: run the package from a "
-            f"checkout of the repository")
     nvcc = nvcc_path()
     lib_path = BUILD_DIR / LIB_NAME
     hash_path = BUILD_DIR / (LIB_NAME + ".sha256")

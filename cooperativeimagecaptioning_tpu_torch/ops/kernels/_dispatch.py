@@ -7,10 +7,9 @@ place of its try-and-fall-back:
 * a tensor on a CUDA device launches the Hopper kernel, or raises.
 
 There is no fallback from a failing kernel to the plain version: a kernel
-that cannot build or launch is an error the caller sees.  The one switch is
-the JAX package's own: the fused cell runs only under CIC_FUSED_CELL=1
-(`fused_cell_enabled`), off by default as in ops/pallas/cell_step.py; with
-it unset the cell is the plain version on every device.
+that cannot build or launch is an error the caller sees.  No switch turns a
+kernel off (the JAX package's CIC_FUSED_CELL is not read: the cell kernel
+runs on every CUDA step).
 
 Each kernel has one plain integer launch count, raised by one in its wrapper
 right after the launch succeeded and nowhere else, so a run can show that
@@ -18,8 +17,8 @@ its main path went through the kernels.  The two vocabulary heads have three
 first passes (wgmma for bf16, split TF32 on mma.sync for f32, FMAs for the
 shapes neither takes: `logit_head.head_pass`); a second count per head and
 pass, raised with the head's own, shows which one a launch took, and the
-cell's two kernels (tensor cores for aligned bf16, FMAs for the rest:
-`cell_step.cell_pass`) are counted the same way.
+cell's three kernels (split TF32 for aligned f32, mma.sync for aligned
+bf16, FMAs for the rest: `cell_step.cell_pass`) are counted the same way.
 The three attention kernels have two widths (16-byte
 vectors, or single elements for unaligned shapes: `att_step.vector_width`),
 counted the same way.
@@ -34,8 +33,6 @@ set by the Trainer and the Evaluator of a mesh run and cleared by
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 KERNELS = ("attention", "attention_q", "attention_kmajor", "greedy_head",
@@ -43,10 +40,10 @@ KERNELS = ("attention", "attention_q", "attention_kmajor", "greedy_head",
 
 # the heads' launches by first pass: "<head>_mma" (wgmma, bf16),
 # "<head>_tf32x3" (split TF32, f32) or "<head>_fma"; the cell's by kernel:
-# "cell_mma" (mma.sync) or "cell_fma"
+# "cell_tf32x3" (split TF32, f32), "cell_mma" (mma.sync, bf16) or "cell_fma"
 HEAD_PASSES = ("greedy_head_mma", "greedy_head_tf32x3", "greedy_head_fma",
                "beam_head_mma", "beam_head_tf32x3", "beam_head_fma")
-CELL_PASSES = ("cell_mma", "cell_fma")
+CELL_PASSES = ("cell_tf32x3", "cell_mma", "cell_fma")
 
 # the dense attentions' launches by width: "<kernel>_vec" or "<kernel>_scalar"
 ATT_WIDTHS = ("attention_vec", "attention_scalar", "attention_kmajor_vec",
@@ -92,7 +89,7 @@ def use_kernel(x: torch.Tensor) -> bool:
 
 def count(name: str, variant: str = "") -> None:
     """One launch of kernel `name`; a head also names the pass it took
-    ("mma", "tf32x3" or "fma"), the cell its kernel ("mma" or "fma"), an
+    ("mma", "tf32x3" or "fma"), the cell its kernel (the same names), an
     attention kernel its width ("vec" or "scalar")."""
     _launches[name] += 1
     if variant:
@@ -126,12 +123,6 @@ def att_width_launches() -> dict:
 def reset_launches() -> None:
     for name in _launches:
         _launches[name] = 0
-
-
-def fused_cell_enabled() -> bool:
-    """CIC_FUSED_CELL=1, read at call time as the JAX package reads it
-    (ops/pallas/cell_step.py:128-129); off by default."""
-    return os.environ.get("CIC_FUSED_CELL") == "1"
 
 
 def forward_only(name: str, *tensors) -> None:

@@ -8,13 +8,13 @@ Counterpart of the JAX package's ops/pallas/cell_step.py.
                                            sums[4H:5H] (+ a2c[H:]))
     c' = f*c + i*g ;  h' = o*tanh(c')
 
-`fused_cell` is the cell the model calls.  As in the JAX package it runs
-the fused kernel only under CIC_FUSED_CELL=1 (`_dispatch.fused_cell_enabled`,
-off by default: the JAX package measured its Pallas cell as a net loss on
-the TPU, cell_step.py:124-127); with the switch unset it is
-`cell_reference` on every device.  With the switch set, CUDA tensors launch
-the hand-written kernel in csrc/cell_step.cu and CPU tensors take
-`cell_plain`, the kernel's plain version.  The kernel has no backward, as
+`fused_cell` is the cell the model calls.  CUDA tensors launch the
+hand-written kernel in csrc/cell_step.cu on every call: the split-TF32
+kernel for f32, the tensor-core kernel for bf16, the FMA kernel for the
+shapes neither takes (`cell_pass`).  CPU tensors take `cell_reference`,
+which is what the JAX package computes everywhere but on a TPU (its switch,
+CIC_FUSED_CELL, gated the Pallas kernel on a TPU measurement; the port has
+no switch) and equals `cell_plain` at f32.  The kernel has no backward, as
 the Pallas kernel had none: `Cell`, a torch.autograd.Function standing in
 for the JAX custom_vjp, recomputes `cell_reference` in its backward
 (cell_step.py:142-144).
@@ -58,7 +58,7 @@ def cell_plain(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
 
 class Cell(torch.autograd.Function):
     """fused_cell with a gradient.  `forward_impl` computes the forward (the
-    kernel, or the plain version); the backward differentiates
+    kernel, or in the tests its plain version); the backward differentiates
     `cell_reference`."""
 
     @staticmethod
@@ -77,23 +77,40 @@ def fused_cell(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
     """xt [B,D], h/c [B,H], att_res [B,H] or None, wi [D,5H], bi [5H],
     wh [H,5H], bh [5H], wc [H,2H] or None, bc [2H] or None -> (h', c')."""
     args = (xt, h, c, att_res, wi, bi, wh, bh, wc, bc)
-    if not _dispatch.fused_cell_enabled():
+    if not _dispatch.use_kernel(h):
         return cell_reference(*args)
-    impl = cell_kernel if _dispatch.use_kernel(h) else cell_plain
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in args):
-        return Cell.apply(impl, *args)
-    return impl(*args)
+        return Cell.apply(cell_kernel, *args)
+    return cell_kernel(*args)
+
+
+# the C entry's first_pass codes
+PASS_CODES = {"fma": 0, "mma": 1, "tf32x3": 2}
+# B from which a block of the split-TF32 kernel owns 16 hidden columns j
+# (`tf32x3_cols`)
+TF32_WIDE_ROWS = 512
 
 
 def cell_pass(dtype, D: int, H: int, aligned: bool = True) -> str:
-    """Which kernel of csrc/cell_step.cu a launch takes: "mma" (mma.sync on
-    the tensor cores) for bfloat16 with D and H multiples of 8 and 16-byte
-    aligned tensors (its 16-byte copies need all three), "fma" (true f32
-    FMAs) for everything else."""
-    if dtype == torch.bfloat16 and aligned and D % 8 == 0 and H % 8 == 0:
-        return "mma"
+    """Which kernel of csrc/cell_step.cu a launch takes.  With D and H
+    multiples of 8 and 16-byte aligned tensors (the 16-byte copies and the
+    whole n8 tiles of the tensor-core kernels need all three): "tf32x3"
+    (split TF32 on mma.sync) for float32, "mma" (mma.sync) for bfloat16;
+    "fma" (true f32 FMAs) for every other shape."""
+    if aligned and D % 8 == 0 and H % 8 == 0:
+        if dtype == torch.float32:
+            return "tf32x3"
+        if dtype == torch.bfloat16:
+            return "mma"
     return "fma"
+
+
+def tf32x3_cols(B: int) -> int:
+    """Hidden columns j a block of the split-TF32 kernel owns: 8 below
+    TF32_WIDE_ROWS rows (the training shape B=128 then fills the card with
+    256 blocks), else 16 (the rows are read half as often from L2)."""
+    return 8 if B < TF32_WIDE_ROWS else 16
 
 
 def cell_kernel(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
@@ -128,8 +145,8 @@ def cell_kernel(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
     lib = _build.library()
     code = lib.cic_cell(
         *(_build.ptr(t) for t in args), _build.ptr(h_new), _build.ptr(c_new),
-        B, D, H, int(h.dtype == torch.bfloat16), int(which == "mma"),
-        _build.stream(h.device))
+        B, D, H, int(h.dtype == torch.bfloat16), PASS_CODES[which],
+        tf32x3_cols(B), _build.stream(h.device))
     _build.check(lib, code, "cell")
     _dispatch.count("cell", which)
     return h_new, c_new

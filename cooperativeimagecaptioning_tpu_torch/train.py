@@ -16,6 +16,9 @@ gt|greedy|no`, alternating speaker and listener turns), seeded with
 only its turn's agents, and `--profile_dir D --profile_start S
 --profile_steps N` traces the iterations [S, S + N) with torch.profiler.
 Other configurations raise NotImplementedError naming what is missing.
+After a phase-3 run, results harvesting writes the val / test dicts and
+the run's json report (evaluation/harvest.py; the repository's train.py
+does the same), once, after the last rank of a mesh run finished.
 
     python -m cooperativeimagecaptioning_tpu_torch.train --device cuda \
         --phase 1 --caption_model fc --vse_model fc --vse_loss_weight 1 \
@@ -44,8 +47,10 @@ the environment names:
 from __future__ import annotations
 
 import argparse
+import os
 
 from cooperativeimagecaptioning_tpu_torch import config
+from cooperativeimagecaptioning_tpu_torch.evaluation import harvest
 from cooperativeimagecaptioning_tpu_torch.parallel import launch
 from cooperativeimagecaptioning_tpu_torch.parallel.mesh import mesh_shape
 from cooperativeimagecaptioning_tpu_torch.training.loop import train
@@ -57,6 +62,8 @@ def train_rank(opt, device):
 
 
 def main(argv=None):
+    """Train; after a phase-3 run, harvest its results.  Returns the
+    Trainer (on a mesh: rank 0's iterations)."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda",
                      help="torch device to train on (cuda, or cpu for the "
@@ -65,9 +72,17 @@ def main(argv=None):
     opt = config.parse_opt(rest)
     shape = mesh_shape(opt, known.device)
     if shape is None:
-        return train(opt, device=known.device)
-    return launch.run(train_rank, (opt, known.device), shape[0] * shape[1],
-                      known.device)
+        result = train(opt, device=known.device)
+    else:
+        result = launch.run(train_rank, (opt, known.device),
+                            shape[0] * shape[1], known.device)
+        if launch.under_torchrun() and int(os.environ["RANK"]) != 0:
+            return result  # rank 0 harvests
+    if opt.phase in (1, 2):
+        return result
+    harvest.create_dicts_and_json_after_training(opt, device=known.device)
+    print("Finished all")
+    return result
 
 
 if __name__ == "__main__":

@@ -328,6 +328,78 @@ def test_harvest_equals_the_jax_packages(jx, tmp_path, monkeypatch,
                            for k, v in jrep["opt"].items()}
 
 
+def test_train_cli_harvests_after_phase_3(jx, tmp_path, monkeypatch):
+    """The port's `train.main --phase 3` trains a tiny run on the CPU and
+    then harvests it (the val / test dicts and the json report), as the
+    repository's train.py does: the root CLI, handed a copy of the same run
+    dir taken before the harvest (its training replaced by that run),
+    writes the same json."""
+    import train as root_train
+    from cooperativeimagecaptioning_tpu import config as jconfig
+    from cooperativeimagecaptioning_tpu.data import loader as jloader
+    from cooperativeimagecaptioning_tpu.data import sources as jsources
+    from cooperativeimagecaptioning_tpu_torch import train as ttrain
+    from cooperativeimagecaptioning_tpu_torch.data import loader as tloader
+    monkeypatch.setattr(tloader, "FileDataset",
+                        lambda opt: SyntheticDataset(**DS))
+    monkeypatch.setattr(jloader, "FileDataset",
+                        lambda opt: jsources.SyntheticDataset(**DS))
+    monkeypatch.setattr(jx["bindings"], "available", lambda: False)
+    monkeypatch.setattr(tbindings, "available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+
+    def flags(run):
+        return ["--caption_model", "att2in2", "--vse_model", "fc",
+                "--batch_size", "6", "--seq_per_img", "1", "--rnn_size", "12",
+                "--input_encoding_size", "10", "--att_hid_size", "8",
+                "--vse_embed_size", "12", "--fc_feat_size", "12",
+                "--att_feat_size", "12", "--drop_prob_lm", "0",
+                "--learning_rate", "1e-3", "--grad_clip", "0.1",
+                "--checkpoint_path", str(run), "--id", "crun",
+                "--save_checkpoint_every", "2", "--losses_log_every", "2",
+                "--language_eval", "1", "--rank_eval", "1", "--max_epochs",
+                "3", "--max_att_len", "5", "--phase", "3",
+                "--caption_loss_weight", "1", "--vse_loss_weight", "0.1",
+                "--val_images_use", "-1", "--load_best_score", "0"]
+
+    port_run, jax_run = tmp_path / "port" / "run", tmp_path / "jax" / "run"
+    harvest = tharvest.create_dicts_and_json_after_training
+    seen = {}
+
+    def copy_then_harvest(opt, **kw):
+        shutil.copytree(opt.checkpoint_path, jax_run)
+        seen.update(opt=opt, kw=kw)
+        return harvest(opt, **kw)
+    monkeypatch.setattr(tharvest, "create_dicts_and_json_after_training",
+                        copy_then_harvest)
+    trainer = ttrain.main(["--device", "cpu"] + flags(port_run))
+    assert trainer.iteration >= 6 and seen["kw"] == {"device": "cpu"}
+    assert (port_run / "val_dict.pkl").is_file()
+
+    def trained(opt):
+        """What the JAX Trainer sets on opt (loop.py's Trainer.__init__);
+        the run itself is the copy."""
+        opt.use_att = jconfig.if_use_att(opt)
+        data = jloader.DataLoader(opt)
+        opt.vocab_size, opt.seq_length = data.vocab_size, data.seq_length
+    monkeypatch.setattr(root_train, "train", trained)
+    monkeypatch.setattr(sys, "argv", ["train.py"] + flags(jax_run))
+    root_train.main()
+    reports = {}
+    for side, run in (("port", port_run), ("jax", jax_run)):
+        with open(run.parent / "json_dir" / "run.json") as f:
+            reports[side] = json.load(f)
+    trep, jrep = reports["port"], reports["jax"]
+    assert sorted(os.listdir(port_run)) == sorted(os.listdir(jax_run))
+    assert trep["test"] and set(trep["test"]) == set(jrep["test"])
+    _assert_test_numbers_close(trep["test"], jrep["test"])
+    for k in ("best_iteration_by", "val"):
+        assert trep[k] == jrep[k], k
+    assert trep["full_path"] == str(port_run)
+    assert trep["opt"] == {k: v if k != "checkpoint_path" else str(port_run)
+                           for k, v in jrep["opt"].items()}
+
+
 def test_harvest_cli_over_run_dirs_of_both_packages(jx, tmp_path,
                                                     port_run_dir,
                                                     jax_run_dir):

@@ -81,8 +81,8 @@ def test_init_params_and_class_constants_match_jax():
 
 @pytest.mark.parametrize("fused", ["0", "1"])
 def test_step_matches_jax(monkeypatch, fused):
-    """The image step then one token step; CIC_FUSED_CELL=1 takes the cell
-    kernel's plain version without attention on the CPU."""
+    """The image step then one token step, whatever CIC_FUSED_CELL (the JAX
+    package's switch) holds: on the CPU the cell is cell_reference."""
     monkeypatch.setenv("CIC_FUSED_CELL", fused)
     opt = fc_opt()
     jp, jctx, tp, tctx = both(opt)

@@ -19,6 +19,7 @@ import torch
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
     _build, _dispatch, att_step, beam_head, cell_step, head_merge,
     logit_head)
+from cooperativeimagecaptioning_tpu_torch.utils import build_dirs
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -400,12 +401,24 @@ def test_build_hash_tracks_the_compiler():
 
 
 def test_build_refuses_outside_a_checkout(tmp_path, monkeypatch):
-    """An installed copy of the package has no checkout to build into."""
-    monkeypatch.setattr(_build, "ROOT", tmp_path)
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build" / "kernels")
-    with pytest.raises(RuntimeError, match="checkout"):
+    """An installed copy of the package has no checkout to build into: it
+    builds under the per-user cache directory, never beside or above
+    site-packages."""
+    pkg = tmp_path / "lib" / "site-packages" / build_dirs.PACKAGE.name
+    pkg.mkdir(parents=True)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert build_dirs.checkout(pkg) is None
+    root = build_dirs.build_root(pkg)
+    assert root == tmp_path / "cache" / pkg.name / "build"
+    monkeypatch.setattr(_build, "BUILD_DIR", root / "kernels")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
-    assert not (tmp_path / "build").exists()
+    assert not [p for p in (tmp_path / "lib").rglob("*") if "build" in
+                p.name]
 
 
 def test_vocab_split_covers_the_vocab(monkeypatch):
@@ -696,23 +709,25 @@ def cell_case(B, D=512, H=512, with_att=True, seed=0):
                                    (17, 512, 512), (130, 512, 512),
                                    (2100, 512, 512), (33, 72, 104),
                                    (9, 20, 44)])
-def test_cell_kernel_matches_plain(cuda, monkeypatch, dtype, with_att, B, D,
-                                   H):
+def test_cell_kernel_matches_plain(cuda, dtype, with_att, B, D, H):
     """Kernel F against its plain version (cell_reference in f32 on the same
     inputs, h' and c' in the inputs' type): f32 within 1e-4, bf16 within
     3e-2 (1-2 bf16 ulps at |x| < 4; both sides round the f32 result).  The
-    shapes cut the row tiles (B = 1, 17, 130; 2100 takes the 128-row tiles)
-    and the 32-column j tiles (H = 40, 104); D, H = 20, 44 are no multiple
-    of 8 and take the FMA kernel in bf16 too."""
-    monkeypatch.setenv("CIC_FUSED_CELL", "1")
+    shapes cut the row tiles (B = 1, 17, 130; 2100 takes the 128-row tiles
+    of the bf16 kernel, 512 and 2100 the 16-column tiles of the split-TF32
+    kernel) and the j tiles (H = 40, 104); aligned f32 takes the split-TF32
+    kernel, aligned bf16 the tensor-core kernel; D, H = 20, 44 are no
+    multiple of 8 and take the FMA kernel in both types."""
     args = [None if x is None else torch.from_numpy(x).to(cuda, dtype)
             for x in cell_case(B, D, H, with_att)]
     h_new, c_new = cell_step.fused_cell(*args)
     torch.cuda.synchronize()
     assert _dispatch.launches()["cell"] == 1
-    fits = dtype == torch.bfloat16 and D % 8 == 0 and H % 8 == 0
+    fits = D % 8 == 0 and H % 8 == 0
+    want = ("cell_fma" if not fits else "cell_tf32x3"
+            if dtype == torch.float32 else "cell_mma")
     assert _dispatch.cell_pass_launches() == {
-        "cell_mma": int(fits), "cell_fma": int(not fits)}
+        k: int(k == want) for k in _dispatch.CELL_PASSES}
     h_p, c_p = cell_step.cell_plain(*args)
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     for got, want in ((h_new, h_p), (c_new, c_p)):
@@ -721,20 +736,27 @@ def test_cell_kernel_matches_plain(cuda, monkeypatch, dtype, with_att, B, D,
 
 
 @pytest.mark.cuda
-def test_cell_kernel_switch_off_launches_nothing(cuda, monkeypatch):
-    monkeypatch.delenv("CIC_FUSED_CELL", raising=False)
+@pytest.mark.parametrize("switch", [None, "0", "1"])
+def test_cell_kernel_switch_off_launches_nothing(cuda, monkeypatch, switch):
+    """The JAX package's CIC_FUSED_CELL switch is not read: on CUDA tensors
+    the cell launches its kernel whatever the variable holds."""
+    if switch is None:
+        monkeypatch.delenv("CIC_FUSED_CELL", raising=False)
+    else:
+        monkeypatch.setenv("CIC_FUSED_CELL", switch)
     args = [None if x is None else torch.from_numpy(x).to(cuda)
             for x in cell_case(16)]
     cell_step.fused_cell(*args)
-    assert _dispatch.launches()["cell"] == 0
+    torch.cuda.synchronize()
+    assert _dispatch.launches()["cell"] == 1
+    assert _dispatch.cell_pass_launches()["cell_tf32x3"] == 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["attention", "attention_q", "cell"])
-def test_kernel_functions_gradient_on_the_card(cuda, monkeypatch, which):
+def test_kernel_functions_gradient_on_the_card(cuda, which):
     """Kernel forward + recomputed plain backward, against plain autograd on
     the card, f32."""
-    monkeypatch.setenv("CIC_FUSED_CELL", "1")
     if which == "attention":
         raw = as_torch(att_case(B=64, K=36, H=96, A=80), cuda)
         args = [x if x is None or i == 7 else x.requires_grad_(True)

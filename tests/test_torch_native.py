@@ -7,6 +7,7 @@ its sources, the compiler's output kept when it fails)."""
 import os
 import random
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -242,7 +243,7 @@ def test_library_builds_under_build_native(native):
     so = tbind.library_path(version)
     assert so.parent == tbind.BUILD_DIR
     assert tbind.BUILD_DIR == \
-        tbind.ROOT / "build" / "native"
+        Path(REPO).resolve() / "build" / "native"
     assert so.is_file()
     here = os.path.dirname(tbind.__file__)
     assert not [f for f in os.listdir(here) if f.endswith(".so")]

@@ -431,14 +431,15 @@ def _cell_args(with_att, requires_grad=False, seed=3):
 @pytest.mark.parametrize("with_att", [True, False])
 def test_cell_cpu_dispatch_equals_cell_reference(monkeypatch, switch,
                                                  with_att):
-    """On CPU tensors fused_cell is cell_reference with the switch set or
-    unset (the kernel's plain version is cell_reference in f32), launches
-    nothing, and carries the same gradients."""
+    """On CPU tensors fused_cell is cell_reference whatever CIC_FUSED_CELL
+    (the JAX package's switch, which the port does not read) holds: the
+    variable changes nothing; it launches nothing and carries the same
+    gradients."""
     if switch is None:
         monkeypatch.delenv("CIC_FUSED_CELL", raising=False)
     else:
         monkeypatch.setenv("CIC_FUSED_CELL", switch)
-    assert _dispatch.fused_cell_enabled() == (switch == "1")
+    assert not hasattr(_dispatch, "fused_cell_enabled")
     _dispatch.reset_launches()
     args = _cell_args(with_att, requires_grad=True)
     got = cell_step.fused_cell(*args)

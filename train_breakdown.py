@@ -67,8 +67,7 @@ products, log-softmax and its backward, the target gather), other matrix
 products, and the remaining elementwise and reduction kernels; the six
 ops with the most GPU time are listed by name.  Each stage
 also gets its device idle share (1 - traced kernel time / its untraced
-host-clock time).  It does so with CIC_FUSED_CELL=1 (the cell kernel) and
-with it unset (the plain cell), and times it/s for both.
+host-clock time), and whole iterations are timed for it/s.
 
 The last line is one JSON object with every number printed.
 """
@@ -276,45 +275,36 @@ def main(argv=None):
             a.batch, checkpoint_path=cs.REINFORCE_RUN_DIR)
         splits = [(f"_{turn}", functools.partial(cs.scst_stages, turn=turn))
                   for turn in ("speaker", "listener")]
-    for cell, on in (("cell_kernel", True), ("plain_cell", False)):
-        with cs.fused_cell_switch(on):
-            if opts is not None:
-                # one Trainer (and it/s) a reward tier
-                rs = {}
-                for (key, stages), o in zip(splits, opts):
-                    tr = Trainer(o.replace(), dataset=ds, device=a.device,
-                                 verbose=False)
-                    data = tr.loader.get_batch("train")
-                    rs[cell + key] = breakdown(stages, tr, data, device,
-                                               a.reps)
-                    if device.type == "cuda":
-                        rs[cell + key]["it_per_s"] = cs.iterations_per_s(
-                            tr, data)
-                    del tr
-                for name, r in rs.items():
-                    results[name] = r
-                    print_split(name, r, card, a.batch)
-                continue
-            tr = Trainer(opt.replace(), dataset=ds, device=a.device,
+    if opts is not None:
+        # one Trainer (and it/s) a reward tier
+        for (key, stages), o in zip(splits, opts):
+            tr = Trainer(o.replace(), dataset=ds, device=a.device,
                          verbose=False)
             data = tr.loader.get_batch("train")
-            rs = {cell + key: breakdown(stages, tr, data, device, a.reps)
-                  for key, stages in splits}
+            name = "step" + key
+            results[name] = breakdown(stages, tr, data, device, a.reps)
             if device.type == "cuda":
-                # whole iterations: with turns, the turns in turn
-                its = cs.iterations_per_s(tr, data)
-                if len(splits) == 1:
-                    rs[cell]["it_per_s"] = its
-                else:
-                    results[f"{cell}_alternating_it_per_s"] = its
-                    print(f"== {cell}, the turns in turn: {its:.2f} it/s",
-                          flush=True)
+                results[name]["it_per_s"] = cs.iterations_per_s(tr, data)
+            print_split(name, results[name], card, a.batch)
+            del tr
+    else:
+        tr = Trainer(opt.replace(), dataset=ds, device=a.device,
+                     verbose=False)
+        data = tr.loader.get_batch("train")
+        rs = {"step" + key: breakdown(stages, tr, data, device, a.reps)
+              for key, stages in splits}
+        if device.type == "cuda":
+            # whole iterations: with turns, the turns in turn
+            its = cs.iterations_per_s(tr, data)
+            if len(splits) == 1:
+                rs["step"]["it_per_s"] = its
+            else:
+                results["alternating_it_per_s"] = its
+                print(f"== the turns in turn: {its:.2f} it/s", flush=True)
         for name, r in rs.items():
             results[name] = r
             print_split(name, r, card, a.batch)
         del tr
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
     print(json.dumps(results))
 
 
@@ -337,8 +327,7 @@ def print_split(name, r, card, batch):
 def fused_rates(a):
     """--fused K: phase-2 (--joint: joint DISC with the device reward) it/s
     with the feature cache, fused chunks of K against single steps, in
-    turns, CIC_FUSED_CELL=1; one traced chunk of each: its kernel time and
-    idle share."""
+    turns; one traced chunk of each: its kernel time and idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -363,46 +352,45 @@ def fused_rates(a):
     else:
         opt = cs.train_opt(a.batch)
     trs = {}
-    with cs.fused_cell_switch(True):
-        for k in (1, K):
-            trs[k] = Trainer(opt.replace(
-                fused_steps=k, device_feature_cache=1), dataset=ds,
-                device=a.device, verbose=False)
+    for k in (1, K):
+        trs[k] = Trainer(opt.replace(
+            fused_steps=k, device_feature_cache=1), dataset=ds,
+            device=a.device, verbose=False)
 
-        def chunk(k):
-            tr = trs[k]
-            sync()
-            t0 = time.perf_counter()
-            tr.train(max_iterations=tr.iteration + K)
-            sync()
-            return K / (time.perf_counter() - t0)
+    def chunk(k):
+        tr = trs[k]
+        sync()
+        t0 = time.perf_counter()
+        tr.train(max_iterations=tr.iteration + K)
+        sync()
+        return K / (time.perf_counter() - t0)
 
-        for k in (1, K):
-            chunk(k)  # warm-up (the fused trainer captures its graph)
-        rates = {1: [], K: []}
-        for k in (1, K, K, 1):
-            rates[k].append(chunk(k))
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
-                                         else [])
-        for k, name in ((1, "per_step"), (K, "fused")):
-            wall = K / np.mean(rates[k])
-            with profile(activities=acts) as prof:
-                chunk(k)
-            kernel_s = sum(e.time_range.elapsed_us() for e in prof.events()
-                           if e.device_type == DeviceType.CUDA) / 1e6
-            results[name] = {
-                "it_per_s": float(np.mean(rates[k])),
-                "in_turns": rates[k],
-                "traced_kernel_ms_per_step": kernel_s / K * 1e3,
-                "idle_share": (1.0 - kernel_s / wall) if cuda else None}
-            print(f"== {name} ({card}; B={a.batch}, f32, K={K}): "
-                  f"{results[name]['it_per_s']:.2f} it/s (in turns "
-                  + ", ".join(f"{r:.2f}" for r in rates[k])
-                  + f"); traced kernels "
-                  f"{results[name]['traced_kernel_ms_per_step']:.3f} ms a "
-                  f"step" + (f", idle share "
-                             f"{results[name]['idle_share']:.3f}"
-                             if cuda else ""), flush=True)
+    for k in (1, K):
+        chunk(k)  # warm-up (the fused trainer captures its graph)
+    rates = {1: [], K: []}
+    for k in (1, K, K, 1):
+        rates[k].append(chunk(k))
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                     else [])
+    for k, name in ((1, "per_step"), (K, "fused")):
+        wall = K / np.mean(rates[k])
+        with profile(activities=acts) as prof:
+            chunk(k)
+        kernel_s = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == DeviceType.CUDA) / 1e6
+        results[name] = {
+            "it_per_s": float(np.mean(rates[k])),
+            "in_turns": rates[k],
+            "traced_kernel_ms_per_step": kernel_s / K * 1e3,
+            "idle_share": (1.0 - kernel_s / wall) if cuda else None}
+        print(f"== {name} ({card}; B={a.batch}, f32, K={K}): "
+              f"{results[name]['it_per_s']:.2f} it/s (in turns "
+              + ", ".join(f"{r:.2f}" for r in rates[k])
+              + f"); traced kernels "
+              f"{results[name]['traced_kernel_ms_per_step']:.3f} ms a "
+              f"step" + (f", idle share "
+                         f"{results[name]['idle_share']:.3f}"
+                         if cuda else ""), flush=True)
     print(json.dumps(results))
 
 
