@@ -3083,7 +3083,8 @@ MESH_CFG = ("DEVICE", "VOCAB", "WIDTH", "FEAT", "K", "L", "SEED", "TRAIN_B",
             "TRAIN_IMAGES", "EVAL_B", "MESH_EVAL_IMAGES", "MESH_RUN_DIR",
             "MESH_TRAIN_STEPS", "MESH_TIMED_STEPS", "TRAIN_RUN_DIR",
             "RUN_DIR", "FC_RUN_DIR", "SCST_RUN_DIR", "MESH_JOINT_DIR",
-            "MESH_JOINT_STEPS", "MESH_SPLIT_STEPS", "MESH_JOINT_TIMED")
+            "MESH_JOINT_STEPS", "MESH_SPLIT_STEPS", "MESH_JOINT_TIMED",
+            "FUSED_K", "MESH_FUSED_SPLIT_K", "MESH_FUSED_DIR", "HOSTS_DIR")
 # phase 3 on the mesh: the (2, 1) runs of each configuration against the
 # single-process Trainer, MESH_JOINT_STEPS iterations each, and -o gumbel on
 # (1, 2), MESH_SPLIT_STEPS; every iteration holds its loss to MESH_LOSS_RTOL
@@ -3453,6 +3454,331 @@ def check_mesh_joint(smi, single, t_single, got):
     return total, out
 
 
+# fused chunks on the mesh: phase 2 and -o gumbel with on_device_cider on
+# (2, 1) in chunks of FUSED_K, -o gumbel on (1, 2) in a chunk of
+# MESH_FUSED_SPLIT_K, each against as many per-step mesh iterations from one
+# seed (losses FUSED_LOSS_RTOL, params FUSED_PARAM_RTOL / FUSED_PARAM_ATOL:
+# the same captured arithmetic); each replays segments captured between the
+# iteration's collectives
+MESH_FUSED_DIR = os.path.join(REPO, "build", "chip_smoke_mesh_fused_run")
+MESH_FUSED_SPLIT_K = 4
+# two ranks as two hosts (torchrun's environment, a directory each)
+HOSTS_DIR = os.path.join(REPO, "build", "chip_smoke_hosts")
+
+
+def mesh_fused_opts():
+    """(name, options maker, mesh axes, chunk) of each fused mesh run."""
+    def mle():
+        return train_opt(TRAIN_B)
+
+    def gumbel():
+        return disc_opt("gumbel", TRAIN_B, on_device_cider=1, start_from="")
+    return [("phase-2 MLE", mle, (2, 1), FUSED_K),
+            ("-o gumbel, on_device_cider", gumbel, (2, 1), FUSED_K),
+            ("-o gumbel, on_device_cider", gumbel, (1, 2),
+             MESH_FUSED_SPLIT_K)]
+
+
+def train_on(tr, n):
+    """`tr.train` for n more iterations, its vocab mesh registered (a
+    finished `train` closes the Trainer, which clears it)."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    if tr.mesh is not None:
+        _dispatch.set_vocab_mesh(tr.mesh, tr.opt.vocab_size)
+    tr.train(max_iterations=tr.iteration + n)
+    sync()
+
+
+def kernel_ms_per_step(tr, n):
+    """Traced kernel ms a step over n more iterations (`train_on`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_on(tr, n)
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+
+def mesh_fused_pair(make_opt, axes, k):
+    """This rank's fused chunk of k against k per-step iterations on a mesh
+    of `axes`, from one seed with the feature cache: the losses, the
+    params' worst ratio to the fused tolerance, the skipped steps, the
+    launches of a per-step iteration and of a replay, the captured steps'
+    segments, collectives and replays, then it/s of k / 2 more steps each
+    in turns (per step, fused, fused, per step), each one's traced kernel
+    ms a step over two more and idle share, and the peak MiB of the
+    rank."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    t0 = time.perf_counter()
+    ds = train_dataset()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    trs = {}
+    for s in (1, k):
+        trs[s] = Trainer(make_opt().replace(
+            fused_steps=s, device_feature_cache=1,
+            mesh_data_axis=axes[0], mesh_model_axis=axes[1],
+            checkpoint_path=os.path.join(MESH_FUSED_DIR, f"f{s}")),
+            dataset=ds, device=DEVICE, verbose=False)
+    out = {"gates": (trs[1]._fused_gate(), trs[k]._fused_gate()),
+           "launches": {}, "first_s": {}}
+    for s, tr in trs.items():
+        _dispatch.reset_launches()
+        t1 = time.perf_counter()
+        train_on(tr, k)
+        out["first_s"][s] = time.perf_counter() - t1
+        out["launches"][s] = launch_counts()
+    a, b = trs[1], trs[k]
+    runners = list(b._fused.values())
+    out.update(
+        losses=({i: float(v) for i, v in a.loss_history.items()},
+                {i: float(v) for i, v in b.loss_history.items()}),
+        skipped=(a.optim.skipped_steps(), b.optim.skipped_steps()),
+        captures=len(runners), replays=sum(r.replays for r in runners),
+        captured=all(r.plan is not None for r in runners),
+        per_replay=runners[0].launches if runners else None,
+        segments=[r.segments for r in runners],
+        collectives=[r.collectives for r in runners])
+    worst, worst_key, max_abs = 0.0, "", 0.0
+    pb = dict(leaves(b.params))
+    for key, x in leaves(a.params):
+        d = (pb[key] - x).abs()
+        r = (d / (FUSED_PARAM_ATOL + FUSED_PARAM_RTOL * x.abs())).max().item()
+        max_abs = max(max_abs, d.max().item())
+        if r > worst:
+            worst, worst_key = r, key
+    out.update(param_worst=worst, param_worst_key=worst_key,
+               param_max_abs=max_abs)
+    rates, n = {1: [], k: []}, max(2, k // 2)
+    for s in (1, k, k, 1):
+        t1 = time.perf_counter()
+        train_on(trs[s], n)
+        rates[s].append(n / (time.perf_counter() - t1))
+    out["rates"] = rates
+    out["its"] = {s: float(np.mean(r)) for s, r in rates.items()}
+    if DEVICE == "cuda":
+        out["kernel_ms"] = {s: kernel_ms_per_step(tr, 2)
+                            for s, tr in trs.items()}
+        out["idle"] = {s: 1.0 - out["kernel_ms"][s] * out["its"][s] / 1e3
+                       for s in trs}
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    for tr in trs.values():
+        tr.close()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_fused_runs():
+    """This rank's fused chunks on the mesh (`mesh_fused_opts`)."""
+    return [mesh_fused_pair(make, axes, k)
+            for _, make, axes, k in mesh_fused_opts()]
+
+
+def check_mesh_fused(smi, got):
+    """Phase 9 (a) and (b): each rank's fused chunks against its per-step
+    mesh iterations (`got`: per rank, `mesh_fused_runs`): the gate open,
+    losses and params within the fused tolerances, the skipped steps
+    equal, one eager warm-up step plus the replays make the chunk, the
+    iteration captured in segments (one more than its collectives), and a
+    replay's launches equal to a per-step iteration's.  Returns the
+    launches (every rank's, summed) and the numbers."""
+    total = {k: 0 for k in counted()}
+    out = []
+    for r, runs in enumerate(got):
+        for (name, _, axes, k), run in zip(mesh_fused_opts(), runs):
+            what = f"{axes} rank {r} {name}, chunk of {k}"
+            la, lb = run["losses"]
+            require(run["gates"] == ("off", None), f"{what}: gates "
+                    f"{run['gates']}")
+            require(la.keys() == lb.keys() and len(la) >= k,
+                    f"{what}: histories {sorted(la)} vs {sorted(lb)}")
+            rel = max(abs(lb[i] - la[i]) / abs(la[i]) for i in la)
+            per_step = {key: v // k for key, v in run["launches"][1].items()}
+            per_replay = dict(run["per_replay"] or {})
+            seg, col = run["segments"], run["collectives"]
+            print(f"  {what}: losses within {rel:.2e} relative of the "
+                  f"per-step mesh run (tol {FUSED_LOSS_RTOL:.0e}); params "
+                  f"max abs difference {run['param_max_abs']:.3e}, worst "
+                  f"leaf {run['param_worst_key']} at "
+                  f"{run['param_worst']:.3f} of rtol {FUSED_PARAM_RTOL:.0e} "
+                  f"/ atol {FUSED_PARAM_ATOL:.0e}; skipped {run['skipped']};"
+                  f" {run['captures']} capture(s) + {run['replays']} "
+                  f"replays; segments a replay {seg}, collectives {col}; "
+                  f"launches a replay "
+                  f"{ {key: v for key, v in per_replay.items() if v} }",
+                  flush=True)
+            require(rel <= FUSED_LOSS_RTOL, f"{what}: losses at {rel}")
+            require(run["param_worst"] <= 1.0, f"{what}: param "
+                    f"{run['param_worst_key']} at {run['param_worst']}")
+            require(run["skipped"][0] == run["skipped"][1],
+                    f"{what}: skipped {run['skipped']}")
+            require(run["captured"] and run["captures"] + run["replays"]
+                    == k, f"{what}: {run['captures']} captures and "
+                    f"{run['replays']} replays in {k} steps")
+            require(all(c and s == c + 1 for s, c in zip(seg, col)),
+                    f"{what}: segments {seg}, collectives {col}")
+            require(all(v % k == 0 for v in run["launches"][1].values()),
+                    f"{what}: per-step launches {run['launches'][1]}")
+            want = {key: per_step[key] for key in per_replay}
+            require(per_replay == want and per_replay.get("attention", 0) > 0
+                    and per_replay.get("cell", 0) > 0,
+                    f"{what}: launches a replay {per_replay} vs a per-step "
+                    f"iteration's {want}")
+            if axes == (2, 1):
+                require(per_replay.get("greedy_head", 0) > 0 or
+                        name.startswith("phase-2"), f"{what}: B never "
+                        f"launched")
+            else:
+                require(per_replay.get("beam_head", 0) > 0 and
+                        per_replay.get("head_merge", 0) > 0 and
+                        per_replay.get("greedy_head", 0) == 0,
+                        f"{what}: C and head_merge a replay {per_replay}")
+            for key in total:
+                total[key] += run["launches"][1][key] + \
+                    run["launches"][k][key]
+            rates = run["rates"]
+            idle = f"; idle share {run['idle'][1]:.3f} per step, " \
+                f"{run['idle'][k]:.3f} fused (traced kernels " \
+                f"{run['kernel_ms'][1]:.2f} / {run['kernel_ms'][k]:.2f} ms " \
+                f"a step); peak {run['peak_mib']:.0f} MiB" \
+                if "idle" in run else ""
+            print(f"  {what}: per step {run['its'][1]:.2f} it/s, fused "
+                  f"{run['its'][k]:.2f} it/s a rank (in turns: "
+                  + ", ".join(f"{x:.2f}" for x in rates[1] + rates[k])
+                  + f"; B={TRAIN_B}, two ranks sharing one card over gloo, "
+                  f"{smi}){idle}; first chunk {run['first_s'][k]:.1f} s "
+                  f"(warm-up, capture, replays) vs {run['first_s'][1]:.1f} "
+                  f"s per step; the pair {run['s']:.1f} s", flush=True)
+            out.append({"what": what, "loss_rel": rel,
+                        "segments": seg, "collectives": col,
+                        "its": run["its"], "idle": run.get("idle"),
+                        "kernel_ms": run.get("kernel_ms"),
+                        "peak_mib": run.get("peak_mib"), "s": run["s"]})
+    return total, out
+
+
+def host_process(env, cwd, cfg, results):
+    """One host of a torchrun world on this machine: torchrun's
+    environment `env`, the working directory `cwd`; joins the world through
+    `launch.run` and puts (rank, ok, result or traceback) on `results`."""
+    import traceback
+    os.environ.update(env)
+    os.chdir(cwd)
+    try:
+        from cooperativeimagecaptioning_tpu_torch.parallel import launch
+        out = launch.run(host_rank, (cfg,), 0, cfg["DEVICE"])
+        results.put((int(env["RANK"]), True, out))
+    except BaseException:  # reported to the parent, which raises it
+        results.put((int(env["RANK"]), False, traceback.format_exc()))
+
+
+def host_rank(cfg):
+    """A rank on its own host: MESH_TRAIN_STEPS (2, 1) phase-2 iterations
+    writing the relative run dir 'run' (global rank 0 writes it), a
+    Trainer resuming it for one iteration, and `eval.eval` of it (rank 0
+    reads it for both)."""
+    globals().update(cfg)
+    import torch
+    import torch.distributed as dist
+    from cooperativeimagecaptioning_tpu_torch import eval as eval_entry
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = train_opt(TRAIN_B).replace(mesh_data_axis=2, mesh_model_axis=1,
+                                     checkpoint_path="run", id="h")
+    out = {"backend": dist.get_backend(), "cwd": os.getcwd()}
+    tr = Trainer(opt, dataset=train_dataset(), device=DEVICE, verbose=False)
+    out["losses"] = [float(tr.train_iteration()[0]["loss"])
+                     for _ in range(MESH_TRAIN_STEPS)]
+    tr.checkpoint_operations()
+    tr.close()
+    tr = Trainer(opt.replace(checkpoint_path="run_resumed", start_from="run"),
+                 dataset=train_dataset(), device=DEVICE, verbose=False)
+    out["resumed_at"] = tr.iteration
+    out["resumed_loss"] = float(tr.train_iteration()[0]["loss"])
+    tr.close()
+    got = eval_entry.eval(None, os.path.join("run", "model.pth"),
+                          os.path.join("run", "infos_h.pkl"), split="val",
+                          dataset=train_dataset(), device=DEVICE)
+    _dispatch.set_vocab_mesh(None)
+    out["eval"] = (len(got["split_predictions"]), got["loss"]["loss_cap"])
+    return out
+
+
+def mesh_two_hosts(losses1):
+    """Phase 9 (c): two ranks started as two hosts of a torchrun world (a
+    directory each under HOSTS_DIR, LOCAL_WORLD_SIZE=1, one card): the
+    world's backend is gloo (the ranks share the card), the losses equal
+    the one-host (2, 1) run's `losses1` (MESH_LOSS_RTOL), the run dir
+    exists only under host 0's directory, and a resume and `eval.eval` of
+    it run on both.  Returns its seconds."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    from cooperativeimagecaptioning_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    shutil.rmtree(HOSTS_DIR, ignore_errors=True)
+    port = launch.free_init_method().rsplit(":", 1)[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs, dirs = [], []
+    for r in range(2):
+        d = os.path.join(HOSTS_DIR, f"host{r}")
+        os.makedirs(d)
+        dirs.append(d)
+        env = {"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+               "LOCAL_WORLD_SIZE": "1", "GROUP_RANK": str(r),
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port,
+               "PYTHONPATH": REPO}
+        procs.append(ctx.Process(target=host_process,
+                                 args=(env, d, mesh_cfg(), results)))
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < 2:
+            try:
+                rank, ok, payload = results.get(timeout=600)
+            except queue.Empty:
+                raise SmokeFailure("two hosts: no result after 600 s")
+            require(ok, f"two hosts: rank {rank} failed:\n{payload}")
+            got[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for r in range(2):
+        g = got[r]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], losses1))
+        print(f"  two hosts, rank {r} in {os.path.relpath(g['cwd'], REPO)}: "
+              f"backend {g['backend']}; losses {g['losses']} vs the one-host "
+              f"(2, 1) run's (relative {rel:.2e}); resumed at iteration "
+              f"{g['resumed_at']}, loss {g['resumed_loss']:.6g}; eval.eval "
+              f"of host 0's run dir: {g['eval'][0]} captions, loss_cap "
+              f"{g['eval'][1]:.6g}", flush=True)
+        require(g["backend"] == "gloo", f"two hosts: backend {g['backend']}"
+                f" on one card")
+        require(rel <= MESH_LOSS_RTOL, f"two hosts rank {r}: losses {rel}")
+        require(g["resumed_at"] == MESH_TRAIN_STEPS
+                and np.isfinite(g["resumed_loss"]) and g["eval"][0] > 0
+                and np.isfinite(g["eval"][1]), f"two hosts rank {r}: {g}")
+    require(got[0]["eval"] == got[1]["eval"] and got[0]["resumed_loss"] ==
+            got[1]["resumed_loss"], "two hosts: the ranks disagree")
+    require(os.path.isfile(os.path.join(dirs[0], "run", "model.pth"))
+            and os.listdir(dirs[1]) == [],
+            f"two hosts: host 1's directory holds {os.listdir(dirs[1])}")
+    secs = time.perf_counter() - t0
+    print(f"  two hosts: the run dir only under host 0's directory; "
+          f"{secs:.1f} s", flush=True)
+    return secs
+
+
 def mesh_pair_rank(cfg):
     """Rank of the two-rank world: (1, 2) evaluation, then (2, 1) training
     and its run dir, eval.eval on that mesh run dir, then phase 3 on the
@@ -3487,6 +3813,9 @@ def mesh_pair_rank(cfg):
     out["eval_entry"] = {p["image_id"]: p["caption"]
                          for p in got["split_predictions"]}
     out["joint"] = mesh_joint_runs()
+    t0 = time.perf_counter()
+    out["fused"] = mesh_fused_runs()
+    out["fused_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3516,8 +3845,9 @@ def mesh_nccl_world_of_one():
     import torch.distributed as dist
     from cooperativeimagecaptioning_tpu_torch.parallel import (
         collectives, launch, make_mesh)
-    require(launch.backend_for("cuda", 1) == "nccl",
-            "a rank with a card of its own must take NCCL")
+    from cooperativeimagecaptioning_tpu_torch.parallel import mesh as mesh_mod
+    require(mesh_mod.world_backend("cuda", [mesh_mod.card_id("cuda", 0)])
+            == "nccl", "a rank with a card of its own must take NCCL")
     launch.init_rank(0, 1, launch.free_init_method(), "cuda", "nccl")
     try:
         mesh = make_mesh(1, 1, "cuda")
@@ -3528,6 +3858,19 @@ def mesh_nccl_world_of_one():
         require(mesh.backend == "nccl" and not mesh.world.staged
                 and torch.equal(g, x) and torch.equal(r, x),
                 f"NCCL world of one: {mesh.backend}, {g}, {r}")
+        # a segment plan over NCCL: two segments around an all_reduce
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        plan = collectives.SegmentPlan(torch.device("cuda"), side)
+        with torch.cuda.stream(side), collectives.planned(plan):
+            y = collectives.all_reduce(x * 2, mesh.world) + 1
+        torch.cuda.current_stream().wait_stream(side)
+        x.copy_(torch.arange(6, 12, dtype=torch.float32, device="cuda"))
+        plan.replay()
+        torch.cuda.synchronize()
+        require(plan.segments == 2 and len(plan.ops) == 1
+                and torch.equal(y, x * 2 + 1),
+                f"NCCL segment plan: {plan.segments} segments, {y}")
     finally:
         dist.destroy_process_group()
 
@@ -3751,15 +4094,23 @@ def phase_mesh(smi, errs, times, bounds, shapes):
         smi, single_joint, t_single_joint, [got["joint"] for got in pair])
     for k in total:
         total[k] += joint[k]
+    fused_total, out["fused"] = check_mesh_fused(
+        smi, [got["fused"] for got in pair])
+    for k in total:
+        total[k] += fused_total[k]
+    out["fused_s"] = max(got["fused_s"] for got in pair)
+    out["hosts_s"] = mesh_two_hosts(pair[0]["train"][0])
 
     if DEVICE == "cuda":
         mesh_nccl_world_of_one()
         print(f"  NCCL world of one: all_gather and all_reduce through the "
-              f"port's helpers ok", flush=True)
+              f"port's helpers ok; a segment plan's replay with an NCCL "
+              f"all_reduce between its two segments ok", flush=True)
     out["quad_s"] = t_quad
     print(f"  mesh phase in {time.perf_counter() - t_phase:.1f} s (two-rank "
-          f"world {t_pair:.1f} s, four-rank world {t_quad:.1f} s)",
-          flush=True)
+          f"world {t_pair:.1f} s, of it the fused chunks on the mesh "
+          f"{out['fused_s']:.1f} s; four-rank world {t_quad:.1f} s; two "
+          f"hosts {out['hosts_s']:.1f} s)", flush=True)
     return total, out
 
 
@@ -4535,7 +4886,7 @@ def fused_pair(make_opt, what, add, out, key):
     # one eager warm-up step
     runners = list(b._fused.values())
     replays = sum(r.replays for r in runners)
-    require(all(r.graph is not None for r in runners) and
+    require(all(r.plan is not None for r in runners) and
             replays + len(runners) == FUSED_K,
             f"{what}: {replays} replays of {len(runners)} captured "
             f"iterations in {FUSED_K} steps")

@@ -10,13 +10,15 @@ written by either package loads (config.load_infos).
 
 A run whose options name a mesh (`mesh_data_axis`, `mesh_model_axis`: a
 mesh run dir) is evaluated on that process grid: called outside a rank,
-`eval` starts the ranks itself (or joins torchrun's) and returns rank 0's
-result; each rank loads the whole checkpoint and keeps its slices."""
+`eval` starts the ranks itself (or joins torchrun's, on one host or on
+several) and returns rank 0's result.  Inside a process group global rank
+0 reads the infos and the checkpoint and sends them to every rank (a rank
+on another host may not see the run dir), and each rank keeps its
+slices."""
 
 from __future__ import annotations
 
 import numpy as np
-import torch.distributed as dist
 
 from cooperativeimagecaptioning_tpu_torch import config
 from cooperativeimagecaptioning_tpu_torch.data import DataLoader
@@ -30,14 +32,21 @@ from cooperativeimagecaptioning_tpu_torch.training import joint
 def eval(opt, model_name, infos_name, ann_file=None, listener=None,
          split="test", iteration=None, dataset=None, device="cuda"):
     """ref: eval.py:20-91."""
-    infos = config.load_infos(infos_name)
-    if not hasattr(opt, "att_hid_size") or opt is None:
+    args = (opt, model_name, infos_name, ann_file, listener, split,
+            iteration, dataset, device)
+    given = opt is not None and hasattr(opt, "att_hid_size")
+    group = mesh_mod.world_group()
+    if group is None and launch.under_torchrun() and (
+            not given or mesh_mod.mesh_shape(opt, device) is not None):
+        # torchrun's ranks join their group first: rank 0 reads the run
+        # dir, whose files a rank on another host may not see
+        return launch.run(eval, args, 0, device)
+    infos = mesh_mod.on_rank0(group, config.load_infos, infos_name)
+    if not given:
         opt = infos["opt"]
     shape = mesh_mod.mesh_shape(opt, device)
-    if shape is not None and not dist.is_initialized():
-        return launch.run(eval, (opt, model_name, infos_name, ann_file,
-                                 listener, split, iteration, dataset, device),
-                          shape[0] * shape[1], device)
+    if shape is not None and group is None:
+        return launch.run(eval, args, shape[0] * shape[1], device)
     opt.split = split
     opt.beam_size = 2          # final-eval protocol (ref: eval.py:33)
     np.random.seed(123)        # determinism pin (ref: eval.py:34)
@@ -65,16 +74,10 @@ def eval(opt, model_name, infos_name, ann_file=None, listener=None,
         device = mesh.device
     ev = Evaluator(opt, mesh=mesh, device=device)
     params = joint.init_params(getattr(opt, "seed", 123), opt, device)
-    params = ck.load_params_into(params, model_name)
-    if listener == "gt" and getattr(opt, "initialize_retrieval", None):
-        gt = ck.load_params(opt.initialize_retrieval, device)
-        if "listener" in gt:
-            params["listener"] = gt["listener"]
-            print("gt listener is loaded for evaluation")
-        else:
-            print(f"warning: {opt.initialize_retrieval} has no 'listener' "
-                  "subtree; evaluating with the TRAINED listener")
-
+    if mesh is None or mesh.rank == 0:
+        # a mesh's rank 0 reads the checkpoint and sends it to every rank
+        # (`replicate` below)
+        params = _load(params, opt, model_name, listener, device)
     if mesh is not None:
         mesh_mod.replicate(params, mesh)
         params = mesh_mod.shard_params(params, mesh,
@@ -85,6 +88,22 @@ def eval(opt, model_name, infos_name, ann_file=None, listener=None,
         params, loader, eval_kwargs, ann_file=ann_file, use_gen_sent=True)
     return {"loss": loss, "split_predictions": split_predictions,
             "lang_stats": lang_stats}
+
+
+def _load(params, opt, model_name, listener, device):
+    """The checkpoint's params merged into `params`, and with
+    listener="gt" the `initialize_retrieval` listener in place of the
+    trained one."""
+    params = ck.load_params_into(params, model_name)
+    if listener == "gt" and getattr(opt, "initialize_retrieval", None):
+        gt = ck.load_params(opt.initialize_retrieval, device)
+        if "listener" in gt:
+            params["listener"] = gt["listener"]
+            print("gt listener is loaded for evaluation")
+        else:
+            print(f"warning: {opt.initialize_retrieval} has no 'listener' "
+                  "subtree; evaluating with the TRAINED listener")
+    return params
 
 
 if __name__ == "__main__":

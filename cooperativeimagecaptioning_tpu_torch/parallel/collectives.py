@@ -25,10 +25,27 @@ Three autograd Functions make a layer split over a group trainable:
 `torch.distributed.nn.functional.all_reduce` would all-reduce the gradient
 of the second once more, multiplying it by the group's size.  Integer ids
 (sampled captions, no gradient) go through `all_gather` as they are.
+
+A plan (`planned(plan)`) sees every `all_reduce` and `all_gather`, and
+through them `all_reduce_tree` and the three Functions, in whichever thread
+calls them (autograd runs a backward's collectives in its device thread):
+  `Recording`    notes each collective (op, group, shape, dtype) and runs it
+                 as usual: the order every rank of a group must keep;
+  `SegmentPlan`  captures an iteration on the card as CUDA graphs that end
+                 at each collective (training/fused.py): at a collective it
+                 ends the segment's capture, runs the collective once into a
+                 static output buffer, and begins the next segment on the
+                 same stream and memory pool; `replay()` then replays
+                 segment i, runs collective i from its static input into its
+                 static output (gloo: through the host, NCCL: on the card)
+                 and goes on to segment i + 1.
+A broadcast or a barrier under a plan raises: no captured iteration holds
+one, and a rank that ran one alone would leave the others waiting.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, NamedTuple
 
 import torch
@@ -61,29 +78,57 @@ def _buffer(x, group):
         memory_format=torch.contiguous_format)
 
 
-def all_reduce(x, group: Group, op: str = "sum"):
-    """The reduction ("sum", "max" or "min") of x over the group, a new
-    tensor on x's device."""
-    if group is None:
-        return x
+def _reduce(x, group, op):
     buf = _buffer(x, group)
     dist.all_reduce(buf, op=_OPS[op], group=group.pg)
-    return buf.to(x.device) if group.staged else buf
+    return buf
+
+
+def _gather(x, group, dim):
+    buf = _buffer(x, group)
+    parts = [torch.empty_like(buf) for _ in range(group.size)]
+    dist.all_gather(parts, buf, group=group.pg)
+    return torch.cat(parts, dim=dim)
+
+
+# a collective's result from its input, on the host where the group stages
+_RUN = {"all_reduce": _reduce, "all_gather": _gather}
+
+# the plan that sees every collective (process-wide: autograd's device
+# thread calls the backward's), or None
+_plan = None
+
+
+def _collective(kind, x, group, arg):
+    if _plan is not None:
+        return _plan.collective(kind, x, group, arg)
+    return _RUN[kind](x, group, arg).to(x.device)
+
+
+def all_reduce(x, group: Group, op: str = "sum"):
+    """The reduction ("sum", "max" or "min") of x over the group, a new
+    tensor on x's device (under a `SegmentPlan` its static output)."""
+    if group is None:
+        return x
+    return _collective("all_reduce", x, group, op)
 
 
 def all_gather(x, group: Group, dim: int = 0):
     """The group's x, concatenated along `dim` in group-rank order."""
     if group is None:
         return x
-    buf = _buffer(x, group)
-    parts = [torch.empty_like(buf) for _ in range(group.size)]
-    dist.all_gather(parts, buf, group=group.pg)
-    out = torch.cat(parts, dim=dim)
-    return out.to(x.device) if group.staged else out
+    return _collective("all_gather", x, group, dim)
+
+
+def _unplanned(what):
+    if _plan is not None:
+        raise RuntimeError(f"{what} under a collective plan: a captured "
+                           f"iteration holds only all_reduce and all_gather")
 
 
 def broadcast_(x, group: Group):
     """x of the group's first rank, copied into x on every rank."""
+    _unplanned("broadcast_")
     buf = _buffer(x, group)
     dist.broadcast(buf, src=group.ranks[0], group=group.pg)
     with torch.no_grad():
@@ -93,6 +138,7 @@ def broadcast_(x, group: Group):
 
 def broadcast_object(obj, group: Group):
     """The group's first rank's picklable `obj`, on every rank."""
+    _unplanned("broadcast_object")
     box = [obj]
     dist.broadcast_object_list(box, src=group.ranks[0], group=group.pg)
     return box[0]
@@ -100,7 +146,142 @@ def broadcast_object(obj, group: Group):
 
 def barrier(group: Group):
     """Every rank of the group waits until all have arrived."""
+    _unplanned("barrier")
     dist.barrier(group=group.pg)
+
+
+class planned:
+    """Context manager: `plan` sees every collective inside (one plan at a
+    time); it calls plan.begin() on entry and plan.end() on exit."""
+
+    def __init__(self, plan):
+        self.plan = plan
+
+    def __enter__(self):
+        global _plan
+        if _plan is not None:
+            raise RuntimeError("a collective plan is active already")
+        self.plan.begin()
+        _plan = self.plan
+        return self.plan
+
+    def __exit__(self, *exc):
+        global _plan
+        _plan = None
+        self.plan.end(exc[0] is not None)
+        return False
+
+
+class Recording:
+    """A plan that notes each collective -- (op, group ranks, input shape,
+    dtype, reduce op or gather dim) -- and runs it as usual."""
+
+    def __init__(self):
+        self.ops = []
+
+    def begin(self):
+        pass
+
+    def end(self, failed):
+        pass
+
+    def collective(self, kind, x, group, arg):
+        self.ops.append((kind, group.ranks, tuple(x.shape), str(x.dtype),
+                         arg))
+        return _RUN[kind](x, group, arg).to(x.device)
+
+
+class _Static(NamedTuple):
+    """A collective between two segments: `out` <- its result on `x`."""
+    kind: str
+    group: Group
+    arg: Any
+    x: torch.Tensor
+    out: torch.Tensor
+
+    def run(self):
+        with torch.no_grad():
+            self.out.copy_(_RUN[self.kind](self.x, self.group, self.arg))
+
+
+class SegmentPlan:
+    """An iteration captured on the card as segments that end at its
+    collectives: graphs [g_0, ..., g_n] and collectives [c_0, ...,
+    c_n-1] on static buffers, replayed g_0, c_0, g_1, ..., g_n.
+
+    All segments are captured on `stream` into one memory pool (a tensor
+    made in one segment and read in a later one keeps its address, as in a
+    graph of the whole iteration), in the relaxed capture mode (a segment
+    that a backward's collective ends began in another thread).  Each
+    registers `generators`, so a replay draws, segment after segment, the
+    noise one eager iteration draws from them.  Under the plan a collective
+    returns its static output; the static input is the tensor it was given,
+    kept alive with the plan."""
+
+    def __init__(self, device, stream, generators=()):
+        self.device = device
+        self.stream = stream
+        self.generators = list(generators)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+        self.ops = []
+        self._open = False
+
+    def _begin_segment(self):
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        graph.capture_begin(pool=self.pool, capture_error_mode="relaxed")
+        self.graphs.append(graph)
+        self._open = True
+
+    def _end_segment(self):
+        self._open = False
+        with warnings.catch_warnings():
+            # a segment between two collectives may launch nothing
+            warnings.filterwarnings("ignore", message=".*CUDA Graph is empty")
+            self.graphs[-1].capture_end()
+
+    def begin(self):
+        with torch.cuda.stream(self.stream):
+            self._begin_segment()
+
+    def end(self, failed):
+        if not self._open:
+            return
+        with torch.cuda.stream(self.stream):
+            if not failed:
+                self._end_segment()
+                return
+            try:
+                self._end_segment()
+            except RuntimeError:
+                pass  # the capture's own error is the one to raise
+
+    def collective(self, kind, x, group, arg):
+        with torch.cuda.stream(self.stream):
+            self._end_segment()
+            x = x.detach()
+            res = _RUN[kind](x, group, arg)
+            op = _Static(kind, group, arg, x,
+                         torch.empty(res.shape, dtype=res.dtype,
+                                     device=x.device))
+            op.run()
+            self.ops.append(op)
+            self._begin_segment()
+        return op.out
+
+    @property
+    def segments(self) -> int:
+        return len(self.graphs)
+
+    def replay(self):
+        """One iteration: each segment's graph, then the collective that
+        ends it, on the current stream."""
+        for i, graph in enumerate(self.graphs):
+            graph.replay()
+            if i < len(self.ops):
+                self.ops[i].run()
 
 
 def all_reduce_tree(tree, group: Group):

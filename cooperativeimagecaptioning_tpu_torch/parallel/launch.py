@@ -5,13 +5,14 @@
 `fn(*args)` in each; it returns the ranks' results in rank order.  The
 backend follows from the layout and is printed once: NCCL where each rank
 has a card of its own, gloo where ranks share a card or run on the CPU
-(`mesh.backend_for`).  A rank that raises fails the whole run: the parent
+(`mesh.world_backend`).  A rank that raises fails the whole run: the parent
 kills the other ranks (which would wait in their next collective) and
 raises the first error with its traceback; so does a rank that dies, and a
 run that outlasts `timeout`.  CPU ranks take one thread each.
 
-Under torchrun the ranks exist already: `init_from_env` joins the group
-from the environment.  `run` is what the entry points call: in a rank, or
+Under torchrun the ranks exist already, on one host or on several:
+`init_from_env` joins the group from the environment, with the backend of
+the whole world (NCCL only where no two ranks share a card).  `run` is what the entry points call: in a rank, or
 under torchrun, fn runs in this process; otherwise the ranks are spawned
 and rank 0's result returned.
 
@@ -32,7 +33,7 @@ import torch
 import torch.distributed as dist
 
 from cooperativeimagecaptioning_tpu_torch.parallel.mesh import (
-    GROUP_TIMEOUT, backend_for, check_one_host, rank_device)
+    GROUP_TIMEOUT, card_id, rank_device, world_backend)
 
 
 def free_init_method() -> str:
@@ -43,31 +44,52 @@ def free_init_method() -> str:
 
 
 def init_rank(rank: int, world_size: int, init_method: str, device: str,
-              backend: str) -> None:
-    """Join the process group as `rank`."""
+              backend: str, store=None) -> None:
+    """Join the process group as `rank` (through `store` where given, else
+    `init_method`)."""
     if device == "cpu":
         torch.set_num_threads(1)
     else:
         torch.cuda.set_device(rank_device(device, rank))
-    dist.init_process_group(backend, init_method=init_method,
-                            world_size=world_size, rank=rank,
-                            timeout=GROUP_TIMEOUT)
+    kw = {"init_method": init_method} if store is None else {"store": store}
+    dist.init_process_group(backend, world_size=world_size, rank=rank,
+                            timeout=GROUP_TIMEOUT, **kw)
 
 
 def under_torchrun() -> bool:
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
-def init_from_env(device: str) -> None:
-    """Join the group that torchrun's environment describes."""
-    world = int(os.environ["WORLD_SIZE"])
-    rank = int(os.environ["RANK"])
-    check_one_host(world)
-    backend = backend_for(device, int(os.environ.get("LOCAL_WORLD_SIZE",
-                                                     world)))
+def exchange_cards(store, rank: int, world: int, card) -> list:
+    """Every rank's card id, in rank order, through the rendezvous store
+    (each rank sets its own key and reads the others')."""
+    store.set(f"cic_card/{rank}", "" if card is None else card)
+    out = []
+    for r in range(world):
+        got = store.get(f"cic_card/{r}").decode()
+        out.append(got or None)
+    return out
+
+
+def init_from_env(device: str) -> str:
+    """Join the group that torchrun's environment describes (ranks on one
+    host or on several); returns the backend.  The backend is the whole
+    world's: the ranks first exchange their cards' UUIDs through the
+    rendezvous store, and take NCCL only where no two of them share a card
+    (`mesh.world_backend`) -- ranks of two hosts may share one."""
+    store, rank, world = next(dist.rendezvous(
+        "env://", int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+        timeout=GROUP_TIMEOUT))
+    store.set_timeout(GROUP_TIMEOUT)
+    backend = world_backend(device, exchange_cards(
+        store, rank, world, card_id(device, rank)))
     if rank == 0:
-        print(f"mesh: {world} ranks over {backend} (torchrun)", flush=True)
-    init_rank(rank, world, "env://", device, backend)
+        hosts = world // int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        print(f"mesh: {world} ranks on {hosts} host(s) over {backend} "
+              f"(torchrun)", flush=True)
+    init_rank(rank, world, "env://", device, backend,
+              store=dist.PrefixStore("default_pg", store))
+    return backend
 
 
 def _rank_main(rank, world_size, init_method, device, backend, fn, args,
@@ -92,7 +114,10 @@ def spawn(fn, args=(), world_size: int = 2, device: str = "cuda",
         raise RuntimeError(
             f"spawn: device {device!r} asked for but no CUDA device is "
             f"available (pass device='cpu' to run the ranks on the host)")
-    backend = backend_for(device, world_size)
+    # one host: a rank's card is its device (no CUDA context in the parent)
+    backend = world_backend(device, [
+        None if device == "cpu" else rank_device(device, r)
+        for r in range(world_size)])
     init_method = free_init_method()
     where = "the CPU" if device == "cpu" else (
         "one card each" if backend == "nccl" else "shared cards")

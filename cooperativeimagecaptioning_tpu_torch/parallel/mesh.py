@@ -33,9 +33,6 @@ from cooperativeimagecaptioning_tpu_torch.parallel.collectives import Group
 from cooperativeimagecaptioning_tpu_torch.utils.tree import (
     from_leaves, leaves)
 
-# ROADMAP item of what a mesh run does not do yet: fused chunks
-# (fused_steps > 1) and a mesh over more than one host
-REST = "ROADMAP.md queue 1: multi-device, the rest"
 # every process group's timeout: a rank that died leaves the others waiting
 # no longer than this
 GROUP_TIMEOUT = timedelta(seconds=60)
@@ -66,12 +63,22 @@ class Mesh:
         return self.rank % self.n_model
 
 
-def backend_for(device: str, ranks_on_host: int) -> str:
-    """NCCL where each rank has a card of its own, gloo where ranks share a
-    card or run on the CPU."""
-    if device == "cuda" and torch.cuda.device_count() >= ranks_on_host:
-        return "nccl"
-    return "gloo"
+def world_backend(device: str, cards) -> str:
+    """The backend of a whole world from each rank's card (`card_id` across
+    hosts, the device on one host; in rank order; None on the CPU): NCCL
+    only where no two ranks share a card, else gloo (NCCL refuses two
+    ranks on one card; gloo also runs ranks on the CPU)."""
+    if device != "cuda" or any(c is None for c in cards):
+        return "gloo"
+    return "nccl" if len(set(cards)) == len(cards) else "gloo"
+
+
+def card_id(device: str, rank: int):
+    """The UUID of this rank's card (`rank_device`), or None on the CPU."""
+    if device == "cpu":
+        return None
+    dev = rank_device(device, rank)
+    return str(torch.cuda.get_device_properties(dev).uuid)
 
 
 def rank_device(device: str, rank: int) -> torch.device:
@@ -102,17 +109,6 @@ def mesh_shape(opt, device: str = "cuda"):
     return n_data, n_model
 
 
-def check_one_host(world: int) -> None:
-    """Raise NotImplementedError for ranks on more than one host (torchrun's
-    LOCAL_WORLD_SIZE below the world's size): the port's mesh shares one
-    host's loader, run dir and cards."""
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    if local < world:
-        raise NotImplementedError(
-            f"a mesh over more than one host ({world} ranks, {local} on this "
-            f"host) is not ported yet ({REST})")
-
-
 def make_mesh(n_data: int = 0, n_model: int = 1, device: str = "cuda") -> Mesh:
     """This rank's Mesh over the started process group (every rank calls it,
     in the same order as every other collective); n_data=0 takes all
@@ -124,7 +120,6 @@ def make_mesh(n_data: int = 0, n_model: int = 1, device: str = "cuda") -> Mesh:
             "train / eval entry points (they spawn one process per mesh "
             "position), under torchrun, or with parallel.launch.spawn")
     world, rank = dist.get_world_size(), dist.get_rank()
-    check_one_host(world)
     if n_data == 0:
         n_data = world // n_model
     if n_data * n_model != world:
@@ -161,6 +156,35 @@ def replicate(tree, mesh: Mesh):
     return tree
 
 
+def replicate_states(states, mesh: Mesh):
+    """Adam states {agent: {'count', 'mu': [...], 'nu': [...]}} set to
+    global rank 0's, in place."""
+    for st in states.values():
+        for x in [st["count"], *st["mu"], *st["nu"]]:
+            collectives.broadcast_(x, mesh.world)
+    return states
+
+
+def world_group():
+    """The started process group as a Group for `collectives.
+    broadcast_object` (no tensor crosses it), or None outside one."""
+    if not dist.is_initialized():
+        return None
+    return Group(None, tuple(range(dist.get_world_size())), dist.get_rank(),
+                 False)
+
+
+def on_rank0(group, fn, *args):
+    """fn(*args) run on the group's first rank (global rank 0 for the
+    world) and its picklable result sent to every rank of it, so no rank
+    reads what lies on rank 0's host (a run dir, a checkpoint); fn(*args)
+    itself without a group.  Every rank of the group calls it."""
+    if group is None:
+        return fn(*args)
+    return collectives.broadcast_object(
+        fn(*args) if group.rank == 0 else None, group)
+
+
 # batch keys that stay whole on every rank: per-run constants (the df table),
 # and the reward tiers' refs, which score the data group's gathered ids and
 # give soft CIDEr the global batch's document frequencies
@@ -192,15 +216,24 @@ def shard_batch(batch, mesh: Mesh):
     return put(batch)
 
 
+# a fused chunk's per-step values beside its rows (its RowLayout's lr [1]
+# and Hyper values [10]), which stay whole
+_STEP_KEYS = frozenset({"lr", "hp"})
+
+
 def shard_batch_stacked(xs, mesh: Mesh):
     """shard_batch for inputs stacked on a leading step axis: axis 1 holds
-    each step's rows (JAX mesh.py:81-97)."""
+    each step's rows (JAX mesh.py:81-97); `_REPLICATED_KEYS` (the refs) and
+    the per-step values (`_STEP_KEYS`, and leaves of one dim) stay
+    whole."""
     n, i = mesh.n_data, mesh.data_index
 
-    def put(x):
+    def put(x, const=False):
         if isinstance(x, dict):
-            return {k: put(v) for k, v in x.items()}
-        if not isinstance(x, torch.Tensor) or x.dim() < 2 or x.shape[1] % n:
+            return {k: put(v, const or k in _REPLICATED_KEYS | _STEP_KEYS)
+                    for k, v in x.items()}
+        if not isinstance(x, torch.Tensor) or const or x.dim() < 2 or \
+                x.shape[1] % n:
             return x
         return _rows(x, n, i, 1)
     return put(xs)

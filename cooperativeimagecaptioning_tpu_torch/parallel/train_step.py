@@ -3,8 +3,10 @@ the JAX package's parallel/train_step.py, one GSPMD-partitioned program
 there).
 
 `make_distributed_train_step(opt, turn, mesh)` returns step(params, optim,
-batch, streams, hp, reward=None, sampled=None) -> (loss, aux) for one turn
-('optimizer', 'speaker' or 'listener'), which in one call:
+batch, streams, hp, reward=None, sampled=None, lr=None) -> (loss, aux) for
+one turn ('optimizer', 'speaker' or 'listener'), which in one call (a
+per-step iteration's, or the body a fused chunk captures,
+training/fused.py):
   * takes this rank's rows of the global batch (`mesh.shard_batch`: the
     Trainer puts only those rows on the device) and of the global reward,
     and draws this rank's rows of every random draw (`draws.RowShard`: the
@@ -62,13 +64,15 @@ def global_sums(loss, aux, mesh):
 def make_distributed_train_step(opt, turn, mesh):
     grad_fn = joint.value_and_grad(opt, turn, rows=data_rows(mesh))
 
-    def step(params, optim, batch, streams, hp, reward=None, sampled=None):
+    def step(params, optim, batch, streams, hp, reward=None, sampled=None,
+             lr=None):
         """`batch`: this rank's rows (`mesh.shard_batch`); `reward`: this
-        rank's rows of the host reward, or None."""
+        rank's rows of the host reward, or None; `lr`: a fused chunk's
+        staged rate (a 0-d tensor), or None for the optimizer's."""
         (loss, aux), grads = grad_fn(params, batch, row_streams(streams, mesh),
                                      hp, reward, sampled)
         grads = collectives.all_reduce_tree(grads, mesh.data)
-        optim.step(params, grads, turn)
+        optim.step(params, grads, turn, lr)
         return global_sums(loss, aux, mesh)
 
     return step

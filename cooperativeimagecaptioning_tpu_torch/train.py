@@ -14,9 +14,10 @@ gt|greedy|no`, alternating speaker and listener turns), seeded with
 `--speaker_stage_2_model_path` / `--initialize_retrieval` or resumed with
 `--start_from DIR`; `--audit_grad_isolation 1` checks that each step moved
 only its turn's agents, and `--profile_dir D --profile_start S
---profile_steps N` traces the iterations [S, S + N) with torch.profiler.
-Other configurations raise NotImplementedError naming what is missing.
-After a phase-3 run, results harvesting writes the val / test dicts and
+--profile_steps N` traces the iterations [S, S + N) with torch.profiler;
+`--fused_steps K --device_feature_cache 1` trains in captured chunks of K
+where nothing needs the host each step (training/loop.py `_fused_gate`).
+An orbax run dir raises (orbax imports JAX).  After a phase-3 run, results harvesting writes the val / test dicts and
 the run's json report (evaluation/harvest.py; the repository's train.py
 does the same), once, after the last rank of a mesh run finished.
 
@@ -32,16 +33,24 @@ does the same), once, after the last rank of a mesh run finished.
         --speaker_stage_2_model_path runs/att/model.pth \
         --initialize_retrieval runs/fc_con/model_vse-best.pth ...
 
-Phase 2 also on a (data, model) process grid: `--mesh_data_axis N
+Every phase also on a (data, model) process grid, per step or in fused
+chunks (`--fused_steps K --device_feature_cache 1`): `--mesh_data_axis N
 --mesh_model_axis M` starts the N*M ranks from this one command (one
 process per mesh position: NCCL where each has a card, gloo where they
 share one or run on the CPU), or, under torchrun, each process is the rank
-the environment names:
+the environment names, on one host or on several (NCCL only where no two
+ranks of the world share a card; global rank 0 reads and writes the run
+dir, and harvests it alone):
 
     python -m cooperativeimagecaptioning_tpu_torch.train --device cuda \
         --phase 2 --mesh_data_axis 2 --mesh_model_axis 2 ...
     torchrun --nproc_per_node 4 -m cooperativeimagecaptioning_tpu_torch.train \
         --device cuda --phase 2 --mesh_data_axis 2 --mesh_model_axis 2 ...
+    torchrun --nnodes 2 --node_rank R --nproc_per_node 2 \
+        --master_addr HOST0 --master_port 29500 \
+        -m cooperativeimagecaptioning_tpu_torch.train --device cuda \
+        --phase 2 --mesh_data_axis 4 --fused_steps 8 \
+        --device_feature_cache 1 ...
 """
 
 from __future__ import annotations
@@ -76,8 +85,12 @@ def main(argv=None):
     else:
         result = launch.run(train_rank, (opt, known.device),
                             shape[0] * shape[1], known.device)
-        if launch.under_torchrun() and int(os.environ["RANK"]) != 0:
-            return result  # rank 0 harvests
+        if launch.under_torchrun():
+            if int(os.environ["RANK"]) != 0:
+                return result  # rank 0 harvests
+            # the other ranks have left: rank 0 re-evaluates on its own
+            # device
+            opt = opt.replace(mesh_data_axis=0, mesh_model_axis=1)
     if opt.phase in (1, 2):
         return result
     harvest.create_dicts_and_json_after_training(opt, device=known.device)

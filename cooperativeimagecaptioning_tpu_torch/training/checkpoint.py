@@ -233,10 +233,13 @@ class CheckpointManager:
     """The run dir of one training run (JAX checkpoint.py:124-312, the .pth
     tier; the orbax tier raises, `refuse_orbax`)."""
 
-    def __init__(self, opt):
+    def __init__(self, opt, writer=True):
+        """`writer`: whether this process writes the run dir (a mesh run's
+        global rank 0); only the writer creates it."""
         refuse_orbax(opt=opt)
         self.opt = opt
-        os.makedirs(opt.checkpoint_path, exist_ok=True)
+        if writer:
+            os.makedirs(opt.checkpoint_path, exist_ok=True)
 
     def _path(self, name):
         return os.path.join(self.opt.checkpoint_path, name)

@@ -28,16 +28,19 @@ and the iteration, so stage B re-draws stage A's trajectory.
 
 Every phase also runs on a (data, model) process grid (`mesh_data_axis`,
 `mesh_model_axis`; one process per mesh position, started by the port's
-train entry point or torchrun): each rank puts its rows of the global
-batch on its device (from the device feature cache, which every rank
-holds whole, as the JAX package replicates it) and keeps its slices of the
-vocabulary matrices, and each turn steps through its
+train entry point or torchrun, on one host or on several): each rank puts
+its rows of the global batch on its device (from the device feature cache,
+which every rank holds whole, as the JAX package replicates it) and keeps
+its slices of the vocabulary matrices, and each turn steps through its
 `parallel.train_step.make_distributed_train_step`; stage A samples the
 rank's rows and the host reward scores the data group's gathered ids
 (`joint.host_reward`); att_bn's running statistics are the global
 batch's, the same on every rank; the audit and the profiler window run on
-every rank; rank 0 writes the run dir, with the slices gathered, so it is
-the file set of a single-device run and either resumes the other.
+every rank.  Global rank 0 alone reads and writes the run dir: a resume
+(`start_from`, the bootstrap cascade's seeds) is read there and sent to
+every rank, since a rank on another host may not see its files, and the
+run dir it writes holds the slices gathered, so it is the file set of a
+single-device run and either resumes the other.
 
 The device tiers of the CIDEr-D reward (on_device_cider: the hashed n-gram
 CIDEr-D inside the step; soft_cider: the differentiable soft CIDEr) need
@@ -48,15 +51,11 @@ device_feature_cache every image's fc / att features sit on the device
 (`_build_feature_cache`, f32 or bf16) and batches are gathered there by
 their image indices.  With fused_steps K > 1 (and the cache) up to K
 iterations are staged on the host and run as one chunk (`train_chunk`): on
-the card one iteration captured as a CUDA graph and replayed per step
-(training/fused.py); `_fused_gate` names what keeps a configuration on the
-per-step path, as the JAX package's gate does.
-
-Not ported yet, raising NotImplementedError that names ROADMAP.md queue 1
-item [12b] (`mesh.REST`): fused chunks (fused_steps > 1) on a mesh -- a
-chunk is one captured CUDA graph, and the gloo collectives of ranks that
-share a card cannot be captured --, and a mesh over more than one host
-(`mesh.check_one_host`).
+the card one iteration captured as CUDA graphs and replayed per step
+(training/fused.py); on a mesh every rank stages the same global rows in
+one copy and keeps its own, and the captured iteration is the mesh step
+in segments between its collectives.  `_fused_gate` names what keeps a
+configuration on the per-step path, as the JAX package's gate does.
 """
 
 from __future__ import annotations
@@ -107,26 +106,6 @@ class _Overflow(Exception):
     to the largest image)."""
 
 
-def mesh_unported(opt):
-    """Why this port cannot train `opt` on a mesh yet (None = it can):
-    every phase is ported, fused chunks are not (a chunk is one captured
-    CUDA graph, and gloo's collectives cannot be captured)."""
-    if int(getattr(opt, "fused_steps", 1) or 1) > 1:
-        return f"on a device mesh, fused chunks (fused_steps > 1) " \
-            f"({mesh_mod.REST})"
-    return None
-
-
-def unported(opt):
-    """Why this port cannot train `opt` yet (None = it can)."""
-    if int(getattr(opt, "mesh_data_axis", 0) or 0) > 1 or \
-            int(getattr(opt, "mesh_model_axis", 1) or 1) > 1:
-        why = mesh_unported(opt)
-        if why:
-            return why
-    return None
-
-
 class Trainer:
     """Training on one device: phase 1 (the listener), phase 2 (MLE), and
     phase 3 (self-critical CIDEr-D with the host or a device reward, the
@@ -136,9 +115,6 @@ class Trainer:
 
     def __init__(self, opt, dataset=None, rng_seed=None, verbose=True,
                  device="cuda"):
-        why = unported(opt)
-        if why:
-            raise NotImplementedError(f"Trainer: not ported yet: {why}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: device 'cuda' asked for but no CUDA "
@@ -165,39 +141,32 @@ class Trainer:
             self.mesh = mesh_mod.make_mesh(*shape, device=self.device.type)
             self.device = self.mesh.device
 
-        self.ckpt = ck.CheckpointManager(opt)
-        infos = self.ckpt.load_infos()
-        histories = self.ckpt.load_histories()
+        # global rank 0 alone reads the files of a resume and of the
+        # bootstrap cascade, and writes the run dir; every rank gets what
+        # it read (a rank on another host may not see them)
+        world = None if self.mesh is None else self.mesh.world
+        reader = world is None or world.rank == 0
+        self.ckpt = ck.CheckpointManager(opt, writer=reader)
+        infos = mesh_mod.on_rank0(world, self.ckpt.load_infos)
+        histories = mesh_mod.on_rank0(world, self.ckpt.load_histories)
 
         seed = rng_seed if rng_seed is not None else getattr(opt, "seed", 123)
-        params, resumed = self._bootstrap(joint.init_params(
-            seed, opt, self.device))
+        params, resumed = joint.init_params(seed, opt, self.device), False
+        if reader:
+            params, resumed = self._bootstrap(params)
         if self.mesh is not None:
             # replicated from rank 0; each rank keeps its slices below
+            resumed = collectives.broadcast_object(resumed, world)
             mesh_mod.replicate(params, self.mesh)
             self.param_specs = mesh_mod.param_specs(params, self.mesh)
         self.params = {agent: trainable(tree)
                        for agent, tree in params.items()}
 
-        self.optim = OptimizerManager(
-            opt, self.params, None if self.mesh is None else self.mesh.world)
-        if resumed:
-            # the Adam moments and counts beside the params (ref
-            # optimizer.py:149-188)
-            self.ckpt.load_optimizers(self.optim)
-        elif not getattr(opt, "share_embed", 0):
-            # cross-stage seeding: the stage-2 speaker's Adam state and the
-            # stage-1 listener's (its optimizer.pth beside
-            # initialize_retrieval); both skipped under share_embed (ref
-            # optimizer.py:49-96; JAX loop.py:126-141)
-            p2 = getattr(opt, "speaker_stage_2_optimizer_path", "") or ""
-            if p2:
-                self.ckpt.load_agent_optimizer(self.optim, "speaker", p2)
-            ir = getattr(opt, "initialize_retrieval", "") or ""
-            p1 = os.path.join(os.path.dirname(ir), "optimizer.pth")
-            if ir and "listener" in self.params and os.path.isfile(p1):
-                self.ckpt.load_agent_optimizer(self.optim, "listener", p1)
+        self.optim = OptimizerManager(opt, self.params, world)
+        loaded = reader and self._load_optimizers(resumed)
         if self.mesh is not None:
+            if collectives.broadcast_object(loaded, world):
+                mesh_mod.replicate_states(self.optim.states, self.mesh)
             # Adam states load at whole shapes (either package's files),
             # then each rank keeps its slices
             self.optim.states = mesh_mod.shard_states(
@@ -386,6 +355,31 @@ class Trainer:
     def feature_cache_bytes(self):
         """Bytes the device feature cache holds (0 without one)."""
         return cache_bytes(self._feat_cache or {})
+
+    def _load_optimizers(self, resumed):
+        """Load the Adam states of a resume or of the cross-stage seeds;
+        whether any loaded."""
+        opt = self.opt
+        if resumed:
+            # the Adam moments and counts beside the params (ref
+            # optimizer.py:149-188)
+            return self.ckpt.load_optimizers(self.optim)
+        if getattr(opt, "share_embed", 0):
+            return False
+        # cross-stage seeding: the stage-2 speaker's Adam state and the
+        # stage-1 listener's (its optimizer.pth beside initialize_retrieval);
+        # both skipped under share_embed (ref optimizer.py:49-96; JAX
+        # loop.py:126-141)
+        loaded = False
+        p2 = getattr(opt, "speaker_stage_2_optimizer_path", "") or ""
+        if p2:
+            loaded |= self.ckpt.load_agent_optimizer(self.optim, "speaker", p2)
+        ir = getattr(opt, "initialize_retrieval", "") or ""
+        p1 = os.path.join(os.path.dirname(ir), "optimizer.pth")
+        if ir and "listener" in self.params and os.path.isfile(p1):
+            loaded |= self.ckpt.load_agent_optimizer(self.optim, "listener",
+                                                     p1)
+        return loaded
 
     def _bootstrap(self, params):
         """(params, resumed) after the JAX package's bootstrap cascade (JAX
@@ -717,14 +711,21 @@ class Trainer:
     def train_chunk(self, max_steps):
         """Up to max_steps iterations as one fused chunk (JAX
         loop.py:677-720), with the per-step path's semantics: the same
-        streams, schedule values, guarded updates and histories cadence.
-        The staged rows reach the device in one copy.  Returns (the last
+        streams, schedule values, guarded updates (on a mesh the world's
+        non-finite flag) and histories cadence.  The staged rows reach the
+        device in one copy.  Returns (the last
         step's loss dict, turn, last data, steps run)."""
         opt = self.opt
         st = self._stage_chunk(max_steps)
         K, turn = st["n_steps"], st["turn"]
         rows = torch.from_numpy(st["rows"]).to(self.device)
-        runner = self._fused_step(turn, st["use_ss"], st["layout"])
+        layout = st["layout"]
+        if self.mesh is not None:
+            # every rank staged the same global rows; each keeps its own
+            # (the refs and the per-step values whole)
+            rows, layout = fused.restack(mesh_mod.shard_batch_stacked(
+                layout.unstack(rows), self.mesh))
+        runner = self._fused_step(turn, st["use_ss"], layout)
         losses, auxs, oks = runner.run(rows, st["seeds"])
         self.optim.last_step_ok = oks[-1]
         for j in range(K):

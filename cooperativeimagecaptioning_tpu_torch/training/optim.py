@@ -120,12 +120,13 @@ class OptimizerManager:
     def set_lr(self, lr: float):
         self.lr = float(lr)
 
-    def step(self, params, grads, turn: str):
-        """Update `params` in place for the agents of this turn."""
+    def step(self, params, grads, turn: str, lr=None):
+        """Update `params` in place for the agents of this turn, at `lr`
+        (a 0-d tensor: a fused chunk's staged rate) or the current rate."""
         agents = tuple(a for a in agents_to_update(self.opt, turn)
                        if a in params)
         ok = guarded_update(self.opt, params, grads, self.states, agents,
-                            self.lr, self.group)
+                            self.lr if lr is None else lr, self.group)
         self.last_step_ok = ok
         self._skipped += (~ok).to(torch.int32)
         return params

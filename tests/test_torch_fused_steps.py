@@ -386,24 +386,27 @@ def test_row_layout_packs_and_unpacks():
 @pytest.mark.parametrize("kw", [dict(fused_steps=3),
                                 dict(device_feature_cache=1)])
 def test_a_mesh_refuses_fused_chunks_and_the_cache(kw):
-    """Fused chunks on a mesh raise, naming "multi-device, the rest".  The
-    device feature cache raised on a mesh too until it was ported (the id
-    kept): on a (2, 1) mesh every rank holds the cache whole and gathers
-    its own rows, and three iterations equal the streamed single-device
-    run (losses rtol 2e-5, params within 2 lr steps: the mesh tests'
-    tolerances)."""
-    if "fused_steps" in kw:
-        opt = tiny_opt(mesh_data_axis=2, **kw)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1: multi-device, the "
-                                 "rest"):
-            trainer(opt)
-        return
+    """Fused chunks and the device feature cache raised on a mesh until
+    they were ported (the ids kept): on a (2, 1) mesh every rank holds the
+    cache whole and gathers its own rows, and a chunk of three
+    (fused_steps=3 with the cache) or three single iterations (the cache)
+    equal the streamed single-device run (losses rtol 2e-5, params within
+    2 lr steps: the mesh tests' tolerances)."""
     import torch_mesh_ranks as ranks
     from cooperativeimagecaptioning_tpu_torch.parallel import launch
     steps = 3
-    got = launch.spawn(ranks.train_mesh, (kw, (2, 1), steps, False), 2,
-                       "cpu")
+    if "fused_steps" in kw:
+        opt = ranks.tiny_opt(device_feature_cache=1, max_att_len=6, **kw)
+        got = launch.spawn(ranks.fused_world_rank, (
+            (2, 1), {"f": (opt, steps, None, False, False)}), 2, "cpu")
+        for r in got:
+            assert r["f"]["fused"] and r["f"]["gate"] is None
+        got = [dict(r["f"], losses=[r["f"]["losses"][i]
+                                    for i in range(1, steps + 1)])
+               for r in got]
+    else:
+        got = launch.spawn(ranks.train_mesh, (kw, (2, 1), steps, False), 2,
+                           "cpu")
     opt = ranks.tiny_opt()
     tr = tloop.Trainer(opt, dataset=ranks.tiny_dataset(opt), device="cpu",
                        verbose=False)
@@ -433,7 +436,9 @@ def test_a_captured_chunk_equals_per_step_on_the_card():
         tr.train(max_iterations=6)
         out.append(tr)
     steps = list(out[1]._fused.values())
-    assert steps and steps[0].graph is not None and steps[0].replays == 4
+    # off a mesh the iteration has no collective: one segment
+    assert steps and steps[0].plan is not None and \
+        steps[0].segments == 1 and steps[0].replays == 4
     a, b = floats(out[0].loss_history), floats(out[1].loss_history)
     for it in a:
         np.testing.assert_allclose(b[it], a[it], rtol=1e-6)

@@ -14,8 +14,10 @@ gloo (ranks in tests/torch_mesh_ranks.py), against single-device runs
   training with the listener, phase 1, att_bn; the sampled decodes) now
   equal the single-device port and JAX (tests/test_torch_mesh_phase3.py
   has the rest of the matrix);
-* what a mesh still does not run (fused chunks, more than one host) raises
-  NotImplementedError naming "multi-device, the rest".
+* what a mesh refused until it was ported (fused chunks, more than one
+  host): a (2, 1) mesh over two hosts in fused chunks equals the
+  single-device run (tests/test_torch_mesh_fused.py and
+  test_torch_mesh_hosts.py have the rest).
 
 Tolerances: losses rtol 2e-5 (the JAX mesh test's); params after n steps
 atol 2 * lr * n (Adam's first update is lr * sign(g): a gradient near 0
@@ -287,30 +289,48 @@ def test_what_a_mesh_does_not_run_names_its_roadmap_item(configured, kw,
         phase3.assert_trainer_close(refs[i], r["trainer"][i])
 
 
-def test_what_a_mesh_still_refuses_names_its_roadmap_item():
-    """Fused chunks on a mesh and a mesh over more than one host raise,
-    naming "multi-device, the rest", before any collective."""
-    opt = ranks.tiny_opt(mesh_data_axis=2, fused_steps=4,
-                         cider_optimization=1, caption_loss_weight=0,
-                         phase=3)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1: multi-device, the rest"):
-        Trainer(opt, dataset=ranks.tiny_dataset(opt), device="cpu",
-                verbose=False)
-    env = {"WORLD_SIZE": "4", "RANK": "0", "LOCAL_WORLD_SIZE": "2"}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        with pytest.raises(NotImplementedError,
-                           match="more than one host.*multi-device, the "
-                                 "rest"):
-            launch.init_from_env("cpu")
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+def test_what_a_mesh_still_refuses_names_its_roadmap_item(tmp_path):
+    """Fused chunks on a mesh and a mesh over more than one host raised,
+    naming "multi-device, the rest", until they were ported (the id kept):
+    a (2, 1) mesh over two hosts (torchrun's environment, a directory each)
+    trains phase 2 in fused chunks of 4 with the feature cache, and SCST
+    with the host reward under fused_steps 4 per step, with the JAX
+    package's gate reason; both equal the single-device per-step run of
+    the same options (losses rtol 2e-5, params within 2 lr steps)."""
+    from cooperativeimagecaptioning_tpu.training import loop as jloop
+    opts = {"mle": (ranks.tiny_opt(fused_steps=4, device_feature_cache=1,
+                                   max_att_len=6), 4),
+            "scst": (ranks.tiny_opt(fused_steps=4, cider_optimization=1,
+                                    caption_loss_weight=0, phase=3), 2)}
+    cases = {k: (opt.replace(checkpoint_path=str(tmp_path / k)), n, None,
+                 False, False) for k, (opt, n) in opts.items()}
+    got, _ = ranks.run_hosts(tmp_path, "fused_world_rank", ((2, 1), cases))
+    for key, (opt, n) in opts.items():
+        ranks.self_critical_reset()
+        single = Trainer(opt.replace(fused_steps=1,
+                                     checkpoint_path=str(tmp_path / "one")),
+                         dataset=ranks.tiny_dataset(opt), device="cpu",
+                         verbose=False)
+        single.train(max_iterations=n)
+        want = {k: float(v) for k, v in single.loss_history.items()}
+        params = dict(leaves(ranks.trainer_state(single)["params"]))
+        jtr = jloop.Trainer(JOptions(**vars(opt)),
+                            dataset=ranks.tiny_dataset(opt), verbose=False)
+        gate = jtr._fused_gate()
+        jtr.close()
+        for r in got:
+            run = r[key]
+            assert run["gate"] == gate and run["fused"] == (gate is None)
+            assert run["losses"].keys() == want.keys()
+            for it, v in want.items():
+                np.testing.assert_allclose(run["losses"][it], v,
+                                           rtol=LOSS_RTOL)
+            for k, v in leaves(run["params"]):
+                np.testing.assert_allclose(v, params[k], rtol=0,
+                                           atol=2 * opt.learning_rate * n,
+                                           err_msg=k)
+    assert got[0]["mle"]["gate"] is None
+    assert got[0]["scst"]["gate"].startswith("host-side reward")
 
 
 def test_a_mesh_run_outside_its_ranks_says_how_to_start_them():

@@ -608,6 +608,34 @@ def test_trainer_learns_and_is_deterministic():
     assert np.mean(runs[0][-3:]) < runs[0][0]
 
 
+def assert_mesh_trains_as_single_device(opt, steps=2):
+    """A (2, 1) mesh Trainer of `opt` (its mesh axes set) through
+    `Trainer.train`: the gate gives the JAX package's reason, and the
+    losses equal the single-device per-step run's (rtol 2e-5, the mesh
+    tests' tolerance)."""
+    import torch_mesh_ranks as ranks
+    from cooperativeimagecaptioning_tpu_torch.parallel import launch
+    single = opt.replace(mesh_data_axis=0, mesh_model_axis=1)
+    got = launch.spawn(ranks.fused_world_rank, (
+        (2, 1), {"m": (single, steps, None, False, False)}), 2, "cpu")
+    tloop.self_critical.reset_scorer()
+    tr = tloop.Trainer(single.replace(fused_steps=1),
+                       dataset=ranks.tiny_dataset(opt), device="cpu",
+                       verbose=False)
+    tr.train(max_iterations=steps)
+    want = {k: float(v) for k, v in tr.loss_history.items()}
+    jtr = jloop.Trainer(single.replace(), dataset=ranks.tiny_dataset(opt),
+                        verbose=False)
+    gate = jtr._fused_gate()
+    jtr.close()
+    assert gate not in (None, "off")
+    for r in got:
+        assert r["m"]["gate"] == gate and not r["m"]["fused"]
+        assert r["m"]["losses"].keys() == want.keys()
+        for it, v in want.items():
+            np.testing.assert_allclose(r["m"]["losses"][it], v, rtol=2e-5)
+
+
 @pytest.mark.parametrize("kw,match", [
     ({"fused_steps": 2}, "fused_steps"),
     ({"device_feature_cache": 1}, "device_feature_cache"),
@@ -623,21 +651,19 @@ def test_trainer_learns_and_is_deterministic():
     ({"cider_optimization": 1, "soft_cider": 1}, "device rewards"),
 ])
 def test_trainer_raises_on_unported_options(kw, match):
-    """What the Trainer does not train yet raises, naming its ROADMAP item:
-    here fused chunks on a mesh (a mesh run of SCST raised here until it
-    was ported; tests/test_torch_mesh_phase3.py runs it).  REINFORCE DISC
-    and real alternation, fused
-    steps, the device feature cache and the device reward tiers raised
-    here until they were ported (their ids keep the messages they
-    matched); they now train: two iterations equal to the JAX steps turn
-    by turn (a fused_steps run without the cache on JAX's per-step path,
-    with JAX's gate reason), and with the cache equal to the streamed
-    Trainer's."""
+    """What the Trainer did not train raised here, naming its ROADMAP item,
+    until it was ported (the ids keep the messages they matched): REINFORCE
+    DISC and real alternation, fused steps, the device feature cache, the
+    device reward tiers, and on a mesh SCST with fused_steps (a mesh run of
+    SCST raised until it was ported, then fused chunks on a mesh).  They
+    now train: two iterations equal to the JAX steps turn by turn (a
+    fused_steps run without the cache on JAX's per-step path, with JAX's
+    gate reason), with the cache equal to the streamed Trainer's, and the
+    mesh's equal to the single-device run (`assert_mesh_trains_as_single_
+    device`)."""
     opt = tiny_opt(**kw)
     if "mesh" in match:
-        with pytest.raises(NotImplementedError, match=match):
-            tloop.Trainer(opt, dataset=tiny_dataset(opt), device="cpu",
-                          verbose=False)
+        assert_mesh_trains_as_single_device(opt)
         return
     if kw.get("device_feature_cache"):
         from test_torch_fused_steps import assert_cache_trains_as_streamed
@@ -696,7 +722,6 @@ def test_train_main_passes_resume_and_scst_flags(monkeypatch):
     opt = seen["opt"]
     assert (opt.start_from, opt.cider_optimization, opt.caption_loss_weight,
             opt.phase) == ("runs/a", 1, 0, 3)
-    assert tloop.unported(opt) is None
 
 
 def test_training_imports_no_jax():

@@ -701,3 +701,181 @@ def eval_replayed_rank(shape, opt, params, ek, noise, dataset):
                                                              dict(ek))
     _dispatch.set_vocab_mesh(None)
     return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_mesh_fused.py (and the fused / host-reward cases of
+# test_torch_fused_steps.py and test_torch_training.py)
+# ---------------------------------------------------------------------------
+
+def self_critical_reset():
+    """The port's process-wide CIDEr-D scorer, fresh."""
+    from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
+    self_critical.reset_scorer()
+
+
+def fused_run(opt, steps, noise=None, nan_image=False, record=False,
+              device="cpu"):
+    """A mesh Trainer of `opt` (its mesh axes set) through `Trainer.train`
+    for `steps` iterations: fused chunks where `opt.fused_steps` > 1 and
+    the gate lets them, else per step.  `noise`: {stream seed: {stream:
+    the global draws}} replayed in place of the iterations' streams;
+    `nan_image`: a NaN planted in the feature cache's first train image
+    (its steps are skipped); `record`: one more iteration (a chunk of one
+    where fused) under `collectives.Recording`.  Returns the histories,
+    counters, gathered state, the recorded collectives, the launches of
+    the run and, fused, the captured steps' segments, collectives, replays
+    and launches a replay."""
+    import copy
+    from cooperativeimagecaptioning_tpu_torch.rewards import self_critical
+    from cooperativeimagecaptioning_tpu_torch.training import loop
+    opt = copy.deepcopy(opt)
+    self_critical.reset_scorer()
+    real = joint.streams
+    if noise is not None:
+        joint.streams = lambda seed, device, gens=None: replays(noise[seed])
+    try:
+        tr = loop.Trainer(opt, dataset=tiny_dataset(opt), device=device,
+                          verbose=False)
+        if nan_image:
+            first = tr.loader.split_ix["train"][0]
+            tr._feat_cache["att"][first, 0, 0] = float("nan")
+        _dispatch.reset_launches()
+        tr.train(max_iterations=steps)
+        steps_run = list(tr._fused.values())
+        out = dict(trainer_state(tr), gate=tr._fused_gate(),
+                   launches=_dispatch.launches(),
+                   segments=[f.segments for f in steps_run],
+                   collectives=[f.collectives for f in steps_run],
+                   replays=sum(f.replays for f in steps_run),
+                   per_replay=steps_run[0].launches if steps_run else None,
+                   fused=bool(tr._fused), epoch=tr.epoch,
+                   losses={k: float(v) for k, v in tr.loss_history.items()},
+                   lrs=dict(tr.lr_history), ss=dict(tr.ss_prob_history),
+                   skipped=tr.optim.skipped_steps(),
+                   checkpoints=sorted(tr.val_result_history),
+                   last_ok=bool(tr.optim.last_step_ok))
+        if record:
+            # train() closed the Trainer, clearing its vocab mesh
+            _dispatch.set_vocab_mesh(tr.mesh, opt.vocab_size)
+            rec = collectives.Recording()
+            with collectives.planned(rec):
+                if tr._fused:
+                    tr.train_chunk(1)
+                else:
+                    tr.train_iteration()
+            out["recorded"] = rec.ops
+        tr.close()
+    finally:
+        joint.streams = real
+    return out
+
+
+def fused_world_rank(shape, cases, device="cpu"):
+    """One world of tests/test_torch_mesh_fused.py: `fused_run` of each case
+    {key: (opt, steps, noise, nan_image, record)} on a mesh of `shape`
+    (None: the mesh its options name)."""
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for key, (opt, steps, noise, nan_image, record) in cases.items():
+        if shape is not None:
+            opt = opt.replace(mesh_data_axis=shape[0],
+                              mesh_model_axis=shape[1])
+        out[key] = fused_run(opt, steps, noise, nan_image, record, device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_mesh_hosts.py: ranks as hosts, started with torchrun's
+# environment
+# ---------------------------------------------------------------------------
+
+def host_process(env, cwd, fn_name, args, results):
+    """A process that stands for one host of a torchrun world: torchrun's
+    environment `env`, its own working directory `cwd`; it joins the world
+    through `launch.run` and puts (rank, ok, result or traceback) on
+    `results`."""
+    import traceback
+    os.environ.update(env)
+    os.chdir(cwd)
+    torch.set_num_threads(1)
+    try:
+        from cooperativeimagecaptioning_tpu_torch.parallel import launch
+        out = launch.run(globals()[fn_name], args, 0, "cpu")
+        results.put((int(env["RANK"]), True, out))
+    except BaseException:  # reported to the test, which raises it
+        results.put((int(env["RANK"]), False, traceback.format_exc()))
+
+
+def run_hosts(tmp, fn_name, args, n=2, timeout=300.0):
+    """fn(*args) in `n` processes standing for n hosts of one torchrun
+    world (each its own directory under `tmp`) -> (results by rank, the
+    host directories)."""
+    import multiprocessing as mp
+    import queue
+    from cooperativeimagecaptioning_tpu_torch.parallel import launch
+    port = launch.free_init_method().rsplit(":", 1)[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    dirs, procs = [], []
+    for r in range(n):
+        d = os.path.join(str(tmp), f"host{r}")
+        os.makedirs(d, exist_ok=True)
+        dirs.append(d)
+        env = {"RANK": str(r), "WORLD_SIZE": str(n), "LOCAL_RANK": "0",
+               "LOCAL_WORLD_SIZE": "1", "GROUP_RANK": str(r),
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port}
+        procs.append(ctx.Process(target=host_process,
+                                 args=(env, d, fn_name, args, results)))
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < n:
+            try:
+                rank, ok, out = results.get(timeout=timeout)
+            except queue.Empty:
+                raise TimeoutError(f"hosts still running after {timeout} s")
+            if not ok:
+                raise RuntimeError(f"host rank {rank} failed:\n{out}")
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    return [got[r] for r in range(n)], dirs
+
+
+def two_hosts_rank(opt, steps):
+    """A rank on its own host: `steps` (2, 1) iterations of `opt` writing
+    the relative run dir 'run', then a Trainer resuming it for one more
+    iteration and `eval.eval` of it (global rank 0 reads the run dir and
+    sends it)."""
+    import torch.distributed as dist
+    from cooperativeimagecaptioning_tpu_torch import eval as eval_entry
+    from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
+    out = {"backend": dist.get_backend(), "cwd": os.getcwd()}
+    tr = Trainer(opt.replace(checkpoint_path="run", id="t"),
+                 dataset=tiny_dataset(opt), device="cpu", verbose=False)
+    out["gate"] = tr._fused_gate()
+    tr.train(max_iterations=steps)
+    out["losses"] = [float(tr.loss_history[i]) for i in range(1, steps + 1)]
+    tr.checkpoint_operations()
+    out["trained"] = trainer_state(tr)
+    tr.close()
+    tr = Trainer(opt.replace(checkpoint_path="run_resumed", start_from="run",
+                             id="t"),
+                 dataset=tiny_dataset(opt), device="cpu", verbose=False)
+    out["resumed"] = trainer_state(tr)
+    out["resumed_loss"] = float(tr.train_iteration()[0]["loss"])
+    tr.close()
+    got = eval_entry.eval(None, os.path.join("run", "model.pth"),
+                          os.path.join("run", "infos_t.pkl"), split="val",
+                          dataset=tiny_dataset(opt), device="cpu")
+    out["eval"] = ({p["image_id"]: p["caption"]
+                    for p in got["split_predictions"]},
+                   got["loss"]["loss_cap"])
+    _dispatch.set_vocab_mesh(None)
+    return out
