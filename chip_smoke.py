@@ -273,15 +273,32 @@ Phases, in order; any failure exits non-zero:
                  and on each image's first reference against its other four
                  equal from the C++ and the pure-Python tier (1e-9), each
                  tier's host seconds.  A, B, C and F must each be launched.
+ 14. orbax tier -- the checkpoint tier of the JAX package without orbax,
+                 at reference width (f32, B=128): (a) phase-2 training
+                 under checkpoint_backend 'orbax' for 2 iterations, then
+                 checkpoint_operations: model.orbax, model-<it>.orbax,
+                 model-best.orbax and no model .pth; a save's caller-
+                 blocking ms beside its writer's ms; a Trainer resuming the
+                 dir bit-equal in params, Adam state and iteration, its
+                 next loss the uninterrupted run's; the .pth twin, a run
+                 from the same seed under the pth backend; (b) eval.eval of
+                 the dir at beam 2: the twin's captions and loss; (c)
+                 from_run_dir of it: the twin's greedy ids (A, B, F L
+                 each); (d) tests/data/jax_orbax_run, a .orbax run dir the
+                 JAX package wrote (OCDBT, zstd through libzstd): every
+                 leaf equal to its .npz; (e) utils/profiling.start_server:
+                 a capture during greedy decodes of (c)'s service holds
+                 A's, B's and F's kernels.
 Every f32 head and cell launch of a path (services, evaluation, SCST,
 joint, reinforce, device rewards and fused chunks, mesh slices, harvest,
-the paper's drivers) must take the split-TF32 pass, and every bf16 one the
+the paper's drivers, the orbax tier) must take the split-TF32 pass, and every bf16 one the
 tensor-core pass, by the per-pass launch counts.
 Two lines before the last name the card and describe the kernels (one JSON
 object, with each kernel's launches by path, "mesh" the launches of every
 rank of the mesh runs, "joint_reinforce" those of phase 10,
 "device_rewards" those of phase 11, "extracted_features" and "harvest"
-those of phase 12, "paper_drivers" those of phase 13); the last line is
+those of phase 12, "paper_drivers" those of phase 13, "orbax_tier" those
+of phase 14); the last line is
 {"ok": true, "device": {...}}.
 
 Builds the CUDA kernels and the C++ host library from the checkout.
@@ -2150,6 +2167,18 @@ def scst_per_iteration():
                            "cell": steps}, "tf32x3")
 
 
+def adam_file(path, optim, agent):
+    """The Adam state of `agent` in an optimizer file the port wrote
+    (optax's layout), mapped onto `optim`'s leaf paths: {'count', 'mu',
+    'nu', 'paths'}; None if it holds another structure."""
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint
+    paths = optim.paths[agent]
+    st = checkpoint.adam_state_from_file(
+        checkpoint.read_optimizer_file(path), paths,
+        [tuple(m.shape) for m in optim.states[agent]["mu"]])
+    return None if st is None else dict(st, paths=paths)
+
+
 def check_resumed(trainer, phase5):
     """Trainer(start_from=TRAIN_RUN_DIR): params and every Adam leaf equal
     the files, iteration and epoch resume."""
@@ -2162,8 +2191,9 @@ def check_resumed(trainer, phase5):
             "resumed params: another tree")
     for (k, a), (_, b) in zip(got, leaves(saved)):
         require(torch.equal(a.detach().cpu(), b), f"resumed param {k}")
-    st = checkpoint.read_optimizer_file(
-        os.path.join(TRAIN_RUN_DIR, "optimizer.pth"))
+    st = adam_file(os.path.join(TRAIN_RUN_DIR, "optimizer.pth"),
+                   trainer.optim, "speaker")
+    require(st is not None, "phase 5's optimizer.pth: another structure")
     cur = trainer.optim.states["speaker"]
     require(int(cur["count"]) == int(st["count"]) > 0, "resumed Adam count")
     for key in ("mu", "nu"):
@@ -2546,7 +2576,6 @@ def listener_phase1(ds, add, out):
     it/s, and checkpoint_operations writing the stage-1 run dir."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
-    from cooperativeimagecaptioning_tpu_torch.training import checkpoint
     from cooperativeimagecaptioning_tpu_torch.training import joint, loop
     from cooperativeimagecaptioning_tpu_torch.training.loop import Trainer
     from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
@@ -2647,10 +2676,9 @@ def listener_phase1(ds, add, out):
                  "optimizer.pth", "infos_fc_con.pkl",
                  "histories_fc_con.pkl"):
         require(name in written, f"phase-1 checkpoint_operations: {written}")
-    st = checkpoint.read_optimizer_file(os.path.join(FC_RUN_DIR,
-                                                     "optimizer.pth"))
-    require(st["paths"] == tr.optim.paths["listener"] and
-            int(st["count"]) == tr.iteration,
+    st = adam_file(os.path.join(FC_RUN_DIR, "optimizer.pth"), tr.optim,
+                   "listener")
+    require(st is not None and int(st["count"]) == tr.iteration,
             "phase-1 optimizer.pth does not hold the listener")
     print(f"  phase-1 checkpoint_operations in {out['p1_ckpt_s']:.1f} s "
           f"(rank pass {out['p1_rank_s']:.3f} s): val rsum "
@@ -2678,7 +2706,8 @@ def check_joint_seeded(tr):
                 f"joint {agent}: another tree")
         for (k, a), (_, b) in zip(got, leaves(saved)):
             require(torch.equal(a.detach().cpu(), b), f"joint {agent} {k}")
-        st = checkpoint.read_optimizer_file(optim)
+        st = adam_file(optim, tr.optim, agent)
+        require(st is not None, f"{optim}: another structure")
         cur = tr.optim.states[agent]
         require(int(cur["count"]) == int(st["count"]) > 0,
                 f"joint {agent} Adam count")
@@ -5750,6 +5779,316 @@ def phase_paper_drivers(smi):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# 14. the orbax tier: .orbax run dirs without orbax, the profiling endpoint
+# ---------------------------------------------------------------------------
+
+ORBAX_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_orbax_run")
+ORBAX_TWIN_DIR = os.path.join(REPO, "build", "chip_smoke_orbax_twin")
+ORBAX_RESUMED_DIR = os.path.join(REPO, "build", "chip_smoke_orbax_resumed")
+ORBAX_PROFILE_DIR = os.path.join(REPO, "build", "chip_smoke_orbax_profile")
+JAX_ORBAX_FIXTURE = os.path.join(REPO, "tests", "data", "jax_orbax_run")
+ORBAX_ITERS = 2       # phase-2 iterations before checkpoint_operations
+ORBAX_SAVES = 3       # timed saves of the trained tree
+ORBAX_SERVE_B = 128   # images of the served request
+ORBAX_CAPTURE_MS = 400
+
+
+def orbax_opt(run_dir, backend, **kw):
+    """Phase-2 options at reference width (`train_opt`) under a checkpoint
+    backend, checkpointing only when asked."""
+    opt = train_opt(TRAIN_B)
+    return opt.replace(checkpoint_backend=backend, checkpoint_path=run_dir,
+                       language_eval=0, **kw)
+
+
+def orbax_train(ds, run_dir, backend):
+    """ORBAX_ITERS iterations through loop.train, then checkpoint_operations
+    into a fresh `run_dir` -> (trainer, the launches of the iterations)."""
+    import shutil
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.training import loop
+    shutil.rmtree(run_dir, ignore_errors=True)
+    _dispatch.reset_launches()
+    tr = loop.train(orbax_opt(run_dir, backend), dataset=ds,
+                    max_iterations=ORBAX_ITERS, device=DEVICE, verbose=False)
+    sync()
+    launches = launch_counts()
+    tr.checkpoint_operations()
+    tr.ckpt.sync()
+    return tr, launches
+
+
+def orbax_states_equal(a, b):
+    """Whether two Trainers hold bit-equal params and Adam states."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    if [k for k, _ in leaves(a.params)] != [k for k, _ in leaves(b.params)]:
+        return False
+    same = all(torch.equal(x, y) for (_, x), (_, y) in
+               zip(leaves(a.params), leaves(b.params)))
+    for agent, st in a.optim.states.items():
+        other = b.optim.states[agent]
+        same &= torch.equal(st["count"], other["count"])
+        for key in ("mu", "nu"):
+            same &= all(torch.equal(x, y)
+                        for x, y in zip(st[key], other[key]))
+    return bool(same)
+
+
+def orbax_training(ds, add, out):
+    """(a) phase-2 training under the orbax backend: the JAX package's
+    names, a save's blocking and writing times, a bit-equal resume whose
+    next iteration's loss is the uninterrupted run's."""
+    from cooperativeimagecaptioning_tpu_torch.training import loop
+    t0 = time.perf_counter()
+    tr, launches = orbax_train(ds, ORBAX_RUN_DIR, "orbax")
+    add(launches)
+    T = L + 1
+    for k in ("attention", "cell"):
+        require(launches[k] == ORBAX_ITERS * 2 * T,
+                f"orbax training: {k} launched {launches[k]} times")
+    names = sorted(os.listdir(ORBAX_RUN_DIR))
+    it = tr.iteration
+    for name in ("model.orbax", f"model-{it}.orbax", "model-best.orbax",
+                 "optimizer.pth", "infos_.pkl", "histories_.pkl"):
+        require(name in names, f"orbax run dir: {name} not in {names}")
+    require(not any(n.endswith(".pth") and n.startswith("model")
+                    or n.startswith(".") for n in names),
+            f"orbax run dir holds a .pth model or a temporary: {names}")
+    print(f"  orbax backend: {ORBAX_ITERS} iterations and "
+          f"checkpoint_operations in {time.perf_counter() - t0:.1f} s; "
+          f"wrote {names}", flush=True)
+    blocking, writing = [], []
+    for _ in range(ORBAX_SAVES):
+        t1 = time.perf_counter()
+        tr.ckpt.save_best(tr.params)
+        blocking.append((time.perf_counter() - t1) * 1e3)
+        tr.ckpt.sync()
+        writing.append(tr.ckpt.writer.write_ms)
+    out["save_blocking_ms"], out["save_writer_ms"] = blocking, writing
+    print(f"  a save of the {param_mib(tr.params):.1f} MiB tree: the "
+          f"caller blocked {', '.join(f'{x:.2f}' for x in blocking)} ms, "
+          f"the writer took {', '.join(f'{x:.1f}' for x in writing)} ms",
+          flush=True)
+    t1 = time.perf_counter()
+    again = loop.Trainer(orbax_opt(ORBAX_RESUMED_DIR, "orbax",
+                                   start_from=ORBAX_RUN_DIR), dataset=ds,
+                         device=DEVICE, verbose=False)
+    resume_s = time.perf_counter() - t1
+    require(again.iteration == tr.iteration,
+            f"orbax resume: iteration {again.iteration}, {tr.iteration}")
+    require(orbax_states_equal(tr, again),
+            "orbax resume: params or Adam state differ from the saved ones")
+    print(f"  resumed in {resume_s:.2f} s: iteration {again.iteration}, "
+          f"params and Adam state bit-equal", flush=True)
+    out["resume_s"] = resume_s
+    return tr, again
+
+
+def orbax_next_step(tr, again):
+    """The resumed Trainer's next iteration: the uninterrupted run's
+    loss, on the same batch."""
+    data = tr.loader.get_batch("train")
+    a = tr.train_iteration(data)[0]["loss"].item()
+    b = again.train_iteration(data)[0]["loss"].item()
+    print(f"  the next iteration's loss after the resume {b!r} "
+          f"(uninterrupted {a!r})", flush=True)
+    require(a == b, f"orbax resume: next loss {b} vs {a}")
+
+
+def param_mib(params):
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    return sum(x.numel() * x.element_size()
+               for _, x in leaves(params)) / 2 ** 20
+
+
+def orbax_twin(ds, add, trained):
+    """The `.pth` twin: a run from the same seed under the pth backend
+    (bit-equal to the orbax run's state or not, printed)."""
+    twin, launches = orbax_train(ds, ORBAX_TWIN_DIR, "pth")
+    add(launches)
+    bitwise = orbax_states_equal(trained, twin)
+    print(f"  the .pth twin (same seed, pth backend): params and Adam "
+          f"state bit-equal to the orbax run: {bitwise}", flush=True)
+
+
+def orbax_eval(ds, add, out):
+    """(b) eval.eval of the orbax run dir at beam 2: the twin's ids."""
+    from cooperativeimagecaptioning_tpu_torch import eval as ev
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    got = {}
+    for key, d in (("orbax", ORBAX_RUN_DIR), ("pth", ORBAX_TWIN_DIR)):
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        got[key] = ev.eval(None, os.path.join(d, "model-best.pth"),
+                           os.path.join(d, "infos_.pkl"), split="test",
+                           dataset=ds, device=DEVICE)
+        sync()
+        launches = launch_counts()
+        add(launches)
+        print(f"  eval.eval of the {key} run dir, beam 2: "
+              f"{len(got[key]['split_predictions'])} images in "
+              f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+              flush=True)
+        for k in ("attention", "beam_head", "cell"):
+            require(launches[k] > 0, f"eval.eval of the {key} run dir: {k} "
+                    f"never launched")
+    caps = [[p["caption"] for p in got[k]["split_predictions"]]
+            for k in ("orbax", "pth")]
+    require(caps[0] == caps[1], "eval.eval: the orbax run dir's captions "
+            "differ from its .pth twin's")
+    require(got["orbax"]["loss"] == got["pth"]["loss"],
+            f"eval.eval: loss {got['orbax']['loss']} of the orbax run dir, "
+            f"{got['pth']['loss']} of its .pth twin")
+    print(f"  eval.eval: captions and loss {got['orbax']['loss']} equal to "
+          f"the .pth twin's", flush=True)
+    out["eval_images"] = len(caps[0])
+
+
+def orbax_serve(add, out):
+    """(c) CaptioningService.from_run_dir of the orbax run dir: the twin's
+    captions; returns the service for (e)."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
+    fc, att, masks = features(ORBAX_SERVE_B, seed=1414)
+    ids = {}
+    for key, d in (("orbax", ORBAX_RUN_DIR), ("pth", ORBAX_TWIN_DIR)):
+        svc = CaptioningService.from_run_dir(
+            d, compute_dtype="float32", buckets=(ORBAX_SERVE_B,),
+            device=DEVICE)
+        svc.caption_ids(fc[:1], att[:1], masks[:1])
+        _dispatch.reset_launches()
+        ids[key] = svc.caption_ids(fc, att, masks)
+        sync()
+        launches = launch_counts()
+        add(launches)
+        for k in ("attention", "greedy_head", "cell"):
+            require(launches[k] == L, f"serving the {key} run dir: {k} "
+                    f"launched {launches[k]} times, expected {L}")
+        if key == "orbax":
+            served = svc
+    require(np.array_equal(ids["orbax"], ids["pth"]),
+            "serving: the orbax run dir's ids differ from its .pth twin's")
+    print(f"  from_run_dir of the orbax run dir: {ORBAX_SERVE_B} images, "
+          f"ids equal to the .pth twin's ({len(np.unique(ids['orbax']))} "
+          f"distinct ids)", flush=True)
+    out["served_images"] = ORBAX_SERVE_B
+    return served
+
+
+def orbax_jax_fixture(out):
+    """(d) the run dir the JAX package wrote (tests/data/jax_orbax_run, by
+    tests/data/make_jax_orbax_fixture.py): every leaf equal to its .npz."""
+    from cooperativeimagecaptioning_tpu_torch.native import zstd
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint
+    from cooperativeimagecaptioning_tpu_torch.utils.tree import leaves
+    require(zstd.available(), "libzstd not found on this host")
+    t0 = time.perf_counter()
+    got = dict(leaves(checkpoint.load_params(
+        os.path.join(JAX_ORBAX_FIXTURE, "model-best.pth"))))
+    secs = time.perf_counter() - t0
+    want = np.load(os.path.join(JAX_ORBAX_FIXTURE, "expected.npz"))
+    require(sorted(got) == sorted(want.files),
+            f"JAX fixture: leaves {sorted(got)} vs {sorted(want.files)}")
+    for k in want.files:
+        require(np.array_equal(got[k].numpy(), want[k]) and
+                got[k].numpy().dtype == want[k].dtype,
+                f"JAX fixture: leaf {k} differs")
+    print(f"  the JAX package's .orbax (OCDBT, zstd via "
+          f"{zstd.library()._name}): {len(want.files)} leaves equal to its "
+          f".npz, read in {secs * 1e3:.1f} ms", flush=True)
+    out["fixture_leaves"] = len(want.files)
+
+
+def orbax_capture(svc, add, out):
+    """(e) the profiling endpoint: a capture over a greedy decode that the
+    main thread runs; the trace holds A's, B's and F's kernels."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+    from cooperativeimagecaptioning_tpu_torch.utils import profiling
+    import shutil
+    shutil.rmtree(ORBAX_PROFILE_DIR, ignore_errors=True)
+    fc, att, masks = features(ORBAX_SERVE_B, seed=1415)
+    server = profiling.start_server(0)
+    reply = {}
+
+    def client():
+        url = (f"http://127.0.0.1:{server.port}/capture?duration_ms="
+               f"{ORBAX_CAPTURE_MS}&log_dir={ORBAX_PROFILE_DIR}")
+        with urllib.request.urlopen(url, timeout=600) as r:
+            reply.update(json.loads(r.read()))
+
+    _dispatch.reset_launches()
+    thread = threading.Thread(target=client)
+    thread.start()
+    decodes = 0
+    try:
+        while thread.is_alive():
+            svc.caption_ids(fc, att, masks)
+            sync()
+            decodes += 1
+    finally:
+        thread.join()
+        server.stop()
+    add(launch_counts())
+    require("path" in reply, f"profiling endpoint: {reply}")
+    with open(reply["path"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = {"attention": [n for n in kernels if "attention_kernel" in n],
+             "greedy_head": [n for n in kernels if "vocab_partials" in n
+                             or "greedy_merge" in n],
+             "cell": [n for n in kernels if "cell_" in n and "kernel" in n]}
+    host = {e.get("name") for e in events if e.get("cat") in
+            ("cpu_op", "user_annotation")}
+    print(f"  profiling endpoint: {decodes} greedy decodes during a "
+          f"{ORBAX_CAPTURE_MS} ms capture: {reply['path']} "
+          f"({os.path.getsize(reply['path']) / 1e6:.1f} MB; all threads "
+          f"{reply['all_threads']}); {len(kernels)} kernel names, "
+          + ", ".join(f"{k} {len(v)}" for k, v in found.items())
+          + f"; {len(host)} host op names", flush=True)
+    for k, names in found.items():
+        require(names, f"profiling endpoint: no {k} kernel in the trace "
+                f"({sorted(kernels)[:20]})")
+    out["capture_decodes"] = decodes
+
+
+def phase_orbax(smi):
+    """14. The orbax tier at reference width: (a) training under the orbax
+    backend and a bit-equal resume, (b) eval.eval and (c) the service on
+    that run dir against its .pth twin, (d) the JAX package's committed
+    .orbax run dir, (e) a capture through the profiling endpoint.  Returns
+    the launch counts of the phase."""
+    import torch
+    t_phase = time.perf_counter()
+    print(f"phase 14, the orbax tier at full width (vocab {VOCAB}, "
+          f"{WIDTH}-wide, {FEAT}-d features, K={K}, L={L}, B={TRAIN_B}, f32; "
+          f"{smi})", flush=True)
+    out = {}
+    total = {k: 0 for k in counted()}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
+    ds = train_dataset()
+    trained, resumed = orbax_training(ds, add, out)
+    orbax_twin(ds, add, trained)
+    orbax_next_step(trained, resumed)
+    orbax_eval(ds, add, out)
+    svc = orbax_serve(add, out)
+    orbax_jax_fixture(out)
+    orbax_capture(svc, add, out)
+    require_head_pass("the orbax tier", "tf32x3")
+    for k in ("attention", "greedy_head", "beam_head", "cell"):
+        require(total[k] > 0, f"orbax tier: {k} never launched ({total})")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  launches {total}", flush=True)
+    print(f"  orbax tier phase in {out['seconds']:.1f} s", flush=True)
+    return total, out
+
+
 def main():
     smi = phase_device()
     sys.path.insert(0, REPO)
@@ -5789,6 +6128,9 @@ def main():
     paper_launches, _ = phase_paper_drivers(smi)
     print(f"elapsed after the paper's drivers: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
+    orbax_launches, _ = phase_orbax(smi)
+    print(f"elapsed after the orbax tier: "
+          f"{time.perf_counter() - t_start:.0f} s", flush=True)
     # each path's counts run from 0 just before it to just after it
     paths = {"serve": serve_launches, "train": train_launches,
              "eval": eval_launches, "scst": scst_launches,
@@ -5797,7 +6139,8 @@ def main():
              "device_rewards": device_launches,
              "extracted_features": repro_launches["extracted"],
              "harvest": repro_launches["harvest"],
-             "paper_drivers": paper_launches}
+             "paper_drivers": paper_launches,
+             "orbax_tier": orbax_launches}
     kernels = []
     for k in SOURCES:
         by_path = {path: counts[k] for path, counts in paths.items()}

@@ -23,7 +23,8 @@ policy).  This grid disentangles both:
   *-gt       the GROUND-TRUTH captions ranked by that listener (the
              listener-drift control)
 
-Evaluates every alternatingModel-<it>.pth in --joint-dir plus the seeded
+Evaluates every alternatingModel-<it>.pth (or, of an orbax-backend run,
+alternatingModel-<it>.orbax) in --joint-dir plus the seeded
 baseline (stage-2 speaker + stage-1 listener, zero joint iterations) and
 writes fixed_listener_rank_<joint-dir>.json:
   {"points": [{"iteration", "condition", "rsum", ...}, ...]}
@@ -133,14 +134,17 @@ def main(argv=None, dataset=None):
     eval_kwargs.update(vars(opt))
     conditions = [c.strip() for c in args.conditions.split(",") if c.strip()]
 
-    ckpts = []
-    for f in glob.glob(os.path.join(jdir, "alternatingModel-*.pth")):
-        m = re.search(r"alternatingModel-(\d+)\.pth$", f)
+    # each iteration's model: a .pth, or the .orbax directory of an
+    # orbax-backend run, read through its .pth name (checkpoint.read_tree)
+    found = {}
+    for f in glob.glob(os.path.join(jdir, "alternatingModel-*")):
+        m = re.search(r"alternatingModel-(\d+)\.(pth|orbax)$", f)
         if m:
-            ckpts.append((int(m.group(1)), f))
-    ckpts.sort()
+            found[int(m.group(1))] = f[:-len(m.group(2))] + "pth"
+    ckpts = sorted(found.items())
     if not ckpts:
-        raise FileNotFoundError(f"no alternatingModel-<it>.pth in {jdir}")
+        raise FileNotFoundError(f"no alternatingModel-<it>.pth or .orbax "
+                                f"in {jdir}")
     # the seeded baseline: stage-2 speaker + the same frozen listener, i.e.
     # zero joint iterations — the reference point the claim is against
     todo = [("seed", s2_model)] + ckpts

@@ -108,8 +108,9 @@ def joint_flags(**kw):
 def seed_checkpoint_dir(ckpt_path, speaker_model_path, run_id):
     """ref: bash_scripts/copy_model.sh — seed the joint run from the stage-2
     speaker checkpoint and rename infos to the new run id."""
+    from cooperativeimagecaptioning_tpu_torch.training import checkpoint as ck
     os.makedirs(ckpt_path, exist_ok=True)
-    if speaker_model_path and os.path.isfile(speaker_model_path):
+    if speaker_model_path and ck.model_exists(speaker_model_path):
         # keep the stage-2 artifact NAME (copy_model.sh does `cp -r` of the
         # whole log_att dir): a fresh seeded run dir must NOT contain
         # alternatingModel.pth — that file appearing is what makes the
@@ -118,8 +119,12 @@ def seed_checkpoint_dir(ckpt_path, speaker_model_path, run_id):
         # the stage-1 listener loaded via initialize_retrieval
         # (ref cascade: AlternatingJointModel.py:131-177)
         dst = os.path.join(ckpt_path, os.path.basename(speaker_model_path))
-        if not os.path.isfile(dst):
-            shutil.copy(speaker_model_path, dst)
+        if not ck.model_exists(dst):
+            opath = ck.orbax_sibling(speaker_model_path)
+            if opath is None:
+                shutil.copy(speaker_model_path, dst)
+            else:  # an orbax-backend stage-2 run: its .orbax directory
+                shutil.copytree(opath, ck.orbax_path(dst))
         src_dir = os.path.dirname(speaker_model_path)
         src_infos = os.path.join(src_dir, "infos_att.pkl")
         dst_infos = os.path.join(ckpt_path, f"infos_{run_id}.pkl")

@@ -83,7 +83,8 @@ class CaptioningService:
     def from_run_dir(cls, run_dir, run_id: str = "", model_name: str = None,
                      **kw):
         """Load opt + vocab from infos_<id>.pkl and params from the best (or
-        given) model artifact, restored into the run's speaker template
+        given) model artifact (a `.pth`, or the `.orbax` directory of an
+        orbax-backend run), restored into the run's speaker template
         (`joint.speaker_template`) through the lenient merge (JAX
         serving.py:84-98): a leaf the checkpoint lacks is reported and keeps
         the template's value.  The speaker of a joint run loads the same
@@ -94,12 +95,10 @@ class CaptioningService:
         # artifacts live in run_dir here (a copy: the infos stay as loaded)
         opt = copy.copy(infos["opt"])
         opt.checkpoint_path = run_dir
-        ckpt_mod.refuse_orbax(opt=opt)
         if model_name is None:
             for cand in ("model-best.pth", "alternatingModel.pth",
                          "model.pth"):
-                ckpt_mod.refuse_orbax(os.path.join(run_dir, cand))
-                if os.path.isfile(os.path.join(run_dir, cand)):
+                if ckpt_mod.model_exists(os.path.join(run_dir, cand)):
                     model_name = cand
                     break
             else:

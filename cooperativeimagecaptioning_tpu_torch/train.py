@@ -17,9 +17,12 @@ only its turn's agents, and `--profile_dir D --profile_start S
 --profile_steps N` traces the iterations [S, S + N) with torch.profiler;
 `--fused_steps K --device_feature_cache 1` trains in captured chunks of K
 where nothing needs the host each step (training/loop.py `_fused_gate`).
-An orbax run dir raises (orbax imports JAX).  After a phase-3 run, results harvesting writes the val / test dicts and
-the run's json report (evaluation/harvest.py; the repository's train.py
-does the same), once, after the last rank of a mesh run finished.
+`--checkpoint_backend orbax` keeps the model trees as `.orbax`
+directories (asynchronous, atomic saves; read and written without orbax,
+training/orbax_tier.py).  After a phase-3 run, results harvesting writes
+the val / test dicts and the run's json report (evaluation/harvest.py; the
+repository's train.py does the same), once, after the last rank of a mesh
+run finished.
 
     python -m cooperativeimagecaptioning_tpu_torch.train --device cuda \
         --phase 1 --caption_model fc --vse_model fc --vse_loss_weight 1 \

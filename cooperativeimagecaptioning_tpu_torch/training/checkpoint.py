@@ -1,24 +1,27 @@
 """Checkpoints and run dirs in the JAX package's format and taxonomy
-(counterpart of its training/checkpoint.py, the .pth tier; ref
+(counterpart of its training/checkpoint.py, both tiers; ref
 train.py:95-159, 299-347, optimizer.py:149-221).
 
 Per run dir (opt.checkpoint_path):
   model.pth / alternatingModel.pth (+ -<iter>, -best, model_vse-best)
       -> pickled nested dicts of numpy arrays (params); such a file written
          by either package loads in both;
+  under checkpoint_backend 'orbax' the same names with an `.orbax`
+  directory suffix in their place (model.orbax, model-best.orbax, ...),
+      -> read and written without orbax (training/orbax_tier.py); saved
+         asynchronously (the tree snapshot to host numpy on the caller's
+         thread, one background writer) and committed atomically, as the
+         JAX package's orbax tier does (JAX checkpoint.py:15-20, 141-179);
   optimizer.pth / {speaker,listener}_optimizer.pth
-      -> the port writes its own plain layout, {'count', 'mu': [...], 'nu':
-         [...], 'paths': [...]} of numpy arrays (the moment lists in sorted
-         leaf-path order); it reads that and the JAX package's pickled optax
-         state, mapped by sorted leaf path, through a restricted unpickler
-         that never imports optax (a JAX run reading a port-written file
-         keeps a fresh state: its structure check fails);
+      -> the JAX package's pickled optax state (optim.py:25-34:
+         inject_hyperparams over chain(clip, [add_decayed_weights],
+         scale_by_adam, scale)), written without importing optax; read
+         through a restricted unpickler that never imports optax, mapped by
+         sorted leaf path, as is the port's own older plain layout
+         {'count', 'mu': [...], 'nu': [...], 'paths': [...]};
   infos_<id>.pkl (+ -<iter>, -best), histories_<id>.pkl
       -> the reference's keys.
-The orbax tier is not ported: orbax imports JAX, which the port never
-imports.  A run whose options name it, and a model file that exists only as
-its `.orbax` directory, raise NotImplementedError (`refuse_orbax`) instead
-of training, evaluating or serving from initial weights.
+Optimizer states, infos and histories stay pickles in both tiers.
 
 Unpickling a params file runs code from it: load only checkpoints this
 project wrote.
@@ -33,35 +36,35 @@ import numpy as np
 import torch
 
 from cooperativeimagecaptioning_tpu_torch import config as config_mod
+from cooperativeimagecaptioning_tpu_torch.training import orbax_tier
 from cooperativeimagecaptioning_tpu_torch.utils.tree import (
-    leaves, to_numpy, to_torch)
+    from_leaves, leaves, to_numpy, to_torch)
+
+BACKENDS = ("pth", "orbax")
 
 
-ORBAX = ("the orbax checkpoint tier is not ported: orbax imports JAX, which "
-         "the port never imports (write the run with checkpoint_backend "
-         "'pth')")
+def orbax_path(pth_path):
+    """The `.orbax` directory that stands for `pth_path` under
+    checkpoint_backend 'orbax' (JAX checkpoint.py:141-143)."""
+    return os.path.abspath(pth_path[:-4] + ".orbax")
 
 
 def orbax_sibling(path):
     """The `.orbax` directory the JAX package writes in place of a `.pth`
-    under checkpoint_backend 'orbax' (JAX checkpoint.py:55-61), or None."""
+    under checkpoint_backend 'orbax' (JAX checkpoint.py:55-61), or None.
+    A write of this process to it commits first."""
     if path.endswith(".pth"):
-        opath = path[:-4] + ".orbax"
+        opath = orbax_path(path)
+        orbax_tier.wait_for(opath)
         if os.path.isdir(opath):
             return opath
     return None
 
 
-def refuse_orbax(path=None, opt=None):
-    """Raise NotImplementedError when `opt` names the orbax backend, or when
-    `path` is missing and its `.orbax` sibling stands in its place."""
-    if opt is not None and \
-            (getattr(opt, "checkpoint_backend", "pth") or "pth") == "orbax":
-        raise NotImplementedError(f"checkpoint_backend 'orbax': {ORBAX}")
-    if path is not None and not os.path.isfile(path):
-        opath = orbax_sibling(path)
-        if opath is not None:
-            raise NotImplementedError(f"{opath}: {ORBAX}")
+def model_exists(path):
+    """Whether a model tree is at `path`: the `.pth`, or its `.orbax`
+    sibling."""
+    return os.path.isfile(path) or orbax_sibling(path) is not None
 
 
 def save_params(params, path):
@@ -70,11 +73,19 @@ def save_params(params, path):
         pickle.dump(to_numpy(params), f)
 
 
-def load_params(path, device="cpu"):
-    """Read a pickled numpy tree into tensors on `device`."""
-    refuse_orbax(path)
+def read_tree(path):
+    """The numpy tree of a `.pth`, or of its `.orbax` sibling where the
+    `.pth` is missing (JAX checkpoint.py:63-76)."""
+    opath = None if os.path.isfile(path) else orbax_sibling(path)
+    if opath is not None:
+        return orbax_tier.read(opath)
     with open(path, "rb") as f:
-        return to_torch(pickle.load(f), device)
+        return pickle.load(f)
+
+
+def load_params(path, device="cpu"):
+    """Read a params tree (`read_tree`) into tensors on `device`."""
+    return to_torch(read_tree(path), device)
 
 
 def load_params_into(params, path, strict=False):
@@ -82,11 +93,14 @@ def load_params_into(params, path, strict=False):
     copy the leaves the checkpoint shares with `params` (onto each leaf's
     device and dtype), report the others, keep the rest.  A leaf of another
     shape is copied flat, as far as it reaches.  A `.pth` that exists only
-    as its `.orbax` sibling raises (`refuse_orbax`)."""
-    refuse_orbax(path)
-    with open(path, "rb") as f:
-        loaded = pickle.load(f)
+    as its `.orbax` sibling reads from that directory, through the same
+    merge: a speaker-only tree merges into speaker and listener params."""
+    return merge_tree(params, read_tree(path), strict)
 
+
+def merge_tree(params, loaded, strict=False):
+    """`load_params_into`'s merge of the numpy tree `loaded` into
+    `params`."""
     def merge(cur, new, prefix=""):
         if isinstance(cur, dict):
             out = {}
@@ -118,7 +132,7 @@ def load_params_into(params, path, strict=False):
 
 
 # ---------------------------------------------------------------------------
-# the run dir (JAX checkpoint.py:107-312, the .pth tier)
+# the run dir (JAX checkpoint.py:107-312)
 # ---------------------------------------------------------------------------
 
 def model_filename(opt, iteration=None, best=False, vse_best=False):
@@ -152,13 +166,31 @@ def load_pkl(path):
 
 class _OptaxState(tuple):
     """Stand-in for an optax state NamedTuple: keeps the positional fields
-    and the class name."""
+    and the class name; `_optax_module` is the module optax defines it in.
+    It pickles as a NamedTuple does (NEWOBJ with the fields)."""
+
+    __slots__ = ()
+    _optax_module = None
 
     def __new__(cls, *fields):
         return tuple.__new__(cls, fields)
 
+    def __getnewargs__(self):
+        return tuple(self)
+
 
 _OPTAX_STANDINS = {}
+
+
+def optax_class(module, name):
+    """The stand-in for optax's class `module.name` (one per name)."""
+    key = (module, name)
+    if key not in _OPTAX_STANDINS:
+        _OPTAX_STANDINS[key] = type(name, (_OptaxState,), {
+            "__slots__": (), "_optax_module": module})
+    return _OPTAX_STANDINS[key]
+
+
 _NUMPY_NAMES = {("numpy", "ndarray"), ("numpy", "dtype"),
                 ("numpy.core.multiarray", "_reconstruct"),
                 ("numpy._core.multiarray", "_reconstruct"),
@@ -173,9 +205,7 @@ class _OptimizerUnpickler(pickle.Unpickler):
 
     def find_class(self, module, name):
         if module == "optax" or module.startswith("optax."):
-            if name not in _OPTAX_STANDINS:
-                _OPTAX_STANDINS[name] = type(name, (_OptaxState,), {})
-            return _OPTAX_STANDINS[name]
+            return optax_class(module, name)
         if (module, name) in _NUMPY_NAMES:
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
@@ -185,6 +215,53 @@ class _OptimizerUnpickler(pickle.Unpickler):
 def read_optimizer_file(path):
     with open(path, "rb") as f:
         return _OptimizerUnpickler(f).load()
+
+
+class _OptaxPickler(pickle._Pickler):
+    """pickle's Python pickler, which writes a stand-in class under its
+    optax module and name.  pickle's own `save_global` imports a class's
+    module to check the name, and the port never imports optax."""
+
+    def save_global(self, obj, name=None):
+        module = getattr(obj, "_optax_module", None) \
+            if isinstance(obj, type) else None
+        if module is None:
+            return super().save_global(obj, name)
+        self.save(module)
+        self.save(obj.__name__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def optax_state(opt, state, paths, lr):
+    """One agent's Adam state (the port's {'count', 'mu': [...], 'nu':
+    [...]}, moments in `paths` order) in the JAX package's optax layout:
+    `optax.inject_hyperparams(build)` over chain(clip,
+    [add_decayed_weights], scale_by_adam, scale) (JAX optim.py:25-34).
+    The names and fields are those of optax 0.2.6:
+    InjectStatefulHyperparamsState(count, hyperparams, hyperparams_states,
+    inner_state) of optax.schedules._inject, whose inner_state holds
+    optax._src.base.EmptyState for clip, add_decayed_weights and scale,
+    and optax._src.transform.ScaleByAdamState(count, mu, nu); the moments
+    are nested dicts, as the params."""
+    count = np.asarray(to_numpy(state["count"]), np.int32)
+    mu, nu = (from_leaves(zip(paths, to_numpy(list(state[k]))))
+              for k in ("mu", "nu"))
+    empty = optax_class("optax._src.base", "EmptyState")
+    adam = optax_class("optax._src.transform", "ScaleByAdamState")(
+        count, mu, nu)
+    inner = (empty(),) + ((empty(),) if opt.weight_decay else ()) + \
+        (adam, empty())
+    return optax_class("optax.schedules._inject",
+                       "InjectStatefulHyperparamsState")(
+        count.copy(), {"learning_rate": np.asarray(lr, np.float32)}, {},
+        inner)
+
+
+def write_optimizer_file(path, st):
+    """Pickle an optimizer state whose optax classes are stand-ins."""
+    with open(path, "wb") as f:
+        _OptaxPickler(f, protocol=4).dump(st)
 
 
 def _find_adam(node):
@@ -230,29 +307,67 @@ def adam_state_from_file(st, paths, shapes):
 
 
 class CheckpointManager:
-    """The run dir of one training run (JAX checkpoint.py:124-312, the .pth
-    tier; the orbax tier raises, `refuse_orbax`)."""
+    """The run dir of one training run (JAX checkpoint.py:124-312).  Model
+    trees go to `.pth` files or, under checkpoint_backend 'orbax', to
+    `.orbax` directories written by one background writer."""
 
     def __init__(self, opt, writer=True):
         """`writer`: whether this process writes the run dir (a mesh run's
         global rank 0); only the writer creates it."""
-        refuse_orbax(opt=opt)
         self.opt = opt
+        self.backend = getattr(opt, "checkpoint_backend", "pth") or "pth"
+        if self.backend not in BACKENDS:
+            raise ValueError(f"checkpoint_backend {self.backend!r}: one of "
+                             f"{BACKENDS}")
+        self.writer = orbax_tier.AsyncWriter() \
+            if self.backend == "orbax" else None
         if writer:
             os.makedirs(opt.checkpoint_path, exist_ok=True)
 
     def _path(self, name):
         return os.path.join(self.opt.checkpoint_path, name)
 
+    # -- the orbax tier (JAX checkpoint.py:134-179) ---------------------------
+    def _save_tree(self, params, pth_path):
+        """Save a model tree under the backend: a `.pth`, or its `.orbax`
+        directory asynchronously.  The snapshot to host numpy is taken here,
+        on the caller's thread: the Adam step updates the params in place
+        and a fused chunk replays into static buffers."""
+        if self.backend == "orbax":
+            self.writer.save(to_numpy(params), orbax_path(pth_path))
+        else:
+            save_params(params, pth_path)
+
+    def _try_restore_tree(self, params, pth_path):
+        """The saved tree merged into `params`'s structure (onto its
+        devices and dtypes); None if absent.  Under the orbax backend the
+        `.orbax` directory first, every leaf required; else the `.pth`, or
+        its `.orbax` sibling where it is missing, through the lenient
+        merge (where the JAX package would start from fresh params at the
+        resumed iteration)."""
+        opath = orbax_path(pth_path)
+        self.sync()
+        if self.backend == "orbax" and os.path.isdir(opath):
+            return merge_tree(params, orbax_tier.read(opath), strict=True)
+        if model_exists(pth_path):
+            return load_params_into(params, pth_path)
+        return None
+
+    def sync(self):
+        """Wait until the pending `.orbax` write has committed; raise its
+        error if it failed."""
+        if self.writer is not None:
+            self.writer.sync()
+
     def save_model(self, params, iteration=None):
         """ref train.py:121-129: the latest, plus a per-iteration copy."""
-        save_params(params, self._path(model_filename(self.opt)))
+        self._save_tree(params, self._path(model_filename(self.opt)))
         if iteration is not None:
-            save_params(params, self._path(
+            self._save_tree(params, self._path(
                 model_filename(self.opt, iteration=iteration)))
 
     def save_best(self, params, vse=False):
-        save_params(params, self._path(
+        self._save_tree(params, self._path(
             model_filename(self.opt, best=not vse, vse_best=vse)))
 
     def _trained_agent(self):
@@ -260,11 +375,11 @@ class CheckpointManager:
 
     def save_optimizers(self, optim_manager):
         """ref optimizer.py:191-221 naming: one file per agent when
-        alternating, else optimizer.pth with the phase's trained agent."""
-        def plain(agent):
-            st = to_numpy(optim_manager.state_dict()[agent])
-            st["paths"] = list(optim_manager.paths[agent])
-            return st
+        alternating, else optimizer.pth with the phase's trained agent; each
+        in the JAX package's optax layout (`optax_state`)."""
+        def optax_layout(agent):
+            return optax_state(self.opt, optim_manager.state_dict()[agent],
+                               optim_manager.paths[agent], optim_manager.lr)
 
         agents = list(optim_manager.state_dict())
         if self.opt.is_alternating:
@@ -274,8 +389,7 @@ class CheckpointManager:
             named = [("optimizer.pth",
                       agent if agent in agents else agents[0])]
         for name, agent in named:
-            with open(self._path(name), "wb") as f:
-                pickle.dump(plain(agent), f)
+            write_optimizer_file(self._path(name), optax_layout(agent))
 
     def _load_agent(self, optim_manager, agent, path, what):
         """Restore one agent's Adam state from `path`; False (and the fresh
@@ -344,19 +458,18 @@ class CheckpointManager:
 
     # -- resume ---------------------------------------------------------------
     def try_load_model(self, params, iteration=None):
-        """(params, restored): start_from's model file merged into `params`
-        (lenient), or `params` unchanged."""
+        """(params, restored): start_from's model tree merged into `params`
+        (`_try_restore_tree`), or `params` unchanged."""
         sf = self.opt.start_from
         if not sf:
             return params, False
         kind = "alternatingModel" if self.opt.is_alternating else "model"
         name = f"{kind}-{iteration}.pth" if iteration is not None \
             else f"{kind}.pth"
-        path = os.path.join(sf, name)
-        refuse_orbax(path)
-        if not os.path.isfile(path):
-            return params, False
-        return load_params_into(params, path), True
+        restored = self._try_restore_tree(params, os.path.join(sf, name))
+        if restored is not None:
+            return restored, True
+        return params, False
 
     def load_infos(self):
         """ref train.py:143-159, with the opt-compatibility asserts."""

@@ -247,8 +247,8 @@ def needs_reward(opt, turn) -> bool:
 
 
 def check_ported(opt, turn):
-    """Raise NotImplementedError, naming its ROADMAP item, for a loss branch
-    that this port does not have yet."""
+    """Raise ValueError for a retrieval_reward or a turn that no loss
+    branch knows."""
     if _disc_active(opt, turn) and opt.retrieval_reward != "reinforce" and \
             opt.retrieval_reward not in _MODE_MAP:
         raise ValueError(f"unknown retrieval_reward {opt.retrieval_reward!r}")

@@ -395,7 +395,7 @@ class Trainer:
 
         def overlay_listener(params):
             ir = getattr(opt, "initialize_retrieval", "") or ""
-            if ir and os.path.isfile(ir):
+            if ir and ck.model_exists(ir):
                 loaded = ck.load_params(ir, self.device)
                 if "listener" in loaded:
                     params = dict(params, listener=loaded["listener"])
@@ -404,13 +404,13 @@ class Trainer:
         resumed = False
         if opt.is_alternating:
             if getattr(opt, "continue_from_existing_models", True):
-                if stage2 and os.path.isfile(stage2):
+                if stage2 and ck.model_exists(stage2):
                     params = ck.load_params_into(params, stage2)
                 params = overlay_listener(params)
                 params, resumed = self.ckpt.try_load_model(params)
         else:
             params, resumed = self.ckpt.try_load_model(params)
-            if not resumed and stage2 and os.path.isfile(stage2):
+            if not resumed and stage2 and ck.model_exists(stage2):
                 params = ck.load_params_into(params, stage2)
             params = overlay_listener(params)
         return params, resumed
@@ -868,15 +868,18 @@ class Trainer:
         return current, vse_score
 
     def close(self):
-        """Stop the loader's prefetch thread, and deregister the vocab mesh
+        """Stop the loader's prefetch thread, deregister the vocab mesh
         this Trainer installed (JAX loop.py:380-394): left registered, it
-        would route later single-device heads to the sharded path."""
+        would route later single-device heads to the sharded path; and wait
+        for the run dir's pending `.orbax` write."""
         closer = getattr(self.loader, "close", None)
         if closer is not None:
             closer()
         vm = _dispatch.vocab_mesh()
         if self.mesh is not None and vm is not None and vm[0] is self.mesh:
             _dispatch.set_vocab_mesh(None)
+        # the pending `.orbax` write commits (its error is raised here)
+        self.ckpt.sync()
 
     # -- full loop (ref: train.py:473-562) --------------------------------------
     def train(self, max_iterations=None):

@@ -367,10 +367,13 @@ def test_profiler_window_traces_its_iterations(tmp_path, start, steps, stop):
 
 
 def test_profiling_helpers():
-    """start_server has no torch counterpart and says so; the step timer
-    and sync work on CPU tensors."""
-    with pytest.raises(NotImplementedError, match="no on-demand"):
-        profiling.start_server()
+    """start_server starts the on-demand capture endpoint (a daemon thread)
+    and its handle stops it; the step timer and sync work on CPU
+    tensors."""
+    server = profiling.start_server(0)
+    assert server.port > 0 and server.thread.is_alive()
+    server.stop()
+    assert not server.thread.is_alive()
     timer = profiling.StepTimer(window=2)
     for _ in range(3):
         with timer:

@@ -2,7 +2,9 @@
 data layer, the schedules, decode_sequence, the language metrics and the
 CIDEr-D scorer) behave as the originals, and the port imports nothing of the
 JAX package: a run dir that package wrote still loads, in a process that
-afterwards holds neither `jax` nor any module of that package."""
+afterwards holds neither `jax`, nor any module of that package, nor orbax,
+optax or tensorstore (the orbax tier's .orbax directories and optax-layout
+optimizer files are read and written without them)."""
 
 import ast
 import os
@@ -283,6 +285,7 @@ def test_no_file_of_the_port_imports_the_jax_package():
             "training/fused.py", "preprocess/resnet.py",
             "preprocess/feats.py", "preprocess/labels.py",
             "evaluation/harvest.py", "scripts/__init__.py",
+            "training/orbax_tier.py", "native/zstd.py",
             "scripts/run_fc_con.py", "scripts/run_att.py",
             "scripts/run_joint.py", "scripts/reproduce_coco.py",
             "scripts/showcase_full_scale.py", "scripts/fixed_listener_rank.py",
@@ -293,7 +296,8 @@ def test_no_file_of_the_port_imports_the_jax_package():
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", JAXPKG), \
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax",
+                               "tensorstore", JAXPKG), \
                 (path, name)
         # nor by name at run time (importlib, __import__)
         src = open(path).read()
@@ -388,10 +392,11 @@ def test_a_jax_run_dir_loads_as_the_ports_options(jax_run_dir):
     assert vars(again["opt"]) == vars(infos["opt"])
 
 
+# JAX, the JAX package, and what the orbax tier of that package imports
+HIDDEN = ("jax", JAXPKG, "orbax", "optax", "tensorstore")
 _CLEAN = (
-    "leaked = sorted(m for m in sys.modules if m == 'jax' or "
-    "m.startswith('jax.') or m == %r or m.startswith(%r))\n"
-    "assert not leaked, leaked\n" % (JAXPKG, JAXPKG + "."))
+    "leaked = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+    "assert not leaked, leaked\n" % (HIDDEN,))
 
 _ENTRY_CODE = {
     "serving": (
@@ -603,6 +608,30 @@ _ENTRY_CODE = {
         "ev = coco_eval.CocoEvalCap(coco, coco.load_res([{'image_id': 0, "
         "'caption': 'a man riding a red bike'}]), include_spice=True)\n"
         "assert 0 < ev.evaluate()['SPICE'] < 1\n"),
+    "orbax": (
+        "from cooperativeimagecaptioning_tpu_torch import config\n"
+        "from cooperativeimagecaptioning_tpu_torch.training import "
+        "checkpoint, loop, orbax_tier\n"
+        "fixture = os.path.join(sys.argv[2], 'tests', 'data', "
+        "'jax_orbax_run')\n"
+        "want = np.load(os.path.join(fixture, 'expected.npz'))\n"
+        "got = checkpoint.load_params(os.path.join(fixture, "
+        "'model-best.pth'))\n"
+        "assert torch.equal(got['speaker']['logit']['w'], "
+        "torch.from_numpy(want['speaker.logit.w']))\n"
+        "opt = config.load_infos(os.path.join(d, 'infos_hc.pkl'))['opt']\n"
+        "opt = opt.replace(start_from=d, checkpoint_backend='orbax', "
+        "save_checkpoint_every=2, language_eval=0, "
+        "checkpoint_path=os.path.join(os.getcwd(), 'orbax'))\n"
+        "tr = loop.train(opt, dataset=ds, max_iterations=2, device='cpu', "
+        "verbose=False)\n"
+        "back = orbax_tier.read(os.path.join('orbax', 'model-2.orbax'))\n"
+        "assert np.array_equal(back['speaker']['logit']['w'], "
+        "tr.params['speaker']['logit']['w'].detach().numpy())\n"
+        "assert int(tr.optim.states['speaker']['count']) == 3\n"
+        "st = checkpoint.read_optimizer_file(os.path.join('orbax', "
+        "'optimizer.pth'))\n"
+        "assert type(st).__name__ == 'InjectStatefulHyperparamsState'\n"),
     "eval": (
         "from cooperativeimagecaptioning_tpu_torch import eval as ev\n"
         "out = ev.eval(None, os.path.join(d, 'model-best.pth'), "
@@ -618,16 +647,16 @@ _ENTRY_CODE = {
 def test_jax_run_dir_loads_without_the_jax_package(jax_run_dir, tmp_path,
                                                    entry, hide_jax_package):
     """Each entry point of the port loads a run dir the JAX package wrote and
-    runs on it, in a fresh process that afterwards holds neither `jax` nor
-    any module of that package -- where that package could be imported, and
-    where it could not (an import hook refuses it)."""
+    runs on it, in a fresh process that afterwards holds none of `HIDDEN`
+    (`jax`, that package, orbax, optax, tensorstore) -- where they could be
+    imported, and where they could not (an import hook refuses them)."""
     hide = (
         "import importlib.abc\n"
         "class Refuse(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', %r):\n"
+        "        if name.split('.')[0] in %r:\n"
         "            raise ImportError('hidden for this test: ' + name)\n"
-        "sys.meta_path.insert(0, Refuse())\n" % JAXPKG)
+        "sys.meta_path.insert(0, Refuse())\n" % (HIDDEN,))
     code = (
         "import os, sys\n"
         + (hide if hide_jax_package else "") +
@@ -642,7 +671,7 @@ def test_jax_run_dir_loads_without_the_jax_package(jax_run_dir, tmp_path,
         "fc_feat_size=20, att_feat_size=20, max_K=6)\n"
         + _ENTRY_CODE[entry] + _CLEAN + "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", code, jax_run_dir],
+    proc = subprocess.run([sys.executable, "-c", code, jax_run_dir, REPO],
                           cwd=str(tmp_path), env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -189,8 +189,10 @@ def test_a_single_device_run_dir_resumes_on_a_mesh(runs, V):
     slices gathered are the file's params and Adam state."""
     d = runs["single_dirs"][V]
     params = tckpt.load_params(os.path.join(d, "model.pth"))
-    with open(os.path.join(d, "optimizer.pth"), "rb") as f:
-        states = pickle.load(f)
+    named = leaves(params["speaker"])
+    states = tckpt.adam_state_from_file(
+        tckpt.read_optimizer_file(os.path.join(d, "optimizer.pth")),
+        [k for k, _ in named], [tuple(x.shape) for _, x in named])
     for r in runs["ranks"]:
         got = r["resumed"][V]
         assert got["iteration"] == 2

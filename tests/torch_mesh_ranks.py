@@ -224,6 +224,16 @@ def train_mesh(opt_kw, shape, n, write):
     return out
 
 
+def orbax_mesh_rank(run_dir):
+    """test_torch_orbax_tier.py: a (2, 1) Trainer under checkpoint_backend
+    'orbax' (one iteration, checkpoint_operations: rank 0 writes), then a
+    (2, 1) Trainer resuming the run dir -> (saved state, resumed state)."""
+    kw = {"checkpoint_path": run_dir, "checkpoint_backend": "orbax"}
+    saved = train_mesh(kw, (2, 1), 1, True)
+    resumed = train_mesh(dict(kw, start_from=run_dir), (2, 1), 0, False)
+    return saved, resumed
+
+
 def evaluate_mesh(run_dir, shape, vocab_size):
     """Evaluator.eval_split of a run dir's speaker on a mesh, greedy and beam
     2 -> {beam: (captions by image id, loss_cap)}."""
