@@ -11,7 +11,7 @@ Phases, in order; any failure exits non-zero:
                  with nvcc (timed) and prints the registers, stack and
                  spills ptxas reports for the heads' two tensor-core passes
                  (bf16 wgmma, f32 split TF32), the attention's pre-pass and
-                 stream kernels and the cell's three kernels (no spill
+                 stream kernels and the cell's kernels (no spill
                  allowed).
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes the paths give it, in float32 and bfloat16:
@@ -40,14 +40,16 @@ Phases, in order; any failure exits non-zero:
                  Each check prints its maximum error beside its tolerance;
                  each kernel is timed beside its plain version.  The fused
                  maxout-LSTM cell (kernel F) against its plain version with
-                 and without attention, f32 at B=128, 256, 640 and f32 /
-                 bf16 at B=512, 4096 and 130 (a partial row tile), and at
-                 D=H=500 (no multiple of 8); every aligned f32 launch must
-                 take the split-TF32 kernel, every aligned bf16 launch the
-                 tensor-core kernel, D=H=500 the FMA kernel; timed beside
-                 cell_reference (f32 also beside the split product's floor
-                 and the three products alone through torch.matmul), and
-                 the f32 kernel must beat cell_reference at B = 128-640;
+                 and without attention, f32 at B=128, 256, 640, bf16 at
+                 B=1024 (a beam-2 512 request's rows) and f32 / bf16 at
+                 B=512, 4096 and 130 (a partial row tile), and at D=H=500
+                 (no multiple of 8); every aligned f32 launch must take the
+                 split-TF32 kernel, every aligned bf16 launch the wgmma
+                 kernel (cell_wgmma.cu), D=H=500 the FMA kernel; timed
+                 beside cell_reference and the three products alone
+                 through torch.matmul (f32 also beside the split product's
+                 floor), and the f32 kernel must beat cell_reference at B =
+                 128-640;
                  the attention's autograd Function (kernel forward,
                  recomputed backward; the b-major and the int8 call) against
                  plain autograd, f32 at B=128.  Every timed shape gets its own
@@ -82,7 +84,7 @@ Phases, in order; any failure exits non-zero:
                  kernel; f32 ids against the CPU service's), and a run dir
                  whose checkpoint lacks a leaf, which from_run_dir must
                  report and fill.  Every step runs the cell kernel (the
-                 tensor-core kernel for bf16, split TF32 for f32).
+                 wgmma kernel for bf16, split TF32 for f32).
   5. training -- phase-2 MLE training at full width through
                  training.loop.train / Trainer over the shared
                  SyntheticDataset (f32, B=128, drop_prob_lm 0.5): the
@@ -291,10 +293,12 @@ Phases, in order; any failure exits non-zero:
                  A's, B's and F's kernels.
 Every f32 head and cell launch of a path (services, evaluation, SCST,
 joint, reinforce, device rewards and fused chunks, mesh slices, harvest,
-the paper's drivers, the orbax tier) must take the split-TF32 pass, and every bf16 one the
-tensor-core pass, by the per-pass launch counts.
+the paper's drivers, the orbax tier) must take the split-TF32 pass, and
+every bf16 one the wgmma pass (the heads' "mma", the cell's cell_wgmma), by
+the per-pass launch counts.
 Two lines before the last name the card and describe the kernels (one JSON
-object, with each kernel's launches by path, "mesh" the launches of every
+object, with each kernel's launches by path -- "cell" every launch of F,
+"cell_wgmma" those of F's bf16 kernel --, "mesh" the launches of every
 rank of the mesh runs, "joint_reinforce" those of phase 10,
 "device_rewards" those of phase 11, "extracted_features" and "harvest"
 those of phase 12, "paper_drivers" those of phase 13, "orbax_tier" those
@@ -338,6 +342,7 @@ ATT_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/att_step.cu"
 GREEDY_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/logit_head.cu"
 BEAM_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/beam_head.cu"
 CELL_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/cell_step.cu"
+CELL_WGMMA_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/cell_wgmma.cu"
 MERGE_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/head_merge.cu"
 REPLACES = {
     "attention": "cooperativeimagecaptioning_tpu/ops/pallas/att_step.py:130",
@@ -349,6 +354,8 @@ REPLACES = {
         "cooperativeimagecaptioning_tpu/ops/pallas/logit_head.py:138",
     "beam_head": "cooperativeimagecaptioning_tpu/ops/pallas/beam_head.py:58",
     "cell": "cooperativeimagecaptioning_tpu/ops/pallas/cell_step.py:75",
+    # F's bf16 pass (every aligned bf16 launch of "cell")
+    "cell_wgmma": "cooperativeimagecaptioning_tpu/ops/pallas/cell_step.py:75",
     # the merge of beam_head_sharded (:111; its lines :131-142), which
     # greedy_head_sharded (logit_head.py:202) takes at m = 1
     "head_merge": "cooperativeimagecaptioning_tpu/ops/pallas/beam_head.py:111"
@@ -357,7 +364,8 @@ REPLACES = {
 }
 SOURCES = {"attention": ATT_SRC, "attention_q": ATT_SRC,
            "attention_kmajor": ATT_SRC, "greedy_head": GREEDY_SRC,
-           "beam_head": BEAM_SRC, "cell": CELL_SRC, "head_merge": MERGE_SRC}
+           "beam_head": BEAM_SRC, "cell": CELL_SRC,
+           "cell_wgmma": CELL_WGMMA_SRC, "head_merge": MERGE_SRC}
 # the attention kernel each decode layout of the context must go through
 LAYOUTS = {"b-major": ({}, "attention"),
            "int8": ({"att_quant": "int8"}, "attention_q"),
@@ -497,7 +505,7 @@ def cpu_cell_plain():
 def launch_counts():
     """The launch counts since the last reset that a path reports: each
     kernel's (`launch_counts()`) and the cell's by kernel
-    (`_dispatch.cell_pass_launches()`: cell_tf32x3, cell_mma, cell_fma)."""
+    (`_dispatch.cell_pass_launches()`: cell_tf32x3, cell_wgmma, cell_fma)."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     return {**_dispatch.launches(), **_dispatch.cell_pass_launches()}
 
@@ -508,14 +516,19 @@ def counted():
     return _dispatch.KERNELS + _dispatch.CELL_PASSES
 
 
+# the cell's kernel on a path whose heads take `first_pass` ("tf32x3" on an
+# f32 path, "mma", the heads' wgmma pass, on a bf16 one)
+CELL_OF_PASS = {"tf32x3": "cell_tf32x3", "mma": "cell_wgmma"}
+
+
 def with_cell_pass(want, first_pass):
     """`want` (launches by kernel, missing ones 0) with the cell's by
-    kernel: every cell launch on `first_pass` ("tf32x3" on an f32 path,
-    "mma" on a bf16 one)."""
+    kernel: every cell launch on CELL_OF_PASS[first_pass] ("tf32x3" on an
+    f32 path, "mma" on a bf16 one)."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     out = {k: want.get(k, 0) for k in _dispatch.KERNELS}
     for p in _dispatch.CELL_PASSES:
-        out[p] = out["cell"] if p == f"cell_{first_pass}" else 0
+        out[p] = out["cell"] if p == CELL_OF_PASS[first_pass] else 0
     return out
 
 
@@ -575,14 +588,14 @@ def phase_build():
                 require(res["spill_bytes"] == 0, f"{name} spills registers")
     # the attention's pre-pass and stream kernels (template arguments as
     # mangled: type, vector width, columns a thread, layout) and the cell's
-    # three kernels (tf32x3: warps along j; mma: warps along the rows; fma:
-    # type, asynchronous fill)
+    # kernels (tf32x3: warps along j; wgmma: consumer warpgroups; fma: type,
+    # asynchronous fill)
     for name, res in sorted(info["resources"].items()):
         for src, kernel in (("att_step", "att_h_mma_kernel"),
                             ("att_step", "att_h_fma_kernel"),
                             ("att_step", "attention_kernel"),
                             ("cell_step", "cell_tf32x3_kernel"),
-                            ("cell_step", "cell_mma_kernel"),
+                            ("cell_wgmma", "cell_wgmma_kernel"),
                             ("cell_step", "cell_fma_kernel")):
             if kernel in name:
                 args = name.split(kernel)[1].split("EEv")[0]
@@ -731,15 +744,17 @@ def att_widths_moved(before):
 def require_head_pass(what, first_pass, passes=None):
     """Every head launch counted in `passes` (per-pass counts; by default
     those of the heads and of the cell since the last reset) took
-    `first_pass`: "tf32x3" for a path's f32 heads and cell, "mma" for its
-    bf16 heads and cell (every such launch is at an aligned full-width
-    shape)."""
+    `first_pass`: "tf32x3" for a path's f32 heads and cell, "mma" (wgmma)
+    for its bf16 heads, and every cell launch CELL_OF_PASS[first_pass]
+    (every such launch is at an aligned full-width shape)."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     if passes is None:
         passes = {**_dispatch.head_pass_launches(),
                   **_dispatch.cell_pass_launches()}
     other = {k: v for k, v in passes.items()
-             if v and not k.endswith(f"_{first_pass}")}
+             if v and not (k == CELL_OF_PASS[first_pass]
+                           or (not k.startswith("cell_")
+                               and k.endswith(f"_{first_pass}")))}
     require(not other, f"{what}: every head and cell launch must take the "
             f"{first_pass} pass, counted {passes}")
 
@@ -1028,7 +1043,7 @@ def phase_kernels():
                 times[name] = (t["ms"], t["plain_ms"])
                 bounds[name] = (t["bound_ms"], t["bound_by"])
         del w, b
-    errs["cell"], times["cell"], bounds["cell"] = check_cell(rn, shapes)
+    check_cell(rn, errs, times, bounds, shapes)
     errs["attention"] = max(errs["attention"],
                             check_attention_grad(rn))
     check_attention_variants(rn, errs, times, bounds, shapes)
@@ -1061,40 +1076,47 @@ def cell_ops(B, width=WIDTH):
 
 # F's shapes: f32 at the training step's B=128, the evaluation's beam-2
 # R=256 and five-caption loss rows 640, f32 serving buckets 512 and 4096 and
-# a partial row tile (130); bf16 at the serving buckets and 130; D = H =
-# CELL_ODD (no multiple of 8) takes the FMA kernel in both types
+# a partial row tile (130); bf16 at the serving buckets, the rows of a
+# beam-2 512 request (1024) and 130; D = H = CELL_ODD (no multiple of 8)
+# takes the FMA kernel in both types
 CELL_SHAPES = {"float32": (TRAIN_B, 256, 512, 640, 4096, 130),
-               "bfloat16": (512, 4096, 130)}
+               "bfloat16": (512, 1024, 4096, 130)}
 CELL_ODD = 500
 # the f32 kernel must beat cell_reference up to this B (the larger f32
 # buckets are measured and reported)
 CELL_F32_FASTER_TO = 640
+# the cell's kernel at an aligned shape, by type
+CELL_KERNEL = {"float32": "cell_tf32x3", "bfloat16": "cell_wgmma"}
+# the bf16 serving shape of the kernels line's cell_wgmma entry
+CELL_BF16_B = 512
 
 
-def check_cell(rn, shapes):
+def check_cell(rn, errs, times, bounds, shapes):
     """Kernel F against cell_plain (cell_reference in f32 on the same
     inputs), with attention (Att2in2) and without (FC), at CELL_SHAPES and
     at D = H = CELL_ODD; every aligned f32 launch must take the split-TF32
-    kernel, every aligned bf16 launch the tensor-core kernel, D = H =
-    CELL_ODD the FMA kernel.  Each full-width with-attention case but
-    B=130 is timed beside cell_reference on the same inputs and gets its
-    own bound (appended to shapes["cell"]), in f32 also the split product's
-    floor (three TF32 products at 495 TFLOP/s) and the three products
-    alone through torch.matmul (TF32 off); the f32 kernel must be faster
-    than cell_reference up to B = CELL_F32_FASTER_TO.  Returns (max error,
-    (kernel ms, plain ms) at the training shape, its bound)."""
+    kernel, every aligned bf16 launch the wgmma kernel, D = H = CELL_ODD the
+    FMA kernel.  Each full-width with-attention case (in f32 but B=130) is
+    timed beside cell_reference on the same inputs and gets its own bound
+    (appended to shapes["cell"], bf16 to shapes["cell_wgmma"]), and the
+    three products alone through torch.matmul (f32 with TF32 off), in f32
+    also the split product's floor (three TF32 products at 495 TFLOP/s);
+    the f32 kernel must be faster than cell_reference up to B =
+    CELL_F32_FASTER_TO.
+    Fills errs, times and bounds for "cell" (f32 at the training shape) and
+    "cell_wgmma" (bf16 at CELL_BF16_B)."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
         _dispatch, cell_step)
     print(f"cell (kernel F) vs its plain version (D=H={WIDTH}, and "
           f"{CELL_ODD})", flush=True)
-    worst, timed, bound, extra = 0.0, {}, {}, {}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    timed, bound, extra = {}, {}, {}
     cases = [(dn, B, WIDTH) for dn, bs in CELL_SHAPES.items() for B in bs]
     cases += [(dn, 130, CELL_ODD) for dn in CELL_SHAPES]
     for dn, B, width in cases:
         dt = getattr(torch, dn)
-        which = ("cell_fma" if width % 8 else
-                 "cell_tf32x3" if dn == "float32" else "cell_mma")
+        which = "cell_fma" if width % 8 else CELL_KERNEL[dn]
         for with_att in (True, False):
             args = cell_args(rn, B, dt, with_att, width)
             before = _dispatch.cell_pass_launches()
@@ -1110,39 +1132,43 @@ def check_cell(rn, shapes):
                     "cell output type/shape")
             err = max((h_new.float() - h_p.float()).abs().max().item(),
                       (c_new.float() - c_p.float()).abs().max().item())
-            worst = max(worst, err)
+            worst[dn] = max(worst[dn], err)
             what = (f"{dn} B={B}{'' if width == WIDTH else f' D=H={width}'}"
                     f" {'att2in2' if with_att else 'fc'} ({which})")
             report("cell", what, err, TOL[("cell", dn)])
-            if with_att and B != 130 and width == WIDTH:
-                timed[(B, dn)] = timed_pair(
-                    lambda: cell_step.fused_cell(*args),
-                    lambda: cell_step.cell_reference(*args))
-                bound[(B, dn)] = bound_ms(args + [h_new, c_new],
-                                          cell_ops(B), dn)
-                if dn == "float32":
-                    xt, h, _, att, wi, _, wh, _, wc, _ = args
-                    extra[(B, dn)] = {
-                        "split_floor_ms": 3 * cell_ops(B) / TF32_OPS_PER_S
-                        * 1e3,
-                        "matmul_ms": cuda_ms(
-                            lambda: (xt @ wi, h @ wh, att @ wc), 20)}
+            if not (with_att and width == WIDTH
+                    and (B != 130 or dn == "bfloat16")):
+                continue
+            timed[(B, dn)] = timed_pair(
+                lambda: cell_step.fused_cell(*args),
+                lambda: cell_step.cell_reference(*args))
+            bound[(B, dn)] = bound_ms(args + [h_new, c_new], cell_ops(B), dn)
+            xt, h, _, att, wi, _, wh, _, wc, _ = args
+            extra[(B, dn)] = {"matmul_ms": cuda_ms(
+                lambda: (xt @ wi, h @ wh, att @ wc), 20)}
+            if dn == "float32":
+                extra[(B, dn)]["split_floor_ms"] = \
+                    3 * cell_ops(B) / TF32_OPS_PER_S * 1e3
+    shapes["cell_wgmma"] = []
     for (B, dn), (k_ms, p_ms) in timed.items():
         bd = bound[(B, dn)]
-        more = extra.get((B, dn), {})
+        more = extra[(B, dn)]
         print(f"  time cell B={B:<5d} {dn:9s} kernel {k_ms:.4f} ms  "
               f"cell_reference {p_ms:.4f} ms  bound {bd[0]:.4f} ms ({bd[1]}; "
-              f"{k_ms / bd[0]:.1f}x)"
-              + (f"  split floor {more['split_floor_ms']:.4f} ms  products "
-                 f"alone {more['matmul_ms']:.4f} ms" if more else ""),
-              flush=True)
-        shapes["cell"].append({**timed_shape(f"{dn} B={B}", (k_ms, p_ms),
-                                             bd), **more})
+              f"{k_ms / bd[0]:.1f}x)  products alone {more['matmul_ms']:.4f} "
+              f"ms"
+              + (f"  split floor {more['split_floor_ms']:.4f} ms"
+                 if "split_floor_ms" in more else ""), flush=True)
+        shapes["cell" if dn == "float32" else "cell_wgmma"].append(
+            {**timed_shape(f"{dn} B={B}", (k_ms, p_ms), bd), **more})
         if dn == "float32" and B <= CELL_F32_FASTER_TO:
             require(k_ms < p_ms, f"cell f32 B={B}: the kernel ({k_ms:.4f} "
                     f"ms) is not faster than cell_reference ({p_ms:.4f} ms)")
-    at = (TRAIN_B, "float32")
-    return worst, timed[at], bound[at]
+    errs["cell"] = max(worst.values())
+    errs["cell_wgmma"] = worst["bfloat16"]
+    for name, at in (("cell", (TRAIN_B, "float32")),
+                     ("cell_wgmma", (CELL_BF16_B, "bfloat16"))):
+        times[name], bounds[name] = timed[at], bound[at]
 
 
 def check_attention_grad(rn):
@@ -6156,13 +6182,15 @@ def main():
             "library_ms": None,
             # every shape the kernel was timed at, each with its own bound
             "timed_shapes": shapes[k]})
-    # the cell's launches by kernel: split TF32 (f32), mma.sync (bf16), FMAs
+    # the cell's launches by kernel: split TF32 (f32), wgmma (bf16), FMAs
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     cell = next(e for e in kernels if e["name"] == "cell")
     cell["launches_by_pass"] = {
         p: sum(counts[p] for counts in paths.values())
-        for p in ("cell_tf32x3", "cell_mma", "cell_fma")}
+        for p in _dispatch.CELL_PASSES}
     require(sum(cell["launches_by_pass"].values()) == cell["launches"]
-            and cell["launches_by_pass"]["cell_tf32x3"] > 0,
+            and cell["launches_by_pass"]["cell_tf32x3"] > 0
+            and cell["launches_by_pass"]["cell_wgmma"] > 0,
             f"cell launches by kernel {cell['launches_by_pass']} of "
             f"{cell['launches']}")
     print(f"card: {smi}")

@@ -79,7 +79,7 @@
 //   owning up to kMaxCols columns a thread.  K is a runtime argument up to
 //   kMaxK; the scores and the side rows take 7 floats a slot of shared
 //   memory.
-#include "common.cuh"
+#include "hopper.cuh"
 
 #ifndef CIC_ATT_TANH
 #define CIC_ATT_TANH 3  // 3: tanh.approx for bf16, the exp form for f32; 2:
@@ -146,39 +146,12 @@ using cic::cp_async_commit;
 using cic::cp_async_wait;
 using cic::smem_u32;
 
-// mbarrier in shared memory: one arrival a phase (the thread that announces
-// the bytes of the phase's bulk copies), completed by the copies themselves.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(arrivals)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Spin until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
+// mbarriers in shared memory: one arrival a phase (the thread that
+// announces the bytes of the phase's bulk copies), completed by the copies
+// themselves.
+using cic::mbar_expect_tx;
+using cic::mbar_init;
+using cic::mbar_wait;
 
 // One asynchronous bulk copy of `bytes` (a multiple of 16; both addresses
 // 16-byte aligned) from global to shared memory, counted on `bar`.
@@ -730,7 +703,7 @@ attention_kernel(const float* __restrict__ ah,
   if constexpr (VEC > 1) {
     if (tid == 0) {
       for (int i = 0; i < stages; ++i) mbar_init(bars + i, 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      cic::mbar_init_fence();
     }
     __syncthreads();
   }

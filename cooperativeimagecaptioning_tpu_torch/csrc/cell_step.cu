@@ -36,16 +36,8 @@
 // feeds gates 3 and 4 only), through a ring of shared-memory stages filled
 // by 16-byte cp.async copies that run (stages - 1) steps ahead of the
 // arithmetic, so a block pays one memory latency, not one a step.
-//   * bf16 (cell_mma_kernel): WM warps, 16 WM rows (64, or 128 from B =
-//     kMmaManyRows so that the weights are read half as often from L2); a
-//     warp owns 64 rows x 8 j x 5 gates, 80 f32 accumulators a thread, and
-//     for each 16-deep slice loads its four A fragments (ldmatrix) and, per
-//     gate, the weight fragment of its 8 j (ldmatrix.trans from the
-//     row-major stage), used by four mma.sync.m16n8k16: the warps share the
-//     rows' fragments, not the weights', which are the larger part.  Element
-//     (r, j) of every gate then sits in the same thread, and the gate
-//     epilogue runs on the accumulators.  At B=512 the grid is 8 x 16 = 128
-//     blocks.
+//   * bf16 with D, H multiples of 8 and 16-byte aligned tensors: wgmma
+//     fed by a TMA ring (cell_wgmma_kernel, in cell_wgmma.cu).
 //   * f32 with D, H multiples of 8 and 16-byte aligned tensors
 //     (cell_tf32x3_kernel): a block owns 32 rows x 8 WJ j (the wrapper's
 //     `tf32x3_cols` picks WJ from B: 1 below B=512, so that B=128 gives 64 x
@@ -86,18 +78,14 @@
 #include <initializer_list>
 #include <type_traits>
 
-#include "common.cuh"
+#include "cell_step.cuh"
 
 namespace {
 
-constexpr int kGates = 5;    // i, f, o, and the two in-transform halves
+constexpr int kGates = cic::kCellGates;
 constexpr int kCols = 32;    // hidden columns j a block owns
 constexpr int kGateCols = kGates * kCols;  // 160 weight columns a stage row
 constexpr int kStages = 3;   // ring of depth steps; copies run 2 ahead
-// tensor-core path (bf16)
-constexpr int kMmaDepth = 64;  // depth of a step
-constexpr int kMmaPad = 8;     // bf16: row pitches 16 bytes mod 128
-constexpr int kMmaManyRows = 2048;  // B from which a block owns 128 rows
 // split-TF32 path (f32)
 constexpr int kTf32Rows = 32;       // rows a block: two m16 tiles a warp
 constexpr int kTf32Depth = 128;     // depth of a step
@@ -112,9 +100,8 @@ constexpr int kFmaThreads = 256;
 constexpr int kFmaSlices = kFmaThreads / 32;  // warps along a stage's depth
 constexpr int kFmaPitch = kFmaDepth + 4;  // floats: row starts 4 banks apart
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
+using cic::cell_out;
+using cic::gate_bias;
 
 // One of the three products: x [B, K] times the columns of w [K, ldw] of
 // gates g0..4 (gate g's run starts at column (g - g0) * H + j0).
@@ -143,224 +130,6 @@ __device__ __forceinline__ Product<T> step_product(
   }
   k0 = (s - n0 - n1) * depth;
   return {att, wc, H, 2 * H, 3};
-}
-
-// The gate epilogue of one (row, j): the five sums (biases included).
-template <typename T>
-__device__ __forceinline__ void cell_out(const float (&x)[kGates], float c,
-                                         T* h_out, T* c_out) {
-  const float ig = sigmoid(x[0]);
-  const float fg = sigmoid(x[1]);
-  const float og = sigmoid(x[2]);
-  const float cn = fg * c + ig * fmaxf(x[3], x[4]);
-  *h_out = cic::from_f32<T>(og * tanhf(cn));
-  *c_out = cic::from_f32<T>(cn);
-}
-
-// bi + bh (+ bc for gates 3 and 4) of column j.
-template <typename T>
-__device__ __forceinline__ void gate_bias(const T* bi, const T* bh,
-                                          const T* bc, int H, int j,
-                                          float (&bias)[kGates]) {
-#pragma unroll
-  for (int g = 0; g < kGates; ++g)
-    bias[g] = cic::to_f32(bi[g * H + j]) + cic::to_f32(bh[g * H + j]);
-  if (bc != nullptr) {
-    bias[3] += cic::to_f32(bc[j]);
-    bias[4] += cic::to_f32(bc[H + j]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores
-// ---------------------------------------------------------------------------
-
-template <int WM>
-constexpr size_t mma_smem() {
-  return sizeof(__nv_bfloat16) * kStages *
-         ((size_t)16 * WM * (kMmaDepth + kMmaPad) +
-          (size_t)kMmaDepth * (kGateCols + kMmaPad));
-}
-
-// D, H multiples of 8 and every pointer 16-byte aligned (the caller checks).
-template <int WM>
-__global__ void __launch_bounds__(32 * WM)
-cell_mma_kernel(const __nv_bfloat16* __restrict__ xt,
-                const __nv_bfloat16* __restrict__ h,
-                const __nv_bfloat16* __restrict__ c,
-                const __nv_bfloat16* __restrict__ att,
-                const __nv_bfloat16* __restrict__ wi,
-                const __nv_bfloat16* __restrict__ bi,
-                const __nv_bfloat16* __restrict__ wh,
-                const __nv_bfloat16* __restrict__ bh,
-                const __nv_bfloat16* __restrict__ wc,
-                const __nv_bfloat16* __restrict__ bc,
-                __nv_bfloat16* __restrict__ h_out,
-                __nv_bfloat16* __restrict__ c_out, int B, int D, int H) {
-  using bf16 = __nv_bfloat16;
-  constexpr int kThreadsB = 32 * WM;
-  constexpr int kRowsB = 16 * WM;
-  constexpr int kAPitch = kMmaDepth + kMmaPad;
-  constexpr int kWPitch = kGateCols + kMmaPad;
-  constexpr int kAStage = kRowsB * kAPitch;
-  constexpr int kWStage = kMmaDepth * kWPitch;
-  extern __shared__ __align__(16) unsigned char cell_raw[];
-  bf16* as = reinterpret_cast<bf16*>(cell_raw);  // [stages][rows][kAPitch]
-  bf16* ws = as + kStages * kAStage;              // [stages][depth][kWPitch]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wr = warp / 4;  // the warp's 64 rows of the block's
-  const int wj = warp % 4;  // and its 8 columns j of the block's 32
-  const int m0 = blockIdx.y * kRowsB;
-  const int j0 = blockIdx.x * kCols;
-  const int n0 = (D + kMmaDepth - 1) / kMmaDepth;
-  const int n1 = (H + kMmaDepth - 1) / kMmaDepth;
-  const int total = n0 + n1 + (att != nullptr ? n1 : 0);
-
-  // step s into stage s % kStages: the rows' depth slice, and for each gate
-  // the product feeds its [depth x 32] run of weights; zero-filled beyond
-  // B, the product's depth and H
-  auto load = [&](int s) {
-    int k0;
-    const Product<bf16> p =
-        step_product(s, kMmaDepth, n0, n1, xt, h, att, wi, wh, wc, D, H, k0);
-    bf16* a_st = as + (s % kStages) * kAStage;
-    bf16* w_st = ws + (s % kStages) * kWStage;
-    for (int g = tid; g < kRowsB * (kMmaDepth / 8); g += kThreadsB) {
-      const int r = g / (kMmaDepth / 8);
-      const int cc = (g % (kMmaDepth / 8)) * 8;
-      const bool ok = m0 + r < B && k0 + cc < p.K;
-      cic::cp_async_16(a_st + r * kAPitch + cc,
-                       ok ? p.x + (size_t)(m0 + r) * p.K + k0 + cc : p.x, ok);
-    }
-    for (int gate = p.g0; gate < kGates; ++gate) {
-      for (int g = tid; g < kMmaDepth * (kCols / 8); g += kThreadsB) {
-        const int k = g / (kCols / 8);
-        const int c8 = (g % (kCols / 8)) * 8;
-        const bool ok = k0 + k < p.K && j0 + c8 < H;
-        const bf16* src =
-            p.w + (size_t)(k0 + k) * p.ldw + (gate - p.g0) * H + j0 + c8;
-        cic::cp_async_16(w_st + k * kWPitch + gate * kCols + c8,
-                         ok ? src : p.w, ok);
-      }
-    }
-  };
-
-  float acc[kGates][4][4];
-#pragma unroll
-  for (int g = 0; g < kGates; ++g)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[g][n][e] = 0.0f;
-
-  // one stage: 4 slices of 16 k; for each gate from G0 the 16 k x 8 j
-  // weight fragment of the warp's j (two gates a ldmatrix.x4.trans), then
-  // for each of its four 16-row tiles the A fragment and one mma a gate.  The
-  // tensor cores sum a stage into zeroed accumulators, which are then added
-  // to the totals in f32 round-to-nearest: the products' sums stay as close
-  // to the plain version's f32 sums as the FMA kernel's (a bf16 output
-  // flips by one ulp only where its f32 value sits that close to a rounding
-  // boundary).
-  auto multiply = [&](auto g0_const, const bf16* a_st, const bf16* w_st) {
-    constexpr int G0 = decltype(g0_const)::value;
-    float part[kGates][4][4];
-#pragma unroll
-    for (int g = G0; g < kGates; ++g)
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[g][mt][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kMmaDepth; kk += 16) {
-      uint32_t b[kGates][2];
-      const bf16* wrow = w_st + (kk + (lane & 15)) * kWPitch + wj * 8;
-#pragma unroll
-      for (int g = G0; g < kGates; g += 2) {
-        if (g + 1 < kGates) {  // gates g and g + 1
-          uint32_t b4[4];
-          cic::ldmatrix_x4<true>(b4, wrow + (g + (lane >> 4)) * kCols);
-          b[g][0] = b4[0];
-          b[g][1] = b4[1];
-          b[g + 1][0] = b4[2];
-          b[g + 1][1] = b4[3];
-        } else {
-          cic::ldmatrix_x2_trans(b[g], wrow + g * kCols);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        uint32_t a[4];
-        cic::ldmatrix_x4<false>(
-            a, a_st + (wr * 64 + mt * 16 + (lane & 15)) * kAPitch + kk +
-                   ((lane >> 4) << 3));
-#pragma unroll
-        for (int g = G0; g < kGates; ++g)
-          cic::mma_bf16_16816(part[g][mt], a, b[g][0], b[g][1]);
-      }
-    }
-#pragma unroll
-    for (int g = G0; g < kGates; ++g)
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][mt][e] += part[g][mt][e];
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < total) load(s);
-    cic::cp_async_commit();
-  }
-  for (int s = 0; s < total; ++s) {
-    cic::cp_async_wait<kStages - 2>();  // this thread's copies of step s
-    // everyone's copies of step s landed, and everyone is done with step
-    // s - 1, whose stage the next load refills
-    __syncthreads();
-    if (s + kStages - 1 < total) load(s + kStages - 1);
-    cic::cp_async_commit();
-    const bf16* a_st = as + (s % kStages) * kAStage;
-    const bf16* w_st = ws + (s % kStages) * kWStage;
-    if (s < n0 + n1)
-      multiply(std::integral_constant<int, 0>{}, a_st, w_st);
-    else
-      multiply(std::integral_constant<int, 3>{}, a_st, w_st);
-  }
-
-  // epilogue: acc[g][mt] holds rows r, r + 8 (r = 16 mt + lane / 4 of the
-  // warp's 64) x columns j, j + 1 (j = 2 (lane % 4) of its 8) of gate g
-  const int gr = lane >> 2;
-  const int j = j0 + wj * 8 + 2 * (lane & 3);
-  if (j >= H) return;  // H is even: j + 1 < H too
-  float bias[2][kGates];
-  gate_bias(bi, bh, att != nullptr ? bc : nullptr, H, j, bias[0]);
-  gate_bias(bi, bh, att != nullptr ? bc : nullptr, H, j + 1, bias[1]);
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = m0 + wr * 64 + mt * 16 + gr + 8 * hf;
-      if (row >= B) continue;
-      const size_t o = (size_t)row * H + j;
-      const float2 cv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(c + o));
-      bf16 hn[2], cn[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float x[kGates];
-#pragma unroll
-        for (int g = 0; g < kGates; ++g)
-          x[g] = acc[g][mt][2 * hf + e] + bias[e][g];
-        cell_out(x, e ? cv.y : cv.x, &hn[e], &cn[e]);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(h_out + o) =
-          __halves2bfloat162(hn[0], hn[1]);
-      *reinterpret_cast<__nv_bfloat162*>(c_out + o) =
-          __halves2bfloat162(cn[0], cn[1]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -757,26 +526,6 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int WM>
-int launch_mma(const void* xt, const void* h, const void* c, const void* att,
-               const void* wi, const void* bi, const void* wh, const void* bh,
-               const void* wc, const void* bc, void* h_out, void* c_out,
-               int B, int D, int H, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  constexpr size_t smem = mma_smem<WM>();
-  cudaError_t e = allow_smem(cell_mma_kernel<WM>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((H + kCols - 1) / kCols, (B + 16 * WM - 1) / (16 * WM));
-  cell_mma_kernel<WM><<<grid, 32 * WM, smem, stream>>>(
-      static_cast<const bf16*>(xt), static_cast<const bf16*>(h),
-      static_cast<const bf16*>(c), static_cast<const bf16*>(att),
-      static_cast<const bf16*>(wi), static_cast<const bf16*>(bi),
-      static_cast<const bf16*>(wh), static_cast<const bf16*>(bh),
-      static_cast<const bf16*>(wc), static_cast<const bf16*>(bc),
-      static_cast<bf16*>(h_out), static_cast<bf16*>(c_out), B, D, H);
-  return (int)cudaGetLastError();
-}
-
 template <int WJ>
 int launch_tf32x3(const void* xt, const void* h, const void* c,
                   const void* att, const void* wi, const void* bi,
@@ -826,16 +575,18 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 }  // namespace
 
 // att, wc and bc are all NULL for the FC cell, or none of them.  first_pass
-// names the kernel (the wrapper's cell_pass): 0 the FMA kernel (any shape),
-// 1 the bf16 tensor-core kernel, 2 the split-TF32 kernel (f32); 1 and 2
-// need D and H multiples of 8 and every pointer 16-byte aligned.  cols is
-// the split-TF32 kernel's j a block, 8 or 16 (the wrapper's tf32x3_cols).
+// names the kernel (the wrapper's cell_pass, cell_step.cuh's codes):
+// kCellFma the FMA kernel (any shape), kCellTf32 the split-TF32 kernel
+// (f32), kCellWgmma the bf16 wgmma kernel (cell_wgmma.cu); the last two
+// need D and H multiples of 8 and every pointer 16-byte aligned.  cols and rows name a block's tile: the
+// split-TF32 kernel's j, 8 or 16 (the wrapper's tf32x3_cols); the wgmma
+// kernel's j, 32 or 64, and rows, 64 or 128 (the wrapper's wgmma_tile).
 CIC_EXPORT int cic_cell(const void* xt, const void* h, const void* c,
                         const void* att, const void* wi, const void* bi,
                         const void* wh, const void* bh, const void* wc,
                         const void* bc, void* h_out, void* c_out, int B,
                         int D, int H, int is_bf16, int first_pass, int cols,
-                        void* stream) {
+                        int rows, void* stream) {
   if (B < 1 || D < 1 || H < 1 || (B + kFmaRows - 1) / kFmaRows > 65535)
     return (int)cudaErrorInvalidValue;
   if ((att == nullptr) != (wc == nullptr) ||
@@ -845,15 +596,12 @@ CIC_EXPORT int cic_cell(const void* xt, const void* h, const void* c,
   const bool aligned = aligned16({xt, h, c, att, wi, bi, wh, bh, wc, bc,
                                   h_out, c_out});
   const bool fits = D % 8 == 0 && H % 8 == 0 && aligned;
-  if (first_pass == 1) {
+  if (first_pass == cic::kCellWgmma) {
     if (!is_bf16 || !fits) return (int)cudaErrorInvalidValue;
-    return B >= kMmaManyRows
-               ? launch_mma<8>(xt, h, c, att, wi, bi, wh, bh, wc, bc, h_out,
-                               c_out, B, D, H, s)
-               : launch_mma<4>(xt, h, c, att, wi, bi, wh, bh, wc, bc, h_out,
-                               c_out, B, D, H, s);
+    return cic::cell_wgmma(xt, h, c, att, wi, bi, wh, bh, wc, bc, h_out,
+                           c_out, B, D, H, rows, cols, s);
   }
-  if (first_pass == 2) {
+  if (first_pass == cic::kCellTf32) {
     if (is_bf16 || !fits || (cols != 8 && cols != 16))
       return (int)cudaErrorInvalidValue;
     return cols == 8
@@ -862,7 +610,7 @@ CIC_EXPORT int cic_cell(const void* xt, const void* h, const void* c,
                : launch_tf32x3<2>(xt, h, c, att, wi, bi, wh, bh, wc, bc,
                                   h_out, c_out, B, D, H, s);
   }
-  if (first_pass != 0) return (int)cudaErrorInvalidValue;
+  if (first_pass != cic::kCellFma) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return launch_fma<__nv_bfloat16, false>(xt, h, c, att, wi, bi, wh, bh, wc,
                                             bc, h_out, c_out, B, D, H, s);

@@ -127,23 +127,6 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
       : "r"(smem_u32(p)));
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
-// row l % 8 of matrix l / 8; `trans` transposes each.
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  if constexpr (TRANS)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p)));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p)));
-}
-
 // --- TF32 tensor cores (mma.sync), for split-TF32 f32 products ------------
 
 // x rounded to TF32 (10 explicit mantissa bits, to nearest, ties away),

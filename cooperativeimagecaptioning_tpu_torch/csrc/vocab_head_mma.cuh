@@ -52,6 +52,7 @@
 // and b; the Python wrappers route everything else to the FMA pass.
 #pragma once
 
+#include "hopper.cuh"
 #include "vocab_head.cuh"
 
 namespace {
@@ -85,52 +86,11 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Shared-memory matrix descriptor of wgmma, 128-byte swizzle: the address,
-// the leading and the stride byte offsets in 16-byte units, layout type 1.
-// The tiles start on 1024-byte boundaries, so the base offset is 0.
-__device__ __forceinline__ uint64_t mma_desc(uint32_t addr, uint32_t lbo,
-                                             uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-#define CIC_ACC8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (+)= A[64 x 16] * B[16 x 128]: A K-major, B MN-major (transposed form).
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : CIC_ACC8(0), CIC_ACC8(8), CIC_ACC8(16), CIC_ACC8(24), CIC_ACC8(32),
-        CIC_ACC8(40), CIC_ACC8(48), CIC_ACC8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-#undef CIC_ACC8
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
+using cic::mma_desc;
+using cic::wgmma_commit;
+using cic::wgmma_fence;
+using cic::wgmma_m64n128k16;
+using cic::wgmma_wait;
 
 // Insert (x, i), which comes before the list's last entry, into a list kept
 // in cic::before order: x takes the first slot it leads, and each displaced

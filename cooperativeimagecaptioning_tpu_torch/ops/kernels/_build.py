@@ -67,9 +67,10 @@ SIGNATURES = {
     # R, H, V, kk, kk_slots, splits, split_cols, is_bf16, first_pass, stream
     "cic_beam_head": [_P] * 11 + [_I] * 9 + [_P],
     # xt, h, c, att|NULL, wi, bi, wh, bh, wc|NULL, bc|NULL, h_out, c_out,
-    # B, D, H, is_bf16, first_pass (0 FMA, 1 mma.sync bf16, 2 split TF32),
-    # cols (the split-TF32 kernel's j a block), stream
-    "cic_cell": [_P] * 12 + [_I] * 6 + [_P],
+    # B, D, H, is_bf16, first_pass (0 FMA, 2 split TF32, 3 wgmma bf16), cols
+    # and rows (a block's tile: the split-TF32 kernel's j; the wgmma
+    # kernel's j and rows), stream
+    "cic_cell": [_P] * 12 + [_I] * 7 + [_P],
     # vals, idx, lse, out_vals, out_idx, out_lse, R, n, m, v_local, stream
     "cic_head_merge": [_P] * 6 + [_I] * 4 + [_P],
 }

@@ -8,13 +8,14 @@ Counterpart of the JAX package's ops/pallas/cell_step.py.
                                            sums[4H:5H] (+ a2c[H:]))
     c' = f*c + i*g ;  h' = o*tanh(c')
 
-`fused_cell` is the cell the model calls.  CUDA tensors launch the
-hand-written kernel in csrc/cell_step.cu on every call: the split-TF32
-kernel for f32, the tensor-core kernel for bf16, the FMA kernel for the
-shapes neither takes (`cell_pass`).  CPU tensors take `cell_reference`,
-which is what the JAX package computes everywhere but on a TPU (its switch,
-CIC_FUSED_CELL, gated the Pallas kernel on a TPU measurement; the port has
-no switch) and equals `cell_plain` at f32.  The kernel has no backward, as
+`fused_cell` is the cell the model calls.  CUDA tensors launch a
+hand-written kernel of csrc/ on every call: the split-TF32 kernel
+(cell_step.cu) for f32, the wgmma kernel (cell_wgmma.cu) for bf16, the FMA
+kernel (cell_step.cu) for the shapes neither takes (`cell_pass`).  CPU
+tensors take `cell_reference`, which is what the JAX package computes
+everywhere but on a TPU (its switch, CIC_FUSED_CELL, gated the Pallas
+kernel on a TPU measurement; the port has no switch) and equals
+`cell_plain` at f32.  The kernel has no backward, as
 the Pallas kernel had none: `Cell`, a torch.autograd.Function standing in
 for the JAX custom_vjp, recomputes `cell_reference` in its backward
 (cell_step.py:142-144).
@@ -85,24 +86,31 @@ def fused_cell(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
     return cell_kernel(*args)
 
 
-# the C entry's first_pass codes
-PASS_CODES = {"fma": 0, "mma": 1, "tf32x3": 2}
+# the C entry's first_pass codes (csrc/cell_step.cuh: kCellFma, kCellTf32,
+# kCellWgmma)
+PASS_CODES = {"fma": 0, "tf32x3": 2, "wgmma": 3}
 # B from which a block of the split-TF32 kernel owns 16 hidden columns j
 # (`tf32x3_cols`)
 TF32_WIDE_ROWS = 512
+# the wgmma kernel's tile (csrc/cell_wgmma.cu): j a block, and rows a block
+# while one wave of the card's SMs holds the grid, else twice as many
+WGMMA_COLS = 32
+WGMMA_ROWS = 64
+SMS = 132  # the H100's streaming multiprocessors
 
 
 def cell_pass(dtype, D: int, H: int, aligned: bool = True) -> str:
-    """Which kernel of csrc/cell_step.cu a launch takes.  With D and H
-    multiples of 8 and 16-byte aligned tensors (the 16-byte copies and the
-    whole n8 tiles of the tensor-core kernels need all three): "tf32x3"
-    (split TF32 on mma.sync) for float32, "mma" (mma.sync) for bfloat16;
-    "fma" (true f32 FMAs) for every other shape."""
+    """Which kernel of csrc/ a launch takes.  With D and H multiples of 8
+    and 16-byte aligned tensors (the 16-byte rows and tiles of the
+    tensor-core kernels, and TMA's row strides, need all three): "tf32x3"
+    (split TF32 on mma.sync, cell_step.cu) for float32, "wgmma" (wgmma fed
+    by TMA, cell_wgmma.cu) for bfloat16, whatever B (rows past B arrive as
+    zeros); "fma" (true f32 FMAs) for every other shape."""
     if aligned and D % 8 == 0 and H % 8 == 0:
         if dtype == torch.float32:
             return "tf32x3"
         if dtype == torch.bfloat16:
-            return "mma"
+            return "wgmma"
     return "fma"
 
 
@@ -111,6 +119,16 @@ def tf32x3_cols(B: int) -> int:
     TF32_WIDE_ROWS rows (the training shape B=128 then fills the card with
     256 blocks), else 16 (the rows are read half as often from L2)."""
     return 8 if B < TF32_WIDE_ROWS else 16
+
+
+def wgmma_tile(B: int, H: int) -> tuple:
+    """(rows, hidden columns j) a block of the wgmma kernel owns: 64 rows
+    while the grid of 64 x 32 tiles fits one wave of the card's SMs (B <=
+    512 at H = 512: more, smaller blocks read from L2 in parallel), else
+    128 rows, which read the weights half as often (PERF.md, PR 19)."""
+    blocks = -(-B // WGMMA_ROWS) * -(-H // WGMMA_COLS)
+    rows = WGMMA_ROWS if blocks <= SMS else 2 * WGMMA_ROWS
+    return rows, WGMMA_COLS
 
 
 def cell_kernel(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
@@ -142,11 +160,13 @@ def cell_kernel(xt, h, c, att_res, wi, bi, wh, bh, wc, bc):
     tensors = [t for t in args if t is not None] + [h_new, c_new]
     which = cell_pass(h.dtype, D, H,
                       all(t.data_ptr() % 16 == 0 for t in tensors))
+    rows, cols = (wgmma_tile(B, H) if which == "wgmma"
+                  else (0, tf32x3_cols(B)))
     lib = _build.library()
     code = lib.cic_cell(
         *(_build.ptr(t) for t in args), _build.ptr(h_new), _build.ptr(c_new),
-        B, D, H, int(h.dtype == torch.bfloat16), PASS_CODES[which],
-        tf32x3_cols(B), _build.stream(h.device))
+        B, D, H, int(h.dtype == torch.bfloat16), PASS_CODES[which], cols,
+        rows, _build.stream(h.device))
     _build.check(lib, code, "cell")
     _dispatch.count("cell", which)
     return h_new, c_new

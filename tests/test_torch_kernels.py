@@ -716,7 +716,7 @@ def test_cell_kernel_matches_plain(cuda, dtype, with_att, B, D, H):
     shapes cut the row tiles (B = 1, 17, 130; 2100 takes the 128-row tiles
     of the bf16 kernel, 512 and 2100 the 16-column tiles of the split-TF32
     kernel) and the j tiles (H = 40, 104); aligned f32 takes the split-TF32
-    kernel, aligned bf16 the tensor-core kernel; D, H = 20, 44 are no
+    kernel, aligned bf16 the wgmma kernel; D, H = 20, 44 are no
     multiple of 8 and take the FMA kernel in both types."""
     args = [None if x is None else torch.from_numpy(x).to(cuda, dtype)
             for x in cell_case(B, D, H, with_att)]
@@ -725,7 +725,7 @@ def test_cell_kernel_matches_plain(cuda, dtype, with_att, B, D, H):
     assert _dispatch.launches()["cell"] == 1
     fits = D % 8 == 0 and H % 8 == 0
     want = ("cell_fma" if not fits else "cell_tf32x3"
-            if dtype == torch.float32 else "cell_mma")
+            if dtype == torch.float32 else "cell_wgmma")
     assert _dispatch.cell_pass_launches() == {
         k: int(k == want) for k in _dispatch.CELL_PASSES}
     h_p, c_p = cell_step.cell_plain(*args)

@@ -186,7 +186,8 @@ def breakdown(stages, trainer, data, device, reps):
                 # op (the attention's att_h pre-pass counts with it)
                 for name, key in (("attention_kernel", "attention kernel"),
                                   ("att_h_", "attention kernel"),
-                                  ("cell_mma_kernel", "cell kernel"),
+                                  ("cell_tf32x3_kernel", "cell kernel"),
+                                  ("cell_wgmma_kernel", "cell kernel"),
                                   ("cell_fma_kernel", "cell kernel")):
                     if name in e.name:
                         cats[key] = cats.get(key, 0.0) + ms
