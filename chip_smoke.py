@@ -10,9 +10,10 @@ Phases, in order; any failure exits non-zero:
                  build) and the hand-written kernels from the package's csrc/
                  with nvcc (timed) and prints the registers, stack and
                  spills ptxas reports for the heads' two tensor-core passes
-                 (bf16 wgmma, f32 split TF32), the attention's pre-pass and
+                 (bf16 TMA, f32 split TF32), the attention's pre-pass and
                  stream kernels and the cell's kernels (no spill
-                 allowed).
+                 allowed), and any kernel whose wgmma ptxas serialized
+                 (C7515; none allowed in the TMA pass).
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes the paths give it, in float32 and bfloat16:
                  attention (masked and unmasked; the b-major, the int8 and
@@ -34,7 +35,7 @@ Phases, in order; any failure exits non-zero:
                  at the evaluation's R=256, at 300 and at 8192 rows, and kk =
                  17, 32, 64 at R=1024, in rounds of 16, with a group of 24
                  tied ids across the rounds' seam; greedy also at the f32
-                 paths' R=128; every bf16 launch must take the wgmma pass,
+                 paths' R=128; every bf16 launch must take the TMA pass,
                  every f32 launch the split-TF32 pass, and an f32 W that
                  does not start on 16 bytes the FMA pass).
                  Each check prints its maximum error beside its tolerance;
@@ -55,8 +56,10 @@ Phases, in order; any failure exits non-zero:
                  plain autograd, f32 at B=128.  Every timed shape gets its own
                  bound: the larger of its bytes over the card's memory rate
                  and its operations over the card's peak rate.  The heads are
-                 timed at B=512 and 4096 (greedy) and R=1024 and 8192 (beam,
-                 kk=2) in bf16, and in f32 at the f32 paths' shapes (greedy
+                 timed at B=512 and 4096 (greedy), R=1024 and 8192 (beam,
+                 kk=2) and R=1024 at kk=16 and 32 in bf16 (each also as the
+                 wrapper call on the host's clock), and in f32 at the f32
+                 paths' shapes (greedy
                  R=128 and 512, beam kk=2 at R=256 and 1024, and the vocab
                  slices of a model axis of 2: R=256 kk=2 and R=128 kk=1),
                  each beside torch.matmul of h @ w alone, a yardstick the
@@ -69,7 +72,7 @@ Phases, in order; any failure exits non-zero:
                  make_http_server (greedy and beam 2, bf16), checks the
                  answers and that every request went through the kernels
                  (launch counts; every head launch of a bf16 service on the
-                 wgmma pass, of an f32 service on the split-TF32 pass),
+                 TMA pass, of an f32 service on the split-TF32 pass),
                  compares the CUDA services with CPU
                  services (plain versions) in float32 and in bfloat16, and
                  times captions/s.  Then the same for the two other decode
@@ -294,8 +297,8 @@ Phases, in order; any failure exits non-zero:
 Every f32 head and cell launch of a path (services, evaluation, SCST,
 joint, reinforce, device rewards and fused chunks, mesh slices, harvest,
 the paper's drivers, the orbax tier) must take the split-TF32 pass, and
-every bf16 one the wgmma pass (the heads' "mma", the cell's cell_wgmma), by
-the per-pass launch counts.
+every bf16 one its Hopper pass (the heads' "tma", the cell's cell_wgmma),
+by the per-pass launch counts.
 Two lines before the last name the card and describe the kernels (one JSON
 object, with each kernel's launches by path -- "cell" every launch of F,
 "cell_wgmma" those of F's bf16 kernel --, "mesh" the launches of every
@@ -344,6 +347,7 @@ BEAM_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/beam_head.cu"
 CELL_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/cell_step.cu"
 CELL_WGMMA_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/cell_wgmma.cu"
 MERGE_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/head_merge.cu"
+HEAD_TMA_SRC = "cooperativeimagecaptioning_tpu_torch/csrc/vocab_head_tma.cuh"
 REPLACES = {
     "attention": "cooperativeimagecaptioning_tpu/ops/pallas/att_step.py:130",
     "attention_q":
@@ -356,6 +360,10 @@ REPLACES = {
     "cell": "cooperativeimagecaptioning_tpu/ops/pallas/cell_step.py:75",
     # F's bf16 pass (every aligned bf16 launch of "cell")
     "cell_wgmma": "cooperativeimagecaptioning_tpu/ops/pallas/cell_step.py:75",
+    # B's and C's bf16 first pass (every aligned bf16 launch of both heads)
+    "vocab_partials_tma":
+        "cooperativeimagecaptioning_tpu/ops/pallas/logit_head.py:138 (B), "
+        "cooperativeimagecaptioning_tpu/ops/pallas/beam_head.py:58 (C)",
     # the merge of beam_head_sharded (:111; its lines :131-142), which
     # greedy_head_sharded (logit_head.py:202) takes at m = 1
     "head_merge": "cooperativeimagecaptioning_tpu/ops/pallas/beam_head.py:111"
@@ -365,7 +373,12 @@ REPLACES = {
 SOURCES = {"attention": ATT_SRC, "attention_q": ATT_SRC,
            "attention_kmajor": ATT_SRC, "greedy_head": GREEDY_SRC,
            "beam_head": BEAM_SRC, "cell": CELL_SRC,
-           "cell_wgmma": CELL_WGMMA_SRC, "head_merge": MERGE_SRC}
+           "cell_wgmma": CELL_WGMMA_SRC, "vocab_partials_tma": HEAD_TMA_SRC,
+           "head_merge": MERGE_SRC}
+# the kernels line's entries that count a pass of other kernels: the
+# launch counts they add up
+PASS_ENTRIES = {"cell_wgmma": ("cell_wgmma",),
+                "vocab_partials_tma": ("greedy_head_tma", "beam_head_tma")}
 # the attention kernel each decode layout of the context must go through
 LAYOUTS = {"b-major": ({}, "attention"),
            "int8": ({"att_quant": "int8"}, "attention_q"),
@@ -504,31 +517,38 @@ def cpu_cell_plain():
 
 def launch_counts():
     """The launch counts since the last reset that a path reports: each
-    kernel's (`launch_counts()`) and the cell's by kernel
-    (`_dispatch.cell_pass_launches()`: cell_tf32x3, cell_wgmma, cell_fma)."""
+    kernel's (`launch_counts()`), the cell's by kernel
+    (`_dispatch.cell_pass_launches()`: cell_tf32x3, cell_wgmma, cell_fma)
+    and the heads' by first pass (`_dispatch.head_pass_launches()`:
+    <head>_tma, <head>_tf32x3, <head>_fma)."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
-    return {**_dispatch.launches(), **_dispatch.cell_pass_launches()}
+    return {**_dispatch.launches(), **_dispatch.cell_pass_launches(),
+            **_dispatch.head_pass_launches()}
 
 
 def counted():
     """The keys of `launch_counts`."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
-    return _dispatch.KERNELS + _dispatch.CELL_PASSES
+    return _dispatch.KERNELS + _dispatch.CELL_PASSES + _dispatch.HEAD_PASSES
 
 
 # the cell's kernel on a path whose heads take `first_pass` ("tf32x3" on an
-# f32 path, "mma", the heads' wgmma pass, on a bf16 one)
-CELL_OF_PASS = {"tf32x3": "cell_tf32x3", "mma": "cell_wgmma"}
+# f32 path, "tma", the heads' TMA pass, on a bf16 one)
+CELL_OF_PASS = {"tf32x3": "cell_tf32x3", "tma": "cell_wgmma"}
 
 
 def with_cell_pass(want, first_pass):
     """`want` (launches by kernel, missing ones 0) with the cell's by
-    kernel: every cell launch on CELL_OF_PASS[first_pass] ("tf32x3" on an
-    f32 path, "mma" on a bf16 one)."""
+    kernel and the heads' by first pass: every cell launch on
+    CELL_OF_PASS[first_pass], every head launch on `first_pass` ("tf32x3"
+    on an f32 path, "tma" on a bf16 one)."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     out = {k: want.get(k, 0) for k in _dispatch.KERNELS}
     for p in _dispatch.CELL_PASSES:
         out[p] = out["cell"] if p == CELL_OF_PASS[first_pass] else 0
+    for p in _dispatch.HEAD_PASSES:
+        head, which = p.rsplit("_", 1)
+        out[p] = out[head] if which == first_pass else 0
     return out
 
 
@@ -570,22 +590,33 @@ def phase_build():
     print(f"build: {how} from {os.path.relpath(str(_build.CSRC), REPO)}/ "
           f"for sm_90a in {info['seconds']:.1f} s -> "
           f"{os.path.relpath(info['path'], REPO)}", flush=True)
-    # what ptxas gave the two tensor-core passes: KK is the top-list
-    # length, THR a later round's instantiation
+    # what ptxas gave the two tensor-core passes (bf16 TMA, f32 split
+    # TF32): KK is the top-list length, THR a later round's instantiation
     for name, res in sorted(info["resources"].items()):
-        for kind in ("mma", "tf32"):
+        for kind in ("tma", "tf32"):
             kernel = f"vocab_partials_{kind}"
             if kernel in name:
                 args = name.split(kernel + "ILi")[1]
                 kk = args.split("E")[0]
                 thr = ", THR" if args.split("E")[1].startswith("Lb1") else ""
-                src = ("logit_head" if f"logit_head_{kind}" in name
-                       else "beam_head") + f"_{kind}"
-                print(f"  {src} {kernel}<KK={kk}{thr}>: "
+                if "TmaPlanILi" in args:   # k a stage, ahead, sets
+                    depth, _, sets = args.split("TmaPlanILi")[1].split(
+                        "ELi")[:3]
+                    sets = sets.split("E")[0]
+                    thr += f", {depth}-deep stages, {sets} set(s)"
+                print(f"  {kernel}<KK={kk}{thr}>: "
                       f"{res['registers']} registers, {res['stack_bytes']} "
                       f"bytes of stack, {res['spill_bytes']} bytes spilled",
                       flush=True)
                 require(res["spill_bytes"] == 0, f"{name} spills registers")
+    # ptxas's C7515: it serialized a kernel's wgmma instructions.  The TMA
+    # pass folds a tile beside the next tile's products only while it does
+    # not (an instruction that writes an accumulator register there brings
+    # it back)
+    for name in info["serialized"]:
+        print(f"  ptxas serialized the wgmma of {name} (C7515)", flush=True)
+        require(name != "?" and "vocab_partials_tma" not in name,
+                f"ptxas serialized the wgmma of {name} (C7515)")
     # the attention's pre-pass and stream kernels (template arguments as
     # mangled: type, vector width, columns a thread, layout) and the cell's
     # kernels (tf32x3: warps along j; wgmma: consumer warpgroups; fma: type,
@@ -635,6 +666,24 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def call_ms(fn, calls=50, reps=7):
+    """A call of fn() on the host's clock, in ms: the median of `reps`
+    loops of `calls` calls back to back on an idle card, each loop ended by
+    a synchronize (where the kernels take less than the enqueue, the
+    enqueue; the host's clock is shared with other work, hence a median)."""
+    import torch
+    fn()
+    loops = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        loops.append((time.perf_counter() - t0) * 1e3 / calls)
+    return sorted(loops)[reps // 2]
 
 
 def timed_pair(kernel_fn, plain_fn, iters=20):
@@ -691,14 +740,15 @@ def ids_agree(name, what, ids_k, ids_p, logits, tol):
 def plant_ties(w, b):
     """Zero W's columns at the tie ids and give them equal biases: their
     logits are exact ties in any summation order.  The ids sit at the seams
-    of the tensor-core pass's merge, for every grid this script gives it
+    of the tensor-core passes' merge, for every grid this script gives them
     (vocab splits of 256 to 4864 columns): 2 and 3 are one thread's two
-    adjacent accumulator columns, 4 another lane of the same quad, 130 the
-    same lane in the block's next 128-column tile, 5000 another vocab split,
-    and V the last column of the ragged last tile.  Expected order of the
-    top 8 for every row: [2, 3, 4, 130, 5000, V, 5, 4000]."""
+    adjacent accumulator columns, 4 another lane of the same quad, 66 the
+    same lane in the bf16 pass's next 64-column tile (the other accumulator
+    set), 130 the same lane two tiles on (the same set), 5000 another vocab
+    split, and V the last column of the ragged last tile.  Expected order of
+    the top 9 for every row: [2, 3, 4, 66, 130, 5000, V, 5, 4000]."""
     V1 = w.shape[1]
-    top = [2, 3, 4, 130, 5000, V1 - 1]
+    top = [2, 3, 4, 66, 130, 5000, V1 - 1]
     nxt = [5, 4000]
     for c in top + nxt:
         w[:, c] = 0
@@ -744,9 +794,10 @@ def att_widths_moved(before):
 def require_head_pass(what, first_pass, passes=None):
     """Every head launch counted in `passes` (per-pass counts; by default
     those of the heads and of the cell since the last reset) took
-    `first_pass`: "tf32x3" for a path's f32 heads and cell, "mma" (wgmma)
-    for its bf16 heads, and every cell launch CELL_OF_PASS[first_pass]
-    (every such launch is at an aligned full-width shape)."""
+    `first_pass`: "tf32x3" for a path's f32 heads and cell, "tma" (wgmma
+    fed by a TMA ring) for its bf16 heads, and every cell launch
+    CELL_OF_PASS[first_pass] (every such launch is at an aligned
+    full-width shape)."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     if passes is None:
         passes = {**_dispatch.head_pass_launches(),
@@ -778,17 +829,18 @@ def check_heads(rn, dt, errs):
     and 4096 and at 300 rows (no multiple of the 64-row warpgroup tile);
     beam at the service's R=1024 (kk 2, 3, 6 and the longest list, 16), the
     evaluation's R=256, 300 rows, and the 8192 rows of a beam-2 bucket of
-    4096.  Each launch must take the first pass its type asks for: the
-    wgmma pass in bf16, the split-TF32 pass in f32 (the per-pass launch
-    counts); in f32 one greedy and one beam launch on a W that does not
-    start on 16 bytes must take the FMA pass.  Returns (w, b) for the
-    timings."""
+    4096.  Each launch must take the first pass its type asks for: the TMA
+    pass in bf16 (its largest error also under "vocab_partials_tma"), the
+    split-TF32 pass in f32 (the per-pass launch counts); in f32 one greedy
+    and one beam launch on a W that does not start on 16 bytes must take
+    the FMA pass.  Returns (w, b) for the timings."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
         _dispatch, beam_head, logit_head)
     dn = str(dt).split(".")[-1]
-    first_pass = "mma" if dt == torch.bfloat16 else "tf32x3"
+    first_pass = "tma" if dt == torch.bfloat16 else "tf32x3"
     H, V1, R = WIDTH, VOCAB + 1, 1024
+    worst = 0.0
 
     def launch(head, fn, which=first_pass):
         before = _dispatch.head_pass_launches()
@@ -820,6 +872,7 @@ def check_heads(rn, dt, errs):
             err = max((vals - vals_p).abs().max().item(),
                       (lse - lse_p).abs().max().item())
             errs["beam_head"] = max(errs["beam_head"], err)
+            worst = max(worst, err)
             report("beam_head", f"{dn} {what} R={R} kk={kk} vals/lse", err,
                    TOL["head"])
             if what == "tie group":
@@ -870,6 +923,7 @@ def check_heads(rn, dt, errs):
                     "greedy head output types/shapes")
             err = (lp - lp_p).abs().max().item()
             errs["greedy_head"] = max(errs["greedy_head"], err)
+            worst = max(worst, err)
             report("greedy_head", f"{dn} {what} B={rows} lp", err,
                    TOL["head"])
             if what == "planted ties":
@@ -892,6 +946,7 @@ def check_heads(rn, dt, errs):
             err = max((vals - vals_p).abs().max().item(),
                       (lse - lse_p).abs().max().item())
             errs["beam_head"] = max(errs["beam_head"], err)
+            worst = max(worst, err)
             report("beam_head", f"{dn} {what} R={rows} kk={kk} vals/lse",
                    err, TOL["head"])
             if what == "planted ties":
@@ -906,6 +961,8 @@ def check_heads(rn, dt, errs):
             ids_agree("beam_head", f"{dn} {what} R={rows} kk={kk} ids",
                       idx, idx_p, logits_b, TOL["head"])
             del hb, logits_b, vals_p, idx_p, lse_p
+    if first_pass == "tma":
+        errs["vocab_partials_tma"] = worst
     return w, b
 
 
@@ -917,8 +974,8 @@ HEAD_F32_TIMED = (("greedy_head", 128, 1, 0), ("greedy_head", 512, 1, 0),
                   ("beam_head", 256, 2, 0), ("beam_head", 1024, 2, 0),
                   ("beam_head", 256, 2, 2), ("beam_head", 128, 1, 2))
 HEAD_BF16_TIMED = (("greedy_head", 512, 1, 0), ("greedy_head", 4096, 1, 0),
-                   ("beam_head", 1024, 2, 0), ("beam_head", 8192, 2, 0),
-                   ("beam_head", 1024, 32, 0))
+                   ("beam_head", 1024, 2, 0), ("beam_head", 1024, 16, 0),
+                   ("beam_head", 8192, 2, 0), ("beam_head", 1024, 32, 0))
 
 
 def time_heads(rn, w, b):
@@ -928,11 +985,12 @@ def time_heads(rn, w, b):
     on the host's clock, back to back on an idle card (`call_ms`: what a
     decode loop pays where enqueueing takes longer than the kernels).  In
     bf16 HEAD_BF16_TIMED: B at the buckets 512 and 4096, C at kk=2 at
-    R=1024 and at the 8192 rows of a beam-2 bucket of 4096, kk=32 (two
-    rounds) at R=1024.  In f32 (TF32 off for `h @ w`) HEAD_F32_TIMED, with
-    the split product's floor (three TF32 products at 495 TFLOP/s) beside
-    the bound.  Returns {(kernel, rows, kk, shards): {"ms", "plain_ms",
-    "bound_ms", "bound_by", "matmul_ms", "call_ms"[, "split_floor_ms"]}}."""
+    R=1024 and at the 8192 rows of a beam-2 bucket of 4096, kk=16 and
+    kk=32 (two rounds) at R=1024.  In f32 (TF32 off for `h @ w`)
+    HEAD_F32_TIMED, with the split product's floor (three TF32 products at
+    495 TFLOP/s) beside the bound.  Returns {(kernel, rows, kk, shards):
+    {"ms", "plain_ms", "bound_ms", "bound_by", "matmul_ms", "call_ms"[,
+    "split_floor_ms"]}}."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
         beam_head, logit_head)
@@ -964,12 +1022,7 @@ def time_heads(rn, w, b):
         ops = 2 * rows * H * V
         bound = bound_ms((h, ws, bs) + outs, ops, str(w.dtype).split(".")[-1])
         mm = cuda_ms(lambda: h @ ws, iters)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            kernel()
-        torch.cuda.synchronize()
-        call = (time.perf_counter() - t0) * 1e3 / iters
+        call = call_ms(kernel)
         t = {"ms": pair[0], "plain_ms": pair[1], "bound_ms": bound[0],
              "bound_by": bound[1], "matmul_ms": mm, "call_ms": call}
         floor = ""
@@ -998,10 +1051,10 @@ def phase_kernels():
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
     B, R, H, A = 512, 1024, WIDTH, WIDTH
-    errs = {k: 0.0 for k in _dispatch.KERNELS}
+    errs = {k: 0.0 for k in SOURCES}
     # times / bounds: one shape a kernel, the `kernels` line's; shapes: every
     # timed shape of a kernel, each with its own bound
-    times, bounds, shapes = {}, {}, {k: [] for k in _dispatch.KERNELS}
+    times, bounds, shapes = {}, {}, {k: [] for k in SOURCES}
     print("kernels vs plain versions (serving shapes: B=512, K=36, "
           "H=A=512, V+1=9488, R=1024 beam rows)", flush=True)
     for dt in (torch.float32, torch.bfloat16):
@@ -1037,11 +1090,19 @@ def phase_kernels():
             if shards:
                 label += f" V/{shards}"
             shapes[name].append({"shape": label, **t})
-            # the kernels line's own numbers: the bf16 serving shapes
+            # the kernels line's own numbers: the bf16 serving shapes; the
+            # TMA pass's every bf16 shape of both heads, its own numbers
+            # those of the greedy bucket of 4096
+            if dt == torch.bfloat16:
+                shapes["vocab_partials_tma"].append(
+                    {"shape": f"{name} {label}", **t})
             if dt == torch.bfloat16 and (name, rows, kk) in (
                     ("greedy_head", B, 1), ("beam_head", R, 2)):
                 times[name] = (t["ms"], t["plain_ms"])
                 bounds[name] = (t["bound_ms"], t["bound_by"])
+            if dt == torch.bfloat16 and (name, rows) == ("greedy_head", 4096):
+                times["vocab_partials_tma"] = (t["ms"], t["plain_ms"])
+                bounds["vocab_partials_tma"] = (t["bound_ms"], t["bound_by"])
         del w, b
     check_cell(rn, errs, times, bounds, shapes)
     errs["attention"] = max(errs["attention"],
@@ -1462,7 +1523,7 @@ def serve_requests(svc, label, kernel, att_kernel="attention",
                 got = after[k] - before[k]
                 require(got == want, f"{label} n={n}: {k} launched {got} "
                         f"times, expected {want}")
-            require(passes == {f"{kernel}_mma": L * calls},
+            require(passes == {f"{kernel}_tma": L * calls},
                     f"{label} n={n}: the bf16 head launches must all take "
                     f"the tensor-core pass, counted {passes}")
             print(f"  {label}: n={n:3d} -> bucket {svc._bucket_for(n)}, "
@@ -1516,7 +1577,7 @@ def phase_slice(smi):
         require(main_launches[k] > 0, f"{k} was never launched on the "
                 f"main path")
     require_vector_width("serving", main_launches)
-    require_head_pass("serving", "mma")
+    require_head_pass("serving", "tma")
     print(f"  main-path launches: {main_launches}; heads by first pass: "
           f"{_dispatch.head_pass_launches()}; attention by width: "
           f"{_dispatch.att_width_launches()}", flush=True)
@@ -1595,7 +1656,7 @@ def phase_grid_features():
             got = launch_counts()
             require_vector_width(f"{K_GRID}-slot {dn} {mode}", got)
             require_head_pass(f"{K_GRID}-slot {dn} {mode}",
-                              "tf32x3" if dn == "float32" else "mma")
+                              "tf32x3" if dn == "float32" else "tma")
             for k in _dispatch.KERNELS:
                 want = L if k in ("attention", head, "cell") else 0
                 require(got[k] == want, f"{K_GRID}-slot {dn} {mode}: {k} "
@@ -1733,7 +1794,7 @@ def phase_layouts(smi, plain, plain_ids, plain_rates):
             and launches["attention_kmajor"] > 0,
             f"decode layouts: launches {launches}")
     require_vector_width("decode layouts", launches)
-    require_head_pass("decode layouts", "mma")
+    require_head_pass("decode layouts", "tma")
     print(f"  launches of the int8 and K-major requests: {launches}",
           flush=True)
 
@@ -1975,10 +2036,10 @@ def phase_train(smi):
     ids = svc.caption_ids(fc, att, masks)
     torch.cuda.synchronize()
     served = launch_counts()
-    require(_dispatch.head_pass_launches()["greedy_head_mma"] == L,
+    require(_dispatch.head_pass_launches()["greedy_head_tma"] == L,
             "serving the trained speaker in bf16: the greedy head must "
             "take the tensor-core pass")
-    require_head_pass("serving the trained speaker", "mma")
+    require_head_pass("serving the trained speaker", "tma")
     require(ids.shape == (512, L) and ids.min() >= 0 and ids.max() <= VOCAB,
             f"trained speaker ids {ids.shape}")
     for k in _dispatch.KERNELS:
@@ -2446,7 +2507,7 @@ def scst_run_dirs(trainer, ds):
     fc, att, masks = features(512, seed=513)
     ids, served = serve_run_dir(SCST_RUN_DIR, fc, att, masks)
     want = with_cell_pass({"attention": L, "greedy_head": L, "cell": L},
-                          "mma")
+                          "tma")
     require(served == want, f"serving the SCST run: launches {served}")
     require(ids.shape == (512, L) and ids.min() >= 0 and ids.max() <= VOCAB,
             f"SCST ids {ids.shape}")
@@ -3046,7 +3107,7 @@ def fc_served(add, out):
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
     fc, _, _ = features(512, seed=808)
-    for dt, pass_ in (("float32", "tf32x3"), ("bfloat16", "mma")):
+    for dt, pass_ in (("float32", "tf32x3"), ("bfloat16", "tma")):
         for beam in (0, 2):
             head = "beam_head" if beam else "greedy_head"
             kw = dict(run_id="fc_con", beam_size=beam, buckets=(512,),
@@ -4225,8 +4286,9 @@ def reinforce_per_turn(opt, turn):
         return with_cell_pass({"attention": L, "cell": L}, "tf32x3")
     want = scst_per_iteration()
     if opt.reinforce_baseline_type == "greedy":
-        for k in ("attention", "greedy_head", "cell", "cell_tf32x3"):
+        for k in ("attention", "greedy_head", "cell"):
             want[k] += L
+        want = with_cell_pass(want, "tf32x3")
     return want
 
 
@@ -6169,7 +6231,8 @@ def main():
              "orbax_tier": orbax_launches}
     kernels = []
     for k in SOURCES:
-        by_path = {path: counts[k] for path, counts in paths.items()}
+        by_path = {path: sum(counts[c] for c in PASS_ENTRIES.get(k, (k,)))
+                   for path, counts in paths.items()}
         require(sum(by_path.values()) > 0,
                 f"{k} was never launched on a main path")
         kernels.append({
@@ -6182,17 +6245,24 @@ def main():
             "library_ms": None,
             # every shape the kernel was timed at, each with its own bound
             "timed_shapes": shapes[k]})
-    # the cell's launches by kernel: split TF32 (f32), wgmma (bf16), FMAs
+    # the cell's launches by kernel (split TF32 for f32, wgmma for bf16,
+    # FMAs) and the heads' by first pass (split TF32, TMA, FMAs): the paths
+    # run both types
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
-    cell = next(e for e in kernels if e["name"] == "cell")
-    cell["launches_by_pass"] = {
-        p: sum(counts[p] for counts in paths.values())
-        for p in _dispatch.CELL_PASSES}
-    require(sum(cell["launches_by_pass"].values()) == cell["launches"]
-            and cell["launches_by_pass"]["cell_tf32x3"] > 0
-            and cell["launches_by_pass"]["cell_wgmma"] > 0,
-            f"cell launches by kernel {cell['launches_by_pass']} of "
-            f"{cell['launches']}")
+    for name, passes, f32, bf16 in (
+            ("cell", _dispatch.CELL_PASSES, "cell_tf32x3", "cell_wgmma"),
+            ("greedy_head", _dispatch.HEAD_PASSES, "greedy_head_tf32x3",
+             "greedy_head_tma"),
+            ("beam_head", _dispatch.HEAD_PASSES, "beam_head_tf32x3",
+             "beam_head_tma")):
+        entry = next(e for e in kernels if e["name"] == name)
+        entry["launches_by_pass"] = {
+            p: sum(counts[p] for counts in paths.values())
+            for p in passes if p.startswith(name + "_")}
+        by_pass = entry["launches_by_pass"]
+        require(sum(by_pass.values()) == entry["launches"]
+                and by_pass[f32] > 0 and by_pass[bf16] > 0,
+                f"{name} launches by pass {by_pass} of {entry['launches']}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,8 @@
 // cic::before order (a strict total order: value, then id), which the merge
 // of round n - 1 leaves per row in thr_v / thr_i.  Each round recomputes
 // the product; the log-sum-exp comes from the first.
-// The first pass (first_pass) is vocab_head_mma.cuh's wgmma pass (bf16;
-// instantiated in beam_head_mma.cu), vocab_head_tf32.cuh's split-TF32 pass
+// The first pass (first_pass) is vocab_head_tma.cuh's TMA pass (bf16;
+// instantiated in beam_head_tma.cu), vocab_head_tf32.cuh's split-TF32 pass
 // (f32; beam_head_tf32.cu) or vocab_head.cuh's FMA pass with an 8-row tile
 // (the shapes neither tensor-core pass takes).
 // The top-KK list holds the top-kk in the same order, so rounding kk up to
@@ -77,8 +77,8 @@ int first_pass_partials(int first_pass, const void* h, const void* w,
                         float* ps, int R, int H, int V, int splits,
                         int split_cols, const float* thr_v, const int* thr_i,
                         cudaStream_t s) {
-  if (first_pass == cic::kPassMma)
-    return cic::beam_partials_mma(KK, h, w, b, pv, pi, pm, ps, R, H, V,
+  if (first_pass == cic::kPassTma)
+    return cic::beam_partials_tma(KK, h, w, b, pv, pi, pm, ps, R, H, V,
                                   splits, split_cols, thr_v, thr_i, s);
   if (first_pass == cic::kPassTf32)
     return cic::beam_partials_tf32(KK, h, w, b, pv, pi, pm, ps, R, H, V,

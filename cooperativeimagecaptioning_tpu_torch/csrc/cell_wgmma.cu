@@ -87,10 +87,7 @@
 // holds no data, so an update of the weights in place leaves it right, and
 // a new tensor at an old address with another shape gets a map of its own.
 // The encoder is the driver's cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint: nothing links libcuda.
-#include <cuda.h>
-
-#include <mutex>
+// cudaGetDriverEntryPoint (hopper.cuh): nothing links libcuda.
 #include <type_traits>
 
 #include "cell_step.cuh"
@@ -107,7 +104,6 @@ constexpr int kWgmmaMaxStages = 8;
 constexpr int kBlockSmem = 232448;  // the most a block may ask for
 constexpr int kProducerRegs = 40;   // setmaxnreg with two consumers
 constexpr int kConsumerRegs = 232;
-constexpr int kWeightMaps = 16;     // weight maps kept
 
 // A block of WG consumer warpgroups (64 rows each) and a producer
 // warpgroup.
@@ -129,32 +125,6 @@ struct Tile {
 static_assert(Tile<2>::kStages >= 3, "a ring of at least three stages");
 static_assert(2 * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536,
               "the registers of an SM");
-
-// mbar_wait that traps after ~2^32 cycles (about 2 s).
-__device__ __forceinline__ void wait_or_trap(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = cic::smem_u32(bar);
-  long long start = 0;
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((n & 1023u) == 1023u) {
-      const long long now = clock64();
-      if (start == 0)
-        start = now;
-      else if (now - start > (1LL << 32))
-        __trap();
-    }
-  }
-}
 
 using Acc = float[kGates][kWgmmaCols / 2];
 
@@ -225,7 +195,8 @@ cell_wgmma_kernel(const __grid_constant__ CUtensorMap map_xt,
     if (tid == 128 * WG) {
       for (int t = 0; t < total; ++t) {
         const int s = t % T::kStages;
-        if (t >= T::kStages) wait_or_trap(empty + s, (t / T::kStages - 1) & 1);
+        if (t >= T::kStages)
+          cic::mbar_wait_or_trap(empty + s, (t / T::kStages - 1) & 1);
         const CUtensorMap* ma = &map_xt;
         const CUtensorMap* mw = &map_wi;
         int k0 = t * kWgmmaDepth, g0 = 0;
@@ -264,7 +235,7 @@ cell_wgmma_kernel(const __grid_constant__ CUtensorMap map_xt,
   auto step = [&](auto g0_const, int t) {
     constexpr int G0 = decltype(g0_const)::value;
     const int s = t % T::kStages;
-    wait_or_trap(full + s, (t / T::kStages) & 1);
+    cic::mbar_wait_or_trap(full + s, (t / T::kStages) & 1);
     const uint32_t st = ring + s * T::kStageBytes;
     cic::wgmma_fence();
     stage_products<G0>(part, st + wg * (kWgmmaRowsWg * 128), st + T::kABytes);
@@ -316,82 +287,21 @@ cell_wgmma_kernel(const __grid_constant__ CUtensorMap map_xt,
 
 // --- tensor maps -----------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a row-major bf16 matrix [rows, cols] read in boxes of
-// box_rows x box_cols; elements outside it arrive as zeros.
-bool encode(CUtensorMap* map, const void* p, int rows, int cols, int box_cols,
-            int box_rows, CUtensorMapSwizzle swizzle,
-            CUtensorMapL2promotion promotion) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // A row input [B, K]: boxes of rows x 64 k, 128-byte swizzle.
 bool rows_map(CUtensorMap* map, const void* p, int B, int K, int rows) {
-  return encode(map, p, B, K, kWgmmaDepth, rows, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+  return cic::encode_bf16_map(map, p, B, K, kWgmmaDepth, rows,
+                              CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
-struct WeightMap {
-  const void* p;
-  int rows, cols;
-  CUtensorMap map;
-};
-
-std::mutex weight_maps_lock;
-WeightMap weight_maps[kWeightMaps];
-int weight_maps_used = 0;
-int weight_maps_next = 0;
+cic::WeightMaps weight_maps;
 
 // A weight [K, N]: boxes of 64 k x 32 columns, 64-byte swizzle; from the
 // cache when a map of the same arguments was encoded.
 bool weight_map(CUtensorMap* map, const void* p, int K, int N) {
-  std::lock_guard<std::mutex> hold(weight_maps_lock);
-  for (int i = 0; i < weight_maps_used; ++i) {
-    const WeightMap& w = weight_maps[i];
-    if (w.p == p && w.rows == K && w.cols == N) {
-      *map = w.map;
-      return true;
-    }
-  }
-  if (!encode(map, p, K, N, kWgmmaCols, kWgmmaDepth,
-              CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
-    return false;
-  weight_maps[weight_maps_next] = {p, K, N, *map};
-  weight_maps_next = (weight_maps_next + 1) % kWeightMaps;
-  if (weight_maps_used < kWeightMaps) ++weight_maps_used;
-  return true;
+  return weight_maps.get(map, p, K, N, kWgmmaCols, kWgmmaDepth,
+                         CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 template <int WG>

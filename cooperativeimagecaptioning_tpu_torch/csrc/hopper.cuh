@@ -1,12 +1,16 @@
 // Hopper's asynchronous primitives, shared by the kernels that use them
 // (built for sm_90a): wgmma's shared-memory descriptors and instructions,
-// mbarriers, and TMA tile loads.
-//   * vocab_head_mma.cuh: the bf16 heads' first pass (wgmma m64n128k16 fed
-//     by a cp.async ring).
+// mbarriers, TMA tile loads, and the host's tensor maps.
+//   * vocab_head_tma.cuh: the bf16 heads' first pass (wgmma m64n64k16 into
+//     two accumulator sets, fed by a TMA ring with a producer warp).
 //   * cell_wgmma.cu: the bf16 cell (wgmma m64n32k16 fed by a TMA ring with
 //     a producer warpgroup, setmaxnreg).
 //   * att_step.cu: the attention's stream (mbarriers over cp.async.bulk).
 #pragma once
+
+#include <cuda.h>
+
+#include <mutex>
 
 #include "common.cuh"
 
@@ -31,23 +35,20 @@ __device__ __forceinline__ uint64_t mma_desc(uint32_t addr, uint32_t lbo,
 
 // d (+)= A[64 x 16] * B[16 x N]: bf16 in, f32 accumulators; A K-major, B
 // MN-major (the transposed form of the descriptor).  `accumulate` 0 starts
-// from zero.  N = 128, 32: 64, 16 accumulators a thread.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db, int accumulate) {
+// from zero.  N = 64, 32: 32, 16 accumulators a thread.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
+      "%29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
       "}\n"
-      : CIC_ACC8(0), CIC_ACC8(8), CIC_ACC8(16), CIC_ACC8(24), CIC_ACC8(32),
-        CIC_ACC8(40), CIC_ACC8(48), CIC_ACC8(56)
+      : CIC_ACC8(0), CIC_ACC8(8), CIC_ACC8(16), CIC_ACC8(24)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -139,6 +140,35 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_wait that traps after ~2^32 cycles (about 2 s): a fault of the
+// tensor maps would otherwise leave the warps spinning, and the launch
+// fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long start = 0;
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((n & 1023u) == 1023u) {
+      const long long now = clock64();
+      if (start == 0)
+        start = now;
+      else if (now - start > (1LL << 32))
+        __trap();
+    }
+  }
+}
+
 // --- TMA -------------------------------------------------------------------
 
 // The box of a 2-D tensor map at (x, y) -- x the inner (contiguous)
@@ -153,5 +183,100 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       "r"(y)
       : "memory");
 }
+
+// --- tensor maps (host) ----------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA driver API, reached through
+// cudaGetDriverEntryPoint: nothing links libcuda.
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a row-major bf16 matrix [rows, cols] read in boxes of
+// box_rows x box_cols; elements outside it arrive as zeros.
+inline bool encode_bf16_map(CUtensorMap* map, const void* p, int rows,
+                            int cols, int box_cols, int box_rows,
+                            CUtensorMapSwizzle swizzle,
+                            CUtensorMapL2promotion promotion) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The last kSlots maps of weights, keyed by every argument of the encoding
+// (address, shape -- the row stride follows from it: the tensors are
+// contiguous bf16 --, box, swizzle, promotion): a map holds no data, so an
+// update of the weights in place leaves it right, and a new tensor at an
+// old address with another shape gets a map of its own.
+class WeightMaps {
+ public:
+  bool get(CUtensorMap* map, const void* p, int rows, int cols, int box_cols,
+           int box_rows, CUtensorMapSwizzle swizzle,
+           CUtensorMapL2promotion promotion) {
+    const Key key{p, rows, cols, box_cols, box_rows, (int)swizzle,
+                  (int)promotion};
+    std::lock_guard<std::mutex> hold(lock_);
+    for (int i = 0; i < used_; ++i) {
+      if (entries_[i].key == key) {
+        *map = entries_[i].map;
+        return true;
+      }
+    }
+    if (!encode_bf16_map(map, p, rows, cols, box_cols, box_rows, swizzle,
+                         promotion))
+      return false;
+    entries_[next_] = {key, *map};
+    next_ = (next_ + 1) % kSlots;
+    if (used_ < kSlots) ++used_;
+    return true;
+  }
+
+ private:
+  static constexpr int kSlots = 16;
+  struct Key {
+    const void* p;
+    int rows, cols, box_cols, box_rows, swizzle, promotion;
+    bool operator==(const Key& o) const {
+      return p == o.p && rows == o.rows && cols == o.cols &&
+             box_cols == o.box_cols && box_rows == o.box_rows &&
+             swizzle == o.swizzle && promotion == o.promotion;
+    }
+  };
+  struct Entry {
+    Key key;
+    CUtensorMap map;
+  };
+  std::mutex lock_;
+  Entry entries_[kSlots];
+  int used_ = 0;
+  int next_ = 0;
+};
 
 }  // namespace cic

@@ -15,8 +15,8 @@
 //
 // Design: a first pass over (row tile, vocab split) with a top-1 list, then
 // one warp per row merges the vocab splits' (best, id, max, sumexp).  The
-// first pass (first_pass) is vocab_head_mma.cuh's wgmma pass (bf16;
-// instantiated in logit_head_mma.cu), vocab_head_tf32.cuh's split-TF32 pass
+// first pass (first_pass) is vocab_head_tma.cuh's TMA pass (bf16;
+// instantiated in logit_head_tma.cu), vocab_head_tf32.cuh's split-TF32 pass
 // (f32; logit_head_tf32.cu) or vocab_head.cuh's FMA pass with a 16-row tile
 // (the shapes neither tensor-core pass takes).
 #include "vocab_head.cuh"
@@ -61,8 +61,8 @@ CIC_EXPORT int cic_greedy_head(const void* h, const void* w, const void* b,
   float* pm = static_cast<float*>(part_m);
   float* ps = static_cast<float*>(part_s);
   const int e =
-      first_pass == cic::kPassMma
-          ? cic::greedy_partials_mma(h, w, b, pv, pi, pm, ps, R, H, V, splits,
+      first_pass == cic::kPassTma
+          ? cic::greedy_partials_tma(h, w, b, pv, pi, pm, ps, R, H, V, splits,
                                      split_cols, s)
       : first_pass == cic::kPassTf32
           ? cic::greedy_partials_tf32(h, w, b, pv, pi, pm, ps, R, H, V,

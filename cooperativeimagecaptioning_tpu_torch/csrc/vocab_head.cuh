@@ -25,9 +25,10 @@
 // vocab_partials runs the product on the CUDA cores (f32 FMAs) and takes
 // float32 and bfloat16.  Pass 1 is instead a tensor-core pass for the shapes
 // that fit one (same grid idea, same partials, same merge kernels):
-// vocab_head_mma.cuh's wgmma pass for bfloat16, vocab_head_tf32.cuh's
-// split-TF32 mma.sync pass for float32.  The Python wrappers choose by type,
-// shape and alignment (`first_pass`: kPassFma, kPassMma or kPassTf32).
+// vocab_head_tma.cuh's wgmma pass fed by a TMA ring for bfloat16,
+// vocab_head_tf32.cuh's split-TF32 mma.sync pass for float32.  The Python
+// wrappers choose by type, shape and alignment (`first_pass`: kPassFma,
+// kPassTma or kPassTf32).
 #pragma once
 
 #include <limits.h>
@@ -39,19 +40,19 @@ namespace cic {
 // The heads' first passes, as the entry points' first_pass argument names
 // them.
 constexpr int kPassFma = 0;
-constexpr int kPassMma = 1;   // bf16, wgmma
 constexpr int kPassTf32 = 2;  // f32, split TF32 on mma.sync
+constexpr int kPassTma = 3;   // bf16, wgmma fed by a TMA ring
 
-// The tensor-core first passes, bf16 (vocab_head_mma.cuh) and f32
-// (vocab_head_tf32.cuh); defined in logit_head_{mma,tf32}.cu (top-1 list)
-// and beam_head_{mma,tf32}.cu (kk_slots of 1, 2, 4, 8 or 16; thr_v non-NULL:
+// The tensor-core first passes, bf16 (vocab_head_tma.cuh) and f32
+// (vocab_head_tf32.cuh); defined in logit_head_{tma,tf32}.cu (top-1 list)
+// and beam_head_{tma,tf32}.cu (kk_slots of 1, 2, 4, 8 or 16; thr_v non-NULL:
 // a later round, kk_slots 16) so that nvcc compiles them beside the FMA
 // instantiations.
-int greedy_partials_mma(const void* h, const void* w, const void* b,
+int greedy_partials_tma(const void* h, const void* w, const void* b,
                         float* part_val, int* part_id, float* part_m,
                         float* part_s, int R, int H, int V, int splits,
                         int split_cols, cudaStream_t stream);
-int beam_partials_mma(int kk_slots, const void* h, const void* w,
+int beam_partials_tma(int kk_slots, const void* h, const void* w,
                       const void* b, float* part_val, int* part_id,
                       float* part_m, float* part_s, int R, int H, int V,
                       int splits, int split_cols, const float* thr_v,
@@ -368,10 +369,10 @@ int launch_vocab_partials(const void* h, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-// The wgmma pass takes bf16 only, the split-TF32 pass f32 only.
+// The TMA pass takes bf16 only, the split-TF32 pass f32 only.
 bool valid_pass(int first_pass, int is_bf16) {
   return first_pass == cic::kPassFma ||
-         (first_pass == cic::kPassMma && is_bf16) ||
+         (first_pass == cic::kPassTma && is_bf16) ||
          (first_pass == cic::kPassTf32 && !is_bf16);
 }
 

@@ -54,7 +54,7 @@
 //     their own (its roundings 2^-11 of the main one's), each big product
 //     starts from zero and joins the main accumulator by an f32 add (to
 //     nearest), and the small accumulator joins it once a tile.
-//   * The accumulator layout is the bf16 pass's (vocab_head_mma.cuh): a
+//   * The accumulator layout is the bf16 pass's (vocab_head_tma.cuh): a
 //     thread holds rows lane/4 and +8 and columns 8 j + 2 (lane%4) + {0,1}
 //     of each tile, so its epilogue is shared: bias, the streaming
 //     log-sum-exp once a tile, the branch-free topk_push, with the columns
@@ -71,7 +71,7 @@
 // the FMA pass (vocab_head.cuh).
 #pragma once
 
-#include "vocab_head_mma.cuh"
+#include "vocab_head_epilogue.cuh"
 
 namespace {
 

@@ -118,11 +118,25 @@ def kernel_resources(log: str) -> dict:
     return out
 
 
+def serialized_wgmma(log: str) -> list:
+    """The kernels whose wgmma instructions ptxas serialized, by mangled
+    name, from its C7515 info lines in the output of nvcc -Xptxas -v ("?"
+    where a line names no function).  ptxas does so when, for example, an
+    instruction other than wgmma writes an accumulator register while
+    products are in flight."""
+    out = []
+    for line in log.splitlines():
+        if "C7515" in line:
+            m = re.search(r"function '(\w+)'", line)
+            out.append(m.group(1) if m else "?")
+    return out
+
+
 def build() -> dict:
     """Compile csrc/*.cu into BUILD_DIR/libcic_kernels.so unless an
     up-to-date build is there.  Returns {'compiled', 'seconds', 'path',
-    'resources'}; 'resources' is `kernel_resources` of the compile logs
-    (empty when nothing was compiled)."""
+    'resources', 'serialized'}: `kernel_resources` and `serialized_wgmma`
+    of the compile logs (empty when nothing was compiled)."""
     nvcc = nvcc_path()
     lib_path = BUILD_DIR / LIB_NAME
     hash_path = BUILD_DIR / (LIB_NAME + ".sha256")
@@ -132,7 +146,7 @@ def build() -> dict:
     if (lib_path.is_file() and hash_path.is_file()
             and hash_path.read_text().strip() == digest):
         return {"compiled": False, "seconds": 0.0, "path": str(lib_path),
-                "resources": {}}
+                "resources": {}, "serialized": []}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     base = [nvcc, *COMPILE_FLAGS, f"-I{CSRC}"]
@@ -163,8 +177,10 @@ def build() -> dict:
         raise RuntimeError(f"nvcc failed ({failed[0][0]}):\n{failed[0][1]}")
     os.replace(tmp, lib_path)
     hash_path.write_text(digest)
+    log = "\n".join(logs)
     return {"compiled": True, "seconds": seconds, "path": str(lib_path),
-            "resources": kernel_resources("\n".join(logs))}
+            "resources": kernel_resources(log),
+            "serialized": serialized_wgmma(log)}
 
 
 def library():

@@ -14,11 +14,12 @@ runs on every CUDA step).
 Each kernel has one plain integer launch count, raised by one in its wrapper
 right after the launch succeeded and nowhere else, so a run can show that
 its main path went through the kernels.  The two vocabulary heads have three
-first passes (wgmma for bf16, split TF32 on mma.sync for f32, FMAs for the
-shapes neither takes: `logit_head.head_pass`); a second count per head and
-pass, raised with the head's own, shows which one a launch took, and the
-cell's three kernels (split TF32 for aligned f32, wgmma for aligned bf16,
-FMAs for the rest: `cell_step.cell_pass`) are counted the same way.
+first passes (wgmma fed by TMA for bf16, split TF32 on mma.sync for f32,
+FMAs for the shapes neither takes: `logit_head.head_pass`); a second count
+per head and pass, raised with the head's own, shows which one a launch
+took, and the cell's three kernels (split TF32 for aligned f32, wgmma for
+aligned bf16, FMAs for the rest: `cell_step.cell_pass`) are counted the
+same way.
 The three attention kernels have two widths (16-byte
 vectors, or single elements for unaligned shapes: `att_step.vector_width`),
 counted the same way.
@@ -38,11 +39,11 @@ import torch
 KERNELS = ("attention", "attention_q", "attention_kmajor", "greedy_head",
            "beam_head", "cell", "head_merge")
 
-# the heads' launches by first pass: "<head>_mma" (wgmma, bf16),
+# the heads' launches by first pass: "<head>_tma" (wgmma fed by TMA, bf16),
 # "<head>_tf32x3" (split TF32, f32) or "<head>_fma"; the cell's by kernel:
 # "cell_tf32x3" (split TF32, f32), "cell_wgmma" (wgmma, bf16) or "cell_fma"
-HEAD_PASSES = ("greedy_head_mma", "greedy_head_tf32x3", "greedy_head_fma",
-               "beam_head_mma", "beam_head_tf32x3", "beam_head_fma")
+HEAD_PASSES = ("greedy_head_tma", "greedy_head_tf32x3", "greedy_head_fma",
+               "beam_head_tma", "beam_head_tf32x3", "beam_head_fma")
 CELL_PASSES = ("cell_tf32x3", "cell_wgmma", "cell_fma")
 
 # the dense attentions' launches by width: "<kernel>_vec" or "<kernel>_scalar"
@@ -89,7 +90,7 @@ def use_kernel(x: torch.Tensor) -> bool:
 
 def count(name: str, variant: str = "") -> None:
     """One launch of kernel `name`; a head also names the pass it took
-    ("mma", "tf32x3" or "fma"), the cell its kernel ("tf32x3", "wgmma" or
+    ("tma", "tf32x3" or "fma"), the cell its kernel ("tf32x3", "wgmma" or
     "fma"), an attention kernel its width ("vec" or "scalar")."""
     _launches[name] += 1
     if variant:

@@ -7,7 +7,7 @@ launches the kernel in csrc/beam_head.cu for CUDA tensors and takes
 larger logit first, the lower id first on an exact tie.  log-softmax values
 are vals - lse[:, None].  Forward only.
 
-As in the greedy head, the kernel's first pass is the wgmma pass for
+As in the greedy head, the kernel's first pass is the TMA pass for
 bfloat16 inputs that fit it, the split-TF32 pass for float32 inputs that fit
 it and the FMA pass for everything else (`logit_head.head_pass`, by type,
 shape and alignment alone); a launch that fails raises.  Any 1 <= kk <= V

@@ -11,9 +11,10 @@ are it int32 [B] and lp float32 [B].  Forward only.
 The kernel is two passes: partials per (row tile, vocab split), then a merge
 of the splits.  The first pass has three forms, chosen by `head_pass` from
 the inputs' type, shape and alignment alone: bfloat16 with H a multiple of
-64 (at most 640) and V a multiple of 8 takes the wgmma pass
-(csrc/vocab_head_mma.cuh); float32 with H a multiple of 64 and V a multiple
-of 4 takes the split-TF32 pass (csrc/vocab_head_tf32.cuh: three TF32
+64 (at most 640) and V a multiple of 8 takes the TMA pass
+(csrc/vocab_head_tma.cuh: wgmma fed by a TMA ring, the epilogue of a tile
+beside the next tile's products); float32 with H a multiple of 64 and V a
+multiple of 4 takes the split-TF32 pass (csrc/vocab_head_tf32.cuh: three TF32
 mma.sync products of each operand's two TF32 parts); every other input,
 and any whose tensors do not start on 16 bytes, takes the FMA pass
 (csrc/vocab_head.cuh).  None gives way to another or to the plain version
@@ -38,16 +39,18 @@ from cooperativeimagecaptioning_tpu_torch.parallel import vocab
 
 CHUNK = 512      # columns one block sweeps at a time (kChunk)
 ROW_TILE = 16    # rows per block of the greedy kernel (kGreedyRows)
-# the tensor-core passes (csrc/vocab_head_mma.cuh, csrc/vocab_head_tf32.cuh)
-MMA_ROW_TILE = 128   # rows per block (kMmaRows, kTf32Rows)
-MMA_COL_TILE = 128   # columns per tile (kMmaCols)
-MMA_DEPTH = 64       # H must be a multiple (kMmaDepth)
-MMA_MAX_DEPTH = 640  # largest H whose rows fit in shared memory (kMmaMaxDepth)
+# the tensor-core passes (csrc/vocab_head_tma.cuh, csrc/vocab_head_tf32.cuh)
+MMA_ROW_TILE = 128   # rows per block (kTmaRows, kTf32Rows)
+# the bf16 TMA pass (csrc/vocab_head_tma.cuh)
+TMA_COL_TILE = 64    # columns per tile: one accumulator set (kTmaCols)
+TMA_SPLIT_UNIT = 128  # its vocab splits come in units of two tiles
+TMA_DEPTH = 64       # H must be a multiple: the k of an h box (kTmaBoxK)
+TMA_MAX_DEPTH = 640  # largest H whose rows fit beside a ring (kTmaMaxDepth)
 # the split-TF32 pass (csrc/vocab_head_tf32.cuh)
 TF32_COL_TILE = 72   # columns per tile, nine n8 tiles (kTf32Cols)
 TF32_DEPTH = 64      # H must be a multiple (kTf32Depth)
-# the entry points' first_pass argument (cic::kPassFma, kPassMma, kPassTf32)
-PASS_CODES = {"fma": 0, "mma": 1, "tf32x3": 2}
+# the entry points' first_pass argument (cic::kPassFma, kPassTf32, kPassTma)
+PASS_CODES = {"fma": 0, "tf32x3": 2, "tma": 3}
 
 
 def logits_f32(h, w, b):
@@ -82,14 +85,14 @@ def vocab_split(rows: int, row_tile: int, V: int, device) -> tuple:
 
 
 def head_pass(dtype, H: int, V: int, aligned: bool = True) -> str:
-    """Which first pass a head's CUDA launch takes: "mma" (wgmma) for
-    bfloat16 with H % 64 == 0, H <= 640 and V % 8 == 0; "tf32x3" (split
-    TF32 on mma.sync) for float32 with H % 64 == 0 and V % 4 == 0; each only
-    with 16-byte aligned tensors (their 16-byte copies need both); "fma" for
-    everything else."""
-    if (dtype == torch.bfloat16 and aligned and MMA_DEPTH <= H <= MMA_MAX_DEPTH
-            and H % MMA_DEPTH == 0 and V % 8 == 0):
-        return "mma"
+    """Which first pass a head's CUDA launch takes: "tma" (wgmma fed by a
+    TMA ring) for bfloat16 with H % 64 == 0, H <= 640 and V % 8 == 0;
+    "tf32x3" (split TF32 on mma.sync) for float32 with H % 64 == 0 and V %
+    4 == 0; each only with 16-byte aligned tensors (TMA and the 16-byte
+    copies need both); "fma" for everything else."""
+    if (dtype == torch.bfloat16 and aligned and TMA_DEPTH <= H <= TMA_MAX_DEPTH
+            and H % TMA_DEPTH == 0 and V % 8 == 0):
+        return "tma"
     if (dtype == torch.float32 and aligned and H >= TF32_DEPTH
             and H % TF32_DEPTH == 0 and V % 4 == 0):
         return "tf32x3"
@@ -97,14 +100,15 @@ def head_pass(dtype, H: int, V: int, aligned: bool = True) -> str:
 
 
 def mma_split(rows: int, V: int, sm_count: int,
-              col_tile: int = MMA_COL_TILE) -> tuple:
-    """(splits, split_cols) for a tensor-core pass (128-row blocks; tiles
-    of `col_tile` columns: MMA_COL_TILE for the wgmma pass, TF32_COL_TILE
-    for the split-TF32 pass), one block an SM: as many vocab splits as keep
-    (row tiles x splits) within `sm_count` blocks (one wave), each a whole
-    number of tiles and none empty.  The passes compute whole tiles, so
-    only the vocab's last tile is ragged; at V=9488 the split-TF32 pass's
-    132 tiles give R=128 one tile a block on 132 SMs, R=256 two."""
+              col_tile: int = TMA_SPLIT_UNIT) -> tuple:
+    """(splits, split_cols) for a tensor-core pass (128-row blocks; splits
+    in units of `col_tile` columns: TMA_SPLIT_UNIT for the TMA pass,
+    TF32_COL_TILE for the split-TF32 pass), one block an SM: as many vocab
+    splits as keep (row tiles x splits) within `sm_count` blocks (one
+    wave), each a whole number of units and none empty.  The passes
+    compute whole tiles, so only the vocab's last tile is ragged; at V=9488
+    the split-TF32 pass's 132 tiles give R=128 one tile a block on 132 SMs,
+    R=256 two."""
     row_tiles = -(-rows // MMA_ROW_TILE)
     col_tiles = -(-V // col_tile)
     want = max(1, min(col_tiles, sm_count // row_tiles))
@@ -119,7 +123,9 @@ def plan_first_pass(rows: int, fma_row_tile: int, h, w, b) -> tuple:
     which = head_pass(h.dtype, H, V, aligned)
     if which == "fma":
         return (which, *vocab_split(rows, fma_row_tile, V, h.device))
-    col_tile = MMA_COL_TILE if which == "mma" else TF32_COL_TILE
+    # the bf16 pass's splits come in units of 128 columns (two of its
+    # tiles): units of 64 would fill more SMs at R=512 but read h more often
+    col_tile = TMA_SPLIT_UNIT if which == "tma" else TF32_COL_TILE
     return (which, *mma_split(rows, V, _sm_count(h.device.index or 0),
                               col_tile))
 

@@ -61,8 +61,8 @@ def busy_ms(intervals):
     return total / 1e3
 
 
-# substrings of the hand-written kernels' names, by group: the heads' FMA
-# pass (vocab_partials), their tensor-core pass (vocab_partials_mma) and the
+# substrings of the hand-written kernels' names, by group: the heads' first
+# passes (vocab_partials, vocab_partials_tma, vocab_partials_tf32) and the
 # two merge kernels; the attention's stream kernel (all three layouts) and
 # its att_h pre-pass
 KERNEL_GROUPS = {"head": ("vocab_partials", "greedy_merge", "beam_merge"),

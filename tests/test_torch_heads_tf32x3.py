@@ -32,7 +32,7 @@ flip; planted ties are exact and must match), values and log-sum-exp within
 
 Also here: the pass's grid (`mma_split` at 72-column tiles), its coverage
 of the vocab and its fill of the card's 132 SMs.  The routing table
-(`head_pass`) and the per-pass counts are in tests/test_torch_heads_mma.py.
+(`head_pass`) and the per-pass counts are in tests/test_torch_heads_tma.py.
 """
 
 import functools
