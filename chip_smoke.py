@@ -369,12 +369,22 @@ REPLACES = {
     "head_merge": "cooperativeimagecaptioning_tpu/ops/pallas/beam_head.py:111"
                   " (G), cooperativeimagecaptioning_tpu/ops/pallas/"
                   "logit_head.py:202 (H)",
+    # the att_h pre-pass of A, D and E (every aligned call of the three):
+    # split TF32 for f32, mma.sync for bf16 below att_step.PRE_MANY_ROWS
+    # rows and a ring of stages from there
+    "att_h_tf32x3": "cooperativeimagecaptioning_tpu/ops/pallas/att_step.py:"
+                    "130 (A), :192 (D), :348 (E): their att_h",
+    "att_h_mma": "cooperativeimagecaptioning_tpu/ops/pallas/att_step.py:"
+                 "130 (A), :192 (D), :348 (E): their att_h",
+    "att_h_ring": "cooperativeimagecaptioning_tpu/ops/pallas/att_step.py:"
+                  "130 (A), :192 (D), :348 (E): their att_h",
 }
 SOURCES = {"attention": ATT_SRC, "attention_q": ATT_SRC,
            "attention_kmajor": ATT_SRC, "greedy_head": GREEDY_SRC,
            "beam_head": BEAM_SRC, "cell": CELL_SRC,
            "cell_wgmma": CELL_WGMMA_SRC, "vocab_partials_tma": HEAD_TMA_SRC,
-           "head_merge": MERGE_SRC}
+           "head_merge": MERGE_SRC, "att_h_tf32x3": ATT_SRC,
+           "att_h_mma": ATT_SRC, "att_h_ring": ATT_SRC}
 # the kernels line's entries that count a pass of other kernels: the
 # launch counts they add up
 PASS_ENTRIES = {"cell_wgmma": ("cell_wgmma",),
@@ -517,31 +527,37 @@ def cpu_cell_plain():
 
 def launch_counts():
     """The launch counts since the last reset that a path reports: each
-    kernel's (`launch_counts()`), the cell's by kernel
-    (`_dispatch.cell_pass_launches()`: cell_tf32x3, cell_wgmma, cell_fma)
-    and the heads' by first pass (`_dispatch.head_pass_launches()`:
-    <head>_tma, <head>_tf32x3, <head>_fma)."""
+    kernel's (`_dispatch.launches()`), the cell's by kernel
+    (`_dispatch.cell_pass_launches()`: cell_tf32x3, cell_wgmma, cell_fma),
+    the heads' by first pass (`_dispatch.head_pass_launches()`:
+    <head>_tma, <head>_tf32x3, <head>_fma) and the attention calls' by
+    pre-pass (`_dispatch.att_pre_launches()`: att_h_tf32x3, att_h_mma,
+    att_h_ring, att_h_fma)."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     return {**_dispatch.launches(), **_dispatch.cell_pass_launches(),
-            **_dispatch.head_pass_launches()}
+            **_dispatch.head_pass_launches(), **_dispatch.att_pre_launches()}
 
 
 def counted():
     """The keys of `launch_counts`."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
-    return _dispatch.KERNELS + _dispatch.CELL_PASSES + _dispatch.HEAD_PASSES
+    return (_dispatch.KERNELS + _dispatch.CELL_PASSES + _dispatch.HEAD_PASSES
+            + _dispatch.ATT_PRE)
 
 
 # the cell's kernel on a path whose heads take `first_pass` ("tf32x3" on an
-# f32 path, "tma", the heads' TMA pass, on a bf16 one)
+# f32 path, "tma", the heads' TMA pass, on a bf16 one), and the attention's
+# pre-pass there (bf16: below att_step.PRE_MANY_ROWS rows)
 CELL_OF_PASS = {"tf32x3": "cell_tf32x3", "tma": "cell_wgmma"}
+PRE_OF_PASS = {"tf32x3": "att_h_tf32x3", "tma": "att_h_mma"}
 
 
 def with_cell_pass(want, first_pass):
     """`want` (launches by kernel, missing ones 0) with the cell's by
-    kernel and the heads' by first pass: every cell launch on
-    CELL_OF_PASS[first_pass], every head launch on `first_pass` ("tf32x3"
-    on an f32 path, "tma" on a bf16 one)."""
+    kernel, the heads' by first pass and the attention calls' by pre-pass:
+    every cell launch on CELL_OF_PASS[first_pass], every head launch on
+    `first_pass` ("tf32x3" on an f32 path, "tma" on a bf16 one), every
+    attention call on PRE_OF_PASS[first_pass]."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     out = {k: want.get(k, 0) for k in _dispatch.KERNELS}
     for p in _dispatch.CELL_PASSES:
@@ -549,6 +565,10 @@ def with_cell_pass(want, first_pass):
     for p in _dispatch.HEAD_PASSES:
         head, which = p.rsplit("_", 1)
         out[p] = out[head] if which == first_pass else 0
+    calls = sum(out[k] for k in ("attention", "attention_q",
+                                 "attention_kmajor"))
+    for p in _dispatch.ATT_PRE:
+        out[p] = calls if p == PRE_OF_PASS[first_pass] else 0
     return out
 
 
@@ -573,6 +593,10 @@ def phase_device():
 # 2. build
 # ---------------------------------------------------------------------------
 
+BUILD_SECONDS = []  # the kernels' build, for the closing line
+GRAPH_LIB = []  # graph_capture's library, built beside the kernels
+
+
 def phase_build():
     from cooperativeimagecaptioning_tpu_torch.native import bindings
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build
@@ -584,8 +608,16 @@ def phase_build():
             f"card's host:\n{bindings.build_log()}")
     print(f"build: the C++ host library (native/, g++ -lz) ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    import graph_capture
+    # the graph check's helper (a plain C file, outside the package) builds
+    # beside the kernels
+    t0 = time.perf_counter()
+    started = graph_capture.start(os.path.join(REPO, "build",
+                                               "graph_capture"))
     info = _build.build()
     _build.library()
+    GRAPH_LIB.append(graph_capture.load(started))
+    BUILD_SECONDS.append(time.perf_counter() - t0)
     how = "compiled" if info["compiled"] else "up to date"
     print(f"build: {how} from {os.path.relpath(str(_build.CSRC), REPO)}/ "
           f"for sm_90a in {info['seconds']:.1f} s -> "
@@ -622,7 +654,9 @@ def phase_build():
     # kernels (tf32x3: warps along j; wgmma: consumer warpgroups; fma: type,
     # asynchronous fill)
     for name, res in sorted(info["resources"].items()):
-        for src, kernel in (("att_step", "att_h_mma_kernel"),
+        for src, kernel in (("att_step", "att_h_splitk_kernel"),
+                            ("att_step", "att_h_mma_kernel"),
+                            ("att_step", "att_h_ring_kernel"),
                             ("att_step", "att_h_fma_kernel"),
                             ("att_step", "attention_kernel"),
                             ("cell_step", "cell_tf32x3_kernel"),
@@ -706,6 +740,28 @@ def bound_ms(tensors, ops, dtype_name):
     by_ops = ops / PEAK_OPS_PER_S[dtype_name]
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
+
+
+# the times of one PyTorch call that computes a kernels-line entry's
+# function (torch.addmm for the pre-pass: f32 on both sides for f32, bf16 out
+# for bf16), filled by phase 3
+LIBRARY_MS = {}
+
+
+def pre_pass_bound_ms(B, H, A, dn):
+    """(bound in ms, "bytes" or "operations", a note) of the pre-pass alone:
+    h, W and b read and the f32 att_h written once over the memory rate,
+    2*B*H*A operations over the type's peak; f32 notes the floor of its
+    three TF32 products."""
+    item = 2 if dn == "bfloat16" else 4
+    by_bytes = (item * (B * H + H * A + A) + 4 * B * A) / HBM_BYTES_PER_S
+    ops = 2 * B * H * A
+    by_ops = ops / PEAK_OPS_PER_S[dn]
+    note = ""
+    if dn == "float32":
+        note = f"; split floor {3 * ops / TF32_OPS_PER_S * 1e3:.4f} ms"
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", note)
 
 
 def attention_ops(B, H, A, k=K):
@@ -1326,12 +1382,14 @@ def check_attention_variants(rn, errs, times, bounds, shapes):
                 "attention_kmajor": (att_step.fused_attention_kmajor,
                                      att_step.attention_reference_kmajor,
                                      (emb_t, p_t))}
+            pre = "att_h_" + att_step.pre_pass(dt, 16 // h.element_size(), B)
             if k == K:  # the pre-pass of the three alone
                 got = att_step.att_h_kernel(h, wh, bh)
                 torch.cuda.synchronize()
                 err = (got - (h.float() @ wh.float() + bh.float())).abs() \
                     .max().item()
                 errs["att_h"] = max(errs["att_h"], err)
+                errs[pre] = max(errs[pre], err)
                 report("att_h", f"{dn} B={B} pre-pass vs h @ W + b", err,
                        TOL[("att_h", dn)])
             for name, (kernel, plain, ctx) in calls.items():
@@ -1373,9 +1431,12 @@ def check_attention_variants(rn, errs, times, bounds, shapes):
                     if (dn, B, k) == ("bfloat16", 512, K):
                         times[name], bounds[name] = timed[(name, B, k)], bound
                 if (dn, B, k) in ATT_TIMED:
-                    pre = cuda_ms(lambda: att_step.att_h_kernel(h, wh, bh),
-                                  iters)
+                    pre_ms, plain_ms = timed_pair(
+                        lambda: att_step.att_h_kernel(h, wh, bh),
+                        lambda: h.float() @ wh.float() + bh.float(),
+                        iters=iters)
                     mm = cuda_ms(lambda: torch.addmm(bh, h, wh), iters)
+                    pre_bound = pre_pass_bound_ms(B, H, A, dn)
                     plans = {}
                     for name, item in (("attention", h.element_size()),
                                        ("attention_q", 1)):
@@ -1385,15 +1446,29 @@ def check_attention_variants(rn, errs, times, bounds, shapes):
                             f"{plan.stages} stages, {plan.smem_bytes} bytes "
                             f"of shared memory, grid {plan.grid}, "
                             f"{att_step.resident_blocks(plan, k, H, A, dt, name)}"
-                            f" blocks an SM")
+                            f" blocks an SM, "
+                            f"{'a' if plan.dependent else 'not a'} dependent "
+                            f"launch")
                     print(f"  time att_h pre-pass   {short} {at:11s} kernel "
-                          f"{pre:.4f} ms (torch.addmm of the same product, a "
-                          f"yardstick the port never calls here: {mm:.4f} "
-                          f"ms); stream plan: {plans['attention']}; int8: "
+                          f"{pre_ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                          f"{pre_bound[0]:.4f} ms ({pre_bound[1]}; "
+                          f"{pre_ms / pre_bound[0]:.1f}x{pre_bound[2]}) "
+                          f"(torch.addmm of the same product, a yardstick "
+                          f"the port never calls here: {mm:.4f} ms); stream "
+                          f"plan: {plans['attention']}; int8: "
                           f"{plans['attention_q']}", flush=True)
                     for name in ("attention", "attention_kmajor"):
-                        shapes[name][-1].update(att_h_ms=pre,
+                        shapes[name][-1].update(att_h_ms=pre_ms,
                                                 att_h_addmm_ms=mm)
+                    shapes[pre].append({
+                        **timed_shape(f"{short} {at}", (pre_ms, plain_ms),
+                                      pre_bound[:2]),
+                        "library_ms": mm})
+                    if (dn, B) in (("float32", TRAIN_B), ("bfloat16", 512),
+                                   ("bfloat16", 4096)):
+                        times[pre] = (pre_ms, plain_ms)
+                        bounds[pre] = pre_bound[:2]
+                        LIBRARY_MS[pre] = mm
             del h, emb, p_att, q, emb_t, p_t, calls
 
         # D at widths that are no multiple of 16: vector width 1
@@ -1435,6 +1510,60 @@ def check_attention_variants(rn, errs, times, bounds, shapes):
               for g, w in zip(got, want))
     report("attention_q", "f32 B=128 gradient (relative)", err, TOL["grad"])
     errs["attention_q"] = max(errs["attention_q"], err)
+    check_attention_graphs(rn, errs)
+
+
+def check_attention_graphs(rn, errs):
+    """A (f32 B=128, the training step's) and D and E (bf16 B=512) captured
+    into a CUDA graph and the graph replayed (graph_capture.captured): the
+    outputs against the plain versions, and the graph's nodes and edges --
+    two kernels and one edge, programmatic where the plan launches the
+    stream as the pre-pass's dependent, wherever the CUDA runtime tells an
+    edge's type (12.3 and later)."""
+    import torch
+    import graph_capture
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import att_step
+    H = A = WIDTH
+    for name, dn, B in (("attention", "float32", TRAIN_B),
+                        ("attention_q", "bfloat16", 512),
+                        ("attention_kmajor", "bfloat16", 512)):
+        dt = getattr(torch, dn)
+        h = rn(B, H, scale=0.5).to(dt)
+        emb, p_att = rn(B, K, H).relu().to(dt), rn(B, K, A).to(dt)
+        weights = (rn(H, A, scale=H ** -0.5).to(dt), rn(A, scale=0.05).to(dt),
+                   rn(A, 1, scale=A ** -0.5).to(dt), rn(1, scale=0.05).to(dt))
+        mask = torch.ones(B, K, device=h.device)
+        mask[::3, 20:] = 0.0
+        if name == "attention_q":
+            fn, plain = att_step.attention_q_kernel, \
+                att_step.attention_reference_q
+            ctx = att_step.quantize_features(emb, p_att)
+        elif name == "attention_kmajor":
+            fn, plain = att_step.attention_kmajor_kernel, \
+                att_step.attention_reference_kmajor
+            ctx = (emb.movedim(0, 1).contiguous(),
+                   p_att.movedim(0, 1).contiguous())
+        else:
+            fn, plain = att_step.attention_kernel, \
+                att_step.attention_reference
+            ctx = (emb, p_att)
+        out, graph = graph_capture.captured(GRAPH_LIB[0], fn, h, *ctx,
+                                            *weights, mask)
+        err = (out.float() - plain(h, *ctx, *weights, mask).float()).abs() \
+            .max().item()
+        errs[name] = max(errs[name], err)
+        plan = att_step.stream_plan(B, K, H, A, ctx[0].element_size(),
+                                    name == "attention_kmajor")
+        print(f"  graph {name:16s} {dn} B={B}: a captured call holds "
+              f"{graph['nodes']} kernel nodes, {graph['edges']} edge(s), "
+              f"{graph['programmatic']} programmatic (the plan asks for a "
+              f"{'dependent' if plan.dependent else 'plain'} launch)",
+              flush=True)
+        report(name, f"{dn} B={B} captured in a CUDA graph", err,
+               TOL[("attention", dn)])
+        require(graph["nodes"] == 2 and graph["edges"] == 1
+                and graph["programmatic"] in (-1, int(plan.dependent)),
+                f"{name}: a captured call holds {graph}")
 
 
 # ---------------------------------------------------------------------------
@@ -1537,6 +1666,50 @@ def serve_requests(svc, label, kernel, att_kernel="attention",
     return ids64
 
 
+def split_steps(what, fc, att, masks, ids_a, ids_b):
+    """For each row where ids_a and ids_b differ: the first step where they
+    split and, there, the log-probabilities of an f32 CPU service (the plain
+    versions) along the rows' common prefix -- the gap between its top two
+    words and between the two rows' words.  A split where the two words'
+    gap is within a bf16 rounding of each (2^-8 of its size, twice) is a
+    near-tie that bf16's roundings can flip; a larger one could point at a
+    kernel's error."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops import decoding
+    from cooperativeimagecaptioning_tpu_torch.serving import CaptioningService
+    rows = np.flatnonzero((ids_a != ids_b).any(axis=1))
+    if rows.size == 0:
+        print(f"  {what}: no row differs", flush=True)
+        return
+    svc = CaptioningService.from_run_dir(RUN_DIR, compute_dtype="float32",
+                                         buckets=(64,), device="cpu")
+    spk = svc.speaker
+    with torch.inference_mode():
+        ctx = spk.encode_features(
+            None, torch.from_numpy(np.ascontiguousarray(att[rows],
+                                                        np.float32)),
+            torch.from_numpy(np.ascontiguousarray(masks[rows], np.float32)))
+        prev = np.zeros((rows.size, L), np.int64)
+        prev[:, 1:] = ids_a[rows, :-1]
+        lps = decoding.teacher_forced_logprobs(
+            spk, ctx, torch.from_numpy(prev)).float()
+    near = 0
+    for i, r in enumerate(rows):
+        t = int(np.flatnonzero(ids_a[r] != ids_b[r])[0])
+        lp = lps[i, t]
+        top = torch.topk(lp, 2).values
+        gap = float(top[0] - top[1])
+        la, lb = float(lp[int(ids_a[r, t])]), float(lp[int(ids_b[r, t])])
+        tie = max(abs(la), abs(lb)) * 2.0 ** -7  # a bf16 rounding of each
+        near += abs(la - lb) <= tie
+        print(f"  {what}: row {int(r):2d} splits at step {t:2d}: top-2 "
+              f"log-prob gap {gap:.2e}, the two words' {abs(la - lb):.2e} "
+              f"(log-probs {la:.3f}, {lb:.3f}; bf16 rounding of both "
+              f"{tie:.2e})", flush=True)
+    print(f"  {what}: {rows.size} rows differ, {near} of them at a near-tie "
+          f"within bf16's rounding of the logits", flush=True)
+
+
 def captions_per_s(svc, n, reps=3):
     fc, att, masks = features(n, seed=10_000 + n)
     svc.caption_ids(fc[:1], att[:1], masks[:1])
@@ -1568,18 +1741,23 @@ def phase_slice(smi):
     print(f"  services loaded and warmed (buckets {greedy.buckets}) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # the main path: counts from 0 to the end of the served requests
+    # the main path: counts from 0 to the end of the served requests and
+    # the throughput runs (bf16, host features to ids, serial requests;
+    # bucket 4096's attention takes the ring pre-pass, the others mma.sync)
     _dispatch.reset_launches()
     ids_greedy = serve_requests(greedy, "greedy bf16", "greedy_head")
     ids_beam = serve_requests(beam, "beam-2 bf16", "beam_head")
+    rates = {"greedy bucket 512": captions_per_s(greedy, 512),
+             "greedy bucket 4096": captions_per_s(greedy, 4096),
+             "beam-2 bucket 512": captions_per_s(beam, 512)}
     main_launches = launch_counts()
-    for k in ("attention", "greedy_head", "beam_head"):
+    for k in ("attention", "greedy_head", "beam_head", "att_h_mma",
+              "att_h_ring"):
         require(main_launches[k] > 0, f"{k} was never launched on the "
                 f"main path")
     require_vector_width("serving", main_launches)
     require_head_pass("serving", "tma")
-    print(f"  main-path launches: {main_launches}; heads by first pass: "
-          f"{_dispatch.head_pass_launches()}; attention by width: "
+    print(f"  main-path launches: {main_launches}; attention by width: "
           f"{_dispatch.att_width_launches()}", flush=True)
 
     # the CUDA services against CPU services (the plain versions, F's
@@ -1613,11 +1791,10 @@ def phase_slice(smi):
                   f"({need})", flush=True)
             require(floor is None or rate >= floor,
                     f"{what}, {mode}: {rate} of rows equal, below {floor}")
+        split_steps(f"bf16 cuda vs bf16 cpu, {mode}", fc, att, masks,
+                    ids_served, cpu["bfloat16"])
         del gpu32
 
-    rates = {"greedy bucket 512": captions_per_s(greedy, 512),
-             "greedy bucket 4096": captions_per_s(greedy, 4096),
-             "beam-2 bucket 512": captions_per_s(beam, 512)}
     print(f"throughput ({smi}; bf16, host features to ids, serial "
           f"requests): " + "; ".join(f"{k}: {v:.1f} captions/s"
                                      for k, v in rates.items()), flush=True)
@@ -6184,41 +6361,34 @@ def main():
     t_start = time.perf_counter()
     phase_build()
     errs, times, bounds, shapes = phase_kernels()
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
+
+    def phase(name, fn, *args):
+        out = fn(*args)
+        print(f"elapsed after {name}: {time.perf_counter() - t_start:.0f} s",
+              flush=True)
+        return out
+
     print(f"elapsed after the kernel checks: "
           f"{time.perf_counter() - t_start:.0f} s", flush=True)
-    serve_launches = phase_slice(smi)
-    print(f"elapsed after serving: {time.perf_counter() - t_start:.0f} s",
-          flush=True)
-    train_launches, phase5 = phase_train(smi)
-    print(f"elapsed after training: {time.perf_counter() - t_start:.0f} s",
-          flush=True)
-    eval_launches = phase_eval(smi)
-    print(f"elapsed after evaluation: {time.perf_counter() - t_start:.0f} s",
-          flush=True)
-    scst_launches, scst_out = phase_scst(smi, phase5)
-    print(f"elapsed after self-critical training: "
-          f"{time.perf_counter() - t_start:.0f} s", flush=True)
-    listener_launches, listener_out = phase_listener(smi)
-    print(f"elapsed after the listener: "
-          f"{time.perf_counter() - t_start:.0f} s", flush=True)
-    mesh_launches, _ = phase_mesh(smi, errs, times, bounds, shapes)
-    print(f"elapsed after the mesh: {time.perf_counter() - t_start:.0f} s",
-          flush=True)
-    reinforce_launches, _ = phase_reinforce(smi)
-    print(f"elapsed after joint REINFORCE: "
-          f"{time.perf_counter() - t_start:.0f} s", flush=True)
-    device_launches, _ = phase_device_rewards(smi, scst_out, listener_out)
-    print(f"elapsed after the device rewards and fused chunks: "
-          f"{time.perf_counter() - t_start:.0f} s", flush=True)
-    repro_launches, _ = phase_reproduction(smi)
-    print(f"elapsed after the reproduction chain: "
-          f"{time.perf_counter() - t_start:.0f} s", flush=True)
-    paper_launches, _ = phase_paper_drivers(smi)
-    print(f"elapsed after the paper's drivers: "
-          f"{time.perf_counter() - t_start:.0f} s", flush=True)
-    orbax_launches, _ = phase_orbax(smi)
-    print(f"elapsed after the orbax tier: "
-          f"{time.perf_counter() - t_start:.0f} s", flush=True)
+    serve_launches = phase("serving", phase_slice, smi)
+    train_launches, phase5 = phase("training", phase_train, smi)
+    eval_launches = phase("evaluation", phase_eval, smi)
+    scst_launches, scst_out = phase("self-critical training", phase_scst,
+                                    smi, phase5)
+    listener_launches, listener_out = phase("the listener", phase_listener,
+                                            smi)
+    mesh_launches, _ = phase("the mesh", phase_mesh, smi, errs, times,
+                             bounds, shapes)
+    reinforce_launches, _ = phase("joint REINFORCE", phase_reinforce, smi)
+    device_launches, _ = phase("the device rewards and fused chunks",
+                               phase_device_rewards, smi, scst_out,
+                               listener_out)
+    repro_launches, _ = phase("the reproduction chain", phase_reproduction,
+                              smi)
+    paper_launches, _ = phase("the paper's drivers", phase_paper_drivers,
+                              smi)
+    orbax_launches, _ = phase("the orbax tier", phase_orbax, smi)
     # each path's counts run from 0 just before it to just after it
     paths = {"serve": serve_launches, "train": train_launches,
              "eval": eval_launches, "scst": scst_launches,
@@ -6233,22 +6403,22 @@ def main():
     for k in SOURCES:
         by_path = {path: sum(counts[c] for c in PASS_ENTRIES.get(k, (k,)))
                    for path, counts in paths.items()}
-        require(sum(by_path.values()) > 0,
-                f"{k} was never launched on a main path")
+        launches = sum(by_path.values())
+        require(launches > 0, f"{k} was never launched on a main path")
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
-            "replaces": REPLACES[k], "launches": sum(by_path.values()),
+            "replaces": REPLACES[k], "launches": launches,
             "launches_by_path": by_path, "max_abs_err": errs[k],
             "ms": times[k][0], "plain_ms": times[k][1],
             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-            # no single PyTorch call computes any of these functions
-            "library_ms": None,
+            # no single PyTorch call computes the attention, the heads, the
+            # cell or the merge; torch.addmm computes the pre-pass
+            "library_ms": LIBRARY_MS.get(k),
             # every shape the kernel was timed at, each with its own bound
             "timed_shapes": shapes[k]})
     # the cell's launches by kernel (split TF32 for f32, wgmma for bf16,
     # FMAs) and the heads' by first pass (split TF32, TMA, FMAs): the paths
     # run both types
-    from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     for name, passes, f32, bf16 in (
             ("cell", _dispatch.CELL_PASSES, "cell_tf32x3", "cell_wgmma"),
             ("greedy_head", _dispatch.HEAD_PASSES, "greedy_head_tf32x3",
@@ -6263,6 +6433,8 @@ def main():
         require(sum(by_pass.values()) == entry["launches"]
                 and by_pass[f32] > 0 and by_pass[bf16] > 0,
                 f"{name} launches by pass {by_pass} of {entry['launches']}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.0f} s in all, of "
+          f"them {sum(BUILD_SECONDS):.1f} s the kernels' build", flush=True)
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -50,15 +50,15 @@ SIGNATURES = {
     # negative: minus a cudaError_t)
     "cic_attention_blocks_per_sm": [_I] * 8,
     # h, emb, p_att, w_h2att, b_h2att, w_alpha, b_alpha, mask|NULL,
-    # att_h (f32 [B,A] scratch), out, B, K, H, A, is_bf16, vec, rows, slots,
-    # stages, stream
-    "cic_attention": [_P] * 10 + [_I] * 9 + [_P],
+    # att_h (f32 [B,A] scratch), out, B, K, H, A, is_bf16, vec, grid, slots,
+    # stages, dependent, stream
+    "cic_attention": [_P] * 10 + [_I] * 10 + [_P],
     # as cic_attention, with emb [K,B,H] and p_att [K,B,A]
-    "cic_attention_kmajor": [_P] * 10 + [_I] * 9 + [_P],
+    "cic_attention_kmajor": [_P] * 10 + [_I] * 10 + [_P],
     # h, emb_q, emb_scale, p_q, p_scale, w_h2att, b_h2att, w_alpha, b_alpha,
-    # mask|NULL, att_h, out, B, K, H, A, is_bf16, vec, rows, slots, stages,
-    # stream
-    "cic_attention_q": [_P] * 12 + [_I] * 9 + [_P],
+    # mask|NULL, att_h, out, B, K, H, A, is_bf16, vec, grid, slots, stages,
+    # dependent, stream
+    "cic_attention_q": [_P] * 12 + [_I] * 10 + [_P],
     # h, w, b, part_val, part_id, part_m, part_s, it, lp,
     # R, H, V, splits, split_cols, is_bf16, first_pass (0 FMA, 1 wgmma,
     # 2 split TF32), stream

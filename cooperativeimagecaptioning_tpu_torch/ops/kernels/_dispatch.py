@@ -22,7 +22,9 @@ aligned bf16, FMAs for the rest: `cell_step.cell_pass`) are counted the
 same way.
 The three attention kernels have two widths (16-byte
 vectors, or single elements for unaligned shapes: `att_step.vector_width`),
-counted the same way.
+counted the same way, and by the att_h pre-pass they took (split TF32 for
+f32, mma.sync below `att_step.PRE_MANY_ROWS` rows of bf16 and a ring of
+stages from there, FMAs for unaligned shapes: `att_step.pre_pass`).
 
 A registered vocabulary mesh (`set_vocab_mesh`, the JAX package's
 _dispatch.py:53-83) switches the two heads to their vocab-sharded paths:
@@ -51,8 +53,11 @@ ATT_WIDTHS = ("attention_vec", "attention_scalar", "attention_kmajor_vec",
               "attention_kmajor_scalar", "attention_q_vec",
               "attention_q_scalar")
 
+# the attention calls' launches by att_h pre-pass: "att_h_<pre-pass>"
+ATT_PRE = ("att_h_tf32x3", "att_h_mma", "att_h_ring", "att_h_fma")
+
 _launches = {name: 0 for name in
-             KERNELS + HEAD_PASSES + CELL_PASSES + ATT_WIDTHS}
+             KERNELS + HEAD_PASSES + CELL_PASSES + ATT_WIDTHS + ATT_PRE}
 
 
 _vocab_mesh = None
@@ -88,13 +93,16 @@ def use_kernel(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain path for device {x.device}")
 
 
-def count(name: str, variant: str = "") -> None:
+def count(name: str, variant: str = "", pre: str = "") -> None:
     """One launch of kernel `name`; a head also names the pass it took
     ("tma", "tf32x3" or "fma"), the cell its kernel ("tf32x3", "wgmma" or
-    "fma"), an attention kernel its width ("vec" or "scalar")."""
+    "fma"), an attention kernel its width ("vec" or "scalar") and its
+    pre-pass (`pre`: "tf32x3", "mma", "ring" or "fma")."""
     _launches[name] += 1
     if variant:
         _launches[f"{name}_{variant}"] += 1
+    if pre:
+        _launches[f"att_h_{pre}"] += 1
 
 
 def launches() -> dict:
@@ -119,6 +127,12 @@ def att_width_launches() -> dict:
     each of the three attention kernels the widths add up to its entry in
     `launches()`."""
     return {name: _launches[name] for name in ATT_WIDTHS}
+
+
+def att_pre_launches() -> dict:
+    """{"att_h_<pre-pass>": launches since the last reset}; together the
+    launches of the three attention kernels in `launches()`."""
+    return {name: _launches[name] for name in ATT_PRE}
 
 
 def reset_launches() -> None:

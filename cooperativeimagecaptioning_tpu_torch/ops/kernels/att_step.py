@@ -24,19 +24,26 @@ did (f32 accumulation, bf16 or f32 in and out).
 
 Each of the three calls is two launches inside one wrapper call (one
 count of the kernel).  A hand-written pre-pass computes att_h + bias as
-float32 [B, A] into a scratch tensor (bf16 on the tensor cores, float32 on
-true-f32 FMAs).  The stream kernel then walks each block's rows: a row's
-p_att and then its att_emb, cut into chunks of a few slots, flow through a
-ring of shared-memory stages filled by asynchronous bulk copies
-(`cp.async.bulk`, one mbarrier a stage) that run `stages - 1` chunks ahead
-of the arithmetic; the int8 context travels the same way at one byte an
-element and is dequantized in registers.  `stream_plan` chooses rows per
-block (1 until B outgrows 8 blocks an SM), slots per stage, stages, and
-with them shared memory and grid; `stream_copies` lists the copies the
-kernel makes under a plan, for the CPU tests.  K may be anything up to
-MAX_K (256: the repo's own 14 x 14 feature grid is 196 slots).  Shapes or
-pointers that are not 16-byte aligned take the same kernel at vector width
-1 (`vector_width`); `_dispatch.att_width_launches` says which width ran.
+float32 [B, A] into a scratch tensor on the tensor cores (bf16 on
+`mma.sync`, from PRE_MANY_ROWS rows through a ring of stages; float32 as
+split TF32; shapes that are not 16-byte aligned on FMAs: `pre_pass`).
+The stream kernel, launched as the pre-pass's programmatic dependent where
+`stream_plan` says so, starts copying the context while the pre-pass runs
+and waits for it only before it copies att_h.  A block's producer warp
+fills a ring of shared-memory stages with asynchronous bulk copies
+(`cp.async.bulk`, a full and an empty mbarrier a stage), its eight
+consumer warps compute the scores, the softmax and the weighted sum; the
+rows of a block are blockIdx, blockIdx + grid, ...; the int8 context
+travels the same way at one byte an element and is dequantized in
+registers (bf16 calls in packed half precision).  `stream_plan` chooses
+the grid (up to four blocks an SM), slots per stage, stages and whether
+the stream is a dependent launch, and with them shared memory;
+`stream_copies` lists the copies the kernel makes under a plan, for the
+CPU tests.  K may be anything up to MAX_K (256: the repo's own 14 x 14
+feature grid is 196 slots).  Shapes or pointers that are not 16-byte
+aligned take the same kernel at vector width 1 (`vector_width`);
+`_dispatch.att_width_launches` says which width ran, and
+`_dispatch.att_pre_launches` which pre-pass.
 
 Under autograd `fused_attention` and `fused_attention_q` go through
 `Attention`, a torch.autograd.Function standing in for the JAX custom_vjps
@@ -61,30 +68,38 @@ from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build, _dispatch
 
 MAX_K = 256  # attention slots a call may have (kMaxK)
 # the stream kernel's constants (csrc/att_step.cu)
-THREADS = 256      # kThreads
-MAX_STAGES = 8     # kMaxStages
-MAX_SPLIT = 8      # kMaxSplit
-MAX_COLS = 16      # kMaxCols: columns a thread of the width-1 path may own
-BAR_BYTES = 64     # kBarBytes: the ring stages' mbarriers
-MAX_SMEM = 232448  # kMaxSmem: 227 KiB of shared memory a block may ask for
-ROW_WAVES = 8      # blocks an SM the grid may have before blocks take rows
-SMEM_SHARED = 81920  # the most a block takes where blocks share an SM
+THREADS = 256        # kThreads: consumer threads of a block
+BLOCK_THREADS = 288  # kBlockThreads: and one producer warp
+MAX_STAGES = 8       # kMaxStages
+MAX_SLOTS = 16       # kMaxSlots: slots a chunk, two a consumer warp at most
+MAX_COLS = 16        # kMaxCols: columns a thread of the width-1 path may own
+BAR_BYTES = 128      # kBarBytes: the ring stages' full and empty mbarriers
+MAX_SMEM = 232448    # kMaxSmem: 227 KiB of shared memory a block may ask for
+PRE_SMEM = 116736    # kPreSmem: the most a pre-pass block takes
+PRE_MANY_ROWS = 2048  # kPreManyRows: bf16 rows of the ring pre-pass
+SM_SMEM = 233472     # the shared memory of an SM (228 KiB)
+BLOCK_RESERVED = 1024  # that the runtime keeps a resident block
+SM_BLOCKS = 4        # kStreamBlocks: most stream blocks an SM, bf16
+SM_BLOCKS_F32 = 3    # kStreamBlocksF32: and f32
+MAX_SPLIT = 8        # kMaxSplit: thread groups sharing a column group (A, E)
 
 
 def vector_width(H, A, itemsize, aligned=True):
     """Context elements (of `itemsize` bytes) a copy and a shared-memory
     load of the stream kernel take at once: 16 bytes' worth where H and A
-    are multiples of that, H has at most one such column group a thread and
-    the tensors are 16-byte aligned, else 1."""
+    are multiples of that, H has at most one such column group a thread
+    (and, int8, at most two pairs of columns: H <= 1024) and the tensors are
+    16-byte aligned, else 1."""
     vec = 16 // itemsize
-    if aligned and H % vec == 0 and A % vec == 0 and H // vec <= THREADS:
+    if aligned and H % vec == 0 and A % vec == 0 and H // vec <= THREADS \
+            and (itemsize > 1 or H <= 4 * THREADS):
         return vec
     return 1
 
 
 def col_split(H, vec):
-    """Thread groups of a block that share one column group of the weighted
-    sum (col_split of csrc/att_step.cu)."""
+    """Thread groups of the weighted sum of A and E at vector width that
+    share one column group (col_split of csrc/att_step.cu)."""
     groups = H // vec
     return 1 if groups >= THREADS else min(THREADS // groups, MAX_SPLIT)
 
@@ -93,57 +108,73 @@ class StreamPlan(NamedTuple):
     """How the stream kernel runs one call; see `stream_plan`."""
     vec: int          # vector width in elements (16 bytes' worth, or 1)
     kmajor: bool
-    rows: int         # batch rows a block walks
+    rows: int         # most batch rows a block walks
     slots: int        # attention slots a chunk (a ring stage) holds
-    stages: int       # ring stages; stages - 1 chunks are in flight
+    stages: int       # ring stages
     stage_bytes: int
     smem_bytes: int   # the block's dynamic shared memory
-    grid: int
+    grid: int         # blocks; block i takes rows i, i + grid, ...
+    dependent: bool   # launched as the pre-pass's programmatic dependent
 
 
 @functools.lru_cache(maxsize=256)
-def stream_plan(B, K, H, A, itemsize, kmajor, vec=None, sms=132):
+def stream_plan(B, K, H, A, itemsize, kmajor, vec=None, sms=132, hsize=None):
     """The launch parameters of the stream kernel for a [B, K, H] / [B, K, A]
     context of `itemsize`-byte elements (K-major: [K, B, *]) on a card of
-    `sms` SMs.  `vec` defaults to `vector_width` of aligned tensors.
+    `sms` SMs, for a call whose h has `hsize`-byte elements (default: the
+    context's, bf16 for int8).  `vec` defaults to `vector_width` of aligned
+    tensors.
 
-    A stage holds 8 slots (one a warp) of the wider of H and A, 16 for
-    the one-byte int8 context (the same bytes as bf16), and the ring has 3
-    stages where several blocks share an SM (registers allow 4
-    blocks an SM; more stages cost blocks and were slower on the H100), 8
-    where the grid gives an SM one block at most; fewer slots, then fewer
-    stages, where that outgrows the shared memory (80 KiB, or a block's
-    limit where it is alone).  A block takes one row until that makes more
-    than 8 blocks an SM (B of about a thousand); then as many rows as keep
-    the grid there.
-    The K-major layout takes the same plan: a chunk is then `slots` runs of
-    one row's slot instead of one run."""
+    As many blocks an SM as B has rows an SM, at most SM_BLOCKS for bf16
+    calls (56 registers a thread) and SM_BLOCKS_F32 for f32 (72): grid =
+    min(B, blocks an SM x sms), a block's rows interleaved.  A stage holds
+    8 slots (one a consumer warp) of the wider of H and A, 16 for the
+    one-byte int8 context (the same bytes as bf16); the ring has 8 stages,
+    fewer (down to 3), then fewer slots, then fewer stages where that
+    outgrows the block's share of the SM's shared memory -- and, where the
+    launch is dependent (the vector path), what a pre-pass block (PRE_SMEM)
+    leaves beside it, so that a block of the stream starts on every SM
+    while the pre-pass runs.  The K-major layout takes the same plan: a
+    chunk is then `slots` runs of one row's slot instead of one run."""
     if vec is None:
         vec = vector_width(H, A, itemsize)
     wide = max(H, A)
     a4 = -(-A // 4) * 4
     k4 = -(-K // 4) * 4
-    alone = B <= sms
-    limit = MAX_SMEM if alone else SMEM_SHARED
+    if hsize is None:
+        hsize = itemsize if itemsize > 1 else 2
+    per_sm = min(SM_BLOCKS if hsize == 2 else SM_BLOCKS_F32, -(-B // sms))
+    red = (col_split(H, vec) - 1) * H if vec > 1 and itemsize > 1 else 0
+    side = 3 if itemsize == 1 else 1  # mask, and int8's two scale rows
+    grid = min(B, per_sm * sms)
+    # the vector path's stream is the pre-pass's programmatic dependent at
+    # every shape: faster at each timed one, B=4096 included (PERF.md,
+    # row A); the width-1 path waits for the pre-pass before its first copy
+    dependent = vec > 1
+    limit = min(MAX_SMEM, SM_SMEM // per_sm - BLOCK_RESERVED)
+    if dependent:
+        limit = min(limit, SM_SMEM - PRE_SMEM - 2 * BLOCK_RESERVED)
 
     def stage(slots):
         return -(-slots * wide * itemsize // 16) * 16
 
     def smem(slots, stages):
-        # floats: the att_h ring, w_alpha, the scores, the side ring (two
-        # rows of mask and scales), the weighted sum's partials
+        # floats: the row slots (att_h, mask, int8's scale rows), w_alpha, the
+        # scores of two rows, each consumer warp's weights of a chunk, A's
+        # and E's partial sums of the weighted sum
         return BAR_BYTES + stages * stage(slots) + 4 * (
-            (stages + 1) * a4 + 7 * k4 + (col_split(H, vec) - 1) * H)
+            stages * (a4 + side * k4) + a4 + 2 * k4 + 8 * MAX_SLOTS + red)
 
     slots = min(K, 8 * max(1, 2 // itemsize))
-    stages = MAX_STAGES if alone else 3
+    stages = MAX_STAGES
+    while stages > 3 and smem(slots, stages) > limit:
+        stages -= 1
     while slots > 1 and smem(slots, stages) > limit:
         slots = (slots + 1) // 2
     while stages > 2 and smem(slots, stages) > limit:
         stages -= 1
-    rows = -(-B // (ROW_WAVES * sms))
-    return StreamPlan(vec, bool(kmajor), rows, slots, stages, stage(slots),
-                      smem(slots, stages), -(-B // rows))
+    return StreamPlan(vec, bool(kmajor), -(-B // grid), slots, stages,
+                      stage(slots), smem(slots, stages), grid, dependent)
 
 
 def stream_copies(plan, B, K, H, A, itemsize):
@@ -153,8 +184,8 @@ def stream_copies(plan, B, K, H, A, itemsize):
     and `nbytes` (the contiguous run in the tensor), `block`, `chunk` (its
     place in the block's sequence), `stage` and `dst_byte` (inside the
     stage).  In the b-major layout a chunk is one run, in the K-major layout
-    one run a slot."""
-    rows, slots, stages = plan.rows, plan.slots, plan.stages
+    one run a slot.  Row b is block b % grid's (b // grid)-th row."""
+    grid, slots, stages = plan.grid, plan.slots, plan.stages
     cpt = -(-K // slots)
     b = np.arange(B, dtype=np.int64)
     out = {k: [] for k in ("tensor", "row", "k0", "nk", "src_byte", "nbytes",
@@ -163,14 +194,14 @@ def stream_copies(plan, B, K, H, A, itemsize):
         for q in range(cpt):
             k0 = q * slots
             nk = min(slots, K - k0)
-            chunk = (b % rows) * 2 * cpt + tensor * cpt + q
+            chunk = (b // grid) * 2 * cpt + tensor * cpt + q
             runs = [(0, nk)] if not plan.kmajor else \
                 [(j, 1) for j in range(nk)]
             for j, n in runs:
                 slot = (k0 + j) * B + b if plan.kmajor else b * K + k0 + j
                 cols = {"tensor": tensor, "row": b, "k0": k0 + j, "nk": n,
                         "src_byte": slot * width * itemsize,
-                        "nbytes": n * width * itemsize, "block": b // rows,
+                        "nbytes": n * width * itemsize, "block": b % grid,
                         "chunk": chunk, "stage": chunk % stages,
                         "dst_byte": j * width * itemsize}
                 for key, v in cols.items():
@@ -385,6 +416,19 @@ def resident_blocks(plan, K, H, A, dtype, layout="attention"):
     return n
 
 
+def pre_pass(dtype, vec, B):
+    """The att_h pre-pass a call of B rows takes (csrc/att_step.cu
+    launch_att_h): "tf32x3" (float32, split TF32 on mma.sync), "mma"
+    (bfloat16 on mma.sync, the whole depth at once) below PRE_MANY_ROWS
+    rows, "ring" (bfloat16, 64 x 128 tiles through a ring of stages) from
+    there or, where the tensors are not 16-byte aligned (`vec` 1), "fma"."""
+    if vec <= 1:
+        return "fma"
+    if dtype != torch.bfloat16:
+        return "tf32x3"
+    return "ring" if B >= PRE_MANY_ROWS else "mma"
+
+
 def _launch_stream(name, entry, h, ctx, weights, masks, K, kmajor):
     """Launch the pre-pass and the stream kernel through C entry `entry`:
     `ctx` holds the context tensors in the entry's order (emb, p_att; or
@@ -400,16 +444,17 @@ def _launch_stream(name, entry, h, ctx, weights, masks, K, kmajor):
     vec = vector_width(H, A, itemsize,
                        _aligned(h, *wide, weights[0], out))
     plan = stream_plan(B, K, H, A, itemsize, kmajor, vec,
-                       _sm_count(h.device.index or 0))
+                       _sm_count(h.device.index or 0), h.element_size())
     lib = _build.library()
     code = getattr(lib, entry)(
         _build.ptr(h), *(_build.ptr(t) for t in ctx),
         *(_build.ptr(w) for w in weights), _build.ptr(masks),
         _build.ptr(att_h), _build.ptr(out), B, K, H, A,
-        int(h.dtype == torch.bfloat16), int(vec > 1), plan.rows, plan.slots,
-        plan.stages, _build.stream(h.device))
+        int(h.dtype == torch.bfloat16), int(vec > 1), plan.grid, plan.slots,
+        plan.stages, int(plan.dependent), _build.stream(h.device))
     _build.check(lib, code, name)
-    _dispatch.count(name, "vec" if vec > 1 else "scalar")
+    _dispatch.count(name, "vec" if vec > 1 else "scalar",
+                    pre=pre_pass(h.dtype, vec, B))
     return out
 
 

@@ -292,7 +292,7 @@ def test_port_options_are_the_ports_own(run_dir):
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "serve_breakdown.py",
                                     "train_breakdown.py", "att_stream_bench.py",
-                                    "cell_bench.py"])
+                                    "cell_bench.py", "graph_capture.py"])
 def test_card_scripts_import_nothing_of_jax(script):
     """The card's machine has no JAX: these scripts import the port, and
     nothing of the JAX package."""
