@@ -158,15 +158,18 @@ Phases, in order; any failure exits non-zero:
   9. mesh     -- the (data, model) process grid, its ranks sharing the one
                  card over gloo (one process each, started by the port's
                  launcher after the build, so that no two run nvcc):
-                 head_merge against its plain version (the gathered
-                 candidates of a logit layer split in two, ties across the
-                 shard seam, m = 1, 2, 17, 32) and timed; a two-rank world:
+                 head_merge against its plain version in each mode (the
+                 gathered records of a logit layer split in two, ties
+                 across the shard seam; beam at m = 1, 2, 5, 17, 32,
+                 greedy, argmax) and timed beside an empty kernel launched
+                 the same way; a two-rank world:
                  (1, 2) -- the sharded heads against the plain heads on the
                  whole layer (ties across the seam), Evaluator.eval_split of
                  phase 4's and phase 5's speakers, f32, beam 2 and greedy,
                  against the single-process evaluator on the card (>= 99%
                  of the captions, loss_cap), C and head_merge L times a
-                 decode on every rank and B never; (2, 1) -- phase-2 MLE at
+                 decode on every rank and B never, one collective (an
+                 all_gather of C's records) a sharded head call; (2, 1) -- phase-2 MLE at
                  B=128, three steps against the
                  single-process Trainer (loss rtol 2e-5, params), it/s,
                  checkpoint_operations writing a mesh run dir, eval.eval on
@@ -183,8 +186,9 @@ Phases, in order; any failure exits non-zero:
                  to its counts; (1, 2): two iterations of -o gumbel over
                  the split vocabulary with its Evaluator first (beam 1, the generated and the GT
                  captions' ranks: captions, eval loss, rsum), A and F equal,
-                 C in place of every B launch, head_merge also merging each
-                 categorical draw over the slices (>= 2L an iteration);
+                 C in place of every B launch, one collective a sharded
+                 head call, head_merge also merging each categorical draw
+                 over the slices (>= 2L an iteration);
                  it/s, traced kernel ms and idle share of an iteration per
                  rank beside the single process's; and a world of one rank
                  over NCCL (one all_gather, one all_reduce through the
@@ -668,11 +672,14 @@ def phase_build():
                       f"registers, {res['stack_bytes']} bytes of stack, "
                       f"{res['spill_bytes']} bytes spilled", flush=True)
                 require(res["spill_bytes"] == 0, f"{name} spills registers")
-        if "head_merge_kernel" in name:
-            print(f"  head_merge head_merge_kernel: {res['registers']} "
-                  f"registers, {res['stack_bytes']} bytes of stack, "
-                  f"{res['spill_bytes']} bytes spilled", flush=True)
-            require(res["spill_bytes"] == 0, f"{name} spills registers")
+        # the merge: merge_small<lanes a row, mode>, merge_large<mode>
+        for kernel in ("merge_small", "merge_large"):
+            if kernel in name:
+                args = name.split(kernel)[1].split("EEv")[0]
+                print(f"  head_merge {kernel}<{args}>: {res['registers']} "
+                      f"registers, {res['stack_bytes']} bytes of stack, "
+                      f"{res['spill_bytes']} bytes spilled", flush=True)
+                require(res["spill_bytes"] == 0, f"{name} spills registers")
 
 
 # ---------------------------------------------------------------------------
@@ -3359,7 +3366,17 @@ MESH_RUN_DIR = os.path.join(REPO, "build", "chip_smoke_mesh_run")
 MESH_EVAL_IMAGES = 640  # 256 images in the val and in the test split
 MESH_TRAIN_STEPS = 3    # (2, 1) steps held against the single-process Trainer
 MESH_TIMED_STEPS = 5
-MESH_MERGE_M = (1, 2, 17, 32)
+MESH_MERGE_M = (1, 2, 5, 17, 32)
+# (rows, m, mode) at which the merge is timed beside its floor: the (1, 2)
+# evaluation's beam-2 (R = 2 x EVAL_B) and greedy (EVAL_B) decodes, the
+# categorical draw of a (1, 2) -o gumbel iteration (TRAIN_B rows), beam 5
+# over the loss rows (EVAL_ROWS) and rows of 64 candidates (a block a row)
+MERGE_TIMED = ((2 * EVAL_B, 2, "beam"), (EVAL_B, 1, "greedy"),
+               (TRAIN_B, 1, "argmax"), (EVAL_ROWS, 5, "beam"),
+               (2 * EVAL_B, 32, "beam"))
+# the collectives (their kinds) of each sharded head call, G or H, while
+# `counting_head_collectives` is on in this rank
+HEAD_OPS = []
 # the (2, 1) and (2, 2) training losses against the single-process Trainer:
 # the JAX mesh test's tolerance (tests/test_parallel.py).  The params after
 # MESH_TRAIN_STEPS steps: every entry within 2 lr steps (Adam's first update
@@ -3580,14 +3597,19 @@ def mesh_joint_run(opt, n_data, n_model, ds, steps, timed, evaluate=False):
     out = {"steps": []}
     tr = Trainer(opt, dataset=ds, device=DEVICE, verbose=False)
     if evaluate:
+        at = len(HEAD_OPS)
         out["eval"] = mesh_joint_eval(tr)
+        out["eval_head_ops"] = head_ops_since(at)
+    out["head_ops"] = []
     for _ in range(steps):
         sync()
         _dispatch.reset_launches()
+        at = len(HEAD_OPS)
         loss_dict, turn, _ = tr.train_iteration()
         sync()
         out["steps"].append((float(loss_dict["loss"]), turn,
                              sampled_rows(tr), launch_counts()))
+        out["head_ops"].append(head_ops_since(at))
     if timed:
         data = tr.loader.get_batch("train")
         if DEVICE == "cuda":
@@ -3672,10 +3694,11 @@ def check_mesh_joint(smi, single, t_single, got):
     (`got`, from `mesh_joint_runs`) against the single process's (`single`);
     per rank and iteration, A, B and F on (2, 1) equal the single process's
     counts, and on (1, 2) A and F equal them, C replaces B launch for
-    launch and head_merge adds the categorical draws over the slices (at
-    least 2L an iteration: stage A's and stage B's selections).  Returns
-    the launches of the mesh runs (every rank's, summed) and the
-    numbers."""
+    launch, each sharded head call (one a C launch) runs one collective,
+    the all_gather of its records, and head_merge adds the categorical
+    draws over the slices (at least 2L an iteration: stage A's and stage
+    B's selections).  Returns the launches of the mesh runs (every rank's,
+    summed) and the numbers."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
     t_world = max(sum(run["s"] for run in ranks_out.values())
                   for ranks_out in got)
@@ -3700,11 +3723,15 @@ def check_mesh_joint(smi, single, t_single, got):
                             f"the single process's {wl}")
                     continue
                 cat = la["head_merge"] - la["beam_head"]
+                ops = run["head_ops"][s]
                 print(f"  {what} step {s}: C {la['beam_head']} (the single "
                       f"process's B {wl['greedy_head']}), head_merge "
                       f"{la['head_merge']} of which {cat} categorical draws "
-                      f"over the slices; A {la['attention']}, F "
-                      f"{la['cell']}", flush=True)
+                      f"over the slices; {len(ops)} sharded head calls, "
+                      f"collectives a call "
+                      f"{sorted(set(len(o) for o in ops))}; A "
+                      f"{la['attention']}, F {la['cell']}", flush=True)
+                require_one_gather(f"{what} step {s}", ops, la["beam_head"])
                 require(la["attention"] == wl["attention"]
                         and la["cell"] == wl["cell"] and la["greedy_head"]
                         == 0 and la["beam_head"] == wl["greedy_head"]
@@ -3741,6 +3768,8 @@ def check_mesh_joint(smi, single, t_single, got):
                             and la["head_merge"] >= la["beam_head"]
                             and la["attention"] == wl["attention"],
                             f"{what} eval launches {la} vs {wl}")
+                    require_one_gather(f"{what} eval", run["eval_head_ops"],
+                                       la["beam_head"])
     print(f"  phase 3 on the mesh: single-process references "
           f"{t_single:.1f} s, the two-rank world's runs {t_world:.1f} s",
           flush=True)
@@ -4086,13 +4115,18 @@ def mesh_pair_rank(cfg):
     out = {}
     mesh = make_mesh(1, 2, DEVICE)
     _dispatch.set_vocab_mesh(mesh, VOCAB)
-    out["heads_err"] = mesh_heads_check(mesh)
-    ds = mesh_eval_dataset()
-    # a first, untimed batch takes this rank's one-time costs (the gloo
-    # groups' first collectives, cuBLAS's first f32 products)
-    mesh_evaluate(RUN_DIR, mesh, ds, beams=(2,), num_images=EVAL_B)
-    out["eval"] = {d: mesh_evaluate(d, mesh, ds)
-                   for d in (RUN_DIR, TRAIN_RUN_DIR)}
+    with counting_head_collectives():
+        out["heads_err"] = mesh_heads_check(mesh)
+        out["heads_ops"] = head_ops_since(0)
+        ds = mesh_eval_dataset()
+        # a first, untimed batch takes this rank's one-time costs (the gloo
+        # groups' first collectives, cuBLAS's first f32 products)
+        mesh_evaluate(RUN_DIR, mesh, ds, beams=(2,), num_images=EVAL_B)
+        out["eval"], out["eval_head_ops"] = {}, {}
+        for d in (RUN_DIR, TRAIN_RUN_DIR):
+            at = len(HEAD_OPS)
+            out["eval"][d] = mesh_evaluate(d, mesh, ds)
+            out["eval_head_ops"][d] = head_ops_since(at)
     _dispatch.set_vocab_mesh(None)
     losses, params, launches, its, tr = mesh_train(
         2, 1, MESH_TRAIN_STEPS, MESH_TIMED_STEPS, train_dataset(), True)
@@ -4105,7 +4139,8 @@ def mesh_pair_rank(cfg):
                           split="test", dataset=ds, device=DEVICE)
     out["eval_entry"] = {p["image_id"]: p["caption"]
                          for p in got["split_predictions"]}
-    out["joint"] = mesh_joint_runs()
+    with counting_head_collectives():
+        out["joint"] = mesh_joint_runs()
     t0 = time.perf_counter()
     out["fused"] = mesh_fused_runs()
     out["fused_s"] = time.perf_counter() - t0
@@ -4168,11 +4203,36 @@ def mesh_nccl_world_of_one():
         dist.destroy_process_group()
 
 
+def merge_records(logits, n, m, mode):
+    """The model group's gathered records [n, R, W] of `logits` split in n
+    slices: each slice's top-m, ids and logsumexp (kernel C's records), or
+    its largest entry and id (the argmax mode's)."""
+    import torch
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
+        beam_head, head_merge)
+    vl = logits.shape[1] // n
+    recs = []
+    for s in range(n):
+        part = logits[:, s * vl:(s + 1) * vl]
+        if mode == "argmax":
+            v, i = part.max(dim=1)
+            recs.append(head_merge.records(v[:, None], i[:, None]))
+        else:
+            v, i = beam_head.top_k(part, m)
+            recs.append(head_merge.records(v, i, torch.logsumexp(part,
+                                                                 dim=1)))
+    return torch.stack(recs).contiguous()
+
+
 def check_head_merge(errs, times, bounds, shapes):
-    """head_merge on the card against its plain version, the model group's
-    candidates of a logit layer split in two (R=256 rows, the evaluation's
-    beam-2 decode), ties planted across the shard seam, at m = 1, 2, 17 and
-    32; then timed at the (1, 2) evaluation's two shapes."""
+    """head_merge on the card against its plain version in each mode, the
+    model group's records of a logit layer split in two (R=256 rows, the
+    evaluation's beam-2 decode), ties planted across the shard seam: the
+    beam mode at each of MESH_MERGE_M, the greedy and argmax modes (m = 1);
+    ids bit-equal (and equal to the whole rows' top-m or arg-max), vals and
+    lse within TOL["head"], the greedy lp bit-equal to the beam mode's
+    vals[:, 0] - lse.  Then each MERGE_TIMED shape timed beside the plain
+    version and the floor (an empty kernel launched the same way)."""
     import torch
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import (
         _dispatch, beam_head, head_merge)
@@ -4186,73 +4246,133 @@ def check_head_merge(errs, times, bounds, shapes):
     errs["head_merge"] = 0.0
     print("head_merge vs plain (n=2 shards of a 9488-wide logit layer, "
           "R=256, ties across the shard seam)", flush=True)
-    for m in MESH_MERGE_M:
-        vals, idx, lses = [], [], []
-        for s in range(n):
-            part = logits[:, s * vl:(s + 1) * vl]
-            v, i = beam_head.top_k(part, m)
-            vals.append(v)
-            idx.append(i.to(torch.int32))
-            lses.append(torch.logsumexp(part, dim=1))
-        vals = torch.cat(vals, 1).contiguous()
-        idx = torch.cat(idx, 1).contiguous()
-        lse = torch.stack(lses).contiguous()
+    cases = [(m, "beam") for m in MESH_MERGE_M] + [(1, "greedy"),
+                                                     (1, "argmax")]
+    for m, mode in cases:
+        recs = merge_records(logits, n, m, mode)
         before = _dispatch.launches()["head_merge"]
-        got = head_merge.head_merge(vals, idx, lse, vl, m)
+        got = head_merge.head_merge(recs, vl, m, mode)
         torch.cuda.synchronize()
         require(_dispatch.launches()["head_merge"] == before + 1,
                 "head_merge: one launch")
-        want = head_merge.head_merge_reference(vals, idx, lse, vl, m)
+        want = head_merge.head_merge_reference(recs, vl, m, mode)
         full_v, full_i = beam_head.top_k(logits, m)
+        what = f"head_merge {mode} m={m}"
+        if mode == "argmax":
+            require(torch.equal(got, want) and torch.equal(got, full_i[:, 0])
+                    and got.dtype == torch.int64, f"{what}: ids differ "
+                    f"from the plain merge or the whole rows' arg-max")
+            require(bool((got == min(group)).all()), f"{what}: ties across "
+                    f"the seam not to the lower id")
+            report("head_merge", f"f32 R={R} n={n} argmax ids", 0.0,
+                   TOL["head"])
+            continue
+        if mode == "greedy":
+            vals, _, lse = head_merge.head_merge(recs, vl, 1)
+            require(torch.equal(got[0], want[0])
+                    and torch.equal(got[0].long(), full_i[:, 0])
+                    and bool((got[0] == min(group)).all()), f"{what}: ids "
+                    f"differ from the plain merge or the whole rows' "
+                    f"arg-max, or a tie went to the higher id")
+            require(torch.equal(got[1], vals[:, 0] - lse), f"{what}: lp "
+                    f"is not the beam mode's vals[:, 0] - lse bit for bit")
+            err = (got[1] - want[1]).abs().max().item()
+            errs["head_merge"] = max(errs["head_merge"], err)
+            report("head_merge", f"f32 R={R} n={n} greedy lp", err,
+                   TOL["head"])
+            continue
         require(torch.equal(got[1], want[1])
                 and torch.equal(got[1].long(), full_i),
-                f"head_merge m={m}: ids differ from the plain merge or the "
-                f"top-{m} of the whole row")
+                f"{what}: ids differ from the plain merge or the top-{m} of "
+                f"the whole row")
         k = min(m, len(group))
         require(bool((got[1][:, :k].cpu() == torch.tensor(sorted(group)[:k])
-                      ).all()), f"head_merge m={m}: ties across the seam "
-                f"not in lower-id order")
+                      ).all()), f"{what}: ties across the seam not in "
+                f"lower-id order")
         err = max((got[0] - want[0]).abs().max().item(),
                   (got[2] - want[2]).abs().max().item(),
                   (got[0] - full_v).abs().max().item())
         errs["head_merge"] = max(errs["head_merge"], err)
-        report("head_merge", f"f32 R={R} n={n} m={m} vals/lse", err,
+        report("head_merge", f"f32 R={R} n={n} {mode} m={m} vals/lse", err,
                TOL["head"])
-    for rows, m in ((2 * EVAL_B, 2), (EVAL_B, 1)):
-        vals = torch.randn(rows, n * m, device="cuda")
-        idx = torch.randint(0, vl, (rows, n * m), device="cuda",
-                            dtype=torch.int32)
-        lse = torch.randn(n, rows, device="cuda")
-        outs = (torch.empty(rows, m), torch.empty(rows, m).int(),
-                torch.empty(rows))
+    for rows, m, mode in MERGE_TIMED:
+        w = head_merge.record_width(m, mode)
+        recs = torch.randn(n, rows, w, device="cuda")
+        recs[..., m:2 * m].view(torch.int32).copy_(torch.randint(
+            0, vl, (n, rows, m), device="cuda", dtype=torch.int32))
+        outs = {"beam": (torch.empty(rows, m), torch.empty(rows, m).int(),
+                         torch.empty(rows)),
+                "greedy": (torch.empty(rows).int(), torch.empty(rows)),
+                "argmax": (torch.empty(rows).long(),)}[mode]
         pair = timed_pair(
-            lambda: head_merge.head_merge(vals, idx, lse, vl, m),
-            lambda: head_merge.head_merge_reference(vals, idx, lse, vl, m))
-        bound = bound_ms((vals, idx, lse) + outs, 0, "float32")
-        label = f"f32 R={rows} n={n} m={m}"
-        shapes["head_merge"].append(timed_shape(label, pair, bound))
-        print(f"  time head_merge   {label}: kernel {pair[0]:.4f} ms  plain "
-              f"{pair[1]:.4f} ms  bound {bound[0]:.6f} ms ({bound[1]})",
-              flush=True)
-        if m == 2:
+            lambda: head_merge.head_merge(recs, vl, m, mode),
+            lambda: head_merge.head_merge_reference(recs, vl, m, mode))
+        floor = sum(cuda_ms(lambda: head_merge.head_merge_floor(
+            recs, vl, m, mode), 20) for _ in range(2)) / 2
+        bound = bound_ms((recs,) + outs, 0, "float32")
+        label = f"f32 R={rows} n={n} m={m} {mode}"
+        shapes["head_merge"].append(dict(timed_shape(label, pair, bound),
+                                         floor_ms=floor))
+        print(f"  time head_merge   {label}: kernel {pair[0]:.4f} ms  floor "
+              f"(empty kernel, same launch) {floor:.4f} ms ("
+              f"{pair[0] / floor:.2f}x)  plain {pair[1]:.4f} ms  bound "
+              f"{bound[0]:.7f} ms ({bound[1]})", flush=True)
+        if (rows, m, mode) == MERGE_TIMED[0]:
             times["head_merge"], bounds["head_merge"] = pair, bound
     # kernel C on one rank's slice of the logit layer at the same shapes:
     # the other kernel of the sharded heads G (kk=2) and H (kk=1)
-    w = torch.randn(WIDTH, vl, generator=g).cuda() * 0.1
+    wt = torch.randn(WIDTH, vl, generator=g).cuda() * 0.1
     b = torch.randn(vl, generator=g).cuda() * 0.1
     for rows, m in ((2 * EVAL_B, 2), (EVAL_B, 1)):
         h = torch.randn(rows, WIDTH, generator=g).cuda() * 0.5
-        pair = timed_pair(lambda: beam_head.local_beam_head(h, w, b, m),
-                          lambda: beam_head.beam_head_reference(h, w, b, m))
+        pair = timed_pair(lambda: beam_head.local_beam_head(h, wt, b, m),
+                          lambda: beam_head.beam_head_reference(h, wt, b, m))
         outs = (torch.empty(rows, m), torch.empty(rows, m).int(),
                 torch.empty(rows))
-        bound = bound_ms((h, w, b) + outs, 2 * rows * WIDTH * vl, "float32")
+        bound = bound_ms((h, wt, b) + outs, 2 * rows * WIDTH * vl,
+                         "float32")
         label = f"f32 slice R={rows} V/2={vl} kk={m} (sharded head " + (
             "G)" if m == 2 else "H)")
         shapes["beam_head"].append(timed_shape(label, pair, bound))
         print(f"  time beam_head    {label}: kernel {pair[0]:.4f} ms  plain "
               f"{pair[1]:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]})",
               flush=True)
+
+
+@contextlib.contextmanager
+def counting_head_collectives():
+    """While on, each call of beam_head_sharded in this rank (the sharded
+    heads: G, and H through it) appends the kinds of the collectives it ran
+    (`collectives.Recording`) to HEAD_OPS.  Not under a collective plan
+    (a fused chunk's capture)."""
+    from cooperativeimagecaptioning_tpu_torch.ops.kernels import beam_head
+    from cooperativeimagecaptioning_tpu_torch.parallel import collectives
+    real = beam_head.beam_head_sharded
+
+    def spy(*args, **kw):
+        with collectives.planned(collectives.Recording()) as rec:
+            out = real(*args, **kw)
+        HEAD_OPS.append(tuple(op[0] for op in rec.ops))
+        return out
+
+    beam_head.beam_head_sharded = spy
+    try:
+        yield
+    finally:
+        beam_head.beam_head_sharded = real
+
+
+def head_ops_since(at):
+    """HEAD_OPS after its first `at` entries."""
+    return list(HEAD_OPS[at:])
+
+
+def require_one_gather(what, ops, calls):
+    """`calls` sharded head calls (the C launches of the same run), each
+    with exactly one collective, an all_gather of its records."""
+    require(len(ops) == calls and all(o == ("all_gather",) for o in ops),
+            f"{what}: {len(ops)} sharded head calls for {calls} C launches, "
+            f"collectives {sorted(set(ops))} (need one all_gather a call)")
 
 
 def ids_rate(caps, want):
@@ -4293,7 +4413,14 @@ def phase_mesh(smi, errs, times, bounds, shapes):
     out = {"pair_s": t_pair}
     for r, got in enumerate(pair):
         require(got["heads_err"] <= TOL["head"], "sharded heads")
+        # mesh_heads_check: the beam head at four widths, the greedy head
+        require_one_gather(f"(1, 2) rank {r} sharded heads check",
+                           got["heads_ops"], 5)
         for d, by_beam in got["eval"].items():
+            require_one_gather(
+                f"(1, 2) rank {r} {os.path.basename(d)} evaluation",
+                got["eval_head_ops"][d],
+                sum(la["beam_head"] for _, la, _, _, _ in by_beam.values()))
             for beam, (caps, launches, passes, secs, loss) in by_beam.items():
                 rate = ids_rate(caps, single[d][beam][0])
                 what = f"(1, 2) rank {r} {os.path.basename(d)} " + (

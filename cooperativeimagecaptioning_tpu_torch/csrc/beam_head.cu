@@ -34,9 +34,12 @@ namespace {
 constexpr int kBeamRows = 8;
 constexpr int kRoundKK = 16;  // the longest list; a longer kk takes rounds
 
-// Writes the row's candidates off .. off + KK - 1 (those below kk) into
-// [R, kk], the log-sum-exp with the first round (off == 0), and, when a
-// further round follows, the last candidate taken as the row's threshold.
+// Writes the row's candidates off .. off + KK - 1 (those below kk) at
+// vals / idx + row x ld, the log-sum-exp with the first round (off == 0) at
+// lse + row x lse_ld, and, when a further round follows, the last candidate
+// taken as the row's threshold.  ld = kk, lse_ld = 1: the [R, kk], [R, kk]
+// and [R] outputs; ld = lse_ld = 2kk + 1, idx = vals + kk, lse = vals + 2kk:
+// one record a row, [vals kk | ids kk | lse] (cic_beam_head_records).
 template <int KK>
 __global__ void beam_merge(const float* __restrict__ part_val,
                            const int* __restrict__ part_id,
@@ -45,7 +48,7 @@ __global__ void beam_merge(const float* __restrict__ part_val,
                            float* __restrict__ vals, int* __restrict__ idx,
                            float* __restrict__ lse, float* __restrict__ thr_v,
                            int* __restrict__ thr_i, int R, int splits, int kk,
-                           int off) {
+                           int off, int ld, int lse_ld) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kMergeRows + (threadIdx.x >> 5);
   if (row >= R) return;  // a whole warp: the merge shuffles
@@ -55,12 +58,12 @@ __global__ void beam_merge(const float* __restrict__ part_val,
   merge_splits<KK>(part_val, part_id, part_m, part_s, row, splits, lane, fv,
                    fi, row_lse);
   if (lane != 0) return;
-  if (off == 0) lse[row] = (float)row_lse;
+  if (off == 0) lse[(size_t)row * lse_ld] = (float)row_lse;
 #pragma unroll
   for (int j = 0; j < KK; ++j) {
     if (off + j < kk) {
-      vals[(size_t)row * kk + off + j] = fv[j];
-      idx[(size_t)row * kk + off + j] = fi[j];
+      vals[(size_t)row * ld + off + j] = fv[j];
+      idx[(size_t)row * ld + off + j] = fi[j];
     }
   }
   if (off + KK < kk) {
@@ -97,7 +100,8 @@ template <typename T, int KK>
 int launch(const void* h, const void* w, const void* b, float* pv, int* pi,
            float* pm, float* ps, float* vals, int* idx, float* lse,
            float* thr_v, int* thr_i, int R, int H, int V, int kk, int splits,
-           int split_cols, int first_pass, cudaStream_t s) {
+           int split_cols, int first_pass, int ld, int lse_ld,
+           cudaStream_t s) {
   for (int off = 0; off < kk; off += KK) {
     const int e = first_pass_partials<T, KK>(
         first_pass, h, w, b, pv, pi, pm, ps, R, H, V, splits, split_cols,
@@ -105,7 +109,8 @@ int launch(const void* h, const void* w, const void* b, float* pv, int* pi,
     if (e != 0) return e;
     beam_merge<KK><<<(R + kMergeRows - 1) / kMergeRows, 32 * kMergeRows, 0,
                      s>>>(
-        pv, pi, pm, ps, vals, idx, lse, thr_v, thr_i, R, splits, kk, off);
+        pv, pi, pm, ps, vals, idx, lse, thr_v, thr_i, R, splits, kk, off, ld,
+        lse_ld);
     const cudaError_t m = cudaGetLastError();
     if (m != cudaSuccess) return (int)m;
   }
@@ -117,12 +122,12 @@ int dispatch_slots(int kk_slots, const void* h, const void* w, const void* b,
                    float* pv, int* pi, float* pm, float* ps, float* vals,
                    int* idx, float* lse, float* thr_v, int* thr_i, int R,
                    int H, int V, int kk, int splits, int split_cols,
-                   int first_pass, cudaStream_t s) {
+                   int first_pass, int ld, int lse_ld, cudaStream_t s) {
 #define CIC_SLOTS(KK)                                                        \
   case KK:                                                                   \
     return launch<T, KK>(h, w, b, pv, pi, pm, ps, vals, idx, lse, thr_v,      \
                          thr_i, R, H, V, kk, splits, split_cols, first_pass, \
-                         s)
+                         ld, lse_ld, s)
   switch (kk_slots) {
     CIC_SLOTS(1);
     CIC_SLOTS(2);
@@ -135,21 +140,17 @@ int dispatch_slots(int kk_slots, const void* h, const void* w, const void* b,
 #undef CIC_SLOTS
 }
 
-}  // namespace
-
-// thr: scratch of 2R words (f32 [R] then int32 [R]) for the rounds of a kk
-// above kk_slots; may be NULL when kk <= kk_slots.
-CIC_EXPORT int cic_beam_head(const void* h, const void* w, const void* b,
-                             void* part_val, void* part_id, void* part_m,
-                             void* part_s, void* vals, void* idx, void* lse,
-                             void* thr, int R, int H, int V, int kk,
-                             int kk_slots, int splits, int split_cols,
-                             int is_bf16, int first_pass, void* stream) {
+// The entry points' shared body: vals / idx at a row stride of ld, lse at
+// one of lse_ld (beam_merge).
+int beam_head(const void* h, const void* w, const void* b, void* part_val,
+              void* part_id, void* part_m, void* part_s, float* vals,
+              int* idx, float* lse, void* thr, int R, int H, int V, int kk,
+              int kk_slots, int splits, int split_cols, int is_bf16,
+              int first_pass, int ld, int lse_ld, cudaStream_t s) {
   if (R < 1 || H < 1 || kk < 1 || kk > V ||
       (kk > kk_slots && (!thr || kk_slots != kRoundKK)) ||
       !valid_split(V, splits, split_cols) || !valid_pass(first_pass, is_bf16))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pv = static_cast<float*>(part_val);
   int* pi = static_cast<int*>(part_id);
   float* pm = static_cast<float*>(part_m);
@@ -158,12 +159,45 @@ CIC_EXPORT int cic_beam_head(const void* h, const void* w, const void* b,
   int* ti = thr ? reinterpret_cast<int*>(tv + R) : nullptr;
   if (is_bf16)
     return dispatch_slots<__nv_bfloat16>(
-        kk_slots, h, w, b, pv, pi, pm, ps, static_cast<float*>(vals),
-        static_cast<int*>(idx), static_cast<float*>(lse), tv, ti, R, H, V, kk,
-        splits, split_cols, first_pass, s);
-  return dispatch_slots<float>(kk_slots, h, w, b, pv, pi, pm, ps,
-                               static_cast<float*>(vals),
-                               static_cast<int*>(idx),
-                               static_cast<float*>(lse), tv, ti, R, H, V, kk,
-                               splits, split_cols, first_pass, s);
+        kk_slots, h, w, b, pv, pi, pm, ps, vals, idx, lse, tv, ti, R, H, V,
+        kk, splits, split_cols, first_pass, ld, lse_ld, s);
+  return dispatch_slots<float>(kk_slots, h, w, b, pv, pi, pm, ps, vals, idx,
+                               lse, tv, ti, R, H, V, kk, splits, split_cols,
+                               first_pass, ld, lse_ld, s);
+}
+
+}  // namespace
+
+// thr: scratch of 2R words (f32 [R] then int32 [R]) for the rounds of a kk
+// above kk_slots; may be NULL when kk <= kk_slots.  Outputs vals f32 [R, kk],
+// idx int32 [R, kk], lse f32 [R].
+CIC_EXPORT int cic_beam_head(const void* h, const void* w, const void* b,
+                             void* part_val, void* part_id, void* part_m,
+                             void* part_s, void* vals, void* idx, void* lse,
+                             void* thr, int R, int H, int V, int kk,
+                             int kk_slots, int splits, int split_cols,
+                             int is_bf16, int first_pass, void* stream) {
+  return beam_head(h, w, b, part_val, part_id, part_m, part_s,
+                   static_cast<float*>(vals), static_cast<int*>(idx),
+                   static_cast<float*>(lse), thr, R, H, V, kk, kk_slots,
+                   splits, split_cols, is_bf16, first_pass, kk, 1,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// As cic_beam_head, the outputs as one record a row: rec f32 [R, 2kk + 1],
+// [vals kk | ids kk (int32 bits) | lse] -- what the model group of the
+// vocab-sharded heads gathers and head_merge.cu merges.
+CIC_EXPORT int cic_beam_head_records(const void* h, const void* w,
+                                     const void* b, void* part_val,
+                                     void* part_id, void* part_m,
+                                     void* part_s, void* rec, void* thr,
+                                     int R, int H, int V, int kk,
+                                     int kk_slots, int splits,
+                                     int split_cols, int is_bf16,
+                                     int first_pass, void* stream) {
+  float* r = static_cast<float*>(rec);
+  return beam_head(h, w, b, part_val, part_id, part_m, part_s, r,
+                   reinterpret_cast<int*>(r + kk), r + 2 * kk, thr, R, H, V,
+                   kk, kk_slots, splits, split_cols, is_bf16, first_pass,
+                   2 * kk + 1, 2 * kk + 1, static_cast<cudaStream_t>(stream));
 }

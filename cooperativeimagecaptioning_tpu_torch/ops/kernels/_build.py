@@ -66,13 +66,20 @@ SIGNATURES = {
     # h, w, b, part_val, part_id, part_m, part_s, vals, idx, lse, thr|NULL,
     # R, H, V, kk, kk_slots, splits, split_cols, is_bf16, first_pass, stream
     "cic_beam_head": [_P] * 11 + [_I] * 9 + [_P],
+    # h, w, b, part_val, part_id, part_m, part_s, rec (f32 [R, 2kk+1]),
+    # thr|NULL, R, H, V, kk, kk_slots, splits, split_cols, is_bf16,
+    # first_pass, stream
+    "cic_beam_head_records": [_P] * 9 + [_I] * 9 + [_P],
     # xt, h, c, att|NULL, wi, bi, wh, bh, wc|NULL, bc|NULL, h_out, c_out,
     # B, D, H, is_bf16, first_pass (0 FMA, 2 split TF32, 3 wgmma bf16), cols
     # and rows (a block's tile: the split-TF32 kernel's j; the wgmma
     # kernel's j and rows), stream
     "cic_cell": [_P] * 12 + [_I] * 7 + [_P],
-    # vals, idx, lse, out_vals, out_idx, out_lse, R, n, m, v_local, stream
-    "cic_head_merge": [_P] * 6 + [_I] * 4 + [_P],
+    # rec (f32 [n, R, W]), out0, out1|NULL, out2|NULL, R, n, m, v_local,
+    # mode (0 beam, 1 greedy, 2 argmax), stream; the floor: an empty kernel
+    # on the merge's grid
+    "cic_head_merge": [_P] * 4 + [_I] * 5 + [_P],
+    "cic_head_merge_floor": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -18,8 +18,9 @@ admitting only candidates after the last one the round before took.
 
 On a registered vocab mesh (`_dispatch.set_vocab_mesh`) whose rank holds a
 slice of the logit layer, `beam_head` takes `beam_head_sharded` (JAX
-beam_head.py:97-160): kernel C on the slice, the model group's [R, n*m]
-candidates and [n, R] logsumexps gathered in shard-major order, and the
+beam_head.py:97-160): kernel C on the slice writing one record a row
+([vals m | local ids m | lse], `head_merge.records`), one all_gather of
+the records over the model group (shard-major along dim 0), and the
 `head_merge` kernel.
 """
 
@@ -29,7 +30,7 @@ import torch
 
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import _build, _dispatch
 from cooperativeimagecaptioning_tpu_torch.ops.kernels.head_merge import (
-    head_merge)
+    head_merge, records)
 from cooperativeimagecaptioning_tpu_torch.ops.kernels.logit_head import (
     PASS_CODES, check_head_inputs, logits_f32, partials_scratch,
     plan_first_pass)
@@ -67,30 +68,31 @@ def beam_head(h, w, b, kk: int):
     return local_beam_head(h, w, b, kk)
 
 
-def beam_head_sharded(h, w, b, m: int, mesh):
+def beam_head_sharded(h, w, b, m: int, mesh, mode: str = "beam"):
     """The beam head over the model group's vocabulary slices: w [H, V/n]
     and b [V/n] are this rank's (shard = its model index), h [R, H] the
-    group's common rows.  Kernel C gives the slice's top-m, one all_gather
-    each of the candidates (shard-major) and of the logsumexps, and
-    `head_merge` the global top-m (global ids) and logsumexp, the same on
-    every rank of the group."""
+    group's common rows.  Kernel C gives the slice's top-m as one record a
+    row, one all_gather the group's records [n, R, 2m+1], and `head_merge`
+    in `mode` the result, the same on every rank of the group: "beam" the
+    global top-m (global ids) and logsumexp, "greedy" (m = 1; the greedy
+    head) the arg-max and its log-prob."""
     _dispatch.forward_only("beam_head", h, w, b)
-    vals, idx, lse = local_beam_head(h, w, b, m)
+    rec = local_beam_head(h, w, b, m, as_records=True)
     g = mesh.model
-    return head_merge(collectives.all_gather(vals, g, dim=1),
-                      collectives.all_gather(idx, g, dim=1),
-                      collectives.all_gather(lse[None], g, dim=0),
-                      w.shape[1], m)
+    got = collectives.all_gather(rec, g, dim=0)
+    return head_merge(got.view(g.size, *rec.shape), w.shape[1], m, mode)
 
 
-def local_beam_head(h, w, b, kk: int):
-    """The head on one device's w, whole or a slice (ids local to it)."""
+def local_beam_head(h, w, b, kk: int, as_records: bool = False):
+    """The head on one device's w, whole or a slice (ids local to it):
+    (vals, idx, lse), or with `as_records` the [R, 2kk+1] records of them."""
     _dispatch.forward_only("beam_head", h, w, b)
     if not 1 <= kk <= w.shape[1]:
         raise ValueError(f"beam_head takes 1 <= kk <= V = {w.shape[1]}, "
                          f"got {kk}")
     if not _dispatch.use_kernel(h):
-        return beam_head_reference(h, w, b, kk)
+        out = beam_head_reference(h, w, b, kk)
+        return records(*out) if as_records else out
     check_head_inputs("beam_head", h, w, b)
     R, H = h.shape
     V = w.shape[1]
@@ -98,19 +100,25 @@ def local_beam_head(h, w, b, kk: int):
     which, splits, split_cols = plan_first_pass(R, ROW_TILE, h, w, b)
     dev = h.device
     scratch, parts = partials_scratch(R, splits, slots, dev)
-    vals = torch.empty((R, kk), dtype=torch.float32, device=dev)
-    idx = torch.empty((R, kk), dtype=torch.int32, device=dev)
-    lse = torch.empty((R,), dtype=torch.float32, device=dev)
     # the rounds' per-row thresholds: f32 [R] then int32 [R]
     thr = torch.empty(2 * R, dtype=torch.float32, device=dev) \
         if kk > slots else None
     lib = _build.library()
-    code = lib.cic_beam_head(
-        _build.ptr(h), _build.ptr(w), _build.ptr(b), *parts,
-        _build.ptr(vals), _build.ptr(idx), _build.ptr(lse), _build.ptr(thr),
-        R, H, V, kk,
-        slots, splits, split_cols, int(h.dtype == torch.bfloat16),
-        PASS_CODES[which], _build.stream(dev))
+    tail = (R, H, V, kk, slots, splits, split_cols,
+            int(h.dtype == torch.bfloat16), PASS_CODES[which],
+            _build.stream(dev))
+    if as_records:
+        out = torch.empty((R, 2 * kk + 1), dtype=torch.float32, device=dev)
+        code = lib.cic_beam_head_records(
+            _build.ptr(h), _build.ptr(w), _build.ptr(b), *parts,
+            _build.ptr(out), _build.ptr(thr), *tail)
+    else:
+        out = (torch.empty((R, kk), dtype=torch.float32, device=dev),
+               torch.empty((R, kk), dtype=torch.int32, device=dev),
+               torch.empty((R,), dtype=torch.float32, device=dev))
+        code = lib.cic_beam_head(
+            _build.ptr(h), _build.ptr(w), _build.ptr(b), *parts,
+            *(_build.ptr(t) for t in out), _build.ptr(thr), *tail)
     _build.check(lib, code, "beam_head")
     _dispatch.count("beam_head", which)
-    return vals, idx, lse
+    return out

@@ -22,10 +22,10 @@ when a launch fails: that raises.
 
 On a registered vocab mesh whose rank holds a slice of the logit layer,
 `greedy_head` takes `greedy_head_sharded` (JAX logit_head.py:202-238): the
-m = 1 case of the sharded beam head, so the per-shard kernel is C at kk=1
-and the merge `head_merge`; it returns idx[:, 0] and vals[:, 0] - lse.  It
-is forward-only as the local head (the JAX package's zero-gradient
-custom_vjp).
+m = 1 case of the sharded beam head, so the per-shard kernel is C at kk=1,
+one all_gather of its records, and `head_merge` in its greedy mode, which
+gives idx[:, 0] and vals[:, 0] - lse itself.  It is forward-only as the
+local head (the JAX package's zero-gradient custom_vjp).
 """
 
 from __future__ import annotations
@@ -160,8 +160,7 @@ def greedy_head_sharded(h, w, b, mesh):
     argmax int32 [B], its log-prob float32 [B])."""
     from cooperativeimagecaptioning_tpu_torch.ops.kernels import beam_head
     _dispatch.forward_only("greedy_head", h, w, b)
-    vals, idx, lse = beam_head.beam_head_sharded(h, w, b, 1, mesh)
-    return idx[:, 0], vals[:, 0] - lse
+    return beam_head.beam_head_sharded(h, w, b, 1, mesh, "greedy")
 
 
 def greedy_head(h, w, b):

@@ -16,12 +16,13 @@ collectives, as the JAX package computes them outside any Pallas kernel:
   `embedding_lookup` a masked local lookup, then "reduce from the group";
   `nclass`         the global V+1 (the BOS id) from a slice's width;
   `softmax`        as log_softmax, the sum entering through "copy to";
-  `argmax`         each rank's largest entry and its global id, gathered,
-                   and the `head_merge` kernel at m = 1 (on the card the
-                   hand-written merge, which keeps the heads' tie rule: the
-                   lower global id wins an exact tie) -- the categorical
-                   draw as a Gumbel-max across slices, the straight-through
-                   arg-max, greedy selection;
+  `argmax`         each rank's largest entry and its local id as one
+                   record a row, gathered, and the `head_merge` kernel in
+                   its argmax mode (on the card the hand-written merge,
+                   which keeps the heads' tie rule: the lower global id
+                   wins an exact tie) -- the categorical draw as a
+                   Gumbel-max across slices, the straight-through arg-max,
+                   greedy selection;
   `one_hot`        the one-hot rows of global ids, a slice's columns of them;
   `soft_embed`     relaxed one-hot rows times an embedding table, either of
                    them split: the local product, "reduce from the group".
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 
 from cooperativeimagecaptioning_tpu_torch.ops.kernels import _dispatch
 from cooperativeimagecaptioning_tpu_torch.ops.kernels.head_merge import (
-    head_merge)
+    head_merge, records)
 from cooperativeimagecaptioning_tpu_torch.parallel import collectives
 
 
@@ -109,24 +110,18 @@ def softmax(x):
 def argmax(x):
     """The global id of the largest entry along the last dim (the lowest of
     equal ones), int64, without gradient.  On a slice: each rank's largest
-    and its id, the model group's [R, n] candidates gathered in one
-    collective, and `head_merge` at m = 1 (R rows of n candidates)."""
+    and its local id as a [val | id] record a row, the model group's
+    records gathered in one collective, and `head_merge`'s argmax mode (R
+    rows of n candidates)."""
     mesh = logit_mesh(x)
     if mesh is None:
         return torch.argmax(x, dim=-1)
     lead, width = x.shape[:-1], x.shape[-1]
-    flat = x.detach().reshape(-1, width).float()
-    i = torch.argmax(flat, dim=-1, keepdim=True)
-    v = torch.gather(flat, 1, i)
-    # one gather of (value, local id) pairs: a local id below 2^24 is exact
-    # in f32
-    got = collectives.all_gather(torch.cat([v, i.float()], dim=1),
-                                 mesh.model, dim=1)
-    vals = got[:, 0::2].contiguous()
-    idx = got[:, 1::2].to(torch.int32).contiguous()
-    # head_merge also merges [n, R] logsumexps: the maxima serve, unused
-    _, top, _ = head_merge(vals, idx, vals.T.contiguous(), width, 1)
-    return top[:, 0].long().reshape(lead)
+    v, i = x.detach().reshape(-1, width).float().max(dim=-1)
+    rec = records(v[:, None], i[:, None])
+    got = collectives.all_gather(rec, mesh.model, dim=0)
+    return head_merge(got.view(mesh.n_model, *rec.shape), width, 1,
+                      "argmax").reshape(lead)
 
 
 def one_hot(ids, like):

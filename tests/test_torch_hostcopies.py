@@ -264,7 +264,7 @@ def _port_files():
     files = [os.path.join(REPO, f) for f in
              ("chip_smoke.py", "serve_breakdown.py", "train_breakdown.py",
               "att_stream_bench.py", "cell_bench.py", "head_bench.py",
-              "tests/torch_mesh_ranks.py")]
+              "head_merge_bench.py", "tests/torch_mesh_ranks.py")]
     for root, _, names in os.walk(os.path.join(REPO, PORT)):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

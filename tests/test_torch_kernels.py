@@ -771,28 +771,85 @@ def test_kernel_functions_gradient_on_the_card(cuda, which):
                                                         .item())
 
 
+def merge_records(n, m, v, seed, mode="beam"):
+    """The gathered records of n vocabulary slices of v columns with exact
+    ties across every seam: (records [n, R, W], the logits)."""
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(7, n * v, generator=g)
+    for s in range(1, n):
+        logits[:, [s * v - 1, s * v]] = 5.0
+    parts = [logits[:, s * v:(s + 1) * v] for s in range(n)]
+    if mode == "argmax":
+        recs = [head_merge.records(*(t[:, None] for t in p.max(dim=1)))
+                for p in parts]
+    else:
+        recs = [head_merge.records(*beam_head.top_k(p, m),
+                                   torch.logsumexp(p, dim=1)) for p in parts]
+    return torch.stack(recs), logits
+
+
+def check_merge_kernel(cuda, recs, logits, v, m, mode):
+    """The merge kernel on the card against its plain version in `mode`:
+    ids equal (and equal to the whole rows' top-m or arg-max), vals and
+    lse within 1e-6, the greedy lp bit-equal to the beam mode's vals[:, 0]
+    - lse on the card."""
+    got = head_merge.head_merge(recs.to(cuda), v, m, mode)
+    torch.cuda.synchronize()
+    assert _dispatch.launches()["head_merge"] == 1
+    want = head_merge.head_merge_reference(recs, v, m, mode)
+    if mode == "argmax":
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(want, torch.argmax(logits, dim=1))
+        return
+    ids = {"beam": 1, "greedy": 0}[mode]
+    assert torch.equal(got[ids].cpu(), want[ids])
+    whole = beam_head.top_k(logits, m)[1]
+    assert torch.equal(want[ids].long().reshape(whole.shape), whole)
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            assert (a.cpu() - b).abs().max().item() <= 1e-6
+    if mode == "greedy":
+        vals, _, lse = head_merge.head_merge(recs.to(cuda), v, 1)
+        assert torch.equal(got[1], vals[:, 0] - lse)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("m", [1, 2, 17, 32])
 def test_head_merge_kernel_matches_plain(cuda, n, m):
     """head_merge on the card against its plain version: the gathered
-    candidates of n vocabulary slices of 40 columns with exact ties across
-    every seam; ids equal, vals and lse within 1e-6."""
-    g = torch.Generator().manual_seed(n * 100 + m)
-    v = 40
-    logits = torch.randn(7, n * v, generator=g)
-    for s in range(1, n):
-        logits[:, [s * v - 1, s * v]] = 5.0
-    parts = [logits[:, s * v:(s + 1) * v] for s in range(n)]
-    top = [beam_head.top_k(p, m) for p in parts]
-    vals = torch.cat([t[0] for t in top], 1)
-    idx = torch.cat([t[1] for t in top], 1).to(torch.int32)
-    lse = torch.stack([torch.logsumexp(p, dim=1) for p in parts])
-    got = head_merge.head_merge(vals.to(cuda), idx.to(cuda), lse.to(cuda),
-                                v, m)
+    records of n vocabulary slices of 40 columns with exact ties across
+    every seam (beam mode)."""
+    recs, logits = merge_records(n, m, 40, seed=n * 100 + m)
+    check_merge_kernel(cuda, recs, logits, 40, m, "beam")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, n, m", [("beam", 2, 1), ("greedy", 2, 1),
+                                        ("argmax", 2, 1), ("beam", 4, 17),
+                                        ("greedy", 40, 1),
+                                        ("argmax", 40, 1)])
+def test_head_merge_kernel_modes_match_plain(cuda, mode, n, m):
+    """Every mode of the merge kernel on the card, on rows of a few
+    candidates (several rows a warp) and of more than 32 (a block a row,
+    the candidates staged in shared memory)."""
+    recs, logits = merge_records(n, m, 40, seed=7 * n + m, mode=mode)
+    check_merge_kernel(cuda, recs, logits, 40, m, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kk", [1, 2, 17])
+def test_beam_head_records_hold_its_outputs(cuda, dtype, kk):
+    """Kernel C's records (cic_beam_head_records: [vals kk | ids kk | lse]
+    a row, what the sharded heads gather) hold the bits of its three
+    outputs, on every first pass and across rounds (kk=17)."""
+    g = torch.Generator().manual_seed(kk)
+    h = (torch.randn(40, 64, generator=g) * 0.5).to(cuda, dtype)
+    w = (torch.randn(64, 600, generator=g) * 0.1).to(cuda, dtype)
+    b = (torch.randn(600, generator=g) * 0.1).to(cuda, dtype)
+    rec = beam_head.local_beam_head(h, w, b, kk, as_records=True)
+    vals, idx, lse = beam_head.local_beam_head(h, w, b, kk)
     torch.cuda.synchronize()
-    want = head_merge.head_merge_reference(vals, idx, lse, v, m)
-    assert torch.equal(got[1].cpu(), want[1])
-    assert torch.equal(want[1].long(), beam_head.top_k(logits, m)[1])
-    for a, b in ((got[0], want[0]), (got[2], want[2])):
-        assert (a.cpu() - b).abs().max().item() <= 1e-6
+    assert _dispatch.launches()["beam_head"] == 2
+    assert torch.equal(rec, head_merge.records(vals, idx, lse))

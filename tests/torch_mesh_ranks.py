@@ -154,8 +154,11 @@ def fail_on_rank_one():
 
 def heads_rank(h, w, b, ms):
     """The sharded heads of a (1, 2) mesh on this rank's slice of (w, b),
-    through the dispatchers; and which path the dispatchers take with and
+    through the dispatchers, each call's collectives as
+    `collectives.Recording` notes them (and those of `vocab.argmax` over
+    the slices of h @ w + b); and which path the dispatchers take with and
     without the mesh registered."""
+    from cooperativeimagecaptioning_tpu_torch.parallel import vocab
     mesh = make_mesh(1, 2, "cpu")
     V1 = w.shape[1]
     vl = V1 // 2
@@ -170,15 +173,24 @@ def heads_rank(h, w, b, ms):
         calls.append(args[3])
         return real(*args)
 
+    def recorded(fn, *args):
+        with collectives.planned(collectives.Recording()) as rec:
+            got = fn(*args)
+        return got, rec.ops
+
     beam_head.beam_head_sharded = spy
-    out = {"beam": {}, "calls": {}}
+    out = {"beam": {}, "calls": {}, "ops": {}}
     try:
         _dispatch.set_vocab_mesh(mesh, V1 - 1)
         for m in ms:
-            vals, idx, lse = beam_head.beam_head(h, wl, bl, m)
+            (vals, idx, lse), out["ops"][m] = recorded(beam_head.beam_head,
+                                                       h, wl, bl, m)
             out["beam"][m] = (vals.numpy(), idx.numpy(), lse.numpy())
-        it, lp = logit_head.greedy_head(h, wl, bl)
+        (it, lp), out["ops"]["greedy"] = recorded(logit_head.greedy_head,
+                                                  h, wl, bl)
         out["greedy"] = (it.numpy(), lp.numpy())
+        ids, out["ops"]["argmax"] = recorded(vocab.argmax, h @ wl + bl)
+        out["argmax"] = ids.numpy()
         out["calls"]["registered"] = list(calls)
         # a replicated (whole) logit layer keeps the local path
         beam_head.beam_head(h, w, b, 2)
